@@ -220,29 +220,26 @@ def _declined():
     cols = bench._lineitem()
     scan = TableScan(bench.TABLE_ID, cols)
     agg = Aggregation([], [AggDescriptor("sum", col(1))])
+    q1 = bench.q1_dag()
+    q1.executors[-1].streamed = True  # stream agg keyed on (flag, status): not scan order
     return {
-        "group_by_not_ported": bench.q1_dag(),
         "plan_shape_not_ported": DagRequest(executors=[scan, TopN([(col(1), False)], 10)]),
         "scan_filter": DagRequest(executors=[scan, Selection(_q6_conds())]),
         "index_scan_not_ported": DagRequest(
             executors=[IndexScan(bench.TABLE_ID, 1, cols[1:3]), agg]),
         "post_agg_not_ported": DagRequest(executors=[scan, agg, Limit(1)]),
-        "agg_op_not_ported": DagRequest(
-            executors=[scan, Aggregation([], [AggDescriptor("var_pop", col(1))])]),
-        "agg_first": DagRequest(
-            executors=[scan, Aggregation([], [AggDescriptor("first", col(1))])]),
-        "agg_bit_and": DagRequest(
-            executors=[scan, Aggregation([], [AggDescriptor("bit_and", col(1))])]),
+        "agg_op_outside_the_ten": DagRequest(
+            executors=[scan, Aggregation([], [AggDescriptor("approx_count_distinct", col(1))])]),
         "op_not_ported": DagRequest(executors=[scan, Aggregation(
             [], [AggDescriptor("sum", call("divide_real", col(1), col(2)))])]),
         "chunk_encoding_not_ported": DagRequest(executors=[scan, agg], encode_type=1),
+        "streamed_agg_order": q1,
     }
 
 
 DECLINE_CAUSE = {
     "scan_filter": "plan_shape_not_ported",
-    "agg_first": "agg_op_not_ported",
-    "agg_bit_and": "agg_op_not_ported",
+    "agg_op_outside_the_ten": "agg_op_not_ported",
 }
 
 
@@ -259,3 +256,43 @@ def test_plans_outside_the_slice_decline_with_a_named_cause(case):
 
 def test_q6_is_eligible():
     assert decline_cause(dag_from_wire(dag_to_wire(bench.q6_dag()))) is None
+
+
+def _served():
+    """Plans the first slice declined (by these cause names) that GROUP BY
+    and the ten device aggregates now serve."""
+    scan = TableScan(bench.TABLE_ID, bench._lineitem())
+    return {
+        "group_by_not_ported": bench.q1_dag(),
+        "agg_op_not_ported": DagRequest(
+            executors=[scan, Aggregation([], [AggDescriptor("var_pop", col(1))])]),
+        "agg_first": DagRequest(
+            executors=[scan, Aggregation([], [AggDescriptor("first", col(1))])]),
+        "agg_bit_and": DagRequest(
+            executors=[scan, Aggregation([], [AggDescriptor("bit_and", col(1))])]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_served()))
+def test_formerly_declined_plans_are_served_byte_identical_to_jax(case):
+    dag = _served()[case]
+    kvs = _kvs("lineitem")
+    port_dag = dag_from_wire(dag_to_wire(dag))
+    assert decline_cause(port_dag) is None
+    port = TorchDagEvaluator(port_dag, block_rows=1024, device="cpu")
+    got = port.run(FixtureScanSource(kvs))
+    want = jax_eval.JaxDagEvaluator(dag, block_rows=1024).run(JaxSource(kvs))
+    cpu = BatchExecutorsRunner(dag, JaxSource(kvs)).handle_request()
+    real = case == "agg_op_not_ported"  # var_pop's sum of squares is REAL
+    _same_rows(got, want, real)
+    _same_rows(got, cpu, real)
+
+
+def _same_rows(got, want, real):
+    if not real:
+        assert got.encode() == want.encode()
+        return
+    g_rows, w_rows = got.iter_rows(), want.iter_rows()
+    assert len(g_rows) == len(w_rows)
+    for g_row, w_row in zip(g_rows, w_rows):
+        assert g_row == pytest.approx(w_row, rel=1e-12, abs=0)

@@ -14,6 +14,7 @@ import threading
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .datatypes import Column, EvalType
 
@@ -76,6 +77,20 @@ class ColumnBlockCache:
             while len(block.device) > _MAX_DEVICE_SIGS:
                 block.device.pop(next(iter(block.device)))
             return block.device[sig]
+
+    def nvoff_device(self, device):
+        """``(n_valids, offsets)`` int64 ``[n_blocks]`` tensors on ``device``,
+        pinned on first use (``jax_eval._nvoff_device``): each block's valid
+        rows and the global row index of its row 0, which the grouped kernels'
+        first-row tracker needs."""
+        blocks = self.blocks
+
+        def build(_blk):
+            nv = np.array([b.n_valid for b in blocks], dtype=np.int64)
+            off = np.concatenate([[0], np.cumsum(nv)[:-1]]).astype(np.int64)
+            return torch.from_numpy(nv).to(device), torch.from_numpy(off).to(device)
+
+        return self.device_arrays(blocks[0], ("nvoff", str(device)), build)
 
     def device_nbytes(self) -> int:
         """Bytes currently pinned on devices for this cache."""

@@ -84,9 +84,13 @@ _FN_OPS = {
 _OP_FNS = {v: k for k, v in _FN_OPS.items()}
 _ARITH = (OP_PLUS, OP_MINUS, OP_MUL)
 _AGG_KIND = {"count": AGG_COUNT, "sum": AGG_SUM, "avg": AGG_SUM, "min": AGG_MIN, "max": AGG_MAX}
+#: the aggregates the capacity-1 kernels run
+CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 
-#: launches of each CUDA kernel, counted where the wrapper launches it
-LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0}
+#: launches of each CUDA kernel, counted where its wrapper launches it (the
+#: grouped pair's wrappers are in ``copr/fused_group_agg.py``)
+LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
+            "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0}
 
 
 def reset_launches() -> None:
@@ -207,10 +211,12 @@ class _Emitter:
         self.push(op in _ARITH and any(arg_types))
 
 
-def compile_program(sel_rpns, aggs, ship_cols, schema) -> Program:
+def emit_program(sel_rpns, aggs, ship_cols, schema) -> tuple[_Emitter, list[bool]]:
     """Bytecode for ``sel_rpns`` (conjuncts) and ``aggs`` (``(op, rpn | None)``
     pairs) over the shipped columns ``ship_cols`` (schema indices, in slot
-    order).  Raises :class:`Unsupported` for what the kernel cannot run."""
+    order): the conjuncts, then one OP_AGG (or OP_COUNT1) per aggregate.
+    Returns the emitter and whether each aggregate's value lane is f64.
+    Raises :class:`Unsupported` for what the kernels cannot run."""
     if len(ship_cols) > MAX_COLS:
         raise Unsupported(f"more than {MAX_COLS} columns", "plan_too_large")
     if len(aggs) > MAX_AGGS:
@@ -220,24 +226,36 @@ def compile_program(sel_rpns, aggs, ship_cols, schema) -> Program:
         is_f = em.expr(rpn)
         em.emit(_word(OP_FILTER, 0, int(is_f)))
         em.types.pop()
-    leaves = []
-    n_int, n_f64 = 1, 0  # int64 row 0 holds the first-row leaf
+    lane_f64 = []
     for k, (op, rpn) in enumerate(aggs):
-        kind = _AGG_KIND.get(op)
-        if kind is None:
-            raise Unsupported(f"aggregate {op}", "agg_op_not_ported")
-        is_f = False
         if rpn is None:
             em.emit(_word(OP_COUNT1, k))
-        else:
-            is_f = em.expr(rpn)
-            if kind != AGG_COUNT and is_f != (rpn.eval_type == EvalType.REAL):
-                # the value lane's type must be the carry's: an INT-typed
-                # expression computed in f64 (int + real) has no exact carry
-                raise Unsupported("aggregate argument typed unlike its lane",
-                                  "agg_arg_type_not_ported")
-            em.emit(_word(OP_AGG, k, int(is_f)))
-            em.types.pop()
+            lane_f64.append(False)
+            continue
+        is_f = em.expr(rpn)
+        if op != "count" and is_f != (rpn.eval_type == EvalType.REAL):
+            # the value lane's type must be the carry's: an INT-typed
+            # expression computed in f64 (int + real) has no exact carry
+            raise Unsupported("aggregate argument typed unlike its lane",
+                              "agg_arg_type_not_ported")
+        em.emit(_word(OP_AGG, k, int(is_f)))
+        em.types.pop()
+        lane_f64.append(is_f)
+    return em, lane_f64
+
+
+def compile_program(sel_rpns, aggs, ship_cols, schema) -> Program:
+    """The capacity-1 program of ``fused_agg_partials`` (count, sum, avg,
+    min, max; no GROUP BY): :func:`emit_program`'s bytecode and the leaf
+    layout of the packed state."""
+    for op, _rpn in aggs:
+        if op not in _AGG_KIND:
+            raise Unsupported(f"aggregate {op}", "agg_op_not_ported")
+    em, lane_f64 = emit_program(sel_rpns, aggs, ship_cols, schema)
+    leaves = []
+    n_int, n_f64 = 1, 0  # int64 row 0 holds the first-row leaf
+    for (op, _rpn), is_f in zip(aggs, lane_f64):
+        kind = _AGG_KIND[op]
         cnt_slot, n_int = n_int, n_int + 1
         if kind == AGG_COUNT:
             val_slot = -1
@@ -260,7 +278,10 @@ class Image:
     """Shipped columns as ``[n_blocks, block_rows]`` tensors on one device.
     ``cols[j]`` is int64 or f64 as ``Program.col_f64[j]``; ``nulls[j]`` is a
     bool mask or None for a NOT NULL column.  ``n_valids`` is an int64
-    ``[n_blocks]`` tensor, or one int for every block."""
+    ``[n_blocks]`` tensor, or one int for every block.  The grouped kernels
+    also read ``offsets`` (the global row index of each block's row 0: an
+    int64 ``[n_blocks]`` tensor, or one int for a single block) and, for host
+    group ids, ``gids`` (int32 ``[n_blocks, block_rows]``)."""
 
     cols: list
     nulls: list
@@ -268,6 +289,8 @@ class Image:
     n_blocks: int
     block_rows: int
     device: torch.device
+    offsets: object = 0
+    gids: torch.Tensor | None = None
 
 
 def _valid_mask(img: Image) -> torch.Tensor:
@@ -298,12 +321,18 @@ def _lane_dtype(is_f64: bool) -> torch.dtype:
 def _walk(prog: Program, img: Image):
     """Run the bytecode over every row at once.  Returns, per aggregate,
     ``(live mask, value or None)``."""
+    return walk_rows(prog, img, len(prog.aggs))[0]
+
+
+def walk_rows(prog, img: Image, n_aggs: int):
+    """:func:`_walk` for any program of ``n_aggs`` aggregates (this module's
+    or the grouped one), also returning the rows that passed the selection."""
     n = img.n_blocks * img.block_rows
     dev = img.device
     active = _valid_mask(img)
     no_nulls = torch.zeros(n, dtype=torch.bool, device=dev)
     stack: list[tuple[torch.Tensor, torch.Tensor]] = []
-    out: list = [None] * len(prog.aggs)
+    out: list = [None] * n_aggs
     for word in prog.code:
         op, arg, flags, depth = _decode(word)
         fa = bool(flags & 1)
@@ -335,7 +364,7 @@ def _walk(prog: Program, img: Image):
             out[arg] = (active, None)
         else:
             raise ValueError(f"bad opcode {op}")
-    return out
+    return out, active
 
 
 def _reduce(kind: int, is_f64: bool, live: torch.Tensor, value: torch.Tensor):

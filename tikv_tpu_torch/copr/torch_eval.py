@@ -1,20 +1,29 @@
 """PyTorch/CUDA DAG evaluator — the port of ``tikv_tpu/copr/jax_eval.py``.
 
-This slice serves simple aggregations (``TableScan → Selection? →
-Aggregation`` with no GROUP BY, e.g. TPC-H Q6) on one device:
+This slice serves aggregations (``TableScan → Selection? → Aggregation``,
+with or without GROUP BY, over the ten device aggregates; e.g. TPC-H Q6 and
+Q1) on one device:
 
     cold: scan → RowBatchDecoder (one block ahead, on a worker thread)
-          → pinned host stage → one fused_agg launch per block, carry on
-          the device → one packed pull → finalize
+          → host group ids (GroupDict, first-occurrence order) → pinned host
+          stage → one launch pair per block, carry on the device (grown
+          when the groups outgrow it) → one packed pull → finalize
     warm: the cache's stacked [n_blocks, block_rows] image, pinned once
-          → one fused_agg launch → one packed pull → finalize
+          → one launch pair → one packed pull → finalize; group ids are
+          computed on the device from the resident dictionary codes when
+          every key is a bare dictionary-coded column shared by all blocks
+          (coded path), else assigned on the host and shipped per query
 
-``fused_agg`` (``copr/fused_agg.py``) evaluates the selection and every
-aggregate argument per row and accumulates count/sum/min/max in one kernel
-pass.  Finalize fills ``AggState`` from the packed carry and encodes the
-datum response exactly as the JAX evaluator and the CPU pipeline do, so the
-response bytes are identical.  All integer and decimal arithmetic is exact
-(int64 lanes); REAL sums differ from the CPU in last-ulp rounding only.
+Plans without GROUP BY whose aggregates are all count/sum/avg/min/max run
+``fused_agg`` (``copr/fused_agg.py``, capacity 1); every other plan runs
+``fused_group_agg`` (``copr/fused_group_agg.py``).  Both evaluate the
+selection and every aggregate argument per row in one kernel pass.
+Finalize keeps the groups whose first active row exists, orders them by it
+(the CPU hash aggregation's insertion order), fills ``AggState`` from the
+packed carry and encodes the datum response exactly as the JAX evaluator and
+the CPU pipeline do, so the response bytes are identical.  All integer and
+decimal arithmetic is exact (int64 lanes); REAL sums differ from the CPU in
+last-ulp rounding only.
 
 Plans outside the slice are declined with a named cause
 (:func:`decline_cause`), never run.
@@ -43,14 +52,36 @@ from .dag import (
     make_response_encoder,
 )
 from .dag_wire import dag_from_wire
-from .datatypes import NOT_NULL_FLAG, Chunk, EvalType
-from .executors import ScanSource
-from .fused_agg import Image, Program, Unsupported, compile_program, fused_agg
+from .datatypes import NOT_NULL_FLAG, Chunk, Column, EvalType
+from .executors import ScanSource, _coded_group_parts, cols_for_eval
+from .fused_agg import (
+    AGG_COUNT,
+    CAPACITY_ONE_OPS,
+    NO_ROW,
+    Image,
+    Program,
+    Unsupported,
+    compile_program,
+    fused_agg,
+)
+from .fused_group_agg import (
+    GroupProgram,
+    check_capacity,
+    compile_group_program,
+    fused_group_agg,
+    grow_carry,
+    init_packed,
+)
+from .groupby import GroupDict
 from .kernels import KERNELS
-from .rpn import FuncCall, RpnExpression, compile_expr
+from .rpn import ColumnRef, FuncCall, RpnExpression, compile_expr, eval_rpn
 from .table import RowBatchDecoder, decode_record_handles
 
 DEFAULT_BLOCK_ROWS = 1 << 16
+# the cold path's first group capacity, doubled as groups appear.  The JAX
+# package starts at 1024; capacity is not visible in a response, and here
+# every launch writes and folds [grid, leaves, C] partials, so it starts small
+GROUP_CAPACITY_START = 8
 _DEVICE_EVAL_TYPES = {EvalType.INT, EvalType.REAL, EvalType.DECIMAL, EvalType.DATETIME,
                       EvalType.DURATION}
 
@@ -65,7 +96,9 @@ def supports(dag: DagRequest) -> bool:
 
 
 def decline_cause(dag: DagRequest) -> str | None:
-    """None when the DAG is eligible, else a bounded-cardinality cause slug."""
+    """None when the DAG is eligible, else a bounded-cardinality cause slug.
+    A grouped plan can still decline at run time, with
+    ``real_group_capacity_not_ported``, once its group count is known."""
     try:
         _analyze(dag)
         return None
@@ -83,9 +116,14 @@ class _Plan:
     schema: list
     sel_rpns: list[RpnExpression]
     agg_rpns: list  # (op, RpnExpression | None)
+    group_rpns: list[RpnExpression]
     device_cols: list[int]
     nullable_cols: list[int]
-    program: Program
+    # no GROUP BY and only count/sum/avg/min/max: fused_agg at capacity 1
+    program: Program | None
+    # otherwise fused_group_agg over device_cols: host group ids with GROUP
+    # BY, the single slot without
+    group_program: GroupProgram | None
 
 
 def _ops_in(expr) -> set[str]:
@@ -95,6 +133,16 @@ def _ops_in(expr) -> set[str]:
             out |= _ops_in(c)
         return out
     return set()
+
+
+def _streamed_in_scan_order(scan: TableScan, agg: Aggregation) -> bool:
+    """Stream aggregation emits one row per consecutive run of the key; that
+    equals the hash aggregation the device computes only when the scan order
+    sorts by the key: grouping on the handle column (jax_eval._analyze)."""
+    cols = scan.columns_info
+    return len(agg.group_by) <= 1 and all(
+        isinstance(g, ColumnRef) and g.index < len(cols) and cols[g.index].is_pk_handle
+        for g in agg.group_by)
 
 
 def _analyze(dag: DagRequest) -> _Plan:
@@ -123,17 +171,18 @@ def _analyze(dag: DagRequest) -> _Plan:
                           "plan_shape_not_ported")
     if tail:
         raise Unsupported("post-aggregation TopN/Limit is not ported", "post_agg_not_ported")
-    if agg.group_by:
-        raise Unsupported("GROUP BY is not ported", "group_by_not_ported")
     schema = [(c.ftype.eval_type, c.ftype.decimal) for c in scan.columns_info]
     for et, _ in schema:
         if et not in _DEVICE_EVAL_TYPES and et not in (EvalType.BYTES, EvalType.JSON):
             raise Unsupported(f"column type {et}", "column_type")
+    if agg.streamed and not _streamed_in_scan_order(scan, agg):
+        raise Unsupported("streamed agg not sorted by group key", "streamed_agg_order")
     for a in agg.agg_funcs:
         if a.op not in PORTED_AGG_OPS:
             raise Unsupported(f"aggregate {a.op}", "agg_op_not_ported")
     exprs = list(selection.conditions) if selection else []
     exprs += [a.expr for a in agg.agg_funcs if a.expr is not None]
+    exprs += list(agg.group_by)
     for e in exprs:
         missing = _ops_in(e) - set(KERNELS)
         if missing:
@@ -141,19 +190,35 @@ def _analyze(dag: DagRequest) -> _Plan:
     sel_rpns = [compile_expr(c, schema) for c in (selection.conditions if selection else [])]
     agg_rpns = [(a.op, compile_expr(a.expr, schema) if a.expr is not None else None)
                 for a in agg.agg_funcs]
+    group_rpns = [compile_expr(g, schema) for g in agg.group_by]
     for rpn in sel_rpns + [r for _, r in agg_rpns if r is not None]:
         if any(n.eval_type in (EvalType.BYTES, EvalType.JSON) for n in rpn.nodes):
             raise Unsupported("bytes in device expression", "bytes_predicate")
+    for g in group_rpns:
+        # group keys are evaluated on the host with the port's torch scalar
+        # kernels, which take no bytes: a bytes key must be a bare column
+        if len(g.nodes) > 1 and any(n.eval_type in (EvalType.BYTES, EvalType.JSON)
+                                    for n in g.nodes):
+            raise Unsupported("bytes in a group-by expression", "group_expr_not_ported")
     need: set[int] = set()
     for rpn in sel_rpns + [r for _, r in agg_rpns if r is not None]:
         need |= rpn.referenced_columns()
     device_cols = sorted(need)
     # columns declared NOT NULL never ship a null mask
-    nullable_cols = [i for i in device_cols
-                     if not (scan.columns_info[i].ftype.flag & NOT_NULL_FLAG)]
-    program = compile_program(sel_rpns, agg_rpns, device_cols, schema)
-    return _Plan(scan, selection, agg, schema, sel_rpns, agg_rpns, device_cols,
-                 nullable_cols, program)
+    nullable_cols = _nullable(scan, device_cols)
+    program = group_program = None
+    if not group_rpns and all(op in CAPACITY_ONE_OPS for op, _ in agg_rpns):
+        program = compile_program(sel_rpns, agg_rpns, device_cols, schema)
+    else:
+        group_program = compile_group_program(
+            sel_rpns, agg_rpns, device_cols, schema, None if group_rpns else (),
+            track=bool(group_rpns))
+    return _Plan(scan, selection, agg, schema, sel_rpns, agg_rpns, group_rpns, device_cols,
+                 nullable_cols, program, group_program)
+
+
+def _nullable(scan: TableScan, cols) -> list[int]:
+    return [i for i in cols if not (scan.columns_info[i].ftype.flag & NOT_NULL_FLAG)]
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +296,7 @@ class TorchDagEvaluator:
         self.program = self.plan.program
         self.block_rows = block_rows
         self.decoder = RowBatchDecoder(self.plan.scan.columns_info)
+        self._coded_programs: dict[tuple, GroupProgram | None] = {}
 
     # -- entry point --------------------------------------------------------
 
@@ -246,18 +312,46 @@ class TorchDagEvaluator:
     # -- cold ---------------------------------------------------------------
 
     def _run_aggregated(self, source: ScanSource, cache=None) -> SelectResponse:
-        """One launch per block with the carry on the device; no
-        device→host traffic until finalize."""
+        """One launch pair per block with the carry on the device; no
+        device→host traffic until finalize.
+
+        Group ids are assigned on the host over ALL valid rows (pre-selection):
+        groups whose every row the device filters out keep no first active row
+        and are dropped at finalize, and the survivors are ordered by their
+        first active row — the CPU path's order, without pulling the mask."""
+        plan = self.plan
+        prog = plan.group_program
+        groups = GroupDict()
+        capacity = GROUP_CAPACITY_START if plan.group_rpns else 1
         carry = None
+        offset = 0
         for cols, n_valid in _prefetch(self._decode_blocks(source)):
             if cache is not None:
                 cache.add(cols, n_valid)
-            carry = fused_agg(self.program, self._block_image(cols, n_valid), carry)
+            if prog is None:
+                carry = fused_agg(self.program, self._block_image(cols, n_valid), carry)
+                continue
+            gids = None
+            if plan.group_rpns:
+                gids, n_groups = self._assign_gids(cols, n_valid, groups)
+                if n_groups > capacity:
+                    # grow to the next size and migrate the carry
+                    capacity = _capacity_for(prog, capacity, n_groups)
+                    if carry is not None:
+                        carry = grow_carry(prog, carry, capacity)
+            img = self._block_image(cols, n_valid, gids, offset)
+            carry = fused_group_agg(prog, img, capacity, carry)
+            offset += n_valid
         if cache is not None:
             cache.filled = True
+        if prog is None:
+            if carry is None:
+                carry = fused_agg(self.program, self._empty_image())
+            return self._finalize_agg(carry, self.program, 1, None)
         if carry is None:
-            carry = fused_agg(self.program, self._empty_image())
-        return self._finalize_agg(carry)
+            carry = init_packed(prog, capacity, self.device)
+        n_slots = len(groups) if plan.group_rpns else 1
+        return self._finalize_agg(carry, prog, n_slots, lambda r: groups.rows[r])
 
     def _decode_blocks(self, source: ScanSource):
         """Yield (columns, n_valid) blocks of at most block_rows rows."""
@@ -281,10 +375,43 @@ class TorchDagEvaluator:
                 total = len(rest_h)
                 yield self.decoder.decode(block_h, block_v), take
 
-    def _block_image(self, cols, n_valid: int) -> Image:
+    def _assign_gids(self, cols, n_valid: int, groups: GroupDict):
+        """Host group ids of a block's valid rows (int32 ``[block_rows]``,
+        0 past ``n_valid``) and the number of groups so far."""
+        rows = np.arange(n_valid)
+        gids = np.zeros(self.block_rows, dtype=np.int32)
+        # bare dict-encoded group columns: dense-code path, no unique pass
+        coded = _coded_group_parts(self.plan.group_rpns, cols, rows)
+        if coded is not None:
+            if len(coded) == 1:
+                gids[:n_valid] = groups.assign_coded(*coded[0])
+            else:
+                gids[:n_valid] = groups.assign_coded_multi(coded)
+            return gids, len(groups)
+        parts = [self._group_key(g, cols, n_valid) for g in self.plan.group_rpns]
+        gids[:n_valid] = groups.assign(parts)
+        return gids, len(groups)
+
+    @staticmethod
+    def _group_key(g: RpnExpression, cols, n_valid: int):
+        """One group expression's ``(data, nulls)`` numpy arrays over the
+        valid rows: a bare column as it is, else evaluated with the port's
+        scalar kernels on CPU tensors."""
+        if len(g.nodes) == 1 and g.nodes[0].kind == "col":
+            c = cols[g.nodes[0].index]
+            c = c.decoded() if c.is_dict_encoded else c
+            return np.asarray(c.data)[:n_valid], np.asarray(c.nulls)[:n_valid]
+        n = len(cols[0]) if cols else 0
+        tcols = {i: (torch.from_numpy(np.ascontiguousarray(d)),
+                     torch.from_numpy(np.ascontiguousarray(nl)))
+                 for i, (d, nl) in cols_for_eval(cols, g.referenced_columns()).items()}
+        d, nl = eval_rpn(g, tcols, n, device=torch.device("cpu"))
+        return d.numpy()[:n_valid], nl.numpy()[:n_valid]
+
+    def _block_image(self, cols, n_valid: int, gids=None, offset: int = 0) -> Image:
         """One decoded block staged as a single [n_cols, block_rows] int64
-        buffer (f64 lanes as their bits) plus one bool null buffer, pinned on
-        the host and copied without a host sync."""
+        buffer (f64 lanes as their bits), one bool null buffer and the host
+        group ids, pinned on the host and copied without a host sync."""
         plan, br = self.plan, self.block_rows
         pin = self.device.type == "cuda"
         data = torch.zeros((len(plan.device_cols), br), dtype=torch.int64, pin_memory=pin)
@@ -296,14 +423,20 @@ class TorchDagEvaluator:
         for j, i in enumerate(plan.nullable_cols):
             m = np.asarray(cols[i].nulls)
             nv[j, : len(m)] = m
+        g = None
+        if gids is not None:
+            g = torch.empty((1, br), dtype=torch.int32, pin_memory=pin)
+            g.numpy()[0] = gids
         if pin:
             data = data.to(self.device, non_blocking=True)
             nulls = nulls.to(self.device, non_blocking=True)
+            if g is not None:
+                g = g.to(self.device, non_blocking=True)
         col_t = [data[j : j + 1].view(torch.float64) if plan.schema[i][0] == EvalType.REAL
                  else data[j : j + 1] for j, i in enumerate(plan.device_cols)]
         null_of = {i: nulls[j : j + 1] for j, i in enumerate(plan.nullable_cols)}
         null_t = [null_of.get(i) for i in plan.device_cols]
-        return Image(col_t, null_t, int(n_valid), 1, br, self.device)
+        return Image(col_t, null_t, int(n_valid), 1, br, self.device, int(offset), g)
 
     def _empty_image(self) -> Image:
         """A zero-block image: the kernel writes the identity state."""
@@ -317,21 +450,121 @@ class TorchDagEvaluator:
     # -- warm ---------------------------------------------------------------
 
     def _run_aggregated_cached(self, cache) -> SelectResponse:
-        """Every block resident on the device: one launch, one pull."""
-        return self._finalize_agg(fused_agg(self.program, self._stacked_device(cache)))
+        """Every block resident on the device: one launch pair, one pull."""
+        if self.program is not None:
+            packed = fused_agg(self.program, self._stacked_device(cache))
+            return self._finalize_agg(packed, self.program, 1, None)
+        stable = self._stable_dict_group_cols(cache.blocks)
+        if stable is not None:
+            resp = self._run_coded(cache, *stable)
+            if resp is not None:
+                return resp
+        return self._run_host_gids(cache)
 
-    def _stacked_device(self, cache) -> Image:
-        """The [n_blocks, block_rows] image of the shipped columns, pinned in
-        the cache on first use so later queries move no bytes."""
-        plan, br = self.plan, self.block_rows
+    def _stable_dict_group_cols(self, blocks):
+        """If every group expr is a bare ref to a dict-encoded column whose
+        dictionary object is shared by ALL cached blocks, return (col_idx
+        list, dict list) — else None.  No group-by at all qualifies trivially
+        (a single slot, no codes needed)."""
+        if not self.plan.group_rpns:
+            return [], []
+        idxs = []
+        for g in self.plan.group_rpns:
+            if len(g.nodes) != 1 or g.nodes[0].kind != "col":
+                return None
+            idxs.append(g.nodes[0].index)
+        dicts = []
+        for i in idxs:
+            c0 = blocks[0].cols[i]
+            if not c0.is_dict_encoded:
+                return None
+            for b in blocks[1:]:
+                if b.cols[i].dictionary is not c0.dictionary:
+                    return None
+            dicts.append(c0.dictionary)
+        cap = 1
+        for d in dicts:
+            cap *= len(d) + 1
+        if cap > (1 << 20):
+            return None
+        return idxs, dicts
+
+    def _coded_program(self, group_cols, dict_lens) -> GroupProgram | None:
+        """The coded program for these key columns (shipped after the
+        device columns), or None when the kernels cannot take it."""
+        key = (tuple(group_cols), tuple(dict_lens))
+        if key not in self._coded_programs:
+            plan = self.plan
+            ship = self._ship_cols(group_cols)
+            try:
+                prog = compile_group_program(
+                    plan.sel_rpns, plan.agg_rpns, ship, plan.schema,
+                    [ship.index(i) for i in group_cols], dict_lens, track=True)
+            except Unsupported:
+                prog = None  # too many columns: the host-id path serves it
+            self._coded_programs[key] = prog
+        return self._coded_programs[key]
+
+    def _ship_cols(self, extra) -> list[int]:
+        return self.plan.device_cols + [i for i in extra if i not in self.plan.device_cols]
+
+    def _run_coded(self, cache, group_cols, dicts) -> SelectResponse | None:
+        """Group ids computed on the device from the resident dictionary
+        codes (``jax_eval.scan_coded``): no per-row host→device traffic."""
+        dict_lens = tuple(len(d) for d in dicts)
+        n_slots = 1
+        for dl in dict_lens:
+            n_slots *= dl + 1
+        if group_cols:
+            prog = self._coded_program(group_cols, dict_lens)
+            if prog is None:
+                return None
+        else:
+            prog = self.plan.group_program
+        capacity = _capacity_for(prog, 1, n_slots)
+        img = self._stacked_device(cache, self._ship_cols(group_cols))
+        packed = fused_group_agg(prog, img, capacity)
+
+        def key_of(slot: int) -> tuple:
+            parts = []
+            rem = int(slot)
+            for d, dl in zip(reversed(dicts), reversed(dict_lens)):
+                c = rem % (dl + 1)
+                rem //= dl + 1
+                parts.append(None if c == dl else bytes(d[c]))
+            return tuple(reversed(parts))
+
+        return self._finalize_agg(packed, prog, n_slots, key_of)
+
+    def _run_host_gids(self, cache) -> SelectResponse:
+        """Host group ids for every block, shipped with the query
+        (``jax_eval.scan`` at capacity > 1)."""
         blocks = cache.blocks
-        sig = ("stacked", tuple(plan.device_cols), tuple(plan.nullable_cols), br,
-               str(self.device))
+        prog = self.plan.group_program
+        groups = GroupDict()
+        all_gids = np.zeros((len(blocks), self.block_rows), dtype=np.int32)
+        for bi, blk in enumerate(blocks):
+            all_gids[bi] = self._assign_gids(blk.cols, blk.n_valid, groups)[0]
+        n_slots = len(groups)
+        capacity = _capacity_for(prog, 1, max(n_slots, 1))
+        gids = torch.from_numpy(all_gids).to(self.device)
+        packed = fused_group_agg(prog, self._stacked_device(cache, gids=gids), capacity)
+        return self._finalize_agg(packed, prog, n_slots, lambda r: groups.rows[r])
+
+    def _stacked_device(self, cache, ship_cols=None, gids=None) -> Image:
+        """The [n_blocks, block_rows] image of the shipped columns (the device
+        columns by default), pinned in the cache on first use so later
+        queries move no bytes; ``gids`` ride along unpinned."""
+        plan, br = self.plan, self.block_rows
+        ship = plan.device_cols if ship_cols is None else list(ship_cols)
+        nullable = _nullable(plan.scan, ship)
+        blocks = cache.blocks
+        sig = ("stacked", tuple(ship), tuple(nullable), br, str(self.device))
 
         def build(_blk):
             nb = len(blocks)
             data = []
-            for i in plan.device_cols:
+            for i in ship:
                 is_f = plan.schema[i][0] == EvalType.REAL
                 host = np.zeros((nb, br), dtype=np.float64 if is_f else np.int64)
                 for bi, b in enumerate(blocks):
@@ -339,39 +572,87 @@ class TorchDagEvaluator:
                     host[bi, : len(d)] = d
                 data.append(torch.from_numpy(host).to(self.device))
             nulls = {}
-            for i in plan.nullable_cols:
+            for i in nullable:
                 host = np.ones((nb, br), dtype=bool)
                 for bi, b in enumerate(blocks):
                     m = np.asarray(b.cols[i].nulls)
                     host[bi, : len(m)] = m
                 nulls[i] = torch.from_numpy(host).to(self.device)
-            nv = torch.tensor([b.n_valid for b in blocks], dtype=torch.int64).to(self.device)
-            return data, [nulls.get(i) for i in plan.device_cols], nv
+            return data, [nulls.get(i) for i in ship]
 
-        data, nulls, nv = cache.device_arrays(blocks[0], sig, build)
-        return Image(list(data), list(nulls), nv, len(blocks), br, self.device)
+        data, nulls = cache.device_arrays(blocks[0], sig, build)
+        nv, off = cache.nvoff_device(self.device)
+        return Image(list(data), list(nulls), nv, len(blocks), br, self.device, off, gids)
 
     # -- finalize -----------------------------------------------------------
 
-    def _finalize_agg(self, packed) -> SelectResponse:
-        """Pull the packed state once and encode the response through
-        ``AggState.result_columns``, as the CPU path does."""
+    def _finalize_agg(self, packed, prog, n_slots: int, key_of) -> SelectResponse:
+        """Pull the packed state once, keep the groups with a first active
+        row in that row's order, and encode the response through
+        ``AggState.result_columns`` and the group keys, as the CPU path does."""
+        plan = self.plan
         ints = packed[0].cpu().numpy()
-        flts = packed[1].cpu().numpy() if self.program.n_f64 else None
-        out_cols = []
-        for (op, rpn), leaf in zip(self.plan.agg_rpns, self.program.aggs):
-            input_type = rpn.eval_type if rpn is not None else EvalType.INT
-            st = AggState(op, input_type, rpn.frac if rpn is not None else 0)
-            st.grow(1)
-            st.count = ints[leaf.cnt_slot, :1].astype(np.int64)
-            if op != "count":
-                value = (flts if leaf.is_f64 else ints)[leaf.val_slot, :1]
-                if op in ("sum", "avg"):
-                    st.sum = value.astype(st.sum.dtype)
-                else:
-                    st.value = value
-                    st.has_value = st.count > 0
-            out_cols += [c.take(np.array([0])) for c in st.result_columns(1)]
+        flts = packed[1].cpu().numpy() if prog.n_f64 else None
+        if plan.group_rpns:
+            first = ints[0, :n_slots]
+            alive = np.flatnonzero(first != NO_ROW)
+            order = alive[np.argsort(first[alive], kind="stable")]
+        else:
+            order = np.array([0])
+        out_cols: list[Column] = []
+        for (op, rpn), slots in zip(plan.agg_rpns, _carry_slots(prog)):
+            leaves = [(flts if is_f else ints)[slot, :n_slots] for is_f, slot in slots]
+            st = _to_state(op, rpn, leaves, n_slots)
+            out_cols += [c.take(order) for c in st.result_columns(n_slots)]
+        for gi, g in enumerate(plan.group_rpns):
+            out_cols.append(Column.from_values(g.eval_type, [key_of(r)[gi] for r in order],
+                                               g.frac))
         enc = make_response_encoder(self.dag)
         enc.add_chunk(Chunk.full(out_cols), self.dag.output_offsets)
         return enc.to_response()
+
+
+def _capacity_for(prog: GroupProgram, capacity: int, n_groups: int) -> int:
+    """Group slots for ``n_groups``: ``capacity`` doubled until it holds
+    them, cut back to the shared-memory kernel's limit where that still
+    holds them.  Raises ``real_group_capacity_not_ported`` when f64 leaves
+    would need more slots than that limit."""
+    while capacity < n_groups:
+        capacity *= 2
+    if n_groups <= prog.c_max < capacity:
+        capacity = prog.c_max
+    check_capacity(prog, capacity)
+    return capacity
+
+
+def _carry_slots(prog) -> list[list[tuple[bool, int]]]:
+    """Per aggregate, its carry leaves as (f64 matrix?, row) in carry order."""
+    if isinstance(prog, Program):
+        return [[(False, leaf.cnt_slot)]
+                + ([] if leaf.kind == AGG_COUNT else [(leaf.is_f64, leaf.val_slot)])
+                for leaf in prog.aggs]
+    return [[(prog.leaves[i].is_f64, prog.leaves[i].slot) for i in own]
+            for own in prog.agg_leaves]
+
+
+def _to_state(op: str, rpn, leaves, n_slots: int) -> AggState:
+    """An ``AggState`` filled from one aggregate's carry leaves
+    (``_DeviceAgg.to_state``): finalization then runs the CPU path's code."""
+    st = AggState(op, rpn.eval_type if rpn is not None else EvalType.INT,
+                  rpn.frac if rpn is not None else 0)
+    st.grow(n_slots)
+    st.count = leaves[0].astype(np.int64)
+    if op in ("sum", "avg"):
+        st.sum = leaves[1].astype(st.sum.dtype)
+    elif op == "var_pop":
+        st.sum = leaves[1].astype(st.sum.dtype)
+        st.sum_sq = leaves[2]
+    elif op == "first":
+        st.value = leaves[1]
+        st.has_value = leaves[2] != NO_ROW
+    elif op in ("bit_and", "bit_or", "bit_xor"):
+        st.value = leaves[1]
+    elif op in ("min", "max"):
+        st.value = leaves[1]
+        st.has_value = st.count > 0
+    return st

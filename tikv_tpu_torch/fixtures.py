@@ -1,7 +1,7 @@
 """TPC-H lineitem fixtures for the port: KV bytes, columnar images, plans.
 
 The port's own copy of ``bench.py``'s ``build_arrays`` / ``build_kvs`` /
-``build_cache`` and its Q6 plan.  ``build_arrays(n, seed)`` makes the same
+``build_cache`` and its Q6 and Q1 plans.  ``build_arrays(n, seed)`` makes the same
 draws as ``bench.py`` for the same ``(n, seed)``, so both packages see the
 same table.  The numpy oracles compute each query's answer from those draws
 alone, independently of any evaluator.
@@ -17,6 +17,7 @@ from .copr.cache import ColumnBlockCache
 from .copr.dag import Aggregation, DagRequest, Selection, TableScan
 from .copr.datatypes import NOT_NULL_FLAG, Column, ColumnInfo, EvalType, FieldType
 from .copr.fused_agg import Image, compile_program
+from .copr.fused_group_agg import compile_group_program
 from .copr.rpn import call, col, compile_expr, const_decimal, const_int, const_real
 from .copr.table import RowBatchDecoder, encode_row, record_key
 from .util.codec import encode_i64_batch
@@ -28,6 +29,8 @@ TABLE_ID = 101
 Q6_SHIP_LO, Q6_SHIP_HI = 9000, 9365
 Q6_DISC_LO, Q6_DISC_HI = 2, 4
 Q6_QTY_LT = 24
+# Q1 predicate: shipdate <= 10500
+Q1_SHIP_HI = 10500
 
 
 def lineitem() -> list[ColumnInfo]:
@@ -146,6 +149,65 @@ def q6_count_sum_min_max_dag() -> DagRequest:
                                  Aggregation([], aggs)])
 
 
+def q1_dag() -> DagRequest:
+    """TPC-H Q1's shape (``bench.q1_dag``): sum(quantity), sum(price),
+    avg(price), avg(discount), count(*) grouped by (returnflag,
+    linestatus) under shipdate <= 10500."""
+    aggs = [
+        AggDescriptor("sum", col(1)),
+        AggDescriptor("sum", col(2)),
+        AggDescriptor("avg", col(2)),
+        AggDescriptor("avg", col(3)),
+        AggDescriptor("count", None),
+    ]
+    return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(5), col(6)], aggs)])
+
+
+def q1_oracle(a: dict) -> list:
+    """Q1's response rows from the raw draws, one per group that has a
+    qualifying row, in the order of each group's first qualifying row."""
+    m = a["ship"] <= Q1_SHIP_HI
+    key = a["rf"] * 2 + a["ls"]
+    rows = []
+    for k in np.unique(key[m]):
+        sel = m & (key == k)
+        n = int(sel.sum())
+        price = int(a["price"][sel].astype(np.int64).sum())
+        rf, ls = divmod(int(k), 2)
+        rows.append((int(np.argmax(sel)), [
+            int(a["qty"][sel].astype(np.int64).sum()), (price, 2), n, (price, 2),
+            n, (int(a["disc"][sel].astype(np.int64).sum()), 2), n,
+            b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]]))
+    return [r for _first, r in sorted(rows, key=lambda fr: fr[0])]
+
+
+def qty_dag() -> DagRequest:
+    """A GROUP BY over an INT column (l_quantity, 50 groups), which takes
+    host group ids: count(*), sum(price), avg(discount), max(shipdate)
+    under Q1's predicate."""
+    aggs = [AggDescriptor("count", None), AggDescriptor("sum", col(2)),
+            AggDescriptor("avg", col(3)), AggDescriptor("max", col(4))]
+    return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(1)], aggs)])
+
+
+def qty_oracle(a: dict) -> list:
+    """:func:`qty_dag`'s response rows from the raw draws, in the order of
+    each group's first qualifying row."""
+    m = a["ship"] <= Q1_SHIP_HI
+    rows = []
+    for q in np.unique(a["qty"][m]):
+        sel = m & (a["qty"] == q)
+        n = int(sel.sum())
+        rows.append((int(np.argmax(sel)), [
+            n, (int(a["price"][sel].astype(np.int64).sum()), 2), n,
+            (int(a["disc"][sel].astype(np.int64).sum()), 2), int(a["ship"][sel].max()), int(q)]))
+    return [r for _first, r in sorted(rows, key=lambda fr: fr[0])]
+
+
 def _q6_mask(a: dict) -> np.ndarray:
     return ((a["ship"] >= Q6_SHIP_LO) & (a["ship"] < Q6_SHIP_HI)
             & (a["disc"] >= Q6_DISC_LO) & (a["disc"] <= Q6_DISC_HI)
@@ -214,3 +276,83 @@ def synthetic_case(n_blocks: int, block_rows: int, gen: torch.Generator, device)
         nv[n_blocks // 2] = 0
     n_valids = nv.to(device) if n_blocks > 1 else int(nv[0])
     return prog, Image(cols, nulls, n_valids, n_blocks, block_rows, device)
+
+
+#: the grouped synthetic cases: (id source, aggregates); all ten device
+#: aggregates over int64, decimal and f64 lanes, or integer leaves only
+GROUP_CASES = ("coded", "host", "host_many")
+
+
+def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.Generator,
+                         device):
+    """A grouped program, its image and its capacity, for holding the grouped
+    kernels to their plain version.  ``kind``: ``"coded"`` — ids from two
+    dictionary-code columns with NULLs (4 x 5 = 20 slots), all ten aggregates;
+    ``"host"`` — 60 host group ids, all ten aggregates; ``"host_many"`` — 300
+    host group ids, integer leaves only (past the shared-memory capacity, so
+    the atomic partials).  Columns as :func:`synthetic_case`, with a ragged
+    last block and (with more than four blocks) empty ones; f64 values are
+    non-negative."""
+    schema = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0), (EvalType.INT, 0),
+              (EvalType.DECIMAL, 4), (EvalType.BYTES, 0), (EvalType.BYTES, 0)]
+    sel = [call("ge", col(0), const_int(-(1 << 38))),
+           call("or", call("lt", col(2), const_real(900.0)), call("is_null", col(3))),
+           call("ne", col(4), const_decimal(7, 1))]
+    int_aggs = [("count", None),
+                ("count", col(1)),
+                ("sum", call("multiply", col(0), col(0))),  # wraps int64
+                ("avg", call("plus", col(1), col(4))),  # scale_by aligns the fracs
+                ("max", col(3)),
+                ("min", call("minus", col(1), const_decimal(5, 1))),
+                ("first", col(1)),
+                ("bit_and", col(0)),
+                ("bit_or", col(3)),
+                ("bit_xor", col(1))]
+    f64_aggs = [("sum", call("multiply", col(2), col(3))),  # f64 from int x real
+                ("min", col(2)),
+                ("max", col(2)),
+                ("var_pop", col(3)),
+                ("var_pop", col(2)),
+                ("first", col(2))]
+    aggs = int_aggs if kind == "host_many" else int_aggs[:6] + f64_aggs[:4] + int_aggs[6:] \
+        + f64_aggs[4:]
+    sel_rpns = [compile_expr(e, schema) for e in sel]
+    agg_rpns = [(op, None if e is None else compile_expr(e, schema)) for op, e in aggs]
+    dict_lens = (3, 4)
+    coded = kind == "coded"
+    ship = list(range(7 if coded else 5))
+    prog = compile_group_program(sel_rpns, agg_rpns, ship, schema,
+                                 (5, 6) if coded else None, dict_lens if coded else ())
+    shape = (n_blocks, block_rows)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    def null_mask(p):
+        return torch.rand(shape, generator=gen, device=device) < p
+
+    cols = [ints(-(1 << 40), 1 << 40), ints(-10**9, 10**9),
+            torch.rand(shape, generator=gen, device=device, dtype=torch.float64) * 1000.0,
+            ints(0, 1000), ints(-10**6, 10**6)]
+    nulls = [None, null_mask(0.1), null_mask(0.05), null_mask(0.2), None]
+    gids = None
+    if coded:
+        cols += [ints(0, dict_lens[0]), ints(0, dict_lens[1])]
+        nulls += [null_mask(0.1), null_mask(0.05)]
+        capacity = 32
+    else:
+        n_groups = 300 if kind == "host_many" else 60
+        gids = ints(0, n_groups).to(torch.int32)
+        capacity = 512 if kind == "host_many" else 64
+    nv = torch.full((n_blocks,), block_rows, dtype=torch.int64)
+    nv[-1] = block_rows - 777
+    if n_blocks > 4:
+        nv[1] = 0
+        nv[n_blocks // 2] = 0
+    if n_blocks > 1:
+        n_valids = nv.to(device)
+        offsets = (torch.cumsum(nv, 0) - nv).to(device)
+    else:
+        n_valids, offsets = int(nv[0]), 1000
+    img = Image(cols, nulls, n_valids, n_blocks, block_rows, device, offsets, gids)
+    return prog, img, capacity
