@@ -24,17 +24,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 7. warm    — Q1 over the resident image (group ids from the dictionary
              codes on the card): the first run with the pin, then 5 runs;
              and GROUP BY l_quantity (host group ids, 50 groups), twice
-8. timings — cold/warm rows/s (host clock around synchronized work), each
+8. scan    — BASELINE configs 1-2: the scan (all 7 columns, Limit 100,000)
+             and the 3-predicate filter (Limit 100,000) cold over the same
+             1,000,000 KV rows, the filter and a selective variant (shipdate
+             < 8410, no Limit) warm over a resident 10,000,000-row image,
+             each equal to its numpy oracle
+9. topn    — the raw TopN of bench._topn_endpoint (5 columns, shipdate <=
+             10500, ORDER BY price DESC, quantity, K = 100) cold over the 1M
+             KV rows and warm over the 100M image; then BASELINE config 4,
+             Q1 + TopN on the group keys (LIMIT 4: 2 of 6 groups cut), cold
+             and warm; each equal to its numpy oracle
+10. timings — cold/warm rows/s (host clock around synchronized work), each
              kernel's ms per launch (CUDA events), its bound, the plain
-             version's time
-9. profile — device time by kernel and the device's busy share of the
+             version's time and a one-call PyTorch yardstick where one exists;
+             the mask and top-K kernels held to their plain versions on the
+             main path's own inputs
+11. profile — device time by kernel and the device's busy share of the
              wall time (torch.profiler), over one cold and three warm runs of
-             Q6 and of Q1
+             Q6 and of Q1, and runs of the warm filters and the raw TopN
 
-Then the card's line, the kernels line and, last, the ok line.  The launch
-counts in the kernels line are those of the main paths only: Q6 (phases 4-5)
-for the capacity-1 kernels and Q1 (phases 6-7) for the grouped ones, each
-counted from 0 just before its path and read just after.
+Phase 3 also holds the mask and top-K kernels to their plain versions on
+seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
+REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
+blocks).  Then the card's line, the kernels line and, last, the ok line.
+The launch counts in the kernels line are those of the main paths only: Q6
+(phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
+ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
+top-K kernels, each counted from 0 just before its path and read just
+after.
 """
 
 from __future__ import annotations
@@ -55,6 +72,9 @@ SEED = 0
 COLD_ROWS = 1_000_000  # bench.py's BENCH_COLD_ROWS default
 WARM_ROWS = 100_000_000  # BASELINE config 4
 WARM_ROWS_FLOOR = 10_000_000  # BASELINE config 3
+FILTER_ROWS = 10_000_000  # BASELINE config 2
+SCAN_LIMIT = 100_000  # bench._filter_dag's Limit
+TOPN_K = 100  # bench._topn_endpoint's TopN
 
 
 def emit(obj) -> None:
@@ -242,8 +262,89 @@ def phase_group_kernels(ga, fx, device) -> dict:
     return errs
 
 
+def same_state(a, b) -> bool:
+    """Two top-K states ``(ints, flts, run)`` bit for bit."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int64), b[1].view(torch.int64))
+            and torch.equal(a[2], b[2]))
+
+
+def block_of(img, b: int):
+    """Block ``b`` of a stacked image as a one-block image."""
+    from tikv_tpu_torch.copr.fused_agg import Image
+
+    return Image([c[b : b + 1] for c in img.cols],
+                 [None if m is None else m[b : b + 1] for m in img.nulls],
+                 int(img.n_valids[b]), 1, img.block_rows, img.device)
+
+
+def check_topn_kernels(ft, prog, cand, pay, what: str) -> None:
+    """Each top-K kernel against its plain version on one image (warm: one
+    step, ``src_base`` 0), all words and packed leaves exactly, and a rerun
+    bit-identical."""
+    runs = torch.empty((ft.n_tiles(prog, cand), prog.n_words, prog.k), dtype=torch.int64,
+                       device=cand.device)
+    ft.launch_candidates(prog, cand, runs, 0)
+    want_runs = ft.candidates_plain(prog, cand, 0)
+    if not torch.equal(runs, want_runs):
+        raise AssertionError(f"{what}: topn_candidates differs from its plain version")
+    level = torch.empty(((runs.shape[0] + 1) // 2, prog.n_words, prog.k), dtype=torch.int64,
+                        device=cand.device)
+    ft.launch_merge(runs, None, level)
+    if not torch.equal(level, ft.merge_plain(want_runs)):
+        raise AssertionError(f"{what}: topn_merge differs from its plain version")
+    del runs, want_runs, level
+    got = ft.topn_step(prog, cand, pay)
+    if not same_state(got, ft.topn_step(prog, cand, pay)):
+        raise AssertionError(f"{what}: two top-K runs are not bit-identical")
+    plain = plain_topn_step(ft, prog, cand, pay, None, 0)
+    if not same_state(got, plain):
+        raise AssertionError(f"{what}: topn_pack (or the chain) differs from its plain version")
+
+
+def phase_scan_kernels(fm, ft, fx, device) -> None:
+    """The mask and the top-K kernels against their plain versions on seeded
+    synthetic cases: the mask at a cold block and at config 2's 10M rows;
+    the top-K at K = 100 and K = 2048 over 16 blocks of 65,536 rows, warm
+    (one step) and cold (one step per block, the carry on the card)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    for n_blocks, block_rows in ((1, 1 << 16), (77, 1 << 17)):
+        prog, img = fx.synthetic_mask_case(n_blocks, block_rows, gen, device)
+        got = fm.fused_mask(prog, img)
+        if not (torch.equal(got, fm.fused_mask_plain(prog, img))
+                and torch.equal(got, fm.fused_mask(prog, img))):
+            raise AssertionError(f"fused_mask at {n_blocks} x {block_rows} differs or reruns differ")
+        emit({"phase": "kernels", "case": f"mask_{n_blocks}x{block_rows}",
+              "rows": int(img.n_valids if isinstance(img.n_valids, int) else img.n_valids.sum()),
+              "kept": int(got.sum()), "equal": True, "bit_identical_reruns": True})
+        del prog, img, got
+    for k in (TOPN_K, 2048):
+        prog, cand, pay = fx.synthetic_topn_case(16, 1 << 16, k, gen, device)
+        check_topn_kernels(ft, prog, cand, pay, f"synthetic K={k}")
+        state = plain = None
+        for b in range(16):
+            blk = block_of(cand, b)
+            state = ft.topn_step(prog, blk, blk, state, src_base=k)
+            plain = plain_topn_step(ft, prog, blk, blk, plain, k)
+            if not same_state(state, plain):
+                raise AssertionError(f"synthetic K={k}: cold step {b} differs from the plain one")
+        n_out = int((state[0][0] == 0).sum())
+        emit({"phase": "kernels", "case": f"topn_k{k}_16x65536", "rows": int(cand.n_valids.sum()),
+              "tile": prog.tile, "words": prog.n_words, "active_out": n_out, "equal": True,
+              "cold_carry_blocks": 16, "bit_identical_reruns": True})
+        del prog, cand, pay, state, plain
+        torch.cuda.empty_cache()
+
+
+def plain_topn_step(ft, prog, cand, pay, carry, src_base: int):
+    """``topn_step`` through the plain versions, on the image's own device."""
+    run = ft._merge_all(ft.candidates_plain(prog, cand, src_base),
+                        None if carry is None else carry[2], cuda=False)
+    return ft.pack_plain(prog, run, pay, carry, src_base)
+
+
 # ---------------------------------------------------------------------------
-# phases 4-9
+# phases 4-11
 # ---------------------------------------------------------------------------
 
 def warm_rows_that_fit(want: int, floor: int) -> tuple[int, str | None]:
@@ -338,6 +439,86 @@ def time_group_kernels(ga, prog, img, cap: int, iters: int) -> dict:
             "max_abs_err_combine": err_c}
 
 
+def time_mask(fm, prog, img) -> dict:
+    """CUDA-event ms of ``fused_mask`` over a stacked image, its plain
+    version's, and the yardstick: the same mask from torch comparisons over
+    config 2's three columns (shipdate, quantity, extendedprice in the
+    image's slot order 1, 2, 4 -> 0, 1, 2).  Bound: the valid rows of the
+    shipped columns and ``n_valids`` read once, the mask written once."""
+    from tikv_tpu_torch import fixtures as fx
+
+    out = torch.empty((img.n_blocks, img.block_rows), dtype=torch.bool, device=img.device)
+    ms = cuda_ms(lambda: fm.launch_mask(prog, img, out), 20)
+    if not torch.equal(out, fm.fused_mask_plain(prog, img)):
+        raise AssertionError("timed fused_mask differs from its plain version")
+    plain_ms = cuda_ms(lambda: fm.fused_mask_plain(prog, img), 3, warmup=1)
+    qty, price, ship = img.cols
+    lane = torch.arange(img.block_rows, device=img.device)
+
+    def library():
+        return ((lane[None, :] < img.n_valids[:, None]) & (ship < fx.SELECTIVE_SHIP_LT)
+                & (qty > fx.FILTER_QTY_GT) & (price >= fx.FILTER_PRICE_GE * 100))
+
+    if not torch.equal(library(), out):
+        raise AssertionError("the torch yardstick computes another mask")
+    lib_ms = cuda_ms(library, 20)
+    rows = int(img.n_valids.sum())
+    b_ms, b_by = bound(rows * 8 * len(prog.col_f64) + img.n_blocks * 8 + out.numel(),
+                       rows * len(prog.code))
+    return {"rows": rows, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "torch comparisons and ANDs over the three columns and the valid lanes",
+            "bound_ms": b_ms, "bound_by": b_by, "kept": int(out.sum())}
+
+
+def time_topn(ft, prog, cand, pay) -> dict:
+    """CUDA-event ms of each top-K kernel at the warm raw-TopN shape (one
+    step, no carry), the plain versions' ms, and the yardstick
+    ``torch.topk`` over the first key's column alone (it computes less: one
+    key, no selection, no stable tie order).  Bounds: bytes read once and
+    written once -- the candidate columns' valid rows and the runs out
+    (candidates), the runs in and out per merge level (merge), the run, the
+    K winners' payload and the packed state (pack)."""
+    dev, k, w = cand.device, prog.k, prog.n_words
+    nt = ft.n_tiles(prog, cand)
+    runs = torch.empty((nt, w, k), dtype=torch.int64, device=dev)
+    cand_ms = cuda_ms(lambda: ft.launch_candidates(prog, cand, runs, 0), 5)
+    levels, n = 0, nt
+    merge_bytes = 0
+    while n > 1:
+        merge_bytes += (n + (n + 1) // 2) * w * k * 8
+        n, levels = (n + 1) // 2, levels + 1
+    merge_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=True), 5) / max(levels, 1)
+    run = ft._merge_all(runs, None, cuda=True)
+    out = (torch.empty((prog.n_int, k), dtype=torch.int64, device=dev),
+           torch.empty((prog.n_f64, k), dtype=torch.float64, device=dev))
+    nxt = torch.empty((w, k), dtype=torch.int64, device=dev)
+    pack_ms = cuda_ms(lambda: ft.launch_pack(prog, run, pay, None, 0, out, nxt), 50)
+    cand_plain_ms = cuda_ms(lambda: ft.candidates_plain(prog, cand, 0), 2, warmup=1)
+    want_runs = ft.candidates_plain(prog, cand, 0)
+    merge_plain_ms = cuda_ms(lambda: ft._merge_all(want_runs, None, cuda=False), 2,
+                             warmup=1) / max(levels, 1)
+    pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
+    key = pay.cols[2].reshape(-1)  # extendedprice, the first key
+    lib_ms = cuda_ms(lambda: torch.topk(key, k), 5)
+    rows = int(cand.n_valids.sum())
+    c_bound = bound(rows * 8 * len(prog.col_f64) + cand.n_blocks * 8 + nt * w * k * 8,
+                    rows * len(prog.code))
+    m_bound = bound(merge_bytes // max(levels, 1), merge_bytes // (8 * max(levels, 1)))
+    p_bound = bound(w * k * 8 * 2 + k * 9 * len(prog.pay_f64) + (prog.n_int + prog.n_f64) * k * 8,
+                    k * len(prog.pay_f64))
+    return {"rows": rows, "k": k, "tile": prog.tile, "words": w, "tiles": nt,
+            "merge_levels": levels,
+            "topn_candidates": {"ms": cand_ms, "plain_ms": cand_plain_ms,
+                                "bound_ms": c_bound[0], "bound_by": c_bound[1]},
+            "topn_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms,
+                           "bound_ms": m_bound[0], "bound_by": m_bound[1],
+                           "per_request_ms": merge_ms * levels},
+            "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms,
+                          "bound_ms": p_bound[0], "bound_by": p_bound[1]},
+            "library_ms": lib_ms,
+            "library": "torch.topk over the first key's column alone (one key, no selection)"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -346,10 +527,17 @@ def main() -> int:
     from tikv_tpu_torch import fixtures as fx
     from tikv_tpu_torch.copr import fused_agg as fa
     from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr import fused_mask as fm
+    from tikv_tpu_torch.copr import fused_topn as ft
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
     from tikv_tpu_torch.copr.executors import FixtureScanSource
     from tikv_tpu_torch.copr.groupby import GroupDict
-    from tikv_tpu_torch.copr.torch_eval import GROUP_CAPACITY_START, TorchDagEvaluator, _capacity_for
+    from tikv_tpu_torch.copr.torch_eval import (
+        GROUP_CAPACITY_START,
+        TorchDagEvaluator,
+        _capacity_for,
+        _pick,
+    )
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -367,6 +555,7 @@ def main() -> int:
 
     errs = phase_kernels(fa, fx, device)
     errs.update(phase_group_kernels(ga, fx, device))
+    phase_scan_kernels(fm, ft, fx, device)
 
     # ---- the Q6 main path: counts from 0 here to the end of phase 5 -------
     fa.reset_launches()
@@ -417,6 +606,7 @@ def main() -> int:
     want_q1_cold = fx.q1_oracle(cold_arrays)
     want_q1 = fx.q1_oracle(arrays)
     want_qty = fx.qty_oracle(arrays)
+    want_topn = fx.topn_oracle(arrays, TOPN_K)
     del arrays
     fa.reset_launches()
     q1_wire = dag_to_wire(fx.q1_dag())
@@ -461,6 +651,111 @@ def main() -> int:
           "rows": n_warm, "groups": len(want_qty), "matches_oracle": True,
           "seconds_first_with_pin": qty_s[0], "seconds": qty_s[1:],
           "pinned_bytes": cache.device_nbytes(), "launches": q1_launches, "card": card})
+
+    # ---- configs 1-2, the scan/filter main path: counts from 0 here to the
+    # end of phase 8 -----------------------------------------------------------
+    a10 = fx.build_arrays(FILTER_ROWS, SEED)
+    cache10 = fx.build_cache(FILTER_ROWS, 1 << 17, SEED, arrays=a10)
+    wants = {"cold_scan": fx.filter_oracle(cold_arrays, "scan", SCAN_LIMIT),
+             "cold_filter": fx.filter_oracle(cold_arrays, "filter", SCAN_LIMIT),
+             "warm_filter": fx.filter_oracle(a10, "filter", SCAN_LIMIT),
+             "warm_selective": fx.filter_oracle(a10, "selective", None)}
+    kept = {"cold_filter": int(fx.filter_mask(cold_arrays, "filter").sum()),
+            "warm_filter": int(fx.filter_mask(a10, "filter").sum()),
+            "warm_selective": int(fx.filter_mask(a10, "selective").sum())}
+    del a10
+    scan_evs = {
+        "cold_scan": TorchDagEvaluator(dag_to_wire(fx.filter_dag("scan", SCAN_LIMIT)),
+                                       block_rows=1 << 16, device="cuda"),
+        "cold_filter": TorchDagEvaluator(dag_to_wire(fx.filter_dag("filter", SCAN_LIMIT)),
+                                         block_rows=1 << 16, device="cuda"),
+        "warm_filter": TorchDagEvaluator(dag_to_wire(fx.filter_dag("filter", SCAN_LIMIT)),
+                                         block_rows=1 << 17, device="cuda"),
+        "warm_selective": TorchDagEvaluator(dag_to_wire(fx.filter_dag("selective", None)),
+                                            block_rows=1 << 17, device="cuda"),
+    }
+    fa.reset_launches()
+    scan_s, scan_per_request = {}, {}
+    for name, ev_x in scan_evs.items():
+        before = fa.LAUNCHES["fused_mask"]
+        runs = 2 if name.startswith("cold") else 4  # a warm path's first run pins the image
+        scan_s[name] = []
+        for _ in range(runs):
+            resp, t = timed_run(ev_x, FixtureScanSource(kvs) if name.startswith("cold") else None,
+                                None if name.startswith("cold") else cache10)
+            check_rows(resp, wants[name], name.replace("_", " "))
+            scan_s[name].append(t)
+        scan_per_request[name] = (fa.LAUNCHES["fused_mask"] - before) / runs
+    scan_launches = dict(fa.LAUNCHES)
+    # ---- end of the scan/filter main path ------------------------------------
+    for name, secs in scan_s.items():
+        cold = name.startswith("cold")
+        emit({"phase": "scan", "query": name, "rows": n_cold if cold else FILTER_ROWS,
+              "block_rows": 1 << 16 if cold else 1 << 17, "rows_out": len(wants[name]),
+              "rows_passing": kept.get(name), "matches_oracle": True, "seconds": secs,
+              "best_s": min(secs) if cold else sorted(secs[1:])[1],
+              "output_rows_per_s": len(wants[name]) / (min(secs) if cold else sorted(secs[1:])[1]),
+              "mask_launches_per_request": scan_per_request[name], "card": card})
+    del wants
+
+    # ---- the raw TopN main path: counts from 0 here to its end ---------------
+    want_topn_cold = fx.topn_oracle(cold_arrays, TOPN_K)
+    topn_wire = dag_to_wire(fx.topn_dag(TOPN_K))
+    ev_tc = TorchDagEvaluator(topn_wire, block_rows=1 << 16, device="cuda")
+    ev_tw = TorchDagEvaluator(topn_wire, block_rows=1 << 17, device="cuda")
+    fa.reset_launches()
+    topn_cold_s = []
+    for _ in range(2):
+        resp, t = timed_run(ev_tc, FixtureScanSource(kvs), None)
+        check_rows(resp, want_topn_cold, "cold raw TopN")
+        topn_cold_s.append(t)
+    topn_cold_launches = dict(fa.LAUNCHES)
+    topn_warm_s = []
+    for _ in range(4):  # the first pins the image
+        resp, t = timed_run(ev_tw, None, cache)
+        check_rows(resp, want_topn, "warm raw TopN")
+        topn_warm_s.append(t)
+    topn_launches = dict(fa.LAUNCHES)
+    # ---- end of the raw TopN main path ---------------------------------------
+    per_req = {k: (topn_launches[k] - topn_cold_launches[k]) / 4
+               for k in ("topn_candidates", "topn_merge", "topn_pack")}
+    emit({"phase": "topn", "query": "raw_topn_cold", "rows": n_cold, "block_rows": 1 << 16,
+          "k": TOPN_K, "matches_oracle": True, "seconds": topn_cold_s,
+          "rows_per_s": n_cold / min(topn_cold_s),
+          "launches_per_request": {k: topn_cold_launches[k] / 2
+                                   for k in ("topn_candidates", "topn_merge", "topn_pack")},
+          "card": card})
+    emit({"phase": "topn", "query": "raw_topn_warm", "rows": n_warm, "block_rows": 1 << 17,
+          "reduced": cut, "k": TOPN_K, "matches_oracle": True,
+          "first_run_with_pin_s": topn_warm_s[0], "seconds": topn_warm_s[1:],
+          "rows_per_s": n_warm / sorted(topn_warm_s[1:])[1], "launches_per_request": per_req,
+          "launches": topn_launches, "card": card})
+
+    # ---- BASELINE config 4, Q1 + TopN (the grouped kernels, then the host
+    # TopN over six groups) -------------------------------------------------
+    q1t_wire = dag_to_wire(fx.q1_topn_dag())
+    ev_q1t_c = TorchDagEvaluator(q1t_wire, block_rows=1 << 16, device="cuda")
+    ev_q1t_w = TorchDagEvaluator(q1t_wire, block_rows=1 << 17, device="cuda")
+    keys_at = [ev_q1t_w.plan.agg_schema[c.index][0].value
+               for c, _desc in ev_q1t_w.plan.topn.order_by]
+    if keys_at != ["bytes", "bytes"] or len(ev_q1t_w.plan.agg_schema) != 9:
+        raise AssertionError(f"Q1 + TopN keys are not the group keys: {keys_at}")
+    fa.reset_launches()
+    q1t_s = {"cold": [], "warm": []}
+    for _ in range(2):
+        resp, t = timed_run(ev_q1t_c, FixtureScanSource(kvs), None)
+        check_rows(resp, fx.q1_topn_oracle(want_q1_cold), "cold Q1 + TopN")
+        q1t_s["cold"].append(t)
+    for _ in range(4):
+        resp, t = timed_run(ev_q1t_w, None, cache)
+        check_rows(resp, fx.q1_topn_oracle(want_q1), "warm Q1 + TopN")
+        q1t_s["warm"].append(t)
+    q1t_launches = dict(fa.LAUNCHES)
+    emit({"phase": "topn", "query": "q1_topn", "rows_cold": n_cold, "rows_warm": n_warm,
+          "groups": len(want_q1), "groups_out": len(fx.q1_topn_oracle(want_q1)),
+          "matches_oracle": True, "cold_seconds": q1t_s["cold"], "warm_seconds": q1t_s["warm"],
+          "warm_rows_per_s": n_warm / sorted(q1t_s["warm"])[2], "launches": q1t_launches,
+          "card": card})
 
     # ---- timings of each kernel at its main-path launch --------------------
     img = ev_w._stacked_device(cache)
@@ -529,20 +824,41 @@ def main() -> int:
           "group_warm_l_quantity": t_qty, "group_on_warm_q6": t_q6_grouped,
           "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
+    # the mask and the top-K kernels at their main-path shapes, held to their
+    # plain versions on the main path's own inputs
+    ev_sel = scan_evs["warm_selective"]
+    t_mask = time_mask(fm, ev_sel.plan.mask_program, ev_sel._stacked_device(cache10))
+    payload = list(range(len(ev_tw.plan.schema)))
+    pay_t = ev_tw._stacked_device(cache, payload)
+    cand_t = _pick(pay_t, payload, ev_tw.plan.device_cols)
+    check_topn_kernels(ft, ev_tw.plan.topn_program, cand_t, pay_t, "warm raw TopN")
+    t_topn = time_topn(ft, ev_tw.plan.topn_program, cand_t, pay_t)
+    del pay_t, cand_t
+    torch.cuda.empty_cache()
+    emit({"phase": "timings", "card": card, "fused_mask_warm_selective": t_mask,
+          "topn_warm": t_topn, "hbm_bytes_per_s": HBM_BYTES_PER_S})
+
     emit({"phase": "profile", "card": card,
           "cold": profile_runs(lambda: ev.run(FixtureScanSource(kvs)), 1),
           "warm": profile_runs(lambda: ev_w.run(None, cache), 3),
           "cold_q1": profile_runs(lambda: ev_c1.run(FixtureScanSource(kvs)), 1),
-          "warm_q1": profile_runs(lambda: ev_w1.run(None, cache), 3)})
+          "warm_q1": profile_runs(lambda: ev_w1.run(None, cache), 3),
+          "warm_filter_limit": profile_runs(lambda: scan_evs["warm_filter"].run(None, cache10), 1),
+          "warm_selective_filter": profile_runs(lambda: ev_sel.run(None, cache10), 3),
+          "cold_topn": profile_runs(lambda: ev_tc.run(FixtureScanSource(kvs)), 1),
+          "warm_topn": profile_runs(lambda: ev_tw.run(None, cache), 3)})
     del kvs
 
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
-                 "fused_group_agg_combine_pack": q1_launches}
+                 "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
+                 "topn_candidates": topn_launches, "topn_merge": topn_launches,
+                 "topn_pack": topn_launches}
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
     src = "tikv_tpu_torch/csrc/fused_agg.cu"
+    scan_src = "tikv_tpu_torch/csrc/fused_scan.cu"
     group_p_err = max(errs["fused_group_agg_partials"], t_warm_q1["max_abs_err_partials"],
                       t_cold_q1["max_abs_err_partials"], t_qty["max_abs_err_partials"])
     group_c_err = max(errs["fused_group_agg_combine_pack"], t_warm_q1["max_abs_err_combine"],
@@ -579,6 +895,24 @@ def main() -> int:
          "ms": t_warm_q1["combine_ms"], "plain_ms": t_warm_q1["combine_plain_ms"],
          "bound_ms": t_warm_q1["combine_bound_ms"],
          "bound_by": t_warm_q1["combine_bound_by"], "library_ms": None},
+        {"name": "fused_mask", "route": "cuda", "source": scan_src,
+         "replaces": "tikv_tpu/copr/jax_eval.py:831", "launches": scan_launches["fused_mask"],
+         "max_abs_err": 0.0, "ms": t_mask["ms"], "plain_ms": t_mask["plain_ms"],
+         "bound_ms": t_mask["bound_ms"], "bound_by": t_mask["bound_by"],
+         "library_ms": t_mask["library_ms"]},
+    ] + [
+        {"name": name, "route": "cuda", "source": scan_src, "replaces": replaces,
+         "replaces_also": also, "launches": topn_launches[name], "max_abs_err": 0.0,
+         "ms": t_topn[name]["ms"], "plain_ms": t_topn[name]["plain_ms"],
+         "bound_ms": t_topn[name]["bound_ms"], "bound_by": t_topn[name]["bound_by"],
+         # torch.topk is the yardstick of the whole top-K step: it stands
+         # beside the kernel that reads the rows
+         "library_ms": t_topn["library_ms"] if name == "topn_candidates" else None}
+        for name, replaces, also in (
+            ("topn_candidates", "tikv_tpu/copr/jax_eval.py:1537",
+             ["tikv_tpu/copr/jax_eval.py:673", "tikv_tpu/copr/jax_eval.py:651"]),
+            ("topn_merge", "tikv_tpu/copr/jax_eval.py:673", ["tikv_tpu/copr/jax_eval.py:1537"]),
+            ("topn_pack", "tikv_tpu/copr/jax_eval.py:1632", ["tikv_tpu/copr/jax_eval.py:710"]))
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

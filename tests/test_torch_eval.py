@@ -223,11 +223,10 @@ def _declined():
     q1 = bench.q1_dag()
     q1.executors[-1].streamed = True  # stream agg keyed on (flag, status): not scan order
     return {
-        "plan_shape_not_ported": DagRequest(executors=[scan, TopN([(col(1), False)], 10)]),
-        "scan_filter": DagRequest(executors=[scan, Selection(_q6_conds())]),
         "index_scan_not_ported": DagRequest(
             executors=[IndexScan(bench.TABLE_ID, 1, cols[1:3]), agg]),
-        "post_agg_not_ported": DagRequest(executors=[scan, agg, Limit(1)]),
+        "topn_limit_too_large": DagRequest(executors=[scan, TopN([(col(1), False)], 2049)]),
+        "bytes_sort_key": DagRequest(executors=[scan, TopN([(col(5), False)], 10)]),
         "agg_op_outside_the_ten": DagRequest(
             executors=[scan, Aggregation([], [AggDescriptor("approx_count_distinct", col(1))])]),
         "op_not_ported": DagRequest(executors=[scan, Aggregation(
@@ -238,7 +237,7 @@ def _declined():
 
 
 DECLINE_CAUSE = {
-    "scan_filter": "plan_shape_not_ported",
+    "bytes_sort_key": "bytes_predicate",
     "agg_op_outside_the_ten": "agg_op_not_ported",
 }
 
@@ -259,10 +258,18 @@ def test_q6_is_eligible():
 
 
 def _served():
-    """Plans the first slice declined (by these cause names) that GROUP BY
-    and the ten device aggregates now serve."""
+    """Plans earlier slices declined (by these cause names) that later ones
+    serve: GROUP BY and the ten device aggregates; scan/filter, raw TopN and
+    a TopN or Limit after an aggregation."""
     scan = TableScan(bench.TABLE_ID, bench._lineitem())
+    agg = Aggregation([], [AggDescriptor("sum", col(1))])
+    q1_topn = bench.q1_dag()
+    q1_topn.executors.append(TopN([(col(7), False), (col(8), True)], 4))
     return {
+        "plan_shape_not_ported": DagRequest(executors=[scan, TopN([(col(1), False)], 10)]),
+        "scan_filter": DagRequest(executors=[scan, Selection(_q6_conds())]),
+        "post_agg_not_ported": DagRequest(executors=[scan, agg, Limit(1)]),
+        "post_agg_topn": q1_topn,
         "group_by_not_ported": bench.q1_dag(),
         "agg_op_not_ported": DagRequest(
             executors=[scan, Aggregation([], [AggDescriptor("var_pop", col(1))])]),

@@ -175,10 +175,11 @@ def test_partials_then_combine_equals_fused_plain():
 
 
 def test_opcodes_match_the_cuda_source():
-    source = Path(fa.__file__).resolve().parent.parent / "csrc" / "fused_agg.cu"
+    csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / "fa_walk.cuh").read_text() + (csrc / "fused_agg.cu").read_text()
     table = {m.group(1): int(m.group(2))
-             for m in re.finditer(r"FA_(OP_\w+|AGG_\w+) = (\d+)", source.read_text())}
-    assert len(table) == 27
+             for m in re.finditer(r"FA_(OP_\w+|AGG_\w+) = (\d+)", text)}
+    assert len(table) == 28
     names = {k: v for k, v in vars(fa).items() if k.startswith(("OP_", "AGG_")) and isinstance(v, int)}
     assert table == names
 
@@ -224,3 +225,17 @@ def test_kernel_path_refuses_cpu_and_other_devices():
     meta = fa.Image(img.cols, img.nulls, 64, 1, 64, torch.device("meta"))
     with pytest.raises(ValueError, match="no fused_agg"):
         fa.fused_agg(prog, meta)
+
+
+def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
+    from tikv_tpu_torch import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in ("fused_agg.cu", "fused_scan.cu", "fa_walk.cuh"):
+        (csrc / f).write_bytes((_build.PACKAGE_DIR / "csrc" / f).read_bytes())
+    monkeypatch.setattr(_build, "PACKAGE_DIR", tmp_path)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    (csrc / "fa_walk.cuh").write_text((csrc / "fa_walk.cuh").read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)  # both sources include it

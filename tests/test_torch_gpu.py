@@ -11,6 +11,9 @@ import torch
 from tikv_tpu_torch import fixtures as fx
 from tikv_tpu_torch.copr import fused_agg as fa
 from tikv_tpu_torch.copr import fused_group_agg as ga
+from tikv_tpu_torch.copr import fused_mask as fm
+from tikv_tpu_torch.copr import fused_topn as ft
+from tikv_tpu_torch.copr.fused_agg import Image
 from tikv_tpu_torch.copr.dag_wire import dag_to_wire
 from tikv_tpu_torch.copr.executors import FixtureScanSource
 from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
@@ -152,3 +155,84 @@ def test_warm_q1_and_a_host_id_group_by_match_the_oracle(cuda):
     assert fa.LAUNCHES["fused_group_agg_partials"] == 2  # one per query, coded ids
     ev_q = TorchDagEvaluator(dag_to_wire(fx.qty_dag()), block_rows=1 << 17, device=cuda)
     assert ev_q.run(None, cache).iter_rows() == fx.qty_oracle(a)
+
+
+# -- the mask and the top-K kernels --------------------------------------------
+
+@pytest.mark.parametrize("n_blocks,block_rows", [(1, 1 << 16), (40, 1 << 17)])
+def test_mask_kernel_matches_plain_version(cuda, n_blocks, block_rows):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    prog, img = fx.synthetic_mask_case(n_blocks, block_rows, gen, cuda)
+    got = fm.fused_mask(prog, img)
+    assert torch.equal(got, fm.fused_mask_plain(prog, img))
+    assert torch.equal(got, fm.fused_mask(prog, img))
+
+
+def _block(img, b):
+    return Image([c[b : b + 1] for c in img.cols],
+                 [None if m is None else m[b : b + 1] for m in img.nulls],
+                 int(img.n_valids[b]), 1, img.block_rows, img.device)
+
+
+def _assert_state(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int64), want[1].view(torch.int64))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("k", [1, 100, 2048])
+def test_topn_kernels_match_plain_versions(cuda, k):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    prog, cand, pay = fx.synthetic_topn_case(12, 1 << 14, k, gen, cuda)
+    # warm: one step over every block
+    got = ft.topn_step(prog, cand, pay)
+    _assert_state(got, ft.topn_step(prog, cand, pay))  # bit-identical rerun
+    plain = ft._merge_all(ft.candidates_plain(prog, cand, 0), None, cuda=False)
+    _assert_state(got, ft.pack_plain(prog, plain, pay, None, 0))
+    # each kernel alone
+    runs = torch.empty((ft.n_tiles(prog, cand), prog.n_words, k), dtype=torch.int64, device=cuda)
+    ft.launch_candidates(prog, cand, runs, 0)
+    want_runs = ft.candidates_plain(prog, cand, 0)
+    assert torch.equal(runs, want_runs)
+    merged = torch.empty(((runs.shape[0] + 2) // 2, prog.n_words, k), dtype=torch.int64,
+                         device=cuda)
+    ft.launch_merge(runs, runs[0].clone(), merged)
+    assert torch.equal(merged, ft.merge_plain(want_runs, want_runs[0].clone()))
+    # cold: one step per block, the carry on the card
+    state = plain_state = None
+    for b in range(12):
+        blk = _block(cand, b)
+        state = ft.topn_step(prog, blk, blk, state, src_base=k)
+        plain_state = ft.topn_step(prog, _to_cpu(blk), _to_cpu(blk),
+                                   None if plain_state is None else plain_state, src_base=k)
+        _assert_state(tuple(None if t is None else t.cpu() for t in state), plain_state)
+    n_out = int((got[0][0] == 0).sum())
+    assert torch.equal(state[0][:, :n_out], got[0][:, :n_out])
+
+
+def _to_cpu(img):
+    return Image([c.cpu() for c in img.cols], [None if m is None else m.cpu() for m in img.nulls],
+                 img.n_valids, img.n_blocks, img.block_rows, torch.device("cpu"))
+
+
+def test_filter_and_topn_plans_match_their_oracles(cuda):
+    n = 400_000
+    a = fx.build_arrays(n, seed=7)
+    kvs = fx.build_kvs(n, seed=7)
+    cache = fx.build_cache(n, 1 << 16, seed=7, arrays=a)
+    fa.reset_launches()
+    for kind, limit in (("scan", 1000), ("filter", 5000), ("selective", None)):
+        ev = TorchDagEvaluator(dag_to_wire(fx.filter_dag(kind, limit)), block_rows=1 << 16,
+                               device=cuda)
+        want = fx.filter_oracle(a, kind, limit)
+        assert ev.run(FixtureScanSource(kvs)).iter_rows() == want
+        assert ev.run(None, cache).iter_rows() == want
+    assert fa.LAUNCHES["fused_mask"] > 0
+    ev = TorchDagEvaluator(dag_to_wire(fx.topn_dag(100)), block_rows=1 << 16, device=cuda)
+    assert ev.run(FixtureScanSource(kvs)).iter_rows() == fx.topn_oracle(a, 100)
+    assert ev.run(None, cache).iter_rows() == fx.topn_oracle(a, 100)
+    ev = TorchDagEvaluator(dag_to_wire(fx.q1_topn_dag()), block_rows=1 << 16, device=cuda)
+    assert ev.run(FixtureScanSource(kvs)).iter_rows() == fx.q1_topn_oracle(fx.q1_oracle(a))
+    assert ev.run(None, cache).iter_rows() == fx.q1_topn_oracle(fx.q1_oracle(a))
+    for name in ("topn_candidates", "topn_merge", "topn_pack"):
+        assert fa.LAUNCHES[name] > 0, name

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles, at first use, into a shared library
 with a plain C interface under ``build/kernels/`` at the checkout's root
-(listed in ``.gitignore``).  The library's name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale build is never loaded.
+(listed in ``.gitignore``).  The library's name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale build is never loaded.
 ``build_all`` starts one nvcc per source, all at once, and waits for them.
 """
 
@@ -21,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 #: kernel library name -> source, relative to the package
-SOURCES = {"fused_agg": "csrc/fused_agg.cu"}
+SOURCES = {"fused_agg": "csrc/fused_agg.cu", "fused_scan": "csrc/fused_scan.cu"}
 
 # -fmad=false: no fused multiply-add, so per-row f64 arithmetic rounds as
 # numpy and torch round it; -Xptxas -v reports registers, spills and smem
@@ -48,7 +49,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (PACKAGE_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted((PACKAGE_DIR / "csrc").glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

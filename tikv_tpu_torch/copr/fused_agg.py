@@ -45,7 +45,7 @@ NO_ROW = 1 << 62  # first-row sentinel of the packed state
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
 
-# opcodes: the same table as the enum in csrc/fused_agg.cu
+# opcodes: the same table as the enum in csrc/fa_walk.cuh
 OP_COL = 1
 OP_CONST = 2
 OP_NULL = 3
@@ -69,6 +69,7 @@ OP_MUL = 20
 OP_FILTER = 21
 OP_AGG = 22
 OP_COUNT1 = 23
+OP_KEY = 24
 
 AGG_COUNT = 0
 AGG_SUM = 1
@@ -88,9 +89,11 @@ _AGG_KIND = {"count": AGG_COUNT, "sum": AGG_SUM, "avg": AGG_SUM, "min": AGG_MIN,
 CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 
 #: launches of each CUDA kernel, counted where its wrapper launches it (the
-#: grouped pair's wrappers are in ``copr/fused_group_agg.py``)
+#: grouped pair's wrappers are in ``copr/fused_group_agg.py``, the mask's in
+#: ``copr/fused_mask.py``, the top-K kernels' in ``copr/fused_topn.py``)
 LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
-            "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0}
+            "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0,
+            "fused_mask": 0, "topn_candidates": 0, "topn_merge": 0, "topn_pack": 0}
 
 
 def reset_launches() -> None:
@@ -244,6 +247,18 @@ def emit_program(sel_rpns, aggs, ship_cols, schema) -> tuple[_Emitter, list[bool
     return em, lane_f64
 
 
+def emit_keys(em: _Emitter, key_rpns) -> list[bool]:
+    """Append one OP_KEY per sort key to ``em``'s bytecode; returns whether
+    each key's value lane is f64."""
+    key_f64 = []
+    for q, rpn in enumerate(key_rpns):
+        is_f = em.expr(rpn)
+        em.emit(_word(OP_KEY, q, int(is_f)))
+        em.types.pop()
+        key_f64.append(is_f)
+    return key_f64
+
+
 def compile_program(sel_rpns, aggs, ship_cols, schema) -> Program:
     """The capacity-1 program of ``fused_agg_partials`` (count, sum, avg,
     min, max; no GROUP BY): :func:`emit_program`'s bytecode and the leaf
@@ -324,9 +339,11 @@ def _walk(prog: Program, img: Image):
     return walk_rows(prog, img, len(prog.aggs))[0]
 
 
-def walk_rows(prog, img: Image, n_aggs: int):
-    """:func:`_walk` for any program of ``n_aggs`` aggregates (this module's
-    or the grouped one), also returning the rows that passed the selection."""
+def walk_rows(prog, img: Image, n_aggs: int, keys: list | None = None):
+    """:func:`_walk` for any program of ``n_aggs`` aggregates (this module's,
+    the grouped one, the mask's or the top-K's), also returning the rows that
+    passed the selection.  Sort key ``q`` (OP_KEY) goes to ``keys[q]`` as
+    ``(value, null)``."""
     n = img.n_blocks * img.block_rows
     dev = img.device
     active = _valid_mask(img)
@@ -362,6 +379,8 @@ def walk_rows(prog, img: Image, n_aggs: int):
             out[arg] = (active & ~nl, d)
         elif op == OP_COUNT1:
             out[arg] = (active, None)
+        elif op == OP_KEY:
+            keys[arg] = stack.pop()
         else:
             raise ValueError(f"bad opcode {op}")
     return out, active

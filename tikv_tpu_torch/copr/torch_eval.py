@@ -1,8 +1,21 @@
 """PyTorch/CUDA DAG evaluator — the port of ``tikv_tpu/copr/jax_eval.py``.
 
-This slice serves aggregations (``TableScan → Selection? → Aggregation``,
-with or without GROUP BY, over the ten device aggregates; e.g. TPC-H Q6 and
-Q1) on one device:
+It serves three plan shapes over a table scan on one device, each cold from
+a scan source and warm from a filled block cache:
+
+* ``TableScan → Selection? → Aggregation → TopN?/Limit?`` (with or without
+  GROUP BY, over the ten device aggregates; e.g. TPC-H Q6 and Q1): below;
+  a TopN or Limit after the aggregation orders or cuts the small aggregated
+  chunk on the host (``BatchTopNExecutor``), as the JAX package does;
+* ``TableScan → Selection? → Limit?``: the selection mask per block
+  (``copr/fused_mask.py``; none without a selection), one pull of it, host
+  compaction and response encoding; with a Limit, cold blocks stop after the
+  one that fills it and warm launches cover a doubling prefix of blocks;
+* ``TableScan → Selection? → TopN → Limit?``: the running top-K
+  (``copr/fused_topn.py``), the carry on the device across cold blocks, one
+  launch chain over the warm image, one packed pull of K rows.
+
+Aggregations run as follows:
 
     cold: scan → RowBatchDecoder (one block ahead, on a worker thread)
           → host group ids (GroupDict, first-occurrence order) → pinned host
@@ -25,7 +38,7 @@ the CPU pipeline do, so the response bytes are identical.  All integer and
 decimal arithmetic is exact (int64 lanes); REAL sums differ from the CPU in
 last-ulp rounding only.
 
-Plans outside the slice are declined with a named cause
+Plans outside these shapes are declined with a named cause
 (:func:`decline_cause`), never run.
 """
 
@@ -33,6 +46,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from contextlib import closing
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,7 +67,13 @@ from .dag import (
 )
 from .dag_wire import dag_from_wire
 from .datatypes import NOT_NULL_FLAG, Chunk, Column, EvalType
-from .executors import ScanSource, _coded_group_parts, cols_for_eval
+from .executors import (
+    BatchTopNExecutor,
+    ChunkExecutor,
+    ScanSource,
+    _coded_group_parts,
+    host_eval,
+)
 from .fused_agg import (
     AGG_COUNT,
     CAPACITY_ONE_OPS,
@@ -72,9 +92,11 @@ from .fused_group_agg import (
     grow_carry,
     init_packed,
 )
+from .fused_mask import compile_mask_program, fused_mask
+from .fused_topn import TopnProgram, compile_topn_program, topn_step
 from .groupby import GroupDict
 from .kernels import KERNELS
-from .rpn import ColumnRef, FuncCall, RpnExpression, compile_expr, eval_rpn
+from .rpn import ColumnRef, FuncCall, RpnExpression, compile_expr
 from .table import RowBatchDecoder, decode_record_handles
 
 DEFAULT_BLOCK_ROWS = 1 << 16
@@ -84,6 +106,7 @@ DEFAULT_BLOCK_ROWS = 1 << 16
 GROUP_CAPACITY_START = 8
 _DEVICE_EVAL_TYPES = {EvalType.INT, EvalType.REAL, EvalType.DECIMAL, EvalType.DATETIME,
                       EvalType.DURATION}
+TOPN_DEVICE_MAX = 2048  # raw TopN carries K rows of state (jax_eval._TOPN_DEVICE_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -112,18 +135,36 @@ def decline_cause(dag: DagRequest) -> str | None:
 class _Plan:
     scan: TableScan
     selection: Selection | None
-    agg: Aggregation
+    agg: Aggregation | None
+    topn: TopN | None
+    limit: Limit | None
     schema: list
     sel_rpns: list[RpnExpression]
     agg_rpns: list  # (op, RpnExpression | None)
     group_rpns: list[RpnExpression]
+    topn_rpns: list  # raw TopN: (RpnExpression, desc)
+    # the columns the device program reads: the selection's and the
+    # aggregates' (aggregation, scan/filter) or the selection's and the sort
+    # keys' (raw TopN)
     device_cols: list[int]
     nullable_cols: list[int]
     # no GROUP BY and only count/sum/avg/min/max: fused_agg at capacity 1
-    program: Program | None
+    program: Program | None = None
     # otherwise fused_group_agg over device_cols: host group ids with GROUP
     # BY, the single slot without
-    group_program: GroupProgram | None
+    group_program: GroupProgram | None = None
+    # scan/filter with a selection: the mask's conjuncts
+    mask_program: Program | None = None
+    # raw TopN: the top-K program; every schema column is payload
+    topn_program: TopnProgram | None = None
+    # aggregation: [(eval_type, frac)] of the aggregated chunk's columns
+    agg_schema: list | None = None
+
+    @property
+    def k(self) -> int:
+        """Rows a raw TopN keeps: min(TopN limit, Limit)."""
+        k = self.topn.limit
+        return k if self.limit is None else min(k, self.limit.limit)
 
 
 def _ops_in(expr) -> set[str]:
@@ -145,6 +186,40 @@ def _streamed_in_scan_order(scan: TableScan, agg: Aggregation) -> bool:
         for g in agg.group_by)
 
 
+def _check_ops(exprs) -> None:
+    for e in exprs:
+        missing = _ops_in(e) - set(KERNELS)
+        if missing:
+            raise Unsupported(f"scalar functions {sorted(missing)}", "op_not_ported")
+
+
+def _check_no_bytes(rpns) -> None:
+    for rpn in rpns:
+        if any(n.eval_type in (EvalType.BYTES, EvalType.JSON) for n in rpn.nodes):
+            raise Unsupported("bytes in device expression", "bytes_predicate")
+
+
+def _split(execs) -> tuple:
+    """(selection, aggregation, TopN, Limit) of the executors after the
+    scan, in ``jax_eval._analyze``'s order: Selection, then Aggregation, then
+    TopN, then Limit, each at most once and each optional."""
+    selection = agg = topn = limit = None
+    for e in execs:
+        tail_seen = topn is not None or limit is not None
+        if isinstance(e, Selection) and selection is None and agg is None and not tail_seen:
+            selection = e
+        elif isinstance(e, Aggregation) and agg is None and not tail_seen:
+            agg = e
+        elif isinstance(e, TopN) and not tail_seen:
+            topn = e
+        elif isinstance(e, Limit) and limit is None:
+            limit = e
+        else:
+            raise Unsupported(f"executor {type(e).__name__} not device-routable here",
+                              "executor_shape")
+    return selection, agg, topn, limit
+
+
 def _analyze(dag: DagRequest) -> _Plan:
     execs = list(dag.executors)
     if not execs or not isinstance(execs[0], (TableScan, IndexScan)):
@@ -154,67 +229,116 @@ def _analyze(dag: DagRequest) -> _Plan:
         raise Unsupported("index scans are not ported", "index_scan_not_ported")
     if dag.encode_type != ENC_TYPE_DATUM:
         raise Unsupported("TypeChunk responses are not ported", "chunk_encoding_not_ported")
-    selection = agg = None
-    tail = []
-    for e in execs[1:]:
-        if isinstance(e, Selection) and agg is None and selection is None and not tail:
-            selection = e
-        elif isinstance(e, Aggregation) and agg is None and not tail:
-            agg = e
-        elif isinstance(e, (TopN, Limit)) and not tail:
-            tail.append(e)
-        else:
-            raise Unsupported(f"executor {type(e).__name__} not device-routable here",
-                              "executor_shape")
-    if agg is None:
-        raise Unsupported("raw TopN and scan/filter plans are not ported",
-                          "plan_shape_not_ported")
-    if tail:
-        raise Unsupported("post-aggregation TopN/Limit is not ported", "post_agg_not_ported")
+    selection, agg, topn, limit = _split(execs[1:])
     schema = [(c.ftype.eval_type, c.ftype.decimal) for c in scan.columns_info]
     for et, _ in schema:
         if et not in _DEVICE_EVAL_TYPES and et not in (EvalType.BYTES, EvalType.JSON):
             raise Unsupported(f"column type {et}", "column_type")
+    conds = list(selection.conditions) if selection else []
+    if agg is None:
+        return _analyze_scan(scan, selection, topn, limit, schema, conds)
     if agg.streamed and not _streamed_in_scan_order(scan, agg):
         raise Unsupported("streamed agg not sorted by group key", "streamed_agg_order")
     for a in agg.agg_funcs:
         if a.op not in PORTED_AGG_OPS:
             raise Unsupported(f"aggregate {a.op}", "agg_op_not_ported")
-    exprs = list(selection.conditions) if selection else []
-    exprs += [a.expr for a in agg.agg_funcs if a.expr is not None]
-    exprs += list(agg.group_by)
-    for e in exprs:
-        missing = _ops_in(e) - set(KERNELS)
-        if missing:
-            raise Unsupported(f"scalar functions {sorted(missing)}", "op_not_ported")
-    sel_rpns = [compile_expr(c, schema) for c in (selection.conditions if selection else [])]
+    post_keys = [e for e, _ in topn.order_by] if topn else []
+    _check_ops(conds + [a.expr for a in agg.agg_funcs if a.expr is not None]
+               + list(agg.group_by) + post_keys)
+    sel_rpns = [compile_expr(c, schema) for c in conds]
     agg_rpns = [(a.op, compile_expr(a.expr, schema) if a.expr is not None else None)
                 for a in agg.agg_funcs]
     group_rpns = [compile_expr(g, schema) for g in agg.group_by]
-    for rpn in sel_rpns + [r for _, r in agg_rpns if r is not None]:
-        if any(n.eval_type in (EvalType.BYTES, EvalType.JSON) for n in rpn.nodes):
-            raise Unsupported("bytes in device expression", "bytes_predicate")
+    _check_no_bytes(sel_rpns + [r for _, r in agg_rpns if r is not None])
     for g in group_rpns:
         # group keys are evaluated on the host with the port's torch scalar
         # kernels, which take no bytes: a bytes key must be a bare column
         if len(g.nodes) > 1 and any(n.eval_type in (EvalType.BYTES, EvalType.JSON)
                                     for n in g.nodes):
             raise Unsupported("bytes in a group-by expression", "group_expr_not_ported")
+    agg_schema = _agg_output_schema(agg_rpns, group_rpns)
+    for e in post_keys:
+        # the TopN after the aggregation orders the aggregated chunk on the
+        # host: its keys evaluate like group keys
+        key = compile_expr(e, agg_schema)
+        if len(key.nodes) > 1:
+            _check_no_bytes([key])
     need: set[int] = set()
     for rpn in sel_rpns + [r for _, r in agg_rpns if r is not None]:
         need |= rpn.referenced_columns()
     device_cols = sorted(need)
     # columns declared NOT NULL never ship a null mask
     nullable_cols = _nullable(scan, device_cols)
-    program = group_program = None
+    plan = _Plan(scan, selection, agg, topn, limit, schema, sel_rpns, agg_rpns, group_rpns, [],
+                 device_cols, nullable_cols, agg_schema=agg_schema)
     if not group_rpns and all(op in CAPACITY_ONE_OPS for op, _ in agg_rpns):
-        program = compile_program(sel_rpns, agg_rpns, device_cols, schema)
+        plan.program = compile_program(sel_rpns, agg_rpns, device_cols, schema)
     else:
-        group_program = compile_group_program(
+        plan.group_program = compile_group_program(
             sel_rpns, agg_rpns, device_cols, schema, None if group_rpns else (),
             track=bool(group_rpns))
-    return _Plan(scan, selection, agg, schema, sel_rpns, agg_rpns, group_rpns, device_cols,
-                 nullable_cols, program, group_program)
+    return plan
+
+
+def _analyze_scan(scan, selection, topn, limit, schema, conds) -> _Plan:
+    """Scan/filter and raw TopN plans (no aggregation)."""
+    keys = list(topn.order_by) if topn else []
+    _check_ops(conds + [e for e, _ in keys])
+    sel_rpns = [compile_expr(c, schema) for c in conds]
+    _check_no_bytes(sel_rpns)
+    topn_rpns = []
+    if topn is not None:
+        # raw TopN runs a device top-K merge: every schema column ships as
+        # payload — numeric columns as values, BYTES as dictionary codes
+        # (decoded back to bytes at finalize; a non-dict or unstable
+        # dictionary raises at run time)
+        if topn.limit > TOPN_DEVICE_MAX:
+            raise Unsupported(f"TopN limit {topn.limit} too large for device",
+                              "topn_limit_too_large")
+        for et, _ in schema:
+            if et not in _DEVICE_EVAL_TYPES and et != EvalType.BYTES:
+                raise Unsupported(f"TopN payload column type {et}", "topn_payload_type")
+        for e, desc in keys:
+            rpn = compile_expr(e, schema)
+            _check_no_bytes([rpn])
+            if rpn.eval_type not in _DEVICE_EVAL_TYPES:
+                raise Unsupported(f"TopN key type {rpn.eval_type}", "topn_key_type")
+            topn_rpns.append((rpn, bool(desc)))
+    need: set[int] = set()
+    for rpn in sel_rpns + [r for r, _ in topn_rpns]:
+        need |= rpn.referenced_columns()
+    device_cols = sorted(need)
+    plan = _Plan(scan, selection, None, topn, limit, schema, sel_rpns, [], [], topn_rpns,
+                 device_cols, _nullable(scan, device_cols))
+    if topn is not None:
+        if plan.k > 0:
+            plan.topn_program = compile_topn_program(
+                sel_rpns, topn_rpns, device_cols, schema, list(range(len(schema))), plan.k)
+    elif sel_rpns:
+        plan.mask_program = compile_mask_program(sel_rpns, device_cols, schema)
+    return plan
+
+
+def _agg_output_schema(agg_rpns, group_rpns) -> list:
+    """[(eval_type, frac)] of the aggregated chunk: each aggregate's result
+    columns (``AggState.result_columns``), then the group keys
+    (``jax_eval._agg_output_schema``)."""
+    out = []
+    for op, rpn in agg_rpns:
+        it, frac = (rpn.eval_type, rpn.frac) if rpn is not None else (EvalType.INT, 0)
+        if op == "count":
+            out.append((EvalType.INT, 0))
+        elif op == "avg":
+            out += [(EvalType.INT, 0), (it, frac)]
+        elif op == "var_pop":
+            out += [(EvalType.INT, 0), (EvalType.REAL, 0), (EvalType.REAL, 0)]
+        elif op in ("bit_and", "bit_or", "bit_xor"):
+            out.append((EvalType.INT, 0))
+        else:
+            out.append((it, frac))
+    for g in group_rpns:
+        out.append((g.eval_type, g.frac))
+    return out
 
 
 def _nullable(scan: TableScan, cols) -> list[int]:
@@ -303,11 +427,15 @@ class TorchDagEvaluator:
     def run(self, source: ScanSource | None, cache=None) -> SelectResponse:
         """Serve the request: warm from a filled ``cache``, else cold from
         ``source`` (filling ``cache`` when one is given)."""
-        if cache is not None and cache.filled and cache.blocks:
-            return self._run_aggregated_cached(cache)
-        if source is None:
+        warm = cache is not None and cache.filled and bool(cache.blocks)
+        if not warm and source is None:
             raise ValueError("no scan source and no filled block cache")
-        return self._run_aggregated(source, cache)
+        if self.plan.agg is not None:
+            return self._run_aggregated_cached(cache) if warm \
+                else self._run_aggregated(source, cache)
+        if self.plan.topn is not None:
+            return self._run_topn(source, cache, warm)
+        return self._run_scan_filter(source, cache, warm)
 
     # -- cold ---------------------------------------------------------------
 
@@ -325,25 +453,22 @@ class TorchDagEvaluator:
         capacity = GROUP_CAPACITY_START if plan.group_rpns else 1
         carry = None
         offset = 0
-        for cols, n_valid in _prefetch(self._decode_blocks(source)):
-            if cache is not None:
-                cache.add(cols, n_valid)
-            if prog is None:
-                carry = fused_agg(self.program, self._block_image(cols, n_valid), carry)
-                continue
-            gids = None
-            if plan.group_rpns:
-                gids, n_groups = self._assign_gids(cols, n_valid, groups)
-                if n_groups > capacity:
-                    # grow to the next size and migrate the carry
-                    capacity = _capacity_for(prog, capacity, n_groups)
-                    if carry is not None:
-                        carry = grow_carry(prog, carry, capacity)
-            img = self._block_image(cols, n_valid, gids, offset)
-            carry = fused_group_agg(prog, img, capacity, carry)
-            offset += n_valid
-        if cache is not None:
-            cache.filled = True
+        with closing(self._cold_blocks(source, cache)) as blocks:
+            for cols, n_valid in blocks:
+                if prog is None:
+                    carry = fused_agg(self.program, self._block_image(cols, n_valid), carry)
+                    continue
+                gids = None
+                if plan.group_rpns:
+                    gids, n_groups = self._assign_gids(cols, n_valid, groups)
+                    if n_groups > capacity:
+                        # grow to the next size and migrate the carry
+                        capacity = _capacity_for(prog, capacity, n_groups)
+                        if carry is not None:
+                            carry = grow_carry(prog, carry, capacity)
+                img = self._block_image(cols, n_valid, gids, offset)
+                carry = fused_group_agg(prog, img, capacity, carry)
+                offset += n_valid
         if prog is None:
             if carry is None:
                 carry = fused_agg(self.program, self._empty_image())
@@ -352,6 +477,22 @@ class TorchDagEvaluator:
             carry = init_packed(prog, capacity, self.device)
         n_slots = len(groups) if plan.group_rpns else 1
         return self._finalize_agg(carry, prog, n_slots, lambda r: groups.rows[r])
+
+    def _cold_blocks(self, source: ScanSource, cache=None):
+        """Decoded ``(columns, n_valid)`` blocks of ``source``, decoded one
+        ahead on a worker thread and added to ``cache`` if one is given
+        (marked filled once the source is drained).  Close the generator
+        to stop early: that stops the worker too."""
+        blocks = _prefetch(self._decode_blocks(source))
+        try:
+            for cols, n_valid in blocks:
+                if cache is not None:
+                    cache.add(cols, n_valid)
+                yield cols, n_valid
+            if cache is not None:
+                cache.filled = True
+        finally:
+            blocks.close()
 
     def _decode_blocks(self, source: ScanSource):
         """Yield (columns, n_valid) blocks of at most block_rows rows."""
@@ -397,30 +538,27 @@ class TorchDagEvaluator:
         """One group expression's ``(data, nulls)`` numpy arrays over the
         valid rows: a bare column as it is, else evaluated with the port's
         scalar kernels on CPU tensors."""
-        if len(g.nodes) == 1 and g.nodes[0].kind == "col":
-            c = cols[g.nodes[0].index]
-            c = c.decoded() if c.is_dict_encoded else c
-            return np.asarray(c.data)[:n_valid], np.asarray(c.nulls)[:n_valid]
-        n = len(cols[0]) if cols else 0
-        tcols = {i: (torch.from_numpy(np.ascontiguousarray(d)),
-                     torch.from_numpy(np.ascontiguousarray(nl)))
-                 for i, (d, nl) in cols_for_eval(cols, g.referenced_columns()).items()}
-        d, nl = eval_rpn(g, tcols, n, device=torch.device("cpu"))
-        return d.numpy()[:n_valid], nl.numpy()[:n_valid]
+        d, nl = host_eval(g, cols, len(cols[0]) if cols else 0)
+        return d[:n_valid], nl[:n_valid]
 
-    def _block_image(self, cols, n_valid: int, gids=None, offset: int = 0) -> Image:
+    def _block_image(self, cols, n_valid: int, gids=None, offset: int = 0,
+                     ship=None) -> Image:
         """One decoded block staged as a single [n_cols, block_rows] int64
-        buffer (f64 lanes as their bits), one bool null buffer and the host
-        group ids, pinned on the host and copied without a host sync."""
+        buffer (f64 lanes as their bits; BYTES as dictionary codes), one bool
+        null buffer and the host group ids, pinned on the host and copied
+        without a host sync.  ``ship``: the columns (the device columns by
+        default)."""
         plan, br = self.plan, self.block_rows
+        ship = plan.device_cols if ship is None else ship
+        nullable = _nullable(plan.scan, ship)
         pin = self.device.type == "cuda"
-        data = torch.zeros((len(plan.device_cols), br), dtype=torch.int64, pin_memory=pin)
-        nulls = torch.ones((len(plan.nullable_cols), br), dtype=torch.bool, pin_memory=pin)
+        data = torch.zeros((len(ship), br), dtype=torch.int64, pin_memory=pin)
+        nulls = torch.ones((len(nullable), br), dtype=torch.bool, pin_memory=pin)
         dv, nv = data.numpy(), nulls.numpy()
-        for j, i in enumerate(plan.device_cols):
+        for j, i in enumerate(ship):
             d = np.asarray(cols[i].data)
             dv[j, : len(d)] = d.view(np.int64) if d.dtype == np.float64 else d
-        for j, i in enumerate(plan.nullable_cols):
+        for j, i in enumerate(nullable):
             m = np.asarray(cols[i].nulls)
             nv[j, : len(m)] = m
         g = None
@@ -433,9 +571,9 @@ class TorchDagEvaluator:
             if g is not None:
                 g = g.to(self.device, non_blocking=True)
         col_t = [data[j : j + 1].view(torch.float64) if plan.schema[i][0] == EvalType.REAL
-                 else data[j : j + 1] for j, i in enumerate(plan.device_cols)]
-        null_of = {i: nulls[j : j + 1] for j, i in enumerate(plan.nullable_cols)}
-        null_t = [null_of.get(i) for i in plan.device_cols]
+                 else data[j : j + 1] for j, i in enumerate(ship)]
+        null_of = {i: nulls[j : j + 1] for j, i in enumerate(nullable)}
+        null_t = [null_of.get(i) for i in ship]
         return Image(col_t, null_t, int(n_valid), 1, br, self.device, int(offset), g)
 
     def _empty_image(self) -> Image:
@@ -608,8 +746,150 @@ class TorchDagEvaluator:
             out_cols.append(Column.from_values(g.eval_type, [key_of(r)[gi] for r in order],
                                                g.frac))
         enc = make_response_encoder(self.dag)
+        enc.add_chunk(self._post_agg(Chunk.full(out_cols)), self.dag.output_offsets)
+        return enc.to_response()
+
+    def _post_agg(self, chunk: Chunk) -> Chunk:
+        """A TopN or Limit after the aggregation, over the small aggregated
+        chunk on the host (``jax_eval._post_agg``)."""
+        plan = self.plan
+        if plan.topn is not None:
+            ex = BatchTopNExecutor(ChunkExecutor(chunk, plan.agg_schema), plan.topn.order_by,
+                                   plan.topn.limit)
+            chunk = ex.next_batch(len(chunk.logical_rows) or 1).chunk
+        if plan.limit is not None:
+            chunk = Chunk(chunk.columns, chunk.logical_rows[: plan.limit.limit])
+        return chunk
+
+    # -- scan/filter ----------------------------------------------------------
+
+    def _run_scan_filter(self, source, cache, warm: bool) -> SelectResponse:
+        """``TableScan → Selection? → Limit?`` (``jax_eval._run_scan_filter``):
+        the mask on the device (none without a selection), one pull of it per
+        launch, host compaction and response encoding.  Cold, one launch per
+        block and a stop after the block that fills the Limit (unless a cache
+        is being filled).  Warm, with a Limit, launches over 1, 2, 4, ...
+        blocks of the resident image until it is met; without, one launch
+        over the whole image."""
+        plan = self.plan
+        remaining = plan.limit.limit if plan.limit is not None else None
+        enc = make_response_encoder(self.dag)
+
+        def emit(cols, n_valid: int, mask) -> bool:
+            """Encode a block's surviving rows; True once the Limit is met."""
+            nonlocal remaining
+            logical = np.arange(n_valid) if mask is None else np.flatnonzero(mask[:n_valid])
+            if remaining is not None:
+                logical = logical[:remaining]
+                remaining -= len(logical)
+            enc.add_chunk(Chunk(cols, logical), self.dag.output_offsets)
+            return remaining is not None and remaining <= 0
+
+        prog = plan.mask_program
+        if warm:
+            blocks = cache.blocks
+            img = self._stacked_device(cache) if prog is not None else None
+            start, step = 0, 1 if remaining is not None else len(blocks)
+            while start < len(blocks):
+                end = min(len(blocks), start + step)
+                masks = None
+                if prog is not None:
+                    masks = fused_mask(prog, _block_range(img, start, end)).cpu().numpy()
+                for bi in range(start, end):
+                    b = blocks[bi]
+                    if emit(b.cols, b.n_valid, None if masks is None else masks[bi - start]):
+                        return enc.to_response()
+                start, step = end, step * 2
+            return enc.to_response()
+        done = False
+        with closing(self._cold_blocks(source, cache)) as blocks:
+            for cols, n_valid in blocks:
+                if done:
+                    continue  # filling the cache
+                mask = None
+                if prog is not None:
+                    mask = fused_mask(prog, self._block_image(cols, n_valid)).cpu().numpy()[0]
+                done = emit(cols, n_valid, mask)
+                if done and cache is None:
+                    break
+        return enc.to_response()
+
+    # -- raw TopN -------------------------------------------------------------
+
+    def _run_topn(self, source, cache, warm: bool) -> SelectResponse:
+        """``TableScan → Selection? → TopN → Limit?`` with no aggregation
+        (``jax_eval._run_topn``): the running top K on the device, cold one
+        step per block with the carry on the device, warm one step over the
+        resident image; one packed pull of K rows.  Payload is every schema
+        column; BYTES columns ride as dictionary codes, and a column that is
+        not dictionary-coded, or whose dictionary changes between blocks,
+        raises ``ValueError``.  The JAX package's zone-order early exit is
+        not ported: it only skips blocks that cannot contribute."""
+        plan = self.plan
+        prog = plan.topn_program
+        if prog is None:  # K == 0
+            return make_response_encoder(self.dag).to_response()
+        payload = list(range(len(plan.schema)))
+        dicts: dict[int, np.ndarray] = {}
+        if warm:
+            for b in cache.blocks:
+                self._check_payload_dicts(b.cols, dicts)
+            pay = self._stacked_device(cache, payload)
+            state = topn_step(prog, _pick(pay, payload, plan.device_cols), pay)
+            return self._finalize_topn(state, dicts)
+        state = None
+        with closing(self._cold_blocks(source, cache)) as blocks:
+            for cols, n_valid in blocks:
+                self._check_payload_dicts(cols, dicts)
+                pay = self._block_image(cols, n_valid, ship=payload)
+                state = topn_step(prog, _pick(pay, payload, plan.device_cols), pay, state,
+                                  src_base=prog.k)
+        if state is None:
+            return make_response_encoder(self.dag).to_response()
+        return self._finalize_topn(state, dicts)
+
+    def _check_payload_dicts(self, cols, dicts: dict) -> None:
+        """BYTES payload rides as dictionary codes: every block must carry
+        the same dictionary, or the codes mean nothing (``jax_eval.py:1611``)."""
+        for ci, (et, _frac) in enumerate(self.plan.schema):
+            if et != EvalType.BYTES:
+                continue
+            d = cols[ci].dictionary
+            if d is None:
+                raise ValueError(f"TopN BYTES payload column {ci} not dict-coded")
+            seen = dicts.setdefault(ci, d)
+            if seen is not d and (len(seen) != len(d) or any(a != b for a, b in zip(seen, d))):
+                raise ValueError(f"TopN BYTES payload column {ci}: unstable dictionary")
+
+    def _finalize_topn(self, state, dicts: dict) -> SelectResponse:
+        """Pull the packed K rows once; the rank-0 prefix is the answer."""
+        prog = self.plan.topn_program
+        ints = state[0].cpu().numpy()
+        flts = state[1].cpu().numpy() if prog.n_f64 else None
+        n_out = int((ints[0] == 0).sum())
+        out_cols = []
+        for ci, (et, frac) in enumerate(self.plan.schema):
+            data = (flts if prog.pay_f64[ci] else ints)[prog.pay_row[ci], :n_out]
+            nulls = ints[prog.pay_null_row[ci], :n_out].astype(bool)
+            out_cols.append(Column(et, data, nulls, frac, dicts.get(ci)))
+        enc = make_response_encoder(self.dag)
         enc.add_chunk(Chunk.full(out_cols), self.dag.output_offsets)
         return enc.to_response()
+
+
+def _block_range(img: Image, start: int, end: int) -> Image:
+    """Blocks ``start:end`` of a stacked image (views, no copy)."""
+    off = img.offsets if isinstance(img.offsets, int) else img.offsets[start:end]
+    return Image([c[start:end] for c in img.cols],
+                 [None if m is None else m[start:end] for m in img.nulls],
+                 img.n_valids[start:end], end - start, img.block_rows, img.device, off)
+
+
+def _pick(img: Image, ship: list[int], cols: list[int]) -> Image:
+    """The image of columns ``cols``, taken from ``img`` over ``ship``."""
+    at = [ship.index(i) for i in cols]
+    return Image([img.cols[j] for j in at], [img.nulls[j] for j in at], img.n_valids,
+                 img.n_blocks, img.block_rows, img.device, img.offsets, img.gids)
 
 
 def _capacity_for(prog: GroupProgram, capacity: int, n_groups: int) -> int:

@@ -1,0 +1,361 @@
+// Scan kernels of the coprocessor's device path: the selection mask and the
+// running top-K.
+//
+// Replaces these JAX programs of the reference package (tikv_tpu/copr):
+//   * jax_eval.py:_build_mask_fn (site jax_eval.mask): the selection
+//     conjuncts over a block, `valid & AND_i (sel_i != 0 & ~null_i)`
+//     -> fused_mask;
+//   * jax_eval.py:_build_topn_fn / _topn_step (site jax_eval.topn): one step
+//     of the running top-K of a raw TopN, a stable lexicographic sort of
+//     the carried K rows ahead of the block's rows -> topn_candidates (a
+//     sorted run of K per tile of rows) + topn_merge (runs merged pairwise
+//     into their first K, level by level, the carry as one more run);
+//   * jax_eval.py:_pack_leaves (site jax_eval.pack_topn): the K-row state
+//     stacked into one int64 and one f64 matrix for one pull -> topn_pack,
+//     which also gathers the K winners' payload columns.
+// Each evaluates rpn.py:eval_rpn(xp=jnp) through the bytecode walk of
+// fa_walk.cuh.
+//
+// Order of a top-K entry: it is a tuple of 64-bit words compared as
+// unsigned, lexicographically:
+//   rank (0: the row passed the selection; 1: it did not, or lies past its
+//   block's n_valid), then per sort key its null rank (NULLs first
+//   ascending, last descending) and its key word, then `src`, the row's
+//   position in the stream.  A key word is the value made order-preserving
+//   as u64 (int64: the sign bit flipped; f64: -0 taken as +0, then the
+//   sign-flip transform), bit-NOT for a descending key, 0 for NULL.  `src`
+//   is unique, so the order is total and no sort needs to be stable: it is
+//   jax_eval._topn_step's "stable sort, carry ahead of the block" made
+//   explicit, and the CPU comparator's (executors.py:_row_cmp) order.
+//
+// What bounds them on an H100: memory for fused_mask (the referenced
+// columns of every row, one byte of mask out), shared-memory sorting for
+// topn_candidates (a bitonic sort of each tile of rows, log2(tile)^2 / 2
+// compare-exchange stages).  The candidate kernel reads only the columns
+// the selection and the keys reference; payload columns are read by
+// topn_pack for the K winners alone.
+//
+// Determinism: no atomics and no floating-point arithmetic in any order
+// that varies; reruns are bit-identical.
+//
+// Layout contract with tikv_tpu_torch/copr/fused_mask.py and
+// copr/fused_topn.py (the wrappers check sizeof(ScParams) and
+// sizeof(TpParams) at load; a CPU test checks the limits).
+
+#include "fa_walk.cuh"
+
+#define SC_MASK_THREADS 256
+#define TN_THREADS 512
+#define TN_MERGE_THREADS 256
+#define TN_MAX_KEYS 4
+#define TN_MAX_PAYLOAD 16
+// dynamic shared memory a block may use on Hopper (227 KB)
+#define TN_SMEM_MAX 232448
+
+// The walk's parameters for the mask and the candidates.
+struct ScParams {
+  const long long* col[FA_MAX_COLS];       // [n_blocks, block_rows] lanes, int64 or f64 bits
+  const unsigned char* nul[FA_MAX_COLS];   // bool null masks, or null for NOT NULL columns
+  const long long* n_valids;               // [n_blocks], or null: n_valid_all for every block
+  long long n_valid_all;
+  long long n_blocks;
+  long long block_rows;
+  long long src_base;                      // top-K: src of flat row 0
+  long long consts[FA_MAX_CONSTS];
+  int code[FA_MAX_CODE];
+  int n_code;
+  int n_cols;
+  int n_keys;                              // top-K: sort keys
+  int k;                                   // top-K: entries per run
+  int tile;                                // top-K: rows per block, a power of two >= k
+  int key_desc[TN_MAX_KEYS];
+  int key_f64[TN_MAX_KEYS];                // the key's value lane is f64
+};
+
+// topn_pack's parameters.
+struct TpParams {
+  const long long* col[TN_MAX_PAYLOAD];      // payload columns of the image, flat, int64 or f64 bits
+  const unsigned char* nul[TN_MAX_PAYLOAD];  // their null masks, or null
+  const long long* carry_i;                  // the previous packed state, or null
+  const double* carry_f;
+  const u64* run;                            // the merged run [n_words][k]
+  long long* out_i;                          // packed state [n_int][k]
+  double* out_f;                             // [n_f64][k]
+  u64* out_run;                              // the run as the next step's carry [n_words][k]
+  long long src_base;                        // src below it: the carry's slot; else flat row + src_base
+  int k;
+  int n_words;
+  int n_pay;
+  int pay_f64[TN_MAX_PAYLOAD];
+  int pay_row[TN_MAX_PAYLOAD];               // row of the value in the int64 or f64 matrix
+  int pay_null_row[TN_MAX_PAYLOAD];          // row of the null flag in the int64 matrix
+};
+
+// (block, row in block) of flat row f, stepped by a grid stride without a
+// division per row.
+struct ScCursor {
+  long long blk, i, step_b, step_i, rows;
+  __device__ ScCursor(long long f, long long stride, long long rows_) : rows(rows_) {
+    blk = rows > 0 ? f / rows : 0;
+    i = f - blk * rows;
+    step_b = rows > 0 ? stride / rows : 0;
+    step_i = stride - step_b * rows;
+  }
+  __device__ void advance() {
+    blk += step_b;
+    i += step_i;
+    if (i >= rows) {
+      i -= rows;
+      ++blk;
+    }
+  }
+};
+
+__device__ __forceinline__ long long sc_n_valid(const ScParams& p, long long blk) {
+  return p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
+}
+
+// ---------------------------------------------------------------------------
+// fused_mask: one row per thread, grid-stride
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(SC_MASK_THREADS)
+fused_mask(const __grid_constant__ ScParams p, unsigned char* __restrict__ out) {
+  const long long total = p.n_blocks * p.block_rows;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  ScCursor c(f, stride, p.block_rows);
+  for (; f < total; f += stride) {
+    bool active = false;
+    if (c.i < sc_n_valid(p, c.blk)) active = fa_walk(p, f, [](int, bool, long long) {});
+    out[f] = active;
+    c.advance();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// topn_candidates: each block sorts a tile of rows, writes its first k
+// ---------------------------------------------------------------------------
+
+// Order-preserving u64 of a key value (ascending).
+__device__ __forceinline__ u64 tn_order_word(long long v, bool is_f) {
+  if (is_f) {
+    u64 b = (u64)v;
+    if ((b << 1) == 0) b = 0;  // -0 ties +0
+    return (b >> 63) ? ~b : (b | 0x8000000000000000ULL);
+  }
+  return (u64)v ^ 0x8000000000000000ULL;
+}
+
+// -1, 0, 1 as entry x of X orders before, with, after entry y of Y; entries
+// are words w at X[w * sx + x].
+__device__ __forceinline__ int tn_cmp(const u64* X, long long sx, long long x, const u64* Y,
+                                      long long sy, long long y, int n_words) {
+  for (int w = 0; w < n_words; ++w) {
+    const u64 a = X[w * sx + x], b = Y[w * sy + y];
+    if (a != b) return a < b ? -1 : 1;
+  }
+  return 0;
+}
+
+// Dynamic shared memory: n_words * tile u64 words, then tile u16 indices.
+// Writes runs[blockIdx.x] = [n_words][k]: the tile's first k entries in
+// order.  Rows past the image are entries of rank 1 with src = ~0.
+__global__ void __launch_bounds__(TN_THREADS)
+topn_candidates(const __grid_constant__ ScParams p, u64* __restrict__ runs) {
+  extern __shared__ u64 tn_smem[];
+  const int T = p.tile;
+  const int W = 2 + 2 * p.n_keys;
+  u64* w = tn_smem;
+  unsigned short* idx = (unsigned short*)(tn_smem + (long long)W * T);
+  const long long total = p.n_blocks * p.block_rows;
+  const long long base = (long long)blockIdx.x * T;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    const long long f = base + t;
+    u64 rank = 1, src = ~0ULL;
+    for (int q = 1; q < W - 1; ++q) w[(long long)q * T + t] = 0;
+    if (f < total) {
+      src = (u64)(p.src_base + f);
+      const long long blk = f / p.block_rows;
+      if (f - blk * p.block_rows < sc_n_valid(p, blk)) {
+        const bool active = fa_walk_keys(
+            p, f, [](int, bool, long long) {},
+            [&](int q, bool nul, long long v) {
+              const bool desc = p.key_desc[q];
+              u64 kw = 0;
+              if (!nul) {
+                kw = tn_order_word(v, p.key_f64[q]);
+                if (desc) kw = ~kw;
+              }
+              w[(long long)(1 + 2 * q) * T + t] = nul == desc ? 1 : 0;
+              w[(long long)(2 + 2 * q) * T + t] = kw;
+            });
+        rank = active ? 0 : 1;
+      }
+    }
+    w[t] = rank;
+    w[(long long)(W - 1) * T + t] = src;
+    idx[t] = (unsigned short)t;
+  }
+  __syncthreads();
+  // bitonic sort of the indices by their entries
+  for (int size = 2; size <= T; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        const int u = t ^ stride;
+        if (u > t) {
+          const int a = idx[t], b = idx[u];
+          const int c = tn_cmp(w, T, a, w, T, b, W);
+          if ((t & size) == 0 ? c > 0 : c < 0) {
+            idx[t] = (unsigned short)b;
+            idx[u] = (unsigned short)a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  u64* run = runs + (long long)blockIdx.x * W * p.k;
+  for (int s = threadIdx.x; s < p.k; s += blockDim.x) {
+    const int a = idx[s];
+    for (int q = 0; q < W; ++q) run[(long long)q * p.k + s] = w[(long long)q * T + a];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// topn_merge: runs 2j and 2j+1 -> run j, the first k of their merge
+// ---------------------------------------------------------------------------
+
+// Run r of `in` ([n_in][n_words][k]), or `extra` (the carry) as run n_in.
+__device__ __forceinline__ const u64* tn_run(const u64* in, long long n_in, const u64* extra,
+                                             long long r, int n_words, int k) {
+  return r < n_in ? in + r * n_words * k : extra;
+}
+
+// One thread per entry of the two runs: its place in the merge is its own
+// index plus the number of entries of the other run that go before it (an
+// entry of the first run goes before an equal one of the second), found by
+// binary search.  Every place below k is written by exactly one thread.
+__global__ void __launch_bounds__(TN_MERGE_THREADS)
+topn_merge(const u64* __restrict__ in, long long n_in, const u64* __restrict__ extra,
+           u64* __restrict__ out, int n_words, int k, int blocks_per_pair) {
+  const long long pair = blockIdx.x / blocks_per_pair;
+  const int e = (int)(blockIdx.x - pair * blocks_per_pair) * blockDim.x + threadIdx.x;
+  if (e >= 2 * k) return;
+  const long long n_runs = n_in + (extra != nullptr ? 1 : 0);
+  const u64* A = tn_run(in, n_in, extra, 2 * pair, n_words, k);
+  u64* O = out + pair * n_words * k;
+  if (2 * pair + 1 >= n_runs) {  // odd one out: copied
+    if (e < k) {
+      for (int q = 0; q < n_words; ++q) O[(long long)q * k + e] = A[(long long)q * k + e];
+    }
+    return;
+  }
+  const u64* B = tn_run(in, n_in, extra, 2 * pair + 1, n_words, k);
+  const bool from_a = e < k;
+  const int x = from_a ? e : e - k;
+  const u64* X = from_a ? A : B;
+  const u64* Y = from_a ? B : A;
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int c = tn_cmp(Y, k, mid, X, k, x, n_words);
+    // from A: count the entries of B before x (c < 0); from B: those of A
+    // before or equal to x (c <= 0)
+    if (c < 0 || (!from_a && c == 0)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int pos = x + lo;
+  if (pos < k) {
+    for (int q = 0; q < n_words; ++q) O[(long long)q * k + pos] = X[(long long)q * k + x];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// topn_pack: the packed state of the merged run, payload gathered
+// ---------------------------------------------------------------------------
+
+// One thread per slot s of the run: int64 row 0 takes the rank; each
+// payload column its value (from the carry's slot src, or from the image's
+// flat row src - src_base) and its null flag; entries of rank 1 take 0.
+// out_run takes the run's words with src = s, as the carry of
+// the next step (its slot order is its stream order).
+__global__ void __launch_bounds__(TN_MERGE_THREADS)
+topn_pack(const __grid_constant__ TpParams p) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = p.k;
+  if (s >= k) return;
+  const int W = p.n_words;
+  const u64 rank = p.run[s];
+  const u64 src = p.run[(long long)(W - 1) * k + s];
+  p.out_i[s] = (long long)rank;
+  for (int q = 0; q < W - 1; ++q) p.out_run[(long long)q * k + s] = p.run[(long long)q * k + s];
+  p.out_run[(long long)(W - 1) * k + s] = (u64)s;
+  const bool from_carry = rank == 0 && src < (u64)p.src_base;
+  const long long f = (long long)(src - (u64)p.src_base);
+  for (int j = 0; j < p.n_pay; ++j) {
+    long long v = 0, nul = 0;
+    const long long cell = (long long)p.pay_row[j] * k;
+    const long long ncell = (long long)p.pay_null_row[j] * k;
+    if (from_carry) {
+      v = p.pay_f64[j] ? fa_raw(p.carry_f[cell + (long long)src]) : p.carry_i[cell + (long long)src];
+      nul = p.carry_i[ncell + (long long)src];
+    } else if (rank == 0) {
+      v = __ldg(p.col[j] + f);
+      nul = p.nul[j] != nullptr && __ldg(p.nul[j] + f) != 0;
+    }
+    if (p.pay_f64[j]) {
+      p.out_f[cell + s] = fa_f(v);
+    } else {
+      p.out_i[cell + s] = v;
+    }
+    p.out_i[ncell + s] = nul;
+  }
+}
+
+// Above 48 KB a block's dynamic shared memory must be allowed explicitly.
+static int tn_set_smem(int smem_bytes) {
+  return (int)cudaFuncSetAttribute(topn_candidates, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes);
+}
+
+extern "C" {
+
+int sc_params_size(void) { return (int)sizeof(ScParams); }
+int tp_params_size(void) { return (int)sizeof(TpParams); }
+int tn_smem_max(void) { return TN_SMEM_MAX; }
+
+// Each launcher returns cudaGetLastError() right after its launch.
+int sc_launch_mask(const ScParams* p, unsigned char* out, int grid, void* stream) {
+  fused_mask<<<grid, SC_MASK_THREADS, 0, (cudaStream_t)stream>>>(*p, out);
+  return (int)cudaGetLastError();
+}
+
+int tn_launch_candidates(const ScParams* p, u64* runs, int n_tiles, void* stream) {
+  const int smem = (2 + 2 * p->n_keys) * p->tile * 8 + p->tile * 2;
+  const int err = tn_set_smem(smem);
+  if (err != 0) return err;
+  topn_candidates<<<n_tiles, TN_THREADS, smem, (cudaStream_t)stream>>>(*p, runs);
+  return (int)cudaGetLastError();
+}
+
+int tn_launch_merge(const u64* in, long long n_in, const u64* extra, u64* out, int n_words, int k,
+                    void* stream) {
+  const long long n_runs = n_in + (extra != nullptr ? 1 : 0);
+  const long long pairs = (n_runs + 1) / 2;
+  const int per_pair = (2 * k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS;
+  topn_merge<<<(unsigned)(pairs * per_pair), TN_MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      in, n_in, extra, out, n_words, k, per_pair);
+  return (int)cudaGetLastError();
+}
+
+int tn_launch_pack(const TpParams* p, void* stream) {
+  topn_pack<<<(p->k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS, TN_MERGE_THREADS, 0,
+              (cudaStream_t)stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

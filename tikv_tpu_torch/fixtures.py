@@ -1,7 +1,8 @@
 """TPC-H lineitem fixtures for the port: KV bytes, columnar images, plans.
 
 The port's own copy of ``bench.py``'s ``build_arrays`` / ``build_kvs`` /
-``build_cache`` and its Q6 and Q1 plans.  ``build_arrays(n, seed)`` makes the same
+``build_cache``, its Q6 and Q1 plans, its scan and filter plans of BASELINE
+configs 1-2 (``_filter_dag``) and its raw TopN plan (``_topn_endpoint``).  ``build_arrays(n, seed)`` makes the same
 draws as ``bench.py`` for the same ``(n, seed)``, so both packages see the
 same table.  The numpy oracles compute each query's answer from those draws
 alone, independently of any evaluator.
@@ -14,7 +15,7 @@ import torch
 
 from .copr.aggr import AggDescriptor
 from .copr.cache import ColumnBlockCache
-from .copr.dag import Aggregation, DagRequest, Selection, TableScan
+from .copr.dag import Aggregation, DagRequest, Limit, Selection, TableScan, TopN
 from .copr.datatypes import NOT_NULL_FLAG, Column, ColumnInfo, EvalType, FieldType
 from .copr.fused_agg import Image, compile_program
 from .copr.fused_group_agg import compile_group_program
@@ -31,6 +32,14 @@ Q6_DISC_LO, Q6_DISC_HI = 2, 4
 Q6_QTY_LT = 24
 # Q1 predicate: shipdate <= 10500
 Q1_SHIP_HI = 10500
+# BASELINE config 2's conjuncts (bench._filter_dag): shipdate < 10500,
+# quantity > 5, extendedprice >= 100000 (an INT constant against a
+# DECIMAL(2) column: 100000.00, scaled 10,000,000); the selective variant
+# takes shipdate < 8410 instead
+FILTER_SHIP_LT = 10500
+SELECTIVE_SHIP_LT = 8410
+FILTER_QTY_GT = 5
+FILTER_PRICE_GE = 100000
 
 
 def lineitem() -> list[ColumnInfo]:
@@ -208,6 +217,88 @@ def qty_oracle(a: dict) -> list:
     return [r for _first, r in sorted(rows, key=lambda fr: fr[0])]
 
 
+def filter_dag(kind: str, limit: int | None = 100_000) -> DagRequest:
+    """BASELINE configs 1-2 (``bench._filter_dag``): ``"scan"`` — every
+    lineitem column, no predicate; ``"filter"`` — the three conjuncts;
+    ``"selective"`` — the same with shipdate < 8410.  Then ``Limit(limit)``
+    unless ``limit`` is None."""
+    execs = [TableScan(TABLE_ID, lineitem())]
+    if kind != "scan":
+        ship = {"filter": FILTER_SHIP_LT, "selective": SELECTIVE_SHIP_LT}[kind]
+        execs.append(Selection([
+            call("lt", col(4), const_int(ship)),
+            call("gt", col(1), const_int(FILTER_QTY_GT)),
+            call("ge", col(2), const_int(FILTER_PRICE_GE)),
+        ]))
+    if limit is not None:
+        execs.append(Limit(limit))
+    return DagRequest(executors=execs)
+
+
+def filter_mask(a: dict, kind: str) -> np.ndarray:
+    """The rows :func:`filter_dag` keeps, from the draws."""
+    if kind == "scan":
+        return np.ones(len(a["qty"]), dtype=bool)
+    ship = {"filter": FILTER_SHIP_LT, "selective": SELECTIVE_SHIP_LT}[kind]
+    return (a["ship"] < ship) & (a["qty"] > FILTER_QTY_GT) & (a["price"] >= FILTER_PRICE_GE * 100)
+
+
+def _lineitem_rows(a: dict, rows: np.ndarray, n_cols: int = 7) -> list:
+    """Response rows of the lineitem columns ``0..n_cols-1`` at ``rows``."""
+    out = []
+    for r in rows.tolist():
+        rf, ls = int(a["rf"][r]), int(a["ls"][r])
+        out.append([r, int(a["qty"][r]), (int(a["price"][r]), 2), (int(a["disc"][r]), 2),
+                    int(a["ship"][r]), b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]][:n_cols])
+    return out
+
+
+def filter_oracle(a: dict, kind: str, limit: int | None = 100_000) -> list:
+    """:func:`filter_dag`'s response rows, from the draws."""
+    rows = np.flatnonzero(filter_mask(a, kind))
+    return _lineitem_rows(a, rows if limit is None else rows[:limit])
+
+
+def topn_dag(k: int = 100) -> DagRequest:
+    """The raw TopN of ``bench._topn_endpoint``: the first five lineitem
+    columns, shipdate <= 10500, ORDER BY extendedprice DESC, quantity ASC,
+    LIMIT ``k``."""
+    return DagRequest(executors=[
+        TableScan(TABLE_ID, lineitem()[:5]),
+        Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+        TopN([(col(2), True), (col(1), False)], k),
+    ])
+
+
+def topn_oracle(a: dict, k: int = 100) -> list:
+    """:func:`topn_dag`'s response rows: the surviving rows in a stable
+    order of (-price, quantity), ties in stream order.  Only rows priced at
+    least the k-th highest surviving price can place, so only they are
+    sorted."""
+    rows = np.flatnonzero(a["ship"] <= Q1_SHIP_HI)
+    price = a["price"][rows]
+    if len(rows) > k:
+        rows = rows[price >= np.partition(price, len(price) - k)[len(price) - k]]
+    order = np.lexsort((rows, a["qty"][rows], -a["price"][rows].astype(np.int64)))
+    return _lineitem_rows(a, rows[order[:k]], 5)
+
+
+def q1_topn_dag(k: int = 4) -> DagRequest:
+    """BASELINE config 4's HashAgg + TopN: :func:`q1_dag`, then ORDER BY
+    l_returnflag, l_linestatus LIMIT ``k`` over the aggregated chunk, whose
+    columns 7 and 8 are the two group keys (after sum, sum, avg's count and
+    sum, avg's count and sum, count)."""
+    dag = q1_dag()
+    dag.executors.append(TopN([(col(7), False), (col(8), False)], k))
+    return dag
+
+
+def q1_topn_oracle(q1_rows: list, k: int = 4) -> list:
+    """:func:`q1_topn_dag`'s response rows, from :func:`q1_oracle`'s rows
+    over the same draws."""
+    return sorted(q1_rows, key=lambda row: (row[7], row[8]))[:k]
+
+
 def _q6_mask(a: dict) -> np.ndarray:
     return ((a["ship"] >= Q6_SHIP_LO) & (a["ship"] < Q6_SHIP_HI)
             & (a["disc"] >= Q6_DISC_LO) & (a["disc"] <= Q6_DISC_HI)
@@ -356,3 +447,55 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
         n_valids, offsets = int(nv[0]), 1000
     img = Image(cols, nulls, n_valids, n_blocks, block_rows, device, offsets, gids)
     return prog, img, capacity
+
+
+def synthetic_mask_case(n_blocks: int, block_rows: int, gen: torch.Generator, device):
+    """A mask program and its image for holding the mask kernel to its plain
+    version: :func:`synthetic_case`'s columns and conjuncts."""
+    from .copr.fused_mask import compile_mask_program
+
+    schema = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0), (EvalType.INT, 0),
+              (EvalType.DECIMAL, 4)]
+    sel = [call("ge", col(0), const_int(-(1 << 38))),
+           call("or", call("lt", col(2), const_real(900.0)), call("is_null", col(3))),
+           call("ne", col(4), const_decimal(7, 1))]
+    prog = compile_mask_program([compile_expr(e, schema) for e in sel], [0, 1, 2, 3, 4], schema)
+    _p, img = synthetic_case(n_blocks, block_rows, gen, device)
+    return prog, img
+
+
+def synthetic_topn_case(n_blocks: int, block_rows: int, k: int, gen: torch.Generator, device):
+    """A top-K program over four nullable columns and its images (candidate
+    columns, payload columns) for holding the top-K kernels to their plain
+    versions: an INT key with many ties and NULLs ascending, a REAL key
+    descending over a few values with -0.0, +0.0, +-inf and NULLs, a DECIMAL
+    key, a selection, a ragged last block and (with more than four blocks)
+    empty blocks."""
+    from .copr.fused_topn import compile_topn_program
+
+    schema = [(EvalType.INT, 0), (EvalType.REAL, 0), (EvalType.DECIMAL, 2), (EvalType.INT, 0)]
+    sel = [compile_expr(call("or", call("gt", col(3), const_int(-500)), call("is_null", col(3))),
+                        schema)]
+    keys = [(compile_expr(col(0), schema), False), (compile_expr(col(1), schema), True),
+            (compile_expr(col(2), schema), False)]
+    prog = compile_topn_program(sel, keys, [0, 1, 2, 3], schema, [0, 1, 2, 3], k)
+    shape = (n_blocks, block_rows)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    def null_mask(p):
+        return torch.rand(shape, generator=gen, device=device) < p
+
+    reals = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), 1.5, -2.25, 1e308],
+                         dtype=torch.float64, device=device)
+    cols = [ints(-20, 20), reals[ints(0, len(reals))], ints(-3, 3), ints(-1000, 1000)]
+    nulls = [null_mask(0.1), null_mask(0.1), None, null_mask(0.05)]
+    nv = torch.full((n_blocks,), block_rows, dtype=torch.int64)
+    nv[-1] = block_rows - 777
+    if n_blocks > 4:
+        nv[1] = 0
+        nv[n_blocks // 2] = 0
+    n_valids = nv.to(device) if n_blocks > 1 else int(nv[0])
+    img = Image(cols, nulls, n_valids, n_blocks, block_rows, device)
+    return prog, img, img
