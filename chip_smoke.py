@@ -42,6 +42,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 11. profile — device time by kernel and the device's busy share of the
              wall time (torch.profiler), over one cold and three warm runs of
              Q6 and of Q1, and runs of the warm filters and the raw TopN
+12. encoded — the same 100M and 10M images encoded in place as a filled
+             region image is (copr/encoding.py: bitpacked lanes, narrowed
+             dictionary codes), after their plain pins are released: the
+             pinned bytes of the whole row and of Q6's columns, plain against
+             encoded (at most 30%); every kernel over the encoded image equal
+             to its plain version and to its own output over the plain image;
+             warm Q6, Q1, the selective filter, config 2 with its Limit, the
+             raw TopN and Q1 + TopN against their oracles; a date-sorted
+             100M-row image (l_shipdate RLE, zone maps prune) with Q6, Q1 and
+             the raw TopN against oracles from the permuted draws, with the
+             blocks examined and pruned; each kernel's ms over the encoded
+             image and decode_column (program #1 alone) against its bound,
+             its plain version and the torch yardsticks
 
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
@@ -51,7 +64,12 @@ The launch counts in the kernels line are those of the main paths only: Q6
 (phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
 top-K kernels, each counted from 0 just before its path and read just
-after.
+after; each entry's ``encoded`` gives its launches on the encoded path of
+phase 12 (counted from 0 just before it).  Program #1 runs inside every
+kernel that reads the image (the column load of ``csrc/fa_walk.cuh``): its
+entry, ``decode_column``, counts the launches of those kernels on the
+encoded path; the export itself is launched by the checks only
+(``launches_standalone``).
 """
 
 from __future__ import annotations
@@ -111,6 +129,30 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     rate and operations over the compute rate, and which of the two."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+MAIN_PATH_KERNELS = ("fused_agg_partials", "fused_agg_combine_pack", "fused_group_agg_partials",
+                     "fused_group_agg_combine_pack", "fused_mask", "topn_candidates",
+                     "topn_merge", "topn_pack")
+# the kernels that read the image, each through the column load of program #1
+IMAGE_READERS = ("fused_agg_partials", "fused_group_agg_partials", "fused_mask",
+                 "topn_candidates", "topn_pack")
+
+
+def image_bytes(img, rows: int) -> int:
+    """Bytes a kernel must read of ``img``'s columns for ``rows`` valid
+    rows: a row-shaped payload or null mask at its lane width per row (1, 2,
+    4 or 8 bytes), an RLE column's runs (values, ends, run-shaped nulls)
+    whole."""
+    total = 0
+    for c, nl in zip(img.cols, img.nulls):
+        if isinstance(c, tuple):
+            total += sum(t.numel() * t.element_size() for t in c)
+            if nl is not None:
+                total += nl.numel() if nl.shape[-1] != img.block_rows else rows
+        else:
+            total += rows * c.element_size() + (rows if nl is not None else 0)
+    return total
 
 
 def mem_available_bytes() -> int:
@@ -336,6 +378,89 @@ def phase_scan_kernels(fm, ft, fx, device) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: encoded images
+# ---------------------------------------------------------------------------
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def check_encoded_outputs(got: dict, plain_image: dict) -> None:
+    """``fixtures.warm_kernel_outputs`` over the encoded image: each kernel
+    equals its plain version there, and its own output over the plain image
+    of the same rows, bit for bit."""
+    for name, (kernel, plain) in got.items():
+        for g, p_, w in zip(kernel, plain, plain_image[name][0]):
+            if not torch.equal(bits(g), bits(p_)):
+                raise AssertionError(f"{name} on the encoded image differs from its plain version")
+            if not torch.equal(bits(g), bits(w)):
+                raise AssertionError(f"{name}: encoded image and plain image give other outputs")
+
+
+def pinned_bytes(cache, pins: dict) -> dict:
+    """``cache.device_nbytes()`` with one image pinned at a time: for each
+    name, an evaluator and the columns it ships (None: its device columns)."""
+    out = {}
+    for name, (ev, ship) in pins.items():
+        cache.drop_device()
+        ev._stacked_device(cache, ship)
+        torch.cuda.synchronize()
+        out[name] = cache.device_nbytes()
+    cache.drop_device()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_decode(fm, img, j: int) -> dict:
+    """Program #1 alone: ``decode_column`` over column ``j`` of an image
+    (every row of every block), held bit for bit to
+    ``kernels.decode_device_column`` on the same tensors, its CUDA-event ms,
+    the plain version's, and the yardstick: ``to(int64) + ref`` for a
+    narrow lane, ``torch.searchsorted`` + gather for runs.  Bound: the
+    payload (and null payload) read once, int64 lanes and null bytes
+    written once; for runs, a binary-search step per row and run bit."""
+    from tikv_tpu_torch.copr.fused_agg import Image
+    from tikv_tpu_torch.copr.kernels import decode_device_column
+
+    desc, payload, nulls, ref = img.desc(j), img.cols[j], img.nulls[j], img.ref(j)
+    nb, br, dev = img.n_blocks, img.block_rows, img.device
+    one = Image([payload], [nulls], br, nb, br, dev, descs=(desc,), refs=(ref,))
+    out = torch.empty((nb, br), dtype=torch.int64, device=dev)
+    out_n = torch.empty((nb, br), dtype=torch.bool, device=dev)
+    fm.launch_decode(one, out, out_n)
+    want, want_n = decode_device_column(desc, payload, nulls, ref, br)
+    if not torch.equal(out, want) or not torch.equal(
+            out_n, torch.zeros_like(out_n) if want_n is None else want_n):
+        raise AssertionError(f"decode_column ({desc}) differs from decode_device_column")
+    del want, want_n
+    ms = cuda_ms(lambda: fm.launch_decode(one, out, out_n), 20)
+    plain_ms = cuda_ms(lambda: decode_device_column(desc, payload, nulls, ref, br), 10)
+    pieces = payload if isinstance(payload, tuple) else (payload,)
+    read = sum(t.numel() * t.element_size() for t in pieces) + (0 if nulls is None else nulls.numel())
+    steps = 1
+    if desc[0] == "rle":
+        values, ends = payload
+        lane_rows = torch.arange(br, device=dev).expand(nb, br).contiguous()
+
+        def library():
+            idx = torch.searchsorted(ends, lane_rows, right=True).clamp_(max=desc[1] - 1)
+            return values.gather(1, idx)
+
+        name = "torch.searchsorted + gather"
+        steps = desc[1].bit_length() + 1
+    else:
+        def library():
+            return payload.to(torch.int64) + ref
+
+        name = "to(int64) + ref"
+    lib_ms = cuda_ms(library, 20)
+    b_ms, b_by = bound(read + nb * br * 9, nb * br * steps)
+    return {"desc": list(desc), "rows": nb * br, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": name, "bound_ms": b_ms, "bound_by": b_by,
+            "bit_identical": True}
+
+
 def plain_topn_step(ft, prog, cand, pay, carry, src_base: int):
     """``topn_step`` through the plain versions, on the image's own device."""
     run = ft._merge_all(ft.candidates_plain(prog, cand, src_base),
@@ -367,25 +492,29 @@ def warm_rows_that_fit(want: int, floor: int) -> tuple[int, str | None]:
 
 def profile_runs(run, n: int) -> dict:
     """Device time by kernel (torch.profiler) over ``n`` runs, and the
-    share of the window's wall time the device was busy."""
+    share of the window's wall time the device was busy.  A window in which
+    the profiler recorded no device activity at all is taken once more."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            run()
+    for _attempt in range(2):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops repeat their kernels' device time
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            device_ms[evt.key] = us / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue  # host-side ops repeat their kernels' device time
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            if us > 0:
+                device_ms[evt.key] = us / 1e3
+        if device_ms:
+            break
     busy = sum(device_ms.values())
     return {"runs": n, "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": busy / wall_ms if wall_ms else None}
@@ -426,11 +555,9 @@ def time_group_kernels(ga, prog, img, cap: int, iters: int) -> dict:
     nv = img.n_valids
     rows = int(nv if isinstance(nv, int) else nv.sum())
     L = len(prog.leaves)
-    row_bytes = 8 * len(prog.col_f64) + sum(1 for m in img.nulls if m is not None) \
-        + (4 if img.gids is not None else 0)
+    read = image_bytes(img, rows) + (4 * rows if img.gids is not None else 0)
     part_bytes = parts.numel() * 8
-    p_bound, p_by = bound(rows * row_bytes + 16 * img.n_blocks + part_bytes,
-                          rows * (len(prog.code) + L))
+    p_bound, p_by = bound(read + 16 * img.n_blocks + part_bytes, rows * (len(prog.code) + L))
     c_bound, c_by = bound(part_bytes + (prog.n_int + prog.n_f64) * cap * 8, parts.numel())
     return {"rows": rows, "capacity": cap, "grid": grid, "partials_ms": p_ms,
             "partials_bound_ms": p_bound, "partials_bound_by": p_by, "partials_plain_ms": pp_ms,
@@ -452,10 +579,12 @@ def time_mask(fm, prog, img) -> dict:
     if not torch.equal(out, fm.fused_mask_plain(prog, img)):
         raise AssertionError("timed fused_mask differs from its plain version")
     plain_ms = cuda_ms(lambda: fm.fused_mask_plain(prog, img), 3, warmup=1)
-    qty, price, ship = img.cols
     lane = torch.arange(img.block_rows, device=img.device)
 
     def library():
+        # an encoded image's lanes are widened (to(int64) + ref) first
+        qty, price, ship = (c if img.desc(j)[0] == "plain" else c.to(torch.int64) + img.ref(j)
+                            for j, c in enumerate(img.cols))
         return ((lane[None, :] < img.n_valids[:, None]) & (ship < fx.SELECTIVE_SHIP_LT)
                 & (qty > fx.FILTER_QTY_GT) & (price >= fx.FILTER_PRICE_GE * 100))
 
@@ -463,7 +592,7 @@ def time_mask(fm, prog, img) -> dict:
         raise AssertionError("the torch yardstick computes another mask")
     lib_ms = cuda_ms(library, 20)
     rows = int(img.n_valids.sum())
-    b_ms, b_by = bound(rows * 8 * len(prog.col_f64) + img.n_blocks * 8 + out.numel(),
+    b_ms, b_by = bound(image_bytes(img, rows) + img.n_blocks * 8 + out.numel(),
                        rows * len(prog.code))
     return {"rows": rows, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch comparisons and ANDs over the three columns and the valid lanes",
@@ -498,10 +627,10 @@ def time_topn(ft, prog, cand, pay) -> dict:
     merge_plain_ms = cuda_ms(lambda: ft._merge_all(want_runs, None, cuda=False), 2,
                              warmup=1) / max(levels, 1)
     pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
-    key = pay.cols[2].reshape(-1)  # extendedprice, the first key
+    key = pay.lanes(2)[0].reshape(-1)  # extendedprice, the first key, widened
     lib_ms = cuda_ms(lambda: torch.topk(key, k), 5)
     rows = int(cand.n_valids.sum())
-    c_bound = bound(rows * 8 * len(prog.col_f64) + cand.n_blocks * 8 + nt * w * k * 8,
+    c_bound = bound(image_bytes(cand, rows) + cand.n_blocks * 8 + nt * w * k * 8,
                     rows * len(prog.code))
     m_bound = bound(merge_bytes // max(levels, 1), merge_bytes // (8 * max(levels, 1)))
     p_bound = bound(w * k * 8 * 2 + k * 9 * len(prog.pay_f64) + (prog.n_int + prog.n_f64) * k * 8,
@@ -528,6 +657,7 @@ def main() -> int:
     from tikv_tpu_torch.copr import fused_agg as fa
     from tikv_tpu_torch.copr import fused_group_agg as ga
     from tikv_tpu_torch.copr import fused_mask as fm
+    from tikv_tpu_torch.copr import encoding
     from tikv_tpu_torch.copr import fused_topn as ft
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
     from tikv_tpu_torch.copr.executors import FixtureScanSource
@@ -607,6 +737,8 @@ def main() -> int:
     want_q1 = fx.q1_oracle(arrays)
     want_qty = fx.qty_oracle(arrays)
     want_topn = fx.topn_oracle(arrays, TOPN_K)
+    want_sel_warm = fx.filter_oracle(arrays, "selective", None)
+    want_filter_warm = fx.filter_oracle(arrays, "filter", SCAN_LIMIT)
     del arrays
     fa.reset_launches()
     q1_wire = dag_to_wire(fx.q1_dag())
@@ -775,7 +907,7 @@ def main() -> int:
     # bytes: the valid rows of the shipped columns, n_valids, the partials;
     # operations: one per bytecode instruction per row (partials) and one
     # per partial merged (combine)
-    p_bound, p_by = bound(rows * 8 * len(prog.col_f64) + img.n_blocks * 8
+    p_bound, p_by = bound(image_bytes(img, rows) + img.n_blocks * 8
                           + grid * len(prog.aggs) * 16, rows * len(prog.code))
     c_bound, c_by = bound(grid * len(prog.aggs) * 16 + (prog.n_int + prog.n_f64) * 8,
                           grid * len(prog.aggs) * 2)
@@ -849,6 +981,133 @@ def main() -> int:
           "warm_topn": profile_runs(lambda: ev_tw.run(None, cache), 3)})
     del kvs
 
+    # ---- phase 12: encoded images --------------------------------------------
+    # the plain image's kernel outputs and pinned bytes, then its pins
+    # released and the same blocks encoded in place
+    t_enc = time.perf_counter()
+    br = 1 << 17
+    ev_all = TorchDagEvaluator(dag_to_wire(fx.filter_dag("scan", SCAN_LIMIT)), block_rows=br,
+                               device="cuda")
+    pin_sets = {"all_7_columns": (ev_all, list(range(7))), "q6_4_columns": (ev_w, None)}
+    plain_out = fx.warm_kernel_outputs(cache, br, device)
+    pins_plain = pinned_bytes(cache, pin_sets)
+    cache10.drop_device()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    changed = encoding.encode_blocks(cache)
+    encoding.encode_blocks(cache10)
+    encode_s = time.perf_counter() - t0
+    pins_enc = pinned_bytes(cache, pin_sets)
+    for name, plain_b in pins_plain.items():
+        if pins_enc[name] > 0.3 * plain_b:
+            raise AssertionError(f"encoded {name} pins {pins_enc[name]} B, over 30% of {plain_b}")
+    check_encoded_outputs(fx.warm_kernel_outputs(cache, br, device), plain_out)
+    del plain_out
+    emit({"phase": "encoded", "case": "image", "rows": n_warm, "block_rows": br,
+          "encodings": {str(k): v for k, v in changed.items()}, "encode_s": encode_s,
+          "pinned_bytes_plain": pins_plain, "pinned_bytes_encoded": pins_enc,
+          "kernels_equal_plain_versions_and_plain_image": True, "card": card})
+
+    # ---- the encoded main path: counts from 0 here to the end of the
+    # date-sorted queries --------------------------------------------------------
+    enc_queries = (("q6", ev_w, want_q6, 6), ("q1", ev_w1, want_q1, 6),
+                   ("selective_filter", ev_sel, want_sel_warm, 3),
+                   ("config2_limit", scan_evs["warm_filter"], want_filter_warm, 3),
+                   ("raw_topn", ev_tw, want_topn, 4),
+                   ("q1_topn", ev_q1t_w, fx.q1_topn_oracle(want_q1), 4))
+    fa.reset_launches()
+    enc_s = {}
+    for name, ev_x, want, runs in enc_queries:
+        enc_s[name] = []
+        for _ in range(runs):
+            resp, t = timed_run(ev_x, None, cache)
+            check_rows(resp, want, f"encoded warm {name}")
+            enc_s[name].append(t)
+    del want_sel_warm, want_filter_warm
+    n_sorted, cut_sorted = warm_rows_that_fit(n_warm, WARM_ROWS_FLOOR)
+    s_arr = fx.sort_by_shipdate(fx.build_arrays(n_sorted, SEED))
+    want_sorted = {"q6": [fx.q6_oracle(s_arr)], "q1": fx.q1_oracle(s_arr),
+                   "raw_topn": fx.topn_oracle(s_arr, TOPN_K)}
+    t0 = time.perf_counter()
+    cache_s = fx.build_cache(n_sorted, br, SEED, arrays=s_arr, encode=True)
+    sorted_build_s = time.perf_counter() - t0
+    del s_arr
+    sorted_runs = {}
+    for name, ev_x in (("q6", ev_w), ("q1", ev_w1), ("raw_topn", ev_tw)):
+        secs = []
+        for _ in range(4):
+            resp, t = timed_run(ev_x, None, cache_s)
+            check_rows(resp, want_sorted[name], f"date-sorted warm {name}")
+            secs.append(t)
+        sorted_runs[name] = {"first_run_with_pin_s": secs[0], "seconds": secs[1:],
+                             "blocks_examined": ev_x.prune_stats[0],
+                             "blocks_pruned": ev_x.prune_stats[1]}
+    enc_launches = dict(fa.LAUNCHES)
+    # ---- end of the encoded main path ------------------------------------------
+    for name in MAIN_PATH_KERNELS:
+        if enc_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the encoded main path")
+    if sorted_runs["q6"]["blocks_pruned"] <= 0:
+        raise AssertionError("the date-sorted Q6 pruned no block")
+    for name, secs in enc_s.items():
+        emit({"phase": "encoded", "query": name, "rows": n_warm, "block_rows": br,
+              "matches_oracle": True, "first_run_with_pin_s": secs[0], "seconds": secs[1:],
+              "median_s": sorted(secs[1:])[len(secs[1:]) // 2],
+              "rows_per_s": n_warm / sorted(secs[1:])[len(secs[1:]) // 2], "card": card})
+    s_kinds = {str(i): getattr(c, "kind", "plain") for i, c in enumerate(cache_s.blocks[0].cols)}
+    emit({"phase": "encoded", "case": "date_sorted", "rows": n_sorted, "reduced": cut_sorted,
+          "block_rows": br, "blocks": len(cache_s.blocks), "kinds": s_kinds,
+          "build_and_encode_s": sorted_build_s, "shipdate_k_cap": cache_s.blocks[0].cols[4].k_cap,
+          "queries": sorted_runs, "matches_oracle": True, "launches": enc_launches,
+          "card": card})
+
+    # ---- phase 12 timings: each kernel on the encoded image beside the plain
+    # image's times of the timings phase above, in this same call -----------------
+    img_e = ev_w._stacked_device(cache)
+    scratch_e = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
+    p_ms_e = cuda_ms(lambda: fa.launch_partials(prog, img_e, scratch_e), 20)
+    check_partials(prog, scratch_e, fa.partials_plain(prog, img_e, grid, threads),
+                   "encoded q6 partials")
+    pp_ms_e = cuda_ms(lambda: fa.partials_plain(prog, img_e, grid, threads), 3, warmup=1)
+    p_bound_e = bound(image_bytes(img_e, rows) + img_e.n_blocks * 8 + grid * len(prog.aggs) * 16,
+                      rows * len(prog.code))
+    dec = {"bp_int8_l_quantity": time_decode(fm, img_e, 0),
+           "bp_int32_l_extendedprice": time_decode(fm, img_e, 1),
+           "bp_int16_l_shipdate": time_decode(fm, img_e, 3)}
+    del img_e
+    img1_e = ev_w1._stacked_device(cache, ev_w1._ship_cols(group_cols))
+    t_warm_q1_e = time_group_kernels(
+        ga, prog1, img1_e, _capacity_for(prog1, 1, (dict_lens[0] + 1) * (dict_lens[1] + 1)), 10)
+    del img1_e
+    t_mask_e = time_mask(fm, ev_sel.plan.mask_program, ev_sel._stacked_device(cache10))
+    pay_e = ev_tw._stacked_device(cache, payload)
+    cand_e = _pick(pay_e, payload, ev_tw.plan.device_cols)
+    t_topn_e = time_topn(ft, ev_tw.plan.topn_program, cand_e, pay_e)
+    del pay_e, cand_e
+    img_s = ev_w._stacked_device(cache_s, keep=ev_w._prune_keep(cache_s))
+    p_ms_s = cuda_ms(lambda: fa.launch_partials(prog, img_s, scratch_e), 20)
+    check_partials(prog, scratch_e, fa.partials_plain(prog, img_s, grid, threads),
+                   "date-sorted q6 partials")
+    rows_s = int(img_s.n_valids.sum())
+    p_bound_s = bound(image_bytes(img_s, rows_s) + img_s.n_blocks * 8
+                      + grid * len(prog.aggs) * 16, rows_s * len(prog.code))
+    dec["rle_int64_l_shipdate_date_sorted"] = time_decode(fm, img_s, 3)
+    del img_s
+    emit({"phase": "encoded", "case": "timings", "card": card,
+          "fused_agg_partials": {"ms": p_ms_e, "plain_image_ms": p_ms, "plain_ms": pp_ms_e,
+                                 "bound_ms": p_bound_e[0], "bound_by": p_bound_e[1],
+                                 "plain_image_bound_ms": p_bound},
+          "fused_agg_partials_date_sorted_pruned": {
+              "ms": p_ms_s, "valid_rows": rows_s, "bound_ms": p_bound_s[0],
+              "bound_by": p_bound_s[1]},
+          "group_warm_q1": t_warm_q1_e, "group_warm_q1_plain_image": t_warm_q1,
+          "fused_mask_warm_selective": t_mask_e, "fused_mask_plain_image": t_mask,
+          "topn_warm": t_topn_e, "decode_column": dec,
+          "profile_warm_q6": profile_runs(lambda: ev_w.run(None, cache), 3),
+          "profile_date_sorted_q6": profile_runs(lambda: ev_w.run(None, cache_s), 3),
+          "phase_seconds": time.perf_counter() - t_enc})
+    del cache_s
+
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
                  "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
@@ -865,7 +1124,7 @@ def main() -> int:
                       t_cold_q1["max_abs_err_combine"], t_qty["max_abs_err_combine"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"kernels": [
+    kernels = [
         {"name": "fused_agg_partials", "route": "cuda", "source": src,
          "replaces": "tikv_tpu/copr/jax_eval.py:855",
          "replaces_also": ["tikv_tpu/copr/jax_eval.py:883", "tikv_tpu/copr/rpn.py:216"],
@@ -913,7 +1172,39 @@ def main() -> int:
              ["tikv_tpu/copr/jax_eval.py:673", "tikv_tpu/copr/jax_eval.py:651"]),
             ("topn_merge", "tikv_tpu/copr/jax_eval.py:673", ["tikv_tpu/copr/jax_eval.py:1537"]),
             ("topn_pack", "tikv_tpu/copr/jax_eval.py:1632", ["tikv_tpu/copr/jax_eval.py:710"]))
-    ]})
+    ]
+    # each kernel over the encoded 100M image (phase 12), beside its numbers
+    # above over the plain image, and its launches on the encoded main path
+    on_encoded = {
+        "fused_agg_partials": {"ms": p_ms_e, "plain_ms": pp_ms_e, "bound_ms": p_bound_e[0]},
+        "fused_agg_combine_pack": {},
+        "fused_group_agg_partials": {"ms": t_warm_q1_e["partials_ms"],
+                                     "plain_ms": t_warm_q1_e["partials_plain_ms"],
+                                     "bound_ms": t_warm_q1_e["partials_bound_ms"]},
+        "fused_group_agg_combine_pack": {"ms": t_warm_q1_e["combine_ms"],
+                                         "bound_ms": t_warm_q1_e["combine_bound_ms"]},
+        "fused_mask": {k: t_mask_e[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }
+    for name in ("topn_candidates", "topn_merge", "topn_pack"):
+        on_encoded[name] = {k: t_topn_e[name][k] for k in ("ms", "plain_ms", "bound_ms")}
+    for entry in kernels:
+        entry["encoded"] = dict(on_encoded[entry["name"]],
+                                launches=enc_launches[entry["name"]])
+    # program #1 runs inside every kernel above that reads the image
+    # (fa_load); its export decode_column is launched by the checks alone, so
+    # its launches on the main path are those of the kernels that inline it,
+    # on the encoded path
+    d = dec["bp_int32_l_extendedprice"]
+    kernels.append({
+        "name": "decode_column", "route": "cuda", "source": "tikv_tpu_torch/csrc/fa_walk.cuh",
+        "replaces": "tikv_tpu/copr/kernels.py:1172",
+        "replaces_also": ["tikv_tpu/copr/jax_eval.py:434"],
+        "launches": sum(enc_launches[k] for k in IMAGE_READERS),
+        "launches_standalone": enc_launches["decode_column"],
+        "inlined_in": list(IMAGE_READERS), "max_abs_err": 0.0,
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"], "shapes": dec})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -185,11 +185,13 @@ def test_opcodes_match_the_cuda_source():
 
 
 def test_params_struct_layout():
-    # FaParams in csrc/fused_agg.cu: 16+16 pointers, n_valids pointer, three
-    # int64, 64 int64 constants, 256 int32 code words, three int32, four
-    # int32[16] tables, padded to 8 bytes; the wrapper re-checks the
-    # kernel's sizeof at load
-    assert ctypes.sizeof(fa._Params) == 2096
+    # FaParams in csrc/fused_agg.cu: 16+16 pointers, the 384-byte column
+    # descriptors (FaEnc: int64[16], 16 pointers, int32[16], four int8[16]),
+    # n_valids pointer, three int64, 64 int64 constants, 256 int32 code words,
+    # three int32, four int32[16] tables, padded to 8 bytes; the wrapper
+    # re-checks the kernel's sizeof at load
+    assert ctypes.sizeof(fa._Enc) == 384
+    assert ctypes.sizeof(fa._Params) == 2480
     p = fa.program_params(TorchDagEvaluator(
         dag_to_wire(graft._dag()), block_rows=64, device="cpu").program)
     assert p.n_aggs == 4 and p.n_cols == 4

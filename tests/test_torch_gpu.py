@@ -5,6 +5,7 @@ present, so every worker collects the same tests.  On a machine with the
 card: ``python -m pytest tests/test_torch_gpu.py -m gpu -q``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -236,3 +237,70 @@ def test_filter_and_topn_plans_match_their_oracles(cuda):
     assert ev.run(None, cache).iter_rows() == fx.q1_topn_oracle(fx.q1_oracle(a))
     for name in ("topn_candidates", "topn_merge", "topn_pack"):
         assert fa.LAUNCHES[name] > 0, name
+
+
+# -- program #1 and encoded images ---------------------------------------------
+
+def _tensors(payload, nulls, device):
+    def to(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return (tuple(to(x) for x in payload) if isinstance(payload, tuple) else to(payload)), to(nulls)
+
+
+@pytest.mark.parametrize("case", fx.DECODE_CASES,
+                         ids=[f"{k}-{np.dtype(t).name}-{n}" for k, t, n in fx.DECODE_CASES])
+def test_decode_column_matches_plain_version(cuda, case):
+    rows = 1 << 12
+    desc, payload, nulls, ref = fx.synthetic_encoded_column(*case, 40, rows, seed=3)
+    fa.reset_launches()
+    got = fm.decode_column(desc, *_tensors(payload, nulls, cuda), ref, rows)
+    want = fm.decode_column(desc, *_tensors(payload, nulls, torch.device("cpu")), ref, rows)
+    assert fa.LAUNCHES["decode_column"] == 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("order", ["load", "shipdate"])
+def test_kernels_on_an_encoded_image_match_the_plain_image(cuda, order):
+    n, br = 2_000_000, 1 << 17
+    a = fx.build_arrays(n, seed=8)
+    if order == "shipdate":
+        a = fx.sort_by_shipdate(a)
+    enc = fx.build_cache(n, br, arrays=a, encode=True)
+    kinds = {getattr(c, "kind", None) for c in enc.blocks[0].cols}
+    assert kinds == ({"bp", "rle", None} if order == "shipdate" else {"bp", None})
+    got = fx.warm_kernel_outputs(enc, br, cuda)
+    want = fx.warm_kernel_outputs(fx.build_cache(n, br, arrays=a), br, cuda)
+    for name, (kernel, plain) in got.items():
+        for g, p_, w in zip(kernel, plain, want[name][0]):
+            assert torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                               p_.view(torch.int64) if p_.dtype == torch.float64 else p_), name
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("order", ["load", "shipdate"])
+def test_encoded_warm_plans_match_their_oracles(cuda, order):
+    n, br = 3_000_000, 1 << 17
+    a = fx.build_arrays(n, seed=9)
+    if order == "shipdate":
+        a = fx.sort_by_shipdate(a)
+    cache = fx.build_cache(n, br, arrays=a, encode=True)
+    plain = fx.build_cache(n, br, arrays=a)
+    cases = {"q6": (fx.q6_dag(), [fx.q6_oracle(a)]), "q1": (fx.q1_dag(), fx.q1_oracle(a)),
+             "qty": (fx.qty_dag(), fx.qty_oracle(a)),
+             "filter": (fx.filter_dag("filter", 5000), fx.filter_oracle(a, "filter", 5000)),
+             "selective": (fx.filter_dag("selective", None),
+                           fx.filter_oracle(a, "selective", None)),
+             "topn": (fx.topn_dag(100), fx.topn_oracle(a, 100)),
+             "q1_topn": (fx.q1_topn_dag(), fx.q1_topn_oracle(fx.q1_oracle(a)))}
+    fa.reset_launches()
+    for name, (dag, want) in cases.items():
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device=cuda)
+        assert ev.run(None, cache).iter_rows() == want, name
+        if name == "q6" and order == "shipdate":
+            assert ev.prune_stats[1] > ev.prune_stats[0] // 2  # most blocks pruned
+        assert ev.run(None, plain).iter_rows() == want, name
+    for name, count in fa.LAUNCHES.items():
+        assert count > 0 or name == "decode_column", name
+    # the same shipped columns pin in at most 30% of the plain bytes
+    assert cache.device_nbytes() <= 0.3 * plain.device_nbytes()

@@ -585,12 +585,13 @@ def test_leaf_kinds_and_limits_match_the_cuda_source():
 
 
 def test_group_params_struct_layout():
-    # GaParams: 35 pointers, four int64, 64 constants, 64 leaf identities,
-    # 256 code words, seven int32, two int32[4], two int32[16], six int8[64]
-    # tables, padded to 8 bytes; with the combine's other arguments it stays
-    # under the 4 KB kernel-parameter limit.  The wrapper re-checks the
-    # kernel's sizeof at load.
-    assert ctypes.sizeof(ga._GaParams) == 2936
+    # GaParams: 35 pointers, the 384-byte column descriptors (FaEnc), four
+    # int64, 64 constants, 64 leaf identities, 256 code words, seven int32,
+    # two int32[4], two int32[16], six int8[64] tables, padded to 8 bytes;
+    # with the combine's other arguments it stays under the 4 KB
+    # kernel-parameter limit.  The wrapper re-checks the kernel's sizeof at
+    # load.
+    assert ctypes.sizeof(ga._GaParams) == 3320
     prog = TorchDagEvaluator(dag_to_wire(bench.q1_dag()), block_rows=64,
                              device="cpu").plan.group_program
     assert len(prog.leaves) == 10 and prog.c_max == 331

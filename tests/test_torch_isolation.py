@@ -32,7 +32,8 @@ def test_port_modules_listed():
     mods = _port_modules()
     for m in ("tikv_tpu_torch.copr.torch_eval", "tikv_tpu_torch.copr.fused_agg",
               "tikv_tpu_torch.copr.cache", "tikv_tpu_torch.util.codec", "tikv_tpu_torch._build",
-              "tikv_tpu_torch.copr.fused_mask", "tikv_tpu_torch.copr.fused_topn"):
+              "tikv_tpu_torch.copr.fused_mask", "tikv_tpu_torch.copr.fused_topn",
+              "tikv_tpu_torch.copr.encoding", "tikv_tpu_torch.copr.zone_maps"):
         assert m in mods
 
 

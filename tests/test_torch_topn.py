@@ -417,13 +417,14 @@ def test_scan_limits_and_parameter_blocks_match_the_cuda_source():
     assert int(defines["TN_MAX_PAYLOAD"]) == fm.MAX_PAYLOAD
     assert int(defines["TN_SMEM_MAX"]) == fm.SMEM_MAX
     assert int(defines["SC_MASK_THREADS"]) == fm.MASK_THREADS
-    # ScParams: 33 pointers, four int64, 64 constants, 256 code words, five
-    # int32, two int32[4], padded to 8 bytes; TpParams: 38 pointers, one
-    # int64, three int32, three int32[16], padded.  Both stay far under the
-    # 4 KB kernel-parameter limit; the wrappers re-check the kernel's sizeof
-    # at load.
-    assert ctypes.sizeof(fm._ScParams) == 1888
-    assert ctypes.sizeof(fm._TpParams) == 520
+    # ScParams: 33 pointers, the 384-byte column descriptors (FaEnc), four
+    # int64, 64 constants, 256 code words, five int32, two int32[4], padded
+    # to 8 bytes; TpParams: 38 pointers, the column descriptors, two int64,
+    # three int32, three int32[16], padded.  Both stay under the 4 KB
+    # kernel-parameter limit; the wrappers re-check the kernel's sizeof at
+    # load.
+    assert ctypes.sizeof(fm._ScParams) == 2272
+    assert ctypes.sizeof(fm._TpParams) == 912
     # the largest entry fits the tile in shared memory, and every K fits a tile
     words = 2 + 2 * fm.MAX_KEYS
     assert ft.tile_rows(words) * (8 * words + 2) <= fm.SMEM_MAX

@@ -1,11 +1,13 @@
 """Columnar block cache: decoded blocks plus their device-resident images.
 
 The port's subset of ``tikv_tpu/copr/cache.py:61``.  A cache holds the
-decoded column blocks of one (range, version); any query over it skips scan
-and decode, and the device path pins each plan signature's arrays on the
-evaluator's device on first use, so steady-state queries move no bytes from
-the host.  Pins are torch tensors; write-through patches, encoded images and
-the observatory's HBM gauges belong to later slices.
+column blocks of one (range, version), plain or encoded
+(``copr/encoding.py``); any query over it skips scan and decode, and the
+device path pins each plan signature's tensors on the evaluator's device on
+first use, so steady-state queries move no bytes from the host.  Each block
+also carries its zone maps (``copr/zone_maps.py``), built at encode time or
+on first prune.  Write-through patches and the observatory's HBM gauges
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -27,14 +29,19 @@ class _Block:
     cols: list  # list[Column] (host)
     n_valid: int
     device: dict = field(default_factory=dict)  # sig -> pinned tensors
+    # per-column prune statistics (zone_maps.build_block_zones); None until built
+    zones: dict | None = None
 
 
 class ColumnBlockCache:
-    """Decoded blocks for one (range, version) — build once, evaluate many."""
+    """Column blocks for one (range, version) — build once, evaluate many."""
 
     def __init__(self):
         self.blocks: list[_Block] = []
         self.filled = False
+        # bumped whenever column encodings change (encoding.encode_blocks,
+        # widen_codes): encoded pin signatures include it
+        self.enc_version = 0
         self._mu = threading.Lock()
 
     @classmethod
@@ -78,6 +85,25 @@ class ColumnBlockCache:
                 block.device.pop(next(iter(block.device)))
             return block.device[sig]
 
+    def drop_device(self) -> None:
+        """Unpin every device copy; the host blocks stay."""
+        with self._mu:
+            for b in self.blocks:
+                b.device.clear()
+
+    def widen_codes(self, ci: int, max_code: int) -> bool:
+        """Widen column ``ci``'s narrowed dictionary codes image-wide so
+        ``max_code`` fits (``encoding.ensure_code_capacity``).  A change
+        bumps ``enc_version`` and drops the pins: the next query pins the
+        wider lanes."""
+        from .encoding import ensure_code_capacity
+
+        if not self.blocks or not ensure_code_capacity(self.blocks, ci, max_code):
+            return False
+        self.enc_version += 1
+        self.drop_device()
+        return True
+
     def nvoff_device(self, device):
         """``(n_valids, offsets)`` int64 ``[n_blocks]`` tensors on ``device``,
         pinned on first use (``jax_eval._nvoff_device``): each block's valid
@@ -98,7 +124,7 @@ class ColumnBlockCache:
         def nbytes(entry) -> int:
             if isinstance(entry, (tuple, list)):
                 return sum(nbytes(e) for e in entry)
-            return entry.numel() * entry.element_size() if entry is not None else 0
+            return entry.numel() * entry.element_size() if isinstance(entry, torch.Tensor) else 0
 
         with self._mu:
             return sum(nbytes(e) for b in self.blocks for e in b.device.values())

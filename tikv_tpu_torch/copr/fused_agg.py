@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from .datatypes import EvalType
-from .kernels import KERNELS
+from .kernels import KERNELS, decode_device_column
 from .rpn import RpnExpression, RpnNode
 
 # limits of the kernel's parameter block (csrc/fused_agg.cu)
@@ -93,7 +93,8 @@ CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 #: ``copr/fused_mask.py``, the top-K kernels' in ``copr/fused_topn.py``)
 LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0,
-            "fused_mask": 0, "topn_candidates": 0, "topn_merge": 0, "topn_pack": 0}
+            "fused_mask": 0, "topn_candidates": 0, "topn_merge": 0, "topn_pack": 0,
+            "decode_column": 0}
 
 
 def reset_launches() -> None:
@@ -288,14 +289,23 @@ def compile_program(sel_rpns, aggs, ship_cols, schema) -> Program:
 # The image the kernel reads
 # ---------------------------------------------------------------------------
 
+PLAIN = ("plain",)
+
+
 @dataclass
 class Image:
     """Shipped columns as ``[n_blocks, block_rows]`` tensors on one device.
-    ``cols[j]`` is int64 or f64 as ``Program.col_f64[j]``; ``nulls[j]`` is a
-    bool mask or None for a NOT NULL column.  ``n_valids`` is an int64
-    ``[n_blocks]`` tensor, or one int for every block.  The grouped kernels
-    also read ``offsets`` (the global row index of each block's row 0: an
-    int64 ``[n_blocks]`` tensor, or one int for a single block) and, for host
+    ``cols[j]`` is the pinned payload of column ``j`` under its encoding
+    descriptor ``descs[j]`` (``encoding._col_desc``; ``descs`` None: every
+    column plain): plain, int64 or f64 as ``Program.col_f64[j]``; bp or code,
+    int8/int16/int32 lanes (bp adds ``refs[j]``); rle, the pair
+    ``(run_values, run_ends)`` of shape ``[n_blocks, k_cap]``.  ``nulls[j]``
+    is a bool mask, ``[n_blocks, block_rows]`` or, for an rle column,
+    run-shaped ``[n_blocks, k_cap]`` (``k_cap < block_rows``), or None for a
+    NOT NULL column.  ``n_valids`` is an int64 ``[n_blocks]``
+    tensor, or one int for every block.  The grouped kernels also read
+    ``offsets`` (the global row index of each block's row 0: an int64
+    ``[n_blocks]`` tensor, or one int for a single block) and, for host
     group ids, ``gids`` (int32 ``[n_blocks, block_rows]``)."""
 
     cols: list
@@ -306,6 +316,41 @@ class Image:
     device: torch.device
     offsets: object = 0
     gids: torch.Tensor | None = None
+    descs: tuple | None = None
+    refs: tuple | None = None
+
+    def desc(self, j: int) -> tuple:
+        return PLAIN if self.descs is None else self.descs[j]
+
+    def ref(self, j: int) -> int:
+        return 0 if self.refs is None else int(self.refs[j])
+
+    def lanes(self, j: int):
+        """Column ``j`` decoded: ``(data, nulls)`` of shape ``[n_blocks,
+        block_rows]`` (nulls None for a NOT NULL column), through the plain
+        version of program #1."""
+        return decode_device_column(self.desc(j), self.cols[j], self.nulls[j], self.ref(j),
+                                    self.block_rows)
+
+    def blocks(self, start: int, end: int) -> "Image":
+        """Blocks ``start:end`` (views, no copy)."""
+        def cut(t):
+            if t is None:
+                return None
+            return tuple(x[start:end] for x in t) if isinstance(t, tuple) else t[start:end]
+
+        nv = self.n_valids if isinstance(self.n_valids, int) else self.n_valids[start:end]
+        off = self.offsets if isinstance(self.offsets, int) else self.offsets[start:end]
+        return Image([cut(c) for c in self.cols], [cut(m) for m in self.nulls], nv,
+                     end - start, self.block_rows, self.device, off, cut(self.gids),
+                     self.descs, self.refs)
+
+    def pick(self, at: list[int]) -> "Image":
+        """The image of columns ``at`` (positions in this image)."""
+        return Image([self.cols[j] for j in at], [self.nulls[j] for j in at], self.n_valids,
+                     self.n_blocks, self.block_rows, self.device, self.offsets, self.gids,
+                     None if self.descs is None else tuple(self.descs[j] for j in at),
+                     None if self.refs is None else tuple(self.refs[j] for j in at))
 
 
 def _valid_mask(img: Image) -> torch.Tensor:
@@ -350,12 +395,15 @@ def walk_rows(prog, img: Image, n_aggs: int, keys: list | None = None):
     no_nulls = torch.zeros(n, dtype=torch.bool, device=dev)
     stack: list[tuple[torch.Tensor, torch.Tensor]] = []
     out: list = [None] * n_aggs
+    lanes: dict[int, tuple] = {}  # each column decoded once
     for word in prog.code:
         op, arg, flags, depth = _decode(word)
         fa = bool(flags & 1)
         if op == OP_COL:
-            nl = img.nulls[arg]
-            stack.append((img.cols[arg].reshape(-1), no_nulls if nl is None else nl.reshape(-1)))
+            if arg not in lanes:
+                d, nl = img.lanes(arg)
+                lanes[arg] = (d.reshape(-1), no_nulls if nl is None else nl.reshape(-1))
+            stack.append(lanes[arg])
         elif op == OP_CONST:
             raw = torch.tensor([prog.consts[arg]], dtype=torch.int64)
             value = (raw.view(torch.float64) if fa else raw).item()
@@ -482,12 +530,34 @@ def combine_plain(prog: Program, scratch: torch.Tensor, carry=None) -> tuple[tor
 # CUDA launcher
 # ---------------------------------------------------------------------------
 
+# column kinds of the walk's column load (program #1, FA_ENC_* in csrc/fa_walk.cuh)
+ENC_PLAIN = 0
+ENC_NARROW = 1  # bp and code: 1-, 2- or 4-byte lanes, sign-extended, + ref
+ENC_RLE = 2
+
+
+class _Enc(ctypes.Structure):
+    """``FaEnc`` of csrc/fa_walk.cuh: how each column of a parameter block
+    is loaded (its descriptor, inline in the block)."""
+
+    _fields_ = [
+        ("ref", ctypes.c_int64 * MAX_COLS),
+        ("ends", ctypes.c_uint64 * MAX_COLS),
+        ("k_cap", ctypes.c_int32 * MAX_COLS),
+        ("kind", ctypes.c_int8 * MAX_COLS),
+        ("width", ctypes.c_int8 * MAX_COLS),
+        ("null_runs", ctypes.c_int8 * MAX_COLS),
+        ("pad", ctypes.c_int8 * MAX_COLS),
+    ]
+
+
 class _Params(ctypes.Structure):
     """``FaParams`` of csrc/fused_agg.cu, passed to the kernel by value."""
 
     _fields_ = [
         ("col", ctypes.c_uint64 * MAX_COLS),
         ("nul", ctypes.c_uint64 * MAX_COLS),
+        ("enc", _Enc),
         ("n_valids", ctypes.c_uint64),
         ("n_valid_all", ctypes.c_int64),
         ("n_blocks", ctypes.c_int64),
@@ -502,6 +572,24 @@ class _Params(ctypes.Structure):
         ("cnt_slot", ctypes.c_int32 * MAX_AGGS),
         ("val_slot", ctypes.c_int32 * MAX_AGGS),
     ]
+
+
+def set_columns(p, img: Image) -> None:
+    """Fill a parameter block's columns (``col``, ``nul``) and their
+    descriptors (``enc``) from ``img``."""
+    for j, (c, nl) in enumerate(zip(img.cols, img.nulls)):
+        kind = img.desc(j)[0]
+        if kind == "rle":
+            values, ends = c
+            p.col[j], p.enc.ends[j] = values.data_ptr(), ends.data_ptr()
+            p.enc.k_cap[j], p.enc.width[j] = ends.shape[-1], values.element_size()
+            p.enc.kind[j] = ENC_RLE
+            p.enc.null_runs[j] = int(nl is not None and nl.shape[-1] != img.block_rows)
+        else:
+            p.col[j], p.enc.width[j] = c.data_ptr(), c.element_size()
+            p.enc.kind[j] = ENC_PLAIN if kind == "plain" else ENC_NARROW
+            p.enc.ref[j] = img.ref(j) if kind == "bp" else 0
+        p.nul[j] = 0 if nl is None else nl.data_ptr()
 
 
 def program_params(prog: Program) -> _Params:
@@ -552,38 +640,64 @@ def kernel_grid() -> tuple[int, int]:
     return lib.fa_grid(), lib.fa_threads()
 
 
-def _check_image(prog: Program, img: Image) -> None:
-    if img.device.type != "cuda":
-        raise ValueError(f"the kernel needs a CUDA image, got {img.device}")
-    if len(img.cols) != len(prog.col_f64) or len(img.nulls) != len(prog.col_f64):
+_NARROW_DTYPES = (torch.int8, torch.int16, torch.int32)
+_RUN_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _contiguous(t, dev, dtypes, shape) -> bool:
+    return (isinstance(t, torch.Tensor) and t.device == dev and t.dtype in dtypes
+            and tuple(t.shape) == shape and t.is_contiguous())
+
+
+def check_columns(col_f64, img: Image) -> None:
+    """Raise unless every column of ``img`` is what the kernels load under
+    its descriptor (f64 where ``col_f64`` says so), on one CUDA device,
+    contiguous."""
+    dev = img.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs a CUDA image, got {dev}")
+    if len(img.cols) != len(col_f64) or len(img.nulls) != len(col_f64):
         raise ValueError("image columns do not match the program")
+    if img.descs is not None and len(img.descs) != len(img.cols):
+        raise ValueError("image descriptors do not match its columns")
     shape = (img.n_blocks, img.block_rows)
     for j, (c, nl) in enumerate(zip(img.cols, img.nulls)):
-        want = _lane_dtype(prog.col_f64[j])
-        if c.device != img.device or c.dtype != want or tuple(c.shape) != shape \
-                or not c.is_contiguous():
-            raise ValueError(f"column {j}: need contiguous {want} {shape} on {img.device}")
-        if nl is not None and (nl.device != img.device or nl.dtype != torch.bool
-                               or tuple(nl.shape) != shape or not nl.is_contiguous()):
-            raise ValueError(f"null mask {j}: need contiguous bool {shape} on {img.device}")
+        desc = img.desc(j)
+        null_shape = shape
+        if desc[0] == "rle":
+            runs = (img.n_blocks, desc[1])
+            ok = (not col_f64[j] and isinstance(c, tuple) and len(c) == 2
+                  and _contiguous(c[0], dev, _RUN_DTYPES, runs)
+                  and _contiguous(c[1], dev, (torch.int64,), runs))
+            want, null_shape = f"int run values and int64 run ends {runs}", runs
+        elif desc[0] in ("bp", "code"):
+            ok = not col_f64[j] and _contiguous(c, dev, _NARROW_DTYPES, shape)
+            want = f"int8/int16/int32 lanes {shape}"
+        elif desc[0] == "plain":
+            ok = _contiguous(c, dev, (_lane_dtype(col_f64[j]),), shape)
+            want = f"{_lane_dtype(col_f64[j])} {shape}"
+        else:
+            raise ValueError(f"column {j}: unknown descriptor {desc!r}")
+        if not ok:
+            raise ValueError(f"column {j} ({desc[0]}): need contiguous {want} on {dev}")
+        if nl is not None and not (_contiguous(nl, dev, (torch.bool,), null_shape)
+                                   or _contiguous(nl, dev, (torch.bool,), shape)):
+            raise ValueError(f"null mask {j}: need contiguous bool {null_shape} on {dev}")
     nv = img.n_valids
-    if not isinstance(nv, int) and (nv.device != img.device or nv.dtype != torch.int64
-                                    or tuple(nv.shape) != (img.n_blocks,) or not nv.is_contiguous()):
-        raise ValueError(f"n_valids: need contiguous int64 ({img.n_blocks},) on {img.device}")
+    if not isinstance(nv, int) and not _contiguous(nv, dev, (torch.int64,), (img.n_blocks,)):
+        raise ValueError(f"n_valids: need contiguous int64 ({img.n_blocks},) on {dev}")
 
 
 def launch_partials(prog: Program, img: Image, scratch: torch.Tensor) -> None:
     """Launch ``fused_agg_partials`` into ``scratch`` ([grid, n_aggs, 2] int64)."""
-    _check_image(prog, img)
+    check_columns(prog.col_f64, img)
     lib = _kernels()
     grid, _threads = kernel_grid()
     if scratch.device != img.device or scratch.dtype != torch.int64 \
             or tuple(scratch.shape) != (grid, len(prog.aggs), 2) or not scratch.is_contiguous():
         raise ValueError("scratch: need contiguous int64 [grid, n_aggs, 2] on the image's device")
     p = program_params(prog)
-    for j, (c, nl) in enumerate(zip(img.cols, img.nulls)):
-        p.col[j] = c.data_ptr()
-        p.nul[j] = 0 if nl is None else nl.data_ptr()
+    set_columns(p, img)
     if isinstance(img.n_valids, int):
         p.n_valids, p.n_valid_all = 0, img.n_valids
     else:

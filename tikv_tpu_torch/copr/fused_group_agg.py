@@ -285,15 +285,17 @@ def _seg_reduce(leaf: Leaf, mask: torch.Tensor, vals, seg: torch.Tensor,
 
 
 def _flat_gids(prog: GroupProgram, img: Image, capacity: int) -> torch.Tensor:
-    """The group id of every flat row, -1 where it falls outside the slots."""
+    """The group id of every flat row, -1 where it falls outside the slots.
+    Coded ids read the key columns' dictionary codes widened to int64 (they
+    are narrowed int8/int16 lanes in an encoded image)."""
     n = img.n_blocks * img.block_rows
     if prog.key_slots is None:
         g = img.gids.reshape(-1).to(torch.int64)
     else:
         g = torch.zeros(n, dtype=torch.int64, device=img.device)
         for slot, dlen in zip(prog.key_slots, prog.dict_lens):
-            codes = img.cols[slot].reshape(-1)
-            nl = img.nulls[slot]
+            codes, nl = img.lanes(slot)
+            codes = codes.reshape(-1)
             if nl is not None:
                 codes = torch.where(nl.reshape(-1), dlen, codes)
             g = g * (dlen + 1) + codes
@@ -424,6 +426,7 @@ class _GaParams(ctypes.Structure):
     _fields_ = [
         ("col", ctypes.c_uint64 * fa.MAX_COLS),
         ("nul", ctypes.c_uint64 * fa.MAX_COLS),
+        ("enc", fa._Enc),
         ("n_valids", ctypes.c_uint64),
         ("offsets", ctypes.c_uint64),
         ("gids", ctypes.c_uint64),
@@ -480,9 +483,7 @@ def group_params(prog: GroupProgram, img: Image, capacity: int) -> _GaParams:
         p.n_keys = len(prog.key_slots)
         p.key_slot[: p.n_keys] = prog.key_slots
         p.key_dlen[: p.n_keys] = prog.dict_lens
-    for j, (c, nl) in enumerate(zip(img.cols, img.nulls)):
-        p.col[j] = c.data_ptr()
-        p.nul[j] = 0 if nl is None else nl.data_ptr()
+    fa.set_columns(p, img)
     if isinstance(img.n_valids, int):
         p.n_valids, p.n_valid_all = 0, img.n_valids
     else:
@@ -534,7 +535,7 @@ def check_capacity(prog: GroupProgram, capacity: int) -> None:
 
 
 def _check_group_image(prog: GroupProgram, img: Image, capacity: int) -> None:
-    fa._check_image(prog, img)
+    fa.check_columns(prog.col_f64, img)
     shape = (img.n_blocks, img.block_rows)
     if prog.key_slots is None:
         g = img.gids
@@ -543,8 +544,8 @@ def _check_group_image(prog: GroupProgram, img: Image, capacity: int) -> None:
             raise ValueError(f"gids: need contiguous int32 {shape} on {img.device}")
     else:
         for s in prog.key_slots:
-            if prog.col_f64[s]:
-                raise ValueError(f"key column slot {s} must be int64 codes")
+            if prog.col_f64[s] or img.desc(s)[0] not in ("plain", "code"):
+                raise ValueError(f"key column slot {s} must hold dictionary codes")
     off = img.offsets
     if not isinstance(off, int) and (off.device != img.device or off.dtype != torch.int64
                                      or tuple(off.shape) != (img.n_blocks,)

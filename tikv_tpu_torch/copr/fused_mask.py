@@ -15,7 +15,10 @@ bytecode with the conjuncts and no aggregate.
   CUDA image; on a CUDA tensor it launches the kernel or raises.
 
 The parameter block and the library loader of ``csrc/fused_scan.cu`` live
-here; ``copr/fused_topn.py`` shares them.
+here; ``copr/fused_topn.py`` shares them.  So does :func:`decode_column`,
+the launcher of program #1 alone (``csrc/fused_scan.cu:decode_column``, the
+column load every kernel inlines): the checks hold the load to
+``kernels.decode_device_column`` and time it with it; no query path calls it.
 """
 
 from __future__ import annotations
@@ -31,10 +34,13 @@ from .fused_agg import (
     MAX_CONSTS,
     Image,
     Program,
-    _check_image,
+    _Enc,
+    check_columns,
     compile_program,
+    set_columns,
     walk_rows,
 )
+from .kernels import decode_device_column
 
 # limits of csrc/fused_scan.cu
 MAX_KEYS = 4
@@ -65,6 +71,7 @@ class _ScParams(ctypes.Structure):
     _fields_ = [
         ("col", ctypes.c_uint64 * MAX_COLS),
         ("nul", ctypes.c_uint64 * MAX_COLS),
+        ("enc", _Enc),
         ("n_valids", ctypes.c_uint64),
         ("n_valid_all", ctypes.c_int64),
         ("n_blocks", ctypes.c_int64),
@@ -85,15 +92,13 @@ class _ScParams(ctypes.Structure):
 def scan_params(prog, img: Image) -> _ScParams:
     """The walk's part of the parameter block: ``prog``'s bytecode (a
     :class:`Program` or a top-K program) and ``img``'s columns."""
-    _check_image(prog, img)
+    check_columns(prog.col_f64, img)
     p = _ScParams()
     p.consts[: len(prog.consts)] = prog.consts
     p.code[: len(prog.code)] = prog.code
     p.n_code = len(prog.code)
     p.n_cols = len(prog.col_f64)
-    for j, (c, nl) in enumerate(zip(img.cols, img.nulls)):
-        p.col[j] = c.data_ptr()
-        p.nul[j] = 0 if nl is None else nl.data_ptr()
+    set_columns(p, img)
     if isinstance(img.n_valids, int):
         p.n_valids, p.n_valid_all = 0, img.n_valids
     else:
@@ -108,6 +113,7 @@ class _TpParams(ctypes.Structure):
     _fields_ = [
         ("col", ctypes.c_uint64 * MAX_PAYLOAD),
         ("nul", ctypes.c_uint64 * MAX_PAYLOAD),
+        ("enc", _Enc),
         ("carry_i", ctypes.c_uint64),
         ("carry_f", ctypes.c_uint64),
         ("run", ctypes.c_uint64),
@@ -115,6 +121,7 @@ class _TpParams(ctypes.Structure):
         ("out_f", ctypes.c_uint64),
         ("out_run", ctypes.c_uint64),
         ("src_base", ctypes.c_int64),
+        ("block_rows", ctypes.c_int64),
         ("k", ctypes.c_int32),
         ("n_words", ctypes.c_int32),
         ("n_pay", ctypes.c_int32),
@@ -142,7 +149,9 @@ def kernels():
         lib.tn_launch_candidates.argtypes = [vp, vp, ci, vp]
         lib.tn_launch_merge.argtypes = [vp, cll, vp, vp, ci, ci, vp]
         lib.tn_launch_pack.argtypes = [vp, vp]
-        for fn in ("sc_launch_mask", "tn_launch_candidates", "tn_launch_merge", "tn_launch_pack"):
+        lib.dc_launch.argtypes = [vp, vp, vp, ci, vp]
+        for fn in ("sc_launch_mask", "tn_launch_candidates", "tn_launch_merge", "tn_launch_pack",
+                   "dc_launch"):
             getattr(lib, fn).restype = ci
         for name, want, got in (("ScParams", ctypes.sizeof(_ScParams), lib.sc_params_size()),
                                 ("TpParams", ctypes.sizeof(_TpParams), lib.tp_params_size())):
@@ -188,3 +197,49 @@ def fused_mask(prog: Program, img: Image) -> torch.Tensor:
             launch_mask(prog, img, out)
         return out
     raise ValueError(f"no fused_mask for device {img.device}")
+
+
+# ---------------------------------------------------------------------------
+# Program #1 alone: decode_column
+# ---------------------------------------------------------------------------
+
+_DECODE_PROGRAM = Program((), (), (False,), (), 1, 0)
+
+
+def launch_decode(img: Image, out: torch.Tensor, out_nulls: torch.Tensor) -> None:
+    """Launch ``decode_column`` over the one column of ``img``: its int64
+    lanes into ``out`` and its null bytes into ``out_nulls`` (both
+    ``[n_blocks, block_rows]``), through the walk's column load."""
+    p = scan_params(_DECODE_PROGRAM, img)
+    shape = (img.n_blocks, img.block_rows)
+    for t, dt, what in ((out, torch.int64, "lanes"), (out_nulls, torch.bool, "nulls")):
+        if t.device != img.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"decoded {what}: need contiguous {dt} {shape} on {img.device}")
+    grid = max(1, min(MASK_GRID_MAX, -(-out.numel() // MASK_THREADS)))
+    lib = kernels()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.dc_launch(ctypes.byref(p), out.data_ptr(), out_nulls.data_ptr(), grid, stream)
+    check_launch("decode_column", rc)
+
+
+def decode_column(desc, payload, nulls, ref, n_rows: int):
+    """One column's ``(int64 lanes, bool nulls)`` ``[n_blocks, n_rows]`` from
+    its ``[n_blocks, ...]`` payload: :func:`kernels.decode_device_column` for
+    CPU tensors, the ``decode_column`` kernel for CUDA tensors.  ``nulls``
+    None (a NOT NULL column) gives all-False nulls."""
+    first = payload[0] if isinstance(payload, tuple) else payload
+    n_blocks = first.shape[0]
+    if first.device.type == "cpu":
+        data, nl = decode_device_column(desc, payload, nulls, ref, n_rows)
+        if nl is None:
+            nl = torch.zeros((n_blocks, n_rows), dtype=torch.bool)
+        return data, nl
+    img = Image([payload], [nulls], n_rows, n_blocks, n_rows, first.device,
+                descs=(tuple(desc),), refs=(int(ref),))
+    out = torch.empty((n_blocks, n_rows), dtype=torch.int64, device=first.device)
+    out_nulls = torch.empty((n_blocks, n_rows), dtype=torch.bool, device=first.device)
+    if out.numel():
+        launch_decode(img, out, out_nulls)
+    return out, out_nulls

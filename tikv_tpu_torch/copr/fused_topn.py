@@ -42,7 +42,16 @@ from dataclasses import dataclass
 import torch
 
 from .datatypes import EvalType
-from .fused_agg import Image, Unsupported, _valid_mask, emit_keys, emit_program, walk_rows
+from .fused_agg import (
+    Image,
+    Unsupported,
+    _valid_mask,
+    check_columns,
+    emit_keys,
+    emit_program,
+    set_columns,
+    walk_rows,
+)
 from .fused_mask import (
     MAX_KEYS,
     MAX_PAYLOAD,
@@ -222,8 +231,8 @@ def pack_plain(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_base
     flts = torch.zeros((prog.n_f64, k), dtype=torch.float64, device=run.device)
     ints[0] = rank
     for j, (is_f, row, nrow) in enumerate(zip(prog.pay_f64, prog.pay_row, prog.pay_null_row)):
-        col = pay.cols[j].reshape(-1)
-        nl = pay.nulls[j]
+        col, nl = pay.lanes(j)  # an encoded payload column decoded
+        col = col.reshape(-1)
         mat = flts if is_f else ints
         zero = torch.zeros((), dtype=mat.dtype, device=run.device)
         v = torch.where(from_img, col[flat] if n_flat else zero, zero)
@@ -300,19 +309,10 @@ def launch_pack(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_bas
             or not flts.is_contiguous():
         raise ValueError(f"packed f64: need contiguous float64 ({prog.n_f64}, {k}) on {dev}")
     _check_words(out_run, (prog.n_words, k), dev, "next carry run")
-    if len(pay.cols) != len(prog.pay_f64):
-        raise ValueError("payload image columns do not match the program")
-    shape = (pay.n_blocks, pay.block_rows)
+    check_columns(prog.pay_f64, pay)
     p = _TpParams()
-    for j, (c, nl, is_f) in enumerate(zip(pay.cols, pay.nulls, prog.pay_f64)):
-        want = torch.float64 if is_f else torch.int64
-        if c.device != dev or c.dtype != want or tuple(c.shape) != shape or not c.is_contiguous():
-            raise ValueError(f"payload column {j}: need contiguous {want} {shape} on {dev}")
-        if nl is not None and (nl.device != dev or nl.dtype != torch.bool
-                               or tuple(nl.shape) != shape or not nl.is_contiguous()):
-            raise ValueError(f"payload null mask {j}: need contiguous bool {shape} on {dev}")
-        p.col[j] = c.data_ptr()
-        p.nul[j] = 0 if nl is None else nl.data_ptr()
+    set_columns(p, pay)
+    for j, is_f in enumerate(prog.pay_f64):
         p.pay_f64[j] = int(is_f)
         p.pay_row[j] = prog.pay_row[j]
         p.pay_null_row[j] = prog.pay_null_row[j]
@@ -324,6 +324,7 @@ def launch_pack(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_bas
     p.out_f = flts.data_ptr() if prog.n_f64 else 0
     p.out_run = out_run.data_ptr()
     p.src_base, p.k, p.n_words, p.n_pay = src_base, k, prog.n_words, len(prog.pay_f64)
+    p.block_rows = pay.block_rows
     lib = kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

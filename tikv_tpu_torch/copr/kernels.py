@@ -126,3 +126,43 @@ def _minus(a, b):
 def _multiply(a, b):
     (ad, an), (bd, bn) = a, b
     return ad * bd, an | bn
+
+
+# -- program #1: the in-kernel decode of an encoded column -------------------
+
+def decode_device_column(desc, payload, nulls, ref, n_rows: int):
+    """``(data, nulls)`` lanes of one shipped column from its pinned payload:
+    the plain version of the column load in ``csrc/fa_walk.cuh`` (``fa_load``)
+    and of the JAX package's ``kernels.decode_device_column``.
+
+    ``desc`` is the column's descriptor (``encoding._col_desc``): ``("plain",)``
+    returns the payload as it is; ``("bp", lane)`` widens the narrow lanes to
+    int64 and adds ``ref``; ``("code", lane)`` widens dictionary codes;
+    ``("rle", k_cap, dtype)`` takes ``payload = (run_values, run_ends)``, finds
+    each row's run with ``searchsorted(run_ends, row, right=True)`` clipped to
+    ``k_cap - 1`` (rows past the last run fall in the inert pad run) and
+    gathers its value, and its null flag where ``nulls`` is run-shaped.
+    Payloads are ``[rows]`` or ``[blocks, rows]`` (``[..., k_cap]`` for runs);
+    ``nulls`` is a bool tensor or None (NOT NULL).  Unlike the JAX package,
+    the null slots of an encoded column decode to 0, as the host decode
+    (``EncodedColumn._decode_rows``) and the plain image hold them."""
+    kind = desc[0]
+    if kind == "plain":
+        return payload, nulls
+    if kind == "rle":
+        run_values, run_ends = payload
+        rows = torch.arange(n_rows, dtype=torch.int64, device=run_ends.device)
+        rows = rows.expand(*run_ends.shape[:-1], n_rows).contiguous()
+        idx = torch.searchsorted(run_ends.contiguous(), rows, right=True).clamp_(0, desc[1] - 1)
+        data = run_values.to(torch.int64).gather(-1, idx)
+        if nulls is not None and nulls.shape[-1] != n_rows:  # run-shaped
+            nulls = nulls.gather(-1, idx)
+    elif kind in ("bp", "code"):
+        data = payload.to(torch.int64)
+        if kind == "bp" and ref:
+            data = data + int(ref)
+    else:
+        raise AssertionError(f"unknown encoding descriptor {desc!r}")
+    if nulls is not None:
+        data = data.masked_fill(nulls, 0)
+    return data, nulls

@@ -27,6 +27,16 @@ Aggregations run as follows:
           every key is a bare dictionary-coded column shared by all blocks
           (coded path), else assigned on the host and shipped per query
 
+A warm image may be encoded (``copr/encoding.py``: bitpacked lanes, RLE
+runs, narrowed dictionary codes): the pin then holds the encoded payloads
+and every kernel decodes them in-kernel.  Before any warm launch the plan's
+selection conjuncts are tested against the blocks' zone maps
+(``copr/zone_maps.py``); a pruned block ships ``n_valid`` 0, so the kernels
+skip its rows, and the warm scan/filter does not emit it.  A raw TopN with
+no selection and a bare first key also drops the blocks that zone order
+proves cannot reach the top K.  Scan/filter output is gathered through the
+encodings (late materialization).
+
 Plans without GROUP BY whose aggregates are all count/sum/avg/min/max run
 ``fused_agg`` (``copr/fused_agg.py``, capacity 1); every other plan runs
 ``fused_group_agg`` (``copr/fused_group_agg.py``).  Both evaluate the
@@ -46,12 +56,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import weakref
 from contextlib import closing
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import encoding, zone_maps
 from .aggr import PORTED_AGG_OPS, AggState
 from .dag import (
     ENC_TYPE_DATUM,
@@ -421,6 +433,9 @@ class TorchDagEvaluator:
         self.block_rows = block_rows
         self.decoder = RowBatchDecoder(self.plan.scan.columns_info)
         self._coded_programs: dict[tuple, GroupProgram | None] = {}
+        # (blocks examined, blocks pruned) by the zone maps in the last warm run
+        self.prune_stats = (0, 0)
+        self._prune_memo = None  # (cache weakref, key, keep, prune_stats)
 
     # -- entry point --------------------------------------------------------
 
@@ -588,16 +603,36 @@ class TorchDagEvaluator:
     # -- warm ---------------------------------------------------------------
 
     def _run_aggregated_cached(self, cache) -> SelectResponse:
-        """Every block resident on the device: one launch pair, one pull."""
+        """Every block resident on the device: one launch pair, one pull;
+        zone-pruned blocks ship no valid row."""
+        keep = self._prune_keep(cache)
         if self.program is not None:
-            packed = fused_agg(self.program, self._stacked_device(cache))
+            packed = fused_agg(self.program, self._stacked_device(cache, keep=keep))
             return self._finalize_agg(packed, self.program, 1, None)
         stable = self._stable_dict_group_cols(cache.blocks)
         if stable is not None:
-            resp = self._run_coded(cache, *stable)
+            resp = self._run_coded(cache, *stable, keep=keep)
             if resp is not None:
                 return resp
-        return self._run_host_gids(cache)
+        return self._run_host_gids(cache, keep)
+
+    def _prune_keep(self, cache):
+        """The per-block keep mask of the plan's selection conjuncts under
+        the cache's zone maps (``jax_eval._prune_keep``), or None when
+        pruning proves nothing; records ``prune_stats``.  The mask is kept
+        for the next query over the same image: the port's zones change only
+        with the blocks or their encodings (no write-through deltas yet), and
+        testing every block's zones in Python takes milliseconds."""
+        key = (cache.enc_version, len(cache.blocks), zone_maps.enabled())
+        memo = self._prune_memo
+        if memo is not None and memo[0]() is cache and memo[1] == key:
+            self.prune_stats = memo[3]
+            return memo[2]
+        stats = zone_maps.PruneStats()
+        keep = zone_maps.prune_blocks(cache, self.plan.sel_rpns, stats)
+        self.prune_stats = (stats.examined, stats.pruned)
+        self._prune_memo = (weakref.ref(cache), key, keep, self.prune_stats)
+        return keep
 
     def _stable_dict_group_cols(self, blocks):
         """If every group expr is a bare ref to a dict-encoded column whose
@@ -646,7 +681,7 @@ class TorchDagEvaluator:
     def _ship_cols(self, extra) -> list[int]:
         return self.plan.device_cols + [i for i in extra if i not in self.plan.device_cols]
 
-    def _run_coded(self, cache, group_cols, dicts) -> SelectResponse | None:
+    def _run_coded(self, cache, group_cols, dicts, keep=None) -> SelectResponse | None:
         """Group ids computed on the device from the resident dictionary
         codes (``jax_eval.scan_coded``): no per-row host→device traffic."""
         dict_lens = tuple(len(d) for d in dicts)
@@ -660,7 +695,7 @@ class TorchDagEvaluator:
         else:
             prog = self.plan.group_program
         capacity = _capacity_for(prog, 1, n_slots)
-        img = self._stacked_device(cache, self._ship_cols(group_cols))
+        img = self._stacked_device(cache, self._ship_cols(group_cols), keep=keep)
         packed = fused_group_agg(prog, img, capacity)
 
         def key_of(slot: int) -> tuple:
@@ -674,53 +709,78 @@ class TorchDagEvaluator:
 
         return self._finalize_agg(packed, prog, n_slots, key_of)
 
-    def _run_host_gids(self, cache) -> SelectResponse:
-        """Host group ids for every block, shipped with the query
-        (``jax_eval.scan`` at capacity > 1)."""
+    def _run_host_gids(self, cache, keep=None) -> SelectResponse:
+        """Host group ids for every block that zone maps keep, shipped with
+        the query (``jax_eval.scan`` at capacity > 1).  The ids read
+        ``Column.data``, which decodes an encoded column on the host."""
         blocks = cache.blocks
         prog = self.plan.group_program
         groups = GroupDict()
         all_gids = np.zeros((len(blocks), self.block_rows), dtype=np.int32)
         for bi, blk in enumerate(blocks):
-            all_gids[bi] = self._assign_gids(blk.cols, blk.n_valid, groups)[0]
+            if keep is None or keep[bi]:
+                all_gids[bi] = self._assign_gids(blk.cols, blk.n_valid, groups)[0]
         n_slots = len(groups)
         capacity = _capacity_for(prog, 1, max(n_slots, 1))
         gids = torch.from_numpy(all_gids).to(self.device)
-        packed = fused_group_agg(prog, self._stacked_device(cache, gids=gids), capacity)
+        packed = fused_group_agg(prog, self._stacked_device(cache, gids=gids, keep=keep),
+                                 capacity)
         return self._finalize_agg(packed, prog, n_slots, lambda r: groups.rows[r])
 
-    def _stacked_device(self, cache, ship_cols=None, gids=None) -> Image:
+    def _stacked_device(self, cache, ship_cols=None, gids=None, keep=None) -> Image:
         """The [n_blocks, block_rows] image of the shipped columns (the device
         columns by default), pinned in the cache on first use so later
-        queries move no bytes; ``gids`` ride along unpinned."""
-        plan, br = self.plan, self.block_rows
+        queries move no bytes; ``gids`` ride along unpinned, and blocks that
+        ``keep`` drops get ``n_valid`` 0.  An encoded image pins its encoded
+        payloads (``encoding.device_plan``, ``stack_block_payloads``) under a
+        signature of its descriptors and ``enc_version``, apart from any
+        plain pin (``jax_eval._stacked_device``)."""
+        plan, br, dev = self.plan, self.block_rows, self.device
         ship = plan.device_cols if ship_cols is None else list(ship_cols)
         nullable = _nullable(plan.scan, ship)
         blocks = cache.blocks
-        sig = ("stacked", tuple(ship), tuple(nullable), br, str(self.device))
+        enc = encoding.device_plan(cache, ship, nullable)
+        if enc is None:
+            sig = ("stacked", tuple(ship), tuple(nullable), br, str(dev))
 
-        def build(_blk):
-            nb = len(blocks)
-            data = []
-            for i in ship:
-                is_f = plan.schema[i][0] == EvalType.REAL
-                host = np.zeros((nb, br), dtype=np.float64 if is_f else np.int64)
-                for bi, b in enumerate(blocks):
-                    d = np.asarray(b.cols[i].data)
-                    host[bi, : len(d)] = d
-                data.append(torch.from_numpy(host).to(self.device))
-            nulls = {}
-            for i in nullable:
-                host = np.ones((nb, br), dtype=bool)
-                for bi, b in enumerate(blocks):
-                    m = np.asarray(b.cols[i].nulls)
-                    host[bi, : len(m)] = m
-                nulls[i] = torch.from_numpy(host).to(self.device)
-            return data, [nulls.get(i) for i in ship]
+            def build(_blk):
+                nb = len(blocks)
+                data = []
+                for i in ship:
+                    is_f = plan.schema[i][0] == EvalType.REAL
+                    host = np.zeros((nb, br), dtype=np.float64 if is_f else np.int64)
+                    for bi, b in enumerate(blocks):
+                        d = np.asarray(b.cols[i].data)
+                        host[bi, : len(d)] = d
+                    data.append(torch.from_numpy(host).to(dev))
+                nulls = {}
+                for i in nullable:
+                    host = np.ones((nb, br), dtype=bool)
+                    for bi, b in enumerate(blocks):
+                        m = np.asarray(b.cols[i].nulls)
+                        host[bi, : len(m)] = m
+                    nulls[i] = torch.from_numpy(host).to(dev)
+                return data, [nulls.get(i) for i in ship]
+        else:
+            sig = ("stackedenc", tuple(ship), tuple(nullable), br, str(dev), enc.sig,
+                   enc.null_sig, cache.enc_version)
+
+            def build(_blk):
+                data, nulls, _refs = encoding.stack_block_payloads(blocks, ship, nullable, enc,
+                                                                   br)
+                data = [tuple(torch.from_numpy(a).to(dev) for a in d) if isinstance(d, tuple)
+                        else torch.from_numpy(d).to(dev) for d in data]
+                null_of = {i: torch.from_numpy(m).to(dev) for i, m in zip(nullable, nulls)}
+                return data, [null_of.get(i) for i in ship]
 
         data, nulls = cache.device_arrays(blocks[0], sig, build)
-        nv, off = cache.nvoff_device(self.device)
-        return Image(list(data), list(nulls), nv, len(blocks), br, self.device, off, gids)
+        nv, off = cache.nvoff_device(dev)
+        if keep is not None:
+            nv = torch.where(torch.from_numpy(keep).to(dev), nv, 0)
+        descs = refs = None
+        if enc is not None:
+            descs, refs = enc.sig, tuple(int(r) for r in enc.refs)
+        return Image(list(data), list(nulls), nv, len(blocks), br, dev, off, gids, descs, refs)
 
     # -- finalize -----------------------------------------------------------
 
@@ -776,30 +836,37 @@ class TorchDagEvaluator:
         enc = make_response_encoder(self.dag)
 
         def emit(cols, n_valid: int, mask) -> bool:
-            """Encode a block's surviving rows; True once the Limit is met."""
+            """Encode a block's surviving rows, gathered through the
+            encodings; True once the Limit is met."""
             nonlocal remaining
             logical = np.arange(n_valid) if mask is None else np.flatnonzero(mask[:n_valid])
             if remaining is not None:
                 logical = logical[:remaining]
                 remaining -= len(logical)
-            enc.add_chunk(Chunk(cols, logical), self.dag.output_offsets)
+            out_cols, logical = encoding.late_materialize_chunk(cols, logical)
+            enc.add_chunk(Chunk(out_cols, logical), self.dag.output_offsets)
             return remaining is not None and remaining <= 0
 
         prog = plan.mask_program
         if warm:
             blocks = cache.blocks
-            img = self._stacked_device(cache) if prog is not None else None
-            start, step = 0, 1 if remaining is not None else len(blocks)
-            while start < len(blocks):
-                end = min(len(blocks), start + step)
+            keep = self._prune_keep(cache)
+            kept = np.arange(len(blocks)) if keep is None else np.flatnonzero(keep)
+            img = self._stacked_device(cache, keep=keep) if prog is not None else None
+            # a doubling prefix of the kept blocks, each launch over the
+            # range that spans them (pruned blocks in it have n_valid 0)
+            pos, step = 0, 1 if remaining is not None else max(len(kept), 1)
+            while pos < len(kept):
+                chunk = kept[pos : pos + step]
+                start, end = int(chunk[0]), int(chunk[-1]) + 1
                 masks = None
                 if prog is not None:
-                    masks = fused_mask(prog, _block_range(img, start, end)).cpu().numpy()
-                for bi in range(start, end):
+                    masks = fused_mask(prog, img.blocks(start, end)).cpu().numpy()
+                for bi in chunk:
                     b = blocks[bi]
                     if emit(b.cols, b.n_valid, None if masks is None else masks[bi - start]):
                         return enc.to_response()
-                start, step = end, step * 2
+                pos, step = pos + len(chunk), step * 2
             return enc.to_response()
         done = False
         with closing(self._cold_blocks(source, cache)) as blocks:
@@ -823,8 +890,9 @@ class TorchDagEvaluator:
         resident image; one packed pull of K rows.  Payload is every schema
         column; BYTES columns ride as dictionary codes, and a column that is
         not dictionary-coded, or whose dictionary changes between blocks,
-        raises ``ValueError``.  The JAX package's zone-order early exit is
-        not ported: it only skips blocks that cannot contribute."""
+        raises ``ValueError``.  Warm, zone-pruned blocks and (no selection, a
+        bare first key) the blocks that zone order proves cannot reach the
+        top K ship no valid row."""
         plan = self.plan
         prog = plan.topn_program
         if prog is None:  # K == 0
@@ -834,7 +902,7 @@ class TorchDagEvaluator:
         if warm:
             for b in cache.blocks:
                 self._check_payload_dicts(b.cols, dicts)
-            pay = self._stacked_device(cache, payload)
+            pay = self._stacked_device(cache, payload, keep=self._topn_keep(cache))
             state = topn_step(prog, _pick(pay, payload, plan.device_cols), pay)
             return self._finalize_topn(state, dicts)
         state = None
@@ -847,6 +915,27 @@ class TorchDagEvaluator:
         if state is None:
             return make_response_encoder(self.dag).to_response()
         return self._finalize_topn(state, dicts)
+
+    def _topn_keep(self, cache):
+        """The warm raw TopN's keep mask: zone pruning, then, with no
+        selection and a bare-column first key, the zone-order early exit
+        (``jax_eval._run_topn``).  Blocks keep stream order, so only blocks
+        that cannot hold a top-K row drop out and the bytes cannot change."""
+        plan = self.plan
+        keep = self._prune_keep(cache)
+        rpn0, desc0 = plan.topn_rpns[0]
+        if (plan.sel_rpns or not zone_maps.enabled() or len(rpn0.nodes) != 1
+                or rpn0.nodes[0].kind != "col" or not zone_maps.ensure_zones(cache)):
+            return keep
+        n = len(cache.blocks)
+        base = keep if keep is not None else np.ones(n, dtype=bool)
+        cut = zone_maps.topn_cutoff_order(cache.blocks, base, rpn0.nodes[0].index, desc0, plan.k)
+        exited = int((base & ~cut).sum()) if cut is not None else 0
+        if not exited:
+            return keep
+        examined, pruned = self.prune_stats
+        self.prune_stats = (examined or n, pruned + exited)
+        return cut
 
     def _check_payload_dicts(self, cols, dicts: dict) -> None:
         """BYTES payload rides as dictionary codes: every block must carry
@@ -877,19 +966,9 @@ class TorchDagEvaluator:
         return enc.to_response()
 
 
-def _block_range(img: Image, start: int, end: int) -> Image:
-    """Blocks ``start:end`` of a stacked image (views, no copy)."""
-    off = img.offsets if isinstance(img.offsets, int) else img.offsets[start:end]
-    return Image([c[start:end] for c in img.cols],
-                 [None if m is None else m[start:end] for m in img.nulls],
-                 img.n_valids[start:end], end - start, img.block_rows, img.device, off)
-
-
 def _pick(img: Image, ship: list[int], cols: list[int]) -> Image:
     """The image of columns ``cols``, taken from ``img`` over ``ship``."""
-    at = [ship.index(i) for i in cols]
-    return Image([img.cols[j] for j in at], [img.nulls[j] for j in at], img.n_valids,
-                 img.n_blocks, img.block_rows, img.device, img.offsets, img.gids)
+    return img.pick([ship.index(i) for i in cols])
 
 
 def _capacity_for(prog: GroupProgram, capacity: int, n_groups: int) -> int:

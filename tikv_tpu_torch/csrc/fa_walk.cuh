@@ -9,6 +9,18 @@
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
 //
+// Also program #1 of the reference package, kernels.py:decode_device_column
+// (inlined there through jax_eval.py:_build_cols): the column load fa_load.
+// A warm image may be encoded (copr/encoding.py): bitpacked int8/16/32
+// lanes plus one frame of reference per column, narrowed int8/16
+// dictionary codes, or runs (values and ends, [n_blocks, k_cap]).  Every
+// kernel that reads the image loads each column through fa_load, which
+// widens it in registers, so HBM holds the narrow payload and the walk sees
+// the int64 lanes of the plain image: the null slots of an encoded column
+// load as 0, as the plain image holds them.  The column's descriptor (FaEnc)
+// rides in the parameter block; it is the same for every thread, so the
+// branch on it never diverges.
+//
 // Layout contract with tikv_tpu_torch/copr/fused_agg.py (a CPU test checks
 // the opcode table against this file).
 
@@ -53,6 +65,21 @@ enum {
 
 typedef unsigned long long u64;
 
+// How a column is loaded (program #1).  FA_ENC_NARROW is bitpack (ref = the
+// frame) and narrowed dictionary codes (ref = 0).
+enum { FA_ENC_PLAIN = 0, FA_ENC_NARROW = 1, FA_ENC_RLE = 2 };
+
+// The per-column descriptors of a parameter block (copr/fused_agg.py _Enc).
+struct FaEnc {
+  long long ref[FA_MAX_COLS];          // bitpack frame of reference, added to the lane
+  const long long* ends[FA_MAX_COLS];  // rle: run ends [n_blocks, k_cap], padded with block_rows
+  int k_cap[FA_MAX_COLS];              // rle: runs a block holds (padded)
+  signed char kind[FA_MAX_COLS];       // FA_ENC_*
+  signed char width[FA_MAX_COLS];      // bytes of a lane (rle: of a run value): 1, 2, 4 or 8
+  signed char null_runs[FA_MAX_COLS];  // the null mask is run-shaped [n_blocks, k_cap]
+  signed char pad[FA_MAX_COLS];
+};
+
 __device__ __forceinline__ double fa_f(long long raw) { return __longlong_as_double(raw); }
 __device__ __forceinline__ long long fa_raw(double v) { return __double_as_longlong(v); }
 __device__ __forceinline__ double fa_num(long long raw, bool is_f) {
@@ -84,27 +111,68 @@ __device__ __forceinline__ long long fa_cmp(int op, T a, T b) {
   }
 }
 
-// The bytecode walk over one row: loads the row's columns, evaluates the
-// selection conjuncts and every aggregate argument, and reports each
-// aggregate k to on_agg(k, live, value bits), where live = the row passed
-// the selection and the argument is not NULL (count(*): passed the
-// selection), and each sort key q to on_key(q, null, value bits), whatever
-// the selection says.  Returns whether the row passed the selection.  P is
-// any parameter block with the columns, the code and the constants
-// (FaParams, GaParams, ScParams).
+// Lane idx of a 1-, 2-, 4- or 8-byte integer payload, sign-extended.
+__device__ __forceinline__ long long fa_lane(const void* base, long long idx, int width) {
+  switch (width) {
+    case 1: return __ldg((const signed char*)base + idx);
+    case 2: return __ldg((const short*)base + idx);
+    case 4: return __ldg((const int*)base + idx);
+    default: return __ldg((const long long*)base + idx);
+  }
+}
+
+// Program #1: column j at flat row f (row i of block blk) as the walk sees
+// it, its NULL flag in `nul`.  Plain: the lane as it is.  Bitpack and codes:
+// the narrow lane sign-extended, plus the frame.  Runs: the run holding row i
+// is the number of run ends <= i (searchsorted right), found by binary
+// search over the block's k_cap ends (at most 16 steps) and clipped to
+// k_cap - 1 as decode_device_column clips it; then its value, and its NULL
+// flag where the mask is run-shaped.  An encoded NULL slot loads as 0.
+template <class P>
+__device__ __forceinline__ long long fa_load(const P& p, int j, long long f, long long blk,
+                                             long long i, bool& nul) {
+  const int kind = p.enc.kind[j];
+  const int width = p.enc.width[j];
+  if (kind == FA_ENC_RLE) {
+    const int k = p.enc.k_cap[j];
+    const long long* ends = p.enc.ends[j] + blk * k;
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(ends + mid) <= i) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    const long long r = blk * k + (lo < k ? lo : k - 1);
+    nul = p.nul[j] != nullptr && __ldg(p.nul[j] + (p.enc.null_runs[j] ? r : f)) != 0;
+    return nul ? 0 : fa_lane(p.col[j], r, width);
+  }
+  nul = p.nul[j] != nullptr && __ldg(p.nul[j] + f) != 0;
+  const long long v = fa_lane(p.col[j], f, width);
+  if (kind == FA_ENC_PLAIN) return v;
+  return nul ? 0 : fa_wadd(v, p.enc.ref[j]);
+}
+
+// The bytecode walk over one row, flat row f (row i of block blk): loads the
+// row's columns, evaluates the selection conjuncts and every aggregate
+// argument, and reports each aggregate k to on_agg(k, live, value bits),
+// where live = the row passed the selection and the argument is not NULL
+// (count(*): passed the selection), and each sort key q to on_key(q, null,
+// value bits), whatever the selection says.  Returns whether the row passed
+// the selection.  P is any parameter block with the columns, their
+// descriptors, the code and the constants (FaParams, GaParams, ScParams).
 template <class P, class OnAgg, class OnKey>
-__device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, OnAgg&& on_agg,
-                                             OnKey&& on_key) {
+__device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, long long blk, long long i,
+                                             OnAgg&& on_agg, OnKey&& on_key) {
   long long v[FA_MAX_COLS];
   bool vn[FA_MAX_COLS];
   long long sv[FA_MAX_STACK];
   bool sn[FA_MAX_STACK];
 #pragma unroll
   for (int j = 0; j < FA_MAX_COLS; ++j) {
-    if (j < p.n_cols) {
-      v[j] = __ldg(p.col[j] + f);
-      vn[j] = p.nul[j] != nullptr && __ldg(p.nul[j] + f) != 0;
-    }
+    if (j < p.n_cols) v[j] = fa_load(p, j, f, blk, i, vn[j]);
   }
   int sp = 0;
   bool active = true;
@@ -227,6 +295,7 @@ __device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, OnAgg&& on
 
 // The walk of a plan without sort keys.
 template <class P, class OnAgg>
-__device__ __forceinline__ bool fa_walk(const P& p, long long f, OnAgg&& on_agg) {
-  return fa_walk_keys(p, f, on_agg, [](int, bool, long long) {});
+__device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, long long i,
+                                        OnAgg&& on_agg) {
+  return fa_walk_keys(p, f, blk, i, on_agg, [](int, bool, long long) {});
 }

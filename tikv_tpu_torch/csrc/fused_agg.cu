@@ -35,6 +35,10 @@
 // What it does not do yet: vector loads, cp.async/TMA pipelining, several
 // rows per thread.  Those are later work.
 //
+// Encoded images: every column is read through fa_load (program #1, in
+// fa_walk.cuh), also the dictionary codes of the coded group ids and the
+// winning row that `first` walks again in the combine.
+//
 // Determinism: the grid is fixed (FA_GRID blocks of FA_THREADS threads), a
 // row goes to thread (flat row index mod grid size), and every reduction
 // runs in a fixed order, so f64 sums are bit-identical from run to run.
@@ -57,8 +61,9 @@
 enum { FA_AGG_COUNT = 0, FA_AGG_SUM = 1, FA_AGG_MIN = 2, FA_AGG_MAX = 3 };
 
 struct FaParams {
-  const long long* col[FA_MAX_COLS];       // [n_blocks, block_rows] lanes, int64 or f64 bits
+  const void* col[FA_MAX_COLS];            // payloads: [n_blocks, block_rows] lanes (rle: run values)
   const unsigned char* nul[FA_MAX_COLS];   // bool null masks, or null for NOT NULL columns
+  FaEnc enc;                               // how each column loads (program #1)
   const long long* n_valids;               // [n_blocks], or null: n_valid_all for every block
   long long n_valid_all;
   long long n_blocks;
@@ -120,7 +125,7 @@ fused_agg_partials(const __grid_constant__ FaParams p, long long* __restrict__ s
   for (; f < total; f += stride) {
     const long long nv = p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
     if (i < nv) {
-      fa_walk(p, f, [&](int k, bool live, long long value) {
+      fa_walk(p, f, blk, i, [&](int k, bool live, long long value) {
         if (live) {
           cnt[k] += 1;
           const int kind = p.agg_kind[k];
@@ -244,8 +249,9 @@ enum {
 };
 
 struct GaParams {
-  const long long* col[FA_MAX_COLS];       // [n_blocks, block_rows] lanes, int64 or f64 bits
+  const void* col[FA_MAX_COLS];            // payloads: [n_blocks, block_rows] lanes (rle: run values)
   const unsigned char* nul[FA_MAX_COLS];   // bool null masks, or null for NOT NULL columns
+  FaEnc enc;                               // how each column loads (program #1)
   const long long* n_valids;               // [n_blocks], or null: n_valid_all for every block
   const long long* offsets;                // [n_blocks] global row of each block's row 0, or null: offset_all
   const int* gids;                         // host group ids [n_blocks, block_rows], or null: coded
@@ -409,7 +415,7 @@ fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restri
     if (f < total) {
       const long long nv = p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
       if (i < nv) {
-        active = fa_walk(p, f, [&](int k, bool live, long long value) {
+        active = fa_walk(p, f, blk, i, [&](int k, bool live, long long value) {
           const int l0 = p.agg_leaf0[k];
           for (int l = l0; l < l0 + p.agg_nleaves[k]; ++l) {
             stage[l * 32 + lane] = ga_contrib(p, l, live, value, f);
@@ -419,13 +425,14 @@ fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restri
           if (p.gids != nullptr) {
             gid = __ldg(p.gids + f);
           } else {
-            // mixed radix over the key columns' codes (jax_eval._mixed_radix_gids)
+            // mixed radix over the key columns' codes (jax_eval._mixed_radix_gids),
+            // narrowed int8/int16 codes sign-extended by the column load
             long long g = 0;
             for (int q = 0; q < p.n_keys; ++q) {
-              const int s = p.key_slot[q];
               const long long dlen = p.key_dlen[q];
-              const bool nul = p.nul[s] != nullptr && __ldg(p.nul[s] + f) != 0;
-              g = g * (dlen + 1) + (nul ? dlen : __ldg(p.col[s] + f));
+              bool nul;
+              const long long code = fa_load(p, p.key_slot[q], f, blk, i, nul);
+              g = g * (dlen + 1) + (nul ? dlen : code);
             }
             gid = (g >= 0 && g < C) ? (int)g : -1;
           }
@@ -502,7 +509,8 @@ __device__ __forceinline__ void ga_finish_cell(const GaParams& p, int l, int g, 
     res = c0;
     if (row < crow) {
       const int want = p.leaf_agg[l];
-      fa_walk(p, blk, [&](int k, bool, long long value) {
+      const long long b = blk / p.block_rows;  // blk: the winning flat row
+      fa_walk(p, blk, b, blk - b * p.block_rows, [&](int k, bool, long long value) {
         if (k == want) res = value;
       });
     }

@@ -14,7 +14,11 @@
 //     stacked into one int64 and one f64 matrix for one pull -> topn_pack,
 //     which also gathers the K winners' payload columns.
 // Each evaluates rpn.py:eval_rpn(xp=jnp) through the bytecode walk of
-// fa_walk.cuh.
+// fa_walk.cuh and reads every column of an encoded image through its column
+// load fa_load (program #1, kernels.py:decode_device_column), topn_pack's
+// payload gather included.  decode_column runs that load alone over one
+// column, writing its int64 lanes and null bytes: the checks hold program
+// #1 to its plain version with it and time it; no query path launches it.
 //
 // Order of a top-K entry: it is a tuple of 64-bit words compared as
 // unsigned, lexicographically:
@@ -54,8 +58,9 @@
 
 // The walk's parameters for the mask and the candidates.
 struct ScParams {
-  const long long* col[FA_MAX_COLS];       // [n_blocks, block_rows] lanes, int64 or f64 bits
+  const void* col[FA_MAX_COLS];            // payloads: [n_blocks, block_rows] lanes (rle: run values)
   const unsigned char* nul[FA_MAX_COLS];   // bool null masks, or null for NOT NULL columns
+  FaEnc enc;                               // how each column loads (program #1)
   const long long* n_valids;               // [n_blocks], or null: n_valid_all for every block
   long long n_valid_all;
   long long n_blocks;
@@ -72,10 +77,13 @@ struct ScParams {
   int key_f64[TN_MAX_KEYS];                // the key's value lane is f64
 };
 
+static_assert(TN_MAX_PAYLOAD == FA_MAX_COLS, "FaEnc describes the payload columns too");
+
 // topn_pack's parameters.
 struct TpParams {
-  const long long* col[TN_MAX_PAYLOAD];      // payload columns of the image, flat, int64 or f64 bits
+  const void* col[TN_MAX_PAYLOAD];           // payload columns of the image (rle: run values)
   const unsigned char* nul[TN_MAX_PAYLOAD];  // their null masks, or null
+  FaEnc enc;                                 // how each payload column loads (program #1)
   const long long* carry_i;                  // the previous packed state, or null
   const double* carry_f;
   const u64* run;                            // the merged run [n_words][k]
@@ -83,6 +91,7 @@ struct TpParams {
   double* out_f;                             // [n_f64][k]
   u64* out_run;                              // the run as the next step's carry [n_words][k]
   long long src_base;                        // src below it: the carry's slot; else flat row + src_base
+  long long block_rows;
   int k;
   int n_words;
   int n_pay;
@@ -127,8 +136,27 @@ fused_mask(const __grid_constant__ ScParams p, unsigned char* __restrict__ out) 
   ScCursor c(f, stride, p.block_rows);
   for (; f < total; f += stride) {
     bool active = false;
-    if (c.i < sc_n_valid(p, c.blk)) active = fa_walk(p, f, [](int, bool, long long) {});
+    if (c.i < sc_n_valid(p, c.blk)) active = fa_walk(p, f, c.blk, c.i, [](int, bool, long long) {});
     out[f] = active;
+    c.advance();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode_column: program #1 alone over column 0, every row of every block
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(SC_MASK_THREADS)
+decode_column(const __grid_constant__ ScParams p, long long* __restrict__ out,
+              unsigned char* __restrict__ out_nul) {
+  const long long total = p.n_blocks * p.block_rows;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  ScCursor c(f, stride, p.block_rows);
+  for (; f < total; f += stride) {
+    bool nul;
+    out[f] = fa_load(p, 0, f, c.blk, c.i, nul);
+    out_nul[f] = nul;
     c.advance();
   }
 }
@@ -177,9 +205,10 @@ topn_candidates(const __grid_constant__ ScParams p, u64* __restrict__ runs) {
     if (f < total) {
       src = (u64)(p.src_base + f);
       const long long blk = f / p.block_rows;
-      if (f - blk * p.block_rows < sc_n_valid(p, blk)) {
+      const long long i = f - blk * p.block_rows;
+      if (i < sc_n_valid(p, blk)) {
         const bool active = fa_walk_keys(
-            p, f, [](int, bool, long long) {},
+            p, f, blk, i, [](int, bool, long long) {},
             [&](int q, bool nul, long long v) {
               const bool desc = p.key_desc[q];
               u64 kw = 0;
@@ -304,8 +333,10 @@ topn_pack(const __grid_constant__ TpParams p) {
       v = p.pay_f64[j] ? fa_raw(p.carry_f[cell + (long long)src]) : p.carry_i[cell + (long long)src];
       nul = p.carry_i[ncell + (long long)src];
     } else if (rank == 0) {
-      v = __ldg(p.col[j] + f);
-      nul = p.nul[j] != nullptr && __ldg(p.nul[j] + f) != 0;
+      const long long b = f / p.block_rows;
+      bool nb;
+      v = fa_load(p, j, f, b, f - b * p.block_rows, nb);
+      nul = nb;
     }
     if (p.pay_f64[j]) {
       p.out_f[cell + s] = fa_f(v);
@@ -355,6 +386,11 @@ int tn_launch_merge(const u64* in, long long n_in, const u64* extra, u64* out, i
 int tn_launch_pack(const TpParams* p, void* stream) {
   topn_pack<<<(p->k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS, TN_MERGE_THREADS, 0,
               (cudaStream_t)stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+int dc_launch(const ScParams* p, long long* out, unsigned char* out_nul, int grid, void* stream) {
+  decode_column<<<grid, SC_MASK_THREADS, 0, (cudaStream_t)stream>>>(*p, out, out_nul);
   return (int)cudaGetLastError();
 }
 

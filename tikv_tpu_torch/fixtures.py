@@ -2,10 +2,13 @@
 
 The port's own copy of ``bench.py``'s ``build_arrays`` / ``build_kvs`` /
 ``build_cache``, its Q6 and Q1 plans, its scan and filter plans of BASELINE
-configs 1-2 (``_filter_dag``) and its raw TopN plan (``_topn_endpoint``).  ``build_arrays(n, seed)`` makes the same
-draws as ``bench.py`` for the same ``(n, seed)``, so both packages see the
-same table.  The numpy oracles compute each query's answer from those draws
-alone, independently of any evaluator.
+configs 1-2 (``_filter_dag``) and its raw TopN plan (``_topn_endpoint``).
+``build_arrays(n, seed)`` makes the same draws as ``bench.py`` for the same
+``(n, seed)``, so both packages see the same table.  ``build_cache(...,
+encode=True)`` encodes the image as a filled region image is encoded
+(``copr/encoding.py``), and :func:`sort_by_shipdate` reorders the draws as
+data loaded in date order.  The numpy oracles compute each query's answer
+from the draws they are given alone, independently of any evaluator.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .copr import encoding
 from .copr.aggr import AggDescriptor
 from .copr.cache import ColumnBlockCache
 from .copr.dag import Aggregation, DagRequest, Limit, Selection, TableScan, TopN
@@ -97,11 +101,23 @@ def build_kvs(n: int, seed: int = 0) -> list[tuple[bytes, bytes]]:
     return list(zip(keys, values))
 
 
-def build_cache(n: int, block_rows: int, seed: int = 0, arrays: dict | None = None):
+def sort_by_shipdate(a: dict) -> dict:
+    """The draws reordered as data loaded in date order: every column
+    permuted by a stable sort on l_shipdate.  Row r of the result (handle r)
+    is the r-th row in that order, so the oracles apply to it unchanged."""
+    order = np.argsort(a["ship"], kind="stable")
+    return {k: v[order] for k, v in a.items()}
+
+
+def build_cache(n: int, block_rows: int, seed: int = 0, arrays: dict | None = None,
+                encode: bool = False):
     """The decoded-column image of ``build_kvs(n, seed)`` as a filled
     ``ColumnBlockCache``, without materializing n byte strings: ints and
     decimals as int64, varchar as dictionary codes sharing one dictionary.
-    ``arrays`` reuses draws already made by ``build_arrays(n, seed)``."""
+    ``arrays`` reuses draws already made by ``build_arrays(n, seed)`` (or
+    any permutation of them, as :func:`sort_by_shipdate`'s).  ``encode``
+    encodes the image with ``encoding.encode_blocks``, as the JAX package
+    encodes every region image it fills."""
     a = build_arrays(n, seed) if arrays is None else arrays
     dict_rf = np.empty(3, dtype=object)
     dict_rf[:] = [b"A", b"N", b"R"]
@@ -122,6 +138,8 @@ def build_cache(n: int, block_rows: int, seed: int = 0, arrays: dict | None = No
             Column(EvalType.BYTES, a["ls"][s:e], nz, 0, dict_ls),
         ], e - s)
     cache.filled = True
+    if encode:
+        encoding.encode_blocks(cache, lineitem())
     return cache
 
 
@@ -499,3 +517,124 @@ def synthetic_topn_case(n_blocks: int, block_rows: int, k: int, gen: torch.Gener
     n_valids = nv.to(device) if n_blocks > 1 else int(nv[0])
     img = Image(cols, nulls, n_valids, n_blocks, block_rows, device)
     return prog, img, img
+
+
+#: program #1's synthetic cases: (kind, lane dtype, null shape)
+DECODE_CASES = (("bp", np.int8, "rows"), ("bp", np.int16, "rows"), ("bp", np.int32, "rows"),
+                ("code", np.int8, "rows"), ("rle", np.int64, "runs"), ("rle", np.int64, "rows"),
+                ("rle", np.int64, None))
+
+
+def synthetic_encoded_column(kind: str, lane, nulls: str | None, n_blocks: int, block_rows: int,
+                             seed: int = 0):
+    """One column's encoded payload for holding program #1 to its plain
+    version: ``(desc, payload, nulls, ref)`` as numpy arrays.  ``kind`` bp:
+    lanes spanning ``lane``'s whole range and a frame near the int64 edge;
+    code: codes 0..2; rle: runs of random lengths, the pad run at the end of
+    each block and ``k_cap`` a power of two.  ``nulls``: "rows" (a row mask
+    with NULL slots holding nonzero lanes), "runs" (one flag per run) or
+    None (a NOT NULL column)."""
+    rng = np.random.default_rng(seed)
+    shape = (n_blocks, block_rows)
+    if kind == "rle":
+        k_cap = 1 << max(1, (block_rows // 64).bit_length() - 1)
+        ends = np.full((n_blocks, k_cap), block_rows, dtype=np.int64)
+        for b in range(n_blocks):
+            # distinct ends; rows past the last fall in the pad run (values
+            # 0, NULL where nulls are run-shaped)
+            n_runs = int(rng.integers(1, k_cap + 1))
+            ends[b, :n_runs] = np.sort(rng.choice(np.arange(1, block_rows + 1), n_runs,
+                                                  replace=False))
+        values = rng.integers(-(1 << 40), 1 << 40, (n_blocks, k_cap), dtype=np.int64)
+        payload = (values, ends)
+        desc, ref = ("rle", k_cap, np.dtype(lane).str), 0
+        null_arr = (rng.random((n_blocks, k_cap)) < 0.2 if nulls == "runs"
+                    else rng.random(shape) < 0.2 if nulls == "rows" else None)
+        return desc, payload, null_arr, ref
+    info = np.iinfo(lane)
+    hi = 3 if kind == "code" else info.max
+    payload = rng.integers(0 if kind == "code" else info.min, hi, shape, dtype=np.int64).astype(lane)
+    ref = (1 << 62) - 12345 if kind == "bp" else 0
+    null_arr = rng.random(shape) < 0.2 if nulls == "rows" else None
+    return (kind, np.dtype(lane).str), payload, null_arr, ref
+
+
+def warm_kernel_outputs(cache, block_rows: int, device) -> dict:
+    """Each kernel of the warm main paths over ``cache``'s image, launched
+    on the image the evaluator pins, beside its plain version on the same
+    image: ``{kernel name: (kernel output, plain output)}``, each output a
+    tuple of CPU tensors.  The plans: Q6 (``fused_agg`` pair), Q1 with ids
+    from the dictionary codes (grouped pair), the selective filter
+    (``fused_mask``) and the raw TopN of :func:`topn_dag` (candidates, one
+    merge level, pack).  Over a plain and an encoded image of the same rows
+    every output must be the same."""
+    from .copr import fused_agg as fa
+    from .copr import fused_group_agg as ga
+    from .copr import fused_mask as fm
+    from .copr import fused_topn as ft
+    from .copr.dag_wire import dag_to_wire
+    from .copr.torch_eval import TorchDagEvaluator, _capacity_for, _pick
+
+    def ev(dag):
+        return TorchDagEvaluator(dag_to_wire(dag), block_rows=block_rows, device=device)
+
+    def cpu(*ts):
+        return tuple(t.cpu() for t in ts)
+
+    out = {}
+    q6 = ev(q6_dag())
+    prog, img = q6.program, q6._stacked_device(cache)
+    grid, threads = fa.kernel_grid()
+    scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
+    fa.launch_partials(prog, img, scratch)
+    out["fused_agg_partials"] = (cpu(scratch), cpu(fa.partials_plain(prog, img, grid, threads)))
+    packed = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=device),
+              torch.empty((prog.n_f64, 1), dtype=torch.float64, device=device))
+    fa.launch_combine(prog, scratch, None, packed)
+    out["fused_agg_combine_pack"] = (cpu(*packed), cpu(*fa.combine_plain(prog, scratch)))
+    del img, scratch
+
+    q1 = ev(q1_dag())
+    group_cols, dicts = q1._stable_dict_group_cols(cache.blocks)
+    dict_lens = tuple(len(d) for d in dicts)
+    prog = q1._coded_program(group_cols, dict_lens)
+    img = q1._stacked_device(cache, q1._ship_cols(group_cols))
+    cap = _capacity_for(prog, 1, int(np.prod([dl + 1 for dl in dict_lens])))
+    parts = ga.new_partials(prog, img, cap)
+    ga.launch_partials(prog, img, cap, parts)
+    out["fused_group_agg_partials"] = (
+        cpu(parts), cpu(ga.partials_plain(prog, img, cap, ga.launch_grid(img))))
+    packed = (torch.empty((prog.n_int, cap), dtype=torch.int64, device=device),
+              torch.empty((prog.n_f64, cap), dtype=torch.float64, device=device))
+    ga.launch_combine(prog, img, cap, parts, None, packed)
+    out["fused_group_agg_combine_pack"] = (cpu(*packed),
+                                           cpu(*ga.combine_plain(prog, img, cap, parts)))
+    del img, parts
+
+    sel = ev(filter_dag("selective", None))
+    img = sel._stacked_device(cache)
+    out["fused_mask"] = (cpu(fm.fused_mask(sel.plan.mask_program, img)),
+                         cpu(fm.fused_mask_plain(sel.plan.mask_program, img)))
+    del img
+
+    tn = ev(topn_dag(100))
+    prog = tn.plan.topn_program
+    payload = list(range(len(tn.plan.schema)))
+    pay = tn._stacked_device(cache, payload)
+    cand = _pick(pay, payload, tn.plan.device_cols)
+    runs = torch.empty((ft.n_tiles(prog, cand), prog.n_words, prog.k), dtype=torch.int64,
+                       device=device)
+    ft.launch_candidates(prog, cand, runs, 0)
+    want_runs = ft.candidates_plain(prog, cand, 0)
+    out["topn_candidates"] = (cpu(runs), cpu(want_runs))
+    level = torch.empty(((runs.shape[0] + 1) // 2, prog.n_words, prog.k), dtype=torch.int64,
+                        device=device)
+    ft.launch_merge(runs, None, level)
+    out["topn_merge"] = (cpu(level), cpu(ft.merge_plain(want_runs)))
+    run = ft._merge_all(runs, None, cuda=True)
+    state = (torch.empty((prog.n_int, prog.k), dtype=torch.int64, device=device),
+             torch.empty((prog.n_f64, prog.k), dtype=torch.float64, device=device))
+    nxt = torch.empty((prog.n_words, prog.k), dtype=torch.int64, device=device)
+    ft.launch_pack(prog, run, pay, None, 0, state, nxt)
+    out["topn_pack"] = (cpu(*state, nxt), cpu(*ft.pack_plain(prog, run, pay, None, 0)))
+    return out
