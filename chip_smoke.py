@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 2. build   — nvcc builds every kernel from ``tikv_tpu_torch/csrc``; ptxas report
 3. kernels — each kernel against its plain PyTorch version on the same seeded
              inputs, at a cold block (65,536 rows) and at the warm stacked
-             shape: int leaves equal, f64 leaves to rel 1e-12, two runs
+             shape (the grouped cases at 128 of its 763 blocks): int leaves
+             equal, f64 leaves to rel 1e-12, two runs
              bit-identical; the grouped kernels with ids from two
              dictionary-code columns with NULLs, 60 host ids (all ten
              aggregates) and 300 host ids (integer leaves, atomic partials)
@@ -54,7 +55,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              the raw TopN against oracles from the permuted draws, with the
              blocks examined and pruned; each kernel's ms over the encoded
              image and decode_column (program #1 alone) against its bound,
-             its plain version and the torch yardsticks
+             its plain version and the torch yardsticks; the zone rung's Q1
+             layout built over the encoded image (the host gathers decode
+             the encoded columns, then drop the decodes) and its Q6 over
+             the date-sorted image
+
+Phases 5-12 pin their evaluators to the stacked kernels (``route_hint =
+"unary"``).  Between phases 11 and 12, phase ``zone`` runs the default
+route, the zone rung, over the plain 100M-row image: the layouts' host
+build seconds and pinned bytes; warm Q6, Q1 and Q1 + TopN against their
+oracles and byte for byte against the unary route, with the tiles full,
+partial and empty and both routes' s/query; ``zone_full``, ``zone_partial``
+and ``zone_fold`` against their plain versions on the Q6 and Q1 layouts and
+on a synthetic one (NULLs in the key and values, negative values, var_pop,
+the null-safe ops, 256-row tiles), then timed at Q1's and Q6's layouts.
 
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
@@ -63,9 +77,10 @@ blocks).  Then the card's line, the kernels line and, last, the ok line.
 The launch counts in the kernels line are those of the main paths only: Q6
 (phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
-top-K kernels, each counted from 0 just before its path and read just
-after; each entry's ``encoded`` gives its launches on the encoded path of
-phase 12 (counted from 0 just before it).  Program #1 runs inside every
+top-K kernels, phase ``zone`` for the zone-tile kernels, each counted from
+0 just before its path and read just after; each entry's ``encoded`` gives
+its launches on the encoded path of phase 12 (counted from 0 just before
+it).  Program #1 runs inside every
 kernel that reads the image (the column load of ``csrc/fa_walk.cuh``): its
 entry, ``decode_column``, counts the launches of those kernels on the
 encoded path; the export itself is launched by the checks only
@@ -95,8 +110,15 @@ SCAN_LIMIT = 100_000  # bench._filter_dag's Limit
 TOPN_K = 100  # bench._topn_endpoint's TopN
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    # group keys are bytes: print them as text
+    """One JSON line; a phase's line also says when it ended (``t_s``,
+    seconds since the script started).  Group keys are bytes: printed as
+    text."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj, default=lambda b: b.decode("latin-1")), flush=True)
 
 
@@ -122,6 +144,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def isolated_ms(fn, iters: int = 10) -> float:
+    """Median ms of ``fn`` timed alone: CUDA events around one call, the
+    card idle before it (launch latency included)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return sorted(out)[iters // 2]
 
 
 def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -261,11 +299,13 @@ def bit_identical(a, b) -> bool:
 
 def phase_group_kernels(ga, fx, device) -> dict:
     """The grouped kernels against their plain versions on the seeded
-    grouped cases, at a cold block and at the warm stacked shape."""
+    grouped cases, at a cold block and at 128 blocks of the warm stacked
+    shape (the timings phase holds them to their plain versions on the warm
+    main path's own 763-block image)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
     errs = {"fused_group_agg_partials": 0.0, "fused_group_agg_combine_pack": 0.0}
-    for n_blocks, block_rows, shape in ((1, 1 << 16, "cold_block"), (763, 1 << 17, "warm_stacked")):
+    for n_blocks, block_rows, shape in ((1, 1 << 16, "cold_block"), (128, 1 << 17, "warm_stacked")):
         for kind in fx.GROUP_CASES:
             prog, img, cap = fx.synthetic_group_case(kind, n_blocks, block_rows, gen, device)
             got = ga.fused_group_agg(prog, img, cap)
@@ -472,6 +512,13 @@ def plain_topn_step(ft, prog, cand, pay, carry, src_base: int):
 # phases 4-11
 # ---------------------------------------------------------------------------
 
+def stacked(ev):
+    """``ev`` pinned to the stacked kernels (``route_hint="unary"``): the
+    warm phases before phase ``zone`` measure the kernels they name."""
+    ev.route_hint = "unary"
+    return ev
+
+
 def warm_rows_that_fit(want: int, floor: int) -> tuple[int, str | None]:
     """Rows of the warm image this machine can hold: the draws and the host
     stage take about 80 bytes a row on the host; the pinned images of Q6,
@@ -504,7 +551,7 @@ def profile_runs(run, n: int) -> dict:
                 run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        device_ms = {}
+        device_ms, calls = {}, {}
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue  # host-side ops repeat their kernels' device time
@@ -513,10 +560,11 @@ def profile_runs(run, n: int) -> dict:
                 us = evt.self_cuda_time_total
             if us > 0:
                 device_ms[evt.key] = us / 1e3
+                calls[evt.key] = evt.count
         if device_ms:
             break
     busy = sum(device_ms.values())
-    return {"runs": n, "wall_ms": wall_ms, "device_ms": device_ms,
+    return {"runs": n, "wall_ms": wall_ms, "device_ms": device_ms, "device_calls": calls,
             "device_busy_share": busy / wall_ms if wall_ms else None}
 
 
@@ -648,6 +696,103 @@ def time_topn(ft, prog, cand, pay) -> dict:
             "library": "torch.topk over the first key's column alone (one key, no selection)"}
 
 
+ZONE_KERNELS = ("zone_full", "zone_partial", "zone_fold")
+
+
+def check_zone_outputs(out: dict, again: dict, what: str) -> dict:
+    """``fixtures.zone_kernel_outputs`` of two runs: each kernel against its
+    plain version (int64 words exactly, f64 to REL_TOL) and against its own
+    rerun (bit for bit).  Returns each kernel's max abs error."""
+    errs = {}
+    for name, (got, want) in out.items():
+        err = 0.0
+        for g, w, h in zip(got, want, again[name][0]):
+            if not torch.equal(bits(g), bits(h)):
+                raise AssertionError(f"{what}: two {name} runs are not bit-identical")
+            if g.dtype == torch.float64:
+                err = max(err, compare_f64(g.cpu(), w.cpu(), f"{what} {name}"))
+            elif not torch.equal(g, w):
+                leaves = (g != w).nonzero()[:8].tolist()
+                raise AssertionError(f"{what}: {name} differs from its plain version at {leaves}")
+        errs[name] = err
+    return errs
+
+
+def time_zone(fz, ev, cache) -> dict:
+    """CUDA-event ms of each zone kernel over ``ev``'s layout of ``cache``
+    for its own query, the plain versions' ms, the bounds and, for
+    ``zone_full``, the yardstick: one bare column's tile sums as one torch
+    call.  Bounds: the listed tiles' rows of the program's lanes at their
+    own widths (and, for partial tiles, the null, valid and ridx bytes),
+    the tile list, the per-tile partials written; one operation per
+    bytecode word and leaf per row; for the fold the partials, the order
+    and the packed state."""
+    from tikv_tpu_torch.copr.fused_group_agg import LEAF_SUM
+    from tikv_tpu_torch.copr.zone import fold_order
+
+    rung = ev._zone_rung()
+    layout, full_idx, partial_idx = rung.plan_tiles(cache)
+    full, part = rung.programs(layout)
+    dev, tr, L = ev.device, layout.tile_rows, len(full.prog.leaves)
+    track = full.prog.track
+    res = {"tiles": layout.n_tiles, "full": len(full_idx), "partial": len(partial_idx),
+           "tile_rows": tr, "leaves": L}
+    lists = []
+    for name, tp, idx in (("zone_full", full, full_idx), ("zone_partial", part, partial_idx)):
+        t = torch.from_numpy(idx).to(dev)
+        out = torch.empty((len(idx), L), dtype=torch.int64, device=dev)
+        launch = fz.zone_full if name == "zone_full" else fz.zone_partial
+        plain = fz.zone_full_plain if name == "zone_full" else fz.zone_partial_plain
+        launch(tp, layout, t, out)
+        lists.append(out)
+        if not len(idx):
+            res[name] = None
+            continue
+        ms = cuda_ms(lambda: launch(tp, layout, t, out), 20)
+        alone_ms = isolated_ms(lambda: launch(tp, layout, t, out))
+        plain_ms = cuda_ms(lambda: plain(tp, layout, t), 3, warmup=1)
+        rows = len(idx) * tr
+        per_row = sum(layout.cols[i].element_size() for i in tp.cols)
+        if tp.partial:
+            per_row += sum(1 for i in tp.cols if i in layout.nulls) + 1 + (4 if track else 0)
+        per_tile = 8 + (8 if track and not tp.partial else 0) + 8 * L
+        b_ms, b_by = bound(rows * per_row + len(idx) * per_tile, rows * (len(tp.prog.code) + L))
+        entry = {"tiles": len(idx), "rows": rows, "ms": ms, "ms_alone": alone_ms,
+                 "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        bare = [k for k, b in enumerate(tp.bare) if b >= 0]
+        if name == "zone_full" and bare:
+            k = bare[0]
+            ci = tp.cols[tp.bare[k]]
+            lane = layout.cols[ci].view(layout.n_tiles, tr)
+            entry["library_ms"] = cuda_ms(lambda: lane[t].sum(1, dtype=torch.int64), 20)
+            entry["library"] = (f"view(T, {tr})[full_idx].sum(1, dtype=torch.int64) over column "
+                                f"{ci} ({lane.dtype}) alone")
+            sums = [l for l in tp.prog.agg_leaves[k] if tp.prog.leaves[l].kind == LEAF_SUM]
+            if sums and not torch.equal(lane[t].sum(1, dtype=torch.int64), out[:, sums[0]]):
+                raise AssertionError("the yardstick's tile sums differ from zone_full's")
+        elif name == "zone_partial":
+            entry["library"] = "none: the walk has no one-call equivalent"
+        res[name] = entry
+    parts = torch.cat(lists)
+    order, starts = (torch.from_numpy(a).to(dev)
+                     for a in fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots))
+    C = layout.n_slots
+    packed = (torch.empty((full.prog.n_int, C), dtype=torch.int64, device=dev),
+              torch.empty((full.prog.n_f64, C), dtype=torch.float64, device=dev))
+    ms = cuda_ms(lambda: fz.launch_fold(full, parts, order, starts, C, packed), 50)
+    alone_ms = isolated_ms(lambda: fz.launch_fold(full, parts, order, starts, C, packed))
+    plain_ms = cuda_ms(lambda: fz.zone_fold_plain(full, parts, order, starts, C), 5, warmup=1)
+    n = parts.shape[0]
+    b_ms, b_by = bound(n * L * 8 + 4 * n + 4 * (C + 1) + (full.prog.n_int + full.prog.n_f64) * C * 8,
+                       n * L)
+    res["zone_fold"] = {"rows_folded": n, "slots": C, "ms": ms, "ms_alone": alone_ms,
+                        "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "library": "none: sum, min and max leaves need a call each"}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -659,6 +804,7 @@ def main() -> int:
     from tikv_tpu_torch.copr import fused_mask as fm
     from tikv_tpu_torch.copr import encoding
     from tikv_tpu_torch.copr import fused_topn as ft
+    from tikv_tpu_torch.copr import fused_zone as fz
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
     from tikv_tpu_torch.copr.executors import FixtureScanSource
     from tikv_tpu_torch.copr.groupby import GroupDict
@@ -709,7 +855,7 @@ def main() -> int:
     cache = fx.build_cache(n_warm, 1 << 17, SEED, arrays=arrays)
     want_q6 = [fx.q6_oracle(arrays)]
     want_g = [fx.q6_count_sum_min_max_oracle(arrays)]
-    ev_w = TorchDagEvaluator(q6_wire, block_rows=1 << 17, device="cuda")
+    ev_w = stacked(TorchDagEvaluator(q6_wire, block_rows=1 << 17, device="cuda"))
     resp, pin_s = timed_run(ev_w, None, cache)  # first run pins the image
     check_rows(resp, want_q6, "warm Q6")
     warm_s = []
@@ -717,8 +863,8 @@ def main() -> int:
         resp, s = timed_run(ev_w, None, cache)
         check_rows(resp, want_q6, "warm Q6")
         warm_s.append(s)
-    ev_g = TorchDagEvaluator(dag_to_wire(fx.q6_count_sum_min_max_dag()), block_rows=1 << 17,
-                             device="cuda")
+    ev_g = stacked(TorchDagEvaluator(dag_to_wire(fx.q6_count_sum_min_max_dag()),
+                                     block_rows=1 << 17, device="cuda"))
     resp_g, g_s = timed_run(ev_g, None, cache)
     check_rows(resp_g, want_g, "warm count/sum/min/max")
     q6_launches = dict(fa.LAUNCHES)
@@ -749,7 +895,7 @@ def main() -> int:
         check_rows(resp, want_q1_cold, "cold Q1")
         cold1_s.append(s)
     cold_q1_launches = dict(fa.LAUNCHES)
-    ev_w1 = TorchDagEvaluator(q1_wire, block_rows=1 << 17, device="cuda")
+    ev_w1 = stacked(TorchDagEvaluator(q1_wire, block_rows=1 << 17, device="cuda"))
     if ev_w1._stable_dict_group_cols(cache.blocks) is None:
         raise AssertionError("warm Q1 would not take the coded path")
     before = fa.LAUNCHES["fused_group_agg_partials"]
@@ -763,7 +909,8 @@ def main() -> int:
     per_query = (fa.LAUNCHES["fused_group_agg_partials"] - before) / 6
     if per_query != 1:
         raise AssertionError(f"warm Q1 launched {per_query} partials per query, not 1")
-    ev_q = TorchDagEvaluator(dag_to_wire(fx.qty_dag()), block_rows=1 << 17, device="cuda")
+    ev_q = stacked(TorchDagEvaluator(dag_to_wire(fx.qty_dag()), block_rows=1 << 17,
+                                     device="cuda"))
     qty_s = []
     for _ in range(2):
         resp, s = timed_run(ev_q, None, cache)
@@ -867,7 +1014,7 @@ def main() -> int:
     # TopN over six groups) -------------------------------------------------
     q1t_wire = dag_to_wire(fx.q1_topn_dag())
     ev_q1t_c = TorchDagEvaluator(q1t_wire, block_rows=1 << 16, device="cuda")
-    ev_q1t_w = TorchDagEvaluator(q1t_wire, block_rows=1 << 17, device="cuda")
+    ev_q1t_w = stacked(TorchDagEvaluator(q1t_wire, block_rows=1 << 17, device="cuda"))
     keys_at = [ev_q1t_w.plan.agg_schema[c.index][0].value
                for c, _desc in ev_q1t_w.plan.topn.order_by]
     if keys_at != ["bytes", "bytes"] or len(ev_q1t_w.plan.agg_schema) != 9:
@@ -981,6 +1128,97 @@ def main() -> int:
           "warm_topn": profile_runs(lambda: ev_tw.run(None, cache), 3)})
     del kvs
 
+    # ---- phase zone: the zone rung over the 100M-row plain image -------------
+    # the earlier pins released (the layouts share the per-block pin LRU);
+    # the layouts' host build timed apart: it launches nothing
+    t_zone = time.perf_counter()
+    cache.drop_device()
+    cache10.drop_device()
+    torch.cuda.empty_cache()
+    zone_evs = {name: TorchDagEvaluator(wire, block_rows=1 << 17, device="cuda")
+                for name, wire in (("q6", q6_wire), ("q1", q1_wire), ("q1_topn", q1t_wire))}
+    zone_wants = {"q6": want_q6, "q1": want_q1, "q1_topn": fx.q1_topn_oracle(want_q1)}
+    zone_unary = {"q6": ev_w, "q1": ev_w1, "q1_topn": ev_q1t_w}
+    layouts = {}
+    for name in ("q6", "q1"):
+        t0 = time.perf_counter()
+        layout = zone_evs[name]._zone_rung().plan_tiles(cache)[0]
+        torch.cuda.synchronize()
+        layouts[name] = {"host_build_s": time.perf_counter() - t0, "rows": layout.n_rows,
+                         "tiles": layout.n_tiles, "slots": layout.n_slots,
+                         "sort_col": layout.sort_col,
+                         "lanes": {str(i): str(t.dtype) for i, t in layout.cols.items()},
+                         "pinned_bytes": sum(t.numel() * t.element_size()
+                                             for t in layout.tensors())}
+    # ---- the zone main path: counts from 0 here to its end -------------------
+    fa.reset_launches()
+    zone_s, zone_per_request = {}, {}
+    for name, runs in (("q6", 6), ("q1", 6), ("q1_topn", 3)):
+        ev_z = zone_evs[name]
+        zone_s[name] = []
+        before = dict(fa.LAUNCHES)
+        for _ in range(runs):
+            resp, t = timed_run(ev_z, None, cache)
+            check_rows(resp, zone_wants[name], f"zone {name}")
+            zone_s[name].append(t)
+        if ev_z.zone_stats.served != runs:
+            raise AssertionError(f"zone {name}: the rung served {ev_z.zone_stats.served} of "
+                                 f"{runs} ({ev_z.zone_stats.last_decline})")
+        zone_per_request[name] = {k: (fa.LAUNCHES[k] - before[k]) / runs for k in ZONE_KERNELS}
+    zone_launches = dict(fa.LAUNCHES)
+    # ---- end of the zone main path -------------------------------------------
+    for name, secs in zone_s.items():
+        ev_z = zone_evs[name]
+        got = ev_z.run(None, cache).encode()
+        unary_s = []
+        for _ in range(3):
+            resp, t = timed_run(zone_unary[name], None, cache)
+            unary_s.append(t)
+        if resp.encode() != got:
+            raise AssertionError(f"zone {name}: not byte-identical to route_hint='unary'")
+        st = ev_z.zone_stats
+        emit({"phase": "zone", "query": name, "rows": n_warm, "block_rows": 1 << 17,
+              "matches_oracle": True, "byte_identical_to_unary": True,
+              "tiles": {"examined": st.examined, "full": st.full, "partial": st.partial,
+                        "empty": st.empty},
+              "seconds": secs, "median_s": sorted(secs)[len(secs) // 2],
+              "unary_seconds": unary_s, "unary_median_s": sorted(unary_s)[1],
+              "launches_per_request": zone_per_request[name],
+              "card": card})
+    # the kernels against their plain versions on the main-path layouts and
+    # on a synthetic one (NULLs in the key and values, negative values,
+    # var_pop/min/max, the null-safe ops, 256-row tiles)
+    zone_errs = dict.fromkeys(ZONE_KERNELS, 0.0)
+    zcache = fx.zone_cache(4_000_000, 1 << 17, SEED + 5)
+    ev_zs = TorchDagEvaluator(dag_to_wire(fx.zone_dag()), block_rows=1 << 17, device="cuda")
+    checked = {}
+    for name, ev_z, c, tr in (("q6", zone_evs["q6"], cache, None),
+                              ("q1", zone_evs["q1"], cache, None),
+                              ("synthetic_256", ev_zs, zcache, 256)):
+        out, layout, n_full, n_partial = fx.zone_kernel_outputs(ev_z, c, tr)
+        errs_z = check_zone_outputs(out, fx.zone_kernel_outputs(ev_z, c, tr)[0], f"zone {name}")
+        for k, e in errs_z.items():
+            zone_errs[k] = max(zone_errs[k], e)
+        checked[name] = {"tile_rows": layout.tile_rows, "tiles": layout.n_tiles,
+                         "full": n_full, "partial": n_partial, "max_abs_err": errs_z}
+        del out
+    # the synthetic plan end to end at 256-row tiles, against the stacked kernels
+    ev_su = stacked(TorchDagEvaluator(dag_to_wire(fx.zone_dag()), block_rows=1 << 17,
+                                      device="cuda"))
+    packed_s = ev_zs._zone_rung().try_run(zcache, 256)
+    if ev_zs._finalize_agg(*packed_s).encode() != ev_su.run(None, zcache).encode():
+        raise AssertionError("synthetic zone plan at 256-row tiles differs from the unary route")
+    del zcache, packed_s
+    t_zone_q1 = time_zone(fz, zone_evs["q1"], cache)
+    t_zone_q6 = time_zone(fz, zone_evs["q6"], cache)
+    emit({"phase": "zone", "case": "kernels", "card": card, "layouts": layouts,
+          "checked": checked, "int_words_equal": True, "f64_rel_tol": REL_TOL,
+          "bit_identical_reruns": True, "q1": t_zone_q1, "q6": t_zone_q6,
+          "launches": zone_launches,
+          "profile_q6": profile_runs(lambda: zone_evs["q6"].run(None, cache), 3),
+          "profile_q1": profile_runs(lambda: zone_evs["q1"].run(None, cache), 3),
+          "phase_seconds": time.perf_counter() - t_zone})
+
     # ---- phase 12: encoded images --------------------------------------------
     # the plain image's kernel outputs and pinned bytes, then its pins
     # released and the same blocks encoded in place
@@ -1023,17 +1261,33 @@ def main() -> int:
             resp, t = timed_run(ev_x, None, cache)
             check_rows(resp, want, f"encoded warm {name}")
             enc_s[name].append(t)
+    # the zone rung's Q1 layout, built anew over the encoded image (its
+    # gathers decode the encoded columns on the host, then purge the decodes)
+    zq1 = zone_evs["q1"]
+    served = zq1.zone_stats.served
+    enc_s["zone_q1"] = []
+    for _ in range(3):
+        resp, t = timed_run(zq1, None, cache)
+        check_rows(resp, want_q1, "encoded warm zone q1")
+        enc_s["zone_q1"].append(t)
+    if zq1.zone_stats.served - served != 3:
+        raise AssertionError(f"encoded zone q1 declined: {zq1.zone_stats.last_decline}")
+    enc_cols = [c for b in cache.blocks for c in b.cols if isinstance(c, encoding.EncodedColumn)]
+    if not enc_cols or any(c._data is not None for c in enc_cols):
+        raise AssertionError("the layout's gathers left full decodes on the encoded image")
     del want_sel_warm, want_filter_warm
     n_sorted, cut_sorted = warm_rows_that_fit(n_warm, WARM_ROWS_FLOOR)
     s_arr = fx.sort_by_shipdate(fx.build_arrays(n_sorted, SEED))
     want_sorted = {"q6": [fx.q6_oracle(s_arr)], "q1": fx.q1_oracle(s_arr),
                    "raw_topn": fx.topn_oracle(s_arr, TOPN_K)}
+    want_sorted["zone_q6"] = want_sorted["q6"]
     t0 = time.perf_counter()
     cache_s = fx.build_cache(n_sorted, br, SEED, arrays=s_arr, encode=True)
     sorted_build_s = time.perf_counter() - t0
     del s_arr
     sorted_runs = {}
-    for name, ev_x in (("q6", ev_w), ("q1", ev_w1), ("raw_topn", ev_tw)):
+    for name, ev_x in (("q6", ev_w), ("q1", ev_w1), ("raw_topn", ev_tw),
+                       ("zone_q6", zone_evs["q6"])):
         secs = []
         for _ in range(4):
             resp, t = timed_run(ev_x, None, cache_s)
@@ -1042,9 +1296,15 @@ def main() -> int:
         sorted_runs[name] = {"first_run_with_pin_s": secs[0], "seconds": secs[1:],
                              "blocks_examined": ev_x.prune_stats[0],
                              "blocks_pruned": ev_x.prune_stats[1]}
+    st = zone_evs["q6"].zone_stats
+    if st.last_decline is not None or not st.empty:
+        raise AssertionError(f"date-sorted zone q6: declined ({st.last_decline}) or no tile "
+                             "proved empty")
+    sorted_runs["zone_q6"]["tiles"] = {"examined": st.examined, "full": st.full,
+                                       "partial": st.partial, "empty": st.empty}
     enc_launches = dict(fa.LAUNCHES)
     # ---- end of the encoded main path ------------------------------------------
-    for name in MAIN_PATH_KERNELS:
+    for name in MAIN_PATH_KERNELS + ZONE_KERNELS:
         if enc_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the encoded main path")
     if sorted_runs["q6"]["blocks_pruned"] <= 0:
@@ -1113,6 +1373,7 @@ def main() -> int:
                  "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
                  "topn_candidates": topn_launches, "topn_merge": topn_launches,
                  "topn_pack": topn_launches}
+    main_path.update(dict.fromkeys(ZONE_KERNELS, zone_launches))
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -1190,6 +1451,24 @@ def main() -> int:
     for entry in kernels:
         entry["encoded"] = dict(on_encoded[entry["name"]],
                                 launches=enc_launches[entry["name"]])
+    # the zone-tile kernels at warm Q1's layout (Q6's, which has no full
+    # tile, beside them), their launches on the zone main path; the encoded
+    # image's layout is the plain image's (the layout narrows its own lanes)
+    zone_src = "tikv_tpu_torch/csrc/fused_zone.cu"
+    for name, replaces, also in (
+            ("zone_full", "tikv_tpu/copr/jax_zone.py:496", ["tikv_tpu/copr/jax_zone.py:524"]),
+            ("zone_partial", "tikv_tpu/copr/jax_zone.py:583",
+             ["tikv_tpu/copr/rpn.py:216", "tikv_tpu/copr/jax_zone.py:614"]),
+            ("zone_fold", "tikv_tpu/copr/jax_zone.py:774",
+             ["tikv_tpu/copr/jax_zone.py:524", "tikv_tpu/copr/jax_zone.py:614"])):
+        t = t_zone_q1[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": zone_src, "replaces": replaces,
+            "replaces_also": also, "launches": zone_launches[name],
+            "max_abs_err": zone_errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": t["library"], "q6": t_zone_q6[name],
+            "encoded": {"launches": enc_launches[name]}})
     # program #1 runs inside every kernel above that reads the image
     # (fa_load); its export decode_column is launched by the checks alone, so
     # its launches on the main path are those of the kernels that inline it,

@@ -157,6 +157,13 @@ def test_date_sorted_image_prunes_and_exits_early():
     seen = {}
     for name in ("q6", "config2_limit", "raw_topn_no_selection", "raw_topn_ascending_limit"):
         ev = TorchDagEvaluator(dag_to_wire(plans[name]), block_rows=1024, device="cpu")
+        if name == "q6":
+            # the zone rung serves Q6 and proves most tiles empty; the
+            # stacked kernels' block pruning is seen under route_hint="unary"
+            ev.run(None, penc)
+            st = ev.zone_stats
+            assert st.served == 1 and st.empty >= st.examined * 3 // 4 > 0
+            ev.route_hint = "unary"
         ev.run(None, penc)
         seen[name] = ev.prune_stats
     n = len(penc.blocks)
@@ -171,10 +178,22 @@ def test_date_sorted_image_prunes_and_exits_early():
 def test_encoded_pins_hold_narrow_payloads_apart_from_plain_pins():
     penc = port_cache(_blocks("lineitem"))[0]
     plain = port_cache(_blocks("lineitem"), encode=False)[0]
+    layout_bytes = []
     for cache in (penc, plain):
         ev = TorchDagEvaluator(dag_to_wire(_lineitem_plans()["q6"]), block_rows=1024,
                                device="cpu")
+        # the zone rung's layout narrows its lanes from the values, whatever
+        # the image's encoding (here every 1,024-row block is one padded
+        # tile, so the rung declines after building it); then the stacked
+        # image alone
         ev.run(None, cache)
+        assert ev.zone_stats.last_decline == "partial_fraction"
+        (layout,) = [e for s, e in cache.blocks[0].device.items() if s[0] == "zone_layout"]
+        layout_bytes.append(sum(t.numel() * t.element_size() for t in layout.tensors()))
+        cache.drop_device()
+        ev.route_hint = "unary"
+        ev.run(None, cache)
+    assert layout_bytes[0] == layout_bytes[1] > 0
     sig_enc = [s for s in penc.blocks[0].device if s[0] == "stackedenc"]
     sig_plain = [s for s in plain.blocks[0].device if s[0] == "stacked"]
     assert len(sig_enc) == 1 and len(sig_plain) == 1

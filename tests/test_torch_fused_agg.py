@@ -179,7 +179,7 @@ def test_opcodes_match_the_cuda_source():
     text = (csrc / "fa_walk.cuh").read_text() + (csrc / "fused_agg.cu").read_text()
     table = {m.group(1): int(m.group(2))
              for m in re.finditer(r"FA_(OP_\w+|AGG_\w+) = (\d+)", text)}
-    assert len(table) == 28
+    assert len(table) == 35
     names = {k: v for k, v in vars(fa).items() if k.startswith(("OP_", "AGG_")) and isinstance(v, int)}
     assert table == names
 
@@ -234,10 +234,10 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
 
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for f in ("fused_agg.cu", "fused_scan.cu", "fa_walk.cuh"):
-        (csrc / f).write_bytes((_build.PACKAGE_DIR / "csrc" / f).read_bytes())
+    for rel in [*_build.SOURCES.values(), "csrc/fa_walk.cuh"]:
+        (tmp_path / rel).write_bytes((_build.PACKAGE_DIR / rel).read_bytes())
     monkeypatch.setattr(_build, "PACKAGE_DIR", tmp_path)
     before = {name: _build.library_path(name) for name in _build.SOURCES}
     (csrc / "fa_walk.cuh").write_text((csrc / "fa_walk.cuh").read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
-    assert all(before[n] != after[n] for n in _build.SOURCES)  # both sources include it
+    assert all(before[n] != after[n] for n in _build.SOURCES)  # every source includes it

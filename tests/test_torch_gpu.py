@@ -80,6 +80,9 @@ def test_warm_q6_matches_the_oracle(cuda):
     cache = fx.build_cache(n, 1 << 17, seed=6, arrays=a)
     ev = TorchDagEvaluator(dag_to_wire(fx.q6_dag()), block_rows=1 << 17, device=cuda)
     fa.reset_launches()
+    assert ev.run(None, cache).iter_rows() == [fx.q6_oracle(a)]  # the zone rung
+    assert ev.zone_stats.served == 1 and fa.LAUNCHES["zone_partial"] == 1
+    ev.route_hint = "unary"  # the stacked kernels
     assert ev.run(None, cache).iter_rows() == [fx.q6_oracle(a)]
     assert ev.run(None, cache).iter_rows() == [fx.q6_oracle(a)]
     assert fa.LAUNCHES["fused_agg_partials"] == 2  # one per query
@@ -151,6 +154,10 @@ def test_warm_q1_and_a_host_id_group_by_match_the_oracle(cuda):
     cache = fx.build_cache(n, 1 << 17, seed=6, arrays=a)
     ev = TorchDagEvaluator(dag_to_wire(fx.q1_dag()), block_rows=1 << 17, device=cuda)
     fa.reset_launches()
+    assert ev.run(None, cache).iter_rows() == fx.q1_oracle(a)  # the zone rung
+    assert ev.zone_stats.served == 1
+    assert fa.LAUNCHES["zone_full"] == fa.LAUNCHES["zone_fold"] == 1
+    ev.route_hint = "unary"  # the stacked kernels
     assert ev.run(None, cache).iter_rows() == fx.q1_oracle(a)
     assert ev.run(None, cache).iter_rows() == fx.q1_oracle(a)
     assert fa.LAUNCHES["fused_group_agg_partials"] == 2  # one per query, coded ids
@@ -278,6 +285,13 @@ def test_kernels_on_an_encoded_image_match_the_plain_image(cuda, order):
             assert torch.equal(g, w), name
 
 
+def _stacked_nbytes(cache) -> int:
+    """``device_nbytes`` without the pinned zone layouts."""
+    layouts = [e for b in cache.blocks for s, e in b.device.items() if s[0] == "zone_layout"]
+    return cache.device_nbytes() - sum(t.numel() * t.element_size()
+                                       for e in layouts for t in e.tensors())
+
+
 @pytest.mark.parametrize("order", ["load", "shipdate"])
 def test_encoded_warm_plans_match_their_oracles(cuda, order):
     n, br = 3_000_000, 1 << 17
@@ -295,12 +309,60 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
              "q1_topn": (fx.q1_topn_dag(), fx.q1_topn_oracle(fx.q1_oracle(a)))}
     fa.reset_launches()
     for name, (dag, want) in cases.items():
-        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device=cuda)
-        assert ev.run(None, cache).iter_rows() == want, name
-        if name == "q6" and order == "shipdate":
-            assert ev.prune_stats[1] > ev.prune_stats[0] // 2  # most blocks pruned
-        assert ev.run(None, plain).iter_rows() == want, name
+        # aggregations on both warm rungs: the zone rung, then the stacked
+        # kernels (route_hint "unary")
+        for hint in (None, "unary") if name in ("q6", "q1", "q1_topn") else (None,):
+            ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device=cuda)
+            ev.route_hint = hint
+            assert ev.run(None, cache).iter_rows() == want, name
+            if name == "q6" and order == "shipdate" and hint == "unary":
+                assert ev.prune_stats[1] > ev.prune_stats[0] // 2  # most blocks pruned
+            assert ev.run(None, plain).iter_rows() == want, name
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name == "decode_column", name
-    # the same shipped columns pin in at most 30% of the plain bytes
-    assert cache.device_nbytes() <= 0.3 * plain.device_nbytes()
+    # the same shipped columns pin in at most 30% of the plain bytes (the
+    # zone layouts narrow themselves whatever the encoding: left out)
+    assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
+
+
+# -- the zone rung ----------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.parametrize("tile_rows", [256, 4096])
+def test_zone_kernels_match_plain_versions(cuda, tile_rows):
+    """zone_full, zone_partial and zone_fold against their plain versions
+    on a layout with NULLs in the key and values, negative values,
+    var_pop/min/max and the null-safe ops: integers exactly, f64 to rel
+    1e-12, and two runs bit-identical."""
+    cache = fx.zone_cache(400_000, 1 << 16, seed=5)
+    ev = TorchDagEvaluator(dag_to_wire(fx.zone_dag()), block_rows=1 << 16, device=cuda)
+    fa.reset_launches()
+    out, _layout, n_full, n_partial = fx.zone_kernel_outputs(ev, cache, tile_rows)
+    assert n_full > 0 and n_partial > 0
+    for name, (got, want) in out.items():
+        assert fa.LAUNCHES[name] == 1, name
+        for g, w in zip(got, want):
+            if g.dtype == torch.float64:
+                torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-12, atol=0)
+            else:
+                assert torch.equal(g.cpu(), w.cpu()), name
+    again = fx.zone_kernel_outputs(ev, cache, tile_rows)[0]
+    for name, (got, _want) in out.items():
+        assert all(torch.equal(_bits(g), _bits(h)) for g, h in zip(got, again[name][0])), name
+
+
+def test_zone_rung_matches_the_stacked_kernels_byte_for_byte(cuda):
+    n = 3_000_000
+    a = fx.build_arrays(n, seed=8)
+    cache = fx.build_cache(n, 1 << 17, seed=8, arrays=a)
+    zcache = fx.zone_cache(1_000_000, 1 << 17, seed=8)
+    for dag, c in ((fx.q6_dag(), cache), (fx.q1_dag(), cache), (fx.q1_topn_dag(), cache),
+                   (fx.zone_dag(), zcache)):
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device=cuda)
+        unary = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device=cuda)
+        unary.route_hint = "unary"
+        assert ev.run(None, c).encode() == unary.run(None, c).encode()
+        assert ev.zone_stats.served == 1 or ev.zone_stats.last_decline == "partial_fraction"

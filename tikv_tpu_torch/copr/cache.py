@@ -124,6 +124,8 @@ class ColumnBlockCache:
         def nbytes(entry) -> int:
             if isinstance(entry, (tuple, list)):
                 return sum(nbytes(e) for e in entry)
+            if hasattr(entry, "tensors"):  # a pinned zone layout (copr/zone.py)
+                return nbytes(entry.tensors())
             return entry.numel() * entry.element_size() if isinstance(entry, torch.Tensor) else 0
 
         with self._mu:

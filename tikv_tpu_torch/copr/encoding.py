@@ -124,6 +124,13 @@ class EncodedColumn(Column):
     def slice(self, start: int, stop: int) -> Column:
         return self.take(np.arange(start, stop))
 
+    def purge_decoded(self) -> None:
+        """Drop the cached full decode (the payload stays): a host pass that
+        read ``data`` over a whole image need not leave it resident."""
+        self._data = None
+        if self.kind == "rle":
+            self._nulls = None  # expanded from the run nulls on the next touch
+
     def encoded_nbytes(self) -> int:
         if self.kind == "bp":
             return self.packed.nbytes + self._nulls.nbytes

@@ -70,6 +70,13 @@ OP_FILTER = 21
 OP_AGG = 22
 OP_COUNT1 = 23
 OP_KEY = 24
+OP_NEG = 25
+OP_ABS = 26
+OP_BIT_AND = 27
+OP_BIT_OR = 28
+OP_BIT_XOR = 29
+OP_BIT_NEG = 30
+OP_IS_NOT_NULL = 31
 
 AGG_COUNT = 0
 AGG_SUM = 1
@@ -81,20 +88,25 @@ _FN_OPS = {
     "and": OP_AND, "or": OP_OR, "xor": OP_XOR, "not": OP_NOT,
     "is_null": OP_IS_NULL, "is_true": OP_IS_TRUE, "is_false": OP_IS_FALSE,
     "plus": OP_PLUS, "minus": OP_MINUS, "multiply": OP_MUL,
+    "unary_minus": OP_NEG, "abs": OP_ABS, "bit_and": OP_BIT_AND, "bit_or": OP_BIT_OR,
+    "bit_xor": OP_BIT_XOR, "bit_neg": OP_BIT_NEG, "is_not_null": OP_IS_NOT_NULL,
 }
 _OP_FNS = {v: k for k, v in _FN_OPS.items()}
 _ARITH = (OP_PLUS, OP_MINUS, OP_MUL)
+_SAME_TYPE = (OP_NEG, OP_ABS)  # typed like their one operand
+_BITWISE = (OP_BIT_AND, OP_BIT_OR, OP_BIT_XOR, OP_BIT_NEG)
 _AGG_KIND = {"count": AGG_COUNT, "sum": AGG_SUM, "avg": AGG_SUM, "min": AGG_MIN, "max": AGG_MAX}
 #: the aggregates the capacity-1 kernels run
 CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 
 #: launches of each CUDA kernel, counted where its wrapper launches it (the
 #: grouped pair's wrappers are in ``copr/fused_group_agg.py``, the mask's in
-#: ``copr/fused_mask.py``, the top-K kernels' in ``copr/fused_topn.py``)
+#: ``copr/fused_mask.py``, the top-K kernels' in ``copr/fused_topn.py``, the
+#: zone-tile kernels' in ``copr/fused_zone.py``)
 LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0,
             "fused_mask": 0, "topn_candidates": 0, "topn_merge": 0, "topn_pack": 0,
-            "decode_column": 0}
+            "decode_column": 0, "zone_full": 0, "zone_partial": 0, "zone_fold": 0}
 
 
 def reset_launches() -> None:
@@ -209,10 +221,13 @@ class _Emitter:
             depth = arity - 1 - pos
             self.emit(_word(OP_SCALE, self.const(m), int(self.types[-1 - depth]), depth))
         arg_types = self.types[-arity:]
+        if op in _BITWISE and any(arg_types):
+            # numpy has no bitwise operator on float64: the reference fails too
+            raise Unsupported(f"{node.op} of a REAL operand", "op_not_ported")
         del self.types[-arity:]
         flags = sum(int(t) << i for i, t in enumerate(arg_types))
         self.emit(_word(op, 0, flags))
-        self.push(op in _ARITH and any(arg_types))
+        self.push((op in _ARITH and any(arg_types)) or (op in _SAME_TYPE and arg_types[0]))
 
 
 def emit_program(sel_rpns, aggs, ship_cols, schema) -> tuple[_Emitter, list[bool]]:

@@ -1,7 +1,8 @@
 """Scalar-function kernels over torch ``(data, nulls)`` pairs.
 
 The port's subset of ``tikv_tpu/copr/kernels.py``: the comparisons, MySQL
-three-valued logic, null predicates and ``+ - *`` that the slice's plans use.
+three-valued logic, null predicates, ``+ - *``, unary minus, ``abs`` and the
+bit operators that the slices' plans use.
 Each kernel maps operand pairs to a result pair with the reference's
 semantics (numpy type promotion, int64 wraparound, NaN compares false except
 under ``ne``).  ``copr/rpn.py`` evaluates expressions with them, and the plain
@@ -126,6 +127,50 @@ def _minus(a, b):
 def _multiply(a, b):
     (ad, an), (bd, bn) = a, b
     return ad * bd, an | bn
+
+
+@_reg("unary_minus", 1, "same")
+def _unary_minus(a):
+    ad, an = a
+    return -ad, an  # -INT64_MIN wraps to INT64_MIN
+
+
+@_reg("abs", 1, "same")
+def _abs(a):
+    ad, an = a
+    return ad.abs(), an  # abs(INT64_MIN) wraps to INT64_MIN
+
+
+# -- bit operators (MySQL u64 results, kept as the int64 bit pattern) --------
+
+@_reg("bit_and", 2, "int")
+def _bit_and(a, b):
+    (ad, an), (bd, bn) = a, b
+    return ad & bd, an | bn
+
+
+@_reg("bit_or", 2, "int")
+def _bit_or(a, b):
+    (ad, an), (bd, bn) = a, b
+    return ad | bd, an | bn
+
+
+@_reg("bit_xor", 2, "int")
+def _bit_xor(a, b):
+    (ad, an), (bd, bn) = a, b
+    return ad ^ bd, an | bn
+
+
+@_reg("bit_neg", 1, "int")
+def _bit_neg(a):
+    ad, an = a
+    return ~ad, an
+
+
+@_reg("is_not_null", 1, "int")
+def _is_not_null(a):
+    _ad, an = a
+    return (~an).to(torch.int64), torch.zeros_like(an)
 
 
 # -- program #1: the in-kernel decode of an encoded column -------------------

@@ -37,6 +37,15 @@ no selection and a bare first key also drops the blocks that zone order
 proves cannot reach the top K.  Scan/filter output is gathered through the
 encodings (late materialization).
 
+A warm aggregation first tries the zone rung (``copr/zone.py``, the JAX
+package's ``jax_zone``): a layout of the image clustered by group and sorted
+by a range column, whose tiles the selection's zones prove full, empty or
+partial; the zone-tile kernels (``copr/fused_zone.py``) reduce the full
+tiles without the selection, walk only the partial ones and fold the tiles
+into the group slots.  A plan or image the rung cannot serve is declined
+with a named cause (``zone_stats``) and runs the stacked kernels below, as
+every warm aggregation does under ``route_hint = "unary"``.
+
 Plans without GROUP BY whose aggregates are all count/sum/avg/min/max run
 ``fused_agg`` (``copr/fused_agg.py``, capacity 1); every other plan runs
 ``fused_group_agg`` (``copr/fused_group_agg.py``).  Both evaluate the
@@ -63,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import encoding, zone_maps
+from . import encoding, zone, zone_maps
 from .aggr import PORTED_AGG_OPS, AggState
 from .dag import (
     ENC_TYPE_DATUM,
@@ -414,7 +423,9 @@ class TorchDagEvaluator:
     ``dag`` is a :class:`DagRequest` or its wire dict.  ``device`` is where
     the image lives and the kernels run: ``"cuda"`` (the default) raises
     ``RuntimeError`` when no CUDA device is present — there is no CPU
-    fallback — and ``"cpu"`` runs the kernels' plain versions."""
+    fallback — and ``"cpu"`` runs the kernels' plain versions.
+    ``route_hint = "unary"`` skips the zone rung for warm aggregations;
+    ``zone_stats`` (:class:`copr.zone.ZoneStats`) says what the rung did."""
 
     def __init__(self, dag, block_rows: int = DEFAULT_BLOCK_ROWS, device="cuda"):
         if isinstance(dag, dict):
@@ -434,8 +445,14 @@ class TorchDagEvaluator:
         self.decoder = RowBatchDecoder(self.plan.scan.columns_info)
         self._coded_programs: dict[tuple, GroupProgram | None] = {}
         # (blocks examined, blocks pruned) by the zone maps in the last warm run
+        # of the stacked kernels
         self.prune_stats = (0, 0)
         self._prune_memo = None  # (cache weakref, key, keep, prune_stats)
+        # "unary" skips the zone rung (jax_eval.route_hint): warm
+        # aggregations then run the stacked kernels
+        self.route_hint: str | None = None
+        self.zone_stats = zone.ZoneStats()
+        self._zone: zone.ZoneRung | None = None
 
     # -- entry point --------------------------------------------------------
 
@@ -603,8 +620,14 @@ class TorchDagEvaluator:
     # -- warm ---------------------------------------------------------------
 
     def _run_aggregated_cached(self, cache) -> SelectResponse:
-        """Every block resident on the device: one launch pair, one pull;
-        zone-pruned blocks ship no valid row."""
+        """The zone rung first (``copr/zone.py``), unless ``route_hint`` is
+        ``"unary"`` or the rung declines; else the stacked kernels: every
+        block resident on the device, one launch pair, one pull, zone-pruned
+        blocks shipping no valid row."""
+        if self.route_hint != "unary":
+            out = self._zone_rung().try_run(cache)
+            if out is not None:
+                return self._finalize_agg(*out)
         keep = self._prune_keep(cache)
         if self.program is not None:
             packed = fused_agg(self.program, self._stacked_device(cache, keep=keep))
@@ -615,6 +638,11 @@ class TorchDagEvaluator:
             if resp is not None:
                 return resp
         return self._run_host_gids(cache, keep)
+
+    def _zone_rung(self) -> zone.ZoneRung:
+        if self._zone is None:
+            self._zone = zone.ZoneRung(self)
+        return self._zone
 
     def _prune_keep(self, cache):
         """The per-block keep mask of the plan's selection conjuncts under

@@ -2,9 +2,10 @@
 //
 // Replaces rpn.py:eval_rpn(xp=jnp) of the reference package (tikv_tpu/copr),
 // which every device program of jax_eval.py inlines, for the ported scalar
-// functions: lt le gt ge eq ne, and or xor not, is_null is_true is_false,
-// plus minus multiply, with the decimal scale_by alignment applied before
-// each operation.  A plan is bytecode for a small stack machine over
+// functions: lt le gt ge eq ne, and or xor not, is_null is_true is_false
+// is_not_null, plus minus multiply unary_minus abs, bit_and bit_or bit_xor
+// bit_neg, with the decimal scale_by alignment applied before each
+// operation.  A plan is bytecode for a small stack machine over
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
@@ -61,6 +62,13 @@ enum {
   FA_OP_AGG = 22,      // pop; aggregate `arg` takes the value if active && !null
   FA_OP_COUNT1 = 23,   // aggregate `arg` (count of no expression) counts active
   FA_OP_KEY = 24,      // pop; sort key `arg` takes (value, null), whatever active says
+  FA_OP_NEG = 25,      // unary_minus: int64 wraps (-INT64_MIN is INT64_MIN), f64 flips the sign
+  FA_OP_ABS = 26,      // abs: int64 wraps (abs(INT64_MIN) is INT64_MIN), f64 clears the sign
+  FA_OP_BIT_AND = 27,  // bit operators over int64 bit patterns (never f64)
+  FA_OP_BIT_OR = 28,
+  FA_OP_BIT_XOR = 29,
+  FA_OP_BIT_NEG = 30,
+  FA_OP_IS_NOT_NULL = 31,  // never NULL
 };
 
 typedef unsigned long long u64;
@@ -271,6 +279,32 @@ __device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, long long 
         sn[sp - 1] = sn[sp - 1] || sn[sp];
         break;
       }
+      case FA_OP_NEG:
+        sv[sp - 1] = fa ? fa_raw(-fa_f(sv[sp - 1])) : fa_wsub(0, sv[sp - 1]);
+        break;
+      case FA_OP_ABS:
+        if (fa) {
+          sv[sp - 1] = fa_raw(fabs(fa_f(sv[sp - 1])));
+        } else if (sv[sp - 1] < 0) {
+          sv[sp - 1] = fa_wsub(0, sv[sp - 1]);
+        }
+        break;
+      case FA_OP_BIT_AND:
+      case FA_OP_BIT_OR:
+      case FA_OP_BIT_XOR: {
+        --sp;
+        const long long a = sv[sp - 1], b = sv[sp];
+        sv[sp - 1] = op == FA_OP_BIT_AND ? (a & b) : op == FA_OP_BIT_OR ? (a | b) : (a ^ b);
+        sn[sp - 1] = sn[sp - 1] || sn[sp];
+        break;
+      }
+      case FA_OP_BIT_NEG:
+        sv[sp - 1] = ~sv[sp - 1];
+        break;
+      case FA_OP_IS_NOT_NULL:
+        sv[sp - 1] = !sn[sp - 1];
+        sn[sp - 1] = false;
+        break;
       case FA_OP_FILTER:
         --sp;
         active = active && fa_truthy(sv[sp], fa) && !sn[sp];

@@ -192,22 +192,38 @@ def q1_dag() -> DagRequest:
                                  Aggregation([col(5), col(6)], aggs)])
 
 
+def _groups(key: np.ndarray, m: np.ndarray):
+    """The rows of ``m`` grouped by ``key`` (small non-negative ints):
+    ``(rows, starts)`` — the qualifying row indices ordered by key, each
+    key's rows in ascending order, and where each key's run starts."""
+    rows = np.flatnonzero(m)
+    k = key[rows].astype(np.int16)  # a 16-bit key takes numpy's radix sort
+    order = np.argsort(k, kind="stable")
+    rows, k = rows[order], k[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]]) if len(k) else np.zeros(0, np.int64)
+    return rows, starts
+
+
+def _group_sum(col: np.ndarray, rows: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    return np.add.reduceat(col[rows].astype(np.int64), starts)
+
+
 def q1_oracle(a: dict) -> list:
     """Q1's response rows from the raw draws, one per group that has a
     qualifying row, in the order of each group's first qualifying row."""
     m = a["ship"] <= Q1_SHIP_HI
-    key = a["rf"] * 2 + a["ls"]
-    rows = []
-    for k in np.unique(key[m]):
-        sel = m & (key == k)
-        n = int(sel.sum())
-        price = int(a["price"][sel].astype(np.int64).sum())
-        rf, ls = divmod(int(k), 2)
-        rows.append((int(np.argmax(sel)), [
-            int(a["qty"][sel].astype(np.int64).sum()), (price, 2), n, (price, 2),
-            n, (int(a["disc"][sel].astype(np.int64).sum()), 2), n,
-            b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]]))
-    return [r for _first, r in sorted(rows, key=lambda fr: fr[0])]
+    rows, starts = _groups(a["rf"] * 2 + a["ls"], m)
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    qty, price, disc = (_group_sum(a[c], rows, starts) for c in ("qty", "price", "disc"))
+    out = []
+    for g, s in enumerate(starts):
+        rf, ls = divmod(int(a["rf"][rows[s]] * 2 + a["ls"][rows[s]]), 2)
+        n, p = int(counts[g]), int(price[g])
+        out.append((int(rows[s]), [int(qty[g]), (p, 2), n, (p, 2), n, (int(disc[g]), 2), n,
+                                   b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]]))
+    return [r for _first, r in sorted(out, key=lambda fr: fr[0])]
 
 
 def qty_dag() -> DagRequest:
@@ -225,14 +241,18 @@ def qty_oracle(a: dict) -> list:
     """:func:`qty_dag`'s response rows from the raw draws, in the order of
     each group's first qualifying row."""
     m = a["ship"] <= Q1_SHIP_HI
-    rows = []
-    for q in np.unique(a["qty"][m]):
-        sel = m & (a["qty"] == q)
-        n = int(sel.sum())
-        rows.append((int(np.argmax(sel)), [
-            n, (int(a["price"][sel].astype(np.int64).sum()), 2), n,
-            (int(a["disc"][sel].astype(np.int64).sum()), 2), int(a["ship"][sel].max()), int(q)]))
-    return [r for _first, r in sorted(rows, key=lambda fr: fr[0])]
+    rows, starts = _groups(a["qty"], m)
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    price, disc = (_group_sum(a[c], rows, starts) for c in ("price", "disc"))
+    ship = np.maximum.reduceat(a["ship"][rows], starts)
+    out = []
+    for g, s in enumerate(starts):
+        n = int(counts[g])
+        out.append((int(rows[s]), [n, (int(price[g]), 2), n, (int(disc[g]), 2), int(ship[g]),
+                                   int(a["qty"][rows[s]])]))
+    return [r for _first, r in sorted(out, key=lambda fr: fr[0])]
 
 
 def filter_dag(kind: str, limit: int | None = 100_000) -> DagRequest:
@@ -638,3 +658,101 @@ def warm_kernel_outputs(cache, block_rows: int, device) -> dict:
     ft.launch_pack(prog, run, pay, None, 0, state, nxt)
     out["topn_pack"] = (cpu(*state, nxt), cpu(*ft.pack_plain(prog, run, pay, None, 0)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the zone rung
+# ---------------------------------------------------------------------------
+
+ZONE_TAGS = (b"ant", b"bee", b"cat", b"dog", b"eel")
+
+
+def zone_schema() -> list[ColumnInfo]:
+    """handle, v int (the range column), w int, tag varchar (the group
+    key), d decimal(2); every column but the handle nullable."""
+    return [ColumnInfo(1, FieldType.int64(), is_pk_handle=True),
+            ColumnInfo(2, FieldType.int64()),
+            ColumnInfo(3, FieldType.int64()),
+            ColumnInfo(4, FieldType.varchar()),
+            ColumnInfo(5, FieldType.decimal_type(2))]
+
+
+def zone_dag() -> DagRequest:
+    """A plan the zone rung serves that reaches every tile reduction: a
+    range on v, GROUP BY tag, count/sum/min/max/avg/var_pop, over bare
+    columns and over expressions of the null-safe functions."""
+    arg = call("bit_xor", call("unary_minus", col(2)), call("abs", col(1)))
+    aggs = [AggDescriptor("count", None), AggDescriptor("sum", col(2)),
+            AggDescriptor("min", col(2)), AggDescriptor("max", arg),
+            AggDescriptor("var_pop", col(2)), AggDescriptor("avg", col(4)),
+            AggDescriptor("count", call("is_not_null", col(1))),
+            AggDescriptor("sum", call("bit_and", call("bit_neg", col(2)), col(1)))]
+    return DagRequest(executors=[TableScan(TABLE_ID, zone_schema()),
+                                 Selection([call("ge", col(1), const_int(-2000)),
+                                            call("le", col(1), const_int(3000))]),
+                                 Aggregation([col(3)], aggs)])
+
+
+def zone_cache(n: int, block_rows: int, seed: int = 0, null_p: float = 0.05):
+    """A filled cache for :func:`zone_dag` from seeded draws: negative
+    values, NULLs in v, w and the key (a fraction ``null_p`` of the first
+    tenth of the rows, so the tiles they force partial stay a minority),
+    the tags coded against one dictionary shared by every block."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-5000, 5000, n)
+    w = rng.integers(-1000, 1000, n)
+    tag = rng.integers(0, len(ZONE_TAGS), n)
+    d = rng.integers(-100000, 100000, n)
+    head = np.arange(n) < n // 10
+    nulls = [head & (rng.random(n) < null_p) for _ in range(3)]
+    dictionary = np.empty(len(ZONE_TAGS), dtype=object)
+    dictionary[:] = list(ZONE_TAGS)
+    handles = np.arange(n, dtype=np.int64)
+    cache = ColumnBlockCache()
+    for s in range(0, n, block_rows):
+        e = min(s + block_rows, n)
+        nz = np.zeros(e - s, dtype=bool)
+        cache.add([
+            Column(EvalType.INT, handles[s:e], nz),
+            Column(EvalType.INT, np.where(nulls[0][s:e], 0, v[s:e]), nulls[0][s:e]),
+            Column(EvalType.INT, np.where(nulls[1][s:e], 0, w[s:e]), nulls[1][s:e]),
+            Column(EvalType.BYTES, np.where(nulls[2][s:e], 0, tag[s:e]), nulls[2][s:e], 0,
+                   dictionary),
+            Column(EvalType.DECIMAL, d[s:e], nz, 2),
+        ], e - s)
+    cache.filled = True
+    return cache
+
+
+def zone_kernel_outputs(ev, cache, tile_rows: int | None = None):
+    """The three zone kernels over ``ev``'s layout of ``cache`` (at
+    ``tile_rows`` rows a tile; the rung's default when None), each beside
+    its plain version on the same tensors: ``({name: (kernel output, plain
+    output)}, layout, full tile count, partial tile count)``.  The fold's
+    plain version folds the kernels' own partials."""
+    from .copr import fused_zone as fz
+    from .copr.zone import fold_order
+
+    rung = ev._zone_rung()
+    tiles = rung.plan_tiles(cache, tile_rows)
+    if tiles is None:
+        raise AssertionError(f"the zone rung declined: {ev.zone_stats.last_decline}")
+    layout, full_idx, partial_idx = tiles
+    full, part = rung.programs(layout)
+    dev = ev.device
+    n_leaves = len(full.prog.leaves)
+    out = {}
+    lists = []
+    for name, tp, idx, plain in (("zone_full", full, full_idx, fz.zone_full_plain),
+                                 ("zone_partial", part, partial_idx, fz.zone_partial_plain)):
+        t = torch.from_numpy(idx).to(dev)
+        got = torch.empty((len(idx), n_leaves), dtype=torch.int64, device=dev)
+        (fz.zone_full if name == "zone_full" else fz.zone_partial)(tp, layout, t, got)
+        out[name] = ((got,), (plain(tp, layout, t),))
+        lists.append(got)
+    order, starts = (torch.from_numpy(a).to(dev)
+                     for a in fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots))
+    parts = torch.cat(lists)
+    out["zone_fold"] = (fz.zone_fold(full, parts, order, starts, layout.n_slots),
+                        fz.zone_fold_plain(full, parts, order, starts, layout.n_slots))
+    return out, layout, len(full_idx), len(partial_idx)
