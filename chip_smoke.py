@@ -70,6 +70,21 @@ and ``zone_fold`` against their plain versions on the Q6 and Q1 layouts and
 on a synthetic one (NULLs in the key and values, negative values, var_pop,
 the null-safe ops, 256-row tiles), then timed at Q1's and Q6's layouts.
 
+Between phases ``zone`` and 12, phase ``batch`` serves batches of warm
+aggregations (programs #10 and #11, ``csrc/fused_batch.cu``): over the plain
+100M-row image, batch B (seven riders, every one zone-eligible: the zone
+rung serves them all, no batch kernel launches) and batch A (eight riders:
+Q6, count/sum/min/max, Q1, Q1 + TopN, GROUP BY l_returnflag, Q1 with
+shipdate <= 9500, a two-column Q6 variant and bit_xor(l_quantity) GROUP BY
+l_linestatus, which the rung declines, so all eight run on the batch
+kernels); then Q1 and Q6 each as one batch over 64 region images of 6 to
+10 blocks (two with a returnflag dictionary of two), over 8 encoded region
+images, and over 7 of those with one plain image (decoded lanes, the
+``enc_mismatch`` decline counted).  Every response equals its numpy oracle
+and, byte for byte, the same request served alone on the stacked unary
+route, whose times are summed beside the batch's; both kernels are held to
+their plain versions (with a rider of every leaf kind) and timed.
+
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
 REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
@@ -77,7 +92,8 @@ blocks).  Then the card's line, the kernels line and, last, the ok line.
 The launch counts in the kernels line are those of the main paths only: Q6
 (phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
-top-K kernels, phase ``zone`` for the zone-tile kernels, each counted from
+top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
+for the batch kernels, each counted from
 0 just before its path and read just after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
@@ -793,6 +809,258 @@ def time_zone(fz, ev, cache) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase batch: programs #10 and #11
+# ---------------------------------------------------------------------------
+
+BATCH_KERNELS = ("batch_partials", "batch_combine_pack")
+# the JAX package's read scheduler batches at most max_batch = 64 requests
+# (tikv_tpu/copr/scheduler.py:94); a TiKV region splits near 96 MB, about a
+# million lineitem rows: 6 to 10 blocks of 131,072 rows
+XREGION_REGIONS = 64
+XREGION_BLOCKS = (6, 7, 8, 9, 10)
+XREGION_ENCODED = 8
+
+
+def img_nbytes(img) -> int:
+    """Bytes an image's tensors hold on the card (its pin)."""
+    ts = [t for c in img.cols for t in (c if isinstance(c, tuple) else (c,))]
+    ts += [m for m in img.nulls if m is not None] + [img.n_valids, img.offsets]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_batch(fb, tasks, iters: int) -> dict:
+    """CUDA-event ms per launch of both batch kernels at one batch's tasks,
+    the plain versions' ms, and the bounds: each distinct image's shipped
+    lanes over its valid rows read once (an image K riders share, once),
+    its n_valid and offset vectors, the partials written once; one
+    operation per bytecode word and leaf per row of each task (partials),
+    one per partial word folded (combine)."""
+    batch = fb.Batch(tasks)
+    table = fb.upload_table(batch)
+    dev = batch.device
+    parts = torch.empty(batch.n_parts, dtype=torch.int64, device=dev)
+    out = (torch.empty((len(batch), batch.li, batch.c_max), dtype=torch.int64, device=dev),
+           torch.empty((len(batch), batch.lf, batch.c_max), dtype=torch.float64, device=dev))
+    p_ms = cuda_ms(lambda: fb.launch_batch_partials(batch, table, parts), iters)
+    c_ms = cuda_ms(lambda: fb.launch_batch_combine_pack(batch, table, parts, out), 100)
+    pp_ms = cuda_ms(lambda: fb.batch_partials_plain(batch), 1, warmup=1)
+    cp_ms = cuda_ms(lambda: fb.batch_combine_pack_plain(batch, parts), 2, warmup=1)
+    images = {id(t.img): t.img for t in tasks}
+    rows = {k: int(img.n_valids.sum()) for k, img in images.items()}
+    read = sum(image_bytes(img, rows[k]) + 16 * img.n_blocks for k, img in images.items())
+    ops = sum(rows[id(t.img)] * (len(t.prog.code) + len(t.prog.leaves)) for t in tasks)
+    p_bound, p_by = bound(read + batch.n_parts * 8, ops)
+    out_words = len(batch) * (batch.li + batch.lf) * batch.c_max
+    c_bound, c_by = bound(batch.n_parts * 8 + out_words * 8, batch.n_parts)
+    return {"tasks": len(batch), "rows": sum(rows.values()), "ctas": batch.n_ctas,
+            "partial_words": batch.n_parts, "partials_ms": p_ms, "partials_plain_ms": pp_ms,
+            "partials_bound_ms": p_bound, "partials_bound_by": p_by, "combine_ms": c_ms,
+            "combine_plain_ms": cp_ms, "combine_bound_ms": c_bound, "combine_bound_by": c_by}
+
+
+def phase_batch(cache, wants: dict, card: str, br: int = 1 << 17) -> dict:
+    """Programs #10 and #11 over the plain 100M-row image and 64 region
+    images: the batch main path (counted from 0), the kernels against their
+    plain versions and timed, every response against its numpy oracle and,
+    byte for byte, the same request served alone on the stacked unary route,
+    timed one by one beside the batch."""
+    from tikv_tpu_torch import fixtures as fx
+    from tikv_tpu_torch.copr import encoding
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+
+    t_phase = time.perf_counter()
+    plans = fx.batch_plans()
+    names = [name for name, _d, _o in plans]
+
+    def evaluators(dags):
+        return [te.TorchDagEvaluator(dag_to_wire(d), block_rows=br, device="cuda") for d in dags]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def per_batch(before: dict) -> dict:
+        return {k: fa.LAUNCHES[k] - before[k] for k in BATCH_KERNELS + ZONE_KERNELS}
+
+    # the regions: 64 of 6 to 10 blocks, two of them with a returnflag
+    # dictionary of two; 8 more images hold regions 0-7's rows again, to be
+    # encoded in place
+    counts = [XREGION_BLOCKS[r % len(XREGION_BLOCKS)] for r in range(XREGION_REGIONS)]
+    t0 = time.perf_counter()
+    regions = fx.region_caches(counts, br, SEED + 100, two_flags=(3, 17))
+    enc_regions = fx.region_caches(counts[:XREGION_ENCODED], br, SEED + 100, two_flags=(3,))
+    for _a, c in enc_regions:
+        encoding.encode_blocks(c, fx.lineitem())
+    mixed_regions = [c for _a, c in enc_regions[: XREGION_ENCODED - 1]] + [regions[7][1]]
+    x_plans = {name: (dag, oracle) for name, dag, oracle in plans if name in ("q1", "q6")}
+    x_wants = {name: [oracle(a) for a, _c in regions] for name, (_d, oracle) in x_plans.items()}
+    regions_build_s = time.perf_counter() - t0
+
+    # ---- the batch main path: counts from 0 here to its end -------------------
+    fa.reset_launches()
+    runs, resps, launches, totals = {}, {}, {}, {}
+
+    def drive(key, fn, want, n=4):
+        runs[key] = []
+        start = dict(fa.LAUNCHES)
+        for i in range(n):
+            before = dict(fa.LAUNCHES)
+            out, sec = timed(fn)
+            runs[key].append(sec)
+            if i == 0:
+                launches[key] = per_batch(before)
+            for j, (resp, w) in enumerate(zip(out, want)):
+                check_rows(resp, w, f"batch {key} response {j}")
+        resps[key] = out
+        totals[key] = per_batch(start)
+
+    # batch B: every rider zone-eligible, so the rung serves all of them
+    evs_b = evaluators([d for name, d, _o in plans if name != "bit_xor_by_linestatus"])
+    drive("same_region_zone", lambda: te.run_batch_cached(evs_b, cache),
+          [wants[name] for name in names[:-1]])
+    for name, ev in zip(names, evs_b):
+        if ev.zone_stats.served != 4:
+            raise AssertionError(f"batch B: {name} not zone-served ({ev.zone_stats})")
+    # batch A: the eight riders; bit_xor declines the rung (agg_op), so all
+    # eight run on the batch kernels
+    evs_a = evaluators([d for _n, d, _o in plans])
+    drive("same_region", lambda: te.run_batch_cached(evs_a, cache), [wants[n] for n in names])
+    if any(ev.zone_stats.served for ev in evs_a) or \
+            evs_a[-1].zone_stats.declines.get("agg_op") != 4:
+        raise AssertionError("batch A: a rider rode the zone rung")
+    evs_x = {name: evaluators([dag])[0] for name, (dag, _o) in x_plans.items()}
+    plain_caches = [c for _a, c in regions]
+    for name, ev in evs_x.items():
+        drive(f"xregion_{name}", lambda ev=ev: te.run_xregion_cached(ev, plain_caches),
+              x_wants[name], 3)
+        enc_before = encoding.PATH_COUNTS.get(("xregion", "encoded"), 0)
+        drive(f"xregion_{name}_encoded",
+              lambda ev=ev: te.run_xregion_cached(ev, [c for _a, c in enc_regions]),
+              x_wants[name][:XREGION_ENCODED], 3)
+        if encoding.PATH_COUNTS[("xregion", "encoded")] != enc_before + 3:
+            raise AssertionError(f"xregion {name}: the encoded regions did not ship encoded")
+        dec_before = encoding.DECLINE_COUNTS.get(("xregion", "enc_mismatch"), 0)
+        drive(f"xregion_{name}_enc_mismatch",
+              lambda ev=ev: te.run_xregion_cached(ev, mixed_regions),
+              x_wants[name][:XREGION_ENCODED], 3)
+        if encoding.DECLINE_COUNTS[("xregion", "enc_mismatch")] != dec_before + 3:
+            raise AssertionError(f"xregion {name}: the mismatch did not decode-ship")
+    batch_launches = dict(fa.LAUNCHES)
+    # ---- end of the batch main path -------------------------------------------
+    for key, counted in launches.items():
+        want = 0 if key == "same_region_zone" else 1
+        if counted["batch_partials"] != want or counted["batch_combine_pack"] != want:
+            raise AssertionError(f"batch {key} launched {counted}")
+
+    # the kernels against their plain versions: batch A with the mixed rider
+    # (every leaf kind: var_pop's f64 sums, first), and Q1 and the mixed plan
+    # over the 64 plain and the 8 encoded regions
+    ev_mixed = evaluators([fx.mixed_dag()])[0]
+    checks = {"same_region_9_riders": fx.batch_kernel_check(
+        te.batch_tasks(evs_a + [ev_mixed], cache)[0])}
+    for label, caches in (("xregion", plain_caches),
+                          ("xregion_encoded", [c for _a, c in enc_regions])):
+        for name, ev in (("q1", evs_x["q1"]), ("mixed", ev_mixed)):
+            checks[f"{label}_{name}"] = fx.batch_kernel_check(te.xregion_tasks(ev, caches)[0])
+    tasks_a = te.batch_tasks(evs_a, cache)[0]
+    t_same = time_batch(fb, tasks_a, 5)
+    # one task alone, to split a task's cost in batch A: Q1 over batch A's
+    # pin (6 columns and 4 null masks, the union) and over its own pin (its
+    # 6 columns), beside fused_group_agg_partials on that pin (phase timings)
+    ev_q1 = evs_a[names.index("q1")]
+    gc, dicts = ev_q1._stable_dict_group_cols(cache.blocks)
+    own = ev_q1._ship_cols(gc)
+    dl = tuple(len(d) for d in dicts)
+    prog_own = ev_q1._batch_program(own, ev_q1.plan.schema, gc, dl)
+    one_task = {
+        "q1_over_the_union_pin": time_batch(fb, [tasks_a[names.index("q1")]], 5)["partials_ms"],
+        "q1_over_its_own_pin": time_batch(
+            fb, [fb.Task(prog_own, ev_q1._stacked_device(cache, own), 16)], 5)["partials_ms"]}
+    t_x = time_batch(fb, te.xregion_tasks(evs_x["q1"], plain_caches)[0], 10)
+    t_xe = time_batch(fb, te.xregion_tasks(evs_x["q1"], [c for _a, c in enc_regions])[0], 10)
+    pinned = {"same_region": img_nbytes(tasks_a[0].img),
+              "xregion": sum(img_nbytes(t.img) for t in
+                             te.xregion_tasks(evs_x["q1"], plain_caches)[0])}
+    del tasks_a
+    # where a cross-region batch's time goes: the host's tasks (zone maps,
+    # pins, programs), the launch pair to its end, the pull and 64 finalizes
+    split = {}
+    for name, ev in evs_x.items():
+        secs = {"tasks_s": [], "kernels_s": [], "pull_and_finalize_s": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tasks, specs, order, prunes, enc = te.xregion_tasks(ev, plain_caches)
+            t1 = time.perf_counter()
+            packed = fb.fused_batch(tasks)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            te.XRegionPending(ev, specs, [t.prog for t in tasks], packed, order, prunes,
+                              enc).finalize()
+            t3 = time.perf_counter()
+            for k, v in zip(secs, (t1 - t0, t2 - t1, t3 - t2)):
+                secs[k].append(v)
+        split[f"xregion_{name}"] = secs
+
+    # each request alone on the stacked unary route: the same bytes, and the
+    # sum of their times beside the batch's
+    unary = {}
+
+    def alone(dag, c, want: bytes) -> float:
+        ev = stacked(te.TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device="cuda"))
+        secs = []
+        for _ in range(3 if c is cache else 2):
+            resp, sec = timed(lambda: ev.run(None, c))
+            if resp.encode() != want:
+                raise AssertionError("a batch response differs from the unary route's")
+            secs.append(sec)
+        return sorted(secs[1:])[len(secs[1:]) // 2]
+
+    for key in ("same_region", "same_region_zone"):
+        unary[key] = [alone(dag, cache, r.encode())
+                      for (_n, dag, _o), r in zip(plans, resps[key])]
+    for name, (dag, _o) in x_plans.items():
+        for label, caches in (("", plain_caches),
+                              ("_encoded", [c for _a, c in enc_regions]),
+                              ("_enc_mismatch", mixed_regions)):
+            key = f"xregion_{name}{label}"
+            unary[key] = [alone(dag, c, r.encode()) for c, r in zip(caches, resps[key])]
+    for key, secs in runs.items():
+        emit({"phase": "batch", "batch": key, "requests": len(unary[key]),
+              "matches_oracle": True, "byte_identical_to_unary": True,
+              "first_run_s": secs[0], "seconds": secs[1:],
+              "median_s": sorted(secs[1:])[len(secs[1:]) // 2],
+              "unary_sum_s": sum(unary[key]), "unary_s": unary[key],
+              "launches_per_batch": launches[key], "card": card})
+    emit({"phase": "batch", "case": "kernels", "card": card, "checks": checks,
+          "int_words_equal": True, "f64_rel_tol": REL_TOL, "bit_identical_reruns": True,
+          "same_region": t_same, "xregion": t_x, "xregion_encoded": t_xe,
+          "one_task_partials_ms": one_task,
+          "pinned_bytes": pinned, "launches": batch_launches,
+          "regions": {"count": len(regions), "blocks": counts, "rows": sum(counts) * br,
+                      "two_flag_regions": [3, 17], "build_and_encode_s": regions_build_s},
+          "encoding": {"paths": {f"{k[0]}/{k[1]}": v for k, v in encoding.PATH_COUNTS.items()},
+                       "declines": {f"{k[0]}/{k[1]}": v
+                                    for k, v in encoding.DECLINE_COUNTS.items()}},
+          "xregion_split": split,
+          "kernel_share_same_region": t_same["partials_ms"] / 1e3
+          / sorted(runs["same_region"][1:])[len(runs["same_region"][1:]) // 2],
+          "phase_seconds": time.perf_counter() - t_phase})
+    err = {k: max(max(c["partials"] for c in checks.values()) if k == "batch_partials"
+                  else max(c["combine"] for c in checks.values()), 0.0) for k in BATCH_KERNELS}
+    return {"launches": batch_launches, "same_region": t_same, "xregion": t_x,
+            "xregion_encoded": t_xe, "max_abs_err": err,
+            "encoded_launches": {k: sum(totals[f"xregion_{n}_encoded"][k] for n in x_plans)
+                                 for k in BATCH_KERNELS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -885,6 +1153,11 @@ def main() -> int:
     want_topn = fx.topn_oracle(arrays, TOPN_K)
     want_sel_warm = fx.filter_oracle(arrays, "selective", None)
     want_filter_warm = fx.filter_oracle(arrays, "filter", SCAN_LIMIT)
+    want_batch = {"q6": want_q6, "q6_count_sum_min_max": want_g, "q1": want_q1,
+                  "q1_topn": fx.q1_topn_oracle(want_q1)}
+    for name, _dag, oracle in fx.batch_plans():
+        if name not in want_batch:
+            want_batch[name] = oracle(arrays)
     del arrays
     fa.reset_launches()
     q1_wire = dag_to_wire(fx.q1_dag())
@@ -1219,6 +1492,11 @@ def main() -> int:
           "profile_q1": profile_runs(lambda: zone_evs["q1"].run(None, cache), 3),
           "phase_seconds": time.perf_counter() - t_zone})
 
+    # ---- phase batch: programs #10 and #11 (its own main path) ----------------
+    bt = phase_batch(cache, want_batch, card)
+    cache.drop_device()
+    torch.cuda.empty_cache()
+
     # ---- phase 12: encoded images --------------------------------------------
     # the plain image's kernel outputs and pinned bytes, then its pins
     # released and the same blocks encoded in place
@@ -1374,6 +1652,7 @@ def main() -> int:
                  "topn_candidates": topn_launches, "topn_merge": topn_launches,
                  "topn_pack": topn_launches}
     main_path.update(dict.fromkeys(ZONE_KERNELS, zone_launches))
+    main_path.update(dict.fromkeys(BATCH_KERNELS, bt["launches"]))
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -1483,6 +1762,27 @@ def main() -> int:
         "inlined_in": list(IMAGE_READERS), "max_abs_err": 0.0,
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"], "shapes": dec})
+    # the batch kernels at batch A's shape (eight riders over the 100M
+    # image), the 64-region Q1 batch and the 8 encoded regions beside them;
+    # their launches on the batch main path (the encoded entry: its encoded
+    # regions' batches)
+    for name, key, replaces, also in (
+            ("batch_partials", "partials", "tikv_tpu/copr/jax_eval.py:1710",
+             ["tikv_tpu/copr/jax_eval.py:1994", "tikv_tpu/copr/jax_eval.py:469",
+              "tikv_tpu/copr/jax_eval.py:460"]),
+            ("batch_combine_pack", "combine", "tikv_tpu/copr/jax_eval.py:1994",
+             ["tikv_tpu/copr/jax_eval.py:1710", "tikv_tpu/copr/jax_eval.py:737"])):
+        t = bt["same_region"]
+
+        def at(tb, key=key):
+            return {f: tb[f"{key}_{f}"] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tikv_tpu_torch/csrc/fused_batch.cu",
+            "replaces": replaces, "replaces_also": also, "launches": bt["launches"][name],
+            "max_abs_err": bt["max_abs_err"][name], **at(t), "library_ms": None,
+            "xregion": at(bt["xregion"]),
+            "encoded": dict(at(bt["xregion_encoded"]), launches=bt["encoded_launches"][name])})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

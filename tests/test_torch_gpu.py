@@ -318,8 +318,10 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
             if name == "q6" and order == "shipdate" and hint == "unary":
                 assert ev.prune_stats[1] > ev.prune_stats[0] // 2  # most blocks pruned
             assert ev.run(None, plain).iter_rows() == want, name
+    # every kernel these warm plans run launched; the batch kernels serve
+    # batches only (test_batches_match_the_unary_route_and_the_oracles)
     for name, count in fa.LAUNCHES.items():
-        assert count > 0 or name == "decode_column", name
+        assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -366,3 +368,83 @@ def test_zone_rung_matches_the_stacked_kernels_byte_for_byte(cuda):
         unary.route_hint = "unary"
         assert ev.run(None, c).encode() == unary.run(None, c).encode()
         assert ev.zone_stats.served == 1 or ev.zone_stats.last_decline == "partial_fraction"
+
+
+def _batch_riders(device, block_rows):
+    dags = [d for _n, d, _o in fx.batch_plans()] + [fx.mixed_dag()]
+    return [TorchDagEvaluator(dag_to_wire(d), block_rows=block_rows, device=device)
+            for d in dags]
+
+
+@pytest.mark.parametrize("encoded", [False, True])
+@pytest.mark.parametrize("kind", ["same_region", "xregion"])
+def test_batch_kernels_match_plain_versions(cuda, kind, encoded):
+    """batch_partials and batch_combine_pack against their plain versions:
+    nine riders (every leaf kind) over one image, or Q1 and the mixed plan
+    over twelve regions of 1 to 4 blocks (one with a returnflag dictionary
+    of two); integer words exactly, f64 to rel 1e-12, two runs
+    bit-identical."""
+    from tikv_tpu_torch.copr import encoding
+    from tikv_tpu_torch.copr.torch_eval import batch_tasks, xregion_tasks
+
+    br = 1 << 16
+    if kind == "same_region":
+        cache = fx.build_cache(24 * br - 999, br, seed=9, encode=encoded)
+        runs = [batch_tasks(_batch_riders(cuda, br), cache)[0]]
+    else:
+        regions = [c for _a, c in fx.region_caches([1 + r % 4 for r in range(12)], br, seed=10,
+                                                   two_flags=(5,))]
+        if encoded:
+            for c in regions:
+                encoding.encode_blocks(c, fx.lineitem())
+        riders = _batch_riders(cuda, br)
+        runs = [xregion_tasks(ev, regions)[0] for ev in (riders[2], riders[-1])]
+    for tasks in runs:
+        assert (tasks[0].img.descs is not None) == encoded
+        fx.batch_kernel_check(tasks)
+
+
+def test_batch_kernels_reject_mismatched_tensors(cuda):
+    from tikv_tpu_torch.copr import fused_batch
+    from tikv_tpu_torch.copr.torch_eval import batch_tasks
+
+    cache = fx.build_cache(100_000, 1 << 15, seed=11)
+    tasks = batch_tasks(_batch_riders(cuda, 1 << 15)[:3], cache)[0]
+    img = tasks[1].img
+    bad = Image([c.to(torch.int32) for c in img.cols], img.nulls, img.n_valids, img.n_blocks,
+                img.block_rows, img.device, img.offsets)
+    with pytest.raises(ValueError):
+        fused_batch.fused_batch([tasks[0], fused_batch.Task(tasks[1].prog, bad, 16)])
+    bad_off = Image(img.cols, img.nulls, img.n_valids, img.n_blocks, img.block_rows, img.device,
+                    img.offsets.to(torch.int32))
+    with pytest.raises(ValueError, match="offsets"):
+        fused_batch.fused_batch([fused_batch.Task(tasks[0].prog, bad_off, 1)])
+
+
+def test_batches_match_the_unary_route_and_the_oracles(cuda):
+    """Both entry points on the card: each response equal to its numpy
+    oracle and, byte for byte, to the same plan served alone; one
+    batch_partials launch for each batch."""
+    from tikv_tpu_torch.copr.torch_eval import run_batch_cached, run_xregion_cached
+
+    br = 1 << 16
+    n = 10 * br
+    a = fx.build_arrays(n, seed=12)
+    cache = fx.build_cache(n, br, seed=12, arrays=a)
+    riders = _batch_riders(cuda, br)[:-1]
+    fa.reset_launches()
+    got = run_batch_cached(riders, cache)
+    assert fa.LAUNCHES["batch_partials"] == 1 and fa.LAUNCHES["batch_combine_pack"] == 1
+    for (name, dag, oracle), resp in zip(fx.batch_plans(), got):
+        assert resp.iter_rows() == oracle(a), name
+        alone = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device=cuda)
+        alone.route_hint = "unary"
+        assert alone.run(None, cache).encode() == resp.encode(), name
+    regions = fx.region_caches([3, 1, 2, 4], br, seed=13, two_flags=(1,))
+    for name, dag, oracle in fx.batch_plans()[:3]:
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device=cuda)
+        before = fa.LAUNCHES["batch_partials"]
+        outs = run_xregion_cached(ev, [c for _a, c in regions])
+        assert fa.LAUNCHES["batch_partials"] == before + 1
+        for (ra, _c), resp in zip(regions, outs):
+            assert resp.iter_rows() == oracle(ra), name

@@ -569,11 +569,13 @@ def test_port_q1_plan_is_the_bench_plan():
 # the contract with the CUDA source
 # ---------------------------------------------------------------------------
 
-SOURCE = Path(ga.__file__).resolve().parent.parent / "csrc" / "fused_agg.cu"
+CSRC = Path(ga.__file__).resolve().parent.parent / "csrc"
 
 
 def test_leaf_kinds_and_limits_match_the_cuda_source():
-    text = SOURCE.read_text()
+    # the leaf kinds and limits live in the header the grouped and batch
+    # kernels share; the geometry in fused_agg.cu
+    text = (CSRC / "ga_leaf.cuh").read_text() + (CSRC / "fused_agg.cu").read_text()
     table = {m.group(1): int(m.group(2)) for m in re.finditer(r"\bGA_([A-Z]+) = (\d+)", text)}
     assert table == {k[len("LEAF_"):]: v for k, v in vars(ga).items() if k.startswith("LEAF_")}
     defines = dict(re.findall(r"#define (\w+) (\d+)", text))

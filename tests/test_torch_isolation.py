@@ -34,7 +34,8 @@ def test_port_modules_listed():
               "tikv_tpu_torch.copr.cache", "tikv_tpu_torch.util.codec", "tikv_tpu_torch._build",
               "tikv_tpu_torch.copr.fused_mask", "tikv_tpu_torch.copr.fused_topn",
               "tikv_tpu_torch.copr.encoding", "tikv_tpu_torch.copr.zone_maps",
-              "tikv_tpu_torch.copr.zone", "tikv_tpu_torch.copr.fused_zone"):
+              "tikv_tpu_torch.copr.zone", "tikv_tpu_torch.copr.fused_zone",
+              "tikv_tpu_torch.copr.fused_batch"):
         assert m in mods
 
 

@@ -22,9 +22,13 @@ encoded image answers byte for byte as its decoded image does.  The rules
 (thresholds, lane choice, "halve the bytes") are the JAX package's, so both
 packages encode a table identically.
 
-Not here: the metric counters, the cross-region ``batch_plan``, demotion and
-in-place patching of encoded lanes (write-through deltas), and the
-dictionary code-space predicate rewrite.
+:func:`batch_plan` decides for the images of a batch at once whether they
+ship encoded or decoded, and counts each decision and decline in
+``PATH_COUNTS`` and ``DECLINE_COUNTS`` (the JAX package's ``count_path`` and
+``count_decline`` metrics, as plain counters).
+
+Not here: demotion and in-place patching of encoded lanes (write-through
+deltas), and the dictionary code-space predicate rewrite.
 """
 
 from __future__ import annotations
@@ -38,6 +42,19 @@ from .datatypes import Column, EvalType
 _RLE_MAX_RUN_FRACTION = 0.25
 _NARROW_DTYPES = (np.int8, np.int16, np.int32)
 _DICT_MAX_CARDINALITY = 65536
+
+#: (path, decision) -> batches: "encoded" or "decoded_ship" (batch_plan)
+PATH_COUNTS: dict[tuple[str, str], int] = {}
+#: (path, cause) -> batches declined from encoded serving ("enc_mismatch")
+DECLINE_COUNTS: dict[tuple[str, str], int] = {}
+
+
+def count_path(path: str, decision: str) -> None:
+    PATH_COUNTS[path, decision] = PATH_COUNTS.get((path, decision), 0) + 1
+
+
+def count_decline(path: str, cause: str) -> None:
+    DECLINE_COUNTS[path, cause] = DECLINE_COUNTS.get((path, cause), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +510,30 @@ def stack_block_payloads(blocks, ship_cols, nullable_cols, plan, pad_rows: int):
     nulls = [np.stack([block_null_payload(b.cols[i], pad_rows) for b in blocks])
              for i in nullable_cols]
     return data, nulls, np.asarray(plan.refs)
+
+
+def batch_plan(caches, ship_cols, nullable_cols, path: str, allow_rle: bool = True):
+    """One consumption plan per cache of a batch, or None to ship decoded
+    lanes (``encoding.batch_plan``): the images ship encoded only when every
+    one is encoded under the same descriptors.  None with no decline when
+    nothing is encoded; None with the cause ``enc_mismatch`` when some are
+    and some are not, or their descriptors differ (``rle_sharded`` for runs
+    where ``allow_rle`` is False): a batch is only as encodable as its least
+    compatible image."""
+    plans = [device_plan(c, ship_cols, nullable_cols) for c in caches]
+    if all(p is None for p in plans):
+        return None
+    cause = None
+    if any(p is None for p in plans) or len({(p.sig, p.null_sig) for p in plans}) != 1:
+        cause = "enc_mismatch"
+    elif not allow_rle and any(d[0] == "rle" for d in plans[0].sig):
+        cause = "rle_sharded"
+    if cause is not None:
+        count_decline(path, cause)
+        count_path(path, "decoded_ship")
+        return None
+    count_path(path, "encoded")
+    return plans
 
 
 def late_materialize_chunk(columns, logical):

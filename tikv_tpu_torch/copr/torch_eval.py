@@ -72,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import encoding, zone, zone_maps
+from . import encoding, fused_batch, zone, zone_maps
 from .aggr import PORTED_AGG_OPS, AggState
 from .dag import (
     ENC_TYPE_DATUM,
@@ -444,6 +444,7 @@ class TorchDagEvaluator:
         self.block_rows = block_rows
         self.decoder = RowBatchDecoder(self.plan.scan.columns_info)
         self._coded_programs: dict[tuple, GroupProgram | None] = {}
+        self._batch_programs: dict[tuple, GroupProgram] = {}
         # (blocks examined, blocks pruned) by the zone maps in the last warm run
         # of the stacked kernels
         self.prune_stats = (0, 0)
@@ -458,9 +459,13 @@ class TorchDagEvaluator:
 
     def run(self, source: ScanSource | None, cache=None) -> SelectResponse:
         """Serve the request: warm from a filled ``cache``, else cold from
-        ``source`` (filling ``cache`` when one is given)."""
-        warm = cache is not None and cache.filled and bool(cache.blocks)
-        if not warm and source is None:
+        ``source`` (filling ``cache`` when one is given).  A filled cache
+        with no blocks is a region with no rows: the cold path runs over
+        it, reading no source, and answers the identity aggregate or the
+        empty response (``jax_eval._blocks``)."""
+        filled = cache is not None and cache.filled
+        warm = filled and bool(cache.blocks)
+        if not filled and source is None:
             raise ValueError("no scan source and no filled block cache")
         if self.plan.agg is not None:
             return self._run_aggregated_cached(cache) if warm \
@@ -512,16 +517,25 @@ class TorchDagEvaluator:
 
     def _cold_blocks(self, source: ScanSource, cache=None):
         """Decoded ``(columns, n_valid)`` blocks of ``source``, decoded one
-        ahead on a worker thread and added to ``cache`` if one is given
-        (marked filled once the source is drained).  Close the generator
-        to stop early: that stops the worker too."""
+        ahead on a worker thread.  With a ``cache``, the blocks are kept
+        aside and added to it, and the cache marked filled, only once the
+        source is drained (``jax_eval._blocks`` fills before it yields): a
+        consumer that raises mid-scan, or closes the generator early, leaves
+        the cache as it was.  Closing the generator stops the worker too.
+        A filled cache (with no blocks: a filled one with blocks is served
+        warm) yields nothing."""
+        if cache is not None and cache.filled:
+            return
         blocks = _prefetch(self._decode_blocks(source))
+        fill = [] if cache is not None else None
         try:
             for cols, n_valid in blocks:
-                if cache is not None:
-                    cache.add(cols, n_valid)
+                if fill is not None:
+                    fill.append((cols, n_valid))
                 yield cols, n_valid
-            if cache is not None:
+            if fill is not None:
+                for cols, n_valid in fill:
+                    cache.add(cols, n_valid)
                 cache.filled = True
         finally:
             blocks.close()
@@ -725,17 +739,27 @@ class TorchDagEvaluator:
         capacity = _capacity_for(prog, 1, n_slots)
         img = self._stacked_device(cache, self._ship_cols(group_cols), keep=keep)
         packed = fused_group_agg(prog, img, capacity)
+        return self._finalize_agg(packed, prog, n_slots, zone.key_of(dicts, dict_lens))
 
-        def key_of(slot: int) -> tuple:
-            parts = []
-            rem = int(slot)
-            for d, dl in zip(reversed(dicts), reversed(dict_lens)):
-                c = rem % (dl + 1)
-                rem //= dl + 1
-                parts.append(None if c == dl else bytes(d[c]))
-            return tuple(reversed(parts))
-
-        return self._finalize_agg(packed, prog, n_slots, key_of)
+    def _batch_program(self, ship, schema, group_cols, dict_lens) -> GroupProgram:
+        """This plan's program in a batch: compiled against the batch's
+        shared ship list (``schema`` gives every shipped column's type),
+        with ids from the key columns' codes (``()`` without GROUP BY) and
+        the tracker only with GROUP BY.  The port's limits raise
+        ``ValueError`` naming the cause (``plan_too_large``, ...)."""
+        key = (tuple(ship), tuple(schema[i][0] == EvalType.REAL for i in ship),
+               tuple(group_cols), tuple(dict_lens))
+        prog = self._batch_programs.get(key)
+        if prog is None:
+            plan = self.plan
+            try:
+                prog = compile_group_program(
+                    plan.sel_rpns, plan.agg_rpns, ship, schema,
+                    [ship.index(i) for i in group_cols], dict_lens, track=bool(plan.group_rpns))
+            except Unsupported as exc:
+                raise ValueError(f"batched evaluation declines the plan: {exc.cause}") from exc
+            self._batch_programs[key] = prog
+        return prog
 
     def _run_host_gids(self, cache, keep=None) -> SelectResponse:
         """Host group ids for every block that zone maps keep, shipped with
@@ -755,19 +779,23 @@ class TorchDagEvaluator:
                                  capacity)
         return self._finalize_agg(packed, prog, n_slots, lambda r: groups.rows[r])
 
-    def _stacked_device(self, cache, ship_cols=None, gids=None, keep=None) -> Image:
+    def _stacked_device(self, cache, ship_cols=None, gids=None, keep=None, nullable=None,
+                        decode: bool = False) -> Image:
         """The [n_blocks, block_rows] image of the shipped columns (the device
         columns by default), pinned in the cache on first use so later
         queries move no bytes; ``gids`` ride along unpinned, and blocks that
-        ``keep`` drops get ``n_valid`` 0.  An encoded image pins its encoded
-        payloads (``encoding.device_plan``, ``stack_block_payloads``) under a
-        signature of its descriptors and ``enc_version``, apart from any
-        plain pin (``jax_eval._stacked_device``)."""
-        plan, br, dev = self.plan, self.block_rows, self.device
-        ship = plan.device_cols if ship_cols is None else list(ship_cols)
-        nullable = _nullable(plan.scan, ship)
+        ``keep`` drops get ``n_valid`` 0.  ``nullable``: the columns whose
+        null masks ship (the plan's nullable shipped columns by default).
+        An encoded image pins its encoded payloads (``encoding.device_plan``,
+        ``stack_block_payloads``) under a signature of its descriptors and
+        ``enc_version``, apart from any plain pin
+        (``jax_eval._stacked_device``); ``decode`` pins the decoded lanes
+        instead, dropping the host decodes once they are pinned."""
+        br, dev = self.block_rows, self.device
+        ship = self.plan.device_cols if ship_cols is None else list(ship_cols)
+        nullable = _nullable(self.plan.scan, ship) if nullable is None else list(nullable)
         blocks = cache.blocks
-        enc = encoding.device_plan(cache, ship, nullable)
+        enc = None if decode else encoding.device_plan(cache, ship, nullable)
         if enc is None:
             sig = ("stacked", tuple(ship), tuple(nullable), br, str(dev))
 
@@ -775,7 +803,7 @@ class TorchDagEvaluator:
                 nb = len(blocks)
                 data = []
                 for i in ship:
-                    is_f = plan.schema[i][0] == EvalType.REAL
+                    is_f = blocks[0].cols[i].eval_type == EvalType.REAL
                     host = np.zeros((nb, br), dtype=np.float64 if is_f else np.int64)
                     for bi, b in enumerate(blocks):
                         d = np.asarray(b.cols[i].data)
@@ -788,6 +816,8 @@ class TorchDagEvaluator:
                         m = np.asarray(b.cols[i].nulls)
                         host[bi, : len(m)] = m
                     nulls[i] = torch.from_numpy(host).to(dev)
+                if decode:
+                    zone.purge_decoded(blocks)
                 return data, [nulls.get(i) for i in ship]
         else:
             sig = ("stackedenc", tuple(ship), tuple(nullable), br, str(dev), enc.sig,
@@ -1043,3 +1073,230 @@ def _to_state(op: str, rpn, leaves, n_slots: int) -> AggState:
         st.value = leaves[1]
         st.has_value = st.count > 0
     return st
+
+
+# ---------------------------------------------------------------------------
+# Batches: K plans over one image (program #10), one plan over R images (#11)
+# ---------------------------------------------------------------------------
+
+def _dict_slots(dicts) -> tuple[tuple[int, ...], int, int]:
+    """(dictionary lengths, group slots, the power-of-two capacity that
+    holds them) of coded group keys; NULL is each key's code ``dlen``."""
+    dict_lens = tuple(len(d) for d in dicts)
+    n_slots = 1
+    for dl in dict_lens:
+        n_slots *= dl + 1
+    capacity = 1
+    while capacity < n_slots:
+        capacity *= 2
+    return dict_lens, n_slots, capacity
+
+
+def _batch_schema(evaluators, ship) -> dict:
+    """``{column: (eval_type, frac)}`` of a batch's shipped columns, each
+    from a rider whose scan has it; riders that type a column differently
+    cannot share its lane."""
+    schema = {}
+    for ev in evaluators:
+        for i, t in enumerate(ev.plan.schema):
+            if i in ship and schema.setdefault(i, t)[0] != t[0]:
+                raise ValueError(f"batched evaluation: column {i} typed differently by riders")
+    return schema
+
+
+def _check_tasks(progs, capacities) -> None:
+    """The batch kernels' limits, before anything is pinned: ``ValueError``
+    naming the cause."""
+    for prog, cap in zip(progs, capacities):
+        try:
+            fused_batch.check_task(prog, cap)
+        except Unsupported as exc:
+            raise ValueError(f"batched evaluation declines a rider: {exc.cause}") from exc
+
+
+def _zone_batch(evaluators, cache):
+    """The zone rung for a whole same-region batch, or None
+    (``jax_eval.py:1733-1752``).  A probe over every rider first (no device
+    work; ``route_hint`` is not read), then every rider planned on its rung,
+    then, only if all were, every one launched and finalized: a decline at
+    any step sends the whole batch to the batch kernels with no zone kernel
+    launched.  A zone-kernel failure raises, as on the unary route."""
+    rungs = []
+    for ev in evaluators:
+        if ev.plan.agg is None:
+            return None
+        rung = ev._zone_rung()
+        ok = cache not in rung._declined and rung.eligible(cache.blocks) is not None
+        rungs.append(rung if ok else None)
+    if any(r is None for r in rungs):
+        return None
+    planned = []
+    for rung in rungs:
+        tiles = rung.plan_tiles(cache)
+        if tiles is None:
+            return None
+        planned.append(tiles)
+    outs = [rung.serve(tiles) for rung, tiles in zip(rungs, planned)]
+    return [ev._finalize_agg(*out) for ev, out in zip(evaluators, outs)]
+
+
+def batch_tasks(evaluators: list[TorchDagEvaluator], cache):
+    """The batch kernels' tasks of a same-region batch, one per rider over
+    one pin of the sorted union of the riders' shipped columns, with the
+    blocks masked that every rider's zone maps prune; and per rider its
+    ``(dicts, dict_lens, n_slots)``, and the blocks (examined, pruned).
+    ``ValueError`` as :func:`run_batch_cached`."""
+    blocks = cache.blocks
+    if not blocks:
+        raise ValueError("batched evaluation over an empty block cache")
+    specs = []  # (ev, group_cols, dicts, dict_lens, capacity, n_slots)
+    ship: set[int] = set()
+    for ev in evaluators:
+        if ev.plan.agg is None:
+            raise ValueError("batched evaluation requires aggregation DAGs")
+        stable = ev._stable_dict_group_cols(blocks)
+        if ev.plan.group_rpns and stable is None:
+            raise ValueError("batched evaluation requires stable dict group keys")
+        group_cols, dicts = stable
+        dict_lens, n_slots, capacity = _dict_slots(dicts)
+        specs.append((ev, group_cols, dicts, dict_lens, capacity, n_slots))
+        ship |= set(ev._ship_cols(group_cols))
+    ship = sorted(ship)
+    schema = _batch_schema(evaluators, ship)
+    progs = [ev._batch_program(ship, schema, gc, dl) for ev, gc, _d, dl, _c, _n in specs]
+    _check_tasks(progs, [spec[4] for spec in specs])
+    nullable = sorted({i for ev, gc, *_ in specs for i in _nullable(ev.plan.scan,
+                                                                    ev._ship_cols(gc))})
+    keep = zone_maps.batch_prune_keep([ev._prune_keep(cache) for ev in evaluators])
+    pruned = (len(blocks), int((~keep).sum())) if keep is not None else (0, 0)
+    img = evaluators[0]._stacked_device(cache, ship, keep=keep, nullable=nullable)
+    tasks = [fused_batch.Task(prog, img, spec[4]) for prog, spec in zip(progs, specs)]
+    return tasks, [(d, dl, n) for _e, _g, d, dl, _c, n in specs], pruned
+
+
+def run_batch_cached(evaluators: list[TorchDagEvaluator], cache) -> list[SelectResponse]:
+    """K aggregation requests over one filled block cache served together
+    (``jax_eval.run_batch_cached``, program #10): on the zone rung when it
+    serves every one (:func:`_zone_batch`), else by the batch kernels
+    (``copr/fused_batch.py``) over :func:`batch_tasks`, with one pull of
+    the packed states.  Each response is byte-identical to that request
+    served alone warm.
+
+    Every request must aggregate, and group by nothing or by bare
+    dictionary-coded columns whose dictionary every block shares; otherwise,
+    and over an empty cache, ``ValueError`` (so too where the port's limits
+    refuse a rider, naming the cause)."""
+    if not cache.blocks:
+        raise ValueError("batched evaluation over an empty block cache")
+    resps = _zone_batch(evaluators, cache)
+    if resps is not None:
+        return resps
+    tasks, specs, pruned = batch_tasks(evaluators, cache)
+    if tasks[0].img.descs is not None:
+        encoding.count_path("fused", "encoded")
+    ints, flts = fused_batch.fused_batch(tasks)
+    ints, flts = ints.cpu(), flts.cpu()  # one pull for the whole batch
+    out = []
+    for i, (ev, task, (dicts, dict_lens, n_slots)) in enumerate(zip(evaluators, tasks, specs)):
+        ev.prune_stats = pruned
+        out.append(ev._finalize_agg((ints[i], flts[i]), task.prog, n_slots,
+                                    zone.key_of(dicts, dict_lens)))
+    return out
+
+
+class XRegionPending:
+    """A cross-region batch launched on the device's stream and not yet
+    pulled (``jax_eval.XRegionPending``): a caller prepares its next batch
+    on the host while this one runs, then calls :meth:`finalize`.
+    ``encoded`` says whether the images shipped encoded (``batch_plan``);
+    ``prunes`` holds each region's (blocks examined, blocks pruned), in the
+    caller's order."""
+
+    def __init__(self, ev, specs, progs, packed, order, prunes, encoded: bool):
+        self._ev = ev
+        self._specs = specs  # (dicts, dict_lens, n_slots) per region, the caller's order
+        self._progs = progs  # per executed region
+        self._packed = packed  # ((R, li, C) int64, (R, lf, C) f64) on the device
+        self._order = order  # executed position -> the caller's position
+        self.prunes = prunes
+        self.encoded = encoded
+
+    def finalize(self) -> list[SelectResponse]:
+        """One pull of the two matrices for the whole batch, then each
+        region finalized as its warm request is alone, in the caller's
+        order."""
+        ints, flts = self._packed[0].cpu(), self._packed[1].cpu()
+        out = [None] * len(self._specs)
+        for pos, r in enumerate(self._order):
+            dicts, dict_lens, n_slots = self._specs[r]
+            out[r] = self._ev._finalize_agg((ints[pos], flts[pos]), self._progs[pos], n_slots,
+                                            zone.key_of(dicts, dict_lens))
+        return out
+
+
+def xregion_specs(ev: TorchDagEvaluator, caches):
+    """Validate a cross-region batch (``jax_eval.xregion_specs``): the
+    per-region ``(dicts, dict_lens, n_slots)``, the group columns and the
+    shared power-of-two capacity, the largest region's.  ``ValueError`` for
+    a plan that does not aggregate, no regions, an empty cache, or group
+    keys without a dictionary every block of the region shares."""
+    if ev.plan.agg is None:
+        raise ValueError("cross-region batching requires aggregation DAGs")
+    if not caches:
+        raise ValueError("cross-region batching requires at least one region")
+    specs = []
+    capacity = 1
+    for cache in caches:
+        if not cache.blocks:
+            raise ValueError("cross-region batching over an empty block cache")
+        stable = ev._stable_dict_group_cols(cache.blocks)
+        if ev.plan.group_rpns and stable is None:
+            raise ValueError("cross-region batching requires stable dict group keys")
+        dicts = stable[1]
+        dict_lens, n_slots, cap = _dict_slots(dicts)
+        capacity = max(capacity, cap)
+        specs.append((dicts, dict_lens, n_slots))
+    group_cols = [g.nodes[0].index for g in ev.plan.group_rpns]
+    return specs, group_cols, capacity
+
+
+def xregion_tasks(ev: TorchDagEvaluator, caches):
+    """The batch kernels' tasks of a cross-region batch, one per region in
+    descending block count, each over its own pin, pruned by its own zone
+    maps, all at the shared capacity; with :func:`xregion_specs`' specs,
+    the executed order, each region's (blocks examined, pruned) in the
+    caller's order, and whether the images ship encoded (``batch_plan``)."""
+    specs, group_cols, capacity = xregion_specs(ev, caches)
+    ship = ev._ship_cols(group_cols)
+    schema = _batch_schema([ev], ship)
+    progs = {dl: ev._batch_program(ship, schema, group_cols, dl) for _d, dl, _n in specs}
+    _check_tasks(progs.values(), [capacity] * len(progs))
+    plans = encoding.batch_plan(caches, ship, _nullable(ev.plan.scan, ship), "xregion")
+    order = sorted(range(len(caches)), key=lambda i: len(caches[i].blocks), reverse=True)
+    tasks, prunes = [], [None] * len(caches)
+    for r in order:
+        cache = caches[r]
+        stats = zone_maps.PruneStats()
+        keep = zone_maps.prune_blocks(cache, ev.plan.sel_rpns, stats)
+        prunes[r] = (stats.examined, stats.pruned)
+        img = ev._stacked_device(cache, ship, keep=keep, decode=plans is None)
+        tasks.append(fused_batch.Task(progs[specs[r][1]], img, capacity))
+    return tasks, specs, order, prunes, plans is not None
+
+
+def launch_xregion_cached(ev: TorchDagEvaluator, caches) -> XRegionPending:
+    """One aggregation plan over R filled region caches, launched as one
+    batch (``jax_eval.launch_xregion_cached``, program #11) over
+    :func:`xregion_tasks`: each region with its own dictionary radices and
+    frames of reference.  The images ship encoded only when ``batch_plan``
+    finds every one encoded alike; otherwise decoded, the decline counted.
+    ``finalize`` restores the caller's order.  ``ValueError`` as
+    :func:`xregion_specs`, and where the port's limits refuse the plan."""
+    tasks, specs, order, prunes, encoded = xregion_tasks(ev, caches)
+    packed = fused_batch.fused_batch(tasks)
+    return XRegionPending(ev, specs, [t.prog for t in tasks], packed, order, prunes, encoded)
+
+
+def run_xregion_cached(ev: TorchDagEvaluator, caches) -> list[SelectResponse]:
+    """:func:`launch_xregion_cached`, then ``finalize``."""
+    return launch_xregion_cached(ev, caches).finalize()

@@ -434,8 +434,11 @@ class ZoneRung:
         """``(packed, program, n_slots, key_of)`` for ``_finalize_agg``, or
         None when declined.  Kernel failures raise."""
         tiles = self.plan_tiles(cache, tile_rows)
-        if tiles is None:
-            return None
+        return None if tiles is None else self.serve(tiles)
+
+    def serve(self, tiles):
+        """Launch a query planned by :meth:`plan_tiles`: ``(packed,
+        program, n_slots, key_of)`` for ``_finalize_agg``."""
         layout, full_idx, partial_idx = tiles
         packed = self.launch(layout, full_idx, partial_idx)
         self.stats.served += 1

@@ -256,6 +256,22 @@ def prune_blocks(cache, sel_rpns, stats: PruneStats | None = None) -> np.ndarray
     return keep
 
 
+def batch_prune_keep(masks) -> np.ndarray | None:
+    """The keep mask of a batch whose riders share one block stream
+    (``jax_eval._batch_prune_keep``): a block is masked only when every
+    rider's zone maps prune it.  ``masks`` holds each rider's keep mask
+    (:func:`prune_blocks`); None for any rider (no selection, or nothing
+    proved) keeps every block, and so does a union that keeps them all."""
+    keep = None
+    for m in masks:
+        if m is None:
+            return None
+        keep = m.copy() if keep is None else keep | m
+    if keep is None or keep.all():
+        return None
+    return keep
+
+
 # ---------------------------------------------------------------------------
 # TopN zone-order early exit
 # ---------------------------------------------------------------------------

@@ -110,17 +110,18 @@ def sort_by_shipdate(a: dict) -> dict:
 
 
 def build_cache(n: int, block_rows: int, seed: int = 0, arrays: dict | None = None,
-                encode: bool = False):
+                encode: bool = False, flags: bytes = b"ANR"):
     """The decoded-column image of ``build_kvs(n, seed)`` as a filled
     ``ColumnBlockCache``, without materializing n byte strings: ints and
     decimals as int64, varchar as dictionary codes sharing one dictionary.
     ``arrays`` reuses draws already made by ``build_arrays(n, seed)`` (or
     any permutation of them, as :func:`sort_by_shipdate`'s).  ``encode``
     encodes the image with ``encoding.encode_blocks``, as the JAX package
-    encodes every region image it fills."""
+    encodes every region image it fills.  ``flags``: l_returnflag's
+    dictionary (the draws' codes index it)."""
     a = build_arrays(n, seed) if arrays is None else arrays
-    dict_rf = np.empty(3, dtype=object)
-    dict_rf[:] = [b"A", b"N", b"R"]
+    dict_rf = np.empty(len(flags), dtype=object)
+    dict_rf[:] = [flags[i : i + 1] for i in range(len(flags))]
     dict_ls = np.empty(2, dtype=object)
     dict_ls[:] = [b"F", b"O"]
     handles = np.arange(n, dtype=np.int64)
@@ -176,10 +177,10 @@ def q6_count_sum_min_max_dag() -> DagRequest:
                                  Aggregation([], aggs)])
 
 
-def q1_dag() -> DagRequest:
+def q1_dag(ship_hi: int = Q1_SHIP_HI) -> DagRequest:
     """TPC-H Q1's shape (``bench.q1_dag``): sum(quantity), sum(price),
     avg(price), avg(discount), count(*) grouped by (returnflag,
-    linestatus) under shipdate <= 10500."""
+    linestatus) under shipdate <= ``ship_hi`` (10500)."""
     aggs = [
         AggDescriptor("sum", col(1)),
         AggDescriptor("sum", col(2)),
@@ -188,7 +189,7 @@ def q1_dag() -> DagRequest:
         AggDescriptor("count", None),
     ]
     return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
-                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Selection([call("le", col(4), const_int(ship_hi))]),
                                  Aggregation([col(5), col(6)], aggs)])
 
 
@@ -208,10 +209,10 @@ def _group_sum(col: np.ndarray, rows: np.ndarray, starts: np.ndarray) -> np.ndar
     return np.add.reduceat(col[rows].astype(np.int64), starts)
 
 
-def q1_oracle(a: dict) -> list:
+def q1_oracle(a: dict, ship_hi: int = Q1_SHIP_HI) -> list:
     """Q1's response rows from the raw draws, one per group that has a
     qualifying row, in the order of each group's first qualifying row."""
-    m = a["ship"] <= Q1_SHIP_HI
+    m = a["ship"] <= ship_hi
     rows, starts = _groups(a["rf"] * 2 + a["ls"], m)
     if not len(rows):
         return []
@@ -335,6 +336,176 @@ def q1_topn_oracle(q1_rows: list, k: int = 4) -> list:
     """:func:`q1_topn_dag`'s response rows, from :func:`q1_oracle`'s rows
     over the same draws."""
     return sorted(q1_rows, key=lambda row: (row[7], row[8]))[:k]
+
+
+# ---------------------------------------------------------------------------
+# Batches: riders over one image, regions of one plan
+# ---------------------------------------------------------------------------
+
+BATCH_SHIP_HI = 9500  # the Q1 rider with a narrower shipdate bound
+
+
+def flag_dag() -> DagRequest:
+    """GROUP BY l_returnflag alone: count(*), sum(quantity),
+    max(discount) under Q1's predicate."""
+    aggs = [AggDescriptor("count", None), AggDescriptor("sum", col(1)),
+            AggDescriptor("max", col(3))]
+    return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(5)], aggs)])
+
+
+def flag_oracle(a: dict) -> list:
+    """:func:`flag_dag`'s response rows, in the order of each flag's first
+    qualifying row."""
+    rows, starts = _groups(a["rf"], a["ship"] <= Q1_SHIP_HI)
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    qty = _group_sum(a["qty"], rows, starts)
+    disc = np.maximum.reduceat(a["disc"][rows], starts)
+    out = [(int(rows[s]), [int(counts[g]), int(qty[g]), (int(disc[g]), 2),
+                           b"ANR"[a["rf"][rows[s]] : a["rf"][rows[s]] + 1]])
+           for g, s in enumerate(starts)]
+    return [r for _first, r in sorted(out, key=lambda fr: fr[0])]
+
+
+def q6_price_dag() -> DagRequest:
+    """A Q6 variant over two columns (l_extendedprice, l_shipdate): count(*)
+    and sum(price) under Q6's shipdate range, so its columns sit at other
+    positions of a batch's shared ship list than in its own."""
+    return DagRequest(executors=[
+        TableScan(TABLE_ID, lineitem()),
+        Selection([call("ge", col(4), const_int(Q6_SHIP_LO)),
+                   call("lt", col(4), const_int(Q6_SHIP_HI))]),
+        Aggregation([], [AggDescriptor("count", None), AggDescriptor("sum", col(2))])])
+
+
+def q6_price_oracle(a: dict) -> list:
+    m = (a["ship"] >= Q6_SHIP_LO) & (a["ship"] < Q6_SHIP_HI)
+    n = int(m.sum())
+    return [n, (int(a["price"][m].astype(np.int64).sum()), 2) if n else None]
+
+
+def xor_dag() -> DagRequest:
+    """bit_xor(l_quantity) and count(*) grouped by l_linestatus under Q1's
+    predicate: the zone rung declines it (``agg_op``)."""
+    return DagRequest(executors=[
+        TableScan(TABLE_ID, lineitem()),
+        Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+        Aggregation([col(6)], [AggDescriptor("bit_xor", col(1)), AggDescriptor("count", None)])])
+
+
+def xor_oracle(a: dict) -> list:
+    rows, starts = _groups(a["ls"], a["ship"] <= Q1_SHIP_HI)
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    xor = np.bitwise_xor.reduceat(a["qty"][rows].astype(np.int64), starts)
+    out = [(int(rows[s]), [int(xor[g]), int(counts[g]),
+                           b"FO"[a["ls"][rows[s]] : a["ls"][rows[s]] + 1]])
+           for g, s in enumerate(starts)]
+    return [r for _first, r in sorted(out, key=lambda fr: fr[0])]
+
+
+def batch_plans() -> list:
+    """The riders of a same-region batch, ``(name, dag, oracle)``: Q6, the
+    count/sum/min/max shape, Q1, Q1 + TopN, GROUP BY l_returnflag alone,
+    Q1 with shipdate <= 9500, the two-column Q6 variant and the bit_xor
+    rider; every oracle maps the draws to the response rows."""
+    return [
+        ("q6", q6_dag(), lambda a: [q6_oracle(a)]),
+        ("q6_count_sum_min_max", q6_count_sum_min_max_dag(),
+         lambda a: [q6_count_sum_min_max_oracle(a)]),
+        ("q1", q1_dag(), q1_oracle),
+        ("q1_topn", q1_topn_dag(), lambda a: q1_topn_oracle(q1_oracle(a))),
+        ("group_by_returnflag", flag_dag(), flag_oracle),
+        ("q1_ship_9500", q1_dag(BATCH_SHIP_HI), lambda a: q1_oracle(a, BATCH_SHIP_HI)),
+        ("q6_price", q6_price_dag(), lambda a: [q6_price_oracle(a)]),
+        ("bit_xor_by_linestatus", xor_dag(), xor_oracle),
+    ]
+
+
+def mixed_dag() -> DagRequest:
+    """GROUP BY l_returnflag with the leaf kinds Q1 lacks: var_pop (an f64
+    sum of squares), first (its row and value), bit_and, bit_or, min and
+    max, under Q1's predicate: the batch kernels' checks ride it."""
+    aggs = [AggDescriptor("var_pop", col(1)), AggDescriptor("first", col(2)),
+            AggDescriptor("bit_and", col(1)), AggDescriptor("bit_or", col(4)),
+            AggDescriptor("min", col(3)), AggDescriptor("max", col(2))]
+    return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(5)], aggs)])
+
+
+def _f64_err(got: torch.Tensor, want: torch.Tensor, rel_tol: float, what: str) -> float:
+    """Largest absolute difference of two f64 tensors, raising past
+    ``rel_tol`` of the wanted magnitude (NaN equal to NaN)."""
+    g, w = got.double(), want.double()
+    same = (g == w) | (g.isnan() & w.isnan())
+    diff = torch.where(same, 0.0, (g - w).abs())
+    if bool((diff > rel_tol * w.abs()).any()):
+        raise AssertionError(f"{what}: f64 leaves differ beyond rel {rel_tol}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def batch_kernel_check(tasks, rel_tol: float = 1e-12) -> dict:
+    """``batch_partials`` and ``batch_combine_pack`` over ``tasks`` (CUDA
+    images) beside their plain versions on the same inputs: integer words
+    equal, f64 leaves to ``rel_tol`` (summed in another order), the combine
+    held to its plain version over the kernel's own partials, and a second
+    run of both bit-identical.  Raises on a difference; returns the largest
+    absolute errors and the layout."""
+    from .copr import fused_batch as fb
+
+    batch = fb.Batch(tasks)
+    table = fb.upload_table(batch)
+    parts = torch.empty(batch.n_parts, dtype=torch.int64, device=batch.device)
+    fb.launch_batch_partials(batch, table, parts)
+    want = fb.batch_partials_plain(batch)
+    err_p = 0.0
+    for i, t in enumerate(batch.tasks):
+        got_i, want_i = batch.parts_of(parts, i), batch.parts_of(want, i)
+        for l, leaf in enumerate(t.prog.leaves):
+            if leaf.is_f64:
+                err_p = max(err_p, _f64_err(got_i[:, l].view(torch.float64),
+                                            want_i[:, l].view(torch.float64), rel_tol,
+                                            f"task {i} partials leaf {l}"))
+            elif not torch.equal(got_i[:, l], want_i[:, l]):
+                raise AssertionError(f"task {i} partials leaf {l}: integer words differ")
+    out = (torch.empty((len(batch), batch.li, batch.c_max), dtype=torch.int64,
+                       device=batch.device),
+           torch.empty((len(batch), batch.lf, batch.c_max), dtype=torch.float64,
+                       device=batch.device))
+    fb.launch_batch_combine_pack(batch, table, parts, out)
+    want_i, want_f = fb.batch_combine_pack_plain(batch, parts)
+    if not torch.equal(out[0], want_i):
+        raise AssertionError("batch_combine_pack: integer words differ")
+    err_c = _f64_err(out[1], want_f, rel_tol, "batch_combine_pack")
+    again = fb.fused_batch(tasks)
+    if not (torch.equal(again[0], out[0])
+            and torch.equal(again[1].view(torch.int64), out[1].view(torch.int64))):
+        raise AssertionError("batch kernels: two runs differ")
+    return {"partials": err_p, "combine": err_c, "tasks": len(batch), "ctas": batch.n_ctas,
+            "partial_words": batch.n_parts, "out_shape": [len(batch), batch.li, batch.lf,
+                                                          batch.c_max]}
+
+
+def region_caches(block_counts, block_rows: int, seed: int = 0, two_flags=()) -> list:
+    """Region images of the lineitem table, ``(draws, cache)`` each: region
+    ``r`` holds ``block_counts[r]`` full blocks drawn from ``seed + r``;
+    the regions listed in ``two_flags`` hold only the flags A and N, under a
+    dictionary of two (the others' has three)."""
+    out = []
+    for r, nb in enumerate(block_counts):
+        n = nb * block_rows
+        a = build_arrays(n, seed + r)
+        flags = b"ANR"
+        if r in two_flags:
+            a["rf"] = a["rf"] % 2
+            flags = b"AN"
+        out.append((a, build_cache(n, block_rows, seed + r, arrays=a, flags=flags)))
+    return out
 
 
 def _q6_mask(a: dict) -> np.ndarray:
