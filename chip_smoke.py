@@ -85,6 +85,20 @@ and, byte for byte, the same request served alone on the stacked unary
 route, whose times are summed beside the batch's; both kernels are held to
 their plain versions (with a rider of every leaf kind) and timed.
 
+After phase 12, phase ``join`` drives the join rung (programs #14 and #15,
+``csrc/fused_join.cu``) through ``copr/torch_join.serve``: the join event of
+``bench._op_join`` (a probe region of 1,000,000 rows ``(id, key, pay)``
+against a build region of 250,000 rows keyed from half the probe keys'
+pool, encoded images, block_rows 65,536), on the rank and the hash path
+over dictionary keys and on the hash path over int keys, then with
+Selection, Projection and Limit(100,000) over columns of both sides; each
+serve's pairs (``torch_join.join_pairs``) and response bytes equal the
+numpy oracle's, with the host seconds of each step; both kernels equal
+their plain versions at the phase's shape, on a seeded case with NULLs,
+misses, extreme keys and colliding slots, and on a 32M-row probe lane
+against 8M keys of 4 rows, then are timed at both shapes beside their
+bounds, their plain versions and ``torch.searchsorted``.
+
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
 REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
@@ -93,7 +107,7 @@ The launch counts in the kernels line are those of the main paths only: Q6
 (phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
 top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
-for the batch kernels, each counted from
+for the batch kernels, phase ``join`` for the join probes, each counted from
 0 just before its path and read just after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
@@ -110,6 +124,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1061,6 +1076,136 @@ def phase_batch(cache, wants: dict, card: str, br: int = 1 << 17) -> dict:
                                  for k in BATCH_KERNELS}}
 
 
+# ---------------------------------------------------------------------------
+# phase join: programs #14 and #15
+# ---------------------------------------------------------------------------
+
+JOIN_KERNELS = ("join_rank_probe", "join_hash_probe")
+JOIN_ROWS = 1_000_000  # one region of probe rows (a region splits near 96 MB)
+JOIN_SYNTH = (1 << 23, 4, 1 << 25)  # distinct build keys, rows per key, probe rows
+JOIN_SRC = "tikv_tpu_torch/csrc/fused_join.cu"
+
+
+def time_join_kernels(fj, case: dict, device, iters: int) -> dict:
+    """Each probe kernel's ms per launch (CUDA events) over ``case``
+    (``fixtures.join_probe_case`` layout), beside its bound, its plain
+    version's ms and, for the rank kernel, torch.searchsorted left plus right
+    over the same tensors.  The bounds: 8 probe bytes read and 16 written per
+    row, plus the sorted keys read once (rank), or every slot's 8-byte key
+    and the 16 bytes of start and count of each occupied slot (hash: an
+    empty slot's start and count are never read), over the HBM rate."""
+    keys = torch.from_numpy(case["sorted"]).to(device)
+    rp = torch.from_numpy(case["rank_probe"]).to(device)
+    table = [torch.from_numpy(x).to(device) for x in case["table"]]
+    hp = torch.from_numpy(case["hash_probe"]).to(device)
+    n, m, slots = rp.numel(), keys.numel(), table[0].numel()
+    occupied = int((table[0] != fj.EMPTY).sum())
+    r_bound, r_by = bound(24 * n + 8 * m, 0)
+    h_bound, h_by = bound(24 * n + 8 * slots + 16 * occupied, 0)
+    out = {
+        "probe_rows": n, "build_keys": m, "table_slots": slots, "occupied_slots": occupied,
+        "join_rank_probe": {
+            "ms": cuda_ms(lambda: fj.rank_probe(keys, rp), iters),
+            "plain_ms": cuda_ms(lambda: fj.rank_probe_plain(keys, rp), iters),
+            "library_ms": cuda_ms(lambda: (torch.searchsorted(keys, rp, side="left"),
+                                           torch.searchsorted(keys, rp, side="right")), iters),
+            "bound_ms": r_bound, "bound_by": r_by},
+        "join_hash_probe": {
+            "ms": cuda_ms(lambda: fj.hash_probe(*table, hp), iters),
+            "plain_ms": cuda_ms(lambda: fj.hash_probe_plain(*table, hp), 3, warmup=1),
+            "library_ms": None, "bound_ms": h_bound, "bound_by": h_by},
+    }
+    del keys, rp, table, hp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_join(fx, card: str, device) -> dict:
+    """Programs #14 and #15 on their main path: the join event of
+    ``bench._op_join`` at 1,000,000 probe rows against 250,000 build rows
+    (encoded images, block_rows 65,536), served on the rank and the hash
+    path over dictionary keys and on the hash path over int keys, bare and
+    with Selection, Projection and Limit(100,000) over both sides; pairs
+    and bytes against the numpy oracle; both kernels against their plain
+    versions at this shape, on a seeded case with NULLs, misses and colliding
+    slots and at 32M probe rows against 8M keys of 4 rows; their timings."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_join as fj
+    from tikv_tpu_torch.copr import torch_join as tj
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    a, pc, bc = fx.join_caches(JOIN_ROWS, SEED, "dict", encode=True)
+    _a, pci, bci = fx.join_caches(JOIN_ROWS, SEED, "int", encode=True)
+    caches = {"dict": (pc, bc), "int": (pci, bci)}
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fx.join_oracle(a)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_bytes = {(key, down): fx.join_oracle_bytes(a, want, key, down)
+                  for key in ("dict", "int") for down in (False, True)}
+    oracle_bytes_s = time.perf_counter() - t0
+
+    runs = (("rank_dict", "rank", "dict", False), ("hash_dict", "hash", "dict", False),
+            ("hash_int", "hash", "int", False), ("rank_dict_downstream", "rank", "dict", True),
+            ("hash_int_downstream", "hash", "int", True))
+    # ---- the join main path: counts from 0 here to the last serve ----------
+    fa.reset_launches()
+    served = {}
+    for name, path, key, down in runs:
+        dag = fx.join_dag(fx.join_downstream() if down else (), key=key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp, got_path, stats = tj.serve(dag, *caches[key], prefer=path, device=device)
+        seconds = time.perf_counter() - t0
+        if got_path != path:
+            raise AssertionError(f"join {name} served on {got_path}")
+        if resp.encode() != want_bytes[key, down]:
+            raise AssertionError(f"join {name}: response bytes differ from the oracle's")
+        served[name] = {"path": path, "key": key, "seconds": seconds,
+                        "out_rows": stats["out_rows"], "probe_rows": stats["probe_rows"],
+                        "build_rows": stats["build_rows"], "prune": stats["prune"],
+                        "steps": stats["seconds"]}
+    launches = {k: fa.LAUNCHES[k] for k in JOIN_KERNELS}
+    for k, n in (("join_rank_probe", 2), ("join_hash_probe", 3)):
+        if launches[k] != n:
+            raise AssertionError(f"{k} launched {launches[k]} times on the join path, not {n}")
+
+    # the pairs each bare serve expands, against the oracle's
+    pairs = {}
+    for name, path, key, down in runs:
+        if down:
+            continue
+        pairs[name] = tj.join_pairs(fx.join_dag(key=key), *caches[key], prefer=path,
+                                    device=device)
+        if not (np.array_equal(pairs[name].probe_rows(), want[0])
+                and np.array_equal(pairs[name].build_rows(), want[1])):
+            raise AssertionError(f"join {name}: pairs differ from the oracle's")
+    rank_in, hash_in = pairs["rank_dict"].inputs, pairs["hash_dict"].inputs
+    phase_case = {"sorted": rank_in[0], "rank_probe": rank_in[1], "table": hash_in[:3],
+                  "hash_probe": hash_in[3]}
+    checks = {"phase_shape": fx.join_kernel_check(phase_case, device),
+              "seeded": fx.join_kernel_check(
+                  fx.join_probe_case(100_000, 3, 1_000_000, SEED + 1, wide=True, null_p=0.05),
+                  device)}
+    t_phase_shape = time_join_kernels(fj, phase_case, device, 20)
+    t0 = time.perf_counter()
+    synth = fx.join_probe_case(*JOIN_SYNTH, seed=SEED + 2)
+    synth_s = time.perf_counter() - t0
+    checks["synthetic"] = fx.join_kernel_check(synth, device)
+    t_synth = time_join_kernels(fj, synth, device, 10)
+    del synth
+    out = {"phase": "join", "card": card, "probe_rows": JOIN_ROWS,
+           "build_rows": int(len(a["build_key"])), "block_rows": 1 << 16,
+           "out_rows": int(len(want[0])), "image_build_s": build_s, "oracle_s": oracle_s,
+           "oracle_bytes_s": oracle_bytes_s, "synthetic_case_s": synth_s, "serves": served,
+           "launches": launches, "checks": checks, "phase_shape": t_phase_shape,
+           "synthetic": t_synth, "phase_seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1645,6 +1790,12 @@ def main() -> int:
           "profile_date_sorted_q6": profile_runs(lambda: ev_w.run(None, cache_s), 3),
           "phase_seconds": time.perf_counter() - t_enc})
     del cache_s
+    cache.drop_device()
+    cache10.drop_device()
+    torch.cuda.empty_cache()
+
+    # ---- phase join: programs #14 and #15 (its own main path) -----------------
+    jn = phase_join(fx, card, device)
 
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
@@ -1653,6 +1804,7 @@ def main() -> int:
                  "topn_pack": topn_launches}
     main_path.update(dict.fromkeys(ZONE_KERNELS, zone_launches))
     main_path.update(dict.fromkeys(BATCH_KERNELS, bt["launches"]))
+    main_path.update(dict.fromkeys(JOIN_KERNELS, jn["launches"]))
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -1783,6 +1935,18 @@ def main() -> int:
             "max_abs_err": bt["max_abs_err"][name], **at(t), "library_ms": None,
             "xregion": at(bt["xregion"]),
             "encoded": dict(at(bt["xregion_encoded"]), launches=bt["encoded_launches"][name])})
+    # the join probes at the join phase's shape (1M probe rows against 250K
+    # build rows), the 32M-row synthetic lane beside them
+    for name, replaces in (("join_rank_probe", "tikv_tpu/copr/jax_join.py:270"),
+                           ("join_hash_probe", "tikv_tpu/copr/jax_join.py:279")):
+        t = jn["phase_shape"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": JOIN_SRC, "replaces": replaces,
+            "launches": jn["launches"][name],
+            "max_abs_err": max(c[name] for c in jn["checks"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "synthetic": jn["synthetic"][name]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

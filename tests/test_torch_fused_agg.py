@@ -240,4 +240,4 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     before = {name: _build.library_path(name) for name in _build.SOURCES}
     (csrc / "fa_walk.cuh").write_text((csrc / "fa_walk.cuh").read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
-    assert all(before[n] != after[n] for n in _build.SOURCES)  # every source includes it
+    assert all(before[n] != after[n] for n in _build.SOURCES)  # every name hashes the headers

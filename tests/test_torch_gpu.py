@@ -319,9 +319,11 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
                 assert ev.prune_stats[1] > ev.prune_stats[0] // 2  # most blocks pruned
             assert ev.run(None, plain).iter_rows() == want, name
     # every kernel these warm plans run launched; the batch kernels serve
-    # batches only (test_batches_match_the_unary_route_and_the_oracles)
+    # batches only (test_batches_match_the_unary_route_and_the_oracles), the
+    # join probes joins only (test_join_kernels_match_their_plain_versions)
     for name, count in fa.LAUNCHES.items():
-        assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack"), name
+        assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
+                                     "join_rank_probe", "join_hash_probe"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -448,3 +450,55 @@ def test_batches_match_the_unary_route_and_the_oracles(cuda):
         assert fa.LAUNCHES["batch_partials"] == before + 1
         for (ra, _c), resp in zip(regions, outs):
             assert resp.iter_rows() == oracle(ra), name
+
+
+# -- the join rung ---------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    dict(n_keys=62_500, mult=4, n_probe=1_000_000, seed=1),
+    dict(n_keys=100_000, mult=3, n_probe=700_000, seed=2, wide=True, null_p=0.05),
+    dict(n_keys=5, mult=7, n_probe=10_000, seed=3, wide=True, null_p=0.2),
+])
+def test_join_kernels_match_their_plain_versions(cuda, case):
+    """join_rank_probe and join_hash_probe against their plain versions:
+    int64-exact, two runs bit-identical, NULL and missing probes, negative
+    and extreme keys, colliding home slots; one launch per call."""
+    c = fx.join_probe_case(**case)
+    fa.reset_launches()
+    out = fx.join_kernel_check(c, cuda)
+    assert fa.LAUNCHES["join_rank_probe"] == 2 and fa.LAUNCHES["join_hash_probe"] == 2
+    assert 0 < out["join_hash_probe_matched"] < case["n_probe"]
+
+
+def test_join_kernels_reject_mismatched_tensors(cuda):
+    from tikv_tpu_torch.copr import fused_join
+
+    keys = torch.arange(16, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        fused_join.rank_probe(keys.to(torch.int32), keys)
+    with pytest.raises(ValueError):
+        fused_join.rank_probe(keys.cpu(), keys)
+    with pytest.raises(ValueError, match="power of two"):
+        fused_join.hash_probe(keys[:12], keys[:12], keys[:12], keys)
+
+
+@pytest.mark.parametrize("key", ["dict", "int"])
+def test_join_serve_on_the_card_matches_the_oracle(cuda, key):
+    """serve over encoded images of the join event: the pairs and the bytes
+    equal the oracle's and the CPU plain versions', one launch per serve."""
+    from tikv_tpu_torch.copr import torch_join
+
+    a, pc, bc = fx.join_caches(200_000, 4, key=key, encode=True)
+    want = fx.join_oracle(a)
+    for path in ("rank", "hash") if key == "dict" else ("hash",):
+        fa.reset_launches()
+        resp, served, _stats = torch_join.serve(fx.join_dag(key=key), pc, bc, prefer=path,
+                                                device=cuda)
+        assert served == path and fa.LAUNCHES[f"join_{path}_probe"] == 1
+        assert resp.encode() == fx.join_oracle_bytes(a, want, key)
+        pairs = torch_join.join_pairs(fx.join_dag(key=key), pc, bc, prefer=path, device=cuda)
+        assert np.array_equal(pairs.probe_rows(), want[0])
+        assert np.array_equal(pairs.build_rows(), want[1])
+        dag = fx.join_dag(fx.join_downstream(), key=key)
+        assert torch_join.serve(dag, pc, bc, prefer=path, device=cuda)[0].encode() \
+            == torch_join.serve(dag, pc, bc, prefer=path, device="cpu")[0].encode()

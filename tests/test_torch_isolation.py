@@ -35,7 +35,8 @@ def test_port_modules_listed():
               "tikv_tpu_torch.copr.fused_mask", "tikv_tpu_torch.copr.fused_topn",
               "tikv_tpu_torch.copr.encoding", "tikv_tpu_torch.copr.zone_maps",
               "tikv_tpu_torch.copr.zone", "tikv_tpu_torch.copr.fused_zone",
-              "tikv_tpu_torch.copr.fused_batch"):
+              "tikv_tpu_torch.copr.fused_batch", "tikv_tpu_torch.copr.torch_join",
+              "tikv_tpu_torch.copr.fused_join"):
         assert m in mods
 
 

@@ -6,9 +6,11 @@ deterministic wire framing, and the datum-row ``ResponseEncoder``.  The
 response bytes are the byte-identity contract surface: the port, the JAX
 evaluator and the CPU executor pipeline must emit the same ``encode()``.
 
-``TopN``, ``Limit`` and ``IndexScan`` are described so that the evaluator
-can name why it declines them; the CPU executor chain and the TypeChunk
-encoding are not ported.
+``IndexScan`` is described so that the evaluator can name why it declines
+it.  ``Projection`` and ``Join`` describe the join rung's plans
+(``copr/torch_join.py``), and :func:`_attach` maps the descriptors above a
+join onto the host executors that finish it.  The rest of the CPU executor
+chain and the TypeChunk encoding are not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +21,15 @@ from ..util import codec
 from . import datum as datum_mod
 from .aggr import AggDescriptor
 from .datatypes import Chunk, ColumnInfo
+from .executors import (
+    BatchExecutor,
+    BatchLimitExecutor,
+    BatchProjectionExecutor,
+    BatchSelectionExecutor,
+    BatchTopNExecutor,
+    compile_host_expr,
+)
+from .fused_agg import Unsupported
 from .rpn import Expr
 
 # ---------------------------------------------------------------------------
@@ -61,7 +72,36 @@ class Limit:
     limit: int
 
 
-ExecutorDescriptor = TableScan | IndexScan | Selection | Aggregation | TopN | Limit
+@dataclass
+class Projection:
+    """Expression list over the child schema (tipb::Projection equivalent):
+    the output columns are the expressions in order."""
+
+    exprs: list[Expr]
+
+
+@dataclass
+class Join:
+    """Equi-join against a second executor chain (tipb::Join equivalent).
+
+    The chain below this descriptor is the PROBE side; ``build`` is the build
+    side's own chain (a TableScan leaf plus optional Selections) over
+    ``build_ranges``.  The output schema is the probe schema followed by the
+    build schema.  ``left_key``/``right_key`` are column offsets into the
+    probe/build schemas; ``join_type`` is ``"inner"`` or ``"left"``.
+    ``build_context`` optionally carries the build region's identity
+    (region_id/region_epoch/apply_index)."""
+
+    build: list
+    build_ranges: list[tuple[bytes, bytes]]
+    left_key: int
+    right_key: int
+    join_type: str = "inner"
+    build_context: dict | None = None
+
+
+ExecutorDescriptor = (TableScan | IndexScan | Selection | Aggregation | TopN | Limit
+                      | Projection | Join)
 
 #: response encoding (tipb EncodeType) of datum rows, the only one ported
 ENC_TYPE_DATUM = 0
@@ -150,6 +190,25 @@ class ResponseEncoder:
             self._cur = bytearray()
             self._rows = 0
         return SelectResponse(self.chunks)
+
+
+def _attach(ex: BatchExecutor, desc) -> BatchExecutor:
+    """Chain one descriptor above a join onto ``ex``: the host executors the
+    join rung finishes with.  The CPU aggregation executors are not ported,
+    so an Aggregation declines ``join_downstream_aggregation``."""
+    if isinstance(desc, Selection):
+        return BatchSelectionExecutor(ex, desc.conditions)
+    if isinstance(desc, Projection):
+        return BatchProjectionExecutor(ex, desc.exprs)
+    if isinstance(desc, TopN):
+        keys = [(compile_host_expr(e, ex.schema()), d) for e, d in desc.order_by]
+        return BatchTopNExecutor(ex, keys, desc.limit)
+    if isinstance(desc, Limit):
+        return BatchLimitExecutor(ex, desc.limit)
+    if isinstance(desc, Aggregation):
+        raise Unsupported("an aggregation above a join is not ported",
+                          "join_downstream_aggregation")
+    raise Unsupported(f"executor {type(desc).__name__} above a join", "executor_shape")
 
 
 def make_response_encoder(dag: DagRequest) -> ResponseEncoder:

@@ -1,14 +1,23 @@
 """DagRequest ⇄ wire dict conversion (the tipb-protobuf role for the RPC).
 
-The port's subset of ``tikv_tpu/copr/dag_wire.py``.  A request crosses into
-the port as this wire dict, the form the RPC carries; executor kinds the
-port does not describe (joins, projections) raise ``ValueError``.
+The port's copy of ``tikv_tpu/copr/dag_wire.py``.  A request crosses into
+the port as this wire dict, the form the RPC carries.
 """
 
 from __future__ import annotations
 
 from .aggr import AggDescriptor
-from .dag import Aggregation, DagRequest, IndexScan, Limit, Selection, TableScan, TopN
+from .dag import (
+    Aggregation,
+    DagRequest,
+    IndexScan,
+    Join,
+    Limit,
+    Projection,
+    Selection,
+    TableScan,
+    TopN,
+)
 from .datatypes import ColumnInfo, EvalType, FieldType, FieldTypeTp
 from .rpn import ColumnRef, Constant, FuncCall
 
@@ -72,6 +81,16 @@ def _exec_to_wire(e) -> dict:
                 "order_by": [[expr_to_wire(x), desc] for x, desc in e.order_by]}
     if isinstance(e, Limit):
         return {"t": "limit", "limit": e.limit}
+    if isinstance(e, Projection):
+        return {"t": "projection", "exprs": [expr_to_wire(x) for x in e.exprs]}
+    if isinstance(e, Join):
+        d = {"t": "join", "join_type": e.join_type,
+             "left_key": e.left_key, "right_key": e.right_key,
+             "build": [_exec_to_wire(b) for b in e.build],
+             "build_ranges": [[s, x] for s, x in e.build_ranges]}
+        if e.build_context is not None:
+            d["build_context"] = dict(e.build_context)
+        return d
     raise TypeError(e)
 
 
@@ -101,7 +120,20 @@ def _exec_from_wire(e: dict):
         return TopN([(expr_from_wire(x), desc) for x, desc in e["order_by"]], e["limit"])
     if t == "limit":
         return Limit(e["limit"])
-    raise ValueError(f"executor {t!r} is not ported")
+    if t == "projection":
+        return Projection([expr_from_wire(x) for x in e["exprs"]])
+    if t == "join":
+        ctx = e.get("build_context")
+        if ctx is not None and "region_epoch" in ctx:
+            ctx = dict(ctx, region_epoch=tuple(ctx["region_epoch"]))
+        return Join(
+            [_exec_from_wire(b) for b in e["build"]],
+            [(s, x) for s, x in e["build_ranges"]],
+            e["left_key"], e["right_key"],
+            join_type=e.get("join_type", "inner"),
+            build_context=ctx,
+        )
+    raise ValueError(f"executor {t!r}")
 
 
 def dag_from_wire(d: dict) -> DagRequest:

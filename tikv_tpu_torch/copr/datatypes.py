@@ -309,6 +309,10 @@ class Chunk:
     columns: list[Column]
     logical_rows: np.ndarray  # int indices into the physical rows
 
+    @property
+    def num_rows(self) -> int:
+        return len(self.logical_rows)
+
     @classmethod
     def full(cls, columns: list[Column]) -> "Chunk":
         n = len(columns[0]) if columns else 0

@@ -43,6 +43,11 @@ _RLE_MAX_RUN_FRACTION = 0.25
 _NARROW_DTYPES = (np.int8, np.int16, np.int32)
 _DICT_MAX_CARDINALITY = 65536
 
+# dictionary -> (code map, sortedness) memo (id-keyed, bounded; the
+# dictionary object is held so that its id cannot be recycled under the entry)
+_DICT_MAPS: dict = {}
+_DICT_MAPS_MAX = 64
+
 #: (path, decision) -> batches: "encoded" or "decoded_ship" (batch_plan)
 PATH_COUNTS: dict[tuple[str, str], int] = {}
 #: (path, cause) -> batches declined from encoded serving ("enc_mismatch")
@@ -166,6 +171,22 @@ def decoded_nulls(col: Column):
     if isinstance(col, EncodedColumn) and col.kind == "rle" and col._nulls is None:
         return col.run_nulls[col._run_index(np.arange(col.n))]
     return col.nulls
+
+
+def _dict_map_for(dictionary) -> tuple[dict, bool]:
+    """(bytes -> code map, is_sorted) for a dictionary object, memoized by
+    identity: the join rung's remap and zone pruning read the sortedness."""
+    key = id(dictionary)
+    hit = _DICT_MAPS.get(key)
+    if hit is not None and hit[0] is dictionary:
+        return hit[1], hit[2]
+    vals = [bytes(v) for v in dictionary]
+    m = {v: j for j, v in enumerate(vals)}
+    is_sorted = all(vals[j] < vals[j + 1] for j in range(len(vals) - 1))
+    _DICT_MAPS[key] = (dictionary, m, is_sorted)
+    while len(_DICT_MAPS) > _DICT_MAPS_MAX:
+        _DICT_MAPS.pop(next(iter(_DICT_MAPS)))
+    return m, is_sorted
 
 
 def decode_column(col: Column) -> Column:

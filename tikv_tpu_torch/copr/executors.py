@@ -4,10 +4,17 @@ The port's subset of ``tikv_tpu/copr/executors.py``: the ``ScanSource``
 interface the evaluator's cold path pulls raw ``(key, value)`` pairs from,
 the in-memory ``FixtureScanSource``, the two helpers that host group-id
 assignment shares with the CPU hash aggregation (``cols_for_eval``,
-``_coded_group_parts``), and ``BatchTopNExecutor`` with its comparator,
-which orders the small aggregated chunk of a TopN after an aggregation on
-the host (as the JAX package does, ``jax_eval._post_agg``).  The rest of the
-CPU executor chain is not ported; the JAX package's stays the oracle.
+``_coded_group_parts``), ``BatchTopNExecutor`` with its comparator, which
+orders the small aggregated chunk of a TopN after an aggregation on the host
+(as the JAX package does, ``jax_eval._post_agg``), and the executors that
+finish a join on the host (``copr/torch_join.py``): ``ChunkFeedExecutor``
+replays the joined chunks into ``BatchSelectionExecutor``,
+``BatchProjectionExecutor``, ``BatchTopNExecutor`` and
+``BatchLimitExecutor``.  Their expressions evaluate through
+:func:`host_eval`, the port's scalar kernels on CPU tensors: a function the
+port lacks declines ``op_not_ported``, and bytes only pass as a bare column
+(``bytes_predicate``).  The aggregation executors and the rest of the CPU
+chain are not ported; the JAX package's stay the oracle.
 """
 
 from __future__ import annotations
@@ -19,7 +26,14 @@ import numpy as np
 import torch
 
 from .datatypes import Chunk, Column, EvalType
-from .rpn import Expr, RpnExpression, compile_expr, eval_rpn
+from .fused_agg import Unsupported
+from .kernels import KERNELS
+from .rpn import Expr, FuncCall, RpnExpression, compile_expr, eval_rpn
+
+# the growing batch size of the executor drive loop (runner.rs:399)
+BATCH_INITIAL_SIZE = 32
+BATCH_MAX_SIZE = 1024
+BATCH_GROW_FACTOR = 2
 
 
 @dataclass
@@ -115,8 +129,37 @@ class FixtureScanSource(ScanSource):
 
 
 # ---------------------------------------------------------------------------
-# TopN
+# Host expressions
 # ---------------------------------------------------------------------------
+
+def _ops_in(expr) -> set[str]:
+    if isinstance(expr, FuncCall):
+        out = {expr.op}
+        for c in expr.children:
+            out |= _ops_in(c)
+        return out
+    return set()
+
+
+def check_ops(exprs) -> None:
+    """Raise ``op_not_ported`` if an expression calls a scalar function the
+    port does not have."""
+    for e in exprs:
+        missing = _ops_in(e) - set(KERNELS)
+        if missing:
+            raise Unsupported(f"scalar functions {sorted(missing)}", "op_not_ported")
+
+
+def compile_host_expr(expr: Expr, schema) -> RpnExpression:
+    """``expr`` compiled for :func:`host_eval`: ported functions only, and
+    bytes only as a bare column (the scalar kernels take no bytes)."""
+    check_ops([expr])
+    rpn = compile_expr(expr, schema)
+    if len(rpn.nodes) > 1 and any(n.eval_type in (EvalType.BYTES, EvalType.JSON)
+                                  for n in rpn.nodes):
+        raise Unsupported("bytes in a host expression", "bytes_predicate")
+    return rpn
+
 
 def host_eval(rpn: RpnExpression, columns: list[Column], n: int):
     """``(data, nulls)`` numpy arrays of an expression over host columns: a
@@ -133,14 +176,124 @@ def host_eval(rpn: RpnExpression, columns: list[Column], n: int):
     return d.numpy(), nl.numpy()
 
 
+# ---------------------------------------------------------------------------
+# The executors above a join
+# ---------------------------------------------------------------------------
+
+class ChunkFeedExecutor(BatchExecutor):
+    """Leaf replaying prepared chunks: the join rung's bridge into the host
+    executors for the descriptors above the Join.  ``chunks`` is read as
+    the drive loop pulls, so a caller may fill the list after building the
+    chain."""
+
+    def __init__(self, schema, chunks: list[Chunk]):
+        self._schema = schema
+        self._chunks = chunks
+        self._idx = 0
+
+    def schema(self):
+        return self._schema
+
+    def next_batch(self, scan_rows: int) -> BatchExecuteResult:
+        if self._idx >= len(self._chunks):
+            return BatchExecuteResult(Chunk.full([]), True)
+        c = self._chunks[self._idx]
+        self._idx += 1
+        return BatchExecuteResult(c, self._idx >= len(self._chunks))
+
+
+class BatchSelectionExecutor(BatchExecutor):
+    """Filter by a conjunction of predicates (selection_executor.rs:18): the
+    chunk's logical rows narrow, its columns stay."""
+
+    def __init__(self, child: BatchExecutor, conditions: list[Expr]):
+        self.child = child
+        self._schema = child.schema()
+        self.conditions = [compile_host_expr(c, self._schema) for c in conditions]
+
+    def schema(self):
+        return self._schema
+
+    def next_batch(self, scan_rows: int) -> BatchExecuteResult:
+        r = self.child.next_batch(scan_rows)
+        chunk = r.chunk
+        if chunk.num_rows == 0:
+            return r
+        n = len(chunk.columns[0]) if chunk.columns else 0
+        keep = np.ones(n, dtype=bool)
+        for rpn in self.conditions:
+            data, nulls = host_eval(rpn, chunk.columns, n)
+            keep &= (data != 0) & ~nulls
+        logical = chunk.logical_rows[keep[chunk.logical_rows]]
+        return BatchExecuteResult(Chunk(chunk.columns, logical), r.is_drained)
+
+
+class BatchProjectionExecutor(BatchExecutor):
+    """Evaluate an expression list over the child rows (tipb::Projection):
+    the output columns are the expressions in order, physically compacted."""
+
+    def __init__(self, child: BatchExecutor, exprs: list[Expr]):
+        self.child = child
+        child_schema = child.schema()
+        self.exprs = [compile_host_expr(e, child_schema) for e in exprs]
+        if not self.exprs:
+            raise ValueError("projection needs at least one expression")
+
+    def schema(self):
+        return [(r.eval_type, r.frac) for r in self.exprs]
+
+    def next_batch(self, scan_rows: int) -> BatchExecuteResult:
+        r = self.child.next_batch(scan_rows)
+        chunk = r.chunk
+        if chunk.num_rows == 0:
+            return BatchExecuteResult(Chunk.full([]), r.is_drained)
+        n = len(chunk.columns[0]) if chunk.columns else 0
+        logical = chunk.logical_rows
+        out = []
+        for rpn in self.exprs:
+            data, nulls = host_eval(rpn, chunk.columns, n)
+            out.append(Column(rpn.eval_type, data[logical], nulls[logical], rpn.frac))
+        return BatchExecuteResult(Chunk.full(out), r.is_drained)
+
+
+class BatchLimitExecutor(BatchExecutor):
+    """Pass through the first N logical rows (limit_executor.rs:11)."""
+
+    def __init__(self, child: BatchExecutor, limit: int):
+        self.child = child
+        self.remaining = limit
+
+    def schema(self):
+        return self.child.schema()
+
+    def next_batch(self, scan_rows: int) -> BatchExecuteResult:
+        if self.remaining <= 0:
+            return BatchExecuteResult(Chunk.full([]), True)
+        r = self.child.next_batch(scan_rows)
+        chunk = r.chunk
+        if chunk.num_rows >= self.remaining:
+            logical = chunk.logical_rows[: self.remaining]
+            self.remaining = 0
+            return BatchExecuteResult(Chunk(chunk.columns, logical), True)
+        self.remaining -= chunk.num_rows
+        return r
+
+
+# ---------------------------------------------------------------------------
+# TopN
+# ---------------------------------------------------------------------------
+
 class BatchTopNExecutor(BatchExecutor):
     """Bounded order-by (top_n_executor.rs:21): accumulate, prune to the best
     ``limit`` rows whenever the buffer doubles, final sort at drain."""
 
-    def __init__(self, child: BatchExecutor, order_by: list[tuple[Expr, bool]], limit: int):
+    def __init__(self, child: BatchExecutor, order_by: list[tuple[RpnExpression, bool]],
+                 limit: int):
+        """``order_by``: (key, desc) pairs, each key compiled by
+        :func:`compile_host_expr` against the child's schema."""
         self.child = child
         self._schema = child.schema()
-        self.order_by = [(compile_expr(e, self._schema), desc) for e, desc in order_by]
+        self.order_by = order_by
         self.limit = limit
         self._done = False
 

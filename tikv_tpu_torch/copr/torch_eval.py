@@ -58,7 +58,9 @@ decimal arithmetic is exact (int64 lanes); REAL sums differ from the CPU in
 last-ulp rounding only.
 
 Plans outside these shapes are declined with a named cause
-(:func:`decline_cause`), never run.
+(:func:`decline_cause`), never run; join and projection plans decline here
+(``join_executor``, ``projection_executor``) and go to the join rung,
+``copr/torch_join.py``.
 """
 
 from __future__ import annotations
@@ -79,7 +81,9 @@ from .dag import (
     Aggregation,
     DagRequest,
     IndexScan,
+    Join,
     Limit,
+    Projection,
     SelectResponse,
     Selection,
     TableScan,
@@ -93,6 +97,8 @@ from .executors import (
     ChunkExecutor,
     ScanSource,
     _coded_group_parts,
+    check_ops,
+    compile_host_expr,
     host_eval,
 )
 from .fused_agg import (
@@ -116,8 +122,7 @@ from .fused_group_agg import (
 from .fused_mask import compile_mask_program, fused_mask
 from .fused_topn import TopnProgram, compile_topn_program, topn_step
 from .groupby import GroupDict
-from .kernels import KERNELS
-from .rpn import ColumnRef, FuncCall, RpnExpression, compile_expr
+from .rpn import ColumnRef, RpnExpression, compile_expr
 from .table import RowBatchDecoder, decode_record_handles
 
 DEFAULT_BLOCK_ROWS = 1 << 16
@@ -180,21 +185,14 @@ class _Plan:
     topn_program: TopnProgram | None = None
     # aggregation: [(eval_type, frac)] of the aggregated chunk's columns
     agg_schema: list | None = None
+    # aggregation with a TopN: its (compiled key, desc) over agg_schema
+    post_order: list | None = None
 
     @property
     def k(self) -> int:
         """Rows a raw TopN keeps: min(TopN limit, Limit)."""
         k = self.topn.limit
         return k if self.limit is None else min(k, self.limit.limit)
-
-
-def _ops_in(expr) -> set[str]:
-    if isinstance(expr, FuncCall):
-        out = {expr.op}
-        for c in expr.children:
-            out |= _ops_in(c)
-        return out
-    return set()
 
 
 def _streamed_in_scan_order(scan: TableScan, agg: Aggregation) -> bool:
@@ -205,13 +203,6 @@ def _streamed_in_scan_order(scan: TableScan, agg: Aggregation) -> bool:
     return len(agg.group_by) <= 1 and all(
         isinstance(g, ColumnRef) and g.index < len(cols) and cols[g.index].is_pk_handle
         for g in agg.group_by)
-
-
-def _check_ops(exprs) -> None:
-    for e in exprs:
-        missing = _ops_in(e) - set(KERNELS)
-        if missing:
-            raise Unsupported(f"scalar functions {sorted(missing)}", "op_not_ported")
 
 
 def _check_no_bytes(rpns) -> None:
@@ -235,6 +226,12 @@ def _split(execs) -> tuple:
             topn = e
         elif isinstance(e, Limit) and limit is None:
             limit = e
+        elif isinstance(e, Join):
+            raise Unsupported("join executors serve via the join rung (copr/torch_join.py)",
+                              "join_executor")
+        elif isinstance(e, Projection):
+            raise Unsupported("projection executors serve via the join rung",
+                              "projection_executor")
         else:
             raise Unsupported(f"executor {type(e).__name__} not device-routable here",
                               "executor_shape")
@@ -263,9 +260,8 @@ def _analyze(dag: DagRequest) -> _Plan:
     for a in agg.agg_funcs:
         if a.op not in PORTED_AGG_OPS:
             raise Unsupported(f"aggregate {a.op}", "agg_op_not_ported")
-    post_keys = [e for e, _ in topn.order_by] if topn else []
-    _check_ops(conds + [a.expr for a in agg.agg_funcs if a.expr is not None]
-               + list(agg.group_by) + post_keys)
+    check_ops(conds + [a.expr for a in agg.agg_funcs if a.expr is not None]
+              + list(agg.group_by))
     sel_rpns = [compile_expr(c, schema) for c in conds]
     agg_rpns = [(a.op, compile_expr(a.expr, schema) if a.expr is not None else None)
                 for a in agg.agg_funcs]
@@ -278,12 +274,10 @@ def _analyze(dag: DagRequest) -> _Plan:
                                     for n in g.nodes):
             raise Unsupported("bytes in a group-by expression", "group_expr_not_ported")
     agg_schema = _agg_output_schema(agg_rpns, group_rpns)
-    for e in post_keys:
-        # the TopN after the aggregation orders the aggregated chunk on the
-        # host: its keys evaluate like group keys
-        key = compile_expr(e, agg_schema)
-        if len(key.nodes) > 1:
-            _check_no_bytes([key])
+    # the TopN after the aggregation orders the aggregated chunk on the host
+    # (BatchTopNExecutor): its keys evaluate like group keys
+    post_order = ([(compile_host_expr(e, agg_schema), d) for e, d in topn.order_by]
+                  if topn else [])
     need: set[int] = set()
     for rpn in sel_rpns + [r for _, r in agg_rpns if r is not None]:
         need |= rpn.referenced_columns()
@@ -291,7 +285,7 @@ def _analyze(dag: DagRequest) -> _Plan:
     # columns declared NOT NULL never ship a null mask
     nullable_cols = _nullable(scan, device_cols)
     plan = _Plan(scan, selection, agg, topn, limit, schema, sel_rpns, agg_rpns, group_rpns, [],
-                 device_cols, nullable_cols, agg_schema=agg_schema)
+                 device_cols, nullable_cols, agg_schema=agg_schema, post_order=post_order)
     if not group_rpns and all(op in CAPACITY_ONE_OPS for op, _ in agg_rpns):
         plan.program = compile_program(sel_rpns, agg_rpns, device_cols, schema)
     else:
@@ -304,7 +298,7 @@ def _analyze(dag: DagRequest) -> _Plan:
 def _analyze_scan(scan, selection, topn, limit, schema, conds) -> _Plan:
     """Scan/filter and raw TopN plans (no aggregation)."""
     keys = list(topn.order_by) if topn else []
-    _check_ops(conds + [e for e, _ in keys])
+    check_ops(conds + [e for e, _ in keys])
     sel_rpns = [compile_expr(c, schema) for c in conds]
     _check_no_bytes(sel_rpns)
     topn_rpns = []
@@ -872,7 +866,7 @@ class TorchDagEvaluator:
         chunk on the host (``jax_eval._post_agg``)."""
         plan = self.plan
         if plan.topn is not None:
-            ex = BatchTopNExecutor(ChunkExecutor(chunk, plan.agg_schema), plan.topn.order_by,
+            ex = BatchTopNExecutor(ChunkExecutor(chunk, plan.agg_schema), plan.post_order,
                                    plan.topn.limit)
             chunk = ex.next_batch(len(chunk.logical_rows) or 1).chunk
         if plan.limit is not None:

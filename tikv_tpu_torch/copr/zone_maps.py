@@ -17,8 +17,10 @@ Soundness contract, the only invariant pruning relies on:
 Dictionary columns are tracked in code space; plain object BYTES/JSON
 columns are untracked, so blocks always survive predicates over them.
 
-Not here: the environment switch and the metrics of the JAX package, and
-the write-through fold of in-place deltas (``fold_update``).
+The join rung counts its block decisions in ``PRUNE_COUNTS`` (the JAX
+package's ``tikv_coprocessor_zone_prune_total`` metric, as a plain counter).
+Not here: the environment switch and the metrics registry of the JAX
+package, and the write-through fold of in-place deltas (``fold_update``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,15 @@ def set_enabled(on: bool) -> None:
     """Switch pruning off (tests compare the pruned and unpruned paths)."""
     global _ENABLED
     _ENABLED = bool(on)
+
+
+#: (path, outcome) -> blocks: "examined" or "pruned" (count_prune)
+PRUNE_COUNTS: dict[tuple[str, str], int] = {}
+
+
+def count_prune(path: str, outcome: str, n: int = 1) -> None:
+    if n:
+        PRUNE_COUNTS[path, outcome] = PRUNE_COUNTS.get((path, outcome), 0) + n
 
 
 class ColumnZone:

@@ -9,6 +9,9 @@ encode=True)`` encodes the image as a filled region image is encoded
 (``copr/encoding.py``), and :func:`sort_by_shipdate` reorders the draws as
 data loaded in date order.  The numpy oracles compute each query's answer
 from the draws they are given alone, independently of any evaluator.
+:func:`join_caches` makes the probe and build images of ``bench.py``'s join
+event (``_op_join``), :func:`join_dag` its plan and :func:`join_oracle` its
+joined pairs.
 """
 
 from __future__ import annotations
@@ -19,8 +22,18 @@ import torch
 from .copr import encoding
 from .copr.aggr import AggDescriptor
 from .copr.cache import ColumnBlockCache
-from .copr.dag import Aggregation, DagRequest, Limit, Selection, TableScan, TopN
-from .copr.datatypes import NOT_NULL_FLAG, Column, ColumnInfo, EvalType, FieldType
+from .copr.dag import (
+    Aggregation,
+    DagRequest,
+    Join,
+    Limit,
+    Projection,
+    ResponseEncoder,
+    Selection,
+    TableScan,
+    TopN,
+)
+from .copr.datatypes import NOT_NULL_FLAG, Chunk, Column, ColumnInfo, EvalType, FieldType
 from .copr.fused_agg import Image, compile_program
 from .copr.fused_group_agg import compile_group_program
 from .copr.rpn import call, col, compile_expr, const_decimal, const_int, const_real
@@ -927,3 +940,192 @@ def zone_kernel_outputs(ev, cache, tile_rows: int | None = None):
     out["zone_fold"] = (fz.zone_fold(full, parts, order, starts, layout.n_slots),
                         fz.zone_fold_plain(full, parts, order, starts, layout.n_slots))
     return out, layout, len(full_idx), len(partial_idx)
+
+
+# ---------------------------------------------------------------------------
+# The join event of bench.py (_op_join)
+# ---------------------------------------------------------------------------
+
+JOIN_PROBE_TABLE, JOIN_BUILD_TABLE = TABLE_ID, TABLE_ID + 1
+JOIN_LIMIT = 100_000
+
+
+def join_schema(key: str = "dict") -> list[ColumnInfo]:
+    """``(id, key, pay)``: the key VARCHAR (``"dict"``) or BIGINT (``"int"``)."""
+    kt = FieldType.varchar() if key == "dict" else FieldType.int64()
+    return [ColumnInfo(1, FieldType.int64(), is_pk_handle=True), ColumnInfo(2, kt),
+            ColumnInfo(3, FieldType.int64())]
+
+
+def join_draws(n: int, seed: int = 0) -> dict:
+    """The draws of ``bench._op_join`` at ``n`` probe rows: ``distinct =
+    max(64, n // 16)``, probe keys from a pool of ``2 * distinct`` (half
+    match), ``4 * distinct`` build rows keyed from the first ``distinct``,
+    a 20-bit payload per row.  Keys are pool indices; the pool's strings are
+    ``b"k%06d" % index``."""
+    distinct = max(64, n // 16)
+    rng = np.random.default_rng(seed)
+    a = {"probe_key": rng.integers(0, 2 * distinct, n), "probe_pay": rng.integers(0, 1 << 20, n)}
+    nb = 4 * distinct
+    a["build_key"] = rng.integers(0, distinct, nb)
+    a["build_pay"] = rng.integers(0, 1 << 20, nb)
+    a["pool"] = np.array([b"k%06d" % i for i in range(2 * distinct)], dtype=object)
+    return a
+
+
+def _join_image(keys, pay, pool, key: str, block_rows: int, encode: bool):
+    n = len(keys)
+    if key == "dict":
+        # the image's own dictionary, sorted and stable over its blocks
+        used = np.unique(keys)
+        dictionary = pool[used]
+        codes = np.searchsorted(used, keys)
+    ids = np.arange(n, dtype=np.int64)
+    cache = ColumnBlockCache()
+    for s in range(0, n, block_rows):
+        e = min(s + block_rows, n)
+        nz = np.zeros(e - s, dtype=bool)
+        kcol = (Column(EvalType.BYTES, codes[s:e], nz, 0, dictionary) if key == "dict"
+                else Column(EvalType.INT, keys[s:e].astype(np.int64), nz))
+        cache.add([Column(EvalType.INT, ids[s:e], nz), kcol,
+                   Column(EvalType.INT, pay[s:e].astype(np.int64), nz)], e - s)
+    cache.filled = True
+    if encode:
+        encoding.encode_blocks(cache, join_schema(key))
+    return cache
+
+
+def join_caches(n: int, seed: int = 0, key: str = "dict", encode: bool = True,
+                block_rows: int = 1 << 16):
+    """``(draws, probe cache, build cache)`` of :func:`join_draws`: the keys
+    as dictionary codes (``"dict"``, each image with its own sorted
+    dictionary, so the probe codes remap into the build's) or as the pool
+    index, an INT64 key (``"int"``, the hash path only); ``encode`` encodes
+    both images as ``build_cache(..., encode=True)`` does."""
+    a = join_draws(n, seed)
+    probe = _join_image(a["probe_key"], a["probe_pay"], a["pool"], key, block_rows, encode)
+    build = _join_image(a["build_key"], a["build_pay"], a["pool"], key, block_rows, encode)
+    return a, probe, build
+
+
+def join_downstream() -> tuple:
+    """Selection, Projection and Limit over columns of both sides: probe pay
+    below build pay; (probe id + build id, the key, build pay); 100,000 rows."""
+    return (Selection([call("lt", col(2), col(5))]),
+            Projection([call("plus", col(0), col(3)), col(1), col(5)]),
+            Limit(JOIN_LIMIT))
+
+
+def join_dag(downstream=(), key: str = "dict") -> DagRequest:
+    """``[TableScan(probe), Join(build), *downstream]``, inner on column 1."""
+    schema = join_schema(key)
+    return DagRequest(executors=[
+        TableScan(JOIN_PROBE_TABLE, schema),
+        Join([TableScan(JOIN_BUILD_TABLE, schema)], [], 1, 1, join_type="inner",
+             build_context={"region_id": 2, "region_epoch": (1, 1), "apply_index": 7}),
+        *downstream,
+    ])
+
+
+def join_oracle(a: dict) -> tuple[np.ndarray, np.ndarray]:
+    """(probe row, build row) of every joined pair, the CPU join's way: a
+    dict from key to the build rows in row order, probed row by row."""
+    table: dict = {}
+    for i, k in enumerate(a["build_key"].tolist()):
+        table.setdefault(k, []).append(i)
+    p_out, b_out = [], []
+    for i, k in enumerate(a["probe_key"].tolist()):
+        rows = table.get(k)
+        if rows:
+            p_out.extend([i] * len(rows))
+            b_out.extend(rows)
+    return np.array(p_out, dtype=np.int64), np.array(b_out, dtype=np.int64)
+
+
+def join_oracle_bytes(a: dict, pairs, key: str = "dict", downstream: bool = False) -> bytes:
+    """The response bytes of the joined ``pairs`` (:func:`join_oracle`)
+    through the port's ``ResponseEncoder``; ``downstream``: after
+    :func:`join_downstream`, computed here in numpy."""
+    p, b = pairs
+    pk, bk = a["probe_key"][p], a["build_key"][b]
+    kdata = (lambda k: a["pool"][k]) if key == "dict" else (lambda k: k.astype(np.int64))
+    ket = EvalType.BYTES if key == "dict" else EvalType.INT
+    if downstream:
+        keep = np.flatnonzero(a["probe_pay"][p] < a["build_pay"][b])[:JOIN_LIMIT]
+        p, b, pk = p[keep], b[keep], pk[keep]
+        cols = [(EvalType.INT, p + b), (ket, kdata(pk)),
+                (EvalType.INT, a["build_pay"][b].astype(np.int64))]
+    else:
+        cols = [(EvalType.INT, p), (ket, kdata(pk)),
+                (EvalType.INT, a["probe_pay"][p].astype(np.int64)),
+                (EvalType.INT, b), (ket, kdata(bk)),
+                (EvalType.INT, a["build_pay"][b].astype(np.int64))]
+    enc = ResponseEncoder(1024)
+    if len(p):
+        nz = np.zeros(len(p), dtype=bool)
+        enc.add_chunk(Chunk.full([Column(et, d, nz) for et, d in cols]), None)
+    return enc.to_response().encode()
+
+
+def join_probe_case(n_keys: int, mult: int, n_probe: int, seed: int = 0,
+                    wide: bool = False, null_p: float = 0.0) -> dict:
+    """Inputs of both probe kernels, as numpy int64 arrays: ``n_keys``
+    distinct build keys with ``mult`` rows each, sorted (``"sorted"``), and
+    ``n_probe`` probes, half of them build keys (``"rank_probe"``); the hash
+    table of the sorted keys (``"table"``: keys, starts, counts) and the same
+    probes for it (``"hash_probe"``).  Keys are ``0 .. n_keys - 1`` (codes)
+    or, ``wide``, drawn over the whole int64 range with its edges, so that
+    negative keys and colliding home slots occur.  A ``null_p`` share of the
+    probes is NULL: the rank path's miss code -1, the hash path's empty
+    sentinel."""
+    from .copr.fused_join import EMPTY
+    from .copr.torch_join import _build_hash_table
+
+    rng = np.random.default_rng(seed)
+    if wide:
+        # no key is -1, the rank path's miss code
+        edges = np.array([-(1 << 63) + 1, -(1 << 62), -2, 0, (1 << 63) - 1], dtype=np.int64)
+        keys = np.unique(np.concatenate(
+            [edges, rng.integers(-(1 << 63) + 1, (1 << 63) - 1, n_keys, dtype=np.int64)]))
+        keys = keys[rng.permutation(len(keys))[:n_keys]]
+        keys.sort()
+        misses = rng.integers(-(1 << 63) + 1, (1 << 63) - 1, n_probe, dtype=np.int64)
+    else:
+        keys = np.arange(n_keys, dtype=np.int64)
+        misses = rng.integers(n_keys, 2 * n_keys, n_probe)
+    probe = np.where(rng.random(n_probe) < 0.5, keys[rng.integers(0, len(keys), n_probe)],
+                     misses).astype(np.int64)
+    nulls = rng.random(n_probe) < null_p
+    sorted_keys = np.repeat(keys, mult)
+    lead = np.arange(0, len(sorted_keys), mult, dtype=np.int64)
+    table = _build_hash_table(keys, lead, np.full(len(keys), mult, dtype=np.int64))
+    return {"sorted": sorted_keys, "rank_probe": np.where(nulls, -1, probe),
+            "table": table, "hash_probe": np.where(nulls, EMPTY, probe)}
+
+
+def join_kernel_check(case: dict, device) -> dict:
+    """Both probe kernels on ``device`` against their plain versions over
+    ``case`` (:func:`join_probe_case`): int64-exact, and a second run
+    bit-identical; raises on a difference.  Returns the max abs error of
+    each (0) and the matched probes."""
+    from .copr import fused_join
+
+    t = {k: (tuple(torch.from_numpy(x).to(device) for x in v) if k == "table"
+             else torch.from_numpy(v).to(device)) for k, v in case.items()}
+    out = {}
+    for name, kernel, plain, args in (
+            ("join_rank_probe", fused_join.rank_probe, fused_join.rank_probe_plain,
+             (t["sorted"], t["rank_probe"])),
+            ("join_hash_probe", fused_join.hash_probe, fused_join.hash_probe_plain,
+             (*t["table"], t["hash_probe"]))):
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        for g, h, w, what in zip(got, again, want, ("starts", "counts")):
+            if g.dtype != torch.int64 or not torch.equal(g, w):
+                raise AssertionError(f"{name} {what} differ from the plain version")
+            if not torch.equal(g, h):
+                raise AssertionError(f"{name} {what} differ between two runs")
+        out[name] = 0.0
+        out[f"{name}_matched"] = int((got[1] > 0).sum())
+    if out["join_rank_probe_matched"] != out["join_hash_probe_matched"]:
+        raise AssertionError("the rank and hash probes match different rows")
+    return out
