@@ -85,6 +85,22 @@ and, byte for byte, the same request served alone on the stacked unary
 route, whose times are summed beside the batch's; both kernels are held to
 their plain versions (with a rider of every leaf kind) and timed.
 
+Between phases ``batch`` and 12, phase ``mesh`` drives the mesh path
+(programs #16, #18, #19 and #20, ``tikv_tpu_torch/parallel/mesh.py``, the
+cross-shard merge ``mesh_merge`` of ``csrc/fused_mesh.cu``) on eight shards
+of the one card, ``make_mesh(["cuda:0"] * 8, groups)``: ``mesh_merge``
+against its plain version on synthetic states (every mergeable leaf kind,
+NaN, +-0.0, +-inf, int64 wrap; 8 and 64 parts, 16 and 331 slots); cold Q6
+and Q1 over the 1,000,000 KV rows through ``MeshServingRunner`` at 1,024
+and 65,536 rows per shard, groups 1 and 2; warm Q1 and Q6 through
+``launch_xregion_sharded`` over phase ``batch``'s 64 region images, its 8
+encoded ones and the 100M image alone (spread block by block); the raw
+TopN (K = 100) over 10M rows through ``ShardedTopNEvaluator`` at 131,072
+rows per shard.  Every answer equals its numpy oracle and, byte for byte,
+the single-device route's, whose times stand beside; then ``mesh_merge``
+at the path's own inputs against its plain version and timed, and the
+busiest device's batch kernels timed; the slab bytes pinned.
+
 After phase 12, phase ``join`` drives the join rung (programs #14 and #15,
 ``csrc/fused_join.cu``) through ``copr/torch_join.serve``: the join event of
 ``bench._op_join`` (a probe region of 1,000,000 rows ``(id, key, pay)``
@@ -107,7 +123,8 @@ The launch counts in the kernels line are those of the main paths only: Q6
 (phases 4-5) for the capacity-1 kernels, Q1 (phases 6-7) for the grouped
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
 top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
-for the batch kernels, phase ``join`` for the join probes, each counted from
+for the batch kernels, phase ``join`` for the join probes, phase ``mesh``
+for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), each counted from
 0 just before its path and read just after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
@@ -1071,7 +1088,8 @@ def phase_batch(cache, wants: dict, card: str, br: int = 1 << 17) -> dict:
     err = {k: max(max(c["partials"] for c in checks.values()) if k == "batch_partials"
                   else max(c["combine"] for c in checks.values()), 0.0) for k in BATCH_KERNELS}
     return {"launches": batch_launches, "same_region": t_same, "xregion": t_x,
-            "xregion_encoded": t_xe, "max_abs_err": err,
+            "xregion_encoded": t_xe, "max_abs_err": err, "regions": plain_caches,
+            "enc_regions": [c for _a, c in enc_regions], "x_wants": x_wants,
             "encoded_launches": {k: sum(totals[f"xregion_{n}_encoded"][k] for n in x_plans)
                                  for k in BATCH_KERNELS}}
 
@@ -1204,6 +1222,296 @@ def phase_join(fx, card: str, device) -> dict:
            "synthetic": t_synth, "phase_seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: programs #16, #18, #19 and #20 on eight shards of one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+# MeshServingRunner's default rows per shard (tikv_tpu/parallel/mesh.py:1056),
+# and the cold path's block
+MESH_COLD_RPS = (1024, 1 << 16)
+MESH_TOPN_RPS = 1 << 17  # eight shards: super-blocks of 1,048,576 rows
+MESH_SRC = "tikv_tpu_torch/csrc/fused_mesh.cu"
+# the kernels the mesh main path launches: the merge and the reused ones
+MESH_KERNELS = ("mesh_merge", "fused_group_agg_partials", "fused_group_agg_combine_pack",
+                "batch_partials", "batch_combine_pack", "topn_candidates", "topn_merge",
+                "topn_pack")
+
+
+def capture_merge(fm_mod, run) -> tuple:
+    """The inputs of the first ``mesh_merge`` call that ``run`` makes, cloned
+    (the main path's own shapes and values), for the checks and timings."""
+    seen = []
+    launch = fm_mod.mesh_merge
+
+    def record(prog, parts, table, carry=None, lo=0, hi=None, out=None):
+        if not seen:
+            seen.append((prog, tuple(t.clone() for t in parts), table.clone(),
+                         None if carry is None else tuple(t.clone() for t in carry), lo, hi))
+        return launch(prog, parts, table, carry, lo, hi, out)
+
+    fm_mod.mesh_merge = record
+    try:
+        run()
+    finally:
+        fm_mod.mesh_merge = launch
+    return seen[0]
+
+
+def time_merge(fm_mod, case, iters: int) -> dict:
+    """CUDA-event ms per ``mesh_merge`` launch at a captured case, the plain
+    version's ms on the same tensors, and the bound: each listed part's
+    window read once, the carry read once, the output written once; one
+    operation per listed part word."""
+    prog, parts, table, carry, lo, hi = case
+    hi = parts[0].shape[2] if hi is None else hi
+    width, leaves = hi - lo, prog.n_int + prog.n_f64
+    n_regions = table.shape[0]
+    out = (torch.empty((n_regions, prog.n_int, width), dtype=torch.int64, device=table.device),
+           torch.empty((n_regions, prog.n_f64, width), dtype=torch.float64, device=table.device))
+    ms = cuda_ms(lambda: fm_mod.launch_mesh_merge(prog, parts, table, carry, lo, hi, out), iters)
+    plain_ms = cuda_ms(lambda: fm_mod.mesh_merge_plain(prog, parts, table, carry, lo, hi), 3,
+                       warmup=1)
+    listed = int((table >= 0).sum())
+    words = listed * leaves * width
+    n_bytes = words * 8 + table.numel() * 4 + n_regions * leaves * width * 8 * (
+        2 if carry is not None else 1)
+    b_ms, b_by = bound(n_bytes, words)
+    return {"parts": parts[0].shape[0], "regions": n_regions, "listed_parts": listed,
+            "leaves": leaves, "slots": width, "carry": carry is not None, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_topn_finalize(ft, topn, state) -> dict:
+    """CUDA-event ms of program #19's kernels at the mesh's shape: each
+    ``topn_merge`` level over the S gathered runs (``n_words + 1`` words),
+    ``topn_pack`` of the K winners from the ``[S, K]`` image, and the whole
+    finalize's device work (the gathers too); the plain versions' ms; the
+    bounds as :func:`time_topn`'s."""
+    prog, k = topn.prog, topn.k
+    runs, pay = topn.gather(state)
+    w = runs.shape[1]
+    levels, n, merge_bytes = 0, runs.shape[0], 0
+    while n > 1:
+        merge_bytes += (n + (n + 1) // 2) * w * k * 8
+        n, levels = (n + 1) // 2, levels + 1
+    merge_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=True), 20) / levels
+    merge_plain_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=False), 2, warmup=1) / levels
+    final = ft._merge_all(runs, None, cuda=True)
+    run = torch.cat([final[: prog.n_words - 1], final[prog.n_words:]]).contiguous()
+    dev = run.device
+    out = (torch.empty((prog.n_int, k), dtype=torch.int64, device=dev),
+           torch.empty((prog.n_f64, k), dtype=torch.float64, device=dev))
+    nxt = torch.empty((prog.n_words, k), dtype=torch.int64, device=dev)
+    pack_ms = cuda_ms(lambda: ft.launch_pack(prog, run, pay, None, 0, out, nxt), 50)
+    pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
+    m_bound = bound(merge_bytes // levels, merge_bytes // (8 * levels))
+    p_bound = bound(prog.n_words * k * 8 * 2 + k * 9 * len(prog.pay_f64)
+                    + (prog.n_int + prog.n_f64) * k * 8, k * len(prog.pay_f64))
+    return {"runs": runs.shape[0], "words": w, "merge_levels": levels,
+            "topn_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms, "bound_ms": m_bound[0],
+                           "bound_by": m_bound[1]},
+            "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": p_bound[0],
+                          "bound_by": p_bound[1]},
+            "finalize_device_ms": cuda_ms(lambda: topn.merge(state), 20)}
+
+
+def slab_bytes(caches) -> int:
+    """Bytes the caches pin on the card under ``shardslab`` signatures."""
+    total = 0
+    for c in caches:
+        for sig, pins in c.blocks[0].device.items():
+            if sig[0] == "shardslab":
+                total += sum(t.numel() * t.element_size() for data, nulls in pins.values()
+                             for t in list(data) + list(nulls) if t is not None)
+    return total
+
+
+def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
+               bt: dict) -> dict:
+    """Programs #16, #18, #19 and #20 on ``make_mesh(["cuda:0"] * 8,
+    groups)``: ``mesh_merge`` against its plain version; the mesh main path
+    (counted from 0): cold Q6 and Q1 through ``MeshServingRunner`` at G = 1
+    and 2, warm Q1 and Q6 through ``launch_xregion_sharded`` over phase
+    ``batch``'s 64 regions, its 8 encoded ones and the 100M image alone, the
+    raw TopN over 10M rows through ``ShardedTopNEvaluator``; every answer
+    against its oracle and, byte for byte, the single-device route's, whose
+    times stand beside; the per-device kernels and ``mesh_merge`` timed at
+    the path's own inputs."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr import fused_mesh as fme
+    from tikv_tpu_torch.copr import fused_topn as ft
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    errs = {}
+    for n_parts, cap in ((8, 16), (64, 16), (8, 331), (64, 331)):
+        prog, parts, table, carry = fx.mesh_merge_case(n_parts, 64, cap, n_parts + cap, device)
+        half = cap // 2
+        window = tuple(t[:, :, half:].contiguous() for t in carry)
+        errs[f"p{n_parts}_c{cap}"] = max(fx.mesh_merge_check(prog, parts, table),
+                                         fx.mesh_merge_check(prog, parts, table, window, half,
+                                                             cap))
+    del parts, carry, window
+    meshes = {g: pm.make_mesh([device] * MESH_SHARDS, groups=g) for g in (1, 2)}
+    cold = {"q6": (fx.q6_dag(), [fx.q6_oracle(cold_arrays)]),
+            "q1": (fx.q1_dag(), fx.q1_oracle(cold_arrays))}
+    a10 = fx.build_arrays(FILTER_ROWS, SEED)
+    want_topn = fx.topn_oracle(a10, TOPN_K)
+    regions, enc_regions = bt["regions"], bt["enc_regions"]
+    warm_sets = {"regions_64": regions, "regions_8_encoded": enc_regions, "lone_100m": [cache]}
+    warm_wants = {"regions_64": bt["x_wants"],
+                  "regions_8_encoded": {k: v[:len(enc_regions)] for k, v in bt["x_wants"].items()},
+                  "lone_100m": {"q1": [want_batch["q1"]], "q6": [want_batch["q6"]]}}
+    x_evs = {name: te.TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device="cuda")
+             for name, dag in (("q1", fx.q1_dag()), ("q6", fx.q6_dag()))}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def delta(before):
+        return {k: fa.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+
+    # the single-device cold answers and times, the yardstick of the cold mesh
+    single_cold = {}
+    for name, (dag, want) in cold.items():
+        ev = te.TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device="cuda")
+        secs = []
+        for _ in range(2):
+            resp, s = timed_run(ev, FixtureScanSource(kvs), None)
+            check_rows(resp, want, f"single-device cold {name}")
+            secs.append(s)
+        single_cold[name] = (resp.encode(), secs)
+
+    # the single-device warm answers and times, the yardstick of the warm mesh
+    single_warm = {}
+    for label, caches in warm_sets.items():
+        for name, ev in x_evs.items():
+            secs = []
+            for _ in range(3):
+                got_one, s = timed(lambda: te.run_xregion_cached(ev, caches))
+                secs.append(s)
+            single_warm[label, name] = ([r.encode() for r in got_one], secs)
+
+    # ---- the mesh main path: counts from 0 here to its end -------------------
+    fa.reset_launches()
+    out = {"cold": {}, "warm": {}, "topn": {}}
+    for g, mesh in meshes.items():
+        for name, (dag, want) in cold.items():
+            for rps in MESH_COLD_RPS:
+                runner = pm.MeshServingRunner(dag_to_wire(dag), mesh, rows_per_shard=rps)
+                secs, before = [], dict(fa.LAUNCHES)
+                for _ in range(2):
+                    resp, s = timed(lambda: runner.run(FixtureScanSource(kvs)))
+                    check_rows(resp, want, f"mesh cold {name} G={g} rps={rps}")
+                    if resp.encode() != single_cold[name][0]:
+                        raise AssertionError(f"mesh cold {name}: not the single-device bytes")
+                    secs.append(s)
+                out["cold"][f"{name}_g{g}_rps{rps}"] = {
+                    "groups": g, "rows_per_shard": rps, "super_block_rows": runner.total_rows,
+                    "capacity": runner.sharded.capacity, "seconds": secs,
+                    "rows_per_s": len(kvs) / min(secs),
+                    "single_device_seconds": single_cold[name][1],
+                    "launches_per_request": {k: v / 2 for k, v in delta(before).items()}}
+    mesh = meshes[1]
+    for label, caches in warm_sets.items():
+        for name, ev in x_evs.items():
+            want = warm_wants[label][name]
+            one_bytes, single = single_warm[label, name]
+            mesh_s, before = [], dict(fa.LAUNCHES)
+            for _ in range(4):  # the first run pins the slabs
+                got, s = timed(lambda: te.launch_xregion_sharded(ev, caches, mesh).finalize())
+                mesh_s.append(s)
+                if len(got) != len(one_bytes):
+                    raise AssertionError(f"mesh warm {label} {name}: {len(got)} responses")
+                for j, (resp, one) in enumerate(zip(got, one_bytes)):
+                    check_rows(resp, want[j], f"mesh warm {label} {name} region {j}")
+                    if resp.encode() != one:
+                        raise AssertionError(f"mesh warm {label} {name}: not the single bytes")
+            out["warm"][f"{label}_{name}"] = {
+                "regions": len(caches), "rows": sum(c.total_rows for c in caches),
+                "slab_load": pm.device_slab_load(caches, mesh),
+                "first_run_with_pins_s": mesh_s[0], "seconds": mesh_s[1:],
+                "median_s": sorted(mesh_s[1:])[1],
+                "single_device_seconds": single, "single_device_median_s": sorted(single)[1],
+                "launches_per_batch": {k: v / 4 for k, v in delta(before).items()}}
+        out["warm"][f"{label}_slab_bytes"] = slab_bytes(caches)
+    topn = pm.ShardedTopNEvaluator(dag_to_wire(fx.topn_dag(TOPN_K)), mesh, MESH_TOPN_RPS)
+    total = topn.total_rows
+    blocks = [(fx.mesh_columns(a10, s, min(s + total, FILTER_ROWS)), min(total, FILTER_ROWS - s))
+              for s in range(0, FILTER_ROWS, total)]
+    step_s, fin_s, before = [], [], dict(fa.LAUNCHES)
+    for _ in range(2):
+        state, s = timed(lambda: topn.run_blocks(blocks))
+        step_s.append(s)
+        res, s = timed(lambda: topn.finalize(state))
+        fin_s.append(s)
+        if list(res["gidx"]) != [r[0] for r in want_topn] or \
+                [[int(v) for v in vs] for vs in zip(*(p[0] for p in res["payload"]))] != \
+                [[r[0], r[1], r[2][0], r[3][0], r[4]] for r in want_topn]:
+            raise AssertionError("mesh raw TopN differs from the oracle")
+    out["topn"] = {"rows": FILTER_ROWS, "k": TOPN_K, "rows_per_shard": MESH_TOPN_RPS,
+                   "super_blocks": len(blocks), "step_seconds": step_s,
+                   "finalize_seconds": fin_s,
+                   "launches_per_request": {k: v / 2 for k, v in delta(before).items()}}
+    mesh_launches = dict(fa.LAUNCHES)
+    # ---- end of the mesh main path -------------------------------------------
+    for k in MESH_KERNELS:
+        if mesh_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the mesh main path")
+    # programs #18 and #19 at the phase's shapes: one shard's step (its
+    # first super-block's 131,072 rows) and the finalize over the 8 runs
+    pay = pm._shard_images(topn.shard_devices, MESH_TOPN_RPS,
+                           [blocks[0][0][i][0] for i in topn.payload_cols], topn._pay_f64,
+                           [None] * len(topn.payload_cols), blocks[0][1], 0)[0]
+    pay.n_valids = torch.tensor([pay.n_valids], dtype=torch.int64, device=pay.device)
+    t_topn = {"step_shard": time_topn(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay),
+              "finalize": time_topn_finalize(ft, topn, state)}
+    del blocks, pay
+    # mesh_merge at its main-path inputs: cold Q1 (8 shard states into the
+    # carry; G = 2: a member's window), Q1 over the 64 regions and the 100M
+    # image alone; each against its plain version, then timed
+    q1 = dag_to_wire(fx.q1_dag())
+    cases = {
+        "cold_q1_g1": capture_merge(fme, lambda: pm.MeshServingRunner(
+            q1, meshes[1], rows_per_shard=1 << 16).run(FixtureScanSource(kvs))),
+        "cold_q1_g2": capture_merge(fme, lambda: pm.MeshServingRunner(
+            q1, meshes[2], rows_per_shard=1 << 16).run(FixtureScanSource(kvs))),
+        "xregion_q1_64": capture_merge(fme, lambda: te.launch_xregion_sharded(
+            x_evs["q1"], regions, mesh)),
+        "lone_100m_q1": capture_merge(fme, lambda: te.launch_xregion_sharded(
+            x_evs["q1"], [cache], mesh))}
+    t_merge = {}
+    for key, case in cases.items():
+        errs[key] = fx.mesh_merge_check(*case)
+        t_merge[key] = time_merge(fme, case, 50)
+    # the per-device batch kernels of #20: the busiest device's tasks
+    t_dev = {}
+    for label in ("regions_64", "lone_100m"):
+        device_tasks = pm.xshard_tasks(x_evs["q1"], warm_sets[label], mesh)[0]
+        _pos, tasks = max(device_tasks, key=lambda dt: sum(t.img.n_blocks for t in dt[1]))
+        t_dev[label] = time_batch(fb, tasks, 10)
+    for key, results in out.items():
+        same = {} if key == "topn" else {"byte_identical_to_single_device": True}
+        emit({"phase": "mesh", "case": key, "card": card, "matches_oracle": True, **same,
+              "results": results})
+    emit({"phase": "mesh", "case": "kernels", "card": card, "shards": MESH_SHARDS,
+          "mesh_merge_checks": errs, "int_words_equal": True, "f64_rel_tol": REL_TOL,
+          "bit_identical_reruns": True, "mesh_merge": t_merge, "per_device_batch": t_dev,
+          "topn": t_topn, "launches": mesh_launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"launches": mesh_launches, "merge": t_merge, "max_abs_err": max(errs.values()),
+            "per_device": t_dev, "topn": t_topn}
 
 
 def main() -> int:
@@ -1544,7 +1852,6 @@ def main() -> int:
           "warm_selective_filter": profile_runs(lambda: ev_sel.run(None, cache10), 3),
           "cold_topn": profile_runs(lambda: ev_tc.run(FixtureScanSource(kvs)), 1),
           "warm_topn": profile_runs(lambda: ev_tw.run(None, cache), 3)})
-    del kvs
 
     # ---- phase zone: the zone rung over the 100M-row plain image -------------
     # the earlier pins released (the layouts share the per-block pin LRU);
@@ -1639,6 +1946,12 @@ def main() -> int:
 
     # ---- phase batch: programs #10 and #11 (its own main path) ----------------
     bt = phase_batch(cache, want_batch, card)
+
+    # ---- phase mesh: programs #16, #18, #19 and #20 (its own main path) --------
+    mesh_out = phase_mesh(fx, card, device, kvs, cold_arrays, cache, want_batch, bt)
+    del kvs
+    for key in ("regions", "enc_regions", "x_wants"):  # the mesh phase was their last use
+        bt.pop(key)
     cache.drop_device()
     torch.cuda.empty_cache()
 
@@ -1805,6 +2118,7 @@ def main() -> int:
     main_path.update(dict.fromkeys(ZONE_KERNELS, zone_launches))
     main_path.update(dict.fromkeys(BATCH_KERNELS, bt["launches"]))
     main_path.update(dict.fromkeys(JOIN_KERNELS, jn["launches"]))
+    main_path["mesh_merge"] = mesh_out["launches"]
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -1947,6 +2261,21 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "synthetic": jn["synthetic"][name]})
+    # the cross-shard merge at the cold mesh's shape (eight shard states of
+    # Q1 into the carry), its other main-path shapes beside it
+    t = mesh_out["merge"]["cold_q1_g1"]
+    kernels.append({
+        "name": "mesh_merge", "route": "cuda", "source": MESH_SRC,
+        "replaces": "tikv_tpu/parallel/mesh.py:128",
+        "replaces_also": ["tikv_tpu/parallel/mesh.py:148", "tikv_tpu/parallel/mesh.py:183",
+                          "tikv_tpu/parallel/mesh.py:808"],
+        "launches": mesh_out["launches"]["mesh_merge"], "max_abs_err": mesh_out["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shapes": mesh_out["merge"]})
+    # the reused kernels' launches on the mesh main path
+    for entry in kernels:
+        if entry["name"] in MESH_KERNELS:
+            entry["mesh_launches"] = mesh_out["launches"][entry["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

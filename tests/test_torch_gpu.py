@@ -320,10 +320,11 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
             assert ev.run(None, plain).iter_rows() == want, name
     # every kernel these warm plans run launched; the batch kernels serve
     # batches only (test_batches_match_the_unary_route_and_the_oracles), the
-    # join probes joins only (test_join_kernels_match_their_plain_versions)
+    # join probes joins only (test_join_kernels_match_their_plain_versions),
+    # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version)
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
-                                     "join_rank_probe", "join_hash_probe"), name
+                                     "join_rank_probe", "join_hash_probe", "mesh_merge"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -502,3 +503,57 @@ def test_join_serve_on_the_card_matches_the_oracle(cuda, key):
         dag = fx.join_dag(fx.join_downstream(), key=key)
         assert torch_join.serve(dag, pc, bc, prefer=path, device=cuda)[0].encode() \
             == torch_join.serve(dag, pc, bc, prefer=path, device="cpu")[0].encode()
+
+
+# -- the mesh path ---------------------------------------------------------------
+
+@pytest.mark.parametrize("n_parts,capacity", [(8, 16), (64, 331)])
+def test_mesh_merge_matches_its_plain_version(cuda, n_parts, capacity):
+    """mesh_merge against its plain version: every mergeable leaf kind, NaN,
+    +-0.0, +-inf and int64 wrap; with and without a carry, over the whole
+    width and a member's window; two runs bit-identical."""
+    from tikv_tpu_torch.copr import fused_mesh
+
+    prog, parts, table, carry = fx.mesh_merge_case(n_parts, 9, capacity, n_parts, cuda)
+    fa.reset_launches()
+    fx.mesh_merge_check(prog, parts, table)
+    half = capacity // 2
+    window = tuple(t[:, :, half:].contiguous() for t in carry)
+    fx.mesh_merge_check(prog, parts, table, window, half, capacity)
+    assert fa.LAUNCHES["mesh_merge"] == 4
+    with pytest.raises(ValueError):
+        fused_mesh.mesh_merge(prog, (parts[0].to(torch.int32), parts[1]), table)
+
+
+def test_an_eight_shard_mesh_on_one_card_matches_the_single_device_route(cuda):
+    """make_mesh(["cuda:0"] * 8): cold Q6 and Q1 through MeshServingRunner
+    (#16), the raw TopN through ShardedTopNEvaluator (#18, #19) and Q1 and
+    Q6 over region images through launch_xregion_sharded (#20), each equal
+    to its oracle and to the single-device route, mesh_merge launched."""
+    from tikv_tpu_torch.copr.torch_eval import launch_xregion_sharded, run_xregion_cached
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh([cuda] * 8, groups=2)
+    n = 150_000
+    kvs, a = fx.build_kvs(n, seed=14), fx.build_arrays(n, seed=14)
+    fa.reset_launches()
+    for dag, want in ((fx.q6_dag(), [fx.q6_oracle(a)]), (fx.q1_dag(), fx.q1_oracle(a))):
+        runner = pm.MeshServingRunner(dag_to_wire(dag), mesh, rows_per_shard=4096)
+        resp = runner.run(FixtureScanSource(kvs))
+        assert resp.iter_rows() == want
+        one = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device=cuda)
+        assert resp.encode() == one.run(FixtureScanSource(kvs)).encode()
+    assert fa.LAUNCHES["mesh_merge"] > 0
+    topn = pm.ShardedTopNEvaluator(dag_to_wire(fx.topn_dag(100)), pm.make_mesh([cuda] * 8),
+                                   1 << 13)
+    total = topn.total_rows
+    out = topn.finalize(topn.run_blocks([(fx.mesh_columns(a, s, min(s + total, n)),
+                                          min(total, n - s)) for s in range(0, n, total)]))
+    want = fx.topn_oracle(a, 100)
+    assert [r[0] for r in want] == list(out["gidx"]) == list(out["payload"][0][0])
+    regions = [c for _a, c in fx.region_caches([3, 1, 2, 4, 2], 1 << 15, seed=15,
+                                               two_flags=(1,))]
+    for dag in (fx.q1_dag(), fx.q6_dag()):
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 15, device=cuda)
+        got = launch_xregion_sharded(ev, regions, mesh).finalize()
+        assert [r.encode() for r in got] == [r.encode() for r in run_xregion_cached(ev, regions)]

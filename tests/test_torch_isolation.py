@@ -36,7 +36,8 @@ def test_port_modules_listed():
               "tikv_tpu_torch.copr.encoding", "tikv_tpu_torch.copr.zone_maps",
               "tikv_tpu_torch.copr.zone", "tikv_tpu_torch.copr.fused_zone",
               "tikv_tpu_torch.copr.fused_batch", "tikv_tpu_torch.copr.torch_join",
-              "tikv_tpu_torch.copr.fused_join"):
+              "tikv_tpu_torch.copr.fused_join", "tikv_tpu_torch.copr.fused_mesh",
+              "tikv_tpu_torch.parallel", "tikv_tpu_torch.parallel.mesh"):
         assert m in mods
 
 

@@ -357,12 +357,19 @@ def topn_step(prog: TopnProgram, cand: Image, pay: Image, carry=None, src_base: 
     ``carry`` is the previous step's ``(ints, flts, run)`` or None.  Returns
     the new ``(ints, flts, run)``: the plain versions for a CPU image, the
     CUDA kernels for a CUDA image."""
+    return topn_step_run(prog, cand, pay, carry, src_base)[:3]
+
+
+def topn_step_run(prog: TopnProgram, cand: Image, pay: Image, carry=None, src_base: int = 0):
+    """:func:`topn_step`, with the merged run before the pack as a fourth
+    value: its ``src`` word says where each winner came from (the carry's
+    slot below ``src_base``, else ``src_base`` + the image's flat row)."""
     if carry is not None and src_base < prog.k:
         raise ValueError("a carried step needs src_base >= k: the carry's src is its slot")
     extra = carry[2] if carry is not None else None
     if cand.device.type == "cpu":
         run = _merge_all(candidates_plain(prog, cand, src_base), extra, cuda=False)
-        return pack_plain(prog, run, pay, carry, src_base)
+        return (*pack_plain(prog, run, pay, carry, src_base), run)
     if cand.device.type != "cuda":
         raise ValueError(f"no topn_step for device {cand.device}")
     dev = cand.device
@@ -373,5 +380,5 @@ def topn_step(prog: TopnProgram, cand: Image, pay: Image, carry=None, src_base: 
            torch.empty((prog.n_f64, prog.k), dtype=torch.float64, device=dev))
     next_run = torch.empty((prog.n_words, prog.k), dtype=torch.int64, device=dev)
     launch_pack(prog, run, pay, carry, src_base, out, next_run)
-    return out[0], out[1], next_run
+    return out[0], out[1], next_run, run
 

@@ -1294,3 +1294,17 @@ def launch_xregion_cached(ev: TorchDagEvaluator, caches) -> XRegionPending:
 def run_xregion_cached(ev: TorchDagEvaluator, caches) -> list[SelectResponse]:
     """:func:`launch_xregion_cached`, then ``finalize``."""
     return launch_xregion_cached(ev, caches).finalize()
+
+
+def launch_xregion_sharded(ev: TorchDagEvaluator, caches, mesh) -> XRegionPending:
+    """The cross-region batch of :func:`launch_xregion_cached` spread over
+    every device of ``mesh`` (``jax_eval.launch_xregion_sharded``, program
+    #20), each region image, or each block of a lone block-spread image,
+    scanned on its owner device and the partial states merged by
+    ``mesh_merge``.  Implemented in ``parallel/mesh.py``; this keeps the
+    batch backends one import site.  ``ValueError`` on the declines of
+    :func:`launch_xregion_cached`, and for an aggregate with no mesh merge
+    rule."""
+    from ..parallel.mesh import launch_xregion_sharded as launch
+
+    return launch(ev, caches, mesh)

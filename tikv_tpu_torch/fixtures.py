@@ -11,7 +11,10 @@ data loaded in date order.  The numpy oracles compute each query's answer
 from the draws they are given alone, independently of any evaluator.
 :func:`join_caches` makes the probe and build images of ``bench.py``'s join
 event (``_op_join``), :func:`join_dag` its plan and :func:`join_oracle` its
-joined pairs.
+joined pairs.  :func:`numeric_table` is the all-numeric table of the JAX
+package's mesh tests, :func:`mesh_merge_case` synthetic inputs of the mesh
+merge and :func:`mesh_columns` the lineitem draws as the sharded
+evaluators' host columns.
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ from .copr.dag import (
     TopN,
 )
 from .copr.datatypes import NOT_NULL_FLAG, Chunk, Column, ColumnInfo, EvalType, FieldType
-from .copr.fused_agg import Image, compile_program
-from .copr.fused_group_agg import compile_group_program
+from .copr.fused_agg import NO_ROW, Image, compile_program
+from .copr.fused_group_agg import LEAF_TRACK, compile_group_program
 from .copr.rpn import call, col, compile_expr, const_decimal, const_int, const_real
 from .copr.table import RowBatchDecoder, encode_row, record_key
 from .util.codec import encode_i64_batch
@@ -1129,3 +1132,110 @@ def join_kernel_check(case: dict, device) -> dict:
     if out["join_rank_probe_matched"] != out["join_hash_probe_matched"]:
         raise AssertionError("the rank and hash probes match different rows")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh path (programs #16, #18, #19, #20)
+# ---------------------------------------------------------------------------
+
+NUMERIC_TABLE_ID = 42
+
+
+def numeric_table(n: int, seed: int = 0, table_id: int = NUMERIC_TABLE_ID):
+    """The all-numeric table of the JAX package's mesh tests (``id`` handle,
+    ``a`` int in [0, 1000), ``b`` int in [0, 100), ``c`` decimal(2) in [0,
+    1000.00)), drawn with numpy from ``seed`` as ``numeric_table_kvs`` draws
+    it: ``(schema, kvs, (a, b, c))``."""
+    rng = np.random.default_rng(seed)
+    schema = [ColumnInfo(1, FieldType.int64(), is_pk_handle=True),
+              ColumnInfo(2, FieldType.int64()), ColumnInfo(3, FieldType.int64()),
+              ColumnInfo(4, FieldType.decimal_type(2))]
+    a = rng.integers(0, 1000, n)
+    b = rng.integers(0, 100, n)
+    c = rng.integers(0, 100000, n)
+    kvs = [(record_key(table_id, i), encode_row(schema[1:], [int(a[i]), int(b[i]), int(c[i])]))
+           for i in range(n)]
+    return schema, kvs, (a, b, c)
+
+
+def mesh_merge_program():
+    """A grouped program whose state has every leaf kind a mesh plan can
+    hold (``first`` has no merge rule): the tracker, counts, int64 and f64
+    sums, var_pop's f64 sum of squares, int64 and f64 min and max, and the
+    three bitwise leaves."""
+    schema = [(EvalType.INT, 0), (EvalType.REAL, 0)]
+    aggs = [("count", None), ("sum", col(0)), ("sum", col(1)), ("var_pop", col(1)),
+            ("min", col(0)), ("max", col(0)), ("min", col(1)), ("max", col(1)),
+            ("bit_and", col(0)), ("bit_or", col(0)), ("bit_xor", col(0))]
+    agg_rpns = [(op, None if e is None else compile_expr(e, schema)) for op, e in aggs]
+    return compile_group_program([], agg_rpns, [0, 1], schema, None, track=True)
+
+
+def mesh_merge_case(n_parts: int, n_regions: int, capacity: int, seed: int, device):
+    """Synthetic inputs of ``mesh_merge``: :func:`mesh_merge_program`, its
+    stacked packed states ``(n_parts, n_int, C)`` / ``(n_parts, n_f64, C)``,
+    a table listing for each region a random subset of the parts in a random
+    order (padded with -1; one region lists none), and a carry ``(R, n_int,
+    C)`` / ``(R, n_f64, C)``.  Integers span the whole int64 range, so sums
+    wrap; f64 words hold NaN, +-0.0 and +-inf at the edges; trackers hold
+    row indices and ``NO_ROW``.  Drawn with numpy from ``seed``."""
+    prog = mesh_merge_program()
+    rng = np.random.default_rng(seed)
+
+    def states(n):
+        ints = rng.integers(-(1 << 63), (1 << 63) - 1, (n, prog.n_int, capacity),
+                            dtype=np.int64, endpoint=True)
+        ints[:, :, 0] = [-(1 << 63), (1 << 63) - 1][rng.integers(0, 2)]
+        flts = rng.standard_normal((n, prog.n_f64, capacity)) * 1e6
+        special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf])
+        pick = rng.random(flts.shape) < 0.05
+        flts[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+        flts[:, :, 1] = -0.0
+        flts[:, :, 2] = 0.0
+        for leaf in prog.leaves:
+            if leaf.kind == LEAF_TRACK:
+                rows = rng.integers(0, 1 << 40, (n, capacity))
+                ints[:, leaf.slot] = np.where(rng.random((n, capacity)) < 0.2, NO_ROW, rows)
+        return torch.from_numpy(ints).to(device), torch.from_numpy(flts).to(device)
+
+    parts = states(n_parts)
+    carry = states(n_regions)
+    lists = [list(rng.permutation(n_parts)[: rng.integers(1, n_parts + 1)])
+             for _ in range(n_regions)]
+    lists[-1] = []
+    width = max(len(p) for p in lists)
+    table = np.full((n_regions, width), -1, dtype=np.int32)
+    for r, p in enumerate(lists):
+        slots = np.sort(rng.permutation(width)[: len(p)])  # -1 entries between parts too
+        table[r, slots] = p
+    return prog, parts, torch.from_numpy(table).to(device), carry
+
+
+def mesh_columns(a: dict, start: int, end: int) -> dict:
+    """Rows ``[start, end)`` of the lineitem draws ``a`` as the sharded
+    evaluators' host columns, ``{column: (data, nulls)}``, for the columns of
+    :func:`topn_dag` (the handle and l_quantity .. l_shipdate)."""
+    nz = np.zeros(end - start, dtype=bool)
+    return {0: (np.arange(start, end, dtype=np.int64), nz), 1: (a["qty"][start:end], nz),
+            2: (a["price"][start:end], nz), 3: (a["disc"][start:end], nz),
+            4: (a["ship"][start:end], nz)}
+
+
+def mesh_merge_check(prog, parts, table, carry=None, lo: int = 0, hi: int | None = None,
+                     rel_tol: float = 1e-12) -> float:
+    """``mesh_merge`` on CUDA inputs beside its plain version on the same
+    inputs: integer words equal, f64 leaves to ``rel_tol`` (NaN equal to
+    NaN), and a second launch bit-identical.  Raises on a difference;
+    returns the largest absolute f64 difference."""
+    from .copr import fused_mesh
+
+    got = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi)
+    again = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi)
+    cpu = [tuple(t.cpu() for t in x) if x is not None else None for x in (parts, carry)]
+    want = fused_mesh.mesh_merge_plain(prog, cpu[0], table.cpu(), cpu[1], lo, hi)
+    if not torch.equal(got[0].cpu(), want[0]):
+        raise AssertionError("mesh_merge: integer words differ from the plain version")
+    if not (torch.equal(got[0], again[0])
+            and torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))):
+        raise AssertionError("mesh_merge: two runs differ")
+    return _f64_err(got[1].cpu(), want[1], rel_tol, "mesh_merge")
