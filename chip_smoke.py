@@ -115,6 +115,21 @@ misses, extreme keys and colliding slots, and on a 32M-row probe lane
 against 8M keys of 4 rows, then are timed at both shapes beside their
 bounds, their plain versions and ``torch.searchsorted``.
 
+After phase ``join``, phase ``mesh_grouped`` drives program #17, the group
+dictionary built on the card (``ShardedGroupedEvaluator``,
+``csrc/fused_dict.cu``: ``dict_keys``, ``dict_union``, ``dict_ids``; the
+carry remap in ``mesh_merge``), on eight shards of the card over
+10,000,000 lineitem rows (super-blocks of 8 x 131,072 rows, the last one
+partial), each case twice: Q1's grouped shape (GROUP BY l_returnflag,
+l_linestatus as INT codes) at G = 1 and 2, GROUP BY l_quantity,
+(l_quantity, l_linestatus) at 128 slots, l_quantity at 8 slots (the
+capacity flag) and at 5 bits a key (the range flag); each answer equal to
+its numpy oracle (or its flag), the two runs bit for bit, the first
+1,048,576 rows equal to the same evaluator on eight CPU shards; each
+dictionary kernel and ``mesh_merge`` with the remap at the path's inputs
+equal to its plain version, timed beside ``torch.unique`` and
+``torch.searchsorted``.
+
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
 REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
@@ -124,7 +139,9 @@ The launch counts in the kernels line are those of the main paths only: Q6
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
 top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
 for the batch kernels, phase ``join`` for the join probes, phase ``mesh``
-for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), each counted from
+for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), phase
+``mesh_grouped`` for the dictionary kernels (``mesh_grouped_launches`` of
+the reused ones), each counted from
 0 just before its path and read just after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
@@ -1246,11 +1263,12 @@ def capture_merge(fm_mod, run) -> tuple:
     seen = []
     launch = fm_mod.mesh_merge
 
-    def record(prog, parts, table, carry=None, lo=0, hi=None, out=None):
+    def record(prog, parts, table, carry=None, lo=0, hi=None, out=None, perm=None):
         if not seen:
             seen.append((prog, tuple(t.clone() for t in parts), table.clone(),
-                         None if carry is None else tuple(t.clone() for t in carry), lo, hi))
-        return launch(prog, parts, table, carry, lo, hi, out)
+                         None if carry is None else tuple(t.clone() for t in carry), lo, hi,
+                         None if perm is None else perm.clone()))
+        return launch(prog, parts, table, carry, lo, hi, out, perm)
 
     fm_mod.mesh_merge = record
     try:
@@ -1265,19 +1283,20 @@ def time_merge(fm_mod, case, iters: int) -> dict:
     version's ms on the same tensors, and the bound: each listed part's
     window read once, the carry read once, the output written once; one
     operation per listed part word."""
-    prog, parts, table, carry, lo, hi = case
+    prog, parts, table, carry, lo, hi, perm = case
     hi = parts[0].shape[2] if hi is None else hi
     width, leaves = hi - lo, prog.n_int + prog.n_f64
     n_regions = table.shape[0]
     out = (torch.empty((n_regions, prog.n_int, width), dtype=torch.int64, device=table.device),
            torch.empty((n_regions, prog.n_f64, width), dtype=torch.float64, device=table.device))
-    ms = cuda_ms(lambda: fm_mod.launch_mesh_merge(prog, parts, table, carry, lo, hi, out), iters)
-    plain_ms = cuda_ms(lambda: fm_mod.mesh_merge_plain(prog, parts, table, carry, lo, hi), 3,
-                       warmup=1)
+    ms = cuda_ms(lambda: fm_mod.launch_mesh_merge(prog, parts, table, carry, lo, hi, out, perm),
+                 iters)
+    plain_ms = cuda_ms(lambda: fm_mod.mesh_merge_plain(prog, parts, table, carry, lo, hi, perm),
+                       3, warmup=1)
     listed = int((table >= 0).sum())
     words = listed * leaves * width
     n_bytes = words * 8 + table.numel() * 4 + n_regions * leaves * width * 8 * (
-        2 if carry is not None else 1)
+        2 if carry is not None else 1) + (0 if perm is None else perm.numel() * 4)
     b_ms, b_by = bound(n_bytes, words)
     return {"parts": parts[0].shape[0], "regions": n_regions, "listed_parts": listed,
             "leaves": leaves, "slots": width, "carry": carry is not None, "ms": ms,
@@ -1512,6 +1531,269 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": mesh_launches, "merge": t_merge, "max_abs_err": max(errs.values()),
             "per_device": t_dev, "topn": t_topn}
+
+
+# ---------------------------------------------------------------------------
+# phase mesh_grouped: program #17, the group dictionary built on the card
+# ---------------------------------------------------------------------------
+
+MESH_GROUPED_ROWS = 10_000_000  # about ten ~96 MB lineitem regions
+MESH_GROUPED_RPS = 1 << 17  # eight shards: super-blocks of 1,048,576 rows
+MESH_GROUPED_CPU_ROWS = 1 << 20  # held to the same evaluator on eight CPU shards
+DICT_SRC = "tikv_tpu_torch/csrc/fused_dict.cu"
+DICT_KERNELS = ("dict_keys", "dict_union", "dict_ids")
+MESH_GROUPED_KERNELS = DICT_KERNELS + ("mesh_merge", "fused_group_agg_partials",
+                                       "fused_group_agg_combine_pack")
+# (case, GROUP BY, capacity, groups, key_bits, the flag word it must end with:
+# 1 a value past its lane, 2 more keys than slots)
+MESH_GROUPED_CASES = (
+    ("q1_g1", ("rf", "ls"), 64, 1, 31, 0),
+    ("q1_g2", ("rf", "ls"), 64, 2, 31, 0),
+    ("qty", ("qty",), 64, 1, 31, 0),
+    ("qty_ls", ("qty", "ls"), 128, 1, 31, 0),
+    ("qty_cap8", ("qty",), 8, 1, 31, 2),
+    ("qty_5bit", ("qty",), 64, 1, 5, 1),
+)
+
+
+def same_unpacked(a, b) -> bool:
+    """Two unpacked grouped states ``(dict, first, carries, overflow)`` bit
+    for bit (f64 leaves by their bits)."""
+    def bits(x):
+        x = np.asarray(x)
+        return x.view(np.int64) if x.dtype == np.float64 else x
+
+    leaves_a = [leaf for agg in a[2] for leaf in agg]
+    leaves_b = [leaf for agg in b[2] for leaf in agg]
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[3] == b[3]
+            and len(leaves_a) == len(leaves_b)
+            and all(np.array_equal(bits(x), bits(y)) for x, y in zip(leaves_a, leaves_b)))
+
+
+def check_unpacked(got, want, what: str) -> float:
+    """The card's unpacked grouped state against the CPU's: dictionary,
+    first rows, flag and integer leaves equal, f64 leaves to rel 1e-12.
+    Returns the largest absolute f64 difference."""
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and got[3] == want[3]):
+        raise AssertionError(f"{what}: dictionary, first rows or flag differ from the CPU's")
+    err = 0.0
+    for g_agg, w_agg in zip(got[2], want[2]):
+        for g, w in zip(g_agg, w_agg):
+            if np.asarray(w).dtype == np.float64:
+                err = max(err, compare_f64(torch.from_numpy(g), torch.from_numpy(w), what))
+            elif not np.array_equal(g, w):
+                raise AssertionError(f"{what}: an integer leaf differs from the CPU's")
+    return err
+
+
+def capture_dict(fd_mod, run) -> dict:
+    """The inputs of the first ``dict_keys``, shard union (with the carried
+    dictionary), global union and ``dict_ids`` (with the old dictionary)
+    calls that ``run`` makes: the main path's own shapes and values."""
+    seen = {}
+    fns = {n: getattr(fd_mod, n) for n in DICT_KERNELS}
+
+    def keys(prog, img, flag):
+        seen.setdefault("dict_keys", (prog, img))
+        return fns["dict_keys"](prog, img, flag)
+
+    def union(d, k, cap, flag, out=None):
+        seen.setdefault("dict_union" if d is not None else "dict_union_global", (d, k, cap))
+        return fns["dict_union"](d, k, cap, flag, out)
+
+    def ids(new, k, gids, old=None, perm=None):
+        if old is not None:
+            seen.setdefault("dict_ids", (new, k, old))
+        return fns["dict_ids"](new, k, gids, old, perm)
+
+    for n, fn in (("dict_keys", keys), ("dict_union", union), ("dict_ids", ids)):
+        setattr(fd_mod, n, fn)
+    try:
+        run()
+    finally:
+        for n, fn in fns.items():
+            setattr(fd_mod, n, fn)
+    return seen
+
+
+def time_dict(fx, fd, seen: dict) -> dict:
+    """Each dictionary kernel at its captured main-path inputs: its output
+    against its plain version on CPU copies (equal, integers), then its
+    CUDA-event ms, the plain version's ms on the same tensors, the torch
+    yardstick's (``torch.unique`` of the concatenation, cut to ``cap``;
+    ``torch.searchsorted``) and the bound: each input read once and each
+    output written once (the key kernel: the columns its walk reads)."""
+    out = {}
+    prog, img = seen["dict_keys"]
+    dev = img.device
+    rows = img.n_blocks * img.block_rows
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    keys = torch.empty(rows, dtype=torch.int64, device=dev)
+    fd.launch_keys(prog, img, keys, flag)
+    want, _bad = fd.dict_keys_plain(prog, fx.image_on(img, "cpu"))
+    if not torch.equal(keys.cpu(), want):
+        raise AssertionError("dict_keys: differs from its plain version at the path's shape")
+    b_ms, b_by = bound(image_bytes(img, rows) + rows * 8, rows * len(prog.code))
+    out["dict_keys"] = {
+        "rows": rows, "columns": len(img.cols),
+        "ms": cuda_ms(lambda: fd.launch_keys(prog, img, keys, flag), 50),
+        "plain_ms": cuda_ms(lambda: fd.dict_keys_plain(prog, img), 3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for name in ("dict_union", "dict_union_global"):
+        d, k, cap = seen[name]
+        res = torch.empty(cap, dtype=torch.int64, device=dev)
+        fd.launch_union(d, k, cap, flag, res)
+        want, _over = fd.dict_union_plain(None if d is None else d.cpu(), k.cpu(), cap)
+        if not torch.equal(res.cpu(), want):
+            raise AssertionError(f"{name}: differs from its plain version at the path's shape")
+        n = k.numel() + (0 if d is None else cap)
+        b_ms, b_by = bound(n * 8 + cap * 8, n)
+        out[name] = {
+            "keys": n, "capacity": cap, "passes": len(fd.union_passes(n, cap)),
+            "ms": cuda_ms(lambda: fd.launch_union(d, k, cap, flag, res), 50),
+            "plain_ms": cuda_ms(lambda: fd.dict_union_plain(d, k, cap), 3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.unique(torch.cat([d, k]) if d is not None
+                                                       else k, sorted=True)[:cap], 10)}
+    new, k, old = seen["dict_ids"]
+    cap, n = new.numel(), k.numel()
+    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    perm = torch.empty(cap, dtype=torch.int32, device=dev)
+    fd.launch_ids(new, k, gids, old, perm)
+    want_ids, want_perm = fd.dict_ids_plain(new.cpu(), k.cpu(), old.cpu())
+    if not (torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)):
+        raise AssertionError("dict_ids: differs from its plain version at the path's shape")
+    b_ms, b_by = bound(cap * 8 + n * 8 + n * 4 + cap * 12, (n + cap) * max(1, cap.bit_length()))
+    out["dict_ids"] = {
+        "keys": n, "capacity": cap,
+        "ms": cuda_ms(lambda: fd.launch_ids(new, k, gids, old, perm), 50),
+        "plain_ms": cuda_ms(lambda: fd.dict_ids_plain(new, k, old), 3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.searchsorted(new, k), 20)}
+    return out
+
+
+def phase_mesh_grouped(fx, card: str, device) -> dict:
+    """Program #17 on ``make_mesh(["cuda:0"] * 8, groups)``: the main path
+    (counted from 0) runs every case of :data:`MESH_GROUPED_CASES` twice
+    over 10,000,000 lineitem rows (super-blocks of 8 x 131,072 rows, the
+    last one partial) through ``ShardedGroupedEvaluator``; each answer
+    against its numpy oracle, or its overflow flag; the two runs bit for
+    bit; the first 1,048,576 rows against the same evaluator on eight CPU
+    shards; then each dictionary kernel and ``mesh_merge`` with the carry
+    remap at the path's inputs against its plain version, timed."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_mesh as fme
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    n = MESH_GROUPED_ROWS
+    a = fx.build_arrays(n, SEED)
+    oracles = {keys: fx.grouped_oracle(a, keys) for keys in {c[1] for c in MESH_GROUPED_CASES}}
+    meshes = {g: pm.make_mesh([device] * MESH_SHARDS, groups=g) for g in (1, 2)}
+    evs, blocks = {}, {}
+    for name, keys, cap, g, bits, _flag in MESH_GROUPED_CASES:
+        ev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.grouped_dag(keys)), meshes[g],
+                                        MESH_GROUPED_RPS, capacity=cap, key_bits=bits)
+        total = ev.total_rows
+        if total not in blocks:
+            blocks[total] = [(fx.grouped_columns(a, s, min(s + total, n)), min(total, n - s))
+                             for s in range(0, n, total)]
+        evs[name] = ev
+    t_setup = time.perf_counter() - t_phase
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # ---- the main path: counts from 0 here to its end ------------------------
+    fa.reset_launches()
+    results = {}
+    for name, keys, cap, g, bits, want_flag in MESH_GROUPED_CASES:
+        ev = evs[name]
+        bl = blocks[ev.total_rows]
+        runs, step_s, request_s, before = [], [], [], dict(fa.LAUNCHES)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, s = timed(lambda: ev.run_blocks(bl))
+            runs.append(ev.unpack(state))
+            fin = ev.finalize(state)
+            request_s.append(time.perf_counter() - t0)
+            step_s.append(s)
+            word = int(state[2].item())
+            if word != want_flag:
+                raise AssertionError(f"mesh_grouped {name}: flag {word}, want {want_flag}")
+            if not want_flag:
+                want = oracles[keys]
+                if not (np.array_equal(fin["keys"], want["keys"])
+                        and np.array_equal(fin["first"], want["first"])
+                        and all(np.array_equal(x, y) for ga_, wa in zip(fin["aggs"], want["aggs"])
+                                for x, y in zip(ga_, wa))):
+                    raise AssertionError(f"mesh_grouped {name}: differs from the oracle")
+        if not same_unpacked(*runs):
+            raise AssertionError(f"mesh_grouped {name}: two runs differ")
+        results[name] = {
+            "group_by": list(keys), "capacity": cap, "groups": g, "key_bits": bits,
+            "flag": want_flag, "live_groups": int((runs[0][0] < fd.SENTINEL).sum()),
+            "super_blocks": len(bl), "super_block_rows": ev.total_rows,
+            "request_s": request_s, "step_s": step_s,
+            "s_per_super_block": min(step_s) / len(bl),
+            "launches_per_request": {k: (fa.LAUNCHES[k] - before[k]) / 2
+                                     for k in MESH_GROUPED_KERNELS}}
+    launches = dict(fa.LAUNCHES)
+    # ---- end of the main path ----------------------------------------------------
+    for k in MESH_GROUPED_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the mesh_grouped main path")
+    # the first 1,048,576 rows on the card against eight CPU shards
+    cpu_err, t_cpu = {}, time.perf_counter()
+    for name in ("q1_g1", "q1_g2", "qty_ls"):
+        ev = evs[name]
+        head = blocks[ev.total_rows][: MESH_GROUPED_CPU_ROWS // ev.total_rows]
+        cpu = pm.ShardedGroupedEvaluator(
+            dag_to_wire(fx.grouped_dag(results[name]["group_by"])),
+            pm.make_mesh(["cpu"] * MESH_SHARDS, groups=results[name]["groups"]),
+            MESH_GROUPED_RPS, capacity=ev.capacity, key_bits=ev.key_bits)
+        cpu_err[name] = check_unpacked(ev.unpack(ev.run_blocks(head)),
+                                       cpu.unpack(cpu.run_blocks(head)), f"mesh_grouped {name}")
+    t_cpu = time.perf_counter() - t_cpu
+    # the kernels at the path's own inputs: Q1 at G = 1, its second
+    # super-block (a carried dictionary, a carry to move)
+    q1 = evs["q1_g1"]
+    two = blocks[q1.total_rows][:2]
+    state = q1.step(*_block_args(q1, two[0]), q1.init_state())
+    seen = capture_dict(fd, lambda: q1.step(*_block_args(q1, two[1]), state,
+                                            block_base=q1.total_rows))
+    t_dict = time_dict(fx, fd, seen)
+    state = q1.step(*_block_args(q1, two[0]), q1.init_state())
+    merge_case = capture_merge(fme, lambda: q1.step(*_block_args(q1, two[1]), state,
+                                                    block_base=q1.total_rows))
+    merge_err = fx.mesh_merge_check(*merge_case)
+    t_merge = time_merge(fme, merge_case, 50)
+    emit({"phase": "mesh_grouped", "card": card, "rows": n, "shards": MESH_SHARDS,
+          "rows_per_shard": MESH_GROUPED_RPS, "matches_oracle": True,
+          "bit_identical_reruns": True, "cases": results})
+    emit({"phase": "mesh_grouped", "case": "kernels", "card": card,
+          "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
+          "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
+          "kernels": t_dict, "mesh_merge_remap": t_merge, "launches": launches,
+          "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "kernels": t_dict, "merge": t_merge,
+            "max_abs_err": max([merge_err, *cpu_err.values()])}
+
+
+def _block_args(ev, block):
+    """``ShardedGroupedEvaluator.step``'s leading arguments (data, nulls,
+    n_valid) for one of the phase's super-blocks."""
+    columns, n_valid = block
+    return ([columns[i][0] for i in ev.ship_cols], [columns[i][1] for i in ev.nullable_cols],
+            n_valid)
 
 
 def main() -> int:
@@ -2110,6 +2392,9 @@ def main() -> int:
     # ---- phase join: programs #14 and #15 (its own main path) -----------------
     jn = phase_join(fx, card, device)
 
+    # ---- phase mesh_grouped: program #17 (its own main path) ------------------
+    mg = phase_mesh_grouped(fx, card, device)
+
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
                  "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
@@ -2119,6 +2404,7 @@ def main() -> int:
     main_path.update(dict.fromkeys(BATCH_KERNELS, bt["launches"]))
     main_path.update(dict.fromkeys(JOIN_KERNELS, jn["launches"]))
     main_path["mesh_merge"] = mesh_out["launches"]
+    main_path.update(dict.fromkeys(DICT_KERNELS, mg["launches"]))
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -2272,10 +2558,31 @@ def main() -> int:
         "launches": mesh_out["launches"]["mesh_merge"], "max_abs_err": mesh_out["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None, "shapes": mesh_out["merge"]})
-    # the reused kernels' launches on the mesh main path
+    # the group dictionary's kernels at the path's inputs (Q1 at G = 1, a
+    # shard's 131,072 rows; the shard union with the carried dictionary, the
+    # global union of the gathered ones beside it)
+    for name, replaces, also in (
+            ("dict_keys", "tikv_tpu/parallel/mesh.py:366", ["tikv_tpu/copr/rpn.py:216"]),
+            ("dict_union", "tikv_tpu/parallel/mesh.py:378", ["tikv_tpu/parallel/mesh.py:388"]),
+            ("dict_ids", "tikv_tpu/parallel/mesh.py:407", ["tikv_tpu/parallel/mesh.py:413"])):
+        t = mg["kernels"][name]
+        entry = {"name": name, "route": "cuda", "source": DICT_SRC, "replaces": replaces,
+                 "replaces_also": also, "launches": mg["launches"][name], "max_abs_err": 0.0,
+                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t}
+        if name == "dict_union":
+            entry["global"] = mg["kernels"]["dict_union_global"]
+        kernels.append(entry)
+    # the reused kernels' launches on the mesh main paths; mesh_merge with
+    # the carry remap at the grouped path's shape
     for entry in kernels:
         if entry["name"] in MESH_KERNELS:
             entry["mesh_launches"] = mesh_out["launches"][entry["name"]]
+        if entry["name"] in MESH_GROUPED_KERNELS and entry["name"] not in DICT_KERNELS:
+            entry["mesh_grouped_launches"] = mg["launches"][entry["name"]]
+        if entry["name"] == "mesh_merge":
+            entry["remap"] = mg["merge"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], mg["max_abs_err"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

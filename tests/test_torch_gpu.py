@@ -321,10 +321,13 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
     # every kernel these warm plans run launched; the batch kernels serve
     # batches only (test_batches_match_the_unary_route_and_the_oracles), the
     # join probes joins only (test_join_kernels_match_their_plain_versions),
-    # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version)
+    # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version),
+    # the dictionary kernels the mesh's device-built group dictionary only
+    # (test_dictionary_kernels_match_their_plain_versions)
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
-                                     "join_rank_probe", "join_hash_probe", "mesh_merge"), name
+                                     "join_rank_probe", "join_hash_probe", "mesh_merge",
+                                     "dict_keys", "dict_union", "dict_ids"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -557,3 +560,69 @@ def test_an_eight_shard_mesh_on_one_card_matches_the_single_device_route(cuda):
         ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 15, device=cuda)
         got = launch_xregion_sharded(ev, regions, mesh).finalize()
         assert [r.encode() for r in got] == [r.encode() for r in run_xregion_cached(ev, regions)]
+
+
+# -- the device-built group dictionary (program #17) --------------------------------
+
+@pytest.mark.parametrize("cap,distinct,bad", [(8, 1, False), (8, 50, False), (64, 15, False),
+                                              (64, 15, True), (4096, 1000, False),
+                                              (4096, 3000, False)])
+def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad):
+    """dict_keys, dict_union and dict_ids against their plain versions over
+    200,000 rows (NULL keys, a REAL key, rows past n_valid) and a dictionary
+    that grows from the first half's keys to all of them; a full dictionary,
+    overflow and out-of-range keys; two runs bit-identical; then mesh_merge
+    moving a carry through a perm at the same capacity."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_mesh
+
+    n = 200_000
+    prog, img, old = fx.dict_case(n, cap, distinct, cap + distinct, cuda, bad)
+    fa.reset_launches()
+    out = fx.dict_kernel_check(prog, img, old, cap)
+    assert bool(out["flag"] & fd.FLAG_RANGE) == bad
+    if not bad:  # (distinct + NULL) x 4 truncated REAL values
+        assert bool(out["flag"] & fd.FLAG_CAPACITY) == ((distinct + 1) * 4 > cap)
+    assert fa.LAUNCHES["dict_keys"] == fa.LAUNCHES["dict_ids"] == 2
+    assert fa.LAUNCHES["dict_union"] == 2 * len(fd.union_passes(n + cap, cap))
+    mprog, parts, table, carry = fx.mesh_merge_case(8, 1, cap, cap, cuda)
+    fx.mesh_merge_check(mprog, parts, table, carry, perm=fx.merge_perm(cap, cap, cuda))
+    with pytest.raises(ValueError):  # the carry may not be the output with a perm
+        fused_mesh.mesh_merge(mprog, parts, table, carry, out=carry,
+                              perm=fx.merge_perm(cap, cap, cuda))
+
+
+def test_sharded_grouped_evaluator_on_the_card(cuda):
+    """ShardedGroupedEvaluator on make_mesh(["cuda:0"] * 8): Q1's grouped
+    shape at G = 2 and (quantity, linestatus) at G = 1, each equal to the
+    same evaluator on eight CPU shards and to the oracle, twice bit for bit;
+    every dictionary kernel launched."""
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    n = 300_000
+    a = fx.build_arrays(n, seed=16)
+    for keys, cap, groups in ((("rf", "ls"), 64, 2), (("qty", "ls"), 128, 1)):
+        wire = dag_to_wire(fx.grouped_dag(keys))
+        card, cpu = (pm.ShardedGroupedEvaluator(wire, pm.make_mesh([d] * 8, groups), 8192,
+                                                capacity=cap) for d in (cuda, "cpu"))
+        total = card.total_rows
+        blocks = [(fx.grouped_columns(a, s, min(s + total, n)), min(total, n - s))
+                  for s in range(0, n, total)]
+        fa.reset_launches()
+        runs = [card.unpack(card.run_blocks(blocks)) for _ in range(2)]
+        for name in ("dict_keys", "dict_union", "dict_ids", "mesh_merge"):
+            assert fa.LAUNCHES[name] > 0, name
+        want = cpu.unpack(cpu.run_blocks(blocks))
+        for got in runs:
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            for g_agg, w_agg in zip(got[2], want[2]):
+                for g, w in zip(g_agg, w_agg):
+                    np.testing.assert_array_equal(g, w)
+            assert got[3] == want[3] is False
+        fin, oracle = card.finalize(card.run_blocks(blocks)), fx.grouped_oracle(a, keys)
+        np.testing.assert_array_equal(fin["keys"], oracle["keys"])
+        np.testing.assert_array_equal(fin["first"], oracle["first"])
+        for g_agg, w_agg in zip(fin["aggs"], oracle["aggs"]):
+            for g, w in zip(g_agg, w_agg):
+                np.testing.assert_array_equal(g, w)

@@ -1,0 +1,402 @@
+"""The group dictionary built on the devices: key program, plain versions, CUDA launchers.
+
+It replaces the dictionary half of the JAX package's program
+``mesh.grouped_step`` (``parallel/mesh.py:ShardedGroupedEvaluator._build_step``)
+with three kernels of ``csrc/fused_dict.cu``:
+
+* ``dict_keys`` (``mesh.py:366-377``): the selection and the group
+  expressions per row through the bytecode walk (``compile_key_program``:
+  :func:`fused_agg.emit_program` with the conjuncts, then one OP_KEY per
+  group expression), each value packed into one int64 key, ``key = (key <<
+  key_bits) | (lane & lane_max)`` with ``lane_max = 2^key_bits - 1``; a
+  NULL packs as ``lane_max``, a REAL value truncates toward zero, an active
+  non-NULL value outside ``[0, lane_max)`` sets :data:`FLAG_RANGE`, an
+  inactive row (selection false, or past ``n_valid``) is :data:`SENTINEL`.
+* ``dict_union`` (``:378-406``): the ``cap`` smallest distinct non-sentinel
+  keys of (sorted dictionary ++ keys), sorted and padded with the
+  sentinel; :data:`FLAG_CAPACITY` when there are more.  It runs in passes:
+  each tile of ``union_tile(cap)`` keys keeps its first ``cap`` distinct
+  keys, and the tiles' lists are the next pass's keys, until one tile is
+  left (``csrc/fused_dict.cu`` says why that is exact).
+* ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
+  1)`` per row into an image's ``gids`` lane; with the old dictionary,
+  ``perm`` (``searchsorted(new_dict, old_key)``, ``cap`` for a sentinel
+  slot) in the same launch.
+
+Each has a plain PyTorch version here, which the wrappers take for CPU
+tensors; on a CUDA tensor a wrapper launches its kernel or raises.  The
+flag is an int32 ``[1]`` tensor the kernels OR their bits into, so it stays
+on the device until the caller reads it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from .datatypes import EvalType
+from .fused_agg import (
+    LAUNCHES,
+    MAX_CODE,
+    MAX_COLS,
+    MAX_CONSTS,
+    Image,
+    Unsupported,
+    _Enc,
+    check_columns,
+    emit_keys,
+    emit_program,
+    set_columns,
+    walk_rows,
+)
+
+SENTINEL = 1 << 62  # an empty dictionary slot; sorts after every key
+FLAG_RANGE = 1  # a group value outside [0, lane_max)
+FLAG_CAPACITY = 2  # more distinct keys than the dictionary's slots
+TILE_MIN = 4096
+TILE_MAX = 16384  # 128 KB of int64 keys in a block's shared memory
+CAP_MAX = TILE_MAX // 2
+_I64_MIN = -(1 << 63)
+
+
+@dataclass(frozen=True)
+class KeyProgram:
+    code: tuple[int, ...]
+    consts: tuple[int, ...]
+    col_f64: tuple[bool, ...]  # per shipped column slot
+    key_f64: tuple[bool, ...]  # per group expression: its value lane is f64
+    key_bits: int
+
+    @property
+    def lane_max(self) -> int:
+        return (1 << self.key_bits) - 1
+
+
+def compile_key_program(sel_rpns, key_rpns, ship_cols, schema, key_bits: int) -> KeyProgram:
+    """The conjuncts ``sel_rpns``, then one OP_KEY per group expression of
+    ``key_rpns``, over the shipped columns ``ship_cols`` (schema indices,
+    in slot order).  ``ValueError`` when the keys do not pack into 62 bits."""
+    if key_bits < 0 or len(key_rpns) * key_bits > 62:
+        raise ValueError(f"{len(key_rpns)} group keys x {key_bits} bits "
+                         "overflow the packed int64 key")
+    em, _ = emit_program(sel_rpns, [], ship_cols, schema)
+    key_f64 = emit_keys(em, key_rpns)
+    col_f64 = tuple(schema[c][0] == EvalType.REAL for c in ship_cols)
+    return KeyProgram(tuple(em.code), tuple(em.consts), col_f64, tuple(key_f64), key_bits)
+
+
+def check_capacity(cap: int) -> None:
+    """``Unsupported`` (``dict_capacity_not_ported``) past the largest
+    dictionary a union tile holds twice over."""
+    if not 1 <= cap <= CAP_MAX:
+        raise Unsupported(f"a group dictionary of {cap} slots (at most {CAP_MAX})",
+                          "dict_capacity_not_ported")
+
+
+def union_tile(cap: int) -> int:
+    """Keys a ``dict_union`` block sorts: a power of two, at least
+    ``TILE_MIN`` and twice ``cap``, so that each pass halves the keys."""
+    check_capacity(cap)
+    tile = TILE_MIN
+    while tile < 2 * cap:
+        tile *= 2
+    return tile
+
+
+def union_passes(n: int, cap: int) -> list[int]:
+    """The keys each ``dict_union`` pass reads for ``n`` keys at ``cap``
+    slots (one launch a pass)."""
+    tile = union_tile(cap)
+    out = [n]
+    while n > tile:
+        n = -(-n // tile) * cap
+        out.append(n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _truncate(v: torch.Tensor) -> torch.Tensor:
+    """f64 to int64 as numpy's ``astype(int64)`` on x86: toward zero,
+    INT64_MIN for NaN and outside the int64 range."""
+    ok = (v >= -2.0 ** 63) & (v < 2.0 ** 63)
+    return torch.where(ok, torch.where(ok, v, 0.0).to(torch.int64), _I64_MIN)
+
+
+def dict_keys_plain(prog: KeyProgram, img: Image) -> tuple[torch.Tensor, bool]:
+    """Plain version of ``dict_keys``: int64 keys ``[n_blocks * block_rows]``
+    and whether an active row's value fell outside ``[0, lane_max)``."""
+    vals: list = [None] * len(prog.key_f64)
+    _outs, active = walk_rows(prog, img, 0, vals)
+    lane_max = prog.lane_max
+    key = torch.zeros_like(active, dtype=torch.int64)
+    bad = torch.zeros_like(active)
+    for (v, nl), is_f in zip(vals, prog.key_f64):
+        v, nl = v.reshape(-1), nl.reshape(-1)
+        if is_f:
+            v = _truncate(v)
+        bad |= ~nl & ((v < 0) | (v >= lane_max))
+        key = (key << prog.key_bits) | (torch.where(nl, lane_max, v) & lane_max)
+    return torch.where(active, key, SENTINEL), bool((active & bad).any())
+
+
+def union_pass_plain(keys: torch.Tensor, cap: int, tile: int) -> tuple[torch.Tensor, bool]:
+    """One pass of ``dict_union``: per tile of ``tile`` keys (the last one
+    padded with the sentinel), its first ``cap`` distinct non-sentinel keys
+    sorted and padded, ``[tiles, cap]``; and whether a tile held more."""
+    n = keys.numel()
+    tiles = max(1, -(-n // tile))
+    pad = torch.full((tiles * tile - n,), SENTINEL, dtype=torch.int64, device=keys.device)
+    s = torch.sort(torch.cat([keys, pad]).view(tiles, tile), dim=1).values
+    first = torch.ones((tiles, 1), dtype=torch.bool, device=keys.device)
+    fresh = (s < SENTINEL) & torch.cat([first, s[:, 1:] != s[:, :-1]], dim=1)
+    rank = torch.cumsum(fresh, dim=1) - 1
+    out = torch.full((tiles, cap), SENTINEL, dtype=torch.int64, device=keys.device)
+    rows, cols = torch.nonzero(fresh & (rank < cap), as_tuple=True)
+    out[rows, rank[rows, cols]] = s[rows, cols]
+    return out, bool((fresh.sum(dim=1) > cap).any())
+
+
+def dict_union_plain(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
+                     tile: int | None = None) -> tuple[torch.Tensor, bool]:
+    """Plain version of ``dict_union``, pass by pass as the kernel runs
+    (tiles of ``union_tile(cap)`` keys, or ``tile``, at least ``2 * cap``):
+    ``[cap]`` and whether there are more than ``cap`` distinct keys."""
+    tile = union_tile(cap) if tile is None else tile
+    if tile < 2 * cap:
+        raise ValueError(f"a union tile of {tile} keys cannot halve {cap}-key lists")
+    x = keys if dict_keys is None else torch.cat([dict_keys, keys])
+    over = False
+    while True:
+        out, o = union_pass_plain(x, cap, tile)
+        over = over or o
+        if out.shape[0] == 1:
+            return out[0], over
+        x = out.reshape(-1)
+
+
+def dict_ids_plain(new_dict: torch.Tensor, keys: torch.Tensor, old: torch.Tensor | None = None):
+    """Plain version of ``dict_ids``: int32 ids ``clip(searchsorted(new_dict,
+    keys), 0, cap - 1)``, and with ``old`` the int32 ``perm`` of its slots
+    (``cap`` for a sentinel slot), else None."""
+    cap = new_dict.numel()
+    ids = torch.searchsorted(new_dict, keys).clamp(0, cap - 1).to(torch.int32)
+    if old is None:
+        return ids, None
+    perm = torch.where(old < SENTINEL, torch.searchsorted(new_dict, old), cap)
+    return ids, perm.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers
+# ---------------------------------------------------------------------------
+
+class _DkParams(ctypes.Structure):
+    """``DkParams`` of csrc/fused_dict.cu, passed to the kernel by value."""
+
+    _fields_ = [
+        ("col", ctypes.c_uint64 * MAX_COLS),
+        ("nul", ctypes.c_uint64 * MAX_COLS),
+        ("enc", _Enc),
+        ("n_valids", ctypes.c_uint64),
+        ("keys", ctypes.c_uint64),
+        ("flag", ctypes.c_uint64),
+        ("n_valid_all", ctypes.c_int64),
+        ("n_blocks", ctypes.c_int64),
+        ("block_rows", ctypes.c_int64),
+        ("key_f64", ctypes.c_uint64),
+        ("consts", ctypes.c_int64 * MAX_CONSTS),
+        ("code", ctypes.c_int32 * MAX_CODE),
+        ("n_code", ctypes.c_int32),
+        ("n_cols", ctypes.c_int32),
+        ("key_bits", ctypes.c_int32),
+    ]
+
+
+_lib = None
+
+
+def kernels():
+    """The built ``fused_dict`` library, its C signatures declared and its
+    parameter block's layout and limits checked."""
+    global _lib
+    if _lib is None:
+        from .. import _build
+
+        lib = _build.load("fused_dict")
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dk_params_size.restype = ci
+        lib.du_tile_max.restype = ci
+        lib.dk_sentinel.restype = cll
+        lib.dk_launch.argtypes = [vp, vp]
+        lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp]
+        lib.di_launch.argtypes = [vp, ci, vp, cll, vp, vp, vp, vp]
+        for fn in ("dk_launch", "du_launch", "di_launch"):
+            getattr(lib, fn).restype = ci
+        if lib.dk_params_size() != ctypes.sizeof(_DkParams):
+            raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
+                               f"wrapper {ctypes.sizeof(_DkParams)}")
+        if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL:
+            raise RuntimeError("fused_dict.cu's limits differ from the wrapper's")
+        _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, dtype, shape, dev, what: str) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{what}: need contiguous {dtype} {tuple(shape)} on {dev}")
+
+
+def _launched(name: str, rc: int) -> None:
+    LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_keys(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Tensor) -> None:
+    """Launch ``dict_keys`` into ``out`` (int64 ``[n_blocks * block_rows]``),
+    ORing :data:`FLAG_RANGE` into ``flag`` (int32 ``[1]``)."""
+    check_columns(prog.col_f64, img)
+    dev = img.device
+    _check(out, torch.int64, (img.n_blocks * img.block_rows,), dev, "keys")
+    _check(flag, torch.int32, (1,), dev, "flag")
+    p = _DkParams()
+    set_columns(p, img)
+    if isinstance(img.n_valids, int):
+        p.n_valids, p.n_valid_all = 0, img.n_valids
+    else:
+        p.n_valids = img.n_valids.data_ptr()
+    p.keys, p.flag = out.data_ptr(), flag.data_ptr()
+    p.n_blocks, p.block_rows = img.n_blocks, img.block_rows
+    p.key_f64 = sum(int(f) << q for q, f in enumerate(prog.key_f64))
+    p.consts[: len(prog.consts)] = prog.consts
+    p.code[: len(prog.code)] = prog.code
+    p.n_code, p.n_cols, p.key_bits = len(prog.code), len(prog.col_f64), prog.key_bits
+    lib = kernels()
+    with torch.cuda.device(dev):
+        rc = lib.dk_launch(ctypes.byref(p), _stream(dev))
+    _launched("dict_keys", rc)
+
+
+def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
+                 flag: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch ``dict_union`` pass by pass into ``out`` (int64 ``[cap]``),
+    ORing :data:`FLAG_CAPACITY` into ``flag``; the passes' lists live in
+    scratch tensors allocated here."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"dict_union needs CUDA tensors, got {dev}")
+    _check(keys, torch.int64, (keys.numel(),), dev, "keys")
+    if dict_keys is not None:
+        _check(dict_keys, torch.int64, (cap,), dev, "dictionary")
+    _check(flag, torch.int32, (1,), dev, "flag")
+    _check(out, torch.int64, (cap,), dev, "union")
+    tile = union_tile(cap)
+    lib = kernels()
+    d, n_d = dict_keys, 0 if dict_keys is None else cap
+    x = keys
+    with torch.cuda.device(dev):
+        while True:
+            n = n_d + x.numel()
+            tiles = max(1, -(-n // tile))
+            dst = out if tiles == 1 else torch.empty(tiles * cap, dtype=torch.int64, device=dev)
+            rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
+                               dst.data_ptr(), flag.data_ptr(), cap, tile, _stream(dev))
+            _launched("dict_union", rc)
+            if tiles == 1:
+                return
+            d, n_d, x = None, 0, dst
+
+
+def launch_ids(new_dict: torch.Tensor, keys: torch.Tensor, gids: torch.Tensor,
+               old: torch.Tensor | None = None, perm: torch.Tensor | None = None) -> None:
+    """Launch ``dict_ids``: int32 ``gids`` (``keys``' shape) and, with the
+    old dictionary ``old``, int32 ``perm`` ``[cap]``."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"dict_ids needs CUDA tensors, got {dev}")
+    cap = new_dict.numel()
+    check_capacity(cap)
+    _check(new_dict, torch.int64, (cap,), dev, "dictionary")
+    _check(keys, torch.int64, (keys.numel(),), dev, "keys")
+    _check(gids, torch.int32, (keys.numel(),), dev, "gids")
+    if (old is None) != (perm is None):
+        raise ValueError("dict_ids: the old dictionary and perm come together")
+    if old is not None:
+        _check(old, torch.int64, (cap,), dev, "old dictionary")
+        _check(perm, torch.int32, (cap,), dev, "perm")
+    lib = kernels()
+    with torch.cuda.device(dev):
+        rc = lib.di_launch(new_dict.data_ptr(), cap, keys.data_ptr(), keys.numel(),
+                           gids.data_ptr(), None if old is None else old.data_ptr(),
+                           None if perm is None else perm.data_ptr(), _stream(dev))
+    _launched("dict_ids", rc)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers: plain version for CPU tensors, the kernel for CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _device(t: torch.Tensor, what: str):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {t.device}")
+    return t.device
+
+
+def dict_keys(prog: KeyProgram, img: Image, flag: torch.Tensor) -> torch.Tensor:
+    """The image's packed keys, int64 ``[n_blocks * block_rows]``;
+    :data:`FLAG_RANGE` ORed into ``flag`` (int32 ``[1]`` on the image's
+    device) when a value falls outside its lane."""
+    dev = img.device
+    if dev.type == "cpu":
+        keys, bad = dict_keys_plain(prog, img)
+        if bad:
+            flag |= FLAG_RANGE
+        return keys
+    if dev.type != "cuda":
+        raise ValueError(f"no dict_keys for device {dev}")
+    out = torch.empty(img.n_blocks * img.block_rows, dtype=torch.int64, device=dev)
+    launch_keys(prog, img, out, flag)
+    return out
+
+
+def dict_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
+               flag: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``cap`` smallest distinct non-sentinel keys of ``dict_keys``
+    (a sorted dictionary ``[cap]``, or None) and ``keys``, sorted and padded
+    with :data:`SENTINEL`, in ``out`` (allocated when None);
+    :data:`FLAG_CAPACITY` ORed into ``flag`` when there are more."""
+    dev = _device(keys, "dict_union")
+    if out is None:
+        out = torch.empty(cap, dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        res, over = dict_union_plain(dict_keys, keys, cap)
+        out.copy_(res)
+        if over:
+            flag |= FLAG_CAPACITY
+        return out
+    launch_union(dict_keys, keys, cap, flag, out)
+    return out
+
+
+def dict_ids(new_dict: torch.Tensor, keys: torch.Tensor, gids: torch.Tensor,
+             old: torch.Tensor | None = None, perm: torch.Tensor | None = None) -> None:
+    """Write the keys' group ids into ``gids`` (int32, ``keys``' shape) and,
+    with the old dictionary ``old``, its slots' positions in ``new_dict``
+    into ``perm`` (int32 ``[cap]``)."""
+    if _device(keys, "dict_ids").type == "cpu":
+        ids, p = dict_ids_plain(new_dict, keys, old)
+        gids.copy_(ids)
+        if perm is not None:
+            perm.copy_(p)
+        return
+    launch_ids(new_dict, keys, gids, old, perm)

@@ -18,7 +18,12 @@ order, -1 for an empty entry.
 
 The output holds the slot window ``[lo, hi)`` of every region:
 ``(R, n_int, hi - lo)`` and ``(R, n_f64, hi - lo)``; a carry has the
-output's shape and may be the output itself.  ``first``'s value leaf has no
+output's shape and may be the output itself.  With ``perm`` (int32
+``[C]``, nondecreasing; the whole window only) the carry's slot ``i`` goes
+to slot ``perm[i]`` (dropped at ``perm[i] >= C``), a slot that no carry slot
+moves to starting from its identity: the remap of ``mesh.grouped_step``
+(``mesh.py:413-433``) when new keys reshuffle the sorted group dictionary;
+the output may then not be the carry.  ``first``'s value leaf has no
 merge rule (its carry is a paired argmin): :func:`check_mergeable` refuses
 a program that holds it, as the JAX package's ``_require_mesh_mergeable``
 refuses the plan.
@@ -63,13 +68,36 @@ def _window(parts, lo: int, hi) -> tuple[int, int]:
     return lo, hi
 
 
+def _check_perm(perm, lo: int, hi: int, cap: int, dev) -> None:
+    if perm is None:
+        return
+    if (lo, hi) != (0, cap):
+        raise ValueError("perm: the carry remap takes the whole slot window")
+    if perm.device != dev or perm.dtype != torch.int32 or tuple(perm.shape) != (cap,) \
+            or not perm.is_contiguous():
+        raise ValueError(f"perm: need contiguous int32 ({cap},) on {dev}")
+
+
+def _carry_slots(perm: torch.Tensor) -> torch.Tensor:
+    """Per output slot, the first carry slot that ``perm`` moves to it, or
+    ``C`` for none."""
+    cap = perm.numel()
+    src = torch.full((cap + 1,), cap, dtype=torch.int64, device=perm.device)
+    dst = perm.to(torch.int64).clamp(max=cap)  # a dropped slot lands on the spare entry
+    src.scatter_reduce_(0, dst, torch.arange(cap, device=perm.device), "amin")
+    return src[:cap]
+
+
 def mesh_merge_plain(prog: GroupProgram, parts, table: torch.Tensor, carry=None, lo: int = 0,
-                     hi: int | None = None):
+                     hi: int | None = None, perm: torch.Tensor | None = None):
     """Plain version of ``mesh_merge``: ``(R, n_int, hi - lo)`` int64 and
     ``(R, n_f64, hi - lo)`` f64, each region's parts folded in the table's
-    order from the identity, then ``_merge(carry, folded)``."""
+    order from the identity, then ``_merge(carry, folded)`` (the carry
+    remapped through ``perm`` first)."""
     check_mergeable(prog)
     lo, hi = _window(parts, lo, hi)
+    _check_perm(perm, lo, hi, parts[0].shape[2], table.device)
+    moved = None if perm is None or carry is None else _carry_slots(perm)
     n_regions = table.shape[0]
     listed = table >= 0
     rows = table.clamp(min=0).to(torch.int64)
@@ -84,7 +112,11 @@ def mesh_merge_plain(prog: GroupProgram, parts, table: torch.Tensor, carry=None,
         for q in range(table.shape[1]):
             acc = torch.where(listed[:, q, None], ga._merge(leaf, acc, vals[:, q]), acc)
         if carry is not None:
-            acc = ga._merge(leaf, carry[m][:, leaf.slot], acc)
+            c = carry[m][:, leaf.slot]
+            if moved is not None:
+                c = torch.where(moved < c.shape[1], c[:, moved.clamp(max=c.shape[1] - 1)],
+                                torch.full((), leaf.ident_value, dtype=c.dtype))
+            acc = ga._merge(leaf, c, acc)
         out[m][:, leaf.slot] = acc
     return out[0], out[1]
 
@@ -100,6 +132,7 @@ class _MmParams(ctypes.Structure):
         ("carry_f", ctypes.c_uint64),
         ("out_i", ctypes.c_uint64),
         ("out_f", ctypes.c_uint64),
+        ("perm", ctypes.c_uint64),
         ("leaf_ident", ctypes.c_int64 * MAX_LEAVES),
         ("n_regions", ctypes.c_int32),
         ("max_parts", ctypes.c_int32),
@@ -143,7 +176,7 @@ def _check(t, dtype, shape, dev, what: str) -> None:
 
 
 def launch_mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry, lo: int,
-                      hi: int | None, out) -> None:
+                      hi: int | None, out, perm: torch.Tensor | None = None) -> None:
     """Launch ``mesh_merge`` into ``out`` (:func:`mesh_merge`'s shapes)."""
     check_mergeable(prog)
     lo, hi = _window(parts, lo, hi)
@@ -151,6 +184,10 @@ def launch_mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry, lo:
     if dev.type != "cuda":
         raise ValueError(f"mesh_merge needs CUDA tensors, got {dev}")
     n_parts, _n, cap = parts[0].shape
+    _check_perm(perm, lo, hi, cap, dev)
+    if perm is not None and carry is not None and any(
+            o.numel() and o.data_ptr() == c.data_ptr() for o, c in zip(out, carry)):
+        raise ValueError("mesh_merge: with perm the output may not be the carry")
     _check(parts[0], torch.int64, (n_parts, prog.n_int, cap), dev, "parts")
     _check(parts[1], torch.float64, (n_parts, prog.n_f64, cap), dev, "f64 parts")
     if table.dtype != torch.int32 or table.dim() != 2 or not table.is_contiguous():
@@ -169,6 +206,7 @@ def launch_mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry, lo:
     if carry is not None:
         p.carry_i, p.carry_f = ptr(carry[0]), ptr(carry[1])
     p.out_i, p.out_f = ptr(out[0]), ptr(out[1])
+    p.perm = 0 if perm is None else perm.data_ptr()
     p.n_regions, p.max_parts = n_regions, table.shape[1]
     p.n_int, p.n_f64, p.capacity = prog.n_int, prog.n_f64, cap
     p.lo, p.width, p.n_leaves = lo, hi - lo, len(prog.leaves)
@@ -185,15 +223,16 @@ def launch_mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry, lo:
 
 
 def mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry=None, lo: int = 0,
-               hi: int | None = None, out=None):
+               hi: int | None = None, out=None, perm: torch.Tensor | None = None):
     """Each region's listed parts folded in the table's order, combined into
-    ``carry`` (None: no carry), over the slots ``[lo, hi)``: the plain
-    version for CPU tensors, the kernel on the tensors' current stream, with
-    no host synchronisation, for CUDA tensors.  Writes ``out`` (allocated
-    when None; it may be ``carry``) and returns it."""
+    ``carry`` (None: no carry; remapped through ``perm`` when given), over
+    the slots ``[lo, hi)``: the plain version for CPU tensors, the kernel on
+    the tensors' current stream, with no host synchronisation, for CUDA
+    tensors.  Writes ``out`` (allocated when None; it may be ``carry``
+    without a ``perm``) and returns it."""
     dev = table.device
     if dev.type == "cpu":
-        res = mesh_merge_plain(prog, parts, table, carry, lo, hi)
+        res = mesh_merge_plain(prog, parts, table, carry, lo, hi, perm)
         if out is None:
             return res
         out[0].copy_(res[0])
@@ -206,5 +245,5 @@ def mesh_merge(prog: GroupProgram, parts, table: torch.Tensor, carry=None, lo: i
         out = (torch.empty((table.shape[0], prog.n_int, hi - lo), dtype=torch.int64, device=dev),
                torch.empty((table.shape[0], prog.n_f64, hi - lo), dtype=torch.float64,
                            device=dev))
-    launch_mesh_merge(prog, parts, table, carry, lo, hi, out)
+    launch_mesh_merge(prog, parts, table, carry, lo, hi, out, perm)
     return out

@@ -8,14 +8,24 @@
 //     of one super-block folded, then combined into the carried state, each
 //     "groups" member keeping its slice of the slots;
 //   * mesh.xshard (launch_xregion_sharded): each region's states from every
-//     device that holds a slab of it folded into one (R, L, C) state.
+//     device that holds a slab of it folded into one (R, L, C) state;
+//   * mesh.grouped_step (ShardedGroupedEvaluator._build_step): the S shard
+//     states folded, then combined into the carry remapped to the new
+//     group dictionary (`perm`, below).
 // The shards' states are copied to the merging device by the caller (a
 // no-op where the shards share it); this kernel folds them there.
 //
 // mesh_merge: one thread per word of the output, (region r, leaf l, slot
 // w), grid-stride.  It folds the parts that the table lists for r, in the
 // table's order, from the leaf's identity, then combines the result into
-// the carry (carry first) and writes it.  The merge rule of each leaf kind
+// the carry (carry first) and writes it.  With a `perm` (the whole slot
+// window only), the carry's slot i goes to slot perm[i] (perm >= width:
+// dropped): mesh.grouped_step's remap of the carried slots when new keys
+// reshuffle the sorted group dictionary (ShardedGroupedEvaluator,
+// mesh.py:413-433, `identity.at[perm].set(carry)`).  perm is nondecreasing
+// (searchsorted positions of a sorted dictionary), so slot w finds its
+// carry slot by a binary search for the first i with perm[i] == w, and a
+// slot that no carry slot moves to combines the identity.  The merge rule of each leaf kind
 // is ga_merge (ga_leaf.cuh): counts and sums add as unsigned 64-bit words
 // (f64 sums in f64), the tracker and first's row take the minimum, f64
 // min/max propagate NaN and order -0.0 below +0.0, and the bitwise leaves
@@ -46,6 +56,7 @@ struct MmParams {
   const long long* carry_f;  // [n_regions][n_f64][width], or null
   long long* out_i;          // [n_regions][n_int][width]; may be carry_i
   long long* out_f;          // [n_regions][n_f64][width]; may be carry_f
+  const int* perm;           // [width]: the carry's slot i goes to slot perm[i]; or null
   long long leaf_ident[GA_MAX_LEAVES];
   int n_regions;
   int max_parts;
@@ -81,7 +92,23 @@ __global__ void __launch_bounds__(MM_THREADS) mesh_merge(const __grid_constant__
     }
     const long long cell = ((long long)r * rows + slot) * p.width + w;
     const long long* carry = is_f ? p.carry_f : p.carry_i;
-    if (carry != nullptr) acc = ga_merge(kind, is_f, carry[cell], acc);
+    if (carry != nullptr) {
+      long long from = w;
+      if (p.perm != nullptr) {
+        int lo = 0, hi = p.width;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (__ldg(p.perm + mid) < w) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        from = lo < p.width && __ldg(p.perm + lo) == w ? lo : -1;
+      }
+      const long long c = from >= 0 ? carry[cell - w + from] : p.leaf_ident[l];
+      acc = ga_merge(kind, is_f, c, acc);
+    }
     (is_f ? p.out_f : p.out_i)[cell] = acc;
   }
 }

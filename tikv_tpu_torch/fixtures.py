@@ -14,7 +14,12 @@ event (``_op_join``), :func:`join_dag` its plan and :func:`join_oracle` its
 joined pairs.  :func:`numeric_table` is the all-numeric table of the JAX
 package's mesh tests, :func:`mesh_merge_case` synthetic inputs of the mesh
 merge and :func:`mesh_columns` the lineitem draws as the sharded
-evaluators' host columns.
+evaluators' host columns.  :func:`grouped_dag` is the grouped Q1 shape of
+the mesh's device-built group dictionary (program #17), over
+:func:`grouped_schema` (l_returnflag and l_linestatus as INT codes), with
+:func:`grouped_columns` and :func:`grouped_oracle`; :func:`dict_case` and
+:func:`dict_kernel_check` hold its dictionary kernels to their plain
+versions.
 """
 
 from __future__ import annotations
@@ -1171,6 +1176,21 @@ def mesh_merge_program():
     return compile_group_program([], agg_rpns, [0, 1], schema, None, track=True)
 
 
+def merge_perm(capacity: int, seed: int, device) -> torch.Tensor:
+    """A carry remap of ``mesh_merge``: the positions (nondecreasing, int32)
+    of a sorted dictionary's live slots in a larger one, a sentinel tail
+    at ``capacity``, and (for an overflow) two slots on one position and
+    one past the end.  Drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    live = int(rng.integers(1, capacity + 1))
+    perm = np.sort(rng.choice(capacity, size=live, replace=False))
+    if live > 2:
+        perm[1] = perm[0]
+        perm[-1] = capacity
+    perm = np.concatenate([perm, np.full(capacity - live, capacity)])
+    return torch.from_numpy(np.sort(perm).astype(np.int32)).to(device)
+
+
 def mesh_merge_case(n_parts: int, n_regions: int, capacity: int, seed: int, device):
     """Synthetic inputs of ``mesh_merge``: :func:`mesh_merge_program`, its
     stacked packed states ``(n_parts, n_int, C)`` / ``(n_parts, n_f64, C)``,
@@ -1221,18 +1241,157 @@ def mesh_columns(a: dict, start: int, end: int) -> dict:
             4: (a["ship"][start:end], nz)}
 
 
+def grouped_schema() -> list[ColumnInfo]:
+    """The schema of the JAX package's grouped Q1 mesh step
+    (``__graft_entry__._q1_grouped_dag``): lineitem's first five columns,
+    nullable there, then l_returnflag and l_linestatus as INT code columns."""
+    return [ColumnInfo(1, FieldType.int64(), is_pk_handle=True),
+            ColumnInfo(2, FieldType.int64()), ColumnInfo(3, FieldType.decimal_type(2)),
+            ColumnInfo(4, FieldType.decimal_type(2)), ColumnInfo(5, FieldType.int64()),
+            ColumnInfo(6, FieldType.int64()), ColumnInfo(7, FieldType.int64())]
+
+
+#: the grouped plans' key columns: l_quantity (50 values), l_returnflag (3
+#: codes) and l_linestatus (2 codes), by draw name and schema index
+GROUP_KEY_COLS = {"qty": 1, "rf": 5, "ls": 6}
+
+
+def grouped_dag(keys=("rf", "ls")) -> DagRequest:
+    """Q1's grouped mesh shape: sum(quantity), sum(price), avg(price),
+    count(*) under shipdate <= 10500, GROUP BY ``keys`` (draw names of
+    :data:`GROUP_KEY_COLS`: Q1's (returnflag, linestatus), l_quantity's 50
+    groups, (quantity, linestatus)'s 100)."""
+    aggs = [AggDescriptor("sum", col(1)), AggDescriptor("sum", col(2)),
+            AggDescriptor("avg", col(2)), AggDescriptor("count", None)]
+    return DagRequest(executors=[
+        TableScan(TABLE_ID, grouped_schema()),
+        Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+        Aggregation([col(GROUP_KEY_COLS[k]) for k in keys], aggs)])
+
+
+def grouped_columns(a: dict, start: int, end: int, rows: int | None = None) -> dict:
+    """Rows ``[start, end)`` of the lineitem draws ``a`` as the columns of
+    :func:`grouped_schema`, ``{column: (data, nulls)}``, no NULLs; zeros
+    pad them to ``rows`` (a super-block's) when given."""
+    names = ("qty", "price", "disc", "ship", "rf", "ls")
+    cols = [np.arange(start, end, dtype=np.int64)] + [a[k][start:end] for k in names]
+    if rows is not None and rows != end - start:
+        cols = [np.concatenate([c, np.zeros(rows - len(c), dtype=c.dtype)]) for c in cols]
+    nz = np.zeros(len(cols[0]), dtype=bool)
+    return {j: (c.astype(np.int64, copy=False), nz) for j, c in enumerate(cols)}
+
+
+def grouped_oracle(a: dict, keys=("rf", "ls"), key_bits: int = 31) -> dict:
+    """:func:`grouped_dag`'s answer from the draws in the sharded grouped
+    evaluator's ``finalize`` form: the packed keys in order of each group's
+    first qualifying row, those rows, and per aggregate its leaves (count;
+    then the sum for sum and avg)."""
+    rows = np.flatnonzero(a["ship"] <= Q1_SHIP_HI)
+    key = np.zeros(len(rows), dtype=np.int64)
+    for k in keys:
+        key = (key << key_bits) | a[k][rows].astype(np.int64)
+    uniq, first_at, inv = np.unique(key, return_index=True, return_inverse=True)
+    by_group = np.argsort(inv, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(inv[by_group]) != 0]) if len(rows) else []
+    count = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    qty, price = (np.add.reduceat(a[c][rows][by_group].astype(np.int64), starts)
+                  if len(rows) else np.zeros(0, np.int64) for c in ("qty", "price"))
+    order = np.argsort(first_at, kind="stable")
+    return {"keys": uniq[order], "first": rows[first_at][order],
+            "aggs": [(count[order], qty[order]), (count[order], price[order]),
+                     (count[order], price[order]), (count[order],)]}
+
+
+def dict_case(n: int, cap: int, distinct: int, seed: int, device, bad: bool = False):
+    """Synthetic inputs of the dictionary kernels (``copr/fused_dict.py``):
+    a key program (selection ``v < 800``; GROUP BY a nullable INT column of
+    ``distinct`` values, 5% NULL, and a REAL column truncated to 0..3, at
+    20 bits a key), a one-block image of ``n`` rows of which the last 7
+    are past ``n_valid``, and an old dictionary at ``cap`` slots: the union
+    of the first half's keys.  ``bad`` puts negative REAL values in 1% of
+    the rows (a range overflow).  Drawn with numpy from ``seed``."""
+    from .copr import fused_dict
+
+    rng = np.random.default_rng(seed)
+    schema = [(EvalType.INT, 0), (EvalType.REAL, 0), (EvalType.INT, 0)]
+    k1 = rng.integers(0, distinct, n)
+    null1 = rng.random(n) < 0.05
+    k2 = rng.uniform(0, 4, n)
+    if bad:
+        k2 = np.where(rng.random(n) < 0.01, -k2 - 1, k2)
+    v = rng.integers(0, 1000, n)
+    sel = [compile_expr(call("lt", col(2), const_int(800)), schema)]
+    keys = [compile_expr(col(0), schema), compile_expr(col(1), schema)]
+    prog = fused_dict.compile_key_program(sel, keys, [0, 1, 2], schema, 20)
+
+    def lane(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).view(1, n).to(device)
+
+    img = Image([lane(k1, np.int64), lane(k2, np.float64), lane(v, np.int64)],
+                [lane(null1, np.bool_), None, None], n - 7, 1, n, torch.device(device))
+    first, _bad = fused_dict.dict_keys_plain(prog, image_on(img, "cpu"))
+    old, _over = fused_dict.dict_union_plain(None, first[: n // 2], cap)
+    return prog, img, old.to(device)
+
+
+def image_on(img: Image, device) -> Image:
+    """A copy of a plain image on ``device``."""
+    def to(t):
+        return None if t is None else t.to(device)
+
+    nv = img.n_valids if isinstance(img.n_valids, int) else to(img.n_valids)
+    off = img.offsets if isinstance(img.offsets, int) else to(img.offsets)
+    return Image([to(c) for c in img.cols], [to(m) for m in img.nulls], nv, img.n_blocks,
+                 img.block_rows, torch.device(device), off, to(img.gids))
+
+
+def dict_kernel_check(prog, img: Image, old, cap: int) -> dict:
+    """The three dictionary kernels on a CUDA image beside their plain
+    versions on CPU copies of the same inputs: the keys and the range flag,
+    the union of ``old`` and the keys (its capacity flag), the ids and the
+    old slots' ``perm``, all equal; each kernel run twice, bit-identical.
+    Raises on a difference; returns the flags and the dictionary's fill."""
+    from .copr import fused_dict as fd
+
+    dev = img.device
+    runs = []
+    for _ in range(2):
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        keys = fd.dict_keys(prog, img, flag)
+        new = fd.dict_union(old, keys, cap, flag)
+        gids = torch.empty(keys.numel(), dtype=torch.int32, device=dev)
+        perm = torch.empty(cap, dtype=torch.int32, device=dev)
+        fd.dict_ids(new, keys, gids, old, perm)
+        runs.append([t.cpu() for t in (flag, keys, new, gids, perm)])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("dictionary kernels: two runs differ")
+    flag, keys, new, gids, perm = runs[0]
+    want_keys, bad = fd.dict_keys_plain(prog, image_on(img, "cpu"))
+    want_new, over = fd.dict_union_plain(old.cpu(), want_keys, cap)
+    want_gids, want_perm = fd.dict_ids_plain(want_new, want_keys, old.cpu())
+    want_flag = (fd.FLAG_RANGE if bad else 0) | (fd.FLAG_CAPACITY if over else 0)
+    for what, got, want in (("dict_keys", keys, want_keys), ("dict_union", new, want_new),
+                            ("dict_ids", gids, want_gids), ("dict_ids perm", perm, want_perm)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: differs from the plain version")
+    if int(flag) != want_flag:
+        raise AssertionError(f"dictionary flag {int(flag)}, plain version {want_flag}")
+    return {"flag": want_flag, "live": int((want_new < fd.SENTINEL).sum())}
+
+
 def mesh_merge_check(prog, parts, table, carry=None, lo: int = 0, hi: int | None = None,
-                     rel_tol: float = 1e-12) -> float:
+                     perm=None, rel_tol: float = 1e-12) -> float:
     """``mesh_merge`` on CUDA inputs beside its plain version on the same
     inputs: integer words equal, f64 leaves to ``rel_tol`` (NaN equal to
     NaN), and a second launch bit-identical.  Raises on a difference;
     returns the largest absolute f64 difference."""
     from .copr import fused_mesh
 
-    got = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi)
-    again = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi)
+    got = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi, perm=perm)
+    again = fused_mesh.mesh_merge(prog, parts, table, carry, lo, hi, perm=perm)
     cpu = [tuple(t.cpu() for t in x) if x is not None else None for x in (parts, carry)]
-    want = fused_mesh.mesh_merge_plain(prog, cpu[0], table.cpu(), cpu[1], lo, hi)
+    want = fused_mesh.mesh_merge_plain(prog, cpu[0], table.cpu(), cpu[1], lo, hi,
+                                       None if perm is None else perm.cpu())
     if not torch.equal(got[0].cpu(), want[0]):
         raise AssertionError("mesh_merge: integer words differ from the plain version")
     if not (torch.equal(got[0], again[0])

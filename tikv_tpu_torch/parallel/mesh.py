@@ -11,7 +11,9 @@ one Python process drives every shard.
   shard's device: the grouped pair (``copr/fused_group_agg.py``) for
   ``mesh.agg_step`` (program #16), the top-K kernels (``copr/fused_topn.py``)
   for ``mesh.topn_step`` (#18), the batch kernels (``copr/fused_batch.py``)
-  for each device's slabs in ``mesh.xshard`` (#20).
+  for each device's slabs in ``mesh.xshard`` (#20), and for
+  ``mesh.grouped_step`` (#17) the grouped pair with ids from the group
+  dictionary the shards build on the devices (``copr/fused_dict.py``).
 * The collectives (``_collective``, ``_combine``) are one step: the shards'
   packed states are copied to the merging device (``.to(dev,
   non_blocking=True)``, a no-op where they share it), where ``mesh_merge``
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from ..copr import encoding, fused_batch, fused_mesh, zone_maps
+from ..copr import fused_dict as fd
 from ..copr import fused_group_agg as ga
 from ..copr import fused_topn as ft
 from ..copr.dag_wire import dag_from_wire
@@ -178,6 +181,26 @@ def _shard_images(shard_devices, rows_per_shard: int, data, f64, nulls, n_valid:
     return images
 
 
+def _shard_states(prog, images, cap: int, lead):
+    """Each shard's packed state at ``cap`` slots from the identity (the
+    grouped pair on the shard's device, ids from each image's ``gids``),
+    stacked on the lead device: ``(S, n_int, C)`` and ``(S, n_f64, C)``."""
+    pi = torch.empty((len(images), prog.n_int, cap), dtype=torch.int64, device=lead)
+    pf = torch.empty((len(images), prog.n_f64, cap), dtype=torch.float64, device=lead)
+    for k, img in enumerate(images):
+        if img.device.type == "cpu":
+            st = ga.fused_group_agg(prog, img, cap)
+        else:
+            st = (pi[k], pf[k]) if img.device == lead else ga.init_packed(prog, cap, img.device)
+            scratch = ga.new_partials(prog, img, cap)
+            ga.launch_partials(prog, img, cap, scratch)
+            ga.launch_combine(prog, img, cap, scratch, None, st)
+        if img.device.type == "cpu" or img.device != lead:
+            pi[k].copy_(st[0], non_blocking=True)
+            pf[k].copy_(st[1], non_blocking=True)
+    return pi, pf
+
+
 # ---------------------------------------------------------------------------
 # Program #16: the sharded aggregation step
 # ---------------------------------------------------------------------------
@@ -229,26 +252,6 @@ class ShardedDagEvaluator:
         """The identity state: one ``(ints, flts)`` slice per ``groups`` member."""
         return [ga.init_packed(self.prog, self.slice_width, d) for d in self.member_devices]
 
-    def _shard_states(self, images):
-        """Each shard's packed state at ``capacity`` slots from the identity
-        (the grouped pair on the shard's device), stacked on the lead
-        device: ``(S, n_int, C)`` and ``(S, n_f64, C)``."""
-        prog, cap, lead = self.prog, self.capacity, self.mesh.lead
-        pi = torch.empty((self.n_regions, prog.n_int, cap), dtype=torch.int64, device=lead)
-        pf = torch.empty((self.n_regions, prog.n_f64, cap), dtype=torch.float64, device=lead)
-        for k, img in enumerate(images):
-            if img.device.type == "cpu":
-                st = ga.fused_group_agg(prog, img, cap)
-            else:
-                st = (pi[k], pf[k]) if img.device == lead else ga.init_packed(prog, cap, img.device)
-                scratch = ga.new_partials(prog, img, cap)
-                ga.launch_partials(prog, img, cap, scratch)
-                ga.launch_combine(prog, img, cap, scratch, None, st)
-            if img.device.type == "cpu" or img.device != lead:
-                pi[k].copy_(st[0], non_blocking=True)
-                pf[k].copy_(st[1], non_blocking=True)
-        return pi, pf
-
     def step(self, col_data, col_nulls, n_valid: int, gids, state, block_base: int = 0) -> list:
         """Fold one super-block into ``state``: ``col_data`` per device
         column (``ev.plan.device_cols``), ``col_nulls`` per nullable one
@@ -261,7 +264,7 @@ class ShardedDagEvaluator:
         images = _shard_images(self.shard_devices, self.rows_per_shard, list(col_data),
                                self._col_f64, [nulls_of.get(i) for i in plan.device_cols],
                                _n_valid(n_valid, self.total_rows), block_base, gids)
-        pi, pf = self._shard_states(images)
+        pi, pf = _shard_states(self.prog, images, self.capacity, self.mesh.lead)
         w = self.slice_width
         for g, dev in enumerate(self.member_devices):
             carry = (state[g][0][None], state[g][1][None])
@@ -371,6 +374,154 @@ class MeshServingRunner:
         n_slots = len(groups) if plan.group_rpns else 1
         return ev._finalize_agg(self.sharded.packed(state), self.sharded.prog, n_slots,
                                 lambda r: groups.rows[r])
+
+
+# ---------------------------------------------------------------------------
+# Program #17: grouped aggregation with the group dictionary built on device
+# ---------------------------------------------------------------------------
+
+class ShardedGroupedEvaluator:
+    """Grouped aggregation with the group dictionary built on the devices
+    (``mesh.ShardedGroupedEvaluator``, program #17).
+
+    Each ``regions`` shard packs its rows' GROUP BY values into one int64
+    key (``dict_keys``), takes the bounded sorted union of the carried
+    dictionary and its keys (``dict_union``); the shards' dictionaries,
+    gathered on the lead device, are unioned again into the new global
+    dictionary, and a row's group id is its key's position in it
+    (``dict_ids``, which writes each shard image's ``gids`` on the shard's
+    device).  The shards' partial states (the grouped pair) fold through
+    ``mesh_merge`` in shard order into the carry, whose slots move to their
+    keys' new positions (``perm``).  ``overflow`` replaces dropped groups:
+    more than ``capacity`` distinct keys, or a value that does not pack into
+    its ``key_bits`` lane; it is sticky, and once set the state is not the
+    reference's (it misfiles groups by design).
+
+    The state, ``(dict_keys, (ints, flts), overflow)``, lives on the lead
+    device and is replicated in the reference (every member of ``groups``
+    computes it): rows shard over the ``regions`` axis only.  ``overflow``
+    (int32 ``[1]``, :data:`fused_dict.FLAG_RANGE` | :data:`FLAG_CAPACITY`)
+    is updated in place and stays on the device until :meth:`finalize`.
+    The group columns ship with the plan's (``ship_cols``, their null masks
+    in ``nullable_cols``).  ``ValueError`` without GROUP BY, for an
+    aggregate without a merge rule (``first``) or keys that do not pack into
+    62 bits; ``Unsupported`` past the kernels' limits."""
+
+    def __init__(self, dag, mesh: TorchMesh, rows_per_shard: int, capacity: int = 64,
+                 key_bits: int = 31):
+        self.ev = TorchDagEvaluator(dag, block_rows=rows_per_shard, device=mesh.lead)
+        plan = self.ev.plan
+        if plan.agg is None or not plan.group_rpns:
+            raise ValueError("grouped evaluation requires GROUP BY aggregation")
+        _require_mesh_mergeable(plan.agg_rpns)
+        group_cols = set().union(*(g.referenced_columns() for g in plan.group_rpns))
+        self.ship_cols = sorted(set(plan.device_cols) | group_cols)
+        self.nullable_cols = _nullable(plan.scan, self.ship_cols)
+        # the key kernel reads only the columns its walk references
+        key_cols = sorted(group_cols.union(*(r.referenced_columns() for r in plan.sel_rpns)))
+        self._key_at = [self.ship_cols.index(c) for c in key_cols]
+        self.key_prog = fd.compile_key_program(plan.sel_rpns, plan.group_rpns, key_cols,
+                                               plan.schema, key_bits)
+        self.prog = ga.compile_group_program(plan.sel_rpns, plan.agg_rpns, self.ship_cols,
+                                             plan.schema, None, track=True)
+        fd.check_capacity(capacity)
+        ga.check_capacity(self.prog, capacity)
+        self.mesh = mesh
+        self.rows_per_shard = rows_per_shard
+        self.n_regions = mesh.shape["regions"]
+        self.capacity = capacity
+        self.key_bits = key_bits
+        self.total_rows = rows_per_shard * self.n_regions
+        self.shard_devices = [mesh.devices[k, 0] for k in range(self.n_regions)]
+        self._col_f64 = [plan.schema[i][0] == EvalType.REAL for i in self.ship_cols]
+        self._table = fused_mesh.merge_table([range(self.n_regions)], self.n_regions, mesh.lead)
+
+    def init_state(self):
+        """An empty dictionary, the identity state and no overflow."""
+        lead, cap = self.mesh.lead, self.capacity
+        return (torch.full((cap,), fd.SENTINEL, dtype=torch.int64, device=lead),
+                ga.init_packed(self.prog, cap, lead),
+                torch.zeros(1, dtype=torch.int32, device=lead))
+
+    def step(self, col_data, col_nulls, n_valid: int, state, block_base: int = 0):
+        """Fold one super-block into ``state`` and return the new state:
+        ``col_data`` per shipped column (``ship_cols``), ``col_nulls`` per
+        nullable one (``nullable_cols``), ``n_valid`` the valid rows (a
+        prefix).  No host synchronisation on the card."""
+        dict_keys, (ints, flts), overflow = state
+        lead, cap, rps = self.mesh.lead, self.capacity, self.rows_per_shard
+        nulls_of = dict(zip(self.nullable_cols, col_nulls))
+        images = _shard_images(self.shard_devices, rps, list(col_data), self._col_f64,
+                               [nulls_of.get(i) for i in self.ship_cols],
+                               _n_valid(n_valid, self.total_rows), block_base)
+        # the flag word of each device (the state's own on the lead device)
+        # and the carried dictionary on each
+        flags, old = {lead: overflow}, {lead: dict_keys}
+        for dev in self.shard_devices:
+            if dev not in flags:
+                flags[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+                old[dev] = dict_keys.to(dev, non_blocking=True)
+        keys = [fd.dict_keys(self.key_prog, img.pick(self._key_at), flags[img.device])
+                for img in images]
+        local = torch.empty((self.n_regions, cap), dtype=torch.int64, device=lead)
+        for k, (img, kk) in enumerate(zip(images, keys)):
+            if img.device == lead:
+                fd.dict_union(old[lead], kk, cap, overflow, out=local[k])
+            else:
+                local[k].copy_(fd.dict_union(old[img.device], kk, cap, flags[img.device]),
+                               non_blocking=True)
+        new_dict = fd.dict_union(None, local.view(-1), cap, overflow)
+        on = {lead: new_dict}
+        perm = torch.empty(cap, dtype=torch.int32, device=lead)
+        for k, (img, kk) in enumerate(zip(images, keys)):
+            if img.device not in on:
+                on[img.device] = new_dict.to(img.device, non_blocking=True)
+            img.gids = torch.empty((1, rps), dtype=torch.int32, device=img.device)
+            # shard 0 sits on the lead device: its launch also writes the
+            # carried slots' new positions
+            moved = (dict_keys, perm) if k == 0 else (None, None)
+            fd.dict_ids(on[img.device], kk, img.gids.view(-1), *moved)
+        parts = _shard_states(self.prog, images, cap, lead)
+        out = (torch.empty((1, self.prog.n_int, cap), dtype=torch.int64, device=lead),
+               torch.empty((1, self.prog.n_f64, cap), dtype=torch.float64, device=lead))
+        fused_mesh.mesh_merge(self.prog, parts, self._table, (ints[None], flts[None]),
+                              out=out, perm=perm)
+        for dev, flag in flags.items():
+            if dev != lead:
+                overflow |= flag.to(lead, non_blocking=True)
+        return new_dict, (out[0][0], out[1][0]), overflow
+
+    def run_blocks(self, blocks):
+        """Super-blocks ``[(columns, n_valid), ...]`` in stream order
+        (``columns``: ``{column: (data, nulls)}`` host arrays), the state
+        carried on the devices between them."""
+        state = self.init_state()
+        for b, (columns, n_valid) in enumerate(blocks):
+            state = self.step([columns[i][0] for i in self.ship_cols],
+                              [columns[i][1] for i in self.nullable_cols], n_valid, state,
+                              block_base=b * self.total_rows)
+        return state
+
+    def unpack(self, state):
+        """The state as host arrays in the JAX package's form: ``(dict_keys,
+        first, ((leaf, ...) per aggregate), overflow)``."""
+        dict_keys, (ints, flts), overflow = state
+        ints, flts = ints.cpu().numpy(), flts.cpu().numpy()
+        leaves = self.prog.leaves
+        carries = tuple(tuple((flts if leaves[i].is_f64 else ints)[leaves[i].slot] for i in own)
+                        for own in self.prog.agg_leaves)
+        return dict_keys.cpu().numpy(), ints[0], carries, bool(overflow.item())
+
+    def finalize(self, state) -> dict:
+        """The live groups in first-occurrence order (a stable sort of the
+        tracker): ``{"keys", "first", "aggs": [per-aggregate leaves],
+        "overflow": bool}``, as the JAX package's ``finalize``."""
+        dict_keys, first, carries, overflow = self.unpack(state)
+        live = dict_keys < fd.SENTINEL
+        idx = np.nonzero(live)[0][np.argsort(first[live], kind="stable")]
+        return {"keys": dict_keys[idx], "first": first[idx],
+                "aggs": [tuple(leaf[idx] for leaf in c) for c in carries],
+                "overflow": overflow}
 
 
 # ---------------------------------------------------------------------------
