@@ -13,7 +13,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              equal, f64 leaves to rel 1e-12, two runs
              bit-identical; the grouped kernels with ids from two
              dictionary-code columns with NULLs, 60 host ids (all ten
-             aggregates) and 300 host ids (integer leaves, atomic partials)
+             aggregates), 300 host ids (integer leaves) and 3,000 host ids
+             (all ten, NaN and +-inf and +-0.0 among the REAL values): the
+             last two past the shared rows, on the wide route
 4. cold    — TPC-H Q6 as a wire-dict request over 1,000,000 rows of lineitem
              KV bytes (block_rows 65,536), checked against a numpy oracle
 5. warm    — the same request, and the count/sum/min/max shape, over a
@@ -103,8 +105,9 @@ busiest device's batch kernels timed; the slab bytes pinned.
 
 After phase 12, phase ``join`` drives the join rung (programs #14 and #15,
 ``csrc/fused_join.cu``) through ``copr/torch_join.serve``: the join event of
-``bench._op_join`` (a probe region of 1,000,000 rows ``(id, key, pay)``
-against a build region of 250,000 rows keyed from half the probe keys'
+``bench._op_join`` cut to half its depth (a probe region of 500,000 rows
+``(id, key, pay)`` against a build region of 125,000 rows keyed from half
+the probe keys'
 pool, encoded images, block_rows 65,536), on the rank and the hash path
 over dictionary keys and on the hash path over int keys, then with
 Selection, Projection and Limit(100,000) over columns of both sides; each
@@ -130,6 +133,28 @@ dictionary kernel and ``mesh_merge`` with the remap at the path's inputs
 equal to its plain version, timed beside ``torch.unique`` and
 ``torch.searchsorted``.
 
+After phase ``mesh_grouped``, phase ``high_capacity`` drives group slots
+past the grouped pair's shared-memory rows (its wide route,
+``group_wide_partials`` and ``group_wide_combine`` of ``csrc/fused_agg.cu``)
+and a device dictionary past 8,192 slots (the union's sort route,
+``dict_merge``, ``dict_count`` and ``dict_compact`` of
+``csrc/fused_dict.cu``) with per-supplier statistics over TPC-H Q15's
+window (``fixtures.supp_dag``, GROUP BY l_suppkey, var_pop's f64 sum of
+squares): cold over 1,000,000 KV rows (10,000 suppliers), the DOUBLE price's
+first/min/max/sum/var_pop cold, warm over the 100M image (about 166,000
+suppliers, 262,144 slots, host ids), a same-region batch with Q1 grouped by
+the four flag columns (480 coded slots; integer and f64 riders) beside
+batch A's eight, against the same requests one by one, and
+``ShardedGroupedEvaluator`` at 32,768 slots over 10,000,000 rows on eight
+shards of the card; each answer equal to its numpy oracle, the reruns bit
+for bit; the new kernels against their plain versions at the path's inputs
+(the wide state word for word, its combine bit for bit; the batch kernels
+over the path's own ten-rider batch) and timed beside
+the same image on the shared rows at ``c_max`` slots, ``index_add_`` and
+``scatter_reduce_``, ``torch.sort`` and ``torch.unique_consecutive``.
+Phase ``mesh_grouped`` also times the grouped pair alone at a shard's shape
+(131,072 rows, Q1 at 64 slots).
+
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
 REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
@@ -141,7 +166,8 @@ top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
 for the batch kernels, phase ``join`` for the join probes, phase ``mesh``
 for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), phase
 ``mesh_grouped`` for the dictionary kernels (``mesh_grouped_launches`` of
-the reused ones), each counted from
+the reused ones), phase ``high_capacity`` for the wide route and the sort
+route (``high_capacity_launches`` of the reused ones), each counted from
 0 just before its path and read just after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
@@ -283,7 +309,7 @@ def compare_f64(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     if got.numel() == 0:
         return 0.0
     same_nan = torch.isnan(got) == torch.isnan(want)
-    exact = got == want
+    exact = (got == want) | torch.isnan(want)  # NaN equal to NaN
     close = (got - want).abs() <= REL_TOL * want.abs()
     if not bool((same_nan & (exact | close)).all()):
         raise AssertionError(f"{what}: f64 leaves differ beyond rel {REL_TOL}\n{got}\n{want}")
@@ -369,7 +395,8 @@ def phase_group_kernels(ga, fx, device) -> dict:
     main path's own 763-block image)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
-    errs = {"fused_group_agg_partials": 0.0, "fused_group_agg_combine_pack": 0.0}
+    errs = dict.fromkeys(("fused_group_agg_partials", "fused_group_agg_combine_pack")
+                         + WIDE_KERNELS, 0.0)
     for n_blocks, block_rows, shape in ((1, 1 << 16, "cold_block"), (128, 1 << 17, "warm_stacked")):
         for kind in fx.GROUP_CASES:
             prog, img, cap = fx.synthetic_group_case(kind, n_blocks, block_rows, gen, device)
@@ -384,23 +411,30 @@ def phase_group_kernels(ga, fx, device) -> dict:
             err_e2e = max(err_e2e, compare_packed(prog, carry, want2, f"{shape} {kind} carried"))
             err_p = err_c = 0.0
             shared = prog.shared_rows(cap)
-            parts = ga.new_partials(prog, img, cap)
-            ga.launch_partials(prog, img, cap, parts)
             if shared:
+                parts = ga.new_partials(prog, img, cap)
+                ga.launch_partials(prog, img, cap, parts)
                 err_p = check_group_partials(
                     prog, parts, ga.partials_plain(prog, img, cap, ga.launch_grid(img)),
                     f"{shape} {kind} partials")
-            out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
-            ga.launch_combine(prog, img, cap, parts, None, out)
-            err_c = compare_packed(prog, out, ga.combine_plain(prog, img, cap, parts),
-                                   f"{shape} {kind} combine")
-            errs["fused_group_agg_partials"] = max(errs["fused_group_agg_partials"], err_p, err_e2e)
-            errs["fused_group_agg_combine_pack"] = max(errs["fused_group_agg_combine_pack"], err_c)
+                out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+                ga.launch_combine(prog, img, cap, parts, None, out)
+                err_c = compare_packed(prog, out, ga.combine_plain(prog, img, cap, parts),
+                                       f"{shape} {kind} combine")
+                names = ("fused_group_agg_partials", "fused_group_agg_combine_pack")
+            else:
+                # the wide route: its state word for word, its combine bit
+                # for bit against their plain versions, two runs identical
+                err_p = fx.wide_kernel_check(prog, img, cap)["pair"]
+                parts = out = None
+                names = WIDE_KERNELS
+            errs[names[0]] = max(errs.get(names[0], 0.0), err_p, err_e2e)
+            errs[names[1]] = max(errs.get(names[1], 0.0), err_c)
             nv = img.n_valids
             emit({"phase": "kernels", "case": f"group_{kind}_{shape}", "n_blocks": n_blocks,
                   "block_rows": block_rows, "rows": int(nv if isinstance(nv, int) else nv.sum()),
                   "capacity": cap, "leaves": len(prog.leaves), "c_max": prog.c_max,
-                  "partials": "shared" if shared else "atomic",
+                  "partials": "shared" if shared else "wide",
                   "int_leaves_equal": True, "f64_rel_tol": REL_TOL, "bit_identical_reruns": True,
                   "max_abs_err_end_to_end": err_e2e, "max_abs_err_partials": err_p,
                   "max_abs_err_combine": err_c})
@@ -1116,7 +1150,9 @@ def phase_batch(cache, wants: dict, card: str, br: int = 1 << 17) -> dict:
 # ---------------------------------------------------------------------------
 
 JOIN_KERNELS = ("join_rank_probe", "join_hash_probe")
-JOIN_ROWS = 1_000_000  # one region of probe rows (a region splits near 96 MB)
+# half of bench._op_join's 1,000,000 probe rows (a region splits near 96 MB),
+# cut so that the script with phase high_capacity stays within half its limit
+JOIN_ROWS = 500_000
 JOIN_SYNTH = (1 << 23, 4, 1 << 25)  # distinct build keys, rows per key, probe rows
 JOIN_SRC = "tikv_tpu_torch/csrc/fused_join.cu"
 
@@ -1157,7 +1193,7 @@ def time_join_kernels(fj, case: dict, device, iters: int) -> dict:
 
 def phase_join(fx, card: str, device) -> dict:
     """Programs #14 and #15 on their main path: the join event of
-    ``bench._op_join`` at 1,000,000 probe rows against 250,000 build rows
+    ``bench._op_join`` at 500,000 probe rows against 125,000 build rows
     (encoded images, block_rows 65,536), served on the rank and the hash
     path over dictionary keys and on the hash path over int keys, bare and
     with Selection, Projection and Limit(100,000) over both sides; pairs
@@ -1650,7 +1686,7 @@ def time_dict(fx, fd, seen: dict) -> dict:
         n = k.numel() + (0 if d is None else cap)
         b_ms, b_by = bound(n * 8 + cap * 8, n)
         out[name] = {
-            "keys": n, "capacity": cap, "passes": len(fd.union_passes(n, cap)),
+            "keys": n, "capacity": cap, "launches": fd.union_launches(n, cap),
             "ms": cuda_ms(lambda: fd.launch_union(d, k, cap, flag, res), 50),
             "plain_ms": cuda_ms(lambda: fd.dict_union_plain(d, k, cap), 3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1776,16 +1812,383 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
                                                     block_base=q1.total_rows))
     merge_err = fx.mesh_merge_check(*merge_case)
     t_merge = time_merge(fme, merge_case, 50)
+    # the grouped pair alone at a shard's shape (131,072 rows, Q1 at 64 slots)
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+
+    _res, calls = capture_calls(pm, "_shard_states", lambda: q1.step(
+        *_block_args(q1, two[1]), state, block_base=q1.total_rows))
+    sprog, simages, scap, _lead = calls[0]
+    t_pair = time_group_kernels(ga, sprog, simages[0], scap, 50)
     emit({"phase": "mesh_grouped", "card": card, "rows": n, "shards": MESH_SHARDS,
           "rows_per_shard": MESH_GROUPED_RPS, "matches_oracle": True,
           "bit_identical_reruns": True, "cases": results})
     emit({"phase": "mesh_grouped", "case": "kernels", "card": card,
           "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
           "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
-          "kernels": t_dict, "mesh_merge_remap": t_merge, "launches": launches,
+          "kernels": t_dict, "mesh_merge_remap": t_merge, "grouped_pair_shard": t_pair,
+          "launches": launches,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
-    return {"launches": launches, "kernels": t_dict, "merge": t_merge,
+    return {"launches": launches, "kernels": t_dict, "merge": t_merge, "pair": t_pair,
             "max_abs_err": max([merge_err, *cpu_err.values()])}
+
+
+# ---------------------------------------------------------------------------
+# phase high_capacity: group slots past the shared-memory rows
+# ---------------------------------------------------------------------------
+
+HC_COLD_ROWS = COLD_ROWS  # SF 1: 10,000 suppliers
+HC_MESH_ROWS = MESH_GROUPED_ROWS  # SF 1.67: 16,664 suppliers
+HC_MESH_CAP = 32768
+WIDE_KERNELS = ("group_wide_partials", "group_wide_combine")
+SORT_KERNELS = ("dict_merge", "dict_count", "dict_compact")
+HC_KERNELS = WIDE_KERNELS + SORT_KERNELS + DICT_KERNELS + ("mesh_merge",) + BATCH_KERNELS
+
+
+def check_rows_close(resp, want, what: str) -> None:
+    """Response rows against oracle rows: every value equal, floats to
+    REL_TOL."""
+    got = resp.iter_rows()
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, oracle {len(want)}")
+    for g_row, w_row in zip(got, want):
+        ok = len(g_row) == len(w_row) and all(
+            (abs(x - y) <= REL_TOL * abs(y)) if isinstance(y, float) else x == y
+            for x, y in zip(g_row, w_row))
+        if not ok:
+            raise AssertionError(f"{what}: {g_row} != oracle {w_row}")
+
+
+def capture_calls(mod, name: str, run):
+    """``run()``'s result and the arguments of every call of ``mod.name``
+    that it makes, in order."""
+    seen = []
+    fn = getattr(mod, name)
+
+    def record(*args, **kw):
+        seen.append(args)
+        return fn(*args, **kw)
+
+    setattr(mod, name, record)
+    try:
+        res = run()
+    finally:
+        setattr(mod, name, fn)
+    return res, seen
+
+
+def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
+    """The grouped pair's wide route at one image: held to its plain
+    versions (``fx.wide_kernel_check``: the state word for word, the combine
+    bit for bit, the pair to REL_TOL, two runs bit-identical), then
+    CUDA-event ms per launch of both kernels and of the state's set-up
+    (zeros and identities, torch ops), the plain versions' ms, the bounds
+    (partials: the image's shipped bytes and host ids read once, ``L * C * 8``
+    written; combine: the state read once, the packed state written once)
+    and the yardsticks over the same rows (every row, no filter): an f64
+    sum by ``index_add_``, min and max by ``scatter_reduce_``."""
+    errs = fx.wide_kernel_check(prog, img, cap)
+    state = ga.new_partials(prog, img, cap)
+    out = ga.init_packed(prog, cap, img.device)
+    p_ms = cuda_ms(lambda: ga.launch_partials(prog, img, cap, state), iters)
+    c_ms = cuda_ms(lambda: ga.launch_combine(prog, img, cap, state, None, out), iters)
+    init_ms = cuda_ms(lambda: ga.new_partials(prog, img, cap), iters)
+    pp_ms = cuda_ms(lambda: ga.wide_partials_plain(prog, img, cap), 2, warmup=1)
+    cp_ms = cuda_ms(lambda: ga.wide_combine_plain(prog, img, cap, state), 2, warmup=1)
+    nv = img.n_valids
+    rows = int(nv if isinstance(nv, int) else nv.sum())
+    L = len(prog.leaves)
+    read = image_bytes(img, rows) + (4 * rows if img.gids is not None else 0)
+    p_bound, p_by = bound(read + 16 * img.n_blocks + L * cap * 8, rows * (len(prog.code) + L))
+    c_bound, c_by = bound(state.numel() * 8 + (prog.n_int + prog.n_f64) * cap * 8, state.numel())
+    lib = {}
+    if img.gids is not None:
+        gid = img.gids.reshape(-1).long()
+        x = img.cols[0].reshape(-1).double()
+        acc = torch.zeros(cap, dtype=torch.float64, device=img.device)
+        lib["index_add_f64_sum_ms"] = cuda_ms(lambda: torch.zeros_like(acc).index_add_(0, gid, x),
+                                              iters)
+        for op in ("amin", "amax"):
+            lib[f"scatter_reduce_{op}_ms"] = cuda_ms(
+                lambda op=op: torch.zeros_like(acc).scatter_reduce_(0, gid, x, op), iters)
+        del gid, x
+    return {"rows": rows, "capacity": cap, "leaves": L, "c_max": prog.c_max,
+            "x_leaves": len(prog.x_leaves), "state_words": state.numel(),
+            "partials_ms": p_ms, "partials_bound_ms": p_bound, "partials_bound_by": p_by,
+            "partials_plain_ms": pp_ms, "combine_ms": c_ms, "combine_bound_ms": c_bound,
+            "combine_bound_by": c_by, "combine_plain_ms": cp_ms, "state_init_ms": init_ms,
+            "library": lib, "library_ms": lib.get("index_add_f64_sum_ms"),
+            "max_abs_err": errs["pair"]}
+
+
+def time_sort_union(fd, d, k, cap: int) -> dict:
+    """The dictionary union's sort route (past ``fd.CAP_MAX`` slots) at one
+    input, kernel by kernel: the tile sort (``dict_union`` at ``T = cap =
+    TILE_MAX``), each ``dict_merge`` pass, ``dict_count`` and
+    ``dict_compact``; each output against its plain version (integers,
+    equal) and the whole union against ``dict_union_plain``; CUDA-event ms,
+    the plain versions' ms, bounds (each input read once, each output
+    written once) and yardsticks: ``torch.sort`` for a merge pass (it
+    computes more: a full sort), ``torch.unique_consecutive`` for the
+    compaction."""
+    lib = fd.kernels()
+    dev = k.device
+    n_d = 0 if d is None else cap
+    n = n_d + k.numel()
+    sorted_n = max(1, -(-n // fd.TILE_MAX)) * fd.TILE_MAX
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    dp = None if d is None else d.data_ptr()
+
+    def ok(rc):
+        if rc != 0:
+            raise RuntimeError(f"sort-route launch failed: cudaError {rc}")
+
+    runs = torch.empty(sorted_n, dtype=torch.int64, device=dev)
+    tile_ms = cuda_ms(lambda: ok(lib.du_launch(dp, n_d, k.data_ptr(), k.numel(), runs.data_ptr(),
+                                               flag.data_ptr(), fd.TILE_MAX, fd.TILE_MAX,
+                                               stream)), 20)
+    widths = fd.merge_widths(n)
+    srcs = [runs]
+    for w in widths:
+        dst = torch.empty_like(runs)
+        ok(lib.dm_launch(srcs[-1].data_ptr(), sorted_n, w, dst.data_ptr(), stream))
+        srcs.append(dst)
+    final = srcs[-1]
+    counts = torch.empty(-(-sorted_n // fd.CHUNK), dtype=torch.int32, device=dev)
+    ok(lib.dc_launch_count(final.data_ptr(), sorted_n, counts.data_ptr(), stream))
+    res = torch.empty(cap, dtype=torch.int64, device=dev)
+    ok(lib.dc_launch_compact(final.data_ptr(), sorted_n, counts.data_ptr(), res.data_ptr(),
+                             flag.data_ptr(), cap, stream))
+    want, _over = fd.dict_union_plain(None if d is None else d.cpu(), k.cpu(), cap)
+    if not torch.equal(res.cpu(), want):
+        raise AssertionError("sort-route union: differs from dict_union_plain")
+    out = {"keys": n, "capacity": cap, "sorted_keys": sorted_n, "merge_passes": len(widths),
+           "tile_sort_ms": tile_ms}
+    if widths:
+        w0 = widths[0]
+        if not torch.equal(srcs[1].cpu(), fd.merge_pass_plain(srcs[0].cpu(), w0)):
+            raise AssertionError("dict_merge: differs from its plain version")
+        tmp = torch.empty_like(runs)
+        b_ms, b_by = bound(sorted_n * 16, sorted_n * max(1, w0.bit_length()))
+        out["dict_merge"] = {
+            "width": w0, "ms": cuda_ms(lambda: ok(lib.dm_launch(
+                srcs[0].data_ptr(), sorted_n, w0, tmp.data_ptr(), stream)), 20),
+            "all_passes_ms": sum(cuda_ms(lambda s=s, w=w: ok(lib.dm_launch(
+                s.data_ptr(), sorted_n, w, tmp.data_ptr(), stream)), 10)
+                for s, w in zip(srcs, widths)),
+            "plain_ms": cuda_ms(lambda: fd.merge_pass_plain(srcs[0], w0), 2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.sort(srcs[0]), 10)}
+    host = final.cpu()  # sorted_n is a multiple of TILE_MAX, so of CHUNK
+    fresh = host < fd.SENTINEL
+    fresh[1:] &= host[1:] != host[:-1]
+    if not torch.equal(counts.cpu(), fresh.view(-1, fd.CHUNK).sum(1).to(torch.int32)):
+        raise AssertionError("dict_count: differs from its plain version")
+    b_ms, b_by = bound(sorted_n * 8 + counts.numel() * 4, sorted_n)
+    out["dict_count"] = {
+        "ms": cuda_ms(lambda: ok(lib.dc_launch_count(final.data_ptr(), sorted_n,
+                                                     counts.data_ptr(), stream)), 20),
+        "plain_ms": cuda_ms(lambda: fd.compact_plain(final, cap), 2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    b_ms, b_by = bound(sorted_n * 8 + counts.numel() * 4 + cap * 8, sorted_n)
+    out["dict_compact"] = {
+        "ms": cuda_ms(lambda: ok(lib.dc_launch_compact(
+            final.data_ptr(), sorted_n, counts.data_ptr(), res.data_ptr(), flag.data_ptr(), cap,
+            stream)), 20),
+        "plain_ms": cuda_ms(lambda: fd.compact_plain(final, cap), 2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.unique_consecutive(final)[:cap], 10)}
+    out["union_ms"] = cuda_ms(lambda: fd.launch_union(d, k, cap, flag, res), 10)
+    out["union_library_ms"] = cuda_ms(
+        lambda: torch.unique(torch.cat([d, k]) if d is not None else k, sorted=True)[:cap], 10)
+    return out
+
+
+def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) -> dict:
+    """Group slots past the grouped pair's shared-memory rows (its wide
+    route, ``group_wide_partials`` + ``group_wide_combine``) and a device
+    dictionary past 8,192 slots (the union's sort route), on the
+    per-supplier statistics query (``fx.supp_dag``: TPC-H Q15's revenue
+    window, GROUP BY l_suppkey, var_pop's f64 sum of squares).  The main
+    path, counted from 0: cold over 1,000,000 KV rows (SF 1, host ids,
+    10,000 suppliers: the capacity doubles past ``c_max`` block by block),
+    twice; the DOUBLE price's first/min/max/sum/var_pop per supplier cold,
+    twice; warm over the ``n_warm``-row image (about 166,000 suppliers at
+    100M rows, host ids, 262,144 slots), the pinning run and one more; a
+    same-region batch over that image with Q1 grouped by the four flag
+    columns (480 coded slots, past a task's rows), integer and with f64
+    leaves, beside batch A's eight riders, the wide riders against the same
+    requests one by one; ``ShardedGroupedEvaluator`` on eight shards of the card over
+    10,000,000 rows at 32,768 slots, twice.  Every answer against its numpy
+    oracle, the reruns bit for bit (bytes).  Then the new kernels against
+    their plain versions at the path's inputs and timed, beside the same
+    image at ``c_max`` slots on the shared rows and the library
+    yardsticks."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    kvs = fx.supp_kvs(HC_COLD_ROWS, SEED)
+    a_cold = fx.supp_arrays(HC_COLD_ROWS, SEED)
+    want_cold, want_first = fx.supp_oracle(a_cold), fx.supp_first_oracle(a_cold)
+    a = fx.supp_arrays(n_warm, SEED)
+    br = 1 << 17
+    cache = fx.supp_cache(n_warm, br, SEED, arrays=a)
+    want_warm = fx.supp_oracle(a)
+    batch_dags = [("flags4", fx.flags4_dag(), None), ("flags4_f64", fx.flags4_dag(var_pop=True),
+                                                       None)] + fx.batch_plans()
+    # batch A's oracles over the same draws come from the batch phase
+    wants_b = [fx.flags4_oracle(a), fx.flags4_oracle(a, True)] + [
+        want_batch[n] for n, _d, _o in batch_dags[2:]]
+    del a
+    a_mesh = fx.supp_arrays(HC_MESH_ROWS, SEED)
+    want_mesh = fx.supp_mesh_oracle(a_mesh)
+    mesh = pm.make_mesh([device] * MESH_SHARDS, groups=1)
+    mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()), mesh, MESH_GROUPED_RPS,
+                                     capacity=HC_MESH_CAP)
+    total = mev.total_rows
+    mblocks = [(fx.supp_columns(a_mesh, s, min(s + total, HC_MESH_ROWS), total),
+                min(total, HC_MESH_ROWS - s)) for s in range(0, HC_MESH_ROWS, total)]
+    supp_wire, first_wire = dag_to_wire(fx.supp_dag()), dag_to_wire(fx.supp_first_dag())
+    t_setup = time.perf_counter() - t_phase
+
+    # ---- the main path: counts from 0 here to its end ------------------------
+    fa.reset_launches()
+    cold = {}
+    for name, wire, want in (("supp", supp_wire, want_cold), ("first_double", first_wire,
+                                                               want_first)):
+        ev = te.TorchDagEvaluator(wire, block_rows=1 << 16, device="cuda")
+        secs, enc = [], []
+        for _ in range(2):
+            resp, sec = timed_run(ev, FixtureScanSource(kvs), None)
+            check_rows_close(resp, want, f"high_capacity cold {name}")
+            secs.append(sec)
+            enc.append(resp.encode())
+        if enc[0] != enc[1]:
+            raise AssertionError(f"high_capacity cold {name}: two runs differ")
+        cold[name] = {"rows": HC_COLD_ROWS, "suppliers": fx.suppliers(HC_COLD_ROWS),
+                      "groups": len(want), "seconds": secs, "rows_per_s": HC_COLD_ROWS / min(secs),
+                      "c_max": ev.plan.group_program.c_max}
+    ev_w = te.TorchDagEvaluator(supp_wire, block_rows=br, device="cuda")
+    ev_w.route_hint = "unary"
+    warm_s, enc = [], []
+    for run in range(2):  # host ids take seconds a query at 100M rows
+        if run == 0:  # the grouped pair's inputs, kept for the checks below
+            (resp, sec), wide_in = capture_calls(
+                te, "fused_group_agg", lambda: timed_run(ev_w, None, cache))
+        else:
+            resp, sec = timed_run(ev_w, None, cache)
+        check_rows_close(resp, want_warm, "high_capacity warm")
+        warm_s.append(sec)
+        enc.append(resp.encode())
+    if len(set(enc)) != 1:
+        raise AssertionError("high_capacity warm: runs differ")
+    evs_b = [te.TorchDagEvaluator(dag_to_wire(d), block_rows=br, device="cuda")
+             for _n, d, _o in batch_dags]
+    for ev in evs_b:
+        ev.route_hint = "unary"
+    batch_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = te.run_batch_cached(evs_b, cache)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    for (name, _d, _o), resp, want in zip(batch_dags, got, wants_b):
+        check_rows_close(resp, want, f"high_capacity batch {name}")
+    mesh_s, mruns = [], []
+    for _ in range(2):
+        state, sec = timed_call(lambda: mev.run_blocks(mblocks))
+        mesh_s.append(sec)
+        mruns.append(mev.unpack(state))
+        fin = mev.finalize(state)
+    launches = dict(fa.LAUNCHES)
+    # ---- end of the main path ----------------------------------------------------
+    # the wide riders also alone, past the counts (batch A's eight ride their
+    # alone runs in phase batch)
+    alone_s = 0.0
+    for (name, _d, _o), ev, resp in zip(batch_dags, evs_b, got):
+        if name.startswith("flags4"):
+            one, sec = timed_run(ev, None, cache)
+            alone_s += sec
+            if one.encode() != resp.encode():
+                raise AssertionError(f"high_capacity batch {name}: differs from the request alone")
+    for k in HC_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the high_capacity main path")
+    if fin["overflow"] or not same_unpacked(*mruns):
+        raise AssertionError("high_capacity mesh: overflow or two runs differ")
+    mesh_err = check_unpacked((fin["keys"], fin["first"], fin["aggs"], fin["overflow"]),
+                              (want_mesh["keys"], want_mesh["first"], want_mesh["aggs"], False),
+                              "high_capacity mesh against the oracle")
+    emit({"phase": "high_capacity", "card": card, "query": "supp (Q15 window, GROUP BY "
+          "l_suppkey)", "cold": cold,
+          "warm": {"rows": n_warm, "suppliers": fx.suppliers(n_warm), "groups": len(want_warm),
+                   "capacity": 1 << (len(want_warm) - 1).bit_length(),
+                   "c_max": ev_w.plan.group_program.c_max, "first_run_with_pin_s": warm_s[0],
+                   "seconds": warm_s[1:]},
+          "batch": {"riders": [n for n, _d, _o in batch_dags], "seconds": batch_s,
+                    "wide_riders_alone_sum_s": alone_s},
+          "mesh": {"rows": HC_MESH_ROWS, "capacity": HC_MESH_CAP, "shards": MESH_SHARDS,
+                   "live_groups": len(want_mesh["keys"]), "seconds": mesh_s,
+                   "max_abs_err": mesh_err},
+          "matches_oracle": True, "bit_identical_reruns": True, "launches": launches})
+
+    # ---- the new kernels at the path's inputs ------------------------------------
+    prog, img, cap = wide_in[0]
+    t_warm = time_wide_kernels(ga, fx, prog, img, cap, 10)
+    shared_img = fa.Image(img.cols, img.nulls, img.n_valids, img.n_blocks, img.block_rows,
+                          img.device, img.offsets, img.gids % prog.c_max)
+    t_shared = time_group_kernels(ga, prog, shared_img, prog.c_max, 10)
+    del img, shared_img
+    ev_c = te.TorchDagEvaluator(supp_wire, block_rows=1 << 16, device="cuda")
+    _resp, calls = capture_calls(te, "fused_group_agg", lambda: ev_c.run(FixtureScanSource(kvs)))
+    cap_c = max(c[2] for c in calls)  # the first block at the grown capacity
+    prog_c, img_c = next(c[:2] for c in calls if c[2] == cap_c)
+    t_cold = time_wide_kernels(ga, fx, prog_c, img_c, cap_c, 50)
+    tasks = te.batch_tasks(evs_b, cache)[0]  # the batch the main path ran
+    batch_err = fx.batch_kernel_check(tasks)
+    del tasks
+    # the second super-block's shard union, with the dictionary carried
+    state = mev.step(*_block_args(mev, mblocks[0]), mev.init_state())
+    seen = capture_dict(fd, lambda: mev.step(*_block_args(mev, mblocks[1]), state,
+                                             block_base=total))
+    d, k, ucap = seen["dict_union"]
+    t_sort = time_sort_union(fd, d, k, ucap)
+    dg, kg, _ = seen["dict_union_global"]
+    t_sort_global = time_sort_union(fd, dg, kg, ucap)
+    new, kk, old = seen["dict_ids"]
+    gids = torch.empty(kk.numel(), dtype=torch.int32, device=device)
+    perm = torch.empty(ucap, dtype=torch.int32, device=device)
+    fd.launch_ids(new, kk, gids, old, perm)
+    want_ids, want_perm = fd.dict_ids_plain(new.cpu(), kk.cpu(), old.cpu())
+    if not (torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)):
+        raise AssertionError("dict_ids in device memory: differs from its plain version")
+    ids_ms = cuda_ms(lambda: fd.launch_ids(new, kk, gids, old, perm), 20)
+    emit({"phase": "high_capacity", "case": "kernels", "card": card,
+          "int_words_equal": True, "f64_rel_tol": REL_TOL,
+          "wide_warm": t_warm, "shared_rows_same_image": t_shared, "wide_cold_block": t_cold,
+          "batch_check": batch_err, "sort_union_shard": t_sort,
+          "sort_union_global": t_sort_global, "dict_ids_device_memory_ms": ids_ms,
+          "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "warm": t_warm, "cold": t_cold, "shared": t_shared,
+            "sort": t_sort, "sort_global": t_sort_global,
+            "max_abs_err": max(t_warm["max_abs_err"], t_cold["max_abs_err"],
+                               batch_err["wide"], mesh_err)}
+
+
+def timed_call(fn):
+    """``fn()`` and its host seconds, the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
 
 
 def _block_args(ev, block):
@@ -2395,6 +2798,9 @@ def main() -> int:
     # ---- phase mesh_grouped: program #17 (its own main path) ------------------
     mg = phase_mesh_grouped(fx, card, device)
 
+    # ---- phase high_capacity: group slots past the shared rows (its own main path)
+    hc = phase_high_capacity(fx, card, device, n_warm, want_batch)
+
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
                  "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
@@ -2405,6 +2811,7 @@ def main() -> int:
     main_path.update(dict.fromkeys(JOIN_KERNELS, jn["launches"]))
     main_path["mesh_merge"] = mesh_out["launches"]
     main_path.update(dict.fromkeys(DICT_KERNELS, mg["launches"]))
+    main_path.update(dict.fromkeys(WIDE_KERNELS + SORT_KERNELS, hc["launches"]))
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -2583,6 +2990,42 @@ def main() -> int:
         if entry["name"] == "mesh_merge":
             entry["remap"] = mg["merge"]
             entry["max_abs_err"] = max(entry["max_abs_err"], mg["max_abs_err"])
+        if entry["name"] == "fused_group_agg_partials":
+            entry["mesh_grouped_shard"] = mg["pair"]
+        if entry["name"] in HC_KERNELS:
+            entry["high_capacity_launches"] = hc["launches"][entry["name"]]
+    # the wide route at the warm per-supplier query's image (262,144 slots at
+    # 100M rows), the cold block's shape and the same image on the shared
+    # rows at c_max slots beside it
+    for name, key, replaces, also in (
+            ("group_wide_partials", "partials", "tikv_tpu/copr/jax_eval.py:855",
+             ["tikv_tpu/copr/jax_eval.py:883", "tikv_tpu/copr/jax_eval.py:921",
+              "tikv_tpu/copr/jax_eval.py:349", "tikv_tpu/copr/jax_eval.py:387"]),
+            ("group_wide_combine", "combine", "tikv_tpu/copr/jax_eval.py:737",
+             ["tikv_tpu/copr/jax_eval.py:1436"])):
+        t = hc["warm"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "replaces_also": also, "launches": hc["launches"][name],
+            "max_abs_err": max(hc["max_abs_err"], errs[name]),
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "bound_ms": t[f"{key}_bound_ms"], "bound_by": t[f"{key}_bound_by"],
+            "library_ms": t["library_ms"] if key == "partials" else None,
+            "library": t["library"] if key == "partials" else None,
+            "capacity": t["capacity"], "rows": t["rows"],
+            "cold_block": {f: hc["cold"][f"{key}_{f}"] for f in ("ms", "plain_ms", "bound_ms")},
+            "shared_rows_same_image_ms": hc["shared"][f"{key}_ms"]})
+    # the dictionary union's sort route at the grouped mesh's shard union
+    # (the carried 32,768-slot dictionary and a shard's 131,072 keys)
+    for name in SORT_KERNELS:
+        t = hc["sort"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": DICT_SRC,
+            "replaces": "tikv_tpu/parallel/mesh.py:378",
+            "replaces_also": ["tikv_tpu/parallel/mesh.py:388"],
+            "launches": hc["launches"][name], "max_abs_err": 0.0, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "global": hc["sort_global"].get(name)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

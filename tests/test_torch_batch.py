@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from tikv_tpu.copr import jax_eval, jax_zone
@@ -39,12 +40,13 @@ from tikv_tpu.copr.dag_wire import dag_to_wire
 from tikv_tpu.copr.datatypes import Column as JaxColumn
 from tikv_tpu.copr.datatypes import ColumnInfo, FieldType
 from tikv_tpu.copr.datatypes import EvalType as JaxEvalType
+from tikv_tpu.copr.executors import CachedBlocksExecutor
 from tikv_tpu.copr.executors import FixtureScanSource as JaxSource
 from tikv_tpu.copr.jax_eval import JaxDagEvaluator
 from tikv_tpu.copr.rpn import call, col, const_int
 from tikv_tpu.copr.table import encode_row, record_key
 from tikv_tpu_torch import fixtures as fx
-from tikv_tpu_torch.copr import encoding, fused_batch, zone, zone_maps
+from tikv_tpu_torch.copr import encoding, fused_batch, torch_eval, zone, zone_maps
 from tikv_tpu_torch.copr.cache import ColumnBlockCache
 from tikv_tpu_torch.copr.dag_wire import dag_to_wire as port_wire
 from tikv_tpu_torch.copr.executors import FixtureScanSource
@@ -224,30 +226,38 @@ def test_a_raising_cold_topn_leaves_the_cache_unfilled():
 
 
 def test_a_cold_group_by_past_its_capacity_leaves_the_cache_unfilled():
-    """``check_capacity`` raises mid-scan once a REAL sum's groups outgrow the
-    shared-memory slots (``real_group_capacity_not_ported``); the cache
-    keeps no block and the next cold run fills it whole."""
-    from tikv_tpu_torch.copr.fused_agg import Unsupported
-
+    """A raw TopN whose BYTES payload stops being dictionary-coded raises
+    mid-scan and leaves the cache unfilled; a REAL sum and var_pop whose
+    groups then outgrow the shared-memory slots (a name kept from when the
+    port declined them, ``real_group_capacity_not_ported``) are served by
+    the wide route cold, fill the cache whole and answer warm as the CPU
+    pipeline and the JAX evaluator do (REAL values to rel 1e-12)."""
     schema = [ColumnInfo(1, FieldType.int64(), is_pk_handle=True), ColumnInfo(2, FieldType.int64()),
-              ColumnInfo(3, FieldType.double())]
+              ColumnInfo(3, FieldType.double()), ColumnInfo(4, FieldType.varchar())]
     rng = np.random.default_rng(12)
     n = 3000
-    kvs = [(record_key(9, i), encode_row(schema[1:], [i % 1500, float(rng.random())]))
-           for i in range(n)]
+    kvs = [(record_key(9, i), encode_row(schema[1:], [
+        i % 1500, float(rng.random()), None if i >= 600 and i % 7 == 0 else b"xyz"[i % 3:][:1]]))
+        for i in range(n)]
+    topn = DagRequest(executors=[TableScan(9, schema), TopN([(col(1), False)], 5)])
+    cache = ColumnBlockCache()
+    with pytest.raises(ValueError, match="not dict-coded"):
+        TorchDagEvaluator(dag_to_wire(topn), block_rows=256, device="cpu").run(
+            FixtureScanSource(kvs), cache)
+    assert cache.blocks == [] and not cache.filled
     grouped = DagRequest(executors=[TableScan(9, schema), Aggregation(
         [col(1)], [AggDescriptor("sum", col(2)), AggDescriptor("var_pop", col(2))])])
-    cache = ColumnBlockCache()
-    with pytest.raises(Unsupported) as exc:
-        TorchDagEvaluator(dag_to_wire(grouped), block_rows=256, device="cpu").run(
-            FixtureScanSource(kvs), cache)
-    assert exc.value.cause == "real_group_capacity_not_ported"
-    assert cache.blocks == [] and not cache.filled
-    count = _count_dag(schema)
-    ev = TorchDagEvaluator(dag_to_wire(count), block_rows=256, device="cpu")
-    want = BatchExecutorsRunner(count, JaxSource(kvs)).handle_request().encode()
-    assert ev.run(FixtureScanSource(kvs), cache).encode() == want
-    assert ev.run(None, cache).encode() == want and cache.total_rows == n
+    ev = TorchDagEvaluator(dag_to_wire(grouped), block_rows=256, device="cpu")
+    want = BatchExecutorsRunner(grouped, JaxSource(kvs)).handle_request()
+    jwant = JaxDagEvaluator(grouped, block_rows=256).run(JaxSource(kvs))
+    cold = ev.run(FixtureScanSource(kvs), cache)
+    assert cache.filled and cache.total_rows == n
+    warm = ev.run(None, cache)
+    assert len(want.iter_rows()) == 1500 > ev.plan.group_program.c_max
+    for got in (cold, warm):
+        for other in (want, jwant):
+            for g_row, w_row in zip(got.iter_rows(), other.iter_rows(), strict=True):
+                assert g_row == pytest.approx(w_row, rel=1e-12, abs=0)
 
 
 def test_an_early_close_stops_the_worker_and_fills_nothing():
@@ -546,6 +556,96 @@ def test_xregion_declines_raise_like_the_reference():
 
 
 # ---------------------------------------------------------------------------
+# riders past their shared-memory rows: the wide route inside the batch
+# ---------------------------------------------------------------------------
+
+class SuppRegion:
+    """A region of the supplier table (``fx.supp_cache``: lineitem and
+    l_suppkey, the DOUBLE price, l_shipmode, l_shipinstruct): its draws and
+    both packages' images of the same blocks."""
+
+    def __init__(self, n_blocks, seed, block_rows=BR):
+        self.block_rows = block_rows
+        self.arrays = fx.supp_arrays(n_blocks * block_rows, seed)
+        self.pcache = fx.supp_cache(n_blocks * block_rows, block_rows, seed, arrays=self.arrays)
+        self.jcache = JaxCache()
+        for b in self.pcache.blocks:
+            self.jcache.add([JaxColumn(JaxEvalType(c.eval_type.value), np.asarray(c.data),
+                                       np.asarray(c.nulls), c.frac, c.dictionary)
+                             for c in b.cols], b.n_valid)
+        self.jcache.filled = True
+
+    def cpu(self, dag):
+        return BatchExecutorsRunner(dag, None, leaf=CachedBlocksExecutor(
+            self.jcache, dag.executors[0].columns_info)).handle_request()
+
+
+def _close(got, want, what):
+    """Responses equal: bytes where no value is a float, else row by row
+    with REAL values to rel 1e-12."""
+    if got.encode() == want.encode():
+        return
+    for g_row, w_row in zip(got.iter_rows(), want.iter_rows(), strict=True):
+        assert g_row == pytest.approx(w_row, rel=1e-12, abs=0), what
+
+
+WIDE_RIDERS = {"int": lambda: _jax_dag(fx.flags4_dag()),
+               "f64": lambda: _jax_dag(fx.flags4_dag(var_pop=True))}
+
+
+@pytest.mark.parametrize("kind", sorted(WIDE_RIDERS))
+def test_a_batch_rider_past_its_slots_rides_the_wide_route(kind):
+    """Q1 grouped by TPC-H's four flag columns (480 coded slots, past a
+    task's shared-memory rows), integer leaves or with f64 leaves (var_pop,
+    a REAL sum), beside three riders on the batch kernels: the batch's
+    responses equal the same requests one by one, the JAX package's
+    ``run_batch_cached``, the CPU pipeline and the oracles."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+
+    region = SuppRegion(4, 31)
+    rider = WIDE_RIDERS[kind]()
+    others = _riders(["q1", "q6", "bit_xor_by_linestatus"])
+    dags = [rider] + [d for _n, d, _o in others]
+    evs = _port_evs(dags)
+    tasks, _specs, _pruned = torch_eval.batch_tasks(evs, region.pcache)
+    assert fused_batch.Batch(tasks).wide == [0]
+    fa.reset_launches()
+    got = run_batch_cached(evs, region.pcache)
+    assert fa.LAUNCHES["group_wide_partials"] == 0  # the plain versions here
+    jgot = jax_eval.run_batch_cached(_jax_evs(dags), region.jcache)
+    oracles = [lambda a: fx.flags4_oracle(a, kind == "f64")] + [o for _n, _d, o in others]
+    for dag, resp, jresp, oracle in zip(dags, got, jgot, oracles):
+        alone = TorchDagEvaluator(dag_to_wire(dag), block_rows=BR, device="cpu")
+        alone.route_hint = "unary"
+        _close(resp, alone.run(None, region.pcache), "alone")
+        _close(resp, jresp, "JAX")
+        _close(resp, region.cpu(dag), "CPU pipeline")
+        want = oracle(region.arrays)
+        assert len(resp.iter_rows()) == len(want)
+        for g_row, w_row in zip(resp.iter_rows(), want):
+            assert g_row == pytest.approx(w_row, rel=1e-12, abs=0)
+
+
+@pytest.mark.parametrize("kind", sorted(WIDE_RIDERS))
+def test_a_cross_region_batch_past_its_slots_rides_the_wide_route(kind):
+    """The four-flag plan over three regions (every task wide): as the
+    regions served one by one, the JAX package's ``run_xregion_cached`` and
+    the CPU pipeline."""
+    regions = [SuppRegion(3, 32), SuppRegion(1, 33), SuppRegion(2, 34)]
+    dag = WIDE_RIDERS[kind]()
+    ev = _port_evs([dag])[0]
+    _specs, _group_cols, capacity = xregion_specs(ev, [r.pcache for r in regions])
+    assert capacity == 512
+    got = run_xregion_cached(ev, [r.pcache for r in regions])
+    jgot = jax_eval.run_xregion_cached(JaxDagEvaluator(dag, block_rows=BR),
+                                       [r.jcache for r in regions])
+    for region, resp, jresp in zip(regions, got, jgot):
+        _close(resp, ev.run(None, region.pcache), "alone")
+        _close(resp, jresp, "JAX")
+        _close(resp, region.cpu(dag), "CPU pipeline")
+
+
+# ---------------------------------------------------------------------------
 # the batch kernels' plain versions
 # ---------------------------------------------------------------------------
 
@@ -588,16 +688,30 @@ def test_batch_layout_and_plain_kernels_match_the_grouped_plain_version():
 
 
 def test_batch_refuses_what_the_kernels_do_not_take():
-    from tikv_tpu_torch.copr.fused_agg import Unsupported
+    """A task past its shared-memory rows is no longer refused (a name kept
+    from then): it is wide, takes no CTA of the batch kernels and is served
+    by the grouped pair's wide route in the same call.  Host group ids and
+    an empty batch are still refused."""
+    from tikv_tpu_torch.copr import fused_group_agg as ga
 
     region = Region(1, 28)
     ev = _port_evs([_riders(["q1"])[0][1]])[0]
     ship = ev._ship_cols([5, 6])
     prog = ev._batch_program(ship, ev.plan.schema, [5, 6], (3, 2))
     img = ev._stacked_device(region.pcache, ship)
-    with pytest.raises(Unsupported) as exc:
-        fused_batch.Batch([fused_batch.Task(prog, img, fused_batch.c_max(prog) + 1)])
-    assert exc.value.cause == "batch_group_capacity"
+    wide_cap = fused_batch.c_max(prog) + 1
+    tasks = [fused_batch.Task(prog, img, wide_cap), fused_batch.Task(prog, img, 16)]
+    batch = fused_batch.Batch(tasks)
+    assert batch.wide == [0] and batch.shared == [1] and batch.grids[0] == 0
+    assert batch.c_max == wide_cap and batch.c_shared == 16
+    ints, flts = fused_batch.fused_batch(tasks)
+    for i, t in enumerate(tasks):
+        wi, _wf = ga.fused_group_agg_plain(t.prog, t.img, t.capacity)
+        assert torch.equal(ints[i, : prog.n_int, : t.capacity], wi)
+        assert (ints[i, :, t.capacity :] == 0).all()
+    host = ev.plan.group_program
+    with pytest.raises(ValueError, match="dictionary codes, not host ids"):
+        fused_batch.Batch([fused_batch.Task(host, img, 16)])
     with pytest.raises(ValueError, match="CUDA"):
         batch = fused_batch.Batch([fused_batch.Task(prog, img, 16)])
         fused_batch.launch_batch_partials(batch, None, None)

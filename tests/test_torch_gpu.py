@@ -31,7 +31,8 @@ def cuda():
 
 def _assert_close(got, want):
     assert torch.equal(got[0].cpu(), want[0].cpu())  # int leaves exact
-    torch.testing.assert_close(got[1].cpu(), want[1].cpu(), rtol=1e-12, atol=0)
+    # NaN where the plain version has NaN (the host_wide case adds NaN rows)
+    torch.testing.assert_close(got[1].cpu(), want[1].cpu(), rtol=1e-12, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("n_blocks,block_rows", [(1, 1 << 16), (40, 1 << 17)])
@@ -125,17 +126,52 @@ def test_grouped_kernel_matches_plain_version(cuda, kind, n_blocks, block_rows):
         _assert_close(ga.combine_plain(prog, img, cap, parts), got)
 
 
-def test_grouped_kernel_declines_f64_leaves_past_its_capacity(cuda):
+@pytest.mark.parametrize("times", [1, 4], ids=["c_max_plus_1", "4_c_max"])
+@pytest.mark.parametrize("kind", fx.GROUP_CASES)
+def test_wide_route_matches_its_plain_versions(cuda, kind, times):
+    """group_wide_partials and group_wide_combine past the shared-memory
+    slots, every leaf kind (NaN, +-inf and +-0.0 in the host_wide case):
+    the state word for word and the combine bit for bit against their plain
+    versions, the pair against fused_group_agg_plain to rel 1e-12, two runs
+    bit-identical; a wrongly typed gids lane is refused."""
     gen = torch.Generator(device=cuda).manual_seed(4)
-    prog, img, _cap = fx.synthetic_group_case("host", 1, 4096, gen, cuda)
-    before = dict(fa.LAUNCHES)
-    with pytest.raises(fa.Unsupported) as exc:
-        ga.fused_group_agg(prog, img, prog.c_max + 1)
-    assert exc.value.cause == "real_group_capacity_not_ported"
-    assert fa.LAUNCHES == before
-    img.gids = img.gids.to(torch.int64)
-    with pytest.raises(ValueError):
-        ga.fused_group_agg(prog, img, 64)
+    prog, img, _cap = fx.synthetic_group_case(kind, 40, 1 << 14, gen, cuda)
+    cap = times * prog.c_max + (1 if times == 1 else 0)
+    fa.reset_launches()
+    fx.wide_kernel_check(prog, img, cap)
+    assert fa.LAUNCHES["group_wide_partials"] > 0 and fa.LAUNCHES["group_wide_combine"] > 0
+    assert fa.LAUNCHES["fused_group_agg_partials"] == 0
+    if img.gids is not None:
+        img.gids = img.gids.to(torch.int64)
+        with pytest.raises(ValueError):
+            ga.fused_group_agg(prog, img, cap)
+
+
+def test_a_batch_rider_past_its_slots_on_the_card(cuda):
+    """Q1 grouped by the four flag columns (480 coded slots) with f64
+    leaves, beside Q1 and Q6, over a supplier image: the batch kernels held
+    to their plain versions, the wide rider to fused_group_agg_plain, two
+    runs bit-identical; the responses equal their oracles."""
+    from tikv_tpu_torch.copr import fused_batch
+    from tikv_tpu_torch.copr.torch_eval import batch_tasks, run_batch_cached
+
+    br = 1 << 16
+    n = 6 * br - 321
+    a = fx.supp_arrays(n, seed=17)
+    cache = fx.supp_cache(n, br, seed=17, arrays=a)
+    dags = [fx.flags4_dag(var_pop=True), fx.q1_dag(), fx.xor_dag()]
+    evs = [TorchDagEvaluator(dag_to_wire(d), block_rows=br, device=cuda) for d in dags]
+    tasks = batch_tasks(evs, cache)[0]
+    assert fused_batch.Batch(tasks).wide == [0]
+    out = fx.batch_kernel_check(tasks)
+    assert out["wide_tasks"] == [0]
+    fa.reset_launches()
+    got = run_batch_cached(evs, cache)
+    assert fa.LAUNCHES["group_wide_partials"] == 1 and fa.LAUNCHES["batch_partials"] == 1
+    want = fx.flags4_oracle(a, var_pop=True)
+    for g_row, w_row in zip(got[0].iter_rows(), want, strict=True):
+        assert g_row == pytest.approx(w_row, rel=1e-12, abs=0)
+    assert got[1].iter_rows() == fx.q1_oracle(a) and got[2].iter_rows() == fx.xor_oracle(a)
 
 
 def test_cold_q1_matches_the_oracle(cuda):
@@ -323,11 +359,14 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
     # join probes joins only (test_join_kernels_match_their_plain_versions),
     # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version),
     # the dictionary kernels the mesh's device-built group dictionary only
-    # (test_dictionary_kernels_match_their_plain_versions)
+    # (test_dictionary_kernels_match_their_plain_versions), the wide route
+    # group slots past the shared rows only (test_wide_route_matches_its_plain_versions)
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
                                      "join_rank_probe", "join_hash_probe", "mesh_merge",
-                                     "dict_keys", "dict_union", "dict_ids"), name
+                                     "dict_keys", "dict_union", "dict_ids", "dict_merge",
+                                     "dict_count", "dict_compact", "group_wide_partials",
+                                     "group_wide_combine"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -566,13 +605,16 @@ def test_an_eight_shard_mesh_on_one_card_matches_the_single_device_route(cuda):
 
 @pytest.mark.parametrize("cap,distinct,bad", [(8, 1, False), (8, 50, False), (64, 15, False),
                                               (64, 15, True), (4096, 1000, False),
-                                              (4096, 3000, False)])
+                                              (4096, 3000, False), (16384, 3000, False),
+                                              (32768, 20000, False), (9000, 20000, False)])
 def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad):
     """dict_keys, dict_union and dict_ids against their plain versions over
     200,000 rows (NULL keys, a REAL key, rows past n_valid) and a dictionary
     that grows from the first half's keys to all of them; a full dictionary,
-    overflow and out-of-range keys; two runs bit-identical; then mesh_merge
-    moving a carry through a perm at the same capacity."""
+    overflow and out-of-range keys; past 8,192 slots the union's sort route
+    (dict_merge, dict_count, dict_compact) and dict_ids in device memory;
+    two runs bit-identical; then mesh_merge moving a carry through a perm at
+    the same capacity."""
     from tikv_tpu_torch.copr import fused_dict as fd
     from tikv_tpu_torch.copr import fused_mesh
 
@@ -584,7 +626,8 @@ def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad)
     if not bad:  # (distinct + NULL) x 4 truncated REAL values
         assert bool(out["flag"] & fd.FLAG_CAPACITY) == ((distinct + 1) * 4 > cap)
     assert fa.LAUNCHES["dict_keys"] == fa.LAUNCHES["dict_ids"] == 2
-    assert fa.LAUNCHES["dict_union"] == 2 * len(fd.union_passes(n + cap, cap))
+    for name, count in fd.union_launches(n + cap, cap).items():
+        assert fa.LAUNCHES[name] == 2 * count, name
     mprog, parts, table, carry = fx.mesh_merge_case(8, 1, cap, cap, cuda)
     fx.mesh_merge_check(mprog, parts, table, carry, perm=fx.merge_perm(cap, cap, cuda))
     with pytest.raises(ValueError):  # the carry may not be the output with a perm

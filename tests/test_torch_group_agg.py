@@ -94,9 +94,9 @@ def _conds():
             call("lt", col(2), const_real(900.0))]
 
 
-def _dag(group_by, aggs=None, keys_nullable=False, streamed=False):
+def _dag(group_by, aggs=None, keys_nullable=False, streamed=False, conds=None):
     return DagRequest(executors=[
-        TableScan(TABLE, _schema(keys_nullable)), Selection(_conds()),
+        TableScan(TABLE, _schema(keys_nullable)), Selection(_conds() if conds is None else conds),
         Aggregation(group_by, _all_aggs() if aggs is None else aggs, streamed=streamed)])
 
 
@@ -260,6 +260,111 @@ def test_f64_extremes_take_nan_and_signed_zero_as_jax_does():
         offset += br
 
 
+def _wide_pair(prog, img, cap, carry=None):
+    """The wide route's plain versions, word for word the kernels':
+    ``group_wide_partials`` then ``group_wide_combine``."""
+    return ga.wide_combine_plain(prog, img, cap, ga.wide_partials_plain(prog, img, cap), carry)
+
+
+def _same_bits_where_zero(got, want):
+    gf, wf = got[1].numpy(), np.asarray(want[1])
+    zero = wf == 0
+    np.testing.assert_array_equal(np.signbit(gf[zero]), np.signbit(wf[zero]))
+
+
+@pytest.mark.parametrize("times", [1, 4], ids=["c_max_plus_1", "4_c_max"])
+@pytest.mark.parametrize("path", ["cold", "warm_host", "warm_coded"])
+def test_wide_route_matches_jax_leaf_by_leaf(path, times):
+    """Past the shared-memory slots (``c_max + 1`` and ``4 * c_max``): the
+    JAX package's block step (cold, carried over two blocks), stacked scan
+    with host ids and coded scan, against ``fused_group_agg`` and the wide
+    route's plain versions, leaf by leaf: integer leaves exact, f64 leaves
+    to rel 1e-12 with NaN, +-inf and +-0.0 among the REAL values (signed
+    zeros exact)."""
+    rng = np.random.default_rng(30 + times)
+    br = 512
+    conds = _conds()[:1]
+    group_by = [col(4), col(5)] if path == "warm_coded" else [col(6)]
+    ev = jax_eval.JaxDagEvaluator(_dag(group_by, conds=conds), block_rows=br)
+    port = TorchDagEvaluator(dag_to_wire(ev.dag), block_rows=br, device="cpu")
+    prog = port.plan.group_program
+    cap = times * prog.c_max + (1 if times == 1 else 0)
+    assert not prog.shared_rows(cap)
+
+    def draw(ship, nb):
+        data, nulls = _inputs(ship, ev.nullable_cols, nb, br, rng)
+        data[2] = _with_specials(data[2], rng)
+        return data, nulls
+
+    def check(got, want):
+        _assert_state(got, want)
+        _same_bits_where_zero(got, want)
+
+    if path == "cold":
+        state = (jnp.full(cap, jax_eval._NO_ROW, dtype=jnp.int64),
+                 tuple(da.init_carry(cap) for da in ev.device_aggs))
+        carry = wide = None
+        offset = 0
+        for n_valid in (br - 40, br):
+            data, nulls = draw(ev.device_cols, 1)
+            gids = rng.integers(0, cap, (1, br)).astype(np.int32)
+            state = ev._build_agg_fn(cap)([data[i][0] for i in ev.device_cols],
+                                          [nulls[i][0] for i in ev.nullable_cols], n_valid,
+                                          gids[0], offset, state)
+            img = _image(ev.device_cols, ev.nullable_cols, data, nulls, n_valid, offset, gids)
+            carry = ga.fused_group_agg(prog, img, cap, carry)
+            wide = _wide_pair(prog, img, cap, wide)
+            want = jax_eval._pack_state(state)
+            check(carry, want)
+            check(wide, want)
+            offset += n_valid
+        return
+    nb = len(N_VALIDS)
+    if path == "warm_host":
+        data, nulls = draw(ev.device_cols, nb)
+        gids = rng.integers(0, cap, (nb, br)).astype(np.int32)
+        want = ev._build_scan_fn(cap, nb)(tuple(data[i] for i in ev.device_cols),
+                                          tuple(nulls[i] for i in ev.nullable_cols),
+                                          N_VALIDS, gids, _offsets(N_VALIDS), None)
+        img = _image(ev.device_cols, ev.nullable_cols, data, nulls, N_VALIDS,
+                     _offsets(N_VALIDS), gids)
+    else:
+        group_cols = [4, 5]
+        dict_lens = (cap // 5, 4)  # about cap slots, the NULL code included
+        ship = ev._ship_cols(group_cols)
+        prog = port._coded_program(group_cols, dict_lens)
+        data, nulls = draw(ship, nb)
+        data[4] = rng.integers(0, dict_lens[0], (nb, br)).astype(np.int64)
+        data[5] = rng.integers(0, dict_lens[1], (nb, br)).astype(np.int64)
+        want = ev._build_scan_fn_coded(dict_lens, cap, nb, group_cols)(
+            tuple(data[i] for i in ship), tuple(nulls[i] for i in ev.nullable_cols),
+            N_VALIDS, _offsets(N_VALIDS), None)
+        img = _image(ship, ev.nullable_cols, data, nulls, N_VALIDS, _offsets(N_VALIDS))
+    check(ga.fused_group_agg(prog, img, cap), want)
+    check(_wide_pair(prog, img, cap), want)
+
+
+def test_wide_route_sums_are_exact_and_order_free():
+    """The wide route's f64 sums are the exact sums of the rows' values
+    rounded once: equal, bit for bit, to ``math.fsum`` over each group (and
+    so to any order of the rows), where a fixed-order f64 fold is not."""
+    import math
+
+    rng = np.random.default_rng(40)
+    vals = rng.uniform(-1, 1, 4096) * 10.0 ** rng.integers(-30, 30, 4096)
+    gids = rng.integers(0, 300, 4096)
+    cells = torch.zeros((300, ga.XWORDS), dtype=torch.int64)
+    for order in (np.arange(4096), rng.permutation(4096)):
+        cells.zero_()
+        k, digits = ga._xdigits(torch.from_numpy(vals[order]))
+        base = torch.from_numpy(gids[order]) * ga.XWORDS + k
+        for q, d in enumerate(digits):
+            cells.view(-1).index_add_(0, base + q, d)
+        got = ga._xround(cells).numpy()
+        want = np.array([math.fsum(vals[gids == g]) for g in range(300)])
+        np.testing.assert_array_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # whole requests
 # ---------------------------------------------------------------------------
@@ -268,15 +373,17 @@ def _row_kvs(schema, rows):
     return [(record_key(TABLE, h), encode_row(schema[1:], values)) for h, values in enumerate(rows)]
 
 
-def _kvs(n, seed, keys_nullable=False, n_keys=3, filtered_key=None):
+def _kvs(n, seed, keys_nullable=False, n_keys=3, filtered_key=None, specials=False):
     """Rows of :func:`_schema`; ``filtered_key`` gets c2 >= 900 on every row,
-    so the selection removes the whole group."""
+    so the selection removes the whole group; ``specials`` puts NaN, +-inf
+    and +-0.0 among signed c2 values (:func:`_with_specials`)."""
     rng = np.random.default_rng(seed)
     holes = rng.random((4, n)) < 0.1
+    c2s = _with_specials(rng.uniform(0, 1000, n), rng) if specials else None
     rows = []
     for r in range(n):
         ka, kb = int(rng.integers(0, n_keys)), int(rng.integers(0, 4))
-        c2 = float(rng.uniform(0, 1000))
+        c2 = float(rng.uniform(0, 1000)) if c2s is None else float(c2s[r])
         if filtered_key is not None and ka == filtered_key:
             c2 = 950.0
         vals = [int(rng.integers(-100, 100)), c2, int(rng.integers(-10**6, 10**6))]
@@ -502,45 +609,106 @@ def test_cold_capacity_grows_across_blocks(aggs, n_keys):
     assert len(resp.iter_rows()) > 8
 
 
-def _big_dict_cache(n_slots):
+def _big_dict_caches(n_slots, specials=False):
+    """Both packages' caches of one 2,000-row block of :func:`_schema`'s
+    columns, the first varchar key coded over a dictionary of ``n_slots``
+    values (ids from the codes past the shared-memory slots); with
+    ``specials`` the REAL column holds NaN, +-inf and +-0.0 among signed
+    values."""
     rng = np.random.default_rng(5)
     d = np.empty(n_slots, dtype=object)
     d[:] = [b"v%d" % i for i in range(n_slots)]
     n = 2000
     nz = np.zeros(n, dtype=bool)
-    return ColumnBlockCache.from_numpy_blocks([(
+    c2 = rng.uniform(0, 1000, n)
+    if specials:
+        c2 = _with_specials(c2, rng)
+    blocks = [(
         [(EvalType.INT.value, np.arange(n, dtype=np.int64), nz, 0, None),
          (EvalType.INT.value, rng.integers(-100, 100, n), nz, 0, None),
-         (EvalType.REAL.value, rng.uniform(0, 1000, n), nz, 0, None),
+         (EvalType.REAL.value, c2, nz, 0, None),
          (EvalType.DECIMAL.value, rng.integers(-10**6, 10**6, n), nz, 2, None),
          (EvalType.BYTES.value, rng.integers(0, n_slots, n), nz, 0, d),
          (EvalType.BYTES.value, np.zeros(n, dtype=np.int64), nz, 0, d[:1]),
-         (EvalType.INT.value, rng.integers(0, 40, n), nz, 0, None)], n)])
+         (EvalType.INT.value, rng.integers(0, 40, n), nz, 0, None)], n)]
+    jax_cache = JaxCache()
+    for cols, nv in blocks:
+        jax_cache.add([Column(EvalType(et), data, nulls, frac, dic)
+                       for et, data, nulls, frac, dic in cols], nv)
+    jax_cache.filled = True
+    return jax_cache, ColumnBlockCache.from_numpy_blocks(blocks)
+
+
+def _with_specials(x, rng, p=0.08):
+    """``x`` with its sign flipped in a third of the entries and NaN, +inf,
+    -inf, -0.0 or +0.0 in a share ``p`` of them."""
+    x = np.where(rng.random(x.shape) < 0.3, -x, x)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0])[rng.integers(0, 5, x.shape)]
+    return np.where(rng.random(x.shape) < p, special, x)
+
+
+def _serve_warm(dag, jax_cache, port_cache, br):
+    """The port's warm answer against the JAX evaluator's (both routes) and
+    the CPU pipeline's over the same blocks; returns the port's evaluator
+    and answer."""
+    real = _real(dag)
+    port = TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device="cpu")
+    got = port.run(None, port_cache)
+    cpu = BatchExecutorsRunner(
+        dag, None, leaf=CachedBlocksExecutor(jax_cache, dag.executors[0].columns_info)
+    ).handle_request()
+    _same(got, cpu, real, "warm vs CPU pipeline")
+    for hint in (None, "unary"):
+        jev = jax_eval.JaxDagEvaluator(dag, block_rows=br)
+        jev.route_hint = hint
+        _same(got, jev.run(None, jax_cache), real, f"warm vs JAX route_hint={hint}")
+    return port, got
 
 
 @pytest.mark.parametrize("path", ["cold", "warm_coded", "warm_host"])
 def test_real_leaves_past_the_shared_capacity_decline_by_name(path):
     """More group slots than the shared-memory partials hold, with f64
-    leaves: declined by name (cold: at the block where the groups cross the
-    limit; warm: before any launch).  Integer leaves take any capacity."""
+    leaves (a name kept from when the port declined them): served by the
+    grouped pair's wide route, cold (the capacity grown past ``c_max``
+    block by block) and warm, with ids from the host or from dictionary
+    codes, equal to the JAX evaluator and the CPU pipeline (f64 values to
+    rel 1e-12); the integer-only plan too."""
     group_by = [col(4)] if path == "warm_coded" else [col(0)]
-    br = 256 if path == "cold" else 2048
-    port = TorchDagEvaluator(dag_to_wire(_dag(group_by)), block_rows=br, device="cpu")
-    int_port = TorchDagEvaluator(dag_to_wire(_dag(group_by, _int_aggs())), block_rows=br,
-                                 device="cpu")
-    c_max = port.plan.group_program.c_max
-    if path == "cold":
-        def run(ev):
-            return ev.run(FixtureScanSource(_rows()))
-    else:
-        cache = _big_dict_cache(c_max + 40)
+    for aggs in (None, _int_aggs()):
+        dag = _dag(group_by, aggs)
+        c_max = TorchDagEvaluator(dag_to_wire(dag), device="cpu").plan.group_program.c_max
+        if path == "cold":
+            port, _cache = _check_request(dag, _rows(), 256)
+            resp = port.run(FixtureScanSource(_rows()))
+        else:
+            jax_cache, port_cache = _big_dict_caches(c_max + 40)
+            port, resp = _serve_warm(dag, jax_cache, port_cache, 2048)
+            assert (port._stable_dict_group_cols(port_cache.blocks) is not None) \
+                == (path == "warm_coded")
+        assert len(resp.iter_rows()) > c_max
 
-        def run(ev):
-            return ev.run(None, cache)
-    with pytest.raises(fa.Unsupported) as exc:
-        run(port)
-    assert exc.value.cause == "real_group_capacity_not_ported"
-    assert len(run(int_port).iter_rows()) > c_max
+
+@pytest.mark.parametrize("path", ["cold", "warm_coded", "warm_host"])
+def test_wide_requests_with_nan_and_infinities_match_jax(path):
+    """The wide route over REAL values with NaN, +-inf and +-0.0: var_pop,
+    REAL sum/avg/min/max/first among the ten aggregates, served past
+    ``c_max`` cold, warm by host ids and warm by coded ids, equal to the JAX
+    evaluator and the CPU pipeline.  The selection keeps NaN rows (no
+    comparison on the REAL column)."""
+    group_by = [col(4)] if path == "warm_coded" else [col(0)]
+    dag = _dag(group_by, conds=_conds()[:1])
+    if path == "cold":
+        kvs = _cached_kvs("special_rows", lambda: _kvs(2500, 7, specials=True))
+        port, _cache = _check_request(dag, kvs, 256)
+        resp = port.run(FixtureScanSource(kvs))
+    else:
+        c_max = TorchDagEvaluator(dag_to_wire(dag), device="cpu").plan.group_program.c_max
+        jax_cache, port_cache = _big_dict_caches(4 * c_max, specials=True)
+        port, resp = _serve_warm(dag, jax_cache, port_cache, 2048)
+    vals = [v for row in resp.iter_rows() for v in row if isinstance(v, float)]
+    assert any(np.isnan(vals)) and any(np.isinf(vals))
+    assert port.run(*((FixtureScanSource(kvs),) if path == "cold" else (None, port_cache))
+                    ).encode() == resp.encode()
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,32 @@ def test_assign_matches_jax(kinds):
         _same(port, ref, port.assign(parts), ref.assign(parts))
 
 
+def _int_keys(case, rng, b, n):
+    """Block ``b`` of an integer key column for ``test_integer_keys_match_jax``."""
+    if case == "sparse":  # wide ranges: keys far apart, hits and misses
+        v = rng.integers(-(1 << 62), 1 << 62, n)
+        v[: n // 2] = rng.choice(v[: n // 4], n // 2)
+        return v
+    if case == "growing":  # each block repeats earlier keys and adds new ones
+        return rng.integers(-50, 400 * (b + 1), n)
+    if case == "uint64_high":  # SET-like keys with bit 63 set
+        top = np.uint64(1 << 63)
+        return np.where(rng.random(n) < 0.5, top + rng.integers(0, 40, n).astype(np.uint64),
+                        rng.integers(0, 40, n).astype(np.uint64))
+    return rng.integers(-300, 300, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["sparse", "growing", "uint64_high", "int32"])
+def test_integer_keys_match_jax(case):
+    rng = np.random.default_rng(11)
+    port, ref = GroupDict(), JaxGroupDict()
+    for b in range(12):
+        n = 0 if b == 5 else 1500
+        parts = [(_int_keys(case, rng, b, n), rng.random(n) < 0.1)]
+        _same(port, ref, port.assign(parts), ref.assign(parts))
+    assert len(port) > 50
+
+
 def test_assign_coded_matches_jax():
     rng = np.random.default_rng(8)
     port, ref = GroupDict(), JaxGroupDict()

@@ -31,7 +31,6 @@ from tikv_tpu_torch import fixtures as fx
 from tikv_tpu_torch.copr import fused_group_agg as ga
 from tikv_tpu_torch.copr import fused_mesh
 from tikv_tpu_torch.copr.executors import FixtureScanSource
-from tikv_tpu_torch.copr.fused_agg import Unsupported
 from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
 from tikv_tpu_torch.parallel import mesh as pm
 
@@ -272,21 +271,26 @@ def test_mesh_rejects_non_agg_dag_cheaply(monkeypatch):
 
 def test_f64_leaves_past_the_kernels_slots_decline():
     """var_pop's f64 leaf over more groups than the shared-memory partials
-    hold declines as on the unary route (``real_group_capacity_not_ported``,
-    ROADMAP queue 2 item 10), at construction and when the runner grows."""
-    dag = DagRequest(executors=[TableScan(TABLE_ID, COLS),
-                                Aggregation([col(0)], [AggDescriptor("var_pop", col(3))])])
-    mesh = pm.make_mesh(["cpu"] * 8, groups=2)
-    with pytest.raises(Unsupported) as err:
-        pm.ShardedDagEvaluator(dag_to_wire(dag), mesh, 64, capacity=2048)
-    assert err.value.cause == "real_group_capacity_not_ported"
-    runner = pm.MeshServingRunner(dag_to_wire(dag), mesh, rows_per_shard=64)
-    with pytest.raises(Unsupported) as err:
-        runner.run(FixtureScanSource(PORT_KVS))
-    assert err.value.cause == "real_group_capacity_not_ported"
-    with pytest.raises(Unsupported) as err:
-        TorchDagEvaluator(dag_to_wire(dag), device="cpu").run(FixtureScanSource(PORT_KVS))
-    assert err.value.cause == "real_group_capacity_not_ported"
+    hold (a name kept from when the port declined it): each shard takes the
+    grouped pair's wide route.  The sharded evaluator at 2,048 slots equals
+    the JAX one leaf by leaf, and ``MeshServingRunner``, its capacity grown
+    past ``c_max``, answers byte for byte as the JAX runner, the
+    single-device route and the CPU pipeline (integer squares sum exactly)."""
+    dag = DagRequest(executors=[TableScan(TABLE_ID, COLS), Aggregation(
+        [col(1)], [AggDescriptor("var_pop", col(3)), AggDescriptor("count", None)])])
+    _first, carries = _both(dag, 2, N // 4, 2048, [(COLUMNS, N, A.astype(np.int32))])
+    m = A == A[0]
+    assert carries[0][2][A[0]] == float((C[m].astype(np.float64) ** 2).sum())
+    jmesh, pmesh = _meshes(2)
+    runner = pm.MeshServingRunner(dag_to_wire(dag), pmesh, rows_per_shard=64)
+    got = runner.run(FixtureScanSource(PORT_KVS)).encode()
+    want = BatchExecutorsRunner(dag, JaxSource(KVS)).handle_request().encode()
+    assert got == want
+    assert jm.MeshServingRunner(dag, jmesh, rows_per_shard=64).run(JaxSource(KVS)).encode() \
+        == want
+    one = TorchDagEvaluator(dag_to_wire(dag), block_rows=1024, device="cpu")
+    assert one.run(FixtureScanSource(PORT_KVS)).encode() == want
+    assert runner.sharded.capacity > runner.sharded.prog.c_max
 
 
 def test_make_mesh_shapes_and_refusals(monkeypatch):

@@ -352,12 +352,76 @@ def test_dict_union_plain_at_the_kernel_tile(cap):
 
 
 def test_dict_capacity_limits():
+    """The tile route up to ``CAP_MAX`` slots, the sort route past it: every
+    capacity in ``[1, 2^31)`` is taken (no ``dict_capacity_not_ported``)."""
     assert fd.union_tile(8) == fd.TILE_MIN and fd.union_tile(4096) == 8192
     assert fd.union_tile(fd.CAP_MAX) == fd.TILE_MAX
-    for cap in (0, fd.CAP_MAX + 1):
-        with pytest.raises(fd.Unsupported) as e:
-            fd.union_tile(cap)
-        assert e.value.cause == "dict_capacity_not_ported"
+    with pytest.raises(ValueError, match="sort route"):
+        fd.union_tile(fd.CAP_MAX + 1)
+    for cap in (0, 1 << 31):
+        with pytest.raises(ValueError):
+            fd.check_capacity(cap)
+    fd.check_capacity((1 << 31) - 1)
+    assert fd.union_launches(100_000, 64) == {"dict_union": len(fd.union_passes(100_000, 64))}
+    assert fd.union_launches(8 * 32768, 32768) == {
+        "dict_union": 1, "dict_merge": 4, "dict_count": 1, "dict_compact": 1}
+    assert fd.merge_widths(fd.TILE_MAX) == [] and fd.merge_widths(fd.TILE_MAX + 1) == [fd.TILE_MAX]
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(fd.CAP_MAX + 1, 40_000), st.integers(0, 3000), st.integers(1, 60_000),
+       st.integers(0, 2**32 - 1))
+def test_sort_route_keeps_the_smallest_distinct_keys(cap, n, spread, seed):
+    """The sort route of dict_union past 8,192 slots (tiles sorted, runs
+    merged pairwise, distinct keys compacted) gives ``np.unique`` cut to
+    ``cap`` and overflows exactly when there are more, the carried
+    dictionary included."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, spread, n)
+    keys[rng.random(n) < 0.2] = fd.SENTINEL
+    d, _o = _union_numpy(np.zeros(0, np.int64), rng.integers(0, spread, 500), cap)
+    want, over = _union_numpy(d, keys, cap)
+    got, got_over = fd.dict_union_plain(torch.from_numpy(d), torch.from_numpy(keys), cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got_over == over
+
+
+def test_merge_and_compact_plain_versions():
+    """dict_merge's plain version merges sorted runs pairwise (a short last
+    run too); dict_count + dict_compact's keeps the first cap distinct keys."""
+    rng = np.random.default_rng(8)
+    runs = [np.sort(rng.integers(0, 50, w)) for w in (8, 8, 8, 5)]
+    got = fd.merge_pass_plain(torch.from_numpy(np.concatenate(runs)), 8).numpy()
+    np.testing.assert_array_equal(got[:16], np.sort(np.concatenate(runs[:2])))
+    np.testing.assert_array_equal(got[16:], np.sort(np.concatenate(runs[2:])))
+    s = np.sort(np.concatenate([rng.integers(0, 30, 100), [fd.SENTINEL] * 9]))
+    out, over = fd.compact_plain(torch.from_numpy(s), 20)
+    np.testing.assert_array_equal(out.numpy(), np.unique(s)[:20])
+    assert over
+    out, over = fd.compact_plain(torch.from_numpy(s), 40)
+    u = np.unique(s)[:-1]
+    np.testing.assert_array_equal(out.numpy()[: len(u)], u)
+    assert (out.numpy()[len(u):] == fd.SENTINEL).all() and not over
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_device_group_dict_past_8192_slots_matches_jax(groups):
+    """A dictionary of 16,384 slots (the union's sort route, the grouped
+    pair's wide route on every shard) over ~3,300 distinct keys: equal to
+    the JAX evaluator and the oracle; at 8,200 slots over more distinct keys
+    than that, the capacity flag is raised as the JAX one's."""
+    rows = N // (8 // groups)
+    out, _ev = _both(grouped_dag(), groups, rows, 16384,
+                     [(_columns(N, {1: A, 2: C, 3: C}), N)])
+    assert not out["overflow"] and len(out["keys"]) > 3000
+    _check_oracle(out, A < 800, C)
+    rng = np.random.default_rng(groups)
+    blocks = []
+    for _b in range(3):
+        key = rng.integers(0, 1 << 20, N)
+        blocks.append((_columns(N, {1: A, 2: key, 3: C}), N))
+    out, _ev = _both(grouped_dag(), groups, rows, 8200, blocks)
+    assert out["overflow"]
 
 
 def test_dict_ids_plain_is_a_clipped_searchsorted():

@@ -196,3 +196,29 @@ def test_the_merged_states_equal_the_single_device_batch():
     for got, want in zip(sharded._packed, single._packed):
         assert got.shape == want.shape
         assert np.array_equal(got.numpy(), want.numpy()[order])
+
+
+@pytest.mark.parametrize("var_pop", [False, True], ids=["int", "f64"])
+def test_a_sharded_batch_past_the_slots_rides_the_wide_route(var_pop):
+    """The four-flag plan (480 coded slots, past a task's shared-memory
+    rows; with f64 leaves or without) over regions spread on the mesh: each
+    device's tasks are wide, ``mesh_merge`` folds them, and the answers
+    equal the single-device batch, the JAX package's sharded batch and the
+    CPU pipeline."""
+    from test_torch_batch import SuppRegion, _close, _jax_dag
+
+    regions = [SuppRegion(3, 44), SuppRegion(2, 45), SuppRegion(1, 46)]
+    for region, own in zip(regions, [[0, 2, 2], [5, 1], [7]]):
+        region.pcache.owner_devices = own
+        region.jcache.owner_devices = own
+    dag = _jax_dag(fx.flags4_dag(var_pop))
+    ev = _port_evs([dag])[0]
+    caches = [r.pcache for r in regions]
+    got = launch_xregion_sharded(ev, caches, MESH).finalize()
+    jgot = jm.run_xregion_sharded(JaxDagEvaluator(dag, block_rows=BR),
+                                  [r.jcache for r in regions], jm.make_mesh())
+    for region, resp, jresp, one in zip(regions, got, jgot, run_xregion_cached(ev, caches)):
+        _close(resp, one, "single device")
+        _close(resp, jresp, "JAX")
+        _close(resp, region.cpu(dag), "CPU pipeline")
+        assert len(resp.iter_rows()) > 100

@@ -108,11 +108,13 @@ CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 #: ``copr/fused_dict.py``)
 LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0,
+            "group_wide_partials": 0, "group_wide_combine": 0,
             "fused_mask": 0, "topn_candidates": 0, "topn_merge": 0, "topn_pack": 0,
             "decode_column": 0, "zone_full": 0, "zone_partial": 0, "zone_fold": 0,
             "batch_partials": 0, "batch_combine_pack": 0,
             "join_rank_probe": 0, "join_hash_probe": 0, "mesh_merge": 0,
-            "dict_keys": 0, "dict_union": 0, "dict_ids": 0}
+            "dict_keys": 0, "dict_union": 0, "dict_ids": 0,
+            "dict_merge": 0, "dict_count": 0, "dict_compact": 0}
 
 
 def reset_launches() -> None:

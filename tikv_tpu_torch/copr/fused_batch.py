@@ -20,7 +20,11 @@ tasks of one plan, each over its region's image.
 * :class:`Batch` lays the tasks out for one launch: each task's CTAs (a
   share of ``BATCH_CTAS`` by its rows), its rows of partials and the packed
   output ``(T, n_int, C)`` / ``(T, n_f64, C)``, padded with zeros to the
-  largest task.
+  largest task.  A task with more group slots than its shared-memory rows
+  hold (``c_max``) is *wide*: it takes no CTA of the batch kernels and is
+  served, in the same call, by the grouped pair's wide route
+  (``fused_group_agg``: ``group_wide_partials`` + ``group_wide_combine``),
+  its state copied into its rows of the output.
 * ``batch_partials_plain`` and ``batch_combine_pack_plain`` are the plain
   PyTorch versions of the two kernels, task by task on
   ``fused_group_agg``'s parts; they serve CPU tensors.
@@ -45,7 +49,7 @@ import torch
 
 from . import fused_agg as fa
 from . import fused_group_agg as ga
-from .fused_agg import LAUNCHES, Image, Unsupported
+from .fused_agg import LAUNCHES, Image
 from .fused_group_agg import GroupProgram
 
 THREADS = ga.THREADS
@@ -90,7 +94,7 @@ class _BtTask(ctypes.Structure):
         ("n_keys", ctypes.c_int32),
         ("cta0", ctypes.c_int32),
         ("n_ctas", ctypes.c_int32),
-        ("pad", ctypes.c_int32),
+        ("out_task", ctypes.c_int32),
         ("key_slot", ctypes.c_int32 * ga.MAX_KEYS),
         ("key_dlen", ctypes.c_int32 * ga.MAX_KEYS),
         ("agg_leaf0", ctypes.c_int32 * fa.MAX_AGGS),
@@ -110,31 +114,30 @@ SMEM_MAX = ga.SMEM_MAX - ctypes.sizeof(_BtTask)
 
 
 def c_max(prog: GroupProgram) -> int:
-    """Most group slots a task of ``prog`` takes: its warps' shared-memory
-    rows, ``WARPS * n_leaves * (32 + C) * 8`` bytes, must fit ``SMEM_MAX``."""
+    """Most group slots a task of ``prog`` takes on the batch kernels: its
+    warps' shared-memory rows, ``WARPS * n_leaves * (32 + C) * 8`` bytes,
+    must fit ``SMEM_MAX``.  A task past it is wide."""
     return SMEM_MAX // (WARPS * 8 * len(prog.leaves)) - 32
 
 
 def check_task(prog: GroupProgram, cap: int) -> None:
-    """Raise for a task the kernels do not take: ``ValueError`` for host
-    group ids (a batch computes them from dictionary codes), and
-    :class:`Unsupported` for more group slots than the shared-memory rows
-    hold (the f64 leaves of the grouped kernel decline there too; its
-    64-bit-atomic route for integer leaves is not taken by the batch)."""
+    """``ValueError`` for a task the batch does not take: host group ids (a
+    batch computes them from dictionary codes) or a capacity outside
+    ``[1, 2^31)``."""
     if prog.key_slots is None:
         raise ValueError("a batch takes group ids from dictionary codes, not host ids")
-    if not 1 <= cap <= c_max(prog):
-        cause = "real_group_capacity_not_ported" if prog.n_f64 else "batch_group_capacity"
-        raise Unsupported(f"{cap} group slots in a batch (at most {c_max(prog)})", cause)
+    ga.check_capacity(prog, cap)
 
 
 class Batch:
-    """The launch layout of a list of tasks: each task's share of the
-    partials grid (``grids``: at least one CTA, at most one per
-    ``THREADS`` rows, else ``BATCH_CTAS`` shared by rows, so the grid and
-    each f64 sum's order depend on the shapes alone), where its partials
-    start (``part0``, int64 words: ``[grid, n_leaves, C]`` each), and the
-    packed output's shape ``(T, li, c_max)`` / ``(T, lf, c_max)``."""
+    """The launch layout of a list of tasks.  Tasks within ``c_max`` run on
+    the batch kernels (``shared``, in task order): each one's share of the
+    partials grid (``grids``: at least one CTA, at most one per ``THREADS``
+    rows, else ``BATCH_CTAS`` shared by rows, so the grid and each f64 sum's
+    order depend on the shapes alone), where its partials start (``part0``,
+    int64 words: ``[grid, n_leaves, C]`` each).  Wide tasks (``wide``) have
+    a grid of 0.  The packed output is ``(T, li, c_max)`` / ``(T, lf,
+    c_max)`` for every task."""
 
     def __init__(self, tasks):
         self.tasks = list(tasks)
@@ -145,9 +148,14 @@ class Batch:
             if t.img.device != self.device:
                 raise ValueError("a batch's images must share one device")
             check_task(t.prog, t.capacity)
-        rows = [t.img.n_blocks * t.img.block_rows for t in self.tasks]
+        self.wide = [i for i, t in enumerate(self.tasks) if t.capacity > c_max(t.prog)]
+        self.shared = [i for i in range(len(self.tasks)) if i not in self.wide]
+        rows = [0 if i in self.wide else t.img.n_blocks * t.img.block_rows
+                for i, t in enumerate(self.tasks)]
         total = max(sum(rows), 1)
-        self.grids = [max(1, min(-(-r // THREADS), -(-BATCH_CTAS * r // total))) for r in rows]
+        self.grids = [0 if i in self.wide else
+                      max(1, min(-(-r // THREADS), -(-BATCH_CTAS * r // total)))
+                      for i, r in enumerate(rows)]
         self.cta0, self.part0 = [], []
         cta = part = 0
         for t, g in zip(self.tasks, self.grids):
@@ -159,7 +167,11 @@ class Batch:
         self.li = max(t.prog.n_int for t in self.tasks)
         self.lf = max(t.prog.n_f64 for t in self.tasks)
         self.c_max = max(t.capacity for t in self.tasks)
-        self.smem = max(WARPS * len(t.prog.leaves) * (32 + t.capacity) * 8 for t in self.tasks)
+        shared = [self.tasks[i] for i in self.shared]
+        #: the widest shared task: the combine's words per packed row
+        self.c_shared = max((t.capacity for t in shared), default=0)
+        self.smem = max((WARPS * len(t.prog.leaves) * (32 + t.capacity) * 8 for t in shared),
+                        default=0)
 
     def __len__(self) -> int:
         return len(self.tasks)
@@ -176,25 +188,46 @@ class Batch:
 # ---------------------------------------------------------------------------
 
 def batch_partials_plain(batch: Batch) -> torch.Tensor:
-    """Plain version of ``batch_partials``: each task's
+    """Plain version of ``batch_partials``: each shared task's
     ``fused_group_agg`` partials at its grid, flat, in task order (f64
     leaves summed in another order than the kernel's)."""
-    return torch.cat([ga.partials_plain(t.prog, t.img, t.capacity, g).reshape(-1)
-                      for t, g in zip(batch.tasks, batch.grids)])
+    dev = batch.device
+    return torch.cat([torch.zeros(0, dtype=torch.int64, device=dev)] + [
+        ga.partials_plain(t.prog, t.img, t.capacity, batch.grids[i]).reshape(-1)
+        for i, t in ((i, batch.tasks[i]) for i in batch.shared)])
+
+
+def _new_out(batch: Batch, zero: bool = True):
+    """The packed output, zeros or (``zero`` false: every word to be
+    written) uninitialised."""
+    dev, new = batch.device, torch.zeros if zero else torch.empty
+    return (new((len(batch), batch.li, batch.c_max), dtype=torch.int64, device=dev),
+            new((len(batch), batch.lf, batch.c_max), dtype=torch.float64, device=dev))
 
 
 def batch_combine_pack_plain(batch: Batch, parts: torch.Tensor):
-    """Plain version of ``batch_combine_pack``: each task's partials folded
-    in CTA order into its packed state, placed in the zero-padded
-    ``(T, li, c_max)`` int64 and ``(T, lf, c_max)`` f64 matrices."""
-    dev = parts.device
-    ints = torch.zeros((len(batch), batch.li, batch.c_max), dtype=torch.int64, device=dev)
-    flts = torch.zeros((len(batch), batch.lf, batch.c_max), dtype=torch.float64, device=dev)
-    for i, t in enumerate(batch.tasks):
+    """Plain version of ``batch_combine_pack``: each shared task's partials
+    folded in CTA order into its packed state, placed in the zero-padded
+    ``(T, li, c_max)`` int64 and ``(T, lf, c_max)`` f64 matrices (a wide
+    task's rows stay zero: :func:`fused_batch` fills them)."""
+    ints, flts = _new_out(batch)
+    for i in batch.shared:
+        t = batch.tasks[i]
         pi, pf = ga.combine_plain(t.prog, t.img, t.capacity, batch.parts_of(parts, i))
         ints[i, : t.prog.n_int, : t.capacity] = pi
         flts[i, : t.prog.n_f64, : t.capacity] = pf
     return ints, flts
+
+
+def _serve_wide(batch: Batch, out) -> None:
+    """Each wide task's packed state by the grouped pair (the plain version
+    for a CPU image, the wide route's kernels for a CUDA one), copied into
+    its rows of ``out``."""
+    for i in batch.wide:
+        t = batch.tasks[i]
+        pi, pf = ga.fused_group_agg(t.prog, t.img, t.capacity)
+        out[0][i, : t.prog.n_int, : t.capacity] = pi
+        out[1][i, : t.prog.n_f64, : t.capacity] = pf
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +250,7 @@ def _kernels():
         lib.bt_smem_max.restype = ci
         lib.bt_launch_partials.argtypes = [vp, ci, ci, vp, ci, vp]
         lib.bt_launch_partials.restype = ci
-        lib.bt_launch_combine.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp]
+        lib.bt_launch_combine.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp, vp]
         lib.bt_launch_combine.restype = ci
         if lib.bt_task_size() != ctypes.sizeof(_BtTask):
             raise RuntimeError(f"BtTask layout mismatch: kernel {lib.bt_task_size()} bytes, "
@@ -244,11 +277,14 @@ def _check_task_image(t: Task) -> None:
 
 
 def task_table(batch: Batch):
-    """The descriptor table of ``batch``: one ``_BtTask`` per task."""
-    table = (_BtTask * len(batch))()
-    for i, t in enumerate(batch.tasks):
+    """The descriptor table of ``batch``: one ``_BtTask`` per shared task,
+    with the task's row of the packed output (``out_task``)."""
+    table = (_BtTask * len(batch.shared))()
+    for e, i in enumerate(batch.shared):
+        t = batch.tasks[i]
         _check_task_image(t)
-        prog, img, p = t.prog, t.img, table[i]
+        prog, img, p = t.prog, t.img, table[e]
+        p.out_task = i
         p.consts[: len(prog.consts)] = prog.consts
         p.code[: len(prog.code)] = prog.code
         p.n_code, p.n_cols = len(prog.code), len(prog.col_f64)
@@ -280,7 +316,7 @@ def upload_table(batch: Batch) -> torch.Tensor:
 
 def _check_table(batch: Batch, table: torch.Tensor) -> None:
     if table.device != batch.device or table.dtype != torch.uint8 or not table.is_contiguous() \
-            or table.numel() != len(batch) * ctypes.sizeof(_BtTask):
+            or table.numel() != len(batch.shared) * ctypes.sizeof(_BtTask):
         raise ValueError("table: need the batch's descriptors (upload_table) on its device")
 
 
@@ -295,8 +331,8 @@ def launch_batch_partials(batch: Batch, table: torch.Tensor, parts: torch.Tensor
     lib = _kernels()
     with torch.cuda.device(batch.device):
         stream = torch.cuda.current_stream(batch.device).cuda_stream
-        rc = lib.bt_launch_partials(table.data_ptr(), len(batch), batch.n_ctas, parts.data_ptr(),
-                                    batch.smem, stream)
+        rc = lib.bt_launch_partials(table.data_ptr(), len(batch.shared), batch.n_ctas,
+                                    parts.data_ptr(), batch.smem, stream)
     LAUNCHES["batch_partials"] += 1
     if rc != 0:
         raise RuntimeError(f"batch_partials launch failed: cudaError {rc}")
@@ -304,9 +340,10 @@ def launch_batch_partials(batch: Batch, table: torch.Tensor, parts: torch.Tensor
 
 def launch_batch_combine_pack(batch: Batch, table: torch.Tensor, parts: torch.Tensor,
                               out) -> None:
-    """Launch ``batch_combine_pack``: fold each task's partials into its
-    packed state in ``out``, ``(T, li, c_max)`` int64 and ``(T, lf, c_max)``
-    f64, padding zeros."""
+    """Launch ``batch_combine_pack``: fold each shared task's partials into
+    its packed state in ``out``, ``(T, li, c_max)`` int64 and ``(T, lf,
+    c_max)`` f64, padding zeros up to ``c_shared`` slots (``out`` is zero
+    past them)."""
     dev = batch.device
     _check_table(batch, table)
     if parts.device != dev or parts.dtype != torch.int64 \
@@ -320,9 +357,10 @@ def launch_batch_combine_pack(batch: Batch, table: torch.Tensor, parts: torch.Te
     ints, flts = out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bt_launch_combine(table.data_ptr(), len(batch), parts.data_ptr(), batch.li,
-                                   batch.lf, batch.c_max, ints.data_ptr(),
-                                   flts.data_ptr() if flts.numel() else None, stream)
+        rc = lib.bt_launch_combine(table.data_ptr(), len(batch.shared), parts.data_ptr(),
+                                   batch.li, batch.lf, batch.c_shared, batch.c_max,
+                                   ints.data_ptr(), flts.data_ptr() if flts.numel() else None,
+                                   stream)
     LAUNCHES["batch_combine_pack"] += 1
     if rc != 0:
         raise RuntimeError(f"batch_combine_pack launch failed: cudaError {rc}")
@@ -331,18 +369,23 @@ def launch_batch_combine_pack(batch: Batch, table: torch.Tensor, parts: torch.Te
 def fused_batch(tasks) -> tuple[torch.Tensor, torch.Tensor]:
     """The packed states of every task: ``(T, li, c_max)`` int64 and
     ``(T, lf, c_max)`` f64, by the plain versions for CPU images and by the
-    two kernels on the images' current stream, with no host
-    synchronisation, for CUDA images."""
+    kernels on the images' current stream, with no host synchronisation,
+    for CUDA images: the batch kernels for the shared tasks, the grouped
+    pair's wide route for the wide ones."""
     batch = Batch(tasks)
     dev = batch.device
     if dev.type == "cpu":
-        return batch_combine_pack_plain(batch, batch_partials_plain(batch))
-    if dev.type != "cuda":
+        out = batch_combine_pack_plain(batch, batch_partials_plain(batch))
+    elif dev.type != "cuda":
         raise ValueError(f"no fused_batch for device {dev}")
-    table = upload_table(batch)
-    parts = torch.empty(batch.n_parts, dtype=torch.int64, device=dev)
-    launch_batch_partials(batch, table, parts)
-    out = (torch.empty((len(batch), batch.li, batch.c_max), dtype=torch.int64, device=dev),
-           torch.empty((len(batch), batch.lf, batch.c_max), dtype=torch.float64, device=dev))
-    launch_batch_combine_pack(batch, table, parts, out)
+    else:
+        # batch_combine_pack writes all c_shared slots of every row, which is
+        # every word when no task is wide
+        out = _new_out(batch, zero=bool(batch.wide))
+        if batch.shared:
+            table = upload_table(batch)
+            parts = torch.empty(batch.n_parts, dtype=torch.int64, device=dev)
+            launch_batch_partials(batch, table, parts)
+            launch_batch_combine_pack(batch, table, parts, out)
+    _serve_wide(batch, out)
     return out

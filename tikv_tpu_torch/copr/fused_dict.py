@@ -14,10 +14,14 @@ with three kernels of ``csrc/fused_dict.cu``:
   inactive row (selection false, or past ``n_valid``) is :data:`SENTINEL`.
 * ``dict_union`` (``:378-406``): the ``cap`` smallest distinct non-sentinel
   keys of (sorted dictionary ++ keys), sorted and padded with the
-  sentinel; :data:`FLAG_CAPACITY` when there are more.  It runs in passes:
-  each tile of ``union_tile(cap)`` keys keeps its first ``cap`` distinct
-  keys, and the tiles' lists are the next pass's keys, until one tile is
-  left (``csrc/fused_dict.cu`` says why that is exact).
+  sentinel; :data:`FLAG_CAPACITY` when there are more.  Up to
+  :data:`CAP_MAX` slots it runs in passes: each tile of ``union_tile(cap)``
+  keys keeps its first ``cap`` distinct keys, and the tiles' lists are the
+  next pass's keys, until one tile is left (``csrc/fused_dict.cu`` says why
+  that is exact).  Past it, the *sort route*: one ``dict_union`` pass sorts
+  every tile of :data:`TILE_MAX` keys, ``dict_merge`` passes merge the
+  sorted runs pairwise in device memory, and ``dict_count`` then
+  ``dict_compact`` keep the first ``cap`` distinct keys and flag more.
 * ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
   1)`` per row into an image's ``gids`` lane; with the old dictionary,
   ``perm`` (``searchsorted(new_dict, old_key)``, ``cap`` for a sentinel
@@ -43,7 +47,6 @@ from .fused_agg import (
     MAX_COLS,
     MAX_CONSTS,
     Image,
-    Unsupported,
     _Enc,
     check_columns,
     emit_keys,
@@ -57,7 +60,8 @@ FLAG_RANGE = 1  # a group value outside [0, lane_max)
 FLAG_CAPACITY = 2  # more distinct keys than the dictionary's slots
 TILE_MIN = 4096
 TILE_MAX = 16384  # 128 KB of int64 keys in a block's shared memory
-CAP_MAX = TILE_MAX // 2
+CAP_MAX = TILE_MAX // 2  # the tile route's largest dictionary; past it, the sort route
+CHUNK = 8192  # sorted keys a dict_count / dict_compact block reads (DC_CHUNK)
 _I64_MIN = -(1 << 63)
 
 
@@ -88,17 +92,18 @@ def compile_key_program(sel_rpns, key_rpns, ship_cols, schema, key_bits: int) ->
 
 
 def check_capacity(cap: int) -> None:
-    """``Unsupported`` (``dict_capacity_not_ported``) past the largest
-    dictionary a union tile holds twice over."""
-    if not 1 <= cap <= CAP_MAX:
-        raise Unsupported(f"a group dictionary of {cap} slots (at most {CAP_MAX})",
-                          "dict_capacity_not_ported")
+    """``ValueError`` for a dictionary size outside ``[1, 2^31)``."""
+    if not 1 <= cap < (1 << 31):
+        raise ValueError(f"a group dictionary of {cap} slots")
 
 
 def union_tile(cap: int) -> int:
-    """Keys a ``dict_union`` block sorts: a power of two, at least
-    ``TILE_MIN`` and twice ``cap``, so that each pass halves the keys."""
+    """Keys a ``dict_union`` block of the tile route sorts: a power of two,
+    at least ``TILE_MIN`` and twice ``cap``, so that each pass halves the
+    keys.  ``ValueError`` past :data:`CAP_MAX` (the sort route's)."""
     check_capacity(cap)
+    if cap > CAP_MAX:
+        raise ValueError(f"{cap} slots take the sort route, not a union tile")
     tile = TILE_MIN
     while tile < 2 * cap:
         tile *= 2
@@ -106,14 +111,33 @@ def union_tile(cap: int) -> int:
 
 
 def union_passes(n: int, cap: int) -> list[int]:
-    """The keys each ``dict_union`` pass reads for ``n`` keys at ``cap``
-    slots (one launch a pass)."""
+    """The keys each ``dict_union`` pass of the tile route reads for ``n``
+    keys at ``cap`` slots (one launch a pass)."""
     tile = union_tile(cap)
     out = [n]
     while n > tile:
         n = -(-n // tile) * cap
         out.append(n)
     return out
+
+
+def merge_widths(n: int) -> list[int]:
+    """The sort route's ``dict_merge`` passes for ``n`` keys: the width of
+    the runs each one merges pairwise (one launch a pass)."""
+    sorted_n = max(1, -(-n // TILE_MAX)) * TILE_MAX
+    out, w = [], TILE_MAX
+    while w < sorted_n:
+        out.append(w)
+        w *= 2
+    return out
+
+
+def union_launches(n: int, cap: int) -> dict:
+    """Launches of each kernel of one :func:`dict_union` of ``n`` keys."""
+    if cap <= CAP_MAX:
+        return {"dict_union": len(union_passes(n, cap))}
+    return {"dict_union": 1, "dict_merge": len(merge_widths(n)), "dict_count": 1,
+            "dict_compact": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -161,15 +185,46 @@ def union_pass_plain(keys: torch.Tensor, cap: int, tile: int) -> tuple[torch.Ten
     return out, bool((fresh.sum(dim=1) > cap).any())
 
 
+def merge_pass_plain(keys: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of ``dict_merge``: the sorted runs of ``width`` keys
+    (the last may be short) merged pairwise."""
+    n = keys.numel()
+    out = keys.clone()
+    for a0 in range(0, n, 2 * width):
+        pair = keys[a0 : a0 + 2 * width]
+        out[a0 : a0 + pair.numel()] = torch.sort(pair).values
+    return out
+
+
+def compact_plain(s: torch.Tensor, cap: int) -> tuple[torch.Tensor, bool]:
+    """Plain version of ``dict_count`` + ``dict_compact``: the first ``cap``
+    distinct non-sentinel keys of the sorted ``s``, padded with the
+    sentinel, and whether there are more."""
+    fresh = s < SENTINEL
+    fresh[1:] &= s[1:] != s[:-1]
+    keys = s[fresh]
+    out = torch.full((cap,), SENTINEL, dtype=torch.int64, device=s.device)
+    out[: min(cap, keys.numel())] = keys[:cap]
+    return out, keys.numel() > cap
+
+
 def dict_union_plain(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
                      tile: int | None = None) -> tuple[torch.Tensor, bool]:
-    """Plain version of ``dict_union``, pass by pass as the kernel runs
-    (tiles of ``union_tile(cap)`` keys, or ``tile``, at least ``2 * cap``):
-    ``[cap]`` and whether there are more than ``cap`` distinct keys."""
+    """Plain version of ``dict_union``, pass by pass as the kernels run:
+    ``[cap]`` and whether there are more than ``cap`` distinct keys.  The
+    tile route (tiles of ``union_tile(cap)`` keys, or ``tile``, at least
+    ``2 * cap``), or past :data:`CAP_MAX` slots with no ``tile``, the sort
+    route: tiles of :data:`TILE_MAX` keys sorted, merged pairwise, then
+    compacted."""
+    x = keys if dict_keys is None else torch.cat([dict_keys, keys])
+    if tile is None and cap > CAP_MAX:
+        s = union_pass_plain(x, TILE_MAX, TILE_MAX)[0].reshape(-1)
+        for w in merge_widths(x.numel()):
+            s = merge_pass_plain(s, w)
+        return compact_plain(s, cap)
     tile = union_tile(cap) if tile is None else tile
     if tile < 2 * cap:
         raise ValueError(f"a union tile of {tile} keys cannot halve {cap}-key lists")
-    x = keys if dict_keys is None else torch.cat([dict_keys, keys])
     over = False
     while True:
         out, o = union_pass_plain(x, cap, tile)
@@ -235,12 +290,17 @@ def kernels():
         lib.dk_launch.argtypes = [vp, vp]
         lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp]
         lib.di_launch.argtypes = [vp, ci, vp, cll, vp, vp, vp, vp]
-        for fn in ("dk_launch", "du_launch", "di_launch"):
+        lib.dm_launch.argtypes = [vp, cll, cll, vp, vp]
+        lib.dc_launch_count.argtypes = [vp, cll, vp, vp]
+        lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, vp, ci, vp]
+        for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_count",
+                   "dc_launch_compact", "dc_chunk", "di_smem_keys"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_DkParams)}")
-        if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL:
+        if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL \
+                or lib.dc_chunk() != CHUNK or lib.di_smem_keys() != CAP_MAX:
             raise RuntimeError("fused_dict.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib
@@ -290,8 +350,9 @@ def launch_keys(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Ten
 def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
                  flag: torch.Tensor, out: torch.Tensor) -> None:
     """Launch ``dict_union`` pass by pass into ``out`` (int64 ``[cap]``),
-    ORing :data:`FLAG_CAPACITY` into ``flag``; the passes' lists live in
-    scratch tensors allocated here."""
+    ORing :data:`FLAG_CAPACITY` into ``flag``, or past :data:`CAP_MAX`
+    slots the sort route's kernels; the passes' keys live in scratch
+    tensors allocated here."""
     dev = keys.device
     if dev.type != "cuda":
         raise ValueError(f"dict_union needs CUDA tensors, got {dev}")
@@ -300,10 +361,13 @@ def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
         _check(dict_keys, torch.int64, (cap,), dev, "dictionary")
     _check(flag, torch.int32, (1,), dev, "flag")
     _check(out, torch.int64, (cap,), dev, "union")
-    tile = union_tile(cap)
     lib = kernels()
     d, n_d = dict_keys, 0 if dict_keys is None else cap
     x = keys
+    if cap > CAP_MAX:
+        _sort_union(lib, d, n_d, x, cap, flag, out)
+        return
+    tile = union_tile(cap)
     with torch.cuda.device(dev):
         while True:
             n = n_d + x.numel()
@@ -315,6 +379,35 @@ def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
             if tiles == 1:
                 return
             d, n_d, x = None, 0, dst
+
+
+def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
+                out: torch.Tensor) -> None:
+    """The sort route of :func:`launch_union`: ``dict_union`` at ``cap = T =
+    TILE_MAX`` sorts every tile, ``dict_merge`` passes merge the runs in two
+    scratch buffers, ``dict_count`` and ``dict_compact`` write ``out``."""
+    dev = x.device
+    n = n_d + x.numel()
+    sorted_n = max(1, -(-n // TILE_MAX)) * TILE_MAX
+    src = torch.empty(sorted_n, dtype=torch.int64, device=dev)
+    counts = torch.empty(-(-sorted_n // CHUNK), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
+                           src.data_ptr(), flag.data_ptr(), TILE_MAX, TILE_MAX, stream)
+        _launched("dict_union", rc)
+        widths = merge_widths(n)
+        if widths:
+            dst = torch.empty_like(src)
+            for w in widths:
+                _launched("dict_merge", lib.dm_launch(src.data_ptr(), sorted_n, w,
+                                                      dst.data_ptr(), stream))
+                src, dst = dst, src
+        _launched("dict_count", lib.dc_launch_count(src.data_ptr(), sorted_n,
+                                                    counts.data_ptr(), stream))
+        _launched("dict_compact", lib.dc_launch_compact(src.data_ptr(), sorted_n,
+                                                        counts.data_ptr(), out.data_ptr(),
+                                                        flag.data_ptr(), cap, stream))
 
 
 def launch_ids(new_dict: torch.Tensor, keys: torch.Tensor, gids: torch.Tensor,

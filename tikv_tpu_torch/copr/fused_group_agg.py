@@ -18,8 +18,15 @@ dictionary codes, ``_mixed_radix_gids``), and ``jax_eval.pack``.
   (``index_add_``, ``scatter_reduce_``; bitwise aggregates by per-bit counts),
   with the semantics of the JAX package's scatter branch; it serves CPU
   tensors.
-* ``fused_group_agg_cuda`` launches ``fused_group_agg_partials`` then
-  ``fused_group_agg_combine_pack`` (``csrc/fused_agg.cu``).
+* ``fused_group_agg_cuda`` launches the grouped pair (``csrc/fused_agg.cu``):
+  ``fused_group_agg_partials`` then ``fused_group_agg_combine_pack`` where
+  the group state fits the partials kernel's shared memory (``C <=
+  c_max``), else the wide route ``group_wide_partials`` then
+  ``group_wide_combine``: one state in device memory, integer atomics, and
+  f64 sums added exactly (``XWORDS`` words a cell) and rounded once, so any
+  capacity is served bit-identically from run to run.
+  ``wide_partials_plain`` and ``wide_combine_plain`` are their plain
+  versions, word for word.
 * ``fused_group_agg`` takes the plain version for a CPU image and the kernels
   for a CUDA image; on a CUDA tensor it launches them or raises.
 
@@ -60,9 +67,12 @@ THREADS = 256
 WARPS = THREADS // 32
 GRID_MAX = 528
 SMEM_MAX = 232448  # dynamic shared memory one block may use on Hopper
+XWORDS = 66  # words of an exact f64 sum (GA_XW): units 2^-1074 to past 2^1037
+XFLAG_POSINF, XFLAG_NEGINF, XFLAG_NAN = 1, 2, 4
 
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
+_QNAN = 0x7FF8000000000000
 _BIT_LEAF = {"bit_and": LEAF_AND, "bit_or": LEAF_OR, "bit_xor": LEAF_XOR}
 _ADD_LEAVES = (LEAF_COUNT, LEAF_SUM, LEAF_SUMSQ)
 _ROW_LEAVES = (LEAF_TRACK, LEAF_FIRSTROW)
@@ -70,6 +80,10 @@ _ROW_LEAVES = (LEAF_TRACK, LEAF_FIRSTROW)
 
 def _bits(x: float) -> int:
     return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def _x_leaf(leaf) -> bool:
+    return leaf.is_f64 and leaf.kind in (LEAF_SUM, LEAF_SUMSQ)
 
 
 @dataclass(frozen=True)
@@ -121,11 +135,18 @@ class GroupProgram:
     @property
     def c_max(self) -> int:
         """Most group slots the shared-memory partials kernel takes:
-        ``WARPS * n_leaves * (32 + C) * 8`` bytes must fit in ``SMEM_MAX``."""
+        ``WARPS * n_leaves * (32 + C) * 8`` bytes must fit in ``SMEM_MAX``.
+        Past it the wide route serves."""
         return SMEM_MAX // (WARPS * 8 * len(self.leaves)) - 32
 
     def shared_rows(self, capacity: int) -> bool:
         return capacity <= self.c_max
+
+    @property
+    def x_leaves(self) -> tuple[int, ...]:
+        """The leaves the wide route sums exactly: REAL sums and sums of
+        squares, in leaf order."""
+        return tuple(l for l, leaf in enumerate(self.leaves) if _x_leaf(leaf))
 
 
 def compile_group_program(sel_rpns, aggs, ship_cols, schema, key_slots, dict_lens=(),
@@ -417,6 +438,192 @@ def combine_plain(prog: GroupProgram, img: Image, capacity: int, parts: torch.Te
 
 
 # ---------------------------------------------------------------------------
+# The wide route (C > c_max): plain versions, word for word
+# ---------------------------------------------------------------------------
+
+def _fkey(x: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """``ga_fkey``: int64 keys that order as the f64 values do, -0.0 below
+    +0.0; NaN the least key for min and the greatest for max."""
+    b = x.contiguous().view(torch.int64)
+    k = torch.where(b < 0, b ^ _I64_MAX, b)
+    return torch.where(x.isnan(), _I64_MAX if is_max else _I64_MIN, k)
+
+
+def _funkey(k: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """``ga_funkey``: the f64 value of a key (a NaN key: the quiet NaN)."""
+    b = torch.where(k < 0, k ^ _I64_MAX, k)
+    return torch.where(k == (_I64_MAX if is_max else _I64_MIN), _QNAN, b).view(torch.float64)
+
+
+def wide_idents(prog: GroupProgram) -> list[int]:
+    """Each leaf's initial word in the wide route's state: its identity; an
+    f64 min or max leaf's as its key; 0 (no NaN or infinity seen) for an f64
+    sum, whose value lies in its exact accumulator."""
+    out = []
+    for leaf in prog.leaves:
+        if _x_leaf(leaf):
+            out.append(0)
+        elif leaf.is_f64 and leaf.kind in (LEAF_MIN, LEAF_MAX):
+            ident = torch.tensor([leaf.ident_value], dtype=torch.float64)
+            out.append(int(_fkey(ident, leaf.kind == LEAF_MAX)[0]))
+        else:
+            out.append(leaf.ident)
+    return out
+
+
+def wide_size(prog: GroupProgram, capacity: int) -> int:
+    """int64 words of the wide route's state: ``[n_leaves, C]`` words, then
+    ``[n_x, C, XWORDS]`` exact accumulators."""
+    return (len(prog.leaves) + len(prog.x_leaves) * XWORDS) * capacity
+
+
+def _wide_views(prog: GroupProgram, capacity: int, state: torch.Tensor):
+    n = len(prog.leaves) * capacity
+    return state[:n].view(len(prog.leaves), capacity), \
+        state[n:].view(len(prog.x_leaves), capacity, XWORDS)
+
+
+def _xdigits(v: torch.Tensor):
+    """``ga_xadd``'s split of finite f64 values ``v = m * 2^(pos - 1074)``:
+    the word of each value's lowest digit (``pos // 32``) and its three
+    signed 32-bit digits."""
+    b = v.contiguous().view(torch.int64)
+    e = (b >> 52) & 0x7FF
+    m = (b & 0xFFFFFFFFFFFFF) | torch.where(e > 0, 1 << 52, 0)
+    pos = torch.where(e > 0, e - 1, 0)
+    sh = pos & 31
+    one = torch.ones_like(sh)
+    hi = m >> (32 - sh)
+    sign = torch.where(b < 0, -1, 1)
+    lo = (m & ((one << (32 - sh)) - 1)) << sh
+    return pos >> 5, [lo * sign, (hi & 0xFFFFFFFF) * sign, (hi >> 32) * sign]
+
+
+def _bit_length(x: torch.Tensor) -> torch.Tensor:
+    """Bits of each value in ``[1, 2^32)``."""
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        n += s * ((x >> (n + s)) > 0)
+    return n + 1
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """``2^e`` for int64 ``e`` in ``[-1022, 1023]``, from its bits (a float
+    ``pow`` need not be exact on every device)."""
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def _ldexp(m: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``m * 2^e`` for f64 ``m`` of at most 53 bits and ``e`` up to 1023, in
+    two exact steps (``2^e`` alone is not normal below 2^-1022)."""
+    e1 = e.clamp(min=-1000)
+    return m * _pow2(e1) * _pow2(e - e1)
+
+
+def _xround(cells: torch.Tensor) -> torch.Tensor:
+    """``ga_xround`` over ``[n, XWORDS]`` exact sums, the same integer steps:
+    each sum rounded to the nearest f64, ties to even."""
+    n = cells.shape[0]
+    c = torch.zeros(n, dtype=torch.int64, device=cells.device)
+    for k in range(XWORDS):
+        c = (cells[:, k] + c) >> 32
+    neg = c < 0
+    src = torch.where(neg[:, None], -cells, cells)
+    d = torch.empty((n, XWORDS + 1), dtype=torch.int64, device=cells.device)
+    c = torch.zeros_like(c)
+    for k in range(XWORDS):
+        v = src[:, k] + c
+        d[:, k] = v & 0xFFFFFFFF
+        c = v >> 32
+    d[:, XWORDS] = c
+    nz = d != 0
+    idx = torch.arange(XWORDS + 1, device=cells.device)
+    h = torch.where(nz, idx, -1).max(dim=1).values
+    top = 32 * h + _bit_length(d.gather(1, h.clamp(min=0)[:, None])[:, 0].clamp(min=1)) - 1
+    t = top - 61
+    win = torch.zeros_like(c)
+    sticky = (nz & (idx < (h - 2)[:, None])).any(dim=1)
+    for j in range(3):
+        k = h - j
+        x = torch.where(k >= 0, d.gather(1, k.clamp(min=0)[:, None])[:, 0], 0)
+        s = 32 * k - t
+        r = (-s).clamp(min=0)
+        win |= torch.where(s >= 0, x << s.clamp(min=0), x >> r)
+        sticky |= (s < 0) & ((x & ((torch.ones_like(r) << r) - 1)) != 0)
+    mant = win >> 9
+    rem = (win & 0x1FF) | sticky.to(torch.int64)
+    mant = mant + ((rem > 0x100) | ((rem == 0x100) & ((mant & 1) == 1))).to(torch.int64)
+    out = _ldexp(mant.to(torch.float64), t + 9 - 1074)
+    out = torch.where(neg, -out, out)
+    return torch.where(h < 0, 0.0, out)
+
+
+def _xtotal(flags: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """``ga_xtotal``: NaN where a NaN or both infinities were added, an
+    infinity where one was, else the rounded exact sum."""
+    out = _xround(cells)
+    out = torch.where((flags & XFLAG_NEGINF) != 0, float("-inf"), out)
+    out = torch.where((flags & XFLAG_POSINF) != 0, float("inf"), out)
+    nan = ((flags & XFLAG_NAN) != 0) | ((flags & 3) == 3)
+    return torch.where(nan, torch.tensor(_QNAN).view(torch.float64), out)
+
+
+def wide_partials_plain(prog: GroupProgram, img: Image, capacity: int) -> torch.Tensor:
+    """Plain version of ``group_wide_partials``: the flat state
+    (:func:`wide_size` words) it leaves, word for word: integer leaves and
+    rows by scatter, f64 min/max as keys, f64 sums as the exact sums of each
+    row's digits with their specials in the leaf's word."""
+    terms, gid, _outs = _row_terms(prog, img, capacity)
+    dev = img.device
+    state = torch.zeros(wide_size(prog, capacity), dtype=torch.int64, device=dev)
+    words, xacc = _wide_views(prog, capacity, state)
+    idents = wide_idents(prog)
+    x = 0
+    for l, (leaf, (m, v)) in enumerate(zip(prog.leaves, terms)):
+        if _x_leaf(leaf):
+            s, val = gid[m], v[m].to(torch.float64)
+            for bit, hit in ((XFLAG_NAN, val.isnan()), (XFLAG_POSINF, val == float("inf")),
+                             (XFLAG_NEGINF, val == float("-inf"))):
+                seen = torch.zeros(capacity, dtype=torch.int64, device=dev).index_add_(
+                    0, s[hit], torch.ones_like(s[hit]))
+                words[l] |= torch.where(seen > 0, bit, 0)
+            fin = val.isfinite() & (val != 0)
+            k, digits = _xdigits(val[fin])
+            base = s[fin] * XWORDS + k
+            flat = xacc[x].view(-1)
+            for q, dq in enumerate(digits):
+                flat.index_add_(0, base + q, dq)
+            x += 1
+        elif leaf.kind == LEAF_FIRSTVAL:
+            words[l] = idents[l]
+        else:
+            r = _seg_reduce(leaf, m, v, gid, capacity)
+            words[l] = _fkey(r, leaf.kind == LEAF_MAX) if leaf.is_f64 else r
+    return state
+
+
+def wide_combine_plain(prog: GroupProgram, img: Image, capacity: int, state: torch.Tensor,
+                       carry=None):
+    """Plain version of ``group_wide_combine``: each cell's total (a word,
+    a decoded key, a rounded exact sum) folded into the carry, in place."""
+    words, xacc = _wide_views(prog, capacity, state)
+    totals = []
+    x = 0
+    for l, leaf in enumerate(prog.leaves):
+        if _x_leaf(leaf):
+            totals.append(_xtotal(words[l], xacc[x]))
+            x += 1
+        elif leaf.is_f64 and leaf.kind in (LEAF_MIN, LEAF_MAX):
+            totals.append(_funkey(words[l], leaf.kind == LEAF_MAX))
+        else:
+            totals.append(words[l])
+    outs = None
+    if any(leaf.kind == LEAF_FIRSTVAL for leaf in prog.leaves):
+        outs = fa.walk_rows(prog, img, len(prog.agg_leaves))[0]
+    return _finish(prog, img, capacity, totals, outs, carry)
+
+
+# ---------------------------------------------------------------------------
 # CUDA launcher
 # ---------------------------------------------------------------------------
 
@@ -509,29 +716,29 @@ def _kernels():
         vp = ctypes.c_void_p
         lib.ga_params_size.restype = ctypes.c_int
         lib.ga_smem_max.restype = ctypes.c_int
-        lib.ga_launch_partials.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-        lib.ga_launch_partials.restype = ctypes.c_int
+        lib.ga_xwords.restype = ctypes.c_int
+        lib.ga_launch_partials.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp]
         lib.ga_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp]
-        lib.ga_launch_combine.restype = ctypes.c_int
+        lib.gw_launch_partials.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
+        lib.gw_launch_combine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
+        for fn in ("ga_launch_partials", "ga_launch_combine", "gw_launch_partials",
+                   "gw_launch_combine"):
+            getattr(lib, fn).restype = ctypes.c_int
         if lib.ga_params_size() != ctypes.sizeof(_GaParams):
             raise RuntimeError(
                 f"GaParams layout mismatch: kernel {lib.ga_params_size()} bytes, "
                 f"wrapper {ctypes.sizeof(_GaParams)}")
-        if lib.ga_smem_max() != SMEM_MAX:
-            raise RuntimeError("GA_SMEM_MAX of the kernel differs from SMEM_MAX")
+        if lib.ga_smem_max() != SMEM_MAX or lib.ga_xwords() != XWORDS:
+            raise RuntimeError("GA_SMEM_MAX or GA_XW of the kernel differs from the wrapper's")
         _declared = True
     return lib
 
 
 def check_capacity(prog: GroupProgram, capacity: int) -> None:
-    """Raise the named decline when the kernels cannot hold ``capacity``
-    slots: f64 leaves need the shared-memory partials (``C <= c_max``)."""
+    """``ValueError`` for a capacity outside ``[1, 2^31)``; every capacity
+    in it is served (past ``c_max`` by the wide route)."""
     if not 1 <= capacity < (1 << 31):
         raise ValueError(f"capacity {capacity} out of range")
-    if not prog.shared_rows(capacity) and prog.n_f64:
-        raise Unsupported(
-            f"{capacity} group slots with f64 leaves (at most {prog.c_max})",
-            "real_group_capacity_not_ported")
 
 
 def _check_group_image(prog: GroupProgram, img: Image, capacity: int) -> None:
@@ -556,47 +763,68 @@ def _check_group_image(prog: GroupProgram, img: Image, capacity: int) -> None:
 
 def new_partials(prog: GroupProgram, img: Image, capacity: int) -> torch.Tensor:
     """Scratch for ``launch_partials``: ``[grid, n_leaves, C]`` for the
-    shared-memory kernel; ``[1, n_leaves, C]`` at the identities for the
-    atomic one."""
+    shared-memory kernel; the wide route's flat state (:func:`wide_size`
+    words) at its initial words and zero accumulators past ``c_max``."""
     L = len(prog.leaves)
     if prog.shared_rows(capacity):
         return torch.empty((launch_grid(img), L, capacity), dtype=torch.int64, device=img.device)
-    ident = torch.tensor([leaf.ident for leaf in prog.leaves], dtype=torch.int64)
-    return ident.to(img.device)[None, :, None].expand(1, L, capacity).contiguous()
+    state = torch.zeros(wide_size(prog, capacity), dtype=torch.int64, device=img.device)
+    ident = torch.tensor(wide_idents(prog), dtype=torch.int64).to(img.device)
+    _wide_views(prog, capacity, state)[0].copy_(ident[:, None].expand(L, capacity))
+    return state
+
+
+def _check_parts(prog: GroupProgram, img: Image, capacity: int, parts: torch.Tensor) -> None:
+    if prog.shared_rows(capacity):
+        ok = parts.dim() == 3 and tuple(parts.shape[1:]) == (len(prog.leaves), capacity)
+        want = f"[n, {len(prog.leaves)}, {capacity}]"
+    else:
+        ok = tuple(parts.shape) == (wide_size(prog, capacity),)
+        want = f"({wide_size(prog, capacity)},)"
+    if not ok or parts.device != img.device or parts.dtype != torch.int64 \
+            or not parts.is_contiguous():
+        raise ValueError(f"partials: need contiguous int64 {want} on {img.device}")
 
 
 def launch_partials(prog: GroupProgram, img: Image, capacity: int, out: torch.Tensor) -> None:
-    """Launch ``fused_group_agg_partials`` into ``out`` (:func:`new_partials`)."""
+    """Launch the partials kernel of the capacity's route into ``out``
+    (:func:`new_partials`): ``fused_group_agg_partials`` (``C <= c_max``)
+    or ``group_wide_partials``."""
     _check_group_image(prog, img, capacity)
     shared = prog.shared_rows(capacity)
-    L = len(prog.leaves)
-    want = (launch_grid(img) if shared else 1, L, capacity)
-    if out.device != img.device or out.dtype != torch.int64 or tuple(out.shape) != want \
-            or not out.is_contiguous():
-        raise ValueError(f"partials: need contiguous int64 {want} on the image's device")
+    if shared and out.dim() == 3 and out.shape[0] != launch_grid(img):
+        raise ValueError(f"partials: need {launch_grid(img)} rows for this image")
+    _check_parts(prog, img, capacity, out)
     lib = _kernels()
     p = group_params(prog, img, capacity)
-    smem = WARPS * L * (32 + (capacity if shared else 0)) * 8
+    L = len(prog.leaves)
+    grid = launch_grid(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = lib.ga_launch_partials(ctypes.byref(p), out.data_ptr(), want[0], int(shared),
-                                    smem, stream)
-    LAUNCHES["fused_group_agg_partials"] += 1
+        if shared:
+            name = "fused_group_agg_partials"
+            rc = lib.ga_launch_partials(ctypes.byref(p), out.data_ptr(), grid,
+                                        WARPS * L * (32 + capacity) * 8, stream)
+        else:
+            name = "group_wide_partials"
+            words, xacc = _wide_views(prog, capacity, out)
+            rc = lib.gw_launch_partials(ctypes.byref(p), words.data_ptr(),
+                                        xacc.data_ptr() if xacc.numel() else None, grid,
+                                        WARPS * L * 32 * 8, stream)
+    LAUNCHES[name] += 1
     if rc != 0:
-        raise RuntimeError(f"fused_group_agg_partials launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def launch_combine(prog: GroupProgram, img: Image, capacity: int, parts: torch.Tensor,
                    carry, out) -> None:
-    """Launch ``fused_group_agg_combine_pack``: fold ``parts`` into ``carry``
-    (None: the identity state) and write the packed state to ``out``, which
-    may be ``carry`` itself."""
+    """Launch the combine of the capacity's route,
+    ``fused_group_agg_combine_pack`` or ``group_wide_combine``: fold
+    ``parts`` into ``carry`` (None: the identity state) and write the packed
+    state to ``out``, which may be ``carry`` itself."""
     _check_group_image(prog, img, capacity)
     dev = img.device
-    L = len(prog.leaves)
-    if parts.device != dev or parts.dtype != torch.int64 or parts.dim() != 3 \
-            or tuple(parts.shape[1:]) != (L, capacity) or not parts.is_contiguous():
-        raise ValueError(f"partials: need contiguous int64 [n, {L}, {capacity}] on {dev}")
+    _check_parts(prog, img, capacity, parts)
     for packed in (out,) if carry is None else (out, carry):
         for t, dt, rows in zip(packed, (torch.int64, torch.float64), (prog.n_int, prog.n_f64)):
             if t.device != dev or t.dtype != dt or tuple(t.shape) != (rows, capacity) \
@@ -611,11 +839,18 @@ def launch_combine(prog: GroupProgram, img: Image, capacity: int, parts: torch.T
     ci, cf = carry if carry is not None else (None, None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ga_launch_combine(ctypes.byref(p), parts.data_ptr(), parts.shape[0],
-                                   ptr(ci), ptr(cf), ptr(out[0]), ptr(out[1]), stream)
-    LAUNCHES["fused_group_agg_combine_pack"] += 1
+        if prog.shared_rows(capacity):
+            name = "fused_group_agg_combine_pack"
+            rc = lib.ga_launch_combine(ctypes.byref(p), parts.data_ptr(), parts.shape[0],
+                                       ptr(ci), ptr(cf), ptr(out[0]), ptr(out[1]), stream)
+        else:
+            name = "group_wide_combine"
+            words, xacc = _wide_views(prog, capacity, parts)
+            rc = lib.gw_launch_combine(ctypes.byref(p), words.data_ptr(), ptr(xacc), ptr(ci),
+                                       ptr(cf), ptr(out[0]), ptr(out[1]), stream)
+    LAUNCHES[name] += 1
     if rc != 0:
-        raise RuntimeError(f"fused_group_agg_combine_pack launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def fused_group_agg_cuda(prog: GroupProgram, img: Image, capacity: int, carry=None):
@@ -632,8 +867,8 @@ def fused_group_agg_cuda(prog: GroupProgram, img: Image, capacity: int, carry=No
 
 def fused_group_agg(prog: GroupProgram, img: Image, capacity: int, carry=None):
     """Packed state after folding ``img`` into ``carry`` at ``capacity``
-    group slots: the plain version for a CPU image, the CUDA kernels for a
-    CUDA image."""
+    group slots: the plain version for a CPU image, the CUDA kernels of the
+    capacity's route for a CUDA image."""
     if img.device.type == "cpu":
         check_capacity(prog, capacity)
         return fused_group_agg_plain(prog, img, capacity, carry)

@@ -8,7 +8,11 @@ come from here, which is what keeps their outputs byte-identical).
 The per-block work is numpy: ``np.unique(return_inverse)`` gives block-local
 codes, and only the (small) set of block-local uniques goes through the Python
 dictionary, so cost per block is O(n log u) vectorized + O(u) interpreted —
-not O(n) interpreted like a per-row dict loop.
+not O(n) interpreted like a per-row dict loop.  Signed integer keys skip even
+that: a sorted table of the keys seen maps a block's uniques to their ids by
+binary search, and only keys new to the table touch the dictionary (a
+high-cardinality GROUP BY, such as a supplier key, would otherwise spend
+O(u) interpreted work on every block).
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ class GroupDict:
     def __init__(self):
         self.index: dict = {}
         self.rows: list[tuple] = []  # gid -> key tuple (python values, None=NULL)
+        # the integer keys of single-key batches, sorted, and their ids
+        self._int_keys = np.empty(0, dtype=np.int64)
+        self._int_ids = np.empty(0, dtype=np.int64)
 
     def __len__(self) -> int:
         return len(self.rows)
@@ -59,6 +66,8 @@ class GroupDict:
         first_row = np.full(n_local, -1, dtype=np.int64)
         n = len(codes)
         first_row[codes[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
+        if uniq.dtype.kind == "i":  # signed: every key fits the int64 table
+            return self._int_ids_of(uniq, first_row)[codes]
         present = np.flatnonzero(first_row >= 0)
         order = present[np.argsort(first_row[present], kind="stable")]
         local_to_global = np.empty(n_local, dtype=np.int64)
@@ -75,6 +84,39 @@ class GroupDict:
                 self.rows.append((key,))
             local_to_global[lc] = gid
         return local_to_global[codes]
+
+    def _int_ids_of(self, uniq: np.ndarray, first_row: np.ndarray) -> np.ndarray:
+        """``_assign_single``'s local-code -> id map for sorted signed integer
+        ``uniq`` (local code ``len(uniq)``: NULL, present where its
+        ``first_row`` is set), new keys taking ids in first-occurrence order,
+        exactly as the dictionary loop gives them: table hits by binary
+        search, the rest through ``index``."""
+        n_u = len(uniq)
+        out = np.empty(n_u + 1, dtype=np.int64)
+        vals = uniq.astype(np.int64)
+        pos = np.searchsorted(self._int_keys, vals)
+        hit = pos < len(self._int_keys)
+        hit[hit] = self._int_keys[pos[hit]] == vals[hit]
+        out[:n_u][hit] = self._int_ids[pos[hit]]
+        miss = np.flatnonzero(~np.append(hit, False) & (first_row >= 0))
+        seen_keys, seen_ids = [], []
+        for lc in miss[np.argsort(first_row[miss], kind="stable")].tolist():
+            key = None if lc == n_u else int(vals[lc])
+            gid = self.index.get(key)
+            if gid is None:
+                gid = len(self.rows)
+                self.index[key] = gid
+                self.rows.append((key,))
+            out[lc] = gid
+            if key is not None:
+                seen_keys.append(key)
+                seen_ids.append(gid)
+        if seen_keys:
+            keys = np.concatenate([self._int_keys, np.array(seen_keys, dtype=np.int64)])
+            ids = np.concatenate([self._int_ids, np.array(seen_ids, dtype=np.int64)])
+            by = np.argsort(keys, kind="stable")
+            self._int_keys, self._int_ids = keys[by], ids[by]
+        return out
 
     def assign_coded(
         self, codes: np.ndarray, nulls: np.ndarray, dictionary: np.ndarray

@@ -146,8 +146,7 @@ def supports(dag: DagRequest) -> bool:
 
 def decline_cause(dag: DagRequest) -> str | None:
     """None when the DAG is eligible, else a bounded-cardinality cause slug.
-    A grouped plan can still decline at run time, with
-    ``real_group_capacity_not_ported``, once its group count is known."""
+    An eligible grouped plan is served at any group count."""
     try:
         _analyze(dag)
         return None
@@ -1026,8 +1025,7 @@ def _pick(img: Image, ship: list[int], cols: list[int]) -> Image:
 def _capacity_for(prog: GroupProgram, capacity: int, n_groups: int) -> int:
     """Group slots for ``n_groups``: ``capacity`` doubled until it holds
     them, cut back to the shared-memory kernel's limit where that still
-    holds them.  Raises ``real_group_capacity_not_ported`` when f64 leaves
-    would need more slots than that limit."""
+    holds them (past it the grouped pair takes its wide route)."""
     while capacity < n_groups:
         capacity *= 2
     if n_groups <= prog.c_max < capacity:
@@ -1099,13 +1097,9 @@ def _batch_schema(evaluators, ship) -> dict:
 
 
 def _check_tasks(progs, capacities) -> None:
-    """The batch kernels' limits, before anything is pinned: ``ValueError``
-    naming the cause."""
+    """The batch's limits, before anything is pinned: ``ValueError``."""
     for prog, cap in zip(progs, capacities):
-        try:
-            fused_batch.check_task(prog, cap)
-        except Unsupported as exc:
-            raise ValueError(f"batched evaluation declines a rider: {exc.cause}") from exc
+        fused_batch.check_task(prog, cap)
 
 
 def _zone_batch(evaluators, cache):

@@ -12,7 +12,10 @@
 //   * with GROUP BY, or any of the ten device aggregates (count sum avg min
 //     max var_pop first bit_and bit_or bit_xor): the same three programs at
 //     capacity C >= 1 (fused_group_agg_partials + fused_group_agg_combine_pack,
-//     host group ids) and jax_eval.py:_build_scan_fn_coded (site
+//     host group ids; past the shared-memory rows the wide route,
+//     group_wide_partials + group_wide_combine, which also replaces the
+//     scatter branch's _seg_sum and _seg_extreme at any capacity) and
+//     jax_eval.py:_build_scan_fn_coded (site
 //     jax_eval.scan_coded: group ids from resident dictionary codes), each
 //     with _fused_step's first-active-row tracker.
 //
@@ -41,7 +44,9 @@
 //
 // Determinism: the grid is fixed (FA_GRID blocks of FA_THREADS threads), a
 // row goes to thread (flat row index mod grid size), and every reduction
-// runs in a fixed order, so f64 sums are bit-identical from run to run.
+// runs in a fixed order, so f64 sums are bit-identical from run to run; the
+// wide route's f64 sums are exact until one rounding, so their order does
+// not matter at all.
 // Integer arithmetic is done in unsigned 64-bit and cast back, which wraps
 // as numpy does (signed overflow is undefined in C++), so integer and
 // decimal results are exact and independent of order.
@@ -288,45 +293,22 @@ __device__ __forceinline__ void ga_atomic(int kind, long long* dst, long long v)
   }
 }
 
-// Partials of every leaf for every group slot.
-//
-// SHARED_ROWS (C <= C_MAX): each warp owns a shared-memory row [n_leaves][C]
-// and writes [gridDim.x, n_leaves, C] int64 words (f64 as bits), one row per
-// block, with no atomics: for each 32-row step the lanes of one group
-// (__match_any_sync) are folded in lane order by the lowest of them into the
-// warp's row; at the end the warp rows are folded in warp order.  Every f64
-// leaf is therefore summed in one fixed order: reruns are bit-identical.
-// Dynamic shared memory: GA_WARPS * n_leaves * (32 + C) * 8 bytes, so
-//     C_MAX = GA_SMEM_MAX / (GA_WARPS * 8 * n_leaves) - 32
-// (331 group slots for TPC-H Q1's 10 leaves; 1,784 for one count).
-//
-// !SHARED_ROWS (C > C_MAX, integer leaves only): the group's folded value
-// goes to `out` ([1, n_leaves, C], holding each leaf's identity) through one
-// 64-bit atomic per leaf, exact in any order.  The wrapper declines plans
-// with f64 leaves there (real_group_capacity_not_ported).
-template <bool SHARED_ROWS>
-__global__ void __launch_bounds__(FA_THREADS)
-fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restrict__ out) {
-  extern __shared__ long long ga_smem[];
-  const int L = p.n_leaves;
+
+// The row loop of both grouped partials kernels.  Each thread walks its rows
+// (flat row f = base + lane, base stepping by the grid's size), stages each
+// row's contribution to every leaf in its warp's `stage` [L][32] and its
+// group id; then `fold(active, gid, same)` runs on every lane, `same`
+// being the lanes of the step that hold the same group (__match_any_sync).
+// Every lane of a warp runs the same number of steps (the loop is on the
+// warp's first row), so the warp-wide operations see all 32 lanes.
+template <class Fold>
+__device__ __forceinline__ void ga_rows(const GaParams& p, long long* stage, Fold fold) {
   const int C = p.capacity;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  long long* stage = ga_smem + (long long)warp * L * 32;  // [L][32]: this step's contributions
-  long long* wrows = ga_smem + (long long)GA_WARPS * L * 32;  // [GA_WARPS][L][C]
-  long long* mine = wrows + (long long)warp * L * C;
-  if (SHARED_ROWS) {
-    for (long long idx = threadIdx.x; idx < (long long)GA_WARPS * L * C; idx += FA_THREADS) {
-      wrows[idx] = p.leaf_ident[(idx / C) % L];
-    }
-    __syncthreads();
-  }
-
   const long long rows = p.block_rows;
   const long long total = p.n_blocks * rows;
   const long long stride = (long long)gridDim.x * FA_THREADS;
-  // every lane of a warp runs the same number of steps (the loop is on the
-  // warp's first row), so the warp-wide operations below see all 32 lanes
   long long base = (long long)blockIdx.x * FA_THREADS + warp * 32;
   long long f = base + lane;
   long long blk = rows > 0 ? f / rows : 0;
@@ -370,22 +352,7 @@ fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restri
     }
     const unsigned same = __match_any_sync(0xFFFFFFFFu, active ? gid : -1);
     __syncwarp();
-    if (active && lane == __ffs(same) - 1) {
-      for (int l = 0; l < L; ++l) {
-        const int kind = p.leaf_kind[l];
-        if (kind == GA_FIRSTVAL) continue;
-        const bool is_f = p.leaf_f64[l];
-        long long acc = SHARED_ROWS ? mine[(long long)l * C + gid] : p.leaf_ident[l];
-        for (unsigned m = same; m != 0; m &= m - 1) {
-          acc = ga_merge(kind, is_f, acc, stage[l * 32 + __ffs(m) - 1]);
-        }
-        if (SHARED_ROWS) {
-          mine[(long long)l * C + gid] = acc;
-        } else if (acc != p.leaf_ident[l]) {
-          ga_atomic(kind, out + (long long)l * C + gid, acc);
-        }
-      }
-    }
+    fold(active, gid, same);
     __syncwarp();
     blk += step_b;
     i += step_i;
@@ -394,19 +361,240 @@ fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restri
       ++blk;
     }
   }
+}
 
-  if (SHARED_ROWS) {
-    __syncthreads();
-    long long* part = out + (long long)blockIdx.x * L * C;
-    for (long long idx = threadIdx.x; idx < (long long)L * C; idx += FA_THREADS) {
-      const int l = (int)(idx / C);
+// Partials of every leaf for every group slot, C <= C_MAX: each warp owns a
+// shared-memory row [n_leaves][C] and the kernel writes [gridDim.x,
+// n_leaves, C] int64 words (f64 as bits), one row per block, with no
+// atomics: for each 32-row step the lanes of one group are folded in lane
+// order by the lowest of them into the warp's row; at the end the warp rows
+// are folded in warp order.  Every f64 leaf is therefore summed in one fixed
+// order: reruns are bit-identical.  Dynamic shared memory: GA_WARPS *
+// n_leaves * (32 + C) * 8 bytes, so
+//     C_MAX = GA_SMEM_MAX / (GA_WARPS * 8 * n_leaves) - 32
+// (331 group slots for TPC-H Q1's 10 leaves; 1,784 for one count).  Past
+// C_MAX the grouped pair is group_wide_partials + group_wide_combine.
+__global__ void __launch_bounds__(FA_THREADS)
+fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restrict__ out) {
+  extern __shared__ long long ga_smem[];
+  const int L = p.n_leaves;
+  const int C = p.capacity;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long* stage = ga_smem + (long long)warp * L * 32;  // [L][32]: this step's contributions
+  long long* wrows = ga_smem + (long long)GA_WARPS * L * 32;  // [GA_WARPS][L][C]
+  long long* mine = wrows + (long long)warp * L * C;
+  for (long long idx = threadIdx.x; idx < (long long)GA_WARPS * L * C; idx += FA_THREADS) {
+    wrows[idx] = p.leaf_ident[(idx / C) % L];
+  }
+  __syncthreads();
+
+  ga_rows(p, stage, [&](bool active, int gid, unsigned same) {
+    if (!active || lane != __ffs(same) - 1) return;
+    for (int l = 0; l < L; ++l) {
       const int kind = p.leaf_kind[l];
+      if (kind == GA_FIRSTVAL) continue;
       const bool is_f = p.leaf_f64[l];
-      long long acc = wrows[idx];
-      for (int w = 1; w < GA_WARPS; ++w) acc = ga_merge(kind, is_f, acc, wrows[(long long)w * L * C + idx]);
-      part[idx] = acc;
+      long long acc = mine[(long long)l * C + gid];
+      for (unsigned m = same; m != 0; m &= m - 1) {
+        acc = ga_merge(kind, is_f, acc, stage[l * 32 + __ffs(m) - 1]);
+      }
+      mine[(long long)l * C + gid] = acc;
+    }
+  });
+
+  __syncthreads();
+  long long* part = out + (long long)blockIdx.x * L * C;
+  for (long long idx = threadIdx.x; idx < (long long)L * C; idx += FA_THREADS) {
+    const int l = (int)(idx / C);
+    const int kind = p.leaf_kind[l];
+    const bool is_f = p.leaf_f64[l];
+    long long acc = wrows[idx];
+    for (int w = 1; w < GA_WARPS; ++w) acc = ga_merge(kind, is_f, acc, wrows[(long long)w * L * C + idx]);
+    part[idx] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide route: any capacity, state in device memory, exact in any order
+// ---------------------------------------------------------------------------
+//
+// Past C_MAX the group state does not fit one block's shared memory, and a
+// [grid, n_leaves, C] copy per block in device memory would cost 528 * L * C
+// words (11 GB for Q1's 10 leaves at 262,144 slots).  group_wide_partials
+// keeps one state, words [n_leaves, C] plus an exact accumulator per f64
+// sum cell, and every update is an integer atomic whose result does not
+// depend on the order the rows arrive in:
+//   * integer leaves: the lanes of one group fold in lane order, then one
+//     64-bit atomic (add as unsigned words, min, max, and, or, xor); the
+//     tracker and first's row take the minimum flat row;
+//   * f64 min and max: atomicMin/atomicMax on an order-preserving key of the
+//     folded value (ga_fkey), NaN the least key for min and the greatest for
+//     max, -0.0 below +0.0: XLA's semantics, as ga_dmin/ga_dmax;
+//   * f64 sums (REAL sum, the sum of squares): each row's value is added
+//     exactly into GA_XW signed 64-bit words, word k counting units of
+//     2^(32k - 1074) (ga_xadd: at most three atomicAdds a value); NaN and
+//     the infinities set bits of the cell's word.  No rounding happens
+//     until the combine, which rounds the exact sum to nearest (ga_xround):
+//     the result is the same whatever the order, the grid or the device.
+// Scratch: GA_XW * 8 = 528 bytes a f64 sum cell; at 262,144 slots 138 MB a
+// leaf.  A word takes at most one add of < 2^32 a row, so it cannot
+// overflow below 2^31 rows a launch.
+// first's value is read at the winning row by the combine (ga_finish_cell).
+
+#define GA_XW 66
+#define GA_XFLAG_POSINF 1
+#define GA_XFLAG_NEGINF 2
+#define GA_XFLAG_NAN 4
+#define GA_LLMAX 0x7FFFFFFFFFFFFFFFLL
+#define GA_LLMIN (-GA_LLMAX - 1)
+#define GA_QNAN 0x7FF8000000000000LL
+
+__device__ __forceinline__ bool ga_xleaf(int kind, bool is_f) {
+  return is_f && (kind == GA_SUM || kind == GA_SUMSQ);
+}
+
+// order-preserving key of a double: negative values flip their magnitude
+// bits, so the keys order as the values do with -0.0 below +0.0; NaN is the
+// least key for min and the greatest for max (it propagates)
+__device__ __forceinline__ long long ga_fkey(double x, bool is_max) {
+  if (x != x) return is_max ? GA_LLMAX : GA_LLMIN;
+  const long long b = fa_raw(x);
+  return b < 0 ? b ^ GA_LLMAX : b;
+}
+__device__ __forceinline__ double ga_funkey(long long k, bool is_max) {
+  if (k == (is_max ? GA_LLMAX : GA_LLMIN)) return fa_f(GA_QNAN);
+  return fa_f(k < 0 ? k ^ GA_LLMAX : k);
+}
+
+// Add v exactly to the accumulator `cell` (GA_XW words), its specials to
+// `flags`.  v = m * 2^(pos - 1074): m's 53 bits shifted to bit pos spread
+// over three 32-bit digits from word pos / 32.
+__device__ __forceinline__ void ga_xadd(long long* flags, long long* cell, double v) {
+  const long long b = fa_raw(v);
+  const int e = (int)((b >> 52) & 0x7FF);
+  unsigned long long m = (unsigned long long)b & 0xFFFFFFFFFFFFFULL;
+  if (e == 0x7FF) {
+    const unsigned long long bit = m ? GA_XFLAG_NAN : b < 0 ? GA_XFLAG_NEGINF : GA_XFLAG_POSINF;
+    atomicOr((unsigned long long*)flags, bit);
+    return;
+  }
+  if (e) m |= 1ULL << 52;
+  if (m == 0) return;
+  const int pos = e ? e - 1 : 0;
+  const int sh = pos & 31;
+  unsigned long long* w = (unsigned long long*)(cell + (pos >> 5));
+  const unsigned long long hi = m >> (32 - sh);
+  const unsigned long long d[3] = {(m << sh) & 0xFFFFFFFFULL, hi & 0xFFFFFFFFULL, hi >> 32};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    if (d[q]) atomicAdd(w + q, b < 0 ? 0ULL - d[q] : d[q]);
+  }
+}
+
+// The exact sum held in `cell`, rounded to the nearest double (ties to
+// even).  The words carry into 32-bit digits d[0..GA_XW] (the last one the
+// top carry); a negative sum is carried again from the negated words.  The
+// 62 bits from the leading one down (the bits below as a sticky bit) round
+// to 53, scaled by ldexp, which is exact: a result in the subnormal range
+// has no bits below 2^-1074 to lose.  copr/fused_group_agg.py:_xround is
+// the same integer steps.
+__device__ double ga_xround(const long long* cell) {
+  long long c = 0;
+  for (int k = 0; k < GA_XW; ++k) c = (cell[k] + c) >> 32;
+  const bool neg = c < 0;
+  unsigned int d[GA_XW + 1];
+  c = 0;
+  for (int k = 0; k < GA_XW; ++k) {
+    const long long v = (neg ? -cell[k] : cell[k]) + c;
+    d[k] = (unsigned int)(v & 0xFFFFFFFFLL);
+    c = v >> 32;
+  }
+  d[GA_XW] = (unsigned int)c;
+  int h = GA_XW;
+  while (h >= 0 && d[h] == 0) --h;
+  if (h < 0) return 0.0;
+  const int lz = __clz(d[h]);
+  const int top = 32 * h + 31 - lz;  // the leading one's bit
+  const int t = top - 61;            // the window's lowest bit
+  long long win = 0;
+  bool sticky = false;
+  for (int k = h; k >= 0 && k >= h - 2; --k) {
+    const int s = 32 * k - t;
+    const long long x = d[k];
+    if (s >= 0) {
+      win |= x << s;
+    } else {
+      win |= x >> -s;
+      sticky |= (x & ((1LL << -s) - 1)) != 0;
     }
   }
+  for (int k = h - 3; k >= 0 && !sticky; --k) sticky = d[k] != 0;
+  long long mant = win >> 9;
+  const long long rem = (win & 0x1FF) | (sticky ? 1 : 0);
+  if (rem > 0x100 || (rem == 0x100 && (mant & 1))) ++mant;
+  const double r = ldexp((double)mant, t + 9 - 1074);
+  return neg ? -r : r;
+}
+
+__device__ __forceinline__ double ga_xtotal(long long flags, const long long* cell) {
+  if ((flags & GA_XFLAG_NAN) || (flags & 3) == 3) return fa_f(GA_QNAN);
+  if (flags & GA_XFLAG_POSINF) return fa_f(0x7FF0000000000000LL);
+  if (flags & GA_XFLAG_NEGINF) return fa_f((long long)0xFFF0000000000000ULL);
+  return ga_xround(cell);
+}
+
+// words [n_leaves, C] at ga_wide_ident (the wrapper's initial words), xacc
+// [n_xleaves, C, GA_XW] zeros; dynamic shared memory GA_WARPS * n_leaves *
+// 32 * 8 bytes (the stage).
+__global__ void __launch_bounds__(FA_THREADS)
+group_wide_partials(const __grid_constant__ GaParams p, long long* __restrict__ words,
+                    long long* __restrict__ xacc) {
+  extern __shared__ long long ga_smem[];
+  __shared__ signed char xidx[GA_MAX_LEAVES];  // each f64 sum leaf's accumulator
+  const int L = p.n_leaves;
+  const int C = p.capacity;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long* stage = ga_smem + (long long)warp * L * 32;
+  if (threadIdx.x == 0) {
+    int x = 0;
+    for (int l = 0; l < L; ++l) xidx[l] = ga_xleaf(p.leaf_kind[l], p.leaf_f64[l]) ? x++ : -1;
+  }
+  __syncthreads();
+
+  ga_rows(p, stage, [&](bool active, int gid, unsigned same) {
+    if (!active) return;
+    const bool leader = lane == __ffs(same) - 1;
+    for (int l = 0; l < L; ++l) {
+      const int kind = p.leaf_kind[l];
+      if (kind == GA_FIRSTVAL) continue;
+      const bool is_f = p.leaf_f64[l];
+      long long* word = words + (long long)l * C + gid;
+      if (xidx[l] >= 0) {
+        // every lane adds its own value: exact, so no fold is needed
+        ga_xadd(word, xacc + ((long long)xidx[l] * C + gid) * GA_XW, fa_f(stage[l * 32 + lane]));
+        continue;
+      }
+      if (!leader) continue;
+      long long acc = p.leaf_ident[l];
+      for (unsigned m = same; m != 0; m &= m - 1) {
+        acc = ga_merge(kind, is_f, acc, stage[l * 32 + __ffs(m) - 1]);
+      }
+      if (acc == p.leaf_ident[l]) continue;
+      if (is_f) {
+        const bool is_max = kind == GA_MAX;
+        const long long key = ga_fkey(fa_f(acc), is_max);
+        if (is_max) {
+          atomicMax(word, key);
+        } else {
+          atomicMin(word, key);
+        }
+      } else {
+        ga_atomic(kind, word, acc);
+      }
+    }
+  });
 }
 
 // The end of the combine for one (leaf l, group g) cell: `blk` is this
@@ -459,39 +647,19 @@ __device__ __forceinline__ int ga_folded_leaf(const GaParams& p, int l) {
   return kind == GA_FIRSTVAL ? p.leaf_aux[l] : l;
 }
 
-// Folds the partials [n_parts, n_leaves, C] into the carry and writes the
-// packed state [n_int, C] / [n_f64, C].
-//
-// TREE (the shared-memory partials, one row per block of the partials
-// kernel): one block per (leaf, group) cell; its threads fold the partials
-// q = t, t + FA_THREADS, ... in order, then a fixed-order tree over the
-// threads, so f64 cells come out bit-identical from run to run.
-// !TREE (the atomic partials: one row): one thread per group, leaf by leaf.
-template <bool TREE>
+// Folds the shared-memory partials [n_parts, n_leaves, C] (one row per block
+// of fused_group_agg_partials) into the carry and writes the packed state
+// [n_int, C] / [n_f64, C]: one block per (leaf, group) cell; its threads
+// fold the partials q = t, t + FA_THREADS, ... in order, then a fixed-order
+// tree over the threads, so f64 cells come out bit-identical from run to run.
 __global__ void __launch_bounds__(FA_THREADS)
 fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
                              const long long* __restrict__ parts, int n_parts,
                              const long long* carry_i, const double* carry_f,
                              long long* out_i, double* out_f) {
+  __shared__ long long s_acc[FA_THREADS];
   const int C = p.capacity;
   const int L = p.n_leaves;
-  if (!TREE) {
-    const int g = blockIdx.x * FA_THREADS + threadIdx.x;
-    if (g >= C) return;
-    for (int l = 0; l < L; ++l) {
-      const int fl = ga_folded_leaf(p, l);
-      if (fl < 0) continue;
-      const int fkind = p.leaf_kind[fl];
-      const bool is_f = p.leaf_f64[fl];
-      long long blk = p.leaf_ident[fl];
-      for (int q = 0; q < n_parts; ++q) {
-        blk = ga_merge(fkind, is_f, blk, parts[((long long)q * L + fl) * C + g]);
-      }
-      ga_finish_cell(p, l, g, blk, carry_i, carry_f, out_i, out_f);
-    }
-    return;
-  }
-  __shared__ long long s_acc[FA_THREADS];
   const int l = blockIdx.x / C;
   const int g = blockIdx.x - l * C;
   const int fl = ga_folded_leaf(p, l);
@@ -512,15 +680,42 @@ fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
   if (tid == 0) ga_finish_cell(p, l, g, s_acc[0], carry_i, carry_f, out_i, out_f);
 }
 
+// The wide route's combine: one thread per group slot, leaf by leaf; each
+// cell's total (an integer word, a decoded min/max key, or the rounded
+// exact sum) goes through ga_finish_cell as the shared route's does.
+__global__ void __launch_bounds__(FA_THREADS)
+group_wide_combine(const __grid_constant__ GaParams p, const long long* __restrict__ words,
+                   const long long* __restrict__ xacc, const long long* carry_i,
+                   const double* carry_f, long long* out_i, double* out_f) {
+  const int C = p.capacity;
+  const long long g = (long long)blockIdx.x * FA_THREADS + threadIdx.x;
+  if (g >= C) return;
+  int x = 0;
+  for (int l = 0; l < p.n_leaves; ++l) {
+    const int kind = p.leaf_kind[l];
+    const bool is_f = p.leaf_f64[l];
+    const bool xl = ga_xleaf(kind, is_f);
+    const int fl = ga_folded_leaf(p, l);
+    if (fl >= 0) {
+      long long blk = words[(long long)fl * C + g];
+      if (xl) {
+        blk = fa_raw(ga_xtotal(blk, xacc + ((long long)x * C + g) * GA_XW));
+      } else if (is_f && (kind == GA_MIN || kind == GA_MAX)) {
+        blk = fa_raw(ga_funkey(blk, kind == GA_MAX));
+      }
+      ga_finish_cell(p, l, (int)g, blk, carry_i, carry_f, out_i, out_f);
+    }
+    x += xl;
+  }
+}
+
 // Above 48 KB a block's dynamic shared memory must be allowed explicitly.
-template <bool SHARED_ROWS>
-static int ga_launch_partials_t(const GaParams* p, long long* out, int grid, int smem_bytes,
-                                void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_group_agg_partials<SHARED_ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+template <class K, class... Args>
+static int ga_launch_smem(K kernel, int grid, int smem_bytes, void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_group_agg_partials<SHARED_ROWS><<<grid, FA_THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      *p, out);
+  kernel<<<grid, FA_THREADS, smem_bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -548,27 +743,34 @@ int fa_launch_combine(const FaParams* p, const long long* scratch, int n_partial
 
 int ga_params_size(void) { return (int)sizeof(GaParams); }
 int ga_smem_max(void) { return GA_SMEM_MAX; }
+int ga_xwords(void) { return GA_XW; }
 
-// shared_rows: 1 for the shared-memory variant (out: [grid, n_leaves, C]),
-// 0 for the atomic one (out: [1, n_leaves, C] holding the identities)
-int ga_launch_partials(const GaParams* p, long long* out, int grid, int shared_rows,
-                       int smem_bytes, void* stream) {
-  return shared_rows ? ga_launch_partials_t<true>(p, out, grid, smem_bytes, stream)
-                     : ga_launch_partials_t<false>(p, out, grid, smem_bytes, stream);
+// out: [grid, n_leaves, C]
+int ga_launch_partials(const GaParams* p, long long* out, int grid, int smem_bytes,
+                       void* stream) {
+  return ga_launch_smem(fused_group_agg_partials, grid, smem_bytes, stream, *p, out);
 }
 
 int ga_launch_combine(const GaParams* p, const long long* parts, int n_parts,
                       const long long* carry_i, const double* carry_f, long long* out_i,
                       double* out_f, void* stream) {
-  if (n_parts > 1) {
-    fused_group_agg_combine_pack<true><<<p->n_leaves * p->capacity, FA_THREADS, 0,
-                                         (cudaStream_t)stream>>>(
-        *p, parts, n_parts, carry_i, carry_f, out_i, out_f);
-  } else {
-    fused_group_agg_combine_pack<false><<<(p->capacity + FA_THREADS - 1) / FA_THREADS,
-                                          FA_THREADS, 0, (cudaStream_t)stream>>>(
-        *p, parts, n_parts, carry_i, carry_f, out_i, out_f);
-  }
+  fused_group_agg_combine_pack<<<p->n_leaves * p->capacity, FA_THREADS, 0,
+                                 (cudaStream_t)stream>>>(*p, parts, n_parts, carry_i, carry_f,
+                                                         out_i, out_f);
+  return (int)cudaGetLastError();
+}
+
+// words: [n_leaves, C] at their initial words; xacc: [n_xleaves, C, GA_XW] zeros
+int gw_launch_partials(const GaParams* p, long long* words, long long* xacc, int grid,
+                       int smem_bytes, void* stream) {
+  return ga_launch_smem(group_wide_partials, grid, smem_bytes, stream, *p, words, xacc);
+}
+
+int gw_launch_combine(const GaParams* p, const long long* words, const long long* xacc,
+                      const long long* carry_i, const double* carry_f, long long* out_i,
+                      double* out_f, void* stream) {
+  group_wide_combine<<<(p->capacity + FA_THREADS - 1) / FA_THREADS, FA_THREADS, 0,
+                       (cudaStream_t)stream>>>(*p, words, xacc, carry_i, carry_f, out_i, out_f);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,11 @@
 // same-region batch of K plans reads its image K times, each task walking
 // every shipped column), and the walk in local memory, not HBM, holds each
 // pass at ten times or more of its bound.  A single pass (each row loaded
-// once, K walks) is later work.  Group slots past the shared-memory rows
-// (SMEM_MAX of copr/fused_batch.py) are declined by the wrapper.
+// once, K walks) is later work.  A task with more group slots than the
+// shared-memory rows hold (SMEM_MAX of copr/fused_batch.py) has no entry in
+// the table: the wrapper serves it by the grouped pair's wide route
+// (fused_agg.cu, group_wide_partials) and copies its state into its rows of
+// the output, which each entry names (out_task).
 //
 // Layout contract with tikv_tpu_torch/copr/fused_batch.py (the wrapper
 // checks sizeof(BtTask) and the shared-memory limit at load).
@@ -76,7 +79,7 @@ struct BtTask {
   int n_keys;                              // key columns (0: every row in slot 0)
   int cta0;                                // the task's first CTA of batch_partials
   int n_ctas;                              // and its count
-  int pad;
+  int out_task;                            // the task's row of the packed output
   int key_slot[GA_MAX_KEYS];               // column slot of each key's dictionary codes
   int key_dlen[GA_MAX_KEYS];               // its dictionary's length; NULL is code dlen
   int agg_leaf0[FA_MAX_AGGS];              // first leaf of aggregate k
@@ -203,20 +206,21 @@ batch_partials(const BtTask* __restrict__ tasks, int n_tasks, long long* __restr
   }
 }
 
-// The packed output: out_i [n_tasks, li, c_max] int64 and out_f [n_tasks,
-// lf, c_max] f64, one warp per word (the int rows first, then the f64 rows,
-// of each task in turn).
+// The packed output: out_i [T, li, c_out] int64 and out_f [T, lf, c_out]
+// f64, each table entry's rows at its out_task, one warp per word of its
+// first c_grid slots (the int rows first, then the f64 rows, of each entry
+// in turn); words past c_grid are the caller's zeros.
 __global__ void __launch_bounds__(BT_THREADS)
 batch_combine_pack(const BtTask* __restrict__ tasks, int n_tasks,
-                   const long long* __restrict__ parts, int li, int lf, int c_max,
+                   const long long* __restrict__ parts, int li, int lf, int c_grid, int c_out,
                    long long* __restrict__ out_i, double* __restrict__ out_f) {
   const long long w = ((long long)blockIdx.x * BT_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const long long per_task = (long long)(li + lf) * c_max;
+  const long long per_task = (long long)(li + lf) * c_grid;
   if (w >= (long long)n_tasks * per_task) return;  // the whole warp leaves together
   const int t = (int)(w / per_task);
-  const int row = (int)((w - t * per_task) / c_max);
-  const int g = (int)(w - t * per_task - (long long)row * c_max);
+  const int row = (int)((w - t * per_task) / c_grid);
+  const int g = (int)(w - t * per_task - (long long)row * c_grid);
   const bool in_f = row >= li;
   const int slot = in_f ? row - li : row;
   const BtTask& p = tasks[t];
@@ -268,10 +272,11 @@ batch_combine_pack(const BtTask* __restrict__ tasks, int n_tasks,
     }
   }
   if (lane == 0) {
+    const long long o = p.out_task;
     if (in_f) {
-      out_f[((long long)t * lf + slot) * c_max + g] = fa_f(res);
+      out_f[(o * lf + slot) * c_out + g] = fa_f(res);
     } else {
-      out_i[((long long)t * li + slot) * c_max + g] = res;
+      out_i[(o * li + slot) * c_out + g] = res;
     }
   }
 }
@@ -295,12 +300,12 @@ int bt_launch_partials(const BtTask* tasks, int n_tasks, int grid, long long* pa
 }
 
 int bt_launch_combine(const BtTask* tasks, int n_tasks, const long long* parts, int li, int lf,
-                      int c_max, long long* out_i, double* out_f, void* stream) {
-  const long long words = (long long)n_tasks * (li + lf) * c_max;
+                      int c_grid, int c_out, long long* out_i, double* out_f, void* stream) {
+  const long long words = (long long)n_tasks * (li + lf) * c_grid;
   const long long blocks = (words * 32 + BT_THREADS - 1) / BT_THREADS;
   if (blocks == 0) return 0;
   batch_combine_pack<<<(unsigned)blocks, BT_THREADS, 0, (cudaStream_t)stream>>>(
-      tasks, n_tasks, parts, li, lf, c_max, out_i, out_f);
+      tasks, n_tasks, parts, li, lf, c_grid, c_out, out_i, out_f);
   return (int)cudaGetLastError();
 }
 

@@ -30,11 +30,24 @@
 // no key was dropped and the last tile counts every distinct key: the flag
 // is exactly "more than cap distinct keys".
 //
+// Past DI_SMEM_KEYS = DU_TILE_MAX / 2 slots a tile no longer holds two lists
+// of cap keys, so the union sorts in device memory instead: one dict_union
+// pass with cap = T = DU_TILE_MAX gives every tile's keys sorted (its
+// distinct keys, padded with the sentinel); dict_merge passes merge pairs
+// of sorted runs (each key's place is its index plus its rank in the other
+// run, by binary search: stable, no atomics) until one run is left;
+// dict_count counts the distinct keys of each chunk of DC_CHUNK sorted keys
+// and dict_compact writes the first cap of them in order (a chunk's offset
+// is the sum of the counts before it, a key's rank within it a block scan),
+// pads with the sentinel and flags more than cap.  Memory: two buffers of
+// the keys.
+//
 // What bounds them on an H100: dict_keys reads the referenced columns of
 // every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
 // per row, as fused_mask; dict_union sorts (log2(T)^2 / 2 compare-exchange
 // stages a tile) and reads each key once; dict_ids does a binary search of
-// at most 13 steps per row in a shared-memory copy of the dictionary.  At
+// at most 13 steps per row in a shared-memory copy of the dictionary (past
+// DI_SMEM_KEYS slots, in the dictionary itself, in device memory).  At
 // the mesh path's shapes (131,072 rows a shard, cap 64) all three are a few
 // microseconds of launch latency and a handful of tiles.
 //
@@ -52,6 +65,11 @@
 #define DI_THREADS 256
 #define DI_GRID_MAX 1024
 #define DU_TILE_MAX 16384  // 128 KB of int64 keys in shared memory
+#define DM_THREADS 256
+#define DM_GRID_MAX 4096
+#define DC_PER_THREAD 8
+#define DC_CHUNK (DU_THREADS * DC_PER_THREAD)  // sorted keys a dict_count/dict_compact block reads
+#define DI_SMEM_KEYS (DU_TILE_MAX / 2)          // past this, dict_ids searches in device memory
 #define DK_SENTINEL (1LL << 62)
 #define DK_FLAG_RANGE 1     // a key value outside [0, lane_max)
 #define DK_FLAG_CAPACITY 2  // more than cap distinct keys
@@ -206,6 +224,96 @@ dict_union(const long long* __restrict__ dict, long long n_dict,
 }
 
 // ---------------------------------------------------------------------------
+// dict_merge, dict_count, dict_compact: the union past DI_SMEM_KEYS slots
+// ---------------------------------------------------------------------------
+
+// The first position of d[0..n) (sorted, in device memory) holding a value
+// > x (upper) or >= x (lower).
+__device__ __forceinline__ long long dm_bound(const long long* d, long long n, long long x,
+                                              bool upper) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    const long long v = __ldg(d + mid);
+    if (v < x || (upper && v == x)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// One merge pass: the sorted runs [r * W, (r + 1) * W) of src[0..n) (the
+// last one may be short) merged pairwise into dst, run 2q with run 2q + 1.
+// A key of the first run goes to its index plus the count of the second's
+// keys below it; one of the second run to its index plus the count of the
+// first's keys at or below it.
+__global__ void __launch_bounds__(DM_THREADS)
+dict_merge(const long long* __restrict__ src, long long n, long long W,
+           long long* __restrict__ dst) {
+  const long long stride = (long long)gridDim.x * DM_THREADS;
+  for (long long i = (long long)blockIdx.x * DM_THREADS + threadIdx.x; i < n; i += stride) {
+    const long long a0 = i / (2 * W) * 2 * W;
+    const long long b0 = a0 + W < n ? a0 + W : n;
+    const long long b1 = b0 + W < n ? b0 + W : n;
+    const long long x = __ldg(src + i);
+    const long long at = i < b0 ? i + dm_bound(src + b0, b1 - b0, x, false)
+                                : i - W + dm_bound(src + a0, b0 - a0, x, true);
+    dst[at] = x;
+  }
+}
+
+// Whether sorted key j of s starts a distinct non-sentinel key.
+__device__ __forceinline__ int dc_fresh(const long long* s, long long j) {
+  const long long v = __ldg(s + j);
+  return v < DK_SENTINEL && (j == 0 || __ldg(s + j - 1) != v);
+}
+
+// counts[b]: the distinct keys among sorted keys [b * DC_CHUNK, ...) of s.
+__global__ void __launch_bounds__(DU_THREADS)
+dict_count(const long long* __restrict__ s, long long n, int* __restrict__ counts) {
+  __shared__ int warp_sums[DU_THREADS / 32];
+  const long long lo = (long long)blockIdx.x * DC_CHUNK + (long long)threadIdx.x * DC_PER_THREAD;
+  int fresh = 0;
+  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) fresh += dc_fresh(s, j);
+  int total;
+  du_scan(fresh, warp_sums, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// out[0..cap): the first cap distinct keys of the sorted s[0..n), padded
+// with the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more.
+__global__ void __launch_bounds__(DU_THREADS)
+dict_compact(const long long* __restrict__ s, long long n, const int* __restrict__ counts,
+             long long* __restrict__ out, int* flag, int cap) {
+  __shared__ int warp_sums[DU_THREADS / 32];
+  __shared__ long long before;
+  if (threadIdx.x == 0) {
+    long long acc = 0;
+    for (unsigned b = 0; b < blockIdx.x; ++b) acc += counts[b];
+    before = acc;
+  }
+  const long long lo = (long long)blockIdx.x * DC_CHUNK + (long long)threadIdx.x * DC_PER_THREAD;
+  int fresh = 0;
+  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) fresh += dc_fresh(s, j);
+  int total;
+  const int mine = du_scan(fresh, warp_sums, &total);  // its barriers publish `before`
+  long long rank = before + mine;
+  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) {
+    if (dc_fresh(s, j)) {
+      if (rank < cap) out[rank] = __ldg(s + j);
+      ++rank;
+    }
+  }
+  const long long end = before + total;
+  if (blockIdx.x == gridDim.x - 1) {
+    for (long long r = end + threadIdx.x; r < cap; r += DU_THREADS) out[r] = DK_SENTINEL;
+  }
+  if (end > cap && threadIdx.x == 0) atomicOr(flag, DK_FLAG_CAPACITY);
+}
+
+// ---------------------------------------------------------------------------
 // dict_ids: one key per thread, grid-stride; with an old dictionary, the
 // grid's last block writes perm instead
 // ---------------------------------------------------------------------------
@@ -224,24 +332,31 @@ __device__ __forceinline__ int di_lower_bound(const long long* d, int n, long lo
   return lo;
 }
 
+// SMEM: the dictionary copied into shared memory (cap <= DI_SMEM_KEYS);
+// else searched where it lies, in device memory.
+template <bool SMEM>
 __global__ void __launch_bounds__(DI_THREADS)
 dict_ids(const long long* __restrict__ dict, int cap, const long long* __restrict__ keys,
          long long n, int* __restrict__ gids, const long long* __restrict__ old,
          int* __restrict__ perm) {
   extern __shared__ long long di_smem[];
-  for (int t = threadIdx.x; t < cap; t += DI_THREADS) di_smem[t] = __ldg(dict + t);
-  __syncthreads();
+  const long long* d = dict;
+  if (SMEM) {
+    for (int t = threadIdx.x; t < cap; t += DI_THREADS) di_smem[t] = __ldg(dict + t);
+    __syncthreads();
+    d = di_smem;
+  }
   const int id_blocks = gridDim.x - (old != nullptr ? 1 : 0);
   if ((int)blockIdx.x == id_blocks) {
     for (int t = threadIdx.x; t < cap; t += DI_THREADS) {
       const long long o = __ldg(old + t);
-      perm[t] = o < DK_SENTINEL ? di_lower_bound(di_smem, cap, o) : cap;
+      perm[t] = o < DK_SENTINEL ? di_lower_bound(d, cap, o) : cap;
     }
     return;
   }
   const long long stride = (long long)id_blocks * DI_THREADS;
   for (long long f = (long long)blockIdx.x * DI_THREADS + threadIdx.x; f < n; f += stride) {
-    const int g = di_lower_bound(di_smem, cap, __ldg(keys + f));
+    const int g = di_lower_bound(d, cap, __ldg(keys + f));
     gids[f] = g < cap - 1 ? g : cap - 1;
   }
 }
@@ -282,13 +397,48 @@ int di_launch(const long long* dict, int cap, const long long* keys, long long n
   if (grid > DI_GRID_MAX) grid = DI_GRID_MAX;
   if (grid < 1) grid = 1;
   if (old != nullptr) ++grid;
+  if (cap > DI_SMEM_KEYS) {
+    dict_ids<false><<<(unsigned)grid, DI_THREADS, 0, (cudaStream_t)stream>>>(dict, cap, keys, n,
+                                                                            gids, old, perm);
+    return (int)cudaGetLastError();
+  }
   const int smem = cap * 8;
-  const int err = (int)cudaFuncSetAttribute(dict_ids,
+  const int err = (int)cudaFuncSetAttribute(dict_ids<true>,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  dict_ids<<<(unsigned)grid, DI_THREADS, smem, (cudaStream_t)stream>>>(dict, cap, keys, n, gids,
-                                                                      old, perm);
+  dict_ids<true><<<(unsigned)grid, DI_THREADS, smem, (cudaStream_t)stream>>>(dict, cap, keys, n,
+                                                                            gids, old, perm);
   return (int)cudaGetLastError();
 }
+
+// One merge pass over n keys in runs of W.
+int dm_launch(const long long* src, long long n, long long W, long long* dst, void* stream) {
+  if (n == 0) return 0;
+  long long grid = (n + DM_THREADS - 1) / DM_THREADS;
+  if (grid > DM_GRID_MAX) grid = DM_GRID_MAX;
+  dict_merge<<<(unsigned)grid, DM_THREADS, 0, (cudaStream_t)stream>>>(src, n, W, dst);
+  return (int)cudaGetLastError();
+}
+
+// counts: one int per chunk of DC_CHUNK keys, ceil(n / DC_CHUNK) of them.
+int dc_launch_count(const long long* s, long long n, int* counts, void* stream) {
+  const long long chunks = (n + DC_CHUNK - 1) / DC_CHUNK;
+  if (chunks == 0) return 0;
+  dict_count<<<(unsigned)chunks, DU_THREADS, 0, (cudaStream_t)stream>>>(s, n, counts);
+  return (int)cudaGetLastError();
+}
+
+// One block per chunk (at least one: the padding is still written).
+int dc_launch_compact(const long long* s, long long n, const int* counts, long long* out,
+                      int* flag, int cap, void* stream) {
+  long long chunks = (n + DC_CHUNK - 1) / DC_CHUNK;
+  if (chunks == 0) chunks = 1;
+  dict_compact<<<(unsigned)chunks, DU_THREADS, 0, (cudaStream_t)stream>>>(s, n, counts, out, flag,
+                                                                         cap);
+  return (int)cudaGetLastError();
+}
+
+int dc_chunk(void) { return DC_CHUNK; }
+int di_smem_keys(void) { return DI_SMEM_KEYS; }
 
 }  // extern "C"

@@ -474,10 +474,12 @@ def batch_kernel_check(tasks, rel_tol: float = 1e-12) -> dict:
     """``batch_partials`` and ``batch_combine_pack`` over ``tasks`` (CUDA
     images) beside their plain versions on the same inputs: integer words
     equal, f64 leaves to ``rel_tol`` (summed in another order), the combine
-    held to its plain version over the kernel's own partials, and a second
-    run of both bit-identical.  Raises on a difference; returns the largest
-    absolute errors and the layout."""
+    held to its plain version over the kernel's own partials, and two runs
+    of the batch bit-identical; a wide task's rows (the grouped pair's wide
+    route) against ``fused_group_agg_plain``.  Raises on a difference;
+    returns the largest absolute errors and the layout."""
     from .copr import fused_batch as fb
+    from .copr import fused_group_agg as ga
 
     batch = fb.Batch(tasks)
     table = fb.upload_table(batch)
@@ -494,22 +496,78 @@ def batch_kernel_check(tasks, rel_tol: float = 1e-12) -> dict:
                                             f"task {i} partials leaf {l}"))
             elif not torch.equal(got_i[:, l], want_i[:, l]):
                 raise AssertionError(f"task {i} partials leaf {l}: integer words differ")
-    out = (torch.empty((len(batch), batch.li, batch.c_max), dtype=torch.int64,
-                       device=batch.device),
-           torch.empty((len(batch), batch.lf, batch.c_max), dtype=torch.float64,
-                       device=batch.device))
+    out = fb._new_out(batch)
     fb.launch_batch_combine_pack(batch, table, parts, out)
     want_i, want_f = fb.batch_combine_pack_plain(batch, parts)
     if not torch.equal(out[0], want_i):
         raise AssertionError("batch_combine_pack: integer words differ")
     err_c = _f64_err(out[1], want_f, rel_tol, "batch_combine_pack")
-    again = fb.fused_batch(tasks)
-    if not (torch.equal(again[0], out[0])
-            and torch.equal(again[1].view(torch.int64), out[1].view(torch.int64))):
+    runs = [fb.fused_batch(tasks) for _ in range(2)]
+    sh = batch.shared
+    if not all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1].view(torch.int64),
+                                                             runs[0][1].view(torch.int64))
+               for r in runs) or not (torch.equal(runs[0][0][sh], out[0][sh]) and torch.equal(
+                   runs[0][1][sh].view(torch.int64), out[1][sh].view(torch.int64))):
         raise AssertionError("batch kernels: two runs differ")
-    return {"partials": err_p, "combine": err_c, "tasks": len(batch), "ctas": batch.n_ctas,
-            "partial_words": batch.n_parts, "out_shape": [len(batch), batch.li, batch.lf,
-                                                          batch.c_max]}
+    err_w = 0.0
+    for i in batch.wide:  # the wide route's state in the task's rows
+        t = batch.tasks[i]
+        wi, wf = ga.fused_group_agg_plain(t.prog, t.img, t.capacity)
+        if not torch.equal(runs[0][0][i, : t.prog.n_int, : t.capacity], wi):
+            raise AssertionError(f"wide task {i}: integer words differ")
+        err_w = max(err_w, _f64_err(runs[0][1][i, : t.prog.n_f64, : t.capacity], wf, rel_tol,
+                                    f"wide task {i}"))
+    return {"partials": err_p, "combine": err_c, "wide": err_w, "tasks": len(batch),
+            "wide_tasks": batch.wide, "ctas": batch.n_ctas, "partial_words": batch.n_parts,
+            "out_shape": [len(batch), batch.li, batch.lf, batch.c_max]}
+
+
+def wide_kernel_check(prog, img: Image, capacity: int, rel_tol: float = 1e-12) -> dict:
+    """The grouped pair's wide route on a CUDA image (``capacity`` past
+    ``c_max``) beside its plain versions on the same inputs:
+    ``group_wide_partials``' state word for word against
+    ``wide_partials_plain`` (integers, f64 min/max keys, exact sums);
+    ``group_wide_combine`` over that state against ``wide_combine_plain``
+    (the same integer rounding: f64 bit for bit, NaN equal to NaN), from
+    the identity and into a carry; the pair against ``fused_group_agg_plain``
+    (f64 to ``rel_tol``); two runs bit-identical.  Raises on a difference;
+    returns the largest absolute f64 differences."""
+    from .copr import fused_group_agg as ga
+
+    if prog.shared_rows(capacity):
+        raise ValueError(f"capacity {capacity} is within the shared rows ({prog.c_max})")
+    state = ga.new_partials(prog, img, capacity)
+    ga.launch_partials(prog, img, capacity, state)
+    if not torch.equal(state, ga.wide_partials_plain(prog, img, capacity)):
+        raise AssertionError("group_wide_partials: state words differ from the plain version")
+    errs = {"partials": 0.0}
+    runs = []
+    for carry in (None, ga.fused_group_agg_plain(prog, img, capacity)):
+        out = ga.init_packed(prog, capacity, img.device)
+        c = None if carry is None else tuple(t.clone() for t in carry)
+        ga.launch_combine(prog, img, capacity, state, c, out)
+        want = ga.wide_combine_plain(prog, img, capacity, state,
+                                     None if carry is None else tuple(t.clone() for t in carry))
+        if not torch.equal(out[0], want[0]):
+            raise AssertionError("group_wide_combine: integer leaves differ")
+        same = (out[1] == want[1]) | (out[1].isnan() & want[1].isnan())
+        if not bool(same.all()):
+            at = (~same).nonzero()[:6].tolist()
+            raise AssertionError(
+                "group_wide_combine: f64 leaves differ from the plain version at "
+                f"{[(r, c, float(out[1][r, c]), float(want[1][r, c])) for r, c in at]}")
+        runs.append(out)
+    errs["combine"] = 0.0
+    pair = [ga.fused_group_agg(prog, img, capacity) for _ in range(2)]
+    if not (torch.equal(pair[0][0], pair[1][0])
+            and torch.equal(pair[0][1].view(torch.int64), pair[1][1].view(torch.int64))
+            and torch.equal(pair[0][0], runs[0][0])):
+        raise AssertionError("wide route: two runs differ")
+    want = ga.fused_group_agg_plain(prog, img, capacity)
+    if not torch.equal(pair[0][0], want[0]):
+        raise AssertionError("wide route: integer leaves differ from fused_group_agg_plain")
+    errs["pair"] = _f64_err(pair[0][1], want[1], rel_tol, "wide route")
+    return errs
 
 
 def region_caches(block_counts, block_rows: int, seed: int = 0, two_flags=()) -> list:
@@ -601,7 +659,7 @@ def synthetic_case(n_blocks: int, block_rows: int, gen: torch.Generator, device)
 
 #: the grouped synthetic cases: (id source, aggregates); all ten device
 #: aggregates over int64, decimal and f64 lanes, or integer leaves only
-GROUP_CASES = ("coded", "host", "host_many")
+GROUP_CASES = ("coded", "host", "host_many", "host_wide")
 
 
 def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.Generator,
@@ -610,10 +668,13 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
     kernels to their plain version.  ``kind``: ``"coded"`` — ids from two
     dictionary-code columns with NULLs (4 x 5 = 20 slots), all ten aggregates;
     ``"host"`` — 60 host group ids, all ten aggregates; ``"host_many"`` — 300
-    host group ids, integer leaves only (past the shared-memory capacity, so
-    the atomic partials).  Columns as :func:`synthetic_case`, with a ragged
-    last block and (with more than four blocks) empty ones; f64 values are
-    non-negative."""
+    host group ids, integer leaves only; ``"host_wide"`` — 3,000 host group
+    ids, all ten aggregates, NaN, +-inf and +-0.0 among the REAL column's
+    values (the last two past the shared-memory capacity, so the wide
+    route).  Columns as :func:`synthetic_case`, with a ragged last block and
+    (with more than four blocks) empty ones; f64 values are otherwise
+    non-negative, so that sums taken in another order stay within a
+    relative tolerance."""
     schema = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0), (EvalType.INT, 0),
               (EvalType.DECIMAL, 4), (EvalType.BYTES, 0), (EvalType.BYTES, 0)]
     sel = [call("ge", col(0), const_int(-(1 << 38))),
@@ -656,15 +717,21 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
             torch.rand(shape, generator=gen, device=device, dtype=torch.float64) * 1000.0,
             ints(0, 1000), ints(-10**6, 10**6)]
     nulls = [None, null_mask(0.1), null_mask(0.05), null_mask(0.2), None]
+    if kind == "host_wide":
+        u = torch.rand(shape, generator=gen, device=device)
+        special = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0],
+                               dtype=torch.float64, device=device)
+        pick = torch.randint(0, 5, shape, generator=gen, device=device)
+        cols[2] = torch.where(u > 0.95, special[pick], cols[2])
     gids = None
     if coded:
         cols += [ints(0, dict_lens[0]), ints(0, dict_lens[1])]
         nulls += [null_mask(0.1), null_mask(0.05)]
         capacity = 32
     else:
-        n_groups = 300 if kind == "host_many" else 60
+        n_groups, capacity = {"host_many": (300, 512), "host_wide": (3000, 4096)}.get(kind,
+                                                                                   (60, 64))
         gids = ints(0, n_groups).to(torch.int32)
-        capacity = 512 if kind == "host_many" else 64
     nv = torch.full((n_blocks,), block_rows, dtype=torch.int64)
     nv[-1] = block_rows - 777
     if n_blocks > 4:
@@ -1398,3 +1465,278 @@ def mesh_merge_check(prog, parts, table, carry=None, lo: int = 0, hi: int | None
             and torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))):
         raise AssertionError("mesh_merge: two runs differ")
     return _f64_err(got[1].cpu(), want[1], rel_tol, "mesh_merge")
+
+
+# ---------------------------------------------------------------------------
+# Per-supplier statistics: group slots past the grouped pair's shared memory
+# ---------------------------------------------------------------------------
+
+#: TPC-H's suppliers per scale factor (spec 4.2.3, l_suppkey) and lineitem's
+#: rows at scale factor 1
+SUPPLIERS_PER_SF = 10_000
+LINEITEM_SF1_ROWS = 6_001_215
+#: TPC-H Q15's revenue window, l_shipdate in [1996-01-01, 1996-04-01), days
+Q15_SHIP_LO, Q15_SHIP_HI = 9496, 9587
+SHIP_MODES = (b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL", b"FOB")
+SHIP_INSTRUCTS = (b"DELIVER IN PERSON", b"COLLECT COD", b"NONE", b"TAKE BACK RETURN")
+#: the supplier table's columns past lineitem(): l_suppkey, the price as a
+#: DOUBLE, l_shipmode, l_shipinstruct; the KV rows carry the first two
+SUPP, PRICE_F, MODE, INSTR = 7, 8, 9, 10
+SUPP_KV_COLS = 9
+
+
+def suppliers(n: int) -> int:
+    """Suppliers that a lineitem image of ``n`` rows draws l_suppkey from:
+    ``10,000 * SF`` with ``SF = n / 6,001,215``; an image of fewer rows is a
+    region of an SF-1 table, whose 10,000 suppliers it draws from."""
+    return round(SUPPLIERS_PER_SF * max(1.0, n / LINEITEM_SF1_ROWS))
+
+
+def supp_schema() -> list[ColumnInfo]:
+    """lineitem() and l_suppkey (INT), l_extendedprice stored as a DOUBLE
+    (as a TiDB table with a DOUBLE price holds it), l_shipmode and
+    l_shipinstruct (varchar); every column NOT NULL."""
+    def nn(ft):
+        ft.flag |= NOT_NULL_FLAG
+        return ft
+
+    return lineitem() + [ColumnInfo(8, nn(FieldType.int64())),
+                         ColumnInfo(9, nn(FieldType.double())),
+                         ColumnInfo(10, nn(FieldType.varchar())),
+                         ColumnInfo(11, nn(FieldType.varchar()))]
+
+
+def supp_arrays(n: int, seed: int = 0, arrays: dict | None = None) -> dict:
+    """:func:`build_arrays`' draws (or ``arrays``, the same draws) and, from
+    a second stream of the seed, l_suppkey uniform over ``1 ..``
+    :func:`suppliers` ``(n)``, l_shipmode's and l_shipinstruct's codes; the
+    DOUBLE price is ``price / 100``."""
+    a = dict(build_arrays(n, seed) if arrays is None else arrays)
+    rng = np.random.default_rng([seed, 15])
+    a["supp"] = rng.integers(1, suppliers(n) + 1, n)
+    a["mode"] = rng.integers(0, len(SHIP_MODES), n)
+    a["instr"] = rng.integers(0, len(SHIP_INSTRUCTS), n)
+    a["price_f"] = a["price"] / 100.0
+    return a
+
+
+def supp_kvs(n: int, seed: int = 0) -> list[tuple[bytes, bytes]]:
+    """Record bytes of the supplier table's first :data:`SUPP_KV_COLS`
+    columns (lineitem's, l_suppkey, the DOUBLE price), one fixed layout
+    filled by batch codecs as :func:`build_kvs` does."""
+    from .util.codec import encode_f64_batch
+
+    a = supp_arrays(n, seed)
+    schema = supp_schema()[:SUPP_KV_COLS]
+    row0 = encode_row(schema[1:], [1, 1, 1, 1, b"A", b"F", 1, 1.0])
+    layout = RowBatchDecoder(schema)._parse_layout(row0)
+    mat = np.tile(np.frombuffer(row0, dtype=np.uint8), (n, 1))
+    for col_id, arr in ((2, a["qty"]), (3, a["price"]), (4, a["disc"]), (5, a["ship"]),
+                        (8, a["supp"])):
+        _kind, off = layout["cols"][col_id]
+        mat[:, off : off + 8] = encode_i64_batch(arr)
+    _kind, off = layout["cols"][9]
+    mat[:, off : off + 8] = encode_f64_batch(a["price_f"])
+    for col_id, key, vals in ((6, "rf", b"ANR"), (7, "ls", b"FO")):
+        _k, off = layout["cols"][col_id]
+        mat[:, off] = np.frombuffer(vals, dtype=np.uint8)[a[key]]
+    kmat = np.tile(np.frombuffer(record_key(TABLE_ID, 0), dtype=np.uint8), (n, 1))
+    kmat[:, 11:19] = encode_i64_batch(np.arange(n, dtype=np.int64))
+    return list(zip((r.tobytes() for r in kmat), (r.tobytes() for r in mat)))
+
+
+def supp_cache(n: int, block_rows: int, seed: int = 0, arrays: dict | None = None):
+    """The supplier table's image as a filled ``ColumnBlockCache``: every
+    column of :func:`supp_schema`, varchar as dictionary codes; ``arrays``
+    reuses :func:`supp_arrays`' draws (their slices are the image's)."""
+    a = supp_arrays(n, seed) if arrays is None else arrays
+    dicts = {}
+    for key, vals in (("rf", b"ANR"), ("ls", b"FO")):
+        dicts[key] = np.empty(len(vals), dtype=object)
+        dicts[key][:] = [vals[i : i + 1] for i in range(len(vals))]
+    for key, vals in (("mode", SHIP_MODES), ("instr", SHIP_INSTRUCTS)):
+        dicts[key] = np.empty(len(vals), dtype=object)
+        dicts[key][:] = list(vals)
+    handles = np.arange(n, dtype=np.int64)
+    cache = ColumnBlockCache()
+    for s in range(0, n, block_rows):
+        e = min(s + block_rows, n)
+        nz = np.zeros(e - s, dtype=bool)
+        cache.add([Column(EvalType.INT, handles[s:e], nz),
+                   Column(EvalType.INT, a["qty"][s:e], nz),
+                   Column(EvalType.DECIMAL, a["price"][s:e], nz, 2),
+                   Column(EvalType.DECIMAL, a["disc"][s:e], nz, 2),
+                   Column(EvalType.INT, a["ship"][s:e], nz)]
+                  + [Column(EvalType.BYTES, a[k][s:e], nz, 0, dicts[k]) for k in ("rf", "ls")]
+                  + [Column(EvalType.INT, a["supp"][s:e], nz),
+                     Column(EvalType.REAL, a["price_f"][s:e], nz)]
+                  + [Column(EvalType.BYTES, a[k][s:e], nz, 0, dicts[k])
+                     for k in ("mode", "instr")], e - s)
+    cache.filled = True
+    return cache
+
+
+def _q15_window():
+    return [call("ge", col(4), const_int(Q15_SHIP_LO)), call("lt", col(4), const_int(Q15_SHIP_HI))]
+
+
+def supp_dag() -> DagRequest:
+    """Per-supplier statistics over TPC-H Q15's window: count(*),
+    sum(l_extendedprice * (1 - l_discount)), avg(l_extendedprice),
+    var_pop(l_extendedprice), min(l_discount), max(l_discount) GROUP BY
+    l_suppkey.  var_pop's sum of squares is an f64 leaf."""
+    price, disc = col(2), col(3)
+    aggs = [AggDescriptor("count", None),
+            AggDescriptor("sum", call("multiply", price, call("minus", const_int(1), disc))),
+            AggDescriptor("avg", price), AggDescriptor("var_pop", price),
+            AggDescriptor("min", disc), AggDescriptor("max", disc)]
+    return DagRequest(executors=[TableScan(TABLE_ID, supp_schema()[:SUPP_KV_COLS]),
+                                 Selection(_q15_window()), Aggregation([col(SUPP)], aggs)])
+
+
+def supp_first_dag() -> DagRequest:
+    """The DOUBLE price per supplier over Q15's window: first, min, max,
+    sum and var_pop (REAL sums, extremes and first's f64 value)."""
+    aggs = [AggDescriptor(op, col(PRICE_F)) for op in ("first", "min", "max", "sum", "var_pop")]
+    return DagRequest(executors=[TableScan(TABLE_ID, supp_schema()[:SUPP_KV_COLS]),
+                                 Selection(_q15_window()), Aggregation([col(SUPP)], aggs)])
+
+
+def _first_ordered(key: np.ndarray, m: np.ndarray):
+    """The rows of ``m`` grouped by ``key`` (any int64): ``(rows, starts,
+    order)`` — rows sorted by key (each key's rows ascending), where each
+    key's run starts, and the runs in order of their first row."""
+    rows = np.flatnonzero(m)
+    k = key[rows]
+    by = np.argsort(k, kind="stable")
+    rows, k = rows[by], k[by]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]]) if len(k) else np.zeros(0, np.int64)
+    return rows, starts, np.argsort(rows[starts], kind="stable")
+
+
+def _q15_mask(a: dict) -> np.ndarray:
+    return (a["ship"] >= Q15_SHIP_LO) & (a["ship"] < Q15_SHIP_HI)
+
+
+def supp_oracle(a: dict) -> list:
+    """:func:`supp_dag`'s response rows from the draws, in the order of each
+    supplier's first qualifying row: var_pop's partial state is (count, sum
+    as a double, sum of squares of the scaled price)."""
+    rows, starts, order = _first_ordered(a["supp"], _q15_mask(a))
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    price = a["price"][rows].astype(np.int64)
+    rev = np.add.reduceat(price * (100 - a["disc"][rows]), starts)
+    psum = np.add.reduceat(price, starts)
+    sq = np.add.reduceat(price.astype(np.float64) ** 2, starts)
+    dmin = np.minimum.reduceat(a["disc"][rows], starts)
+    dmax = np.maximum.reduceat(a["disc"][rows], starts)
+    out = []
+    for g in order:
+        n = int(counts[g])
+        out.append([n, (int(rev[g]), 4), n, (int(psum[g]), 2), n, float(psum[g]), float(sq[g]),
+                    (int(dmin[g]), 2), (int(dmax[g]), 2), int(a["supp"][rows[starts[g]]])])
+    return out
+
+
+def supp_first_oracle(a: dict) -> list:
+    """:func:`supp_first_dag`'s response rows from the draws (f64 sums by
+    numpy: compare them to a relative tolerance)."""
+    rows, starts, order = _first_ordered(a["supp"], _q15_mask(a))
+    if not len(rows):
+        return []
+    counts = np.diff(np.r_[starts, len(rows)])
+    x = a["price_f"][rows]
+    xmin, xmax = np.minimum.reduceat(x, starts), np.maximum.reduceat(x, starts)
+    xsum, sq = np.add.reduceat(x, starts), np.add.reduceat(x * x, starts)
+    out = []
+    for g in order:
+        n, r0 = int(counts[g]), rows[starts[g]]
+        out.append([float(a["price_f"][r0]), float(xmin[g]), float(xmax[g]), float(xsum[g]),
+                    n, float(xsum[g]), float(sq[g]), int(a["supp"][r0])])
+    return out
+
+
+FLAG_KEYS = ((5, "rf", b"ANR"), (6, "ls", b"FO"), (MODE, "mode", SHIP_MODES),
+             (INSTR, "instr", SHIP_INSTRUCTS))
+
+
+def flags4_dag(var_pop: bool = False) -> DagRequest:
+    """Q1's aggregates grouped by TPC-H's four flag columns (l_returnflag,
+    l_linestatus, l_shipmode, l_shipinstruct): 4 x 3 x 8 x 5 = 480 coded
+    slots with the NULL codes, past a batch task's shared-memory rows.
+    ``var_pop`` adds var_pop(l_extendedprice) and sum of the DOUBLE price:
+    f64 leaves."""
+    aggs = list(q1_dag().executors[-1].agg_funcs)
+    if var_pop:
+        aggs += [AggDescriptor("var_pop", col(2)), AggDescriptor("sum", col(PRICE_F))]
+    return DagRequest(executors=[TableScan(TABLE_ID, supp_schema()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(c) for c, _k, _v in FLAG_KEYS], aggs)])
+
+
+def flags4_oracle(a: dict, var_pop: bool = False) -> list:
+    """:func:`flags4_dag`'s response rows from the draws, in the order of
+    each group's first qualifying row (by counting: 168 keys)."""
+    key = np.zeros(len(a["rf"]), dtype=np.int64)
+    for _c, k, vals in FLAG_KEYS:
+        key = key * len(vals) + a[k]
+    m = a["ship"] <= Q1_SHIP_HI
+    rows = np.flatnonzero(m)
+    k = key[rows]
+    n_keys = int(np.prod([len(vals) for _c, _k, vals in FLAG_KEYS]))
+    first = np.full(n_keys, -1, dtype=np.int64)
+    first[k[::-1]] = rows[::-1]  # the last store wins: each key's first row
+    counts = np.bincount(k, minlength=n_keys)
+
+    def total(x):  # exact: integer sums stay below 2^53
+        return np.bincount(k, weights=x[rows].astype(np.float64), minlength=n_keys)
+
+    qty, price, disc = (total(a[c]).astype(np.int64) for c in ("qty", "price", "disc"))
+    if var_pop:
+        sq = np.bincount(k, weights=a["price"][rows].astype(np.float64) ** 2, minlength=n_keys)
+        psum_f = np.bincount(k, weights=a["price_f"][rows], minlength=n_keys)
+    out = []
+    present = np.flatnonzero(counts)
+    for g in present[np.argsort(first[present], kind="stable")]:
+        n, p, r0 = int(counts[g]), int(price[g]), first[g]
+        row = [int(qty[g]), (p, 2), n, (p, 2), n, (int(disc[g]), 2), n]
+        if var_pop:
+            row += [n, float(p), float(sq[g]), float(psum_f[g])]
+        out.append(row + [vals[a[kk][r0]] if isinstance(vals, tuple) else vals[a[kk][r0]:][:1]
+                          for _c, kk, vals in FLAG_KEYS])
+    return out
+
+
+def supp_columns(a: dict, start: int, end: int, rows: int | None = None) -> dict:
+    """Rows ``[start, end)`` of :func:`supp_arrays`' draws as the sharded
+    evaluators' host columns of the supplier table's first
+    :data:`SUPP_KV_COLS` columns, ``{column: (data, nulls)}``, no NULLs;
+    zeros pad them to ``rows`` (a super-block's) when given."""
+    names = ("qty", "price", "disc", "ship", "rf", "ls", "supp", "price_f")
+    cols = [np.arange(start, end, dtype=np.int64)] + [a[k][start:end] for k in names]
+    if rows is not None and rows != end - start:
+        cols = [np.concatenate([c, np.zeros(rows - len(c), dtype=c.dtype)]) for c in cols]
+    nz = np.zeros(len(cols[0]), dtype=bool)
+    return {j: (c, nz) for j, c in enumerate(cols)}
+
+
+def supp_mesh_oracle(a: dict) -> dict:
+    """:func:`supp_dag`'s answer in ``ShardedGroupedEvaluator.finalize``'s
+    form: the suppliers (the packed keys) in order of their first
+    qualifying row, those rows, and per aggregate its leaves (count, then
+    the sum, the extreme or the sum and the f64 sum of squares)."""
+    rows, starts, order = _first_ordered(a["supp"], _q15_mask(a))
+    counts = np.diff(np.r_[starts, len(rows)]).astype(np.int64)
+    price = a["price"][rows].astype(np.int64)
+    rev = np.add.reduceat(price * (100 - a["disc"][rows]), starts)
+    psum = np.add.reduceat(price, starts)
+    sq = np.add.reduceat(price.astype(np.float64) ** 2, starts)
+    disc = a["disc"][rows].astype(np.int64)
+    dmin, dmax = np.minimum.reduceat(disc, starts), np.maximum.reduceat(disc, starts)
+    c = counts[order]
+    return {"keys": a["supp"][rows[starts]][order].astype(np.int64),
+            "first": rows[starts][order].astype(np.int64),
+            "aggs": [(c,), (c, rev[order]), (c, psum[order]), (c, psum[order], sq[order]),
+                     (c, dmin[order]), (c, dmax[order])]}

@@ -215,11 +215,10 @@ class ShardedDagEvaluator:
     ``[g*C/G, (g+1)*C/G)`` on the device at ``(0, g)``) and is updated in
     place.  Every plan runs the grouped program with host group ids, a plan
     without GROUP BY at ``capacity`` slots with ids 0, and the tracker (the
-    global index of each slot's first active row) always runs.  ``dag`` is
-    a ``DagRequest`` or its wire dict.  ``ValueError`` for a plan without an
-    aggregation or with ``first``; the port's limits raise ``Unsupported``
-    (``real_group_capacity_not_ported`` for f64 leaves past the kernels'
-    shared-memory slots)."""
+    global index of each slot's first active row) always runs; past the
+    grouped pair's shared-memory slots each shard takes its wide route.
+    ``dag`` is a ``DagRequest`` or its wire dict.  ``ValueError`` for a plan
+    without an aggregation or with ``first``."""
 
     def __init__(self, dag, mesh: TorchMesh, rows_per_shard: int, capacity: int = 16):
         self.ev = TorchDagEvaluator(dag, block_rows=rows_per_shard, device=mesh.lead)
@@ -332,7 +331,7 @@ class MeshServingRunner:
 
     def _grow(self, state, n_groups: int) -> list:
         """The state migrated to a capacity (doubled) that holds
-        ``n_groups``; ``Unsupported`` past the kernels' f64 slots."""
+        ``n_groups``."""
         cap = self.sharded.capacity
         while n_groups > cap:
             cap *= 2
@@ -403,9 +402,11 @@ class ShardedGroupedEvaluator:
     (int32 ``[1]``, :data:`fused_dict.FLAG_RANGE` | :data:`FLAG_CAPACITY`)
     is updated in place and stays on the device until :meth:`finalize`.
     The group columns ship with the plan's (``ship_cols``, their null masks
-    in ``nullable_cols``).  ``ValueError`` without GROUP BY, for an
-    aggregate without a merge rule (``first``) or keys that do not pack into
-    62 bits; ``Unsupported`` past the kernels' limits."""
+    in ``nullable_cols``).  Any ``capacity`` in ``[1, 2^31)``: past 8,192
+    slots the union takes its sort route, and past the grouped pair's
+    shared-memory slots each shard its wide route.  ``ValueError`` without
+    GROUP BY, for an aggregate without a merge rule (``first``) or keys
+    that do not pack into 62 bits."""
 
     def __init__(self, dag, mesh: TorchMesh, rows_per_shard: int, capacity: int = 64,
                  key_bits: int = 31):

@@ -203,6 +203,13 @@ def decode_i64_batch(rows: np.ndarray) -> np.ndarray:
     return u.view(np.int64)
 
 
+def encode_f64_batch(vals: np.ndarray) -> np.ndarray:
+    """(n,) float64 → (n, 8) uint8: :func:`encode_f64` of each value."""
+    u = np.ascontiguousarray(vals, dtype=np.float64).view(np.uint64)
+    neg = (u & np.uint64(SIGN_MASK)) != 0
+    return encode_u64_batch(np.where(neg, ~u, u ^ np.uint64(SIGN_MASK)))
+
+
 def decode_f64_batch(rows: np.ndarray) -> np.ndarray:
     u = decode_u64_batch(rows)
     # encoded sign bit set ⇔ original value was non-negative
