@@ -155,6 +155,24 @@ the same image on the shared rows at ``c_max`` slots, ``index_add_`` and
 Phase ``mesh_grouped`` also times the grouped pair alone at a shard's shape
 (131,072 rows, Q1 at 64 slots).
 
+After phase ``high_capacity``, phase ``write_path`` drives the region write
+path (``copr/region_cache.py``; the image patch ``patch_stacked`` of
+``csrc/fused_patch.cu``, ``cache.scatter_update``): one 96 MiB region (TiKV
+v5.1's ``coprocessor.region-split-size``), 1,000,000 date-ordered lineitem
+rows written as MVCC versions into the port's engine; its plain image built
+cold from those versions, then warm Q6 and Q1 (zone route and
+``route_hint="unary"``) and config 2's filter against their oracles; four
+committed batches, each followed by the same requests: 1,000 and 10,000 rows
+updated in place through ``scan_delta`` (rows moving into Q6's window inside
+blocks whose zone maps excluded them, a new l_returnflag value), 10,000 rows
+through ``notify_region_write``, 5,000 inserts with 5,000 deletes; after
+each the outcome string, the answers, one patch launch per stacked pin and
+every pin equal to a rebuilt pin.  Then the encoded image once (a delta
+drops its encoded pins; the next request pins them again), the kernel
+against its plain version bit for bit on the region's Q1 pin, and its times
+there and on config 2's 10M image (10,000 scattered rows into Q1's six lanes)
+beside ``index_put_`` per lane and a full re-pin.
+
 Phase 3 also holds the mask and top-K kernels to their plain versions on
 seeded synthetic cases (the top-K at K = 100 and K = 2048, nullable INT and
 REAL keys with ties, -0.0 and +-inf, warm and with the carry over 16 cold
@@ -167,8 +185,9 @@ for the batch kernels, phase ``join`` for the join probes, phase ``mesh``
 for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), phase
 ``mesh_grouped`` for the dictionary kernels (``mesh_grouped_launches`` of
 the reused ones), phase ``high_capacity`` for the wide route and the sort
-route (``high_capacity_launches`` of the reused ones), each counted from
-0 just before its path and read just after; each entry's ``encoded`` gives
+route (``high_capacity_launches`` of the reused ones), phase ``write_path``
+for the image patch, each counted from 0 just before its path and read just
+after; each entry's ``encoded`` gives
 its launches on the encoded path of phase 12 (counted from 0 just before
 it).  Program #1 runs inside every
 kernel that reads the image (the column load of ``csrc/fa_walk.cuh``): its
@@ -183,6 +202,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -199,6 +219,7 @@ WARM_ROWS_FLOOR = 10_000_000  # BASELINE config 3
 FILTER_ROWS = 10_000_000  # BASELINE config 2
 SCAN_LIMIT = 100_000  # bench._filter_dag's Limit
 TOPN_K = 100  # bench._topn_endpoint's TopN
+ORACLE_THREADS = 4  # numpy oracles over 100M draws computed at once
 
 
 T_START = time.perf_counter()
@@ -2035,15 +2056,19 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     t_phase = time.perf_counter()
     kvs = fx.supp_kvs(HC_COLD_ROWS, SEED)
     a_cold = fx.supp_arrays(HC_COLD_ROWS, SEED)
-    want_cold, want_first = fx.supp_oracle(a_cold), fx.supp_first_oracle(a_cold)
     a = fx.supp_arrays(n_warm, SEED)
     br = 1 << 17
     cache = fx.supp_cache(n_warm, br, SEED, arrays=a)
-    want_warm = fx.supp_oracle(a)
+    wants = oracles_at_once({"cold": lambda: fx.supp_oracle(a_cold),
+                             "first": lambda: fx.supp_first_oracle(a_cold),
+                             "warm": lambda: fx.supp_oracle(a),
+                             "flags4": lambda: fx.flags4_oracle(a),
+                             "flags4_f64": lambda: fx.flags4_oracle(a, True)})
+    want_cold, want_first, want_warm = wants["cold"], wants["first"], wants["warm"]
     batch_dags = [("flags4", fx.flags4_dag(), None), ("flags4_f64", fx.flags4_dag(var_pop=True),
                                                        None)] + fx.batch_plans()
     # batch A's oracles over the same draws come from the batch phase
-    wants_b = [fx.flags4_oracle(a), fx.flags4_oracle(a, True)] + [
+    wants_b = [wants["flags4"], wants["flags4_f64"]] + [
         want_batch[n] for n, _d, _o in batch_dags[2:]]
     del a
     a_mesh = fx.supp_arrays(HC_MESH_ROWS, SEED)
@@ -2182,6 +2207,262 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
                                batch_err["wide"], mesh_err)}
 
 
+# ---------------------------------------------------------------------------
+# phase write_path: the region write path (cache.scatter_update)
+# ---------------------------------------------------------------------------
+
+# one TiKV region at its documented size (coprocessor.region-split-size =
+# 96 MiB, TiKV v5.1): 1,000,000 lineitem rows of about 75 bytes of CF_WRITE
+# key and record each, loaded in date order so that zone maps prune
+WRITE_ROWS = 1_000_000
+WRITE_BLOCK_ROWS = 1 << 16
+# (name, rows updated, of them moving into Q6's window, a new l_returnflag
+# value, rows inserted, rows deleted, by write-through)
+WRITE_BATCHES = (("update_0.1pct", 1_000, 100, True, 0, 0, False),
+                 ("update_1pct", 10_000, 500, False, 0, 0, False),
+                 ("update_1pct_write_through", 10_000, 500, False, 0, 0, True),
+                 ("insert_delete", 0, 0, False, 5_000, 5_000, False))
+WRITE_ROUTES = (("q6", None), ("q6", "unary"), ("q1", None), ("q1", "unary"), ("filter", None))
+PATCH_ROWS = 10_000  # the 1% update's rows, patched into the 10M image too
+PATCH_SRC = "tikv_tpu_torch/csrc/fused_patch.cu"
+
+
+def stacked_sigs(cache) -> list:
+    return [sig for sig in cache.blocks[0].device if sig[0] == "stacked"]
+
+
+def check_pins_rebuilt(cache, ev) -> int:
+    """Every stacked pin of ``cache`` equal (``torch.equal``) to the same
+    signature pinned afresh from a copy of the updated host blocks; returns
+    the lanes compared."""
+    from tikv_tpu_torch.copr.cache import ColumnBlockCache
+
+    copy = ColumnBlockCache.from_numpy_blocks(
+        [([(c.eval_type.value, np.asarray(c.data), np.asarray(c.nulls), c.frac, c.dictionary)
+           for c in blk.cols], blk.n_valid) for blk in cache.blocks])
+    lanes = 0
+    for sig in stacked_sigs(cache):
+        data, nulls = cache.blocks[0].device[sig]
+        fresh = ev._stacked_device(copy, ship_cols=sig[1], nullable=sig[2])
+        for got, want in zip(list(data) + list(nulls), fresh.cols + fresh.nulls):
+            if (got is None) != (want is None) or (got is not None
+                                                   and not torch.equal(got, want)):
+                raise AssertionError(f"write path: pin {sig[:3]} differs from a rebuilt pin")
+            lanes += got is not None
+    return lanes
+
+
+def time_patch(fp, lanes, null_lanes, pos, vals, nls, iters: int) -> dict:
+    """``patch_stacked``'s ms per launch (CUDA events; the update's tensors
+    already on the card) beside its plain version, which is the library
+    call too (``index_put_`` per lane), and its bound: the positions, each
+    lane's words or null bytes read once and written once, over the HBM
+    rate."""
+    dev = (lanes or null_lanes)[0].device
+    p, v, m = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (pos, vals, nls))
+    b_ms, b_by = bound(8 * len(pos) + 16 * len(pos) * len(lanes) + 2 * len(pos) * len(null_lanes),
+                       0)
+    plain_ms = cuda_ms(lambda: fp.patch_stacked_plain(lanes, null_lanes, p, v, m), iters)
+    return {"updates": len(pos), "data_lanes": len(lanes), "null_lanes": len(null_lanes),
+            "ms": cuda_ms(lambda: fp.launch(lanes, null_lanes, p, v, m), iters),
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            "library": "index_put_ per lane (the plain version)",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_write_path(fx, card: str, device, big_cache, big_ev) -> dict:
+    """The region write path on its main path, counted from 0: a 96 MiB
+    region (1,000,000 date-ordered lineitem rows) written as MVCC versions
+    into the port's engine; its plain image built cold from those versions
+    (``RegionColumnCache.serve``), then Q6 and Q1 on both warm routes and
+    config 2's filter against the numpy oracles; then four committed
+    batches, each followed by the same requests: 1,000 rows (0.1%) and
+    10,000 rows (1%) updated in place through ``scan_delta`` (rows moving
+    into Q6's window inside blocks whose zone maps excluded them, a new
+    l_returnflag value), 10,000 rows by ``notify_region_write``, and 5,000
+    inserts with 5,000 deletes (the structural repack).  After each: the
+    outcome string and rows, every answer against its oracle, one
+    ``patch_stacked`` launch per stacked pin, and every pin equal to a
+    rebuilt pin.  Then the encoded image once (its pins dropped by a delta
+    and pinned again), the kernel against its plain version bit for bit on
+    the region's Q1 pin, and its times there and on ``big_cache`` (config
+    2's 10M image): 10,000 scattered rows into Q1's shipped lanes, beside
+    ``index_put_`` per lane and a full re-pin."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_patch as fp
+    from tikv_tpu_torch.copr import region_cache as prc
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.table import record_range
+    from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
+    from tikv_tpu_torch.storage.engine import CF_WRITE
+
+    t_phase = time.perf_counter()
+    a = fx.sort_by_shipdate(fx.build_arrays(WRITE_ROWS, SEED))
+    eng, load_s = timed_call(lambda: fx.region_engine(a))
+    cf_write_bytes = sum(len(k) + len(v) for k, v in eng.snapshot().scan_cf(CF_WRITE, b"", None))
+    ranges = [record_range(fx.TABLE_ID)]
+    plans = {"q6": fx.q6_dag(), "q1": fx.q1_dag(), "filter": fx.filter_dag("filter", SCAN_LIMIT)}
+    evs = {}
+    for name, hint in WRITE_ROUTES:
+        evs[name, hint] = TorchDagEvaluator(dag_to_wire(plans[name]), block_rows=WRITE_BLOCK_ROWS,
+                                            device=device)
+        evs[name, hint].route_hint = hint
+    oracles = {"q6": lambda x: [fx.q6_oracle(x)], "q1": fx.q1_oracle,
+               "filter": lambda x: fx.filter_oracle(x, "filter", SCAN_LIMIT)}
+    st = {"a": a, "ai": 3, "ts": 200}
+
+    def serve_round(rc, what: str) -> dict:
+        """Every route once; the first serve takes the write."""
+        rec = {"outcomes": [], "serve_s": [], "query_s": {}}
+        for name, hint in WRITE_ROUTES:
+            (bc, out, n), s = timed_call(lambda: rc.serve(
+                eng.snapshot(), fx.region_context(st["ai"]), fx.lineitem(), ranges, st["ts"]))
+            rec["outcomes"].append([out, n])
+            rec["serve_s"].append(s)
+            resp, q_s = timed_run(evs[name, hint], None, bc)
+            check_rows(resp, oracles[name](st["a"]), f"write path {what}: {name} {hint}")
+            rec["query_s"][f"{name}_{hint or 'default'}"] = q_s
+        rec["cache"] = bc
+        rec["q6_unary_prune"] = list(evs["q6", "unary"].prune_stats)
+        return rec
+
+    def write(seed: int, n_upd, movers, new_flag, n_ins, n_del, wt) -> dict:
+        b, puts, dels = fx.region_write(st["a"], seed, n_update=n_upd, q6_movers=movers,
+                                        new_flag=new_flag, n_insert=n_ins, n_delete=n_del)
+        ops = fx.region_write_ops(b, puts, dels, st["ts"] + 5, st["ts"] + 10)
+        _r, apply_s = timed_call(lambda: fx.apply_region_ops(eng, ops))
+        st["a"], st["ai"], st["ts"] = b, st["ai"] + 1, st["ts"] + 100
+        if wt:
+            prc.notify_region_write(fx.REGION_ID, ops, st["ai"])
+        return {"rows": len(puts) + len(dels), "engine_apply_s": apply_s}
+
+    # ---- the write main path: counts from 0 here to the last round ---------
+    fa.reset_launches()
+    rc = prc.RegionColumnCache(block_rows=WRITE_BLOCK_ROWS, encode_columns=False,
+                               data_token=None)
+    rounds = {"build": serve_round(rc, "build")}
+    if rounds["build"]["outcomes"][0] != ["miss", 0]:
+        raise AssertionError(f"write path: the first serve was {rounds['build']['outcomes'][0]}")
+    cache = rounds["build"]["cache"]
+    for i, (name, n_upd, movers, new_flag, n_ins, n_del, wt) in enumerate(WRITE_BATCHES):
+        rec_w = write(SEED + 10 + i, n_upd, movers, new_flag, n_ins, n_del, wt)
+        pins = len(stacked_sigs(cache))
+        before = fa.LAUNCHES["patch_stacked"]
+        rec = serve_round(rc, name)
+        rec.update(rec_w, stacked_pins=pins, patch_launches=fa.LAUNCHES["patch_stacked"] - before)
+        want = ["wt_delta" if wt else "delta", rec_w["rows"]]
+        if rec["outcomes"][0] != want or any(o != ["hit", 0] for o in rec["outcomes"][1:]):
+            raise AssertionError(f"write path {name}: outcomes {rec['outcomes']}, not {want}")
+        structural = bool(n_ins or n_del)
+        if rec["patch_launches"] != (0 if structural else pins) or (not structural and not pins):
+            raise AssertionError(f"write path {name}: {rec['patch_launches']} patch launches "
+                                 f"for {pins} stacked pins")
+        if not structural:
+            rec["pin_lanes_checked"] = check_pins_rebuilt(cache, evs["q1", "unary"])
+        rounds[name] = rec
+    launches = dict(fa.LAUNCHES)
+    # ---- end of the write main path --------------------------------------------
+    if fx.NEW_FLAG not in [bytes(v) for v in cache.blocks[0].cols[5].dictionary]:
+        raise AssertionError("write path: the new l_returnflag value is not in the dictionary")
+
+    # the encoded image once: a delta drops its encoded pins, the next
+    # request pins them again
+    rc_enc = prc.RegionColumnCache(block_rows=WRITE_BLOCK_ROWS, data_token=None)
+    ev_enc = evs["q1", "unary"]
+
+    def enc_serve(want: str):
+        bc, out, _n = rc_enc.serve(eng.snapshot(), fx.region_context(st["ai"]), fx.lineitem(),
+                                   ranges, st["ts"])
+        if out != want:
+            raise AssertionError(f"write path, encoded image: {out}, not {want}")
+        pinned = [s[0] for s in bc.blocks[0].device]
+        check_rows(ev_enc.run(None, bc), fx.q1_oracle(st["a"]), "write path: encoded Q1")
+        return pinned, [s[0] for s in bc.blocks[0].device]
+
+    _b, enc_pins = enc_serve("miss")
+    write(SEED + 20, 1_000, 100, False, 0, 0, False)
+    enc_after_delta, enc_repinned = enc_serve("delta")
+    if "stackedenc" not in enc_pins or "stackedenc" in enc_after_delta \
+            or "stackedenc" not in enc_repinned:
+        raise AssertionError(f"write path, encoded image: pins {enc_pins} -> {enc_after_delta} "
+                             f"-> {enc_repinned}")
+    del rc_enc
+
+    # the kernel against its plain version, bit for bit, on the region's Q1
+    # pin (clones: the pin itself stays as the host blocks say), then timed
+    rng = np.random.default_rng(SEED + 30)
+    q1_sig = max(stacked_sigs(cache), key=lambda sig: len(sig[1]))  # Q1's six lanes
+    data, nulls = cache.blocks[0].device[q1_sig]
+    lanes, null_lanes = list(data), [m for m in nulls if m is not None]
+    n_valid = cache.total_rows
+    offsets = np.cumsum([0] + [b.n_valid for b in cache.blocks])
+    rows = np.sort(rng.choice(n_valid, PATCH_ROWS, replace=False))
+    bi = np.searchsorted(offsets, rows, side="right") - 1
+    pos = bi * WRITE_BLOCK_ROWS + (rows - offsets[bi])
+    vals = np.stack([rng.integers(0, 1 << 20, PATCH_ROWS) for _ in lanes]).astype(np.int64)
+    nls = rng.random((len(null_lanes), PATCH_ROWS)) < 0.5
+    if fx.patch_kernel_check(lanes, null_lanes, pos, vals, nls) != 1:
+        raise AssertionError("write path: the kernel check made no launch")
+    clones = [t.clone() for t in lanes], [t.clone() for t in null_lanes]
+    t_region = time_patch(fp, *clones, pos, vals, nls, 50)
+    del clones
+    sig_ship, sig_null = q1_sig[1], q1_sig[2]
+    cache.blocks[0].device.pop(q1_sig)
+    _img, t_region["repin_s"] = timed_call(lambda: evs["q1", "unary"]._stacked_device(
+        cache, ship_cols=sig_ship, nullable=sig_null))
+    t_region["pin_sig"] = {"ship": list(sig_ship), "nullable": list(sig_null),
+                           "n_blocks": len(cache.blocks)}
+
+    # config 2's 10M image (not the 100M one, to keep the script within half
+    # its limit): Q1's shipped lanes decoded and pinned (the full re-pin a
+    # patch spares), then 10,000 scattered rows patched with the values they
+    # hold (the image stays as the host blocks say)
+    big_img, big_pin_s = timed_call(lambda: big_ev._stacked_device(
+        big_cache, ship_cols=big_ev._ship_cols([5, 6]), decode=True))
+    big_rows = big_cache.total_rows
+    rows = np.sort(rng.choice(big_rows, PATCH_ROWS, replace=False))
+    br_big = big_img.block_rows
+    big_pos = (rows // br_big) * br_big + rows % br_big
+    pos_t = torch.from_numpy(big_pos).to(device)
+    big_vals = torch.stack([c.view(-1)[pos_t].view(torch.int64) for c in big_img.cols]).cpu().numpy()
+    big_nulls = [m for m in big_img.nulls if m is not None]
+    big_nls = torch.stack([m.view(-1)[pos_t] for m in big_nulls]).cpu().numpy() if big_nulls \
+        else np.zeros((0, PATCH_ROWS), dtype=bool)
+    t_big = time_patch(fp, list(big_img.cols), big_nulls, big_pos, big_vals, big_nls, 50)
+    for c, want in zip(big_img.cols, big_vals):
+        if not np.array_equal(c.view(-1)[pos_t].view(torch.int64).cpu().numpy(), want):
+            raise AssertionError("write path: the 10M image's patched lanes changed")
+    t_big.update(rows=big_rows, repin_s=big_pin_s,
+                 image_bytes=sum(c.numel() * c.element_size() for c in big_img.cols))
+    for sig in stacked_sigs(big_cache):
+        big_cache.blocks[0].device.pop(sig)
+    del big_img, pos_t
+    torch.cuda.empty_cache()
+
+    for rec in rounds.values():
+        rec.pop("cache")
+    out = {"phase": "write_path", "card": card, "rows": WRITE_ROWS,
+           "block_rows": WRITE_BLOCK_ROWS, "cf_write_bytes": cf_write_bytes,
+           "engine_load_s": load_s, "rounds": rounds, "launches": launches,
+           "encoded_pins": {"built": enc_pins, "after_delta": enc_after_delta,
+                            "next_request": enc_repinned},
+           "region_patch": t_region, "big_patch": t_big,
+           "outcome_counts": dict(prc.OUTCOME_COUNTS),
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return {"launches": launches, "region": t_region, "big": t_big,
+            "pins_per_delta": [r.get("stacked_pins") for r in rounds.values()]}
+
+
+def oracles_at_once(jobs: dict) -> dict:
+    """Each job's answer (``{name: fn}``), ``ORACLE_THREADS`` at a time: the
+    numpy oracles only read their draws, and numpy releases the GIL in
+    their loops, so they share the host's cores."""
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def timed_call(fn):
     """``fn()`` and its host seconds, the card synchronised on both sides."""
     torch.cuda.synchronize()
@@ -2285,18 +2566,19 @@ def main() -> int:
           "launches": q6_launches, "card": card})
 
     # ---- the Q1 main path: counts from 0 here to the end of phase 7 -------
-    want_q1_cold = fx.q1_oracle(cold_arrays)
-    want_q1 = fx.q1_oracle(arrays)
-    want_qty = fx.qty_oracle(arrays)
-    want_topn = fx.topn_oracle(arrays, TOPN_K)
-    want_sel_warm = fx.filter_oracle(arrays, "selective", None)
-    want_filter_warm = fx.filter_oracle(arrays, "filter", SCAN_LIMIT)
-    want_batch = {"q6": want_q6, "q6_count_sum_min_max": want_g, "q1": want_q1,
-                  "q1_topn": fx.q1_topn_oracle(want_q1)}
+    jobs = {"q1_cold": lambda: fx.q1_oracle(cold_arrays), "q1": lambda: fx.q1_oracle(arrays),
+            "qty": lambda: fx.qty_oracle(arrays), "topn": lambda: fx.topn_oracle(arrays, TOPN_K),
+            "sel": lambda: fx.filter_oracle(arrays, "selective", None),
+            "filter": lambda: fx.filter_oracle(arrays, "filter", SCAN_LIMIT)}
     for name, _dag, oracle in fx.batch_plans():
-        if name not in want_batch:
-            want_batch[name] = oracle(arrays)
-    del arrays
+        if name not in ("q6", "q6_count_sum_min_max", "q1", "q1_topn"):
+            jobs[name] = lambda oracle=oracle: oracle(arrays)
+    wants_100m = oracles_at_once(jobs)
+    want_q1_cold, want_q1, want_qty, want_topn, want_sel_warm, want_filter_warm = (
+        wants_100m.pop(k) for k in ("q1_cold", "q1", "qty", "topn", "sel", "filter"))
+    want_batch = {"q6": want_q6, "q6_count_sum_min_max": want_g, "q1": want_q1,
+                  "q1_topn": fx.q1_topn_oracle(want_q1), **wants_100m}
+    del arrays, jobs, wants_100m
     fa.reset_launches()
     q1_wire = dag_to_wire(fx.q1_dag())
     ev_c1 = TorchDagEvaluator(q1_wire, block_rows=1 << 16, device="cuda")
@@ -2699,8 +2981,9 @@ def main() -> int:
     del want_sel_warm, want_filter_warm
     n_sorted, cut_sorted = warm_rows_that_fit(n_warm, WARM_ROWS_FLOOR)
     s_arr = fx.sort_by_shipdate(fx.build_arrays(n_sorted, SEED))
-    want_sorted = {"q6": [fx.q6_oracle(s_arr)], "q1": fx.q1_oracle(s_arr),
-                   "raw_topn": fx.topn_oracle(s_arr, TOPN_K)}
+    want_sorted = oracles_at_once({"q6": lambda: [fx.q6_oracle(s_arr)],
+                                   "q1": lambda: fx.q1_oracle(s_arr),
+                                   "raw_topn": lambda: fx.topn_oracle(s_arr, TOPN_K)})
     want_sorted["zone_q6"] = want_sorted["q6"]
     t0 = time.perf_counter()
     cache_s = fx.build_cache(n_sorted, br, SEED, arrays=s_arr, encode=True)
@@ -2801,6 +3084,9 @@ def main() -> int:
     # ---- phase high_capacity: group slots past the shared rows (its own main path)
     hc = phase_high_capacity(fx, card, device, n_warm, want_batch)
 
+    # ---- phase write_path: the region write path (its own main path) ----------
+    wp = phase_write_path(fx, card, device, cache10, ev_w1)
+
     main_path = {"fused_agg_partials": q6_launches, "fused_agg_combine_pack": q6_launches,
                  "fused_group_agg_partials": q1_launches,
                  "fused_group_agg_combine_pack": q1_launches, "fused_mask": scan_launches,
@@ -2812,6 +3098,7 @@ def main() -> int:
     main_path["mesh_merge"] = mesh_out["launches"]
     main_path.update(dict.fromkeys(DICT_KERNELS, mg["launches"]))
     main_path.update(dict.fromkeys(WIDE_KERNELS + SORT_KERNELS, hc["launches"]))
+    main_path["patch_stacked"] = wp["launches"]
     for name, counts in main_path.items():
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on its main path")
@@ -2942,7 +3229,7 @@ def main() -> int:
             "max_abs_err": bt["max_abs_err"][name], **at(t), "library_ms": None,
             "xregion": at(bt["xregion"]),
             "encoded": dict(at(bt["xregion_encoded"]), launches=bt["encoded_launches"][name])})
-    # the join probes at the join phase's shape (1M probe rows against 250K
+    # the join probes at the join phase's shape (500K probe rows against 125K
     # build rows), the 32M-row synthetic lane beside them
     for name, replaces in (("join_rank_probe", "tikv_tpu/copr/jax_join.py:270"),
                            ("join_hash_probe", "tikv_tpu/copr/jax_join.py:279")):
@@ -3026,6 +3313,20 @@ def main() -> int:
             "launches": hc["launches"][name], "max_abs_err": 0.0, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "global": hc["sort_global"].get(name)})
+    # the image patch at the write path's 1% update (10,000 rows into the
+    # region's Q1 pin, six lanes of 16 blocks of 65,536 rows), the 10M
+    # image's Q1 lanes beside it; the re-pin it spares as the yardstick
+    t = wp["region"]
+    kernels.append({
+        "name": "patch_stacked", "route": "cuda", "source": PATCH_SRC,
+        "replaces": "tikv_tpu/copr/cache.py:186",
+        "replaces_also": ["tikv_tpu/copr/cache.py:241", "tikv_tpu/copr/region_cache.py:551"],
+        "launches": wp["launches"]["patch_stacked"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
+        "repin_s": t["repin_s"], "shape": {k: t[k] for k in ("updates", "data_lanes",
+                                                             "null_lanes")},
+        "pins_per_delta": wp["pins_per_delta"], "image_10m": wp["big"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -360,13 +360,14 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
     # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version),
     # the dictionary kernels the mesh's device-built group dictionary only
     # (test_dictionary_kernels_match_their_plain_versions), the wide route
-    # group slots past the shared rows only (test_wide_route_matches_its_plain_versions)
+    # group slots past the shared rows only (test_wide_route_matches_its_plain_versions),
+    # the image patch in-place writes only (test_patch_stacked_matches_its_plain_version)
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
                                      "join_rank_probe", "join_hash_probe", "mesh_merge",
                                      "dict_keys", "dict_union", "dict_ids", "dict_merge",
                                      "dict_count", "dict_compact", "group_wide_partials",
-                                     "group_wide_combine"), name
+                                     "group_wide_combine", "patch_stacked"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
     assert _stacked_nbytes(cache) <= 0.3 * _stacked_nbytes(plain)
@@ -669,3 +670,79 @@ def test_sharded_grouped_evaluator_on_the_card(cuda):
         for g_agg, w_agg in zip(fin["aggs"], oracle["aggs"]):
             for g, w in zip(g_agg, w_agg):
                 np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n_data,n_null", [(1, 0), (1, 1), (2, 0), (5, 3), (16, 16)])
+def test_patch_stacked_matches_its_plain_version(cuda, n_data, n_null):
+    """patch_stacked against index_put_ per lane, bit for bit: int64 and
+    f64 lanes (NaN, -0.0, +-inf), nullable and not, 1 to 16 lanes, 10,000
+    positions spread over 40 blocks of 131,072 rows; one launch."""
+    case = fx.patch_case(40, 1 << 17, n_data, n_null, 10_000, seed=n_data * 17 + n_null, device=cuda)
+    fa.reset_launches()
+    assert fx.patch_kernel_check(*case) == 1
+    assert fa.LAUNCHES["patch_stacked"] == 1
+
+
+def test_patch_stacked_refuses_duplicate_positions(cuda):
+    from tikv_tpu_torch.copr import fused_patch
+
+    lanes, nulls, _pos, vals, nls = fx.patch_case(2, 1024, 2, 1, 3, seed=5, device=cuda)
+    with pytest.raises(ValueError, match="unique"):
+        fused_patch.patch_stacked(lanes, nulls, np.array([7, 1500, 7]), vals, nls)
+    with pytest.raises(ValueError, match="one device"):
+        fused_patch.patch_stacked([lanes[0], lanes[1].cpu()], nulls, np.array([1, 2, 3]), vals,
+                                  nls)
+
+
+def test_region_write_path_on_the_card(cuda):
+    """A date-ordered lineitem region written as MVCC versions, served warm
+    on the card from a plain image: an in-place update through scan_delta
+    and one through write-through patch the pinned stacked lanes with
+    patch_stacked (one launch a pin), the pins equal to a rebuild, every
+    answer equal to its oracle; an insert-and-delete batch repacks."""
+    from tikv_tpu_torch.copr import region_cache as prc
+    from tikv_tpu_torch.copr.cache import ColumnBlockCache
+    from tikv_tpu_torch.copr.table import record_range
+
+    a = fx.sort_by_shipdate(fx.build_arrays(200_000, seed=18))
+    eng = fx.region_engine(a)
+    rc = prc.RegionColumnCache(block_rows=1 << 15, encode_columns=False, data_token=None)
+    evs = [TorchDagEvaluator(dag_to_wire(d), block_rows=1 << 15, device="cuda")
+           for d in (fx.q6_dag(), fx.q1_dag())]
+    for ev, hint in zip(evs, ("unary", None)):
+        ev.route_hint = hint
+    ai, ts = 3, 200
+
+    def serve(want):
+        bc, out, n = rc.serve(eng.snapshot(), fx.region_context(ai), fx.lineitem(),
+                              [record_range(fx.TABLE_ID)], ts)
+        assert evs[0].run(None, bc).iter_rows() == [fx.q6_oracle(a)]
+        assert evs[1].run(None, bc).iter_rows() == fx.q1_oracle(a)
+        assert (out, n) == want
+        return bc
+
+    cache = serve(("miss", 0))
+    for seed, kw, wt in ((1, dict(n_update=200, q6_movers=20, new_flag=True), False),
+                         (2, dict(n_update=2000, q6_movers=50), True),
+                         (3, dict(n_update=10, n_insert=300, n_delete=200), False)):
+        b, puts, dels = fx.region_write(a, seed, **kw)
+        ops = fx.region_write_ops(b, puts, dels, ts + 5, ts + 10)
+        fx.apply_region_ops(eng, ops)
+        ai, ts, a = ai + 1, ts + 100, b
+        if wt:
+            prc.notify_region_write(fx.REGION_ID, ops, ai)
+        pins = sum(1 for sig in cache.blocks[0].device if sig[0] == "stacked")
+        fa.reset_launches()
+        serve(("wt_delta" if wt else "delta", len(puts) + len(dels)))
+        if "n_insert" in kw:  # the structural repack drops the pins
+            assert fa.LAUNCHES["patch_stacked"] == 0
+            continue
+        assert pins > 0 and fa.LAUNCHES["patch_stacked"] == pins
+        copy = ColumnBlockCache.from_numpy_blocks(
+            [([(c.eval_type.value, np.asarray(c.data), np.asarray(c.nulls), c.frac, c.dictionary)
+               for c in blk.cols], blk.n_valid) for blk in cache.blocks])
+        for sig, pin in list(cache.blocks[0].device.items()):
+            if sig[0] == "stacked":
+                fresh = evs[1]._stacked_device(copy, ship_cols=sig[1], nullable=sig[2])
+                for got, want in zip(pin[0], fresh.cols):
+                    assert torch.equal(got, want)

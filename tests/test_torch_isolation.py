@@ -37,7 +37,11 @@ def test_port_modules_listed():
               "tikv_tpu_torch.copr.zone", "tikv_tpu_torch.copr.fused_zone",
               "tikv_tpu_torch.copr.fused_batch", "tikv_tpu_torch.copr.torch_join",
               "tikv_tpu_torch.copr.fused_join", "tikv_tpu_torch.copr.fused_mesh",
-              "tikv_tpu_torch.copr.fused_dict",
+              "tikv_tpu_torch.copr.fused_dict", "tikv_tpu_torch.copr.fused_patch",
+              "tikv_tpu_torch.copr.mvcc_batch", "tikv_tpu_torch.copr.region_cache",
+              "tikv_tpu_torch.storage", "tikv_tpu_torch.storage.engine",
+              "tikv_tpu_torch.storage.btree_engine", "tikv_tpu_torch.storage.txn_types",
+              "tikv_tpu_torch.storage.mvcc", "tikv_tpu_torch.storage.mvcc.reader",
               "tikv_tpu_torch.parallel", "tikv_tpu_torch.parallel.mesh"):
         assert m in mods
 

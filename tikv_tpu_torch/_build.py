@@ -25,7 +25,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {"fused_agg": "csrc/fused_agg.cu", "fused_scan": "csrc/fused_scan.cu",
            "fused_zone": "csrc/fused_zone.cu", "fused_batch": "csrc/fused_batch.cu",
            "fused_join": "csrc/fused_join.cu", "fused_mesh": "csrc/fused_mesh.cu",
-           "fused_dict": "csrc/fused_dict.cu"}
+           "fused_dict": "csrc/fused_dict.cu", "fused_patch": "csrc/fused_patch.cu"}
 
 # -fmad=false: no fused multiply-add, so per-row f64 arithmetic rounds as
 # numpy and torch round it; -Xptxas -v reports registers, spills and smem

@@ -6,8 +6,10 @@ column blocks of one (range, version), plain or encoded
 device path pins each plan signature's tensors on the evaluator's device on
 first use, so steady-state queries move no bytes from the host.  Each block
 also carries its zone maps (``copr/zone_maps.py``), built at encode time or
-on first prune.  Write-through patches and the observatory's HBM gauges
-belong to later slices.
+on first prune.  A write-through delta that changes rows in place patches
+the pinned stacked lanes on their device (:meth:`ColumnBlockCache.scatter_update`,
+the kernel of ``copr/fused_patch.py``).  The observatory's HBM gauges are not
+ported.
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ class ColumnBlockCache:
         self.blocks: list[_Block] = []
         self.filled = False
         # bumped whenever column encodings change (encoding.encode_blocks,
-        # widen_codes): encoded pin signatures include it
+        # widen_codes, demote_column): encoded pin signatures include it
         self.enc_version = 0
+        # bumped whenever host values change in place (scatter_update): the
+        # evaluators' memos of zone-map decisions key on it
+        self.data_version = 0
         self._mu = threading.Lock()
 
     @classmethod
@@ -90,6 +95,43 @@ class ColumnBlockCache:
         with self._mu:
             for b in self.blocks:
                 b.device.clear()
+
+    def clear_blocks(self) -> None:
+        """Drop every block and its pinned device copies."""
+        self.drop_device()
+        self.blocks.clear()
+        self.data_version += 1
+
+    def scatter_update(self, updates: dict) -> None:
+        """Patch the pinned device tensors in place after an in-place host
+        update (``tikv_tpu/copr/cache.py:186``).  ``updates``: block index
+        -> (row positions, {column index: (values, nulls)}); the host
+        columns already hold the new values.
+
+        Every pin lives on ``blocks[0]`` (``device_arrays``).  Each
+        ``("stacked", ship, nullable, block_rows, device)`` pin is patched
+        on its own device by one ``patch_stacked`` launch (the plain version
+        for CPU pins); ``nvoff`` stays (row counts do not change); every
+        other pin (encoded stacks, zone layouts, mesh slabs) is dropped and
+        rebuilds from the updated host blocks when next used.  Each updated
+        block's zone maps widen with the new values first
+        (``zone_maps.fold_update``), so the next prune sees them."""
+        from . import fused_patch, zone_maps
+
+        with self._mu:
+            for bi, (_rows, cols) in updates.items():
+                zone_maps.fold_update(self.blocks[bi].zones, cols)
+            self.data_version += 1
+            if not self.blocks or not updates:
+                return
+            pins = self.blocks[0].device
+            for sig in list(pins):
+                if sig[0] == "nvoff":
+                    continue
+                if sig[0] == "stacked":
+                    fused_patch.patch_stacked(*fused_patch.pin_updates(pins[sig], sig, updates))
+                else:
+                    pins.pop(sig)
 
     def widen_codes(self, ci: int, max_code: int) -> bool:
         """Widen column ``ci``'s narrowed dictionary codes image-wide so

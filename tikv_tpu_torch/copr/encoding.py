@@ -27,8 +27,11 @@ ship encoded or decoded, and counts each decision and decline in
 ``PATH_COUNTS`` and ``DECLINE_COUNTS`` (the JAX package's ``count_path`` and
 ``count_decline`` metrics, as plain counters).
 
-Not here: demotion and in-place patching of encoded lanes (write-through
-deltas), and the dictionary code-space predicate rewrite.
+Write-through deltas (``copr/region_cache.py``) patch a bitpacked payload in
+place while the new values fit its lanes (:meth:`EncodedColumn.try_patch`)
+and otherwise demote the column image-wide to plain decoded arrays
+(:func:`demote_column`, counted in ``DEMOTE_COUNTS``).  Not here: the
+dictionary code-space predicate rewrite.
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ _DICT_MAPS_MAX = 64
 PATH_COUNTS: dict[tuple[str, str], int] = {}
 #: (path, cause) -> batches declined from encoded serving ("enc_mismatch")
 DECLINE_COUNTS: dict[tuple[str, str], int] = {}
+#: (kind, cause) -> encoded columns demoted to plain decoded arrays
+#: ("inplace_update": an update of an RLE column; "value_range": a bitpacked
+#: column's new values outside its lanes)
+DEMOTE_COUNTS: dict[tuple[str, str], int] = {}
 
 
 def count_path(path: str, decision: str) -> None:
@@ -60,6 +67,10 @@ def count_path(path: str, decision: str) -> None:
 
 def count_decline(path: str, cause: str) -> None:
     DECLINE_COUNTS[path, cause] = DECLINE_COUNTS.get((path, cause), 0) + 1
+
+
+def count_demote(kind: str, cause: str) -> None:
+    DEMOTE_COUNTS[kind, cause] = DEMOTE_COUNTS.get((kind, cause), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +169,24 @@ class EncodedColumn(Column):
             return self.packed.nbytes + self._nulls.nbytes
         return self.run_values.nbytes + self.run_ends.nbytes + self.run_nulls.nbytes
 
+    def try_patch(self, rows: np.ndarray, vals: np.ndarray, nls: np.ndarray) -> bool:
+        """In-place update of the encoded payload; False = encoding broken
+        (the caller demotes).  Any in-place write to an RLE column breaks its
+        runs; a bitpacked write survives while the new values fit the lanes."""
+        if self.kind != "bp":
+            return False
+        info = np.iinfo(self.packed.dtype)
+        v = np.asarray(vals, dtype=np.int64)
+        live = ~np.asarray(nls, dtype=bool)
+        rel = v - self.ref
+        if live.any() and (int(rel[live].min()) < info.min or int(rel[live].max()) > info.max):
+            return False
+        self.packed[rows] = np.where(live, rel, 0).astype(self.packed.dtype)
+        self._nulls[rows] = nls
+        if self._data is not None:
+            self._data[rows] = np.where(live, v, 0)
+        return True
+
 
 def decoded_data(col: Column):
     """The decoded data array without caching it on the column."""
@@ -195,6 +224,33 @@ def decode_column(col: Column) -> Column:
         return Column(col.eval_type, np.asarray(col.data), np.asarray(col.nulls).copy(),
                       col.frac)
     return col
+
+
+def host_dtype(col: Column):
+    """The decoded host dtype of a column (what delta cells compute in)."""
+    if isinstance(col, EncodedColumn):
+        return np.dtype(np.int64)
+    d = np.asarray(col.data)
+    if col.is_dict_encoded and d.dtype != object:
+        return np.dtype(np.int64)  # codes widen before delta math
+    return d.dtype
+
+
+def demote_column(cache, ci: int, cause: str) -> None:
+    """Replace an encoded column with its plain decoded form image-wide
+    (every block: the stacked signatures must stay uniform) and drop the
+    device pins; the next serve pins the decoded lanes.  The
+    decode-on-next-serve rung for updates that break an encoding."""
+    kind = None
+    for b in cache.blocks:
+        c = b.cols[ci]
+        if isinstance(c, EncodedColumn):
+            kind = c.kind
+            b.cols[ci] = decode_column(c)
+    if kind is not None:
+        count_demote(kind, cause)
+        cache.enc_version += 1
+        cache.drop_device()
 
 
 # ---------------------------------------------------------------------------

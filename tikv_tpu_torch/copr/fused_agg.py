@@ -105,7 +105,7 @@ CAPACITY_ONE_OPS = frozenset(_AGG_KIND)
 #: zone-tile kernels' in ``copr/fused_zone.py``, the batch kernels' in
 #: ``copr/fused_batch.py``, the join probes' in ``copr/fused_join.py``, the
 #: mesh merge's in ``copr/fused_mesh.py``, the group dictionary's in
-#: ``copr/fused_dict.py``)
+#: ``copr/fused_dict.py``, the image patch's in ``copr/fused_patch.py``)
 LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "fused_group_agg_partials": 0, "fused_group_agg_combine_pack": 0,
             "group_wide_partials": 0, "group_wide_combine": 0,
@@ -114,7 +114,7 @@ LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "batch_partials": 0, "batch_combine_pack": 0,
             "join_rank_probe": 0, "join_hash_probe": 0, "mesh_merge": 0,
             "dict_keys": 0, "dict_union": 0, "dict_ids": 0,
-            "dict_merge": 0, "dict_count": 0, "dict_compact": 0}
+            "dict_merge": 0, "dict_count": 0, "dict_compact": 0, "patch_stacked": 0}
 
 
 def reset_launches() -> None:

@@ -33,6 +33,12 @@ def record_key(table_id: int, handle: int) -> bytes:
     return TABLE_PREFIX + codec.encode_i64(table_id) + RECORD_PREFIX_SEP + codec.encode_i64(handle)
 
 
+def record_range(table_id: int) -> tuple[bytes, bytes]:
+    """[start, end) raw-key range covering all records of a table."""
+    prefix = TABLE_PREFIX + codec.encode_i64(table_id) + RECORD_PREFIX_SEP
+    return prefix, prefix[:-1] + bytes([prefix[-1] + 1])
+
+
 def decode_record_key(key: bytes) -> tuple[int, int]:
     if len(key) != 19 or key[:1] != TABLE_PREFIX or key[9:11] != RECORD_PREFIX_SEP:
         raise ValueError(f"not a record key: {key!r}")

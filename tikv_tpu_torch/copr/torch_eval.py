@@ -655,10 +655,10 @@ class TorchDagEvaluator:
         """The per-block keep mask of the plan's selection conjuncts under
         the cache's zone maps (``jax_eval._prune_keep``), or None when
         pruning proves nothing; records ``prune_stats``.  The mask is kept
-        for the next query over the same image: the port's zones change only
-        with the blocks or their encodings (no write-through deltas yet), and
-        testing every block's zones in Python takes milliseconds."""
-        key = (cache.enc_version, len(cache.blocks), zone_maps.enabled())
+        for the next query over the same image: the zones change only with
+        the blocks, their encodings or an in-place delta (``data_version``),
+        and testing every block's zones in Python takes milliseconds."""
+        key = (cache.enc_version, cache.data_version, len(cache.blocks), zone_maps.enabled())
         memo = self._prune_memo
         if memo is not None and memo[0]() is cache and memo[1] == key:
             self.prune_stats = memo[3]
@@ -1114,7 +1114,7 @@ def _zone_batch(evaluators, cache):
         if ev.plan.agg is None:
             return None
         rung = ev._zone_rung()
-        ok = cache not in rung._declined and rung.eligible(cache.blocks) is not None
+        ok = rung.declined(cache) is None and rung.eligible(cache.blocks) is not None
         rungs.append(rung if ok else None)
     if any(r is None for r in rungs):
         return None

@@ -321,7 +321,8 @@ class ZoneRung:
     def __init__(self, ev):
         self.ev = ev
         # images declined for their data (the selection classifies no tile,
-        # or too many are partial): the same cause without building again
+        # or too many are partial): the same cause without building again,
+        # until an in-place delta changes the data (cache.data_version)
         self._declined: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
         self._partial_prog: TileProgram | None = None
 
@@ -353,8 +354,13 @@ class ZoneRung:
     def _decline(self, cause: str, cache=None):
         self.stats.decline(cause)
         if cache is not None:
-            self._declined[cache] = cause
+            self._declined[cache] = (cause, cache.data_version)
         return None
+
+    def declined(self, cache) -> str | None:
+        """The cause this image was declined for, while its data stands."""
+        hit = self._declined.get(cache)
+        return hit[0] if hit is not None and hit[1] == cache.data_version else None
 
     def referenced_cols(self) -> set[int]:
         plan = self.ev.plan
@@ -450,8 +456,9 @@ class ZoneRung:
         pinned on first use, at ``tile_rows``, ``TILE_ROWS`` by default) and
         its tiles classified, as ``(layout, full tile indices, partial tile
         indices)``; None when declined, with the cause recorded."""
-        if cache in self._declined:
-            return self._decline(self._declined[cache])
+        cause = self.declined(cache)
+        if cause is not None:
+            return self._decline(cause)
         el = self.eligible(cache.blocks)
         if el is None:
             return None

@@ -14,13 +14,17 @@ Soundness contract, the only invariant pruning relies on:
   ``lo <= v <= hi`` (``lo is None``: the block holds no non-null value);
 * the block's null count lies within ``[null_lo, null_hi]``.
 
+Bounds may be wider than the true range ("stale but sound"): an in-place
+write-through delta only widens them (:func:`fold_update`), because an
+overwrite may have removed the extremal row.
+
 Dictionary columns are tracked in code space; plain object BYTES/JSON
 columns are untracked, so blocks always survive predicates over them.
 
 The join rung counts its block decisions in ``PRUNE_COUNTS`` (the JAX
 package's ``tikv_coprocessor_zone_prune_total`` metric, as a plain counter).
 Not here: the environment switch and the metrics registry of the JAX
-package, and the write-through fold of in-place deltas (``fold_update``).
+package.
 """
 
 from __future__ import annotations
@@ -138,6 +142,34 @@ def ensure_zones(cache) -> bool:
         if blk.zones is None:
             blk.zones = build_block_zones(blk.cols, blk.n_valid)
     return True
+
+
+def fold_update(zones: dict[int, ColumnZone] | None, col_updates: dict) -> None:
+    """Fold one in-place write-through delta into a block's zones
+    (``cache.scatter_update`` calls it).  Widening only: incoming non-null
+    values widen ``lo``/``hi``; the null bounds widen by how many written
+    rows could have flipped null-ness either way.  ``col_updates``:
+    column index -> (values, nulls) of the written rows."""
+    if not zones:
+        return
+    for ci, (vals, nls) in col_updates.items():
+        z = zones.get(ci)
+        if z is None:
+            continue
+        nls = np.asarray(nls, dtype=bool)
+        k = int(len(nls))
+        k_null = int(nls.sum())
+        live = ~nls
+        if live.any():
+            v = np.asarray(vals)[live]
+            if v.dtype == object:
+                zones.pop(ci, None)  # decoded-object write: stop tracking
+                continue
+            lo, hi = _scalar(v.min()), _scalar(v.max())
+            z.lo = lo if z.lo is None else min(z.lo, lo)
+            z.hi = hi if z.hi is None else max(z.hi, hi)
+        z.null_hi = min(z.n, z.null_hi + k_null)
+        z.null_lo = max(0, z.null_lo - (k - k_null))
 
 
 # ---------------------------------------------------------------------------

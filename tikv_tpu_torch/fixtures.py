@@ -36,8 +36,8 @@ from .copr.dag import (
     Join,
     Limit,
     Projection,
-    ResponseEncoder,
     Selection,
+    SelectResponse,
     TableScan,
     TopN,
 )
@@ -46,7 +46,10 @@ from .copr.fused_agg import NO_ROW, Image, compile_program
 from .copr.fused_group_agg import LEAF_TRACK, compile_group_program
 from .copr.rpn import call, col, compile_expr, const_decimal, const_int, const_real
 from .copr.table import RowBatchDecoder, encode_row, record_key
-from .util.codec import encode_i64_batch
+from .storage.btree_engine import BTreeEngine
+from .storage.engine import CF_LOCK, CF_WRITE, WriteBatch
+from .storage.txn_types import Write, WriteType
+from .util.codec import encode_i64_batch, encode_u64
 
 TABLE_ID = 101
 
@@ -98,12 +101,17 @@ def build_arrays(n: int, seed: int = 0) -> dict:
     }
 
 
-def build_kvs(n: int, seed: int = 0) -> list[tuple[bytes, bytes]]:
+def build_kvs(n: int, seed: int = 0, arrays: dict | None = None) -> list[tuple[bytes, bytes]]:
     """Record (key, value) bytes of the lineitem table.  Rows share one fixed
-    datum layout, so the table is a byte matrix filled by batch codecs."""
-    a = build_arrays(n, seed)
+    datum layout, so the table is a byte matrix filled by batch codecs.
+    ``arrays`` gives the draws instead (``build_arrays(n, seed)`` by
+    default); their optional ``"handle"`` (row handles, ``arange`` by
+    default) and ``"flags"`` (l_returnflag's values, ``b"ANR"`` by default)
+    are honored, as by the oracles."""
+    a = build_arrays(n, seed) if arrays is None else arrays
+    n = len(a["qty"])
     schema = lineitem()
-    flags = np.frombuffer(b"ANR", dtype=np.uint8)
+    flags = np.frombuffer(a.get("flags", b"ANR"), dtype=np.uint8)
     stats = np.frombuffer(b"FO", dtype=np.uint8)
     row0 = encode_row(schema[1:], [1, 1, 1, 1, b"A", b"F"])
     layout = RowBatchDecoder(schema)._parse_layout(row0)
@@ -117,9 +125,14 @@ def build_kvs(n: int, seed: int = 0) -> list[tuple[bytes, bytes]]:
     mat[:, off_ls] = stats[a["ls"]]
     values = [r.tobytes() for r in mat]
     kmat = np.tile(np.frombuffer(record_key(TABLE_ID, 0), dtype=np.uint8), (n, 1))
-    kmat[:, 11:19] = encode_i64_batch(np.arange(n, dtype=np.int64))
+    kmat[:, 11:19] = encode_i64_batch(_handles(a))
     keys = [r.tobytes() for r in kmat]
     return list(zip(keys, values))
+
+
+def _handles(a: dict) -> np.ndarray:
+    """Each row's handle: ``a["handle"]``, else its position."""
+    return a["handle"] if "handle" in a else np.arange(len(a["qty"]), dtype=np.int64)
 
 
 def sort_by_shipdate(a: dict) -> dict:
@@ -234,6 +247,7 @@ def q1_oracle(a: dict, ship_hi: int = Q1_SHIP_HI) -> list:
     """Q1's response rows from the raw draws, one per group that has a
     qualifying row, in the order of each group's first qualifying row."""
     m = a["ship"] <= ship_hi
+    flags = a.get("flags", b"ANR")
     rows, starts = _groups(a["rf"] * 2 + a["ls"], m)
     if not len(rows):
         return []
@@ -244,7 +258,7 @@ def q1_oracle(a: dict, ship_hi: int = Q1_SHIP_HI) -> list:
         rf, ls = divmod(int(a["rf"][rows[s]] * 2 + a["ls"][rows[s]]), 2)
         n, p = int(counts[g]), int(price[g])
         out.append((int(rows[s]), [int(qty[g]), (p, 2), n, (p, 2), n, (int(disc[g]), 2), n,
-                                   b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]]))
+                                   flags[rf : rf + 1], b"FO"[ls : ls + 1]]))
     return [r for _first, r in sorted(out, key=lambda fr: fr[0])]
 
 
@@ -306,10 +320,12 @@ def filter_mask(a: dict, kind: str) -> np.ndarray:
 def _lineitem_rows(a: dict, rows: np.ndarray, n_cols: int = 7) -> list:
     """Response rows of the lineitem columns ``0..n_cols-1`` at ``rows``."""
     out = []
+    flags, handles = a.get("flags", b"ANR"), _handles(a)
     for r in rows.tolist():
         rf, ls = int(a["rf"][r]), int(a["ls"][r])
-        out.append([r, int(a["qty"][r]), (int(a["price"][r]), 2), (int(a["disc"][r]), 2),
-                    int(a["ship"][r]), b"ANR"[rf : rf + 1], b"FO"[ls : ls + 1]][:n_cols])
+        out.append([int(handles[r]), int(a["qty"][r]), (int(a["price"][r]), 2),
+                    (int(a["disc"][r]), 2), int(a["ship"][r]), flags[rf : rf + 1],
+                    b"FO"[ls : ls + 1]][:n_cols])
     return out
 
 
@@ -1117,29 +1133,78 @@ def join_oracle(a: dict) -> tuple[np.ndarray, np.ndarray]:
     return np.array(p_out, dtype=np.int64), np.array(b_out, dtype=np.int64)
 
 
+def _varint_bytes(zz: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """LEB128 bytes of the uint64 ``zz``, row by row: an ``(n, 10)`` byte
+    matrix and each row's length."""
+    groups = np.stack([(zz >> np.uint64(7 * k)) & np.uint64(0x7F) for k in range(10)], axis=1)
+    lens = 1 + sum(((zz >> np.uint64(7 * k)) != 0).astype(np.int64) for k in range(1, 10))
+    more = np.arange(10) < (lens - 1)[:, None]
+    return (groups | (more * 0x80).astype(np.uint64)).astype(np.uint8), lens
+
+
+def _zigzag(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, dtype=np.int64)
+    return ((v << 1) ^ (v >> 63)).view(np.uint64)
+
+
+def _datum_row_bytes(cols: list) -> tuple[np.ndarray, np.ndarray]:
+    """The datum rows of ``cols`` in numpy, no per-row Python: each row the
+    column count, then per column ``VARINT_FLAG`` (8) and the zigzag varint
+    of an INT, or ``COMPACT_BYTES_FLAG`` (2), the zigzag varint of the
+    length and the bytes of a BYTES value given as ``("pool", codes,
+    pool)``.  Returns the rows' bytes end to end and each row's end."""
+    mats, masks = [], []
+    n = len(cols[0][1])
+    mats.append(np.full((n, 1), len(cols), dtype=np.uint8))
+    masks.append(np.ones((n, 1), dtype=bool))
+    for kind, data, *pool in cols:
+        if kind == EvalType.INT:
+            vb, vl = _varint_bytes(_zigzag(data))
+            body, width = vb, vl
+            flag = 8
+        else:
+            entries = [bytes(x) for x in pool[0]]
+            plen = np.array([len(e) for e in entries], dtype=np.int64)
+            lb, ll = _varint_bytes(_zigzag(plen))
+            wide = max(1, int(plen.max(initial=0)))
+            pm = np.zeros((len(entries), 10 + wide), dtype=np.uint8)
+            pw = ll + plen
+            for i, e in enumerate(entries):  # the pool, not the rows
+                pm[i, : ll[i]] = lb[i, : ll[i]]
+                pm[i, ll[i] : pw[i]] = np.frombuffer(e, dtype=np.uint8)
+            body, width = pm[data], pw[data]
+            flag = 2
+        mats.append(np.full((n, 1), flag, dtype=np.uint8))
+        masks.append(np.ones((n, 1), dtype=bool))
+        mats.append(body)
+        masks.append(np.arange(body.shape[1]) < width[:, None])
+    mat, mask = np.concatenate(mats, axis=1), np.concatenate(masks, axis=1)
+    return mat[mask], np.cumsum(mask.sum(axis=1))
+
+
 def join_oracle_bytes(a: dict, pairs, key: str = "dict", downstream: bool = False) -> bytes:
-    """The response bytes of the joined ``pairs`` (:func:`join_oracle`)
-    through the port's ``ResponseEncoder``; ``downstream``: after
+    """The response bytes of the joined ``pairs`` (:func:`join_oracle`),
+    datum rows in chunks of 1,024 encoded here in numpy (not through the
+    port's ``ResponseEncoder``); ``downstream``: after
     :func:`join_downstream`, computed here in numpy."""
     p, b = pairs
     pk, bk = a["probe_key"][p], a["build_key"][b]
-    kdata = (lambda k: a["pool"][k]) if key == "dict" else (lambda k: k.astype(np.int64))
-    ket = EvalType.BYTES if key == "dict" else EvalType.INT
+    kcol = ((lambda k: ("pool", k, a["pool"])) if key == "dict"
+            else (lambda k: (EvalType.INT, k.astype(np.int64))))
     if downstream:
         keep = np.flatnonzero(a["probe_pay"][p] < a["build_pay"][b])[:JOIN_LIMIT]
         p, b, pk = p[keep], b[keep], pk[keep]
-        cols = [(EvalType.INT, p + b), (ket, kdata(pk)),
-                (EvalType.INT, a["build_pay"][b].astype(np.int64))]
+        cols = [(EvalType.INT, p + b), kcol(pk), (EvalType.INT, a["build_pay"][b])]
     else:
-        cols = [(EvalType.INT, p), (ket, kdata(pk)),
-                (EvalType.INT, a["probe_pay"][p].astype(np.int64)),
-                (EvalType.INT, b), (ket, kdata(bk)),
-                (EvalType.INT, a["build_pay"][b].astype(np.int64))]
-    enc = ResponseEncoder(1024)
+        cols = [(EvalType.INT, p), kcol(pk), (EvalType.INT, a["probe_pay"][p]),
+                (EvalType.INT, b), kcol(bk), (EvalType.INT, a["build_pay"][b])]
+    chunks = []
     if len(p):
-        nz = np.zeros(len(p), dtype=bool)
-        enc.add_chunk(Chunk.full([Column(et, d, nz) for et, d in cols]), None)
-    return enc.to_response().encode()
+        buf, ends = _datum_row_bytes(cols)
+        starts = np.concatenate([[0], ends])
+        chunks = [buf[starts[i] : starts[min(i + 1024, len(p))]].tobytes()
+                  for i in range(0, len(p), 1024)]
+    return SelectResponse(chunks).encode()
 
 
 def join_probe_case(n_keys: int, mult: int, n_probe: int, seed: int = 0,
@@ -1740,3 +1805,185 @@ def supp_mesh_oracle(a: dict) -> dict:
             "first": rows[starts][order].astype(np.int64),
             "aggs": [(c,), (c, rev[order]), (c, psum[order]), (c, psum[order], sq[order]),
                      (c, dmin[order]), (c, dmax[order])]}
+
+
+# ---------------------------------------------------------------------------
+# An MVCC region of lineitem: the write path's engine and its write batches
+# ---------------------------------------------------------------------------
+
+REGION_ID = 1
+REGION_EPOCH = (1, 1)
+NEW_FLAG = b"X"  # an l_returnflag value the draws never make: it grows the dictionary
+
+
+def region_context(apply_index: int) -> dict:
+    """The request context ``RegionColumnCache.serve`` keys an image by."""
+    return {"region_id": REGION_ID, "region_epoch": REGION_EPOCH, "apply_index": apply_index}
+
+
+def _write_keys(handles: np.ndarray, commit_ts: int) -> list[bytes]:
+    """CF_WRITE keys of the records at ``handles``: the memcomparable
+    encoding of each 19-byte record key (two full groups of 8 bytes, then 3
+    bytes padded with 5 zeros, each group followed by its marker) and the
+    descending commit ts, filled as one byte matrix."""
+    n = len(handles)
+    raw = np.tile(np.frombuffer(record_key(TABLE_ID, 0), dtype=np.uint8), (n, 1))
+    raw[:, 11:19] = encode_i64_batch(np.asarray(handles, dtype=np.int64))
+    out = np.zeros((n, 35), dtype=np.uint8)
+    out[:, 0:8], out[:, 9:17], out[:, 18:21] = raw[:, 0:8], raw[:, 8:16], raw[:, 16:19]
+    out[:, 8] = out[:, 17] = 0xFF
+    out[:, 26] = 0xFF - 5
+    out[:, 27:35] = np.frombuffer(encode_u64(commit_ts ^ 0xFFFFFFFFFFFFFFFF), dtype=np.uint8)
+    return [r.tobytes() for r in out]
+
+
+def _write_records(values: list[bytes], start_ts: int) -> list[bytes]:
+    """PUT write records with each value inline as a short value (every
+    lineitem row is far under 255 bytes), as ``tests/fixtures.py``'s
+    ``put_committed`` writes them."""
+    # the record of an empty short value, less its length byte
+    head = Write(WriteType.PUT, start_ts, short_value=b"").to_bytes()[:-1]
+    return [head + bytes([len(v)]) + v for v in values]
+
+
+def region_engine(a: dict, start_ts: int = 90, commit_ts: int = 100) -> BTreeEngine:
+    """The port's in-memory engine holding ``build_kvs(arrays=a)``'s rows as
+    versions committed at ``commit_ts``: the region the write path fills
+    its image from."""
+    kvs = build_kvs(0, arrays=a)
+    eng = BTreeEngine()
+    eng.bulk_load(CF_WRITE, zip(_write_keys(_handles(a), commit_ts),
+                                _write_records([v for _k, v in kvs], start_ts)))
+    return eng
+
+
+def region_write(a: dict, seed: int, n_update: int = 0, n_insert: int = 0, n_delete: int = 0,
+                 q6_movers: int = 0, new_flag: bool = False):
+    """A write batch over the rows of ``a``, drawn with numpy from ``seed``:
+    ``n_update`` rows are amended in place, a new quantity, price, discount
+    and line status (``build_arrays``' ranges) with their ship date and
+    return flag kept; of them ``q6_movers`` rows with l_shipdate >= 10000
+    move into Q6's window (in a date-ordered region their blocks' zone maps
+    excluded it), and with ``new_flag`` one in eight of them (at least one)
+    takes ``NEW_FLAG`` as its return flag;
+    ``n_insert`` rows are added past the largest handle and ``n_delete``
+    rows removed.  Returns ``(arrays after the batch, handles put, handles
+    deleted)``, the arrays carrying ``"handle"`` and ``"flags"`` for the
+    oracles."""
+    rng = np.random.default_rng(seed)
+    n = len(a["qty"])
+    handles = _handles(a)
+    movers = rng.choice(np.flatnonzero(a["ship"] >= 10000), q6_movers, replace=False)
+    rest = rng.choice(np.setdiff1d(np.arange(n), movers), n_update - q6_movers + n_delete,
+                      replace=False)
+    upd = np.concatenate([movers, rest[: n_update - q6_movers]]).astype(np.int64)
+    dele = rest[n_update - q6_movers:]
+    b = {k: a[k].copy() for k in ("qty", "price", "disc", "ship", "rf", "ls")}
+    b["handle"], b["flags"] = handles.copy(), a.get("flags", b"ANR")
+    fresh = build_arrays(len(upd) + n_insert, seed + 1)
+    for k in ("qty", "price", "disc", "ls"):
+        b[k][upd] = fresh[k][: len(upd)]
+    m = upd[:q6_movers]
+    b["ship"][m] = rng.integers(Q6_SHIP_LO, Q6_SHIP_HI, len(m))
+    b["disc"][m] = rng.integers(Q6_DISC_LO, Q6_DISC_HI + 1, len(m))
+    b["qty"][m] = rng.integers(1, Q6_QTY_LT, len(m))
+    if new_flag:
+        if NEW_FLAG not in b["flags"]:
+            b["flags"] += NEW_FLAG
+        b["rf"][upd[: max(1, len(upd) // 8)]] = b["flags"].index(NEW_FLAG)
+    if n_insert:
+        for k in ("qty", "price", "disc", "ship", "rf", "ls"):
+            b[k] = np.concatenate([b[k], fresh[k][len(upd):]])
+        b["handle"] = np.concatenate([b["handle"], handles.max(initial=-1) + 1
+                                      + np.arange(n_insert, dtype=np.int64)])
+    puts = np.sort(np.concatenate([handles[upd], b["handle"][n:]]))
+    deleted = np.sort(handles[dele])
+    if len(dele):
+        keep = np.ones(len(b["qty"]), dtype=bool)
+        keep[dele] = False
+        for k in ("qty", "price", "disc", "ship", "rf", "ls", "handle"):
+            b[k] = b[k][keep]
+    return b, puts, deleted
+
+
+def region_write_ops(b: dict, puts: np.ndarray, deleted: np.ndarray, start_ts: int,
+                     commit_ts: int) -> list:
+    """The ops of :func:`region_write`'s batch committed at ``commit_ts``,
+    as the raft apply path emits them: per key its CF_WRITE record (a PUT
+    with the row inline, or a DELETE) and the CF_LOCK delete of its commit.
+    ``b`` is the batch's arrays after it."""
+    at = np.searchsorted(b["handle"], puts)
+    sub = {k: b[k][at] for k in ("qty", "price", "disc", "ship", "rf", "ls", "handle")}
+    sub["flags"] = b["flags"]
+    values = [v for _k, v in build_kvs(0, arrays=sub)]
+    recs = _write_records(values, start_ts)
+    del_rec = Write(WriteType.DELETE, start_ts).to_bytes()
+    ops = [("put", CF_WRITE, k, r) for k, r in zip(_write_keys(puts, commit_ts), recs)]
+    ops += [("put", CF_WRITE, k, del_rec) for k in _write_keys(deleted, commit_ts)]
+    both = np.concatenate([puts, deleted])
+    ops += [("delete", CF_LOCK, k[:-8], None) for k in _write_keys(both, commit_ts)]
+    return ops
+
+
+def apply_region_ops(engine: BTreeEngine, ops) -> None:
+    """Apply ``ops`` to ``engine``: each column family's puts with one sort,
+    then the deletes."""
+    puts: dict[str, list] = {}
+    wb = WriteBatch()
+    for op, cf, key, val in ops:
+        if op == "put":
+            puts.setdefault(cf, []).append((key, val))
+        else:
+            wb.delete_cf(cf, key)
+    for cf, items in puts.items():
+        engine.bulk_load(cf, items)
+    engine.write(wb)
+
+
+def patch_case(n_blocks: int, block_rows: int, n_data: int, n_null: int, n_upd: int,
+               seed: int, device):
+    """Inputs of ``fused_patch.patch_stacked``: ``n_data`` lanes of
+    ``[n_blocks, block_rows]`` (even lanes int64, odd lanes f64), ``n_null``
+    bool lanes, and ``n_upd`` updates at unique positions spread over every
+    block, their words (the f64 lanes' include NaN, -0.0 and +-inf) and
+    null flags.  Returns ``(lanes, null lanes, positions, words, nulls)``."""
+    rng = np.random.default_rng(seed)
+    shape = (n_blocks, block_rows)
+    lanes = [torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, shape) if j % 2 == 0
+                              else rng.standard_normal(shape)).to(device) for j in range(n_data)]
+    null_lanes = [torch.from_numpy(rng.random(shape) < 0.2).to(device) for _ in range(n_null)]
+    pos = rng.choice(n_blocks * block_rows, n_upd, replace=False).astype(np.int64)
+    words = []
+    for j in range(n_data):
+        if j % 2 == 0:
+            words.append(rng.integers(-(1 << 62), 1 << 62, n_upd))
+        else:
+            f = rng.standard_normal(n_upd)
+            f[: min(4, n_upd)] = [np.nan, -0.0, np.inf, -np.inf][: min(4, n_upd)]
+            words.append(f.view(np.int64))
+    vals = np.array(words, dtype=np.int64).reshape(n_data, n_upd)
+    nls = rng.random((n_null, n_upd)) < 0.5
+    return lanes, null_lanes, pos, vals, nls
+
+
+def patch_kernel_check(lanes, null_lanes, pos, vals, nls) -> int:
+    """``patch_stacked`` on copies of the lanes against its plain version on
+    other copies, bit for bit (f64 lanes compared as their int64 words);
+    raises AssertionError on the first lane that differs.  Returns the
+    kernel launches it made (1)."""
+    from .copr import fused_agg, fused_patch
+
+    dev = (lanes or null_lanes)[0].device
+    k_lanes, p_lanes = [t.clone() for t in lanes], [t.clone() for t in lanes]
+    k_nulls, p_nulls = [t.clone() for t in null_lanes], [t.clone() for t in null_lanes]
+    before = fused_agg.LAUNCHES["patch_stacked"]
+    fused_patch.patch_stacked(k_lanes, k_nulls, pos, vals, nls)
+    fused_patch.patch_stacked_plain(p_lanes, p_nulls, torch.from_numpy(pos).to(dev),
+                                    torch.from_numpy(vals).to(dev), torch.from_numpy(nls).to(dev))
+    for j, (k, p) in enumerate(zip(k_lanes, p_lanes)):
+        if not torch.equal(k.view(torch.int64), p.view(torch.int64)):
+            raise AssertionError(f"patch_stacked: data lane {j} differs from the plain version")
+    for j, (k, p) in enumerate(zip(k_nulls, p_nulls)):
+        if not torch.equal(k, p):
+            raise AssertionError(f"patch_stacked: null lane {j} differs from the plain version")
+    return fused_agg.LAUNCHES["patch_stacked"] - before

@@ -98,6 +98,14 @@ def decode_u64(b: bytes, offset: int = 0) -> int:
     return _U64.unpack_from(b, offset)[0]
 
 
+def encode_u64_desc(v: int) -> bytes:
+    return _U64.pack((v & 0xFFFFFFFFFFFFFFFF) ^ 0xFFFFFFFFFFFFFFFF)
+
+
+def decode_u64_desc(b: bytes, offset: int = 0) -> int:
+    return _U64.unpack_from(b, offset)[0] ^ 0xFFFFFFFFFFFFFFFF
+
+
 def encode_i64(v: int) -> bytes:
     return _U64.pack((v ^ SIGN_MASK) & 0xFFFFFFFFFFFFFFFF)
 
