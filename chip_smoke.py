@@ -505,7 +505,8 @@ def check_topn_kernels(ft, prog, cand, pay, what: str) -> None:
 
 def phase_scan_kernels(fm, ft, fx, device) -> None:
     """The mask and the top-K kernels against their plain versions on seeded
-    synthetic cases: the mask at a cold block and at config 2's 10M rows;
+    synthetic cases: the mask at a cold block and at config 2's 10M rows,
+    and at its edges (``fx.mask_edge_cases``: every stack instance);
     the top-K at K = 100 and K = 2048 over 16 blocks of 65,536 rows, warm
     (one step) and cold (one step per block, the carry on the card)."""
     gen = torch.Generator(device=device)
@@ -520,6 +521,19 @@ def phase_scan_kernels(fm, ft, fx, device) -> None:
               "rows": int(img.n_valids if isinstance(img.n_valids, int) else img.n_valids.sum()),
               "kept": int(got.sum()), "equal": True, "bit_identical_reruns": True})
         del prog, img, got
+    for name, (prog, img) in fx.mask_edge_cases(device, SEED).items():
+        want = fm.fused_mask_plain(prog, img)
+        outs = [torch.empty_like(want) for _ in range(2)]
+        for out in outs:
+            fm.launch_mask(prog, img, out)
+        if not (torch.equal(outs[0], want) and torch.equal(outs[1], want)):
+            raise AssertionError(f"fused_mask edge case {name} differs or reruns differ")
+        attrs = fm.mask_attributes(prog, img)
+        if attrs["localSizeBytes"] != 0:
+            raise AssertionError(f"fused_mask spills to local memory at {name}: {attrs}")
+        emit({"phase": "kernels", "case": f"mask_edge_{name}", "blocks": img.n_blocks,
+              "block_rows": img.block_rows, "attributes": attrs, "kept": int(want.sum()),
+              "equal": True, "bit_identical_reruns": True})
     for k in (TOPN_K, 2048):
         prog, cand, pay = fx.synthetic_topn_case(16, 1 << 16, k, gen, device)
         check_topn_kernels(ft, prog, cand, pay, f"synthetic K={k}")
@@ -739,13 +753,19 @@ def time_mask(fm, prog, img) -> dict:
     version's, and the yardstick: the same mask from torch comparisons over
     config 2's three columns (shipdate, quantity, extendedprice in the
     image's slot order 1, 2, 4 -> 0, 1, 2).  Bound: the valid rows of the
-    shipped columns and ``n_valids`` read once, the mask written once."""
+    shipped columns and ``n_valids`` read once, the mask written once.  Also
+    the attributes of the instance the path runs (raises if it spills to
+    local memory)."""
     from tikv_tpu_torch import fixtures as fx
 
     out = torch.empty((img.n_blocks, img.block_rows), dtype=torch.bool, device=img.device)
+    want = fm.fused_mask_plain(prog, img)
     ms = cuda_ms(lambda: fm.launch_mask(prog, img, out), 20)
-    if not torch.equal(out, fm.fused_mask_plain(prog, img)):
+    if not torch.equal(out, want):
         raise AssertionError("timed fused_mask differs from its plain version")
+    attrs = fm.mask_attributes(prog, img)
+    if attrs["localSizeBytes"] != 0:
+        raise AssertionError(f"fused_mask spills to local memory: {attrs}")
     plain_ms = cuda_ms(lambda: fm.fused_mask_plain(prog, img), 3, warmup=1)
     lane = torch.arange(img.block_rows, device=img.device)
 
@@ -764,7 +784,8 @@ def time_mask(fm, prog, img) -> dict:
                        rows * len(prog.code))
     return {"rows": rows, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch comparisons and ANDs over the three columns and the valid lanes",
-            "bound_ms": b_ms, "bound_by": b_by, "kept": int(out.sum())}
+            "bound_ms": b_ms, "bound_by": b_by, "kept": int(out.sum()),
+            "rows_a_thread": fm.MASK_ROWS, "attributes": attrs}
 
 
 def time_topn(ft, prog, cand, pay) -> dict:
@@ -1708,6 +1729,7 @@ def time_dict(fx, fd, seen: dict) -> dict:
         b_ms, b_by = bound(n * 8 + cap * 8, n)
         out[name] = {
             "keys": n, "capacity": cap, "launches": fd.union_launches(n, cap),
+            "tile": fd.union_tile(cap), "passes": len(fd.union_passes(n, cap)),
             "ms": cuda_ms(lambda: fd.launch_union(d, k, cap, flag, res), 50),
             "plain_ms": cuda_ms(lambda: fd.dict_union_plain(d, k, cap), 3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1820,6 +1842,12 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
         cpu_err[name] = check_unpacked(ev.unpack(ev.run_blocks(head)),
                                        cpu.unpack(cpu.run_blocks(head)), f"mesh_grouped {name}")
     t_cpu = time.perf_counter() - t_cpu
+    # dict_union at its edges (both routes, every tile), against its plain
+    # version, twice bit for bit
+    union_edges = {}
+    for name in fx.UNION_EDGE_CASES:
+        d, k, cap = fx.union_edge_case(name, SEED)
+        union_edges[name] = fx.union_kernel_check(d, k, cap, device)
     # the kernels at the path's own inputs: Q1 at G = 1, its second
     # super-block (a carried dictionary, a carry to move)
     q1 = evs["q1_g1"]
@@ -1847,7 +1875,7 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
           "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
           "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "kernels": t_dict, "mesh_merge_remap": t_merge, "grouped_pair_shard": t_pair,
-          "launches": launches,
+          "union_edges": union_edges, "launches": launches,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "kernels": t_dict, "merge": t_merge, "pair": t_pair,
             "max_abs_err": max([merge_err, *cpu_err.values()])}
@@ -1944,9 +1972,10 @@ def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
 def time_sort_union(fd, d, k, cap: int) -> dict:
     """The dictionary union's sort route (past ``fd.CAP_MAX`` slots) at one
     input, kernel by kernel: the tile sort (``dict_union`` at ``T = cap =
-    TILE_MAX``), each ``dict_merge`` pass, ``dict_count`` and
+    SORT_TILE``), each ``dict_merge`` pass, ``dict_count`` and
     ``dict_compact``; each output against its plain version (integers,
-    equal) and the whole union against ``dict_union_plain``; CUDA-event ms,
+    equal; the tile sort against ``union_pass_plain`` at the kernel's tile)
+    and the whole union against ``dict_union_plain``; CUDA-event ms,
     the plain versions' ms, bounds (each input read once, each output
     written once) and yardsticks: ``torch.sort`` for a merge pass (it
     computes more: a full sort), ``torch.unique_consecutive`` for the
@@ -1955,7 +1984,7 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
     dev = k.device
     n_d = 0 if d is None else cap
     n = n_d + k.numel()
-    sorted_n = max(1, -(-n // fd.TILE_MAX)) * fd.TILE_MAX
+    sorted_n = fd.sorted_keys(n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     dp = None if d is None else d.data_ptr()
@@ -1966,8 +1995,12 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
 
     runs = torch.empty(sorted_n, dtype=torch.int64, device=dev)
     tile_ms = cuda_ms(lambda: ok(lib.du_launch(dp, n_d, k.data_ptr(), k.numel(), runs.data_ptr(),
-                                               flag.data_ptr(), fd.TILE_MAX, fd.TILE_MAX,
+                                               flag.data_ptr(), fd.SORT_TILE, fd.SORT_TILE,
                                                stream)), 20)
+    x = k.cpu() if d is None else torch.cat([d.cpu(), k.cpu()])
+    if not torch.equal(runs.cpu(), fd.union_pass_plain(x, fd.SORT_TILE, fd.SORT_TILE)[0]
+                       .reshape(-1)):
+        raise AssertionError("dict_union's tile sort: differs from its plain version")
     widths = fd.merge_widths(n)
     srcs = [runs]
     for w in widths:
@@ -1984,7 +2017,8 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
     if not torch.equal(res.cpu(), want):
         raise AssertionError("sort-route union: differs from dict_union_plain")
     out = {"keys": n, "capacity": cap, "sorted_keys": sorted_n, "merge_passes": len(widths),
-           "tile_sort_ms": tile_ms}
+           "sort_tile": fd.SORT_TILE, "tile_sort_ms": tile_ms, "tile_sort_blocks": sorted_n
+           // fd.SORT_TILE}
     if widths:
         w0 = widths[0]
         if not torch.equal(srcs[1].cpu(), fd.merge_pass_plain(srcs[0].cpu(), w0)):
@@ -2000,9 +2034,10 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
             "plain_ms": cuda_ms(lambda: fd.merge_pass_plain(srcs[0], w0), 2, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lambda: torch.sort(srcs[0]), 10)}
-    host = final.cpu()  # sorted_n is a multiple of TILE_MAX, so of CHUNK
+    host = final.cpu()
     fresh = host < fd.SENTINEL
     fresh[1:] &= host[1:] != host[:-1]
+    fresh = torch.cat([fresh, fresh.new_zeros(counts.numel() * fd.CHUNK - sorted_n)])
     if not torch.equal(counts.cpu(), fresh.view(-1, fd.CHUNK).sum(1).to(torch.int32)):
         raise AssertionError("dict_count: differs from its plain version")
     b_ms, b_by = bound(sorted_n * 8 + counts.numel() * 4, sorted_n)
@@ -2489,6 +2524,7 @@ def main() -> int:
     from tikv_tpu_torch.copr import fused_agg as fa
     from tikv_tpu_torch.copr import fused_group_agg as ga
     from tikv_tpu_torch.copr import fused_mask as fm
+    from tikv_tpu_torch.copr import fused_dict as fd
     from tikv_tpu_torch.copr import encoding
     from tikv_tpu_torch.copr import fused_topn as ft
     from tikv_tpu_torch.copr import fused_zone as fz
@@ -3327,6 +3363,34 @@ def main() -> int:
         "repin_s": t["repin_s"], "shape": {k: t[k] for k in ("updates", "data_lanes",
                                                              "null_lanes")},
         "pins_per_delta": wp["pins_per_delta"], "image_10m": wp["big"]})
+    # the two kernels redesigned for Hopper: their resources, their times
+    # beside their yardsticks and bounds, the unions' passes and launches
+    def mask_times(t):
+        return {k: t[k] for k in ("ms", "library_ms", "bound_ms", "plain_ms", "rows",
+                                  "attributes")}
+
+    def union_times(t):
+        return {k: t.get(k) for k in ("keys", "capacity", "tile", "passes", "ms", "library_ms",
+                                      "bound_ms", "launches")}
+
+    emit({"phase": "redesign", "card": card,
+          "fused_mask": {
+              "rows_a_thread": fm.MASK_ROWS,
+              "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),
+              "launches": scan_launches["fused_mask"]},
+          "dict_union": {
+              "attributes": fd.union_attributes(), "keys_a_thread": fd.KEYS_A_THREAD,
+              "tile_min": fd.TILE_MIN, "sort_tile": fd.SORT_TILE,
+              "mesh_grouped_shard": union_times(mg["kernels"]["dict_union"]),
+              "mesh_grouped_global": union_times(mg["kernels"]["dict_union_global"]),
+              "mesh_grouped_launches": mg["launches"]["dict_union"],
+              "high_capacity_shard": {k: hc["sort"].get(k) for k in (
+                  "keys", "capacity", "sorted_keys", "tile_sort_blocks", "merge_passes",
+                  "tile_sort_ms", "union_ms", "union_library_ms")},
+              "high_capacity_global": {k: hc["sort_global"].get(k) for k in (
+                  "keys", "merge_passes", "tile_sort_ms", "union_ms", "union_library_ms")},
+              "high_capacity_launches": {k: hc["launches"][k] for k in
+                                         ("dict_union",) + SORT_KERNELS}}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,6 +5,8 @@ present, so every worker collects the same tests.  On a machine with the
 card: ``python -m pytest tests/test_torch_gpu.py -m gpu -q``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -203,13 +205,50 @@ def test_warm_q1_and_a_host_id_group_by_match_the_oracle(cuda):
 
 # -- the mask and the top-K kernels --------------------------------------------
 
-@pytest.mark.parametrize("n_blocks,block_rows", [(1, 1 << 16), (40, 1 << 17)])
+@pytest.mark.parametrize("n_blocks,block_rows", [(1, 1 << 16), (40, 1 << 17), (3, 1001),
+                                                (5, 4099)])
 def test_mask_kernel_matches_plain_version(cuda, n_blocks, block_rows):
     gen = torch.Generator(device=cuda).manual_seed(5)
     prog, img = fx.synthetic_mask_case(n_blocks, block_rows, gen, cuda)
     got = fm.fused_mask(prog, img)
     assert torch.equal(got, fm.fused_mask_plain(prog, img))
     assert torch.equal(got, fm.fused_mask(prog, img))
+
+
+@pytest.mark.parametrize("name", ["ragged", "view", "conjuncts", "conjuncts_view", "small",
+                                  "encoded", "encoded_view", "every_op"])
+def test_mask_kernel_edges_match_plain_version(cuda, name):
+    """The tile walk at its edges (``fx.mask_edge_cases``): n_valid and
+    block_rows not multiples of the tile, a view whose base is not 16-byte
+    aligned, column-constant conjuncts only, 13-row blocks, bitpack, code
+    and run lanes with run-shaped NULLs, every opcode at a stack 8 deep;
+    twice bit for bit."""
+    prog, img = fx.mask_edge_cases(cuda)[name]
+    want = fm.fused_mask_plain(prog, img)
+    outs = [torch.empty_like(want) for _ in range(2)]
+    for out in outs:
+        fm.launch_mask(prog, img, out)
+    assert torch.equal(outs[0], want)
+    assert torch.equal(outs[1], outs[0])
+
+
+def test_mask_kernel_keeps_its_walk_in_registers(cuda):
+    """The instance that runs each edge plan holds the plan's stack in the
+    fewest slots (2, 4 or 8; none for column-constant conjuncts only) and
+    spills nothing to local memory; a plan past the kernel's 8 slots is
+    refused."""
+    slots = {"ragged": 2, "view": 2, "conjuncts": 0, "conjuncts_view": 0, "small": 2,
+             "encoded": 4, "encoded_view": 4, "every_op": 8}
+    for name, (prog, img) in fx.mask_edge_cases(cuda).items():
+        attrs = fm.mask_attributes(prog, img)
+        assert attrs["stackSlots"] == slots[name], (name, attrs)
+        assert attrs["localSizeBytes"] == 0, (name, attrs)
+    prog, img = fx.mask_edge_cases(cuda)["ragged"]
+    col, lt, filt = fa.OP_COL, fa._FN_OPS["lt"], fa.OP_FILTER
+    deep = dataclasses.replace(prog, code=tuple([col] * 9 + [lt] * 8 + [filt]))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fm.launch_mask(deep, img, torch.empty((img.n_blocks, img.block_rows), dtype=torch.bool,
+                                              device=cuda))
 
 
 def _block(img, b):
@@ -634,6 +673,21 @@ def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad)
     with pytest.raises(ValueError):  # the carry may not be the output with a perm
         fused_mesh.mesh_merge(mprog, parts, table, carry, out=carry,
                               perm=fx.merge_perm(cap, cap, cuda))
+
+
+@pytest.mark.parametrize("name", fx.UNION_EDGE_CASES)
+def test_union_kernel_edges_match_plain_version(cuda, name):
+    """dict_union at its edges (``fx.union_edge_case``): 1, T - 1, T and
+    T + 1 keys, all sentinel, all equal, exactly cap and cap + 1 distinct
+    keys, a carried dictionary, every tile the tile route takes, the sort
+    route; against its plain version, the flag too, twice bit for bit."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    d, keys, cap = fx.union_edge_case(name)
+    fa.reset_launches()
+    fx.union_kernel_check(d, keys, cap, cuda)
+    assert fa.LAUNCHES["dict_union"] >= 2
+    assert fd.union_attributes()["localSizeBytes"] == 0
 
 
 def test_sharded_grouped_evaluator_on_the_card(cuda):

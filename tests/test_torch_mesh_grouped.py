@@ -364,8 +364,69 @@ def test_dict_capacity_limits():
     fd.check_capacity((1 << 31) - 1)
     assert fd.union_launches(100_000, 64) == {"dict_union": len(fd.union_passes(100_000, 64))}
     assert fd.union_launches(8 * 32768, 32768) == {
-        "dict_union": 1, "dict_merge": 4, "dict_count": 1, "dict_compact": 1}
-    assert fd.merge_widths(fd.TILE_MAX) == [] and fd.merge_widths(fd.TILE_MAX + 1) == [fd.TILE_MAX]
+        "dict_union": 1, "dict_merge": 6, "dict_count": 1, "dict_compact": 1}
+    assert fd.merge_widths(fd.SORT_TILE) == [] \
+        and fd.merge_widths(fd.SORT_TILE + 1) == [fd.SORT_TILE]
+
+
+def test_union_limits_match_the_cuda_source():
+    """The union's keys a thread (E), its sort tile, its largest tile and
+    the dictionary sizes in csrc/fused_dict.cu against the wrapper's; every
+    tile the wrapper launches is one the kernel takes (a power of two from
+    one warp's run to 1,024 threads' keys) and fits in shared memory."""
+    import re
+    from pathlib import Path
+
+    text = (Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_dict.cu").read_text()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", text))
+    assert int(defines["DU_E"]) == fd.KEYS_A_THREAD
+    assert int(defines["DU_SORT_TILE"]) == fd.SORT_TILE
+    assert int(defines["DU_TILE_MAX"]) == fd.TILE_MAX
+    assert int(defines["DI_SMEM_KEYS"]) == fd.CAP_MAX
+    assert int(defines["DU_THREADS"]) * int(defines["DC_PER_THREAD"]) == fd.CHUNK
+    assert "#define DU_WARP_KEYS (32 * DU_E)" in text
+    warp_keys = 32 * fd.KEYS_A_THREAD
+    assert fd.TILE_MAX // fd.KEYS_A_THREAD == int(defines["DU_THREADS"])
+    pingpong = int(defines["DU_PINGPONG_MAX"])
+    for cap in (1, 64, 512, 4096, fd.CAP_MAX):
+        tile = fd.union_tile(cap)
+        assert tile & (tile - 1) == 0 and warp_keys <= tile <= fd.TILE_MAX
+        smem = (2 if tile <= pingpong else 1) * (tile + tile // fd.KEYS_A_THREAD) * 8
+        assert smem <= 232448
+    for tile in (fd.SORT_TILE, fd.TILE_MIN):
+        assert tile & (tile - 1) == 0 and warp_keys <= tile <= fd.TILE_MAX
+
+
+def test_union_passes_follow_the_tile():
+    """The tile route's passes at the tiles it takes: a shard's 131,072
+    keys (and the carried 64) at 64 slots take three passes of 1,024-key
+    tiles, at 2,048 slots six of 4,096; the sort route's merge passes and
+    padded keys follow its tile of 4,096 keys."""
+    n = 131_072 + 64
+    assert fd.union_tile(64) == fd.TILE_MIN == 1024
+    assert fd.union_passes(n, 64) == [n, 129 * 64, 9 * 64]
+    assert fd.union_tile(2048) == 4096
+    assert fd.union_passes(n, 2048) == [n, 33 * 2048, 17 * 2048, 9 * 2048, 5 * 2048, 3 * 2048,
+                                        2 * 2048]
+    assert fd.union_passes(100, 64) == [100]
+    assert fd.sorted_keys(163_840) == 163_840 and fd.sorted_keys(1) == fd.SORT_TILE == 4096
+    assert fd.merge_widths(163_840) == [4096 << i for i in range(6)]
+    assert fd.merge_widths((1 << 18) + 1) == [4096 << i for i in range(7)]
+    assert fd.union_launches(163_840, 32768) == {
+        "dict_union": 1, "dict_merge": 6, "dict_count": 1, "dict_compact": 1}
+
+
+@pytest.mark.parametrize("name", fx.UNION_EDGE_CASES)
+def test_union_edge_cases_keep_the_smallest_distinct_keys(name):
+    """Each input of the kernel's edges (``fx.union_edge_case``) through
+    ``dict_union_plain`` against ``np.unique``, cut to ``cap``; the flag
+    exactly when there are more distinct keys."""
+    d, keys, cap = fx.union_edge_case(name)
+    got, over = fd.dict_union_plain(d, keys, cap)
+    want, want_over = _union_numpy(np.zeros(0, np.int64) if d is None else d.numpy(),
+                                   keys.numpy(), cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert over == want_over
 
 
 @settings(max_examples=25, deadline=None)

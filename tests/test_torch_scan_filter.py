@@ -180,6 +180,91 @@ def test_plain_mask_matches_the_jax_mask_program(n_valid):
     np.testing.assert_array_equal(got.numpy()[0], want)
 
 
+@pytest.mark.parametrize("n_valid", [256, 203])
+def test_plain_mask_of_every_opcode_matches_the_jax_mask_program(n_valid):
+    """The conjuncts that reach every opcode of a mask program with a stack
+    eight deep (``fx.every_op_selection``, the mask kernel's edge case) over
+    the nullable schema's int, decimal and double columns: the port's plain
+    mask against the JAX package's mask program."""
+    from tikv_tpu.copr import rpn as jax_rpn
+
+    conds = fx.every_op_selection(jax_rpn.call, jax_rpn.col, jax_rpn.const_int,
+                                  jax_rpn.const_decimal, jax_rpn.const_real, cols=(1, 2, 3))
+    dag = DagRequest(executors=[TableScan(bench.TABLE_ID, _nullable_schema()), Selection(conds)])
+    block_rows = 256
+    data, nulls, valid = _mask_inputs(np.random.default_rng(n_valid + 11), block_rows, n_valid)
+    jev = jax_eval.JaxDagEvaluator(dag, block_rows=block_rows)
+    assert jev.device_cols == jev.nullable_cols == [1, 2, 3]
+    want = np.asarray(jev._build_mask_fn()([jnp.asarray(d) for d in data],
+                                           [jnp.asarray(m) for m in nulls],
+                                           jnp.asarray(valid), None))
+    port = TorchDagEvaluator(dag_to_wire(dag), block_rows=block_rows, device="cpu")
+    assert _stack_depth(port.plan.mask_program.code) == 8
+    img = Image([torch.from_numpy(d.reshape(1, -1)) for d in data],
+                [torch.from_numpy(m.reshape(1, -1)) for m in nulls], n_valid, 1, block_rows, CPU)
+    got = fm.fused_mask(port.plan.mask_program, img)
+    assert 0 < int(got.sum()) < n_valid
+    np.testing.assert_array_equal(got.numpy()[0], want)
+
+
+def _stack_depth(code) -> int:
+    """The most operand slots a program's bytecode holds at once."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr.kernels import KERNELS
+
+    depth = most = 0
+    for word in code:
+        op = word & 0xFF
+        if op in (fa.OP_COL, fa.OP_CONST, fa.OP_NULL):
+            depth += 1
+        elif op in fa._OP_FNS:
+            depth -= KERNELS[fa._OP_FNS[op]][0] - 1
+        elif op in (fa.OP_FILTER, fa.OP_AGG, fa.OP_KEY):
+            depth -= 1
+        most = max(most, depth)
+    return most
+
+
+def test_mask_edge_plans_reach_every_stack_instance():
+    """The mask kernel's edge plans (``fx.mask_edge_cases``) and config 2's
+    plan reach each stack size of the kernel's instances (2, 4 and 8
+    slots), so the on-card edge tests run every instance (the conjunct
+    plans, config 2's among them, run the one with no stack)."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+
+    cases = fx.mask_edge_cases(CPU)
+    depths = {name: _stack_depth(prog.code) for name, (prog, _img) in cases.items()}
+    assert depths == {"ragged": 2, "view": 2, "conjuncts": 2, "conjuncts_view": 2, "small": 2,
+                      "encoded": 3, "encoded_view": 3, "every_op": 8}
+    assert {next(s for s in (2, 4, 8) if s >= d) for d in depths.values()} == {2, 4, 8}
+    prog = TorchDagEvaluator(dag_to_wire(bench._filter_dag("filter")), block_rows=1024,
+                             device="cpu").plan.mask_program
+    assert _stack_depth(prog.code) == 2  # config 2's plan
+    assert _stack_depth([fa.OP_COL] * 3 + [fa._FN_OPS["lt"]] * 2 + [fa.OP_FILTER]) == 3
+
+
+def test_mask_edge_cases_agree_with_their_plain_images():
+    """The mask's edge images through the plain version: a view of blocks
+    1-2 gives those blocks' rows of the whole image's mask, an encoded image
+    the mask of its decoded lanes (program #1), rows past each block's
+    n_valid are never kept."""
+    cases = fx.mask_edge_cases(CPU, seed=3)
+    whole = fm.fused_mask_plain(*cases["ragged"])
+    assert torch.equal(fm.fused_mask_plain(*cases["view"]), whole[1:3])
+    prog, enc = cases["encoded"]
+    lanes = [enc.lanes(j) for j in range(len(enc.cols))]
+    decoded = Image([d for d, _nl in lanes], [nl for _d, nl in lanes], enc.n_valids,
+                    enc.n_blocks, enc.block_rows, CPU)
+    got = fm.fused_mask_plain(prog, enc)
+    assert torch.equal(got, fm.fused_mask_plain(prog, decoded))
+    assert torch.equal(fm.fused_mask_plain(*cases["encoded_view"]), got[1:3])
+    for name, (prog, img) in cases.items():
+        m = fm.fused_mask_plain(prog, img)
+        past = torch.arange(img.block_rows)[None, :] >= img.n_valids[:, None]
+        assert not bool((m & past).any()), name
+        assert 0 < int(m.sum()), name
+
+
 class _CountingSource(FixtureScanSource):
     def next_batch(self, n):
         out = super().next_batch(n)

@@ -404,6 +404,28 @@ def test_q1_topn_matches_the_numpy_oracle_and_cuts_two_groups():
     assert port_wire(fx.q1_topn_dag()) == dag_to_wire(jax_dag)
 
 
+def test_mask_tile_constants_match_the_cuda_source():
+    """The mask kernel's tile (rows a thread) and its instances' stack slots
+    in csrc/fused_scan.cu and csrc/fa_walk.cuh against the wrapper's: an
+    instance of 2, 4 and 8 slots (the last the stack the compiler allows)
+    and one with no stack."""
+    import re
+    from pathlib import Path
+
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_mask as fm
+
+    csrc = Path(fm.__file__).resolve().parent.parent / "csrc"
+    scan = (csrc / "fused_scan.cu").read_text()
+    walk = (csrc / "fa_walk.cuh").read_text()
+    assert int(re.search(r"#define SC_MASK_ROWS (\d+)", scan).group(1)) == fm.MASK_ROWS
+    assert int(re.search(r"#define FA_MAX_STACK (\d+)", walk).group(1)) == fa.MAX_STACK
+    # the instances the launcher picks from, by the plan's stack depth
+    for slots in (0, 2, 4, fa.MAX_STACK):
+        assert f"fused_mask<{slots}>" in scan
+    assert fm.MASK_ROWS == 4
+
+
 def test_scan_limits_and_parameter_blocks_match_the_cuda_source():
     import ctypes
     import re

@@ -19,9 +19,11 @@ with three kernels of ``csrc/fused_dict.cu``:
   keys keeps its first ``cap`` distinct keys, and the tiles' lists are the
   next pass's keys, until one tile is left (``csrc/fused_dict.cu`` says why
   that is exact).  Past it, the *sort route*: one ``dict_union`` pass sorts
-  every tile of :data:`TILE_MAX` keys, ``dict_merge`` passes merge the
+  every tile of :data:`SORT_TILE` keys, ``dict_merge`` passes merge the
   sorted runs pairwise in device memory, and ``dict_count`` then
-  ``dict_compact`` keep the first ``cap`` distinct keys and flag more.
+  ``dict_compact`` keep the first ``cap`` distinct keys and flag more.  A
+  block sorts its tile with :data:`KEYS_A_THREAD` keys a thread: in
+  registers, then across its warp, then by merge path in shared memory.
 * ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
   1)`` per row into an image's ``gids`` lane; with the old dictionary,
   ``perm`` (``searchsorted(new_dict, old_key)``, ``cap`` for a sentinel
@@ -58,9 +60,11 @@ from .fused_agg import (
 SENTINEL = 1 << 62  # an empty dictionary slot; sorts after every key
 FLAG_RANGE = 1  # a group value outside [0, lane_max)
 FLAG_CAPACITY = 2  # more distinct keys than the dictionary's slots
-TILE_MIN = 4096
-TILE_MAX = 16384  # 128 KB of int64 keys in a block's shared memory
+KEYS_A_THREAD = 16  # keys a dict_union thread sorts in registers (DU_E)
+TILE_MIN = 1024  # the tile route's smallest tile
+TILE_MAX = 16384  # the largest tile: 1,024 threads, 136 KB of shared memory
 CAP_MAX = TILE_MAX // 2  # the tile route's largest dictionary; past it, the sort route
+SORT_TILE = 4096  # the sort route's tile (DU_SORT_TILE)
 CHUNK = 8192  # sorted keys a dict_count / dict_compact block reads (DC_CHUNK)
 _I64_MIN = -(1 << 63)
 
@@ -121,11 +125,17 @@ def union_passes(n: int, cap: int) -> list[int]:
     return out
 
 
+def sorted_keys(n: int) -> int:
+    """Keys the sort route's tiles of :data:`SORT_TILE` hold for ``n`` keys
+    (the last tile padded)."""
+    return max(1, -(-n // SORT_TILE)) * SORT_TILE
+
+
 def merge_widths(n: int) -> list[int]:
     """The sort route's ``dict_merge`` passes for ``n`` keys: the width of
     the runs each one merges pairwise (one launch a pass)."""
-    sorted_n = max(1, -(-n // TILE_MAX)) * TILE_MAX
-    out, w = [], TILE_MAX
+    sorted_n = sorted_keys(n)
+    out, w = [], SORT_TILE
     while w < sorted_n:
         out.append(w)
         w *= 2
@@ -219,8 +229,10 @@ def dict_union_plain(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: in
     x = keys if dict_keys is None else torch.cat([dict_keys, keys])
     if tile is None and cap > CAP_MAX:
         s = union_pass_plain(x, TILE_MAX, TILE_MAX)[0].reshape(-1)
-        for w in merge_widths(x.numel()):
+        w = TILE_MAX
+        while w < s.numel():
             s = merge_pass_plain(s, w)
+            w *= 2
         return compact_plain(s, cap)
     tile = union_tile(cap) if tile is None else tile
     if tile < 2 * cap:
@@ -286,6 +298,7 @@ def kernels():
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dk_params_size.restype = ci
         lib.du_tile_max.restype = ci
+        lib.du_attributes.argtypes = [vp]
         lib.dk_sentinel.restype = cll
         lib.dk_launch.argtypes = [vp, vp]
         lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp]
@@ -294,13 +307,15 @@ def kernels():
         lib.dc_launch_count.argtypes = [vp, cll, vp, vp]
         lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, vp, ci, vp]
         for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_count",
-                   "dc_launch_compact", "dc_chunk", "di_smem_keys"):
+                   "dc_launch_compact", "dc_chunk", "di_smem_keys", "du_sort_tile",
+                   "du_attributes"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_DkParams)}")
         if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL \
-                or lib.dc_chunk() != CHUNK or lib.di_smem_keys() != CAP_MAX:
+                or lib.dc_chunk() != CHUNK or lib.di_smem_keys() != CAP_MAX \
+                or lib.du_sort_tile() != SORT_TILE:
             raise RuntimeError("fused_dict.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib
@@ -384,17 +399,18 @@ def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
 def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
                 out: torch.Tensor) -> None:
     """The sort route of :func:`launch_union`: ``dict_union`` at ``cap = T =
-    TILE_MAX`` sorts every tile, ``dict_merge`` passes merge the runs in two
+    SORT_TILE`` sorts every tile, ``dict_merge`` passes merge the runs in two
     scratch buffers, ``dict_count`` and ``dict_compact`` write ``out``."""
     dev = x.device
     n = n_d + x.numel()
-    sorted_n = max(1, -(-n // TILE_MAX)) * TILE_MAX
+    sorted_n = sorted_keys(n)
     src = torch.empty(sorted_n, dtype=torch.int64, device=dev)
     counts = torch.empty(-(-sorted_n // CHUNK), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
-                           src.data_ptr(), flag.data_ptr(), TILE_MAX, TILE_MAX, stream)
+                           src.data_ptr(), flag.data_ptr(), SORT_TILE, SORT_TILE,
+                           stream)
         _launched("dict_union", rc)
         widths = merge_widths(n)
         if widths:
@@ -408,6 +424,16 @@ def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
         _launched("dict_compact", lib.dc_launch_compact(src.data_ptr(), sorted_n,
                                                         counts.data_ptr(), out.data_ptr(),
                                                         flag.data_ptr(), cap, stream))
+
+
+def union_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``dict_union``: registers a thread,
+    local (spilled) bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().du_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"dict_union attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
 
 
 def launch_ids(new_dict: torch.Tensor, keys: torch.Tensor, gids: torch.Tensor,

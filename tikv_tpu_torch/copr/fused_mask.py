@@ -10,7 +10,9 @@ bytecode with the conjuncts and no aggregate.
 * ``fused_mask_plain`` walks the bytecode with vectorised torch ops; it
   serves CPU tensors.
 * ``launch_mask`` launches ``fused_mask`` of ``csrc/fused_scan.cu`` on the
-  tensors' stream.
+  tensors' stream: :data:`MASK_ROWS` rows a thread, the instance whose
+  stack holds the plan (the kernel library reads its depth from the code),
+  over a grid the kernel library sizes to the card.
 * ``fused_mask`` takes the plain version for a CPU image and the kernel for a
   CUDA image; on a CUDA tensor it launches the kernel or raises.
 
@@ -47,7 +49,8 @@ MAX_KEYS = 4
 MAX_PAYLOAD = 16
 SMEM_MAX = 232448
 MASK_THREADS = 256
-MASK_GRID_MAX = 4096
+MASK_ROWS = 4  # rows a mask thread walks at once (SC_MASK_ROWS)
+DECODE_GRID_MAX = 4096
 
 
 def compile_mask_program(sel_rpns, ship_cols, schema) -> Program:
@@ -143,22 +146,23 @@ def kernels():
 
         lib = _build.load("fused_scan")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in ("sc_params_size", "tp_params_size", "tn_smem_max"):
+        for fn in ("sc_params_size", "tp_params_size", "tn_smem_max", "sc_mask_rows"):
             getattr(lib, fn).restype = ci
-        lib.sc_launch_mask.argtypes = [vp, vp, ci, vp]
+        lib.sc_launch_mask.argtypes = [vp, vp, vp]
+        lib.sc_mask_attributes.argtypes = [vp, vp]
         lib.tn_launch_candidates.argtypes = [vp, vp, ci, vp]
         lib.tn_launch_merge.argtypes = [vp, cll, vp, vp, ci, ci, vp]
         lib.tn_launch_pack.argtypes = [vp, vp]
         lib.dc_launch.argtypes = [vp, vp, vp, ci, vp]
-        for fn in ("sc_launch_mask", "tn_launch_candidates", "tn_launch_merge", "tn_launch_pack",
-                   "dc_launch"):
+        for fn in ("sc_launch_mask", "sc_mask_attributes", "tn_launch_candidates",
+                   "tn_launch_merge", "tn_launch_pack", "dc_launch"):
             getattr(lib, fn).restype = ci
         for name, want, got in (("ScParams", ctypes.sizeof(_ScParams), lib.sc_params_size()),
                                 ("TpParams", ctypes.sizeof(_TpParams), lib.tp_params_size())):
             if want != got:
                 raise RuntimeError(f"{name} layout mismatch: kernel {got} bytes, wrapper {want}")
-        if lib.tn_smem_max() != SMEM_MAX:
-            raise RuntimeError("TN_SMEM_MAX of the kernel differs from SMEM_MAX")
+        if lib.tn_smem_max() != SMEM_MAX or lib.sc_mask_rows() != MASK_ROWS:
+            raise RuntimeError("fused_scan.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib
 
@@ -177,13 +181,24 @@ def launch_mask(prog: Program, img: Image, out: torch.Tensor) -> None:
     if out.device != img.device or out.dtype != torch.bool or tuple(out.shape) != shape \
             or not out.is_contiguous():
         raise ValueError(f"mask: need contiguous bool {shape} on {img.device}")
-    total = img.n_blocks * img.block_rows
-    grid = max(1, min(MASK_GRID_MAX, -(-total // MASK_THREADS)))
     lib = kernels()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = lib.sc_launch_mask(ctypes.byref(p), out.data_ptr(), grid, stream)
+        rc = lib.sc_launch_mask(ctypes.byref(p), out.data_ptr(), stream)
     check_launch("fused_mask", rc)
+
+
+def mask_attributes(prog: Program, img: Image) -> dict:
+    """``cudaFuncGetAttributes`` of the mask instance that runs ``prog``
+    over ``img``: registers a thread, local (spilled) bytes a thread,
+    static shared bytes a block, and the instance's stack slots."""
+    p = scan_params(prog, img)
+    out = (ctypes.c_int * 4)()
+    rc = kernels().sc_mask_attributes(ctypes.byref(p), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_mask attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": out[3]}
 
 
 def fused_mask(prog: Program, img: Image) -> torch.Tensor:
@@ -216,7 +231,7 @@ def launch_decode(img: Image, out: torch.Tensor, out_nulls: torch.Tensor) -> Non
         if t.device != img.device or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"decoded {what}: need contiguous {dt} {shape} on {img.device}")
-    grid = max(1, min(MASK_GRID_MAX, -(-out.numel() // MASK_THREADS)))
+    grid = max(1, min(DECODE_GRID_MAX, -(-out.numel() // MASK_THREADS)))
     lib = kernels()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream

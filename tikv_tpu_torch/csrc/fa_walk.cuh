@@ -9,6 +9,7 @@
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
+// fa_walk_keys walks one row; fa_walk_tile (the mask's) R rows a thread.
 //
 // Also program #1 of the reference package, kernels.py:decode_device_column
 // (inlined there through jax_eval.py:_build_cols): the column load fa_load.
@@ -332,4 +333,465 @@ template <class P, class OnAgg>
 __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, long long i,
                                         OnAgg&& on_agg) {
   return fa_walk_keys(p, f, blk, i, on_agg, [](int, bool, long long) {});
+}
+
+// ---------------------------------------------------------------------------
+// The tile walk: the same bytecode over R consecutive rows of one block per
+// thread, with no local memory (fused_mask).
+//
+// fa_walk_keys keeps a row's columns and its operand stack in arrays indexed
+// at run time (v[arg], sv[sp]), which nvcc places in local memory.  The tile
+// walk decodes each instruction word once for the thread's R rows (the code
+// is the same for every thread, so its switch never diverges) and keeps the
+// stack in registers: D slots of R values, every access an unrolled select
+// over the slots, so that every array index is a compile-time constant.  The
+// NULL flags of a slot's R rows are the bits of one word, and so are the
+// rows' selection flags (R <= 8).  A column is loaded where FA_OP_COL pushes
+// it, a full aligned tile in 4-, 8- or 16-byte words.  A conjunct that
+// compares a column with a constant (COL, CONST, an optional rescale, the
+// comparison, FILTER) is evaluated in one step into the selection bits,
+// with no stack traffic and one dispatch instead of four or five; a plan of
+// such conjuncts only walks with no stack at all (fa_walk_conjuncts).
+// ---------------------------------------------------------------------------
+
+// Lanes [0, R) at `base` of a 1-, 2-, 4- or 8-byte payload, sign-extended;
+// lanes r >= n (past the block) load as 0.  A full tile whose address is
+// aligned to its bytes (at most 16) loads as words, else lane by lane.
+template <int R, typename T>
+__device__ __forceinline__ void fa_lanes(const T* base, int n, long long (&x)[R]) {
+  constexpr int B = R * (int)sizeof(T);
+  constexpr int A = B < 16 ? B : 16;
+  if (n == R && ((u64)base & (A - 1)) == 0) {
+    unsigned w[B / 4];
+    if constexpr (B >= 16) {
+#pragma unroll
+      for (int k = 0; k < B / 16; ++k) {
+        const uint4 q = __ldg((const uint4*)base + k);
+        w[4 * k] = q.x;
+        w[4 * k + 1] = q.y;
+        w[4 * k + 2] = q.z;
+        w[4 * k + 3] = q.w;
+      }
+    } else if constexpr (B == 8) {
+      const uint2 q = __ldg((const uint2*)base);
+      w[0] = q.x;
+      w[1] = q.y;
+    } else {
+      w[0] = __ldg((const unsigned*)base);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (sizeof(T) == 8) {
+        x[r] = (long long)(((u64)w[2 * r + 1] << 32) | w[2 * r]);
+      } else if constexpr (sizeof(T) == 4) {
+        x[r] = (int)w[r];
+      } else if constexpr (sizeof(T) == 2) {
+        x[r] = (short)(w[r / 2] >> (16 * (r % 2)));
+      } else {
+        x[r] = (signed char)(w[r / 4] >> (8 * (r % 4)));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = r < n ? (long long)__ldg(base + r) : 0;
+  }
+}
+
+// Bit r: bool byte r at `base` is set (r < n); one word where aligned.
+template <int R>
+__device__ __forceinline__ unsigned fa_flag_bits(const unsigned char* base, int n) {
+  unsigned bits = 0;
+  if (n == R && ((u64)base & (R - 1)) == 0) {
+    u64 w;
+    if constexpr (R == 8) {
+      w = __ldg((const unsigned long long*)base);
+    } else {
+      w = __ldg((const unsigned*)base);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) bits |= (unsigned)(((w >> (8 * r)) & 0xFF) != 0) << r;
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < n) bits |= (unsigned)(__ldg(base + r) != 0) << r;
+    }
+  }
+  return bits;
+}
+
+// Program #1 over a tile: column j at flat rows f0 + r (rows i0 + r of block
+// blk), r < n, as fa_load gives them; their NULL flags as bits of *xn.
+// Runs keep fa_load's binary search per row.
+template <int R, class P>
+__device__ __forceinline__ void fa_load_tile(const P& p, int j, long long f0, long long blk,
+                                             long long i0, int n, long long (&x)[R],
+                                             unsigned& xn) {
+  const int kind = p.enc.kind[j];
+  if (kind == FA_ENC_RLE) {
+    xn = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      bool nb = false;
+      x[r] = r < n ? fa_load(p, j, f0 + r, blk, i0 + r, nb) : 0;
+      xn |= (unsigned)nb << r;
+    }
+    return;
+  }
+  xn = p.nul[j] != nullptr ? fa_flag_bits<R>(p.nul[j] + f0, n) : 0;
+  const void* col = p.col[j];
+  switch (p.enc.width[j]) {
+    case 1: fa_lanes<R>((const signed char*)col + f0, n, x); break;
+    case 2: fa_lanes<R>((const short*)col + f0, n, x); break;
+    case 4: fa_lanes<R>((const int*)col + f0, n, x); break;
+    default: fa_lanes<R>((const long long*)col + f0, n, x); break;
+  }
+  if (kind != FA_ENC_PLAIN) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = (xn >> r) & 1 ? 0 : fa_wadd(x[r], p.enc.ref[j]);
+  }
+}
+
+// The operand stack of a tile: D slots of R values and their NULL bits.
+template <int R, int D>
+struct FaTileStack {
+  long long v[D][R];
+  unsigned n[D];
+};
+
+template <int R, int D>
+__device__ __forceinline__ void fa_get(const FaTileStack<R, D>& s, int t, long long (&x)[R],
+                                       unsigned& xn) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k == t) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) x[r] = s.v[k][r];
+      xn = s.n[k];
+    }
+  }
+}
+
+template <int R, int D>
+__device__ __forceinline__ void fa_put(FaTileStack<R, D>& s, int t, const long long (&x)[R],
+                                       unsigned xn) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k == t) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) s.v[k][r] = x[r];
+      s.n[k] = xn;
+    }
+  }
+}
+
+// Bit r: x[r] <op> y[r] (op one of LT..NE), f64 where either side is (a
+// mixed pair compares in f64, as numpy promotes it).  Each row takes three
+// comparisons and no branch; the op picks their combination once: NE is the
+// complement of EQ, so a NaN is unequal to everything, as in numpy.
+template <int R>
+__device__ __forceinline__ unsigned fa_cmp_bits(int op, const long long (&x)[R],
+                                                const long long (&y)[R], bool fx, bool fy) {
+  unsigned lt = 0, gt = 0, eq = 0;
+  if (fx || fy) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const double a = fa_num(x[r], fx), b = fa_num(y[r], fy);
+      lt |= (unsigned)(a < b) << r;
+      gt |= (unsigned)(a > b) << r;
+      eq |= (unsigned)(a == b) << r;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      lt |= (unsigned)(x[r] < y[r]) << r;
+      gt |= (unsigned)(x[r] > y[r]) << r;
+      eq |= (unsigned)(x[r] == y[r]) << r;
+    }
+  }
+  switch (op) {
+    case FA_OP_LT: return lt;
+    case FA_OP_LE: return lt | eq;
+    case FA_OP_GT: return gt;
+    case FA_OP_GE: return gt | eq;
+    case FA_OP_EQ: return eq;
+    default: return ~eq & ((1u << R) - 1);  // FA_OP_NE
+  }
+}
+
+// Bit r: value r is true.
+template <int R>
+__device__ __forceinline__ unsigned fa_truth_bits(const long long (&x)[R], bool is_f) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) bits |= (unsigned)fa_truthy(x[r], is_f) << r;
+  return bits;
+}
+
+template <int R>
+__device__ __forceinline__ void fa_set_bits(long long (&x)[R], unsigned bits) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) x[r] = (bits >> r) & 1;
+}
+
+// The words of a conjunct `column <cmp> constant` starting at pc, a decimal
+// rescale of either side between the constant and the comparison: COL,
+// CONST, SCALE (depth 0 or 1)?, LT..NE, FILTER; 0 when the code there has
+// another shape.  The host's launcher asks it too (which instance to run).
+template <class P>
+__host__ __device__ __forceinline__ int fa_cmp_filter_len(const P& p, int pc) {
+  if (pc + 3 >= p.n_code || (p.code[pc] & 0xFF) != FA_OP_COL
+      || (p.code[pc + 1] & 0xFF) != FA_OP_CONST) {
+    return 0;
+  }
+  int q = pc + 2;
+  if ((p.code[q] & 0xFF) == FA_OP_SCALE) {
+    if (((p.code[q] >> 24) & 0xFF) > 1) return 0;
+    ++q;
+  }
+  if (q + 1 >= p.n_code) return 0;
+  const int op = p.code[q] & 0xFF;
+  if (op < FA_OP_LT || op > FA_OP_NE || (p.code[q + 1] & 0xFF) != FA_OP_FILTER) return 0;
+  return q + 2 - pc;
+}
+
+// The conjunct of fa_cmp_filter_len at pc over the column's lanes x and
+// NULL bits xn (loaded for its COL word): the rows it keeps, as bits.  The
+// comparison's value is 0 or 1, NULL where the column is, so FILTER keeps
+// the rows whose comparison holds on a non-NULL value.
+template <int R, class P>
+__device__ __forceinline__ unsigned fa_cmp_filter(const P& p, int pc, int len, long long (&x)[R],
+                                                  unsigned xn) {
+  const int wc = p.code[pc + 1];
+  long long c = p.consts[(wc >> 8) & 0xFF];
+  int q = pc + 2;
+  if (len == 5) {
+    const int ws = p.code[q++];
+    const long long m = p.consts[(ws >> 8) & 0xFF];
+    const bool fs = (ws >> 16) & 1;
+    if (((ws >> 24) & 0xFF) == 0) {
+      c = fs ? fa_raw(fa_f(c) * (double)m) : fa_wmul(c, m);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) x[r] = fs ? fa_raw(fa_f(x[r]) * (double)m) : fa_wmul(x[r], m);
+    }
+  }
+  const int w = p.code[q];
+  long long cs[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) cs[r] = c;
+  return fa_cmp_bits(w & 0xFF, x, cs, (w >> 16) & 1, (w >> 17) & 1) & ~xn;
+}
+
+// The walk of a plan whose every conjunct compares a column with a constant
+// (fa_cmp_filter_len matches at each one, which the launcher checks): no
+// stack at all, so it needs the fewest registers and the card holds the
+// most threads (requesting a group of conjuncts' lanes at once was slower,
+// its buffers halving the threads).  The tile as in fa_walk_tile.
+template <int R, class P>
+__device__ __forceinline__ unsigned fa_walk_conjuncts(const P& p, long long f0, long long blk,
+                                                      long long i0, int n, unsigned valid) {
+  unsigned active = valid;
+  for (int pc = 0; pc < p.n_code;) {
+    const int len = fa_cmp_filter_len(p, pc);
+    if (len == 0) break;  // another shape: the launcher runs such plans on fa_walk_tile
+    long long x[R];
+    unsigned xn;
+    fa_load_tile<R>(p, (p.code[pc] >> 8) & 0xFF, f0, blk, i0, n, x, xn);
+    active &= fa_cmp_filter<R>(p, pc, len, x, xn);
+    pc += len;
+  }
+  return active;
+}
+
+// The walk over the tile at flat row f0 (row i0 of block blk): n rows of the
+// block (n <= R), of which those set in `valid` lie below n_valid.  Returns
+// the rows that passed the selection, as bits.  The stack holds D <=
+// FA_MAX_STACK slots: the plan's depth, which the caller checks.  Only the
+// selection is evaluated: an aggregate or a sort key is popped unread.
+template <int R, int D, class P>
+__device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long long blk,
+                                                 long long i0, int n, unsigned valid) {
+  static_assert(R <= 8 && D <= FA_MAX_STACK, "tile walk limits");
+  constexpr unsigned ALL = (1u << R) - 1;
+  FaTileStack<R, D> s;
+  long long a[R], b[R];
+  unsigned an = 0, bn = 0;
+  int sp = 0;
+  unsigned active = valid;
+  for (int pc = 0; pc < p.n_code; ++pc) {
+    const int w = p.code[pc];
+    const int op = w & 0xFF;
+    const int arg = (w >> 8) & 0xFF;
+    const bool fa = (w >> 16) & 1;
+    const bool fb = (w >> 17) & 1;
+    const int dep = (w >> 24) & 0xFF;
+    switch (op) {
+      case FA_OP_COL: {
+        fa_load_tile<R>(p, arg, f0, blk, i0, n, a, an);
+        // `column <cmp> constant` goes straight into the selection, past
+        // the stack: the most common conjunct
+        const int len = fa_cmp_filter_len(p, pc);
+        if (len > 0) {
+          active &= fa_cmp_filter<R>(p, pc, len, a, an);
+          pc += len - 1;
+        } else {
+          fa_put(s, sp++, a, an);
+        }
+        break;
+      }
+      case FA_OP_CONST: {
+        const long long c = p.consts[arg];
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = c;
+        fa_put(s, sp++, a, 0u);
+        break;
+      }
+      case FA_OP_NULL:
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = 0;
+        fa_put(s, sp++, a, ALL);
+        break;
+      case FA_OP_SCALE: {
+        const int t = sp - 1 - dep;
+        const long long m = p.consts[arg];
+        fa_get(s, t, a, an);
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = fa ? fa_raw(fa_f(a[r]) * (double)m) : fa_wmul(a[r], m);
+        fa_put(s, t, a, an);
+        break;
+      }
+      case FA_OP_LT:
+      case FA_OP_LE:
+      case FA_OP_GT:
+      case FA_OP_GE:
+      case FA_OP_EQ:
+      case FA_OP_NE:
+        fa_get(s, sp - 2, a, an);
+        fa_get(s, sp - 1, b, bn);
+        fa_set_bits(a, fa_cmp_bits(op, a, b, fa, fb));
+        fa_put(s, sp - 2, a, an | bn);
+        --sp;
+        break;
+      case FA_OP_AND:
+      case FA_OP_OR: {
+        fa_get(s, sp - 2, a, an);
+        fa_get(s, sp - 1, b, bn);
+        const unsigned ta = fa_truth_bits(a, fa), tb = fa_truth_bits(b, fb);
+        const unsigned at = ta & ~an, bt = tb & ~bn;
+        unsigned val, nul;
+        if (op == FA_OP_AND) {
+          // false AND anything is false (not null)
+          const unsigned af = ~ta & ~an, bf = ~tb & ~bn;
+          val = at & bt;
+          nul = (an | bn) & ~af & ~bf;
+        } else {
+          val = at | bt;
+          nul = (an | bn) & ~at & ~bt;
+        }
+        fa_set_bits(a, val);
+        fa_put(s, sp - 2, a, nul & ALL);
+        --sp;
+        break;
+      }
+      case FA_OP_XOR:
+        fa_get(s, sp - 2, a, an);
+        fa_get(s, sp - 1, b, bn);
+        fa_set_bits(a, fa_truth_bits(a, fa) ^ fa_truth_bits(b, fb));
+        fa_put(s, sp - 2, a, an | bn);
+        --sp;
+        break;
+      case FA_OP_NOT:
+        fa_get(s, sp - 1, a, an);
+        fa_set_bits(a, ~fa_truth_bits(a, fa));
+        fa_put(s, sp - 1, a, an);
+        break;
+      case FA_OP_IS_NULL:
+        fa_get(s, sp - 1, a, an);
+        fa_set_bits(a, an);
+        fa_put(s, sp - 1, a, 0u);
+        break;
+      case FA_OP_IS_TRUE:
+        fa_get(s, sp - 1, a, an);
+        fa_set_bits(a, fa_truth_bits(a, fa) & ~an);
+        fa_put(s, sp - 1, a, 0u);
+        break;
+      case FA_OP_IS_FALSE:
+        fa_get(s, sp - 1, a, an);
+        fa_set_bits(a, ~fa_truth_bits(a, fa) & ~an);
+        fa_put(s, sp - 1, a, 0u);
+        break;
+      case FA_OP_IS_NOT_NULL:
+        fa_get(s, sp - 1, a, an);
+        fa_set_bits(a, ~an);
+        fa_put(s, sp - 1, a, 0u);
+        break;
+      case FA_OP_PLUS:
+      case FA_OP_MINUS:
+      case FA_OP_MUL:
+        fa_get(s, sp - 2, a, an);
+        fa_get(s, sp - 1, b, bn);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (fa || fb) {
+            const double x = fa_num(a[r], fa), y = fa_num(b[r], fb);
+            a[r] = fa_raw(op == FA_OP_PLUS ? x + y : op == FA_OP_MINUS ? x - y : x * y);
+          } else {
+            a[r] = op == FA_OP_PLUS ? fa_wadd(a[r], b[r])
+                 : op == FA_OP_MINUS ? fa_wsub(a[r], b[r]) : fa_wmul(a[r], b[r]);
+          }
+        }
+        fa_put(s, sp - 2, a, an | bn);
+        --sp;
+        break;
+      case FA_OP_NEG:
+        fa_get(s, sp - 1, a, an);
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = fa ? fa_raw(-fa_f(a[r])) : fa_wsub(0, a[r]);
+        fa_put(s, sp - 1, a, an);
+        break;
+      case FA_OP_ABS:
+        fa_get(s, sp - 1, a, an);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (fa) {
+            a[r] = fa_raw(fabs(fa_f(a[r])));
+          } else if (a[r] < 0) {
+            a[r] = fa_wsub(0, a[r]);
+          }
+        }
+        fa_put(s, sp - 1, a, an);
+        break;
+      case FA_OP_BIT_AND:
+      case FA_OP_BIT_OR:
+      case FA_OP_BIT_XOR:
+        fa_get(s, sp - 2, a, an);
+        fa_get(s, sp - 1, b, bn);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a[r] = op == FA_OP_BIT_AND ? (a[r] & b[r])
+               : op == FA_OP_BIT_OR ? (a[r] | b[r]) : (a[r] ^ b[r]);
+        }
+        fa_put(s, sp - 2, a, an | bn);
+        --sp;
+        break;
+      case FA_OP_BIT_NEG:
+        fa_get(s, sp - 1, a, an);
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = ~a[r];
+        fa_put(s, sp - 1, a, an);
+        break;
+      case FA_OP_FILTER:
+        fa_get(s, sp - 1, a, an);
+        active &= fa_truth_bits(a, fa) & ~an;
+        --sp;
+        break;
+      case FA_OP_AGG:
+      case FA_OP_KEY:
+        --sp;
+        break;
+      default:  // FA_OP_COUNT1 reads nothing
+        break;
+    }
+  }
+  return active;
 }

@@ -23,33 +23,55 @@
 // union of each tile's `cap` smallest distinct keys (a key with fewer than
 // cap distinct keys below it in the union has fewer below it in its tile),
 // and a tile with more than cap distinct keys proves that the union has
-// more.  So each block sorts one tile of T keys in shared memory (bitonic,
-// T a power of two >= 2 * cap), keeps its first cap distinct keys and
-// flags the overflow; the wrapper launches the same kernel again over the
-// tiles' lists until one tile is left.  If no tile of any pass overflows,
-// no key was dropped and the last tile counts every distinct key: the flag
-// is exactly "more than cap distinct keys".
+// more.  So each block sorts one tile of T keys (T a power of two >= 2 *
+// cap), keeps its first cap distinct keys and flags the overflow; the
+// wrapper launches the same kernel again over the tiles' lists until one
+// tile is left.  If no tile of any pass overflows, no key was dropped and
+// the last tile counts every distinct key: the flag is exactly "more than
+// cap distinct keys".
 //
-// Past DI_SMEM_KEYS = DU_TILE_MAX / 2 slots a tile no longer holds two lists
-// of cap keys, so the union sorts in device memory instead: one dict_union
-// pass with cap = T = DU_TILE_MAX gives every tile's keys sorted (its
-// distinct keys, padded with the sentinel); dict_merge passes merge pairs
-// of sorted runs (each key's place is its index plus its rank in the other
-// run, by binary search: stable, no atomics) until one run is left;
-// dict_count counts the distinct keys of each chunk of DC_CHUNK sorted keys
-// and dict_compact writes the first cap of them in order (a chunk's offset
-// is the sum of the counts before it, a key's rank within it a block scan),
-// pads with the sentinel and flags more than cap.  Memory: two buffers of
-// the keys.
+// How a block sorts its tile (T / DU_E threads, DU_E keys each):
+//   1. each thread loads DU_E keys (striped across the block, so that every
+//      warp load is coalesced; 16-byte loads where the tile lies in one
+//      array, aligned), sentinel-padded, and sorts them in registers with a
+//      bitonic network whose indices are compile-time constants;
+//   2. each warp merges its lanes' runs into one run of 32 * DU_E keys by
+//      bitonic exchanges over __shfl_xor_sync (a flip, then half-cleaners):
+//      no shared memory, no block barrier;
+//   3. the block merges the warps' runs pairwise in shared memory by merge
+//      path: each thread finds where its DU_E outputs start by a binary
+//      search on its diagonal and merges them sequentially, so a level costs
+//      one barrier (two when the tile is too large for two buffers, past
+//      DU_PINGPONG_MAX keys, and merges in place); the buffers hold one pad
+//      word every DU_E keys, so that a thread's run does not fall on one
+//      bank;
+//   4. the distinct keys are ranked by a block scan of the threads' counts
+//      (du_scan) and the first cap written.
+// The tile route runs tiles of union_tile(cap) keys (copr/fused_dict.py:
+// at least TILE_MIN = 1,024, so a shard's 131,072 keys at 64 slots fill 128
+// blocks); the smallest tile is one warp's, DU_WARP_KEYS.
+//
+// Past DI_SMEM_KEYS slots a tile no longer needs to hold two lists of cap
+// keys, so the union sorts in device memory instead: one dict_union pass
+// with cap = T = DU_SORT_TILE gives every tile's keys sorted (its distinct
+// keys, padded with the sentinel) over enough blocks to cover the card;
+// dict_merge passes merge pairs of sorted runs (each key's place is its
+// index plus its rank in the other run, by binary search: stable, no
+// atomics) until one run is left; dict_count counts the distinct keys of
+// each chunk of DC_CHUNK sorted keys and dict_compact writes the first cap
+// of them in order (a chunk's offset is the sum of the counts before it, a
+// key's rank within it a block scan), pads with the sentinel and flags more
+// than cap.  Memory: two buffers of the keys.
 //
 // What bounds them on an H100: dict_keys reads the referenced columns of
 // every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
-// per row, as fused_mask; dict_union sorts (log2(T)^2 / 2 compare-exchange
-// stages a tile) and reads each key once; dict_ids does a binary search of
+// per row, as the mask did before its tile walk; dict_union reads each key
+// once and sorts in registers and shared memory (log2(T / 512) merge
+// levels a tile after the warps' sorts); dict_ids does a binary search of
 // at most 13 steps per row in a shared-memory copy of the dictionary (past
-// DI_SMEM_KEYS slots, in the dictionary itself, in device memory).  At
-// the mesh path's shapes (131,072 rows a shard, cap 64) all three are a few
-// microseconds of launch latency and a handful of tiles.
+// DI_SMEM_KEYS slots, in the dictionary itself, in device memory).  At the
+// mesh path's shapes (131,072 rows a shard, cap 64) all three are a few
+// microseconds of launch latency.
 //
 // Determinism: integers only; the one atomic ORs a flag bit.  Reruns are
 // bit-identical.
@@ -64,12 +86,16 @@
 #define DU_THREADS 1024
 #define DI_THREADS 256
 #define DI_GRID_MAX 1024
-#define DU_TILE_MAX 16384  // 128 KB of int64 keys in shared memory
+#define DU_E 16                    // keys a dict_union thread sorts in registers
+#define DU_WARP_KEYS (32 * DU_E)   // a warp's run: the smallest tile
+#define DU_TILE_MAX 16384          // the largest tile (1,024 threads), 136 KB in shared memory
+#define DU_PINGPONG_MAX 8192       // tiles up to this merge between two buffers
+#define DU_SORT_TILE 4096          // the sort route's tile
 #define DM_THREADS 256
 #define DM_GRID_MAX 4096
 #define DC_PER_THREAD 8
 #define DC_CHUNK (DU_THREADS * DC_PER_THREAD)  // sorted keys a dict_count/dict_compact block reads
-#define DI_SMEM_KEYS (DU_TILE_MAX / 2)          // past this, dict_ids searches in device memory
+#define DI_SMEM_KEYS 8192          // past this, dict_ids searches in device memory
 #define DK_SENTINEL (1LL << 62)
 #define DK_FLAG_RANGE 1     // a key value outside [0, lane_max)
 #define DK_FLAG_CAPACITY 2  // more than cap distinct keys
@@ -139,9 +165,10 @@ __global__ void __launch_bounds__(DK_THREADS) dict_keys(const __grid_constant__ 
 // ---------------------------------------------------------------------------
 
 // Block-wide exclusive scan of one int per thread; returns the thread's
-// offset and sets *total.  `warp_sums` holds DU_THREADS / 32 ints.
+// offset and sets *total.  `warp_sums` holds blockDim.x / 32 ints (a block
+// of whole warps).
 __device__ __forceinline__ int du_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   int x = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -151,76 +178,213 @@ __device__ __forceinline__ int du_scan(int v, int* warp_sums, int* total) {
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int s = lane < DU_THREADS / 32 ? warp_sums[lane] : 0;
+    int s = lane < warps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, s, d);
       if (lane >= d) s += y;
     }
-    if (lane < DU_THREADS / 32) warp_sums[lane] = s;
+    if (lane < warps) warp_sums[lane] = s;
   }
   __syncthreads();
-  *total = warp_sums[DU_THREADS / 32 - 1];
+  *total = warp_sums[warps - 1];
   return (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
+}
+
+// Key g of the virtual array (dict[0..n_dict) ++ keys[0..n_keys)), the
+// sentinel past its end.
+__device__ __forceinline__ long long du_key(const long long* dict, long long n_dict,
+                                           const long long* keys, long long n_keys, long long g) {
+  if (g < n_dict) return __ldg(dict + g);
+  if (g - n_dict < n_keys) return __ldg(keys + (g - n_dict));
+  return DK_SENTINEL;
+}
+
+// Shared-memory slot of sorted position j: one pad word every DU_E keys.
+__device__ __forceinline__ int du_pad(int j) { return j + j / DU_E; }
+
+__device__ __forceinline__ void du_cx(long long& a, long long& b) {
+  const long long lo = a < b ? a : b, hi = a < b ? b : a;
+  a = lo;
+  b = hi;
+}
+
+// Ascending bitonic sort of the thread's DU_E keys.
+__device__ __forceinline__ void du_sort_regs(long long (&v)[DU_E]) {
+#pragma unroll
+  for (int size = 2; size <= DU_E; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < DU_E; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          if ((i & size) == 0) {
+            du_cx(v[i], v[j]);
+          } else {
+            du_cx(v[j], v[i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The smaller (low) or the larger of a and b.
+__device__ __forceinline__ long long du_keep(long long a, long long b, bool low) {
+  return low == (a < b) ? a : b;
+}
+
+// The warp's 32 sorted runs of DU_E keys merged into one: lane l ends with
+// positions [l * DU_E, (l + 1) * DU_E) of the warp's sorted keys.  Step g
+// merges runs of g / 2 lanes pairwise into runs of g lanes: the flip
+// compares each position with its mirror in the g-lane run (key e of lane l
+// with key DU_E - 1 - e of lane l ^ (g - 1)), then half-cleaners across
+// lanes (lane l ^ h, the same key) and within the thread; the lower
+// position keeps the smaller key.  The flip exchanges keys e and DU_E - 1 -
+// e together, so that both are sent before either changes.
+__device__ __forceinline__ void du_warp_merge(long long (&v)[DU_E]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 2; g <= 32; g <<= 1) {
+    {
+      const bool low = (lane & (g >> 1)) == 0;
+#pragma unroll
+      for (int e = 0; e < DU_E / 2; ++e) {
+        const long long mirror_of_e = __shfl_xor_sync(0xffffffffu, v[DU_E - 1 - e], g - 1);
+        const long long mirror_of_last = __shfl_xor_sync(0xffffffffu, v[e], g - 1);
+        v[e] = du_keep(v[e], mirror_of_e, low);
+        v[DU_E - 1 - e] = du_keep(v[DU_E - 1 - e], mirror_of_last, low);
+      }
+    }
+#pragma unroll
+    for (int h = g >> 2; h > 0; h >>= 1) {
+      const bool low = (lane & h) == 0;
+#pragma unroll
+      for (int e = 0; e < DU_E; ++e) v[e] = du_keep(v[e], __shfl_xor_sync(0xffffffffu, v[e], h), low);
+    }
+#pragma unroll
+    for (int stride = DU_E >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < DU_E; ++i) {
+        const int j = i ^ stride;
+        if (j > i) du_cx(v[i], v[j]);
+      }
+    }
+  }
+}
+
+// The thread's DU_E outputs of one merge-path level: sorted runs of L keys
+// of s, pairwise; the thread writes positions [o, o + DU_E) of its pair.
+// Its split (i keys from the first run, o - i from the second) is the first
+// i whose key in the first run exceeds the second run's key at o - 1 - i; a
+// key of the first run goes before an equal one of the second.
+__device__ __forceinline__ void du_merge_path(const long long* s, int L, long long (&v)[DU_E]) {
+  const int per_pair = 2 * L / DU_E;
+  const int pair = threadIdx.x / per_pair;
+  const int o = (threadIdx.x - pair * per_pair) * DU_E;
+  const int a0 = pair * 2 * L, b0 = a0 + L;
+  int lo = o > L ? o - L : 0, hi = o < L ? o : L;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[du_pad(a0 + mid)] <= s[du_pad(b0 + o - 1 - mid)]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int i = lo, j = o - lo;
+  long long x = i < L ? s[du_pad(a0 + i)] : 0, y = j < L ? s[du_pad(b0 + j)] : 0;
+#pragma unroll
+  for (int k = 0; k < DU_E; ++k) {
+    const bool from_a = j >= L || (i < L && x <= y);
+    v[k] = from_a ? x : y;
+    if (from_a) {
+      ++i;
+      x = i < L ? s[du_pad(a0 + i)] : 0;
+    } else {
+      ++j;
+      y = j < L ? s[du_pad(b0 + j)] : 0;
+    }
+  }
 }
 
 // Keys [blockIdx.x * T, (blockIdx.x + 1) * T) of the virtual array
 // (dict[0..n_dict) ++ keys[0..n_keys)), padded with the sentinel, sorted;
 // out[blockIdx.x] = their first cap distinct non-sentinel keys, padded with
-// the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more.
+// the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more.  T is
+// a power of two in [DU_WARP_KEYS, DU_TILE_MAX], the block T / DU_E threads.
 __global__ void __launch_bounds__(DU_THREADS)
 dict_union(const long long* __restrict__ dict, long long n_dict,
            const long long* __restrict__ keys, long long n_keys, long long* __restrict__ out,
            int* flag, int cap, int T) {
   extern __shared__ long long du_smem[];
-  long long* s = du_smem;
-  __shared__ int warp_sums[DU_THREADS / 32];
+  __shared__ int warp_sums[32];
+  const int tid = threadIdx.x, nt = blockDim.x;
   const long long base = (long long)blockIdx.x * T;
-  for (int t = threadIdx.x; t < T; t += DU_THREADS) {
-    const long long g = base + t;
-    long long v = DK_SENTINEL;
-    if (g < n_dict) {
-      v = __ldg(dict + g);
-    } else if (g - n_dict < n_keys) {
-      v = __ldg(keys + (g - n_dict));
-    }
-    s[t] = v;
+  long long v[DU_E];
+  // 1. load (key e of thread t is tile position e * nt + t) and sort
+  const long long* run = nullptr;  // the tile's keys, when they lie in one array
+  if (base + T <= n_dict) {
+    run = dict + base;
+  } else if (base >= n_dict && base - n_dict + T <= n_keys) {
+    run = keys + (base - n_dict);
   }
+  if (run != nullptr && ((unsigned long long)run & 15) == 0) {
+    const longlong2* r2 = (const longlong2*)run;
+#pragma unroll
+    for (int e = 0; e < DU_E / 2; ++e) {
+      const longlong2 q = __ldg(r2 + e * nt + tid);
+      v[2 * e] = q.x;
+      v[2 * e + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < DU_E; ++e) v[e] = du_key(dict, n_dict, keys, n_keys, base + e * nt + tid);
+  }
+  du_sort_regs(v);
+  // 2. the warp's run
+  du_warp_merge(v);
+  // 3. the warps' runs merged, level by level
+  long long* src = du_smem;
+  long long* dst = T <= DU_PINGPONG_MAX ? du_smem + du_pad(T) : du_smem;
+#pragma unroll
+  for (int e = 0; e < DU_E; ++e) src[du_pad(tid * DU_E + e)] = v[e];
   __syncthreads();
-  for (int size = 2; size <= T; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < T; t += DU_THREADS) {
-        const int u = t ^ stride;
-        if (u > t) {
-          const long long a = s[t], b = s[u];
-          if ((t & size) == 0 ? a > b : a < b) {
-            s[t] = b;
-            s[u] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
+  for (int L = DU_WARP_KEYS; L < T; L <<= 1) {
+    du_merge_path(src, L, v);
+    if (dst == src) __syncthreads();  // in place: every read before any write
+#pragma unroll
+    for (int e = 0; e < DU_E; ++e) dst[du_pad(tid * DU_E + e)] = v[e];
+    __syncthreads();
+    long long* t = src;
+    src = dst;
+    dst = t;
   }
-  // each thread owns E consecutive sorted keys: the distinct ones are
-  // ranked by a block scan of the per-thread counts
-  const int E = T / DU_THREADS;
-  const int lo = threadIdx.x * E;
+  // 4. the thread's DU_E consecutive sorted keys are in v: the distinct ones
+  // are ranked by a block scan of the per-thread counts
+  const int lo = tid * DU_E;
+  long long prev = tid > 0 ? src[du_pad(lo - 1)] : 0;
   int fresh = 0;
-  for (int j = lo; j < lo + E; ++j) {
-    fresh += s[j] < DK_SENTINEL && (j == 0 || s[j] != s[j - 1]);
+#pragma unroll
+  for (int e = 0; e < DU_E; ++e) {
+    fresh += v[e] < DK_SENTINEL && (lo + e == 0 || v[e] != prev);
+    prev = v[e];
   }
   int distinct;
   int rank = du_scan(fresh, warp_sums, &distinct);
-  long long* dst = out + (long long)blockIdx.x * cap;
-  for (int j = lo; j < lo + E; ++j) {
-    if (s[j] < DK_SENTINEL && (j == 0 || s[j] != s[j - 1])) {
-      if (rank < cap) dst[rank] = s[j];
+  long long* out_tile = out + (long long)blockIdx.x * cap;
+  prev = tid > 0 ? src[du_pad(lo - 1)] : 0;
+#pragma unroll
+  for (int e = 0; e < DU_E; ++e) {
+    if (v[e] < DK_SENTINEL && (lo + e == 0 || v[e] != prev)) {
+      if (rank < cap) out_tile[rank] = v[e];
       ++rank;
     }
+    prev = v[e];
   }
-  for (int r = distinct + threadIdx.x; r < cap; r += DU_THREADS) dst[r] = DK_SENTINEL;
-  if (distinct > cap && threadIdx.x == 0) atomicOr(flag, DK_FLAG_CAPACITY);
+  for (int r = distinct + tid; r < cap; r += nt) out_tile[r] = DK_SENTINEL;
+  if (distinct > cap && tid == 0) atomicOr(flag, DK_FLAG_CAPACITY);
 }
 
 // ---------------------------------------------------------------------------
@@ -365,6 +529,19 @@ extern "C" {
 
 int dk_params_size(void) { return (int)sizeof(DkParams); }
 int du_tile_max(void) { return DU_TILE_MAX; }
+int du_sort_tile(void) { return DU_SORT_TILE; }
+
+// cudaFuncGetAttributes of dict_union: registers a thread, local and static
+// shared bytes, into out[0..3).
+int du_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)dict_union);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
 long long dk_sentinel(void) { return DK_SENTINEL; }
 
 // Each launcher returns cudaGetLastError() right after its launch.
@@ -377,17 +554,25 @@ int dk_launch(const DkParams* p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The shared memory of a dict_union block for a tile of T keys.
+static int du_smem_bytes(int T) {
+  return (T <= DU_PINGPONG_MAX ? 2 : 1) * (T + T / DU_E) * 8;
+}
+
 // One pass: ceil((n_dict + n_keys) / T) tiles, out [tiles][cap].
 int du_launch(const long long* dict, long long n_dict, const long long* keys, long long n_keys,
               long long* out, int* flag, int cap, int T, void* stream) {
+  if (T < DU_WARP_KEYS || T > DU_TILE_MAX || (T & (T - 1)) != 0 || cap > T) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long n = n_dict + n_keys;
   const long long tiles = n > 0 ? (n + T - 1) / T : 1;
-  const int smem = T * 8;
+  const int smem = du_smem_bytes(T);
   const int err = (int)cudaFuncSetAttribute(dict_union,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  dict_union<<<(unsigned)tiles, DU_THREADS, smem, (cudaStream_t)stream>>>(dict, n_dict, keys,
-                                                                         n_keys, out, flag, cap, T);
+  dict_union<<<(unsigned)tiles, T / DU_E, smem, (cudaStream_t)stream>>>(dict, n_dict, keys,
+                                                                       n_keys, out, flag, cap, T);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@
 // Replaces these JAX programs of the reference package (tikv_tpu/copr):
 //   * jax_eval.py:_build_mask_fn (site jax_eval.mask): the selection
 //     conjuncts over a block, `valid & AND_i (sel_i != 0 & ~null_i)`
-//     -> fused_mask;
+//     -> fused_mask (the tile walk of fa_walk.cuh);
 //   * jax_eval.py:_build_topn_fn / _topn_step (site jax_eval.topn): one step
 //     of the running top-K of a raw TopN, a stable lexicographic sort of
 //     the carried K rows ahead of the block's rows -> topn_candidates (a
@@ -33,11 +33,29 @@
 //   explicit, and the CPU comparator's (executors.py:_row_cmp) order.
 //
 // What bounds them on an H100: memory for fused_mask (the referenced
-// columns of every row, one byte of mask out), shared-memory sorting for
+// columns of every row, one byte of mask out; over a narrow encoded image
+// its loads, one conjunct's after another, and the walk's instructions
+// keep it above that), shared-memory sorting for
 // topn_candidates (a bitonic sort of each tile of rows, log2(tile)^2 / 2
 // compare-exchange stages).  The candidate kernel reads only the columns
 // the selection and the keys reference; payload columns are read by
 // topn_pack for the K winners alone.
+//
+// fused_mask walks SC_MASK_ROWS consecutive rows of one block a thread
+// (fa_walk_tile): each instruction word is decoded once for the tile, the
+// operand stack lives in registers (no local memory), a column is loaded
+// where the code pushes it, in 4- to 16-byte words for a full aligned tile,
+// a `column <cmp> constant` conjunct is evaluated in one step, n_valid is
+// read once a tile and the tile's mask bytes are stored as one word.  A tile
+// never straddles two blocks: a block whose row count is not a multiple of
+// the tile ends in a short one.  The stack's depth is a template argument
+// (2, 4 or 8 slots; the launcher reads the plan's depth from its code), so
+// that a shallow plan holds no dead registers; a plan whose conjuncts all
+// compare a column with a constant (config 2's) runs the instance with no
+// stack (fa_walk_conjuncts), which needs the fewest registers; the grid is
+// the number of blocks the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), each thread
+// stepping over tiles by the grid's stride.
 //
 // Determinism: no atomics and no floating-point arithmetic in any order
 // that varies; reruns are bit-identical.
@@ -49,6 +67,7 @@
 #include "fa_walk.cuh"
 
 #define SC_MASK_THREADS 256
+#define SC_MASK_ROWS 4  // rows a mask thread walks at once (its tile)
 #define TN_THREADS 512
 #define TN_MERGE_THREADS 256
 #define TN_MAX_KEYS 4
@@ -125,21 +144,101 @@ __device__ __forceinline__ long long sc_n_valid(const ScParams& p, long long blk
 }
 
 // ---------------------------------------------------------------------------
-// fused_mask: one row per thread, grid-stride
+// fused_mask: SC_MASK_ROWS rows a thread (a tile of one block), grid-stride
+// over tiles
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(SC_MASK_THREADS)
+static_assert(SC_MASK_ROWS == 4, "fused_mask stores a tile's mask bytes as one 32-bit word");
+
+// The minimum of one block an SM lets ptxas give the walk the registers it
+// needs: without it, the 2-slot instance is held to 64 and spills.
+template <int D>
+__global__ void __launch_bounds__(SC_MASK_THREADS, 1)
 fused_mask(const __grid_constant__ ScParams p, unsigned char* __restrict__ out) {
-  const long long total = p.n_blocks * p.block_rows;
+  constexpr int R = SC_MASK_ROWS;
+  const long long tiles = (p.block_rows + R - 1) / R;  // tiles a block
+  const long long total = p.n_blocks * tiles;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  ScCursor c(f, stride, p.block_rows);
-  for (; f < total; f += stride) {
-    bool active = false;
-    if (c.i < sc_n_valid(p, c.blk)) active = fa_walk(p, f, c.blk, c.i, [](int, bool, long long) {});
-    out[f] = active;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  ScCursor c(t, stride, tiles);
+  for (; t < total; t += stride) {
+    const long long i0 = c.i * R;
+    const long long f0 = c.blk * p.block_rows + i0;
+    const long long left = p.block_rows - i0;
+    const int n = left < R ? (int)left : R;  // the block's rows in the tile
+    const long long nv = sc_n_valid(p, c.blk) - i0;
+    const int live = nv <= 0 ? 0 : nv < n ? (int)nv : n;
+    unsigned active = 0;
+    if (live > 0) {
+      if constexpr (D == 0) {
+        active = fa_walk_conjuncts<R>(p, f0, c.blk, i0, n, (1u << live) - 1);
+      } else {
+        active = fa_walk_tile<R, D>(p, f0, c.blk, i0, n, (1u << live) - 1);
+      }
+    }
+    unsigned char* dst = out + f0;
+    if (n == R && ((u64)dst & (R - 1)) == 0) {
+      unsigned word = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) word |= ((active >> r) & 1u) << (8 * r);
+      *(unsigned*)dst = word;
+    } else {
+      for (int r = 0; r < n; ++r) dst[r] = (active >> r) & 1;
+    }
     c.advance();
   }
+}
+
+typedef void (*ScMaskKernel)(ScParams, unsigned char*);
+
+// The most operand slots the plan's code holds at once.
+static int sc_stack_depth(const ScParams* p) {
+  int depth = 0, most = 0;
+  for (int pc = 0; pc < p->n_code; ++pc) {
+    switch (p->code[pc] & 0xFF) {
+      case FA_OP_COL:
+      case FA_OP_CONST:
+      case FA_OP_NULL:
+        if (++depth > most) most = depth;
+        break;
+      case FA_OP_LT: case FA_OP_LE: case FA_OP_GT: case FA_OP_GE: case FA_OP_EQ: case FA_OP_NE:
+      case FA_OP_AND: case FA_OP_OR: case FA_OP_XOR: case FA_OP_PLUS: case FA_OP_MINUS:
+      case FA_OP_MUL: case FA_OP_BIT_AND: case FA_OP_BIT_OR: case FA_OP_BIT_XOR:
+      case FA_OP_FILTER: case FA_OP_AGG: case FA_OP_KEY:
+        --depth;
+        break;
+      default:  // SCALE, COUNT1 and the unary operators keep the depth
+        break;
+    }
+  }
+  return most;
+}
+
+// Whether every conjunct of the plan compares a column with a constant
+// (fa_cmp_filter_len matches at each one).
+static bool sc_conjuncts_only(const ScParams* p) {
+  for (int pc = 0; pc < p->n_code;) {
+    const int len = fa_cmp_filter_len(*p, pc);
+    if (len == 0) return false;
+    pc += len;
+  }
+  return true;
+}
+
+// The instance that runs the plan and its stack slots: none for
+// column-constant conjuncts only, else the fewest of 2, 4 or 8 that hold its
+// stack; nullptr for a plan deeper than FA_MAX_STACK (the compiler refuses
+// those).
+static ScMaskKernel sc_mask_kernel(const ScParams* p, int* slots) {
+  static_assert(FA_MAX_STACK == 8, "the mask instances' slots");
+  if (sc_conjuncts_only(p)) {
+    *slots = 0;
+    return fused_mask<0>;
+  }
+  const int depth = sc_stack_depth(p);
+  if (depth > FA_MAX_STACK) return nullptr;
+  *slots = depth <= 2 ? 2 : depth <= 4 ? 4 : 8;
+  return *slots == 2 ? fused_mask<2> : *slots == 4 ? fused_mask<4> : fused_mask<8>;
 }
 
 // ---------------------------------------------------------------------------
@@ -360,10 +459,48 @@ int tp_params_size(void) { return (int)sizeof(TpParams); }
 int tn_smem_max(void) { return TN_SMEM_MAX; }
 
 // Each launcher returns cudaGetLastError() right after its launch.
-int sc_launch_mask(const ScParams* p, unsigned char* out, int grid, void* stream) {
-  fused_mask<<<grid, SC_MASK_THREADS, 0, (cudaStream_t)stream>>>(*p, out);
-  return (int)cudaGetLastError();
+// sc_launch_mask runs the instance that holds the plan's stack
+// (cudaErrorInvalidValue past FA_MAX_STACK) over a grid of the blocks the
+// card holds at once, or fewer when the image has fewer tiles.
+int sc_launch_mask(const ScParams* p, unsigned char* out, void* stream) {
+  int slots = 0;
+  const ScMaskKernel k = sc_mask_kernel(p, &slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles = p->n_blocks * ((p->block_rows + SC_MASK_ROWS - 1) / SC_MASK_ROWS);
+  if (tiles == 0) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)k, SC_MASK_THREADS, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  long long grid = (tiles + SC_MASK_THREADS - 1) / SC_MASK_THREADS;
+  const long long full = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > full) grid = full;
+  void* args[] = {(void*)p, (void*)&out};
+  err = cudaLaunchKernel((const void*)k, dim3((unsigned)grid), dim3(SC_MASK_THREADS), args, 0,
+                         (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
+
+// cudaFuncGetAttributes of the mask instance that runs the plan: registers a
+// thread, local and static shared bytes, and its stack slots, into out[0..4).
+int sc_mask_attributes(const ScParams* p, int* out) {
+  int slots = 0;
+  const ScMaskKernel k = sc_mask_kernel(p, &slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)k);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = slots;
+  return 0;
+}
+
+int sc_mask_rows(void) { return SC_MASK_ROWS; }
 
 int tn_launch_candidates(const ScParams* p, u64* runs, int n_tiles, void* stream) {
   const int smem = (2 + 2 * p->n_keys) * p->tile * 8 + p->tile * 2;

@@ -777,6 +777,142 @@ def synthetic_mask_case(n_blocks: int, block_rows: int, gen: torch.Generator, de
     return prog, img
 
 
+def every_op_selection(call, col, const_int, const_decimal, const_real, cols=(0, 1, 2)) -> list:
+    """Conjuncts over an INT, a DECIMAL(2) and a REAL column (schema indices
+    ``cols``) that reach every opcode a mask program holds (all but the
+    aggregate and sort-key ones), with int, decimal and f64 operands mixed,
+    decimal rescales and NULL constants, and a sum whose eight operands fill
+    the stack to its ``MAX_STACK`` slots.  The expression builders are passed
+    in, so that the JAX package's tests build the same conjuncts."""
+    def a():
+        return col(cols[0])
+
+    def b():
+        return col(cols[1])
+
+    def c():
+        return col(cols[2])
+
+    chain = [a, b, c, a, b, c, a, b]
+    deep = call("plus", chain[-2](), chain[-1]())
+    for operand in reversed(chain[:-2]):
+        deep = call("plus", operand(), deep)
+    return [
+        call("or", call("lt", deep, const_real(50.0)), call("is_null", c())),
+        call("or", call("xor", call("is_true", a()), call("is_false", c())),
+             call("not", call("eq", b(), const_decimal(150, 2)))),
+        call("or", call("ge", call("abs", call("unary_minus", a())), const_int(5)),
+             call("and", call("is_not_null", b()), call("lt", a(), const_int(None)))),
+        call("or", call("ne", call("bit_and", call("bit_or", a(), const_int(3)),
+                                   call("bit_neg", call("bit_xor", a(), const_int(7)))),
+                        const_int(0)),
+             call("gt", call("multiply", c(), a()), const_real(1.0))),
+        call("or", call("le", call("minus", b(), a()), const_decimal(-100, 2)),
+             call("ge", c(), const_real(None))),
+    ]
+
+
+def mask_edge_cases(device, seed: int = 0) -> dict:
+    """Mask programs and images at the mask kernel's edges, name -> ``(prog,
+    img)``, drawn with numpy from ``seed``: ``ragged`` (1,001-row blocks,
+    n_valid not a multiple of a tile), ``view`` (its blocks 1-2: a base
+    8 bytes past 16-byte alignment), ``conjuncts`` and ``conjuncts_view``
+    (the same images under a plan whose every conjunct compares a column
+    with a constant, each evaluated in one step), ``small`` (13-row blocks, one empty),
+    ``encoded`` (int8, int16 and int32 bitpack lanes, int8 and int16 codes,
+    runs with run-shaped NULLs, a REAL column; 1,003-row blocks),
+    ``encoded_view`` (its blocks 1-2) and ``every_op``
+    (:func:`every_op_selection`, a stack 8 deep, 4,099-row blocks)."""
+    from .copr.fused_mask import compile_mask_program
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def valids(nv):
+        return t(np.asarray(nv, dtype=np.int64))
+
+    out = {}
+    mask_schema = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0),
+                   (EvalType.INT, 0), (EvalType.DECIMAL, 4)]
+    # column <cmp> constant conjuncts as the kernel fuses them: int, a
+    # rescaled constant, a rescaled column, a REAL column against an INT
+    mask_sel = [call("ge", col(0), const_int(-(1 << 38))),
+                call("or", call("lt", col(2), const_real(900.0)), call("is_null", col(3))),
+                call("ne", col(4), const_decimal(7, 1)),
+                call("lt", col(1), const_decimal(123_456_789, 4)),
+                call("gt", col(2), const_int(5))]
+    mask_prog = compile_mask_program([compile_expr(e, mask_schema) for e in mask_sel],
+                                     [0, 1, 2, 3, 4], mask_schema)
+    for name, n_blocks, br, nv in (("ragged", 3, 1001, [1001, 998, 5]),
+                                   ("small", 4, 13, [13, 6, 0, 1])):
+        shape = (n_blocks, br)
+        cols = [rng.integers(-(1 << 40), 1 << 40, shape), rng.integers(-10**9, 10**9, shape),
+                rng.random(shape) * 1000.0, rng.integers(0, 1000, shape),
+                rng.integers(-10**6, 10**6, shape)]
+        nulls = [None, rng.random(shape) < 0.1, rng.random(shape) < 0.05,
+                 rng.random(shape) < 0.2, None]
+        out[name] = (mask_prog, Image([t(x) for x in cols], [t(m) for m in nulls], valids(nv),
+                                      n_blocks, br, dev))
+    out["view"] = (mask_prog, out["ragged"][1].blocks(1, 3))
+    # every conjunct a column against a constant: each one a single step
+    conj_sel = [call("ge", col(0), const_int(-(1 << 38))),
+                call("le", col(1), const_decimal(123_456_789, 4)),
+                call("ne", col(4), const_decimal(7, 1)),
+                call("lt", col(2), const_real(900.0)),
+                call("gt", col(2), const_int(5)),
+                call("ne", col(3), const_int(500))]
+    conj_prog = compile_mask_program([compile_expr(e, mask_schema) for e in conj_sel],
+                                     [0, 1, 2, 3, 4], mask_schema)
+    out["conjuncts"] = (conj_prog, out["ragged"][1])
+    out["conjuncts_view"] = (conj_prog, out["view"][1])
+
+    n_blocks, br = 3, 1003
+    kinds = [("bp", np.int8, "rows"), ("bp", np.int16, None), ("bp", np.int32, "rows"),
+             ("code", np.int8, None), ("code", np.int16, "rows"), ("rle", np.int64, "runs")]
+    cols, nulls, descs, refs = [], [], [], []
+    for j, (kind, lane, nl) in enumerate(kinds):
+        desc, payload, null_arr, ref = synthetic_encoded_column(kind, lane, nl, n_blocks, br,
+                                                                seed=seed + j)
+        cols.append(tuple(t(x) for x in payload) if kind == "rle" else t(payload))
+        nulls.append(t(null_arr))
+        descs.append(desc)
+        refs.append(ref)
+    shape = (n_blocks, br)
+    cols.append(t(rng.random(shape)))
+    nulls.append(t(rng.random(shape) < 0.1))
+    descs.append(("plain",))
+    refs.append(0)
+    enc_schema = [(EvalType.INT, 0)] * 6 + [(EvalType.REAL, 0)]
+    frame = (1 << 62) - 12345
+    enc_sel = [call("or", call("ge", col(0), const_int(frame)), call("lt", col(1), const_int(frame))),
+               call("or", call("ne", col(2), const_int(frame)), call("eq", col(3), const_int(1))),
+               call("or", call("le", col(4), const_int(1)), call("is_null", col(5))),
+               call("or", call("gt", col(5), const_int(0)), call("lt", col(6), const_real(0.5)))]
+    enc_prog = compile_mask_program([compile_expr(e, enc_schema) for e in enc_sel],
+                                    list(range(7)), enc_schema)
+    enc = Image(cols, nulls, valids([br, br - 3, 17]), n_blocks, br, dev, descs=tuple(descs),
+                refs=tuple(refs))
+    out["encoded"] = (enc_prog, enc)
+    out["encoded_view"] = (enc_prog, enc.blocks(1, 3))
+
+    n_blocks, br = 2, 4099
+    shape = (n_blocks, br)
+    op_schema = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0)]
+    op_prog = compile_mask_program(
+        [compile_expr(e, op_schema)
+         for e in every_op_selection(call, col, const_int, const_decimal, const_real)],
+        [0, 1, 2], op_schema)
+    cols = [rng.integers(-60, 60, shape), rng.integers(-10**4, 10**4, shape),
+            rng.normal(size=shape)]
+    out["every_op"] = (op_prog, Image([t(x) for x in cols],
+                                      [t(rng.random(shape) < 0.2) for _ in cols],
+                                      valids([br, 2049]), n_blocks, br, dev))
+    return out
+
+
 def synthetic_topn_case(n_blocks: int, block_rows: int, k: int, gen: torch.Generator, device):
     """A top-K program over four nullable columns and its images (candidate
     columns, payload columns) for holding the top-K kernels to their plain
@@ -1464,6 +1600,83 @@ def dict_case(n: int, cap: int, distinct: int, seed: int, device, bad: bool = Fa
     first, _bad = fused_dict.dict_keys_plain(prog, image_on(img, "cpu"))
     old, _over = fused_dict.dict_union_plain(None, first[: n // 2], cap)
     return prog, img, old.to(device)
+
+
+UNION_EDGE_CASES = ("one", "tile_minus_one", "tile", "tile_plus_one", "all_sentinel",
+                    "all_equal", "cap_exact", "cap_plus_one", "carried", "tile_2048",
+                    "tile_8192", "largest_tile", "sort_route", "sort_route_32768",
+                    "sort_tile_plus_one")
+
+
+def union_edge_case(name: str, seed: int = 0):
+    """One input of ``dict_union`` at an edge of its kernel: ``(dictionary
+    or None, keys, cap)`` as int64 tensors on the CPU, drawn with numpy from
+    ``seed``; ``name`` one of :data:`UNION_EDGE_CASES`.  The tile route at
+    64 slots (tiles of ``union_tile(64)`` = ``TILE_MIN`` keys) with 1, T -
+    1, T and T + 1 keys, keys all sentinel or all equal, exactly ``cap``
+    and ``cap + 1`` distinct keys, a carried dictionary; the other tiles
+    the route takes: 2,048 keys (1,024 slots), 8,192 (4,096 slots, the
+    largest that merges between two buffers) and 16,384 (8,192 slots,
+    merged in place); the sort route past ``CAP_MAX`` slots, at 32,768
+    slots over the mesh path's 163,840 keys, and one key past a sort
+    tile."""
+    from .copr import fused_dict as fd
+
+    rng = np.random.default_rng(seed)
+
+    def keys(n, spread, sentinel_p=0.2):
+        k = rng.integers(0, spread, n)
+        k[rng.random(n) < sentinel_p] = fd.SENTINEL
+        return k
+
+    def carried(cap, spread):
+        return fd.dict_union_plain(None, torch.from_numpy(keys(4 * cap, spread, 0.0)), cap)[0]
+
+    t = fd.union_tile(64)
+    cases = {
+        "one": (None, np.array([5]), 64),
+        "tile_minus_one": (None, keys(t - 1, 200), 64),
+        "tile": (None, keys(t, 200), 64),
+        "tile_plus_one": (None, keys(t + 1, 200), 64),
+        "all_sentinel": (None, np.full(5000, fd.SENTINEL), 64),
+        "all_equal": (None, np.full(5000, 42), 64),
+        "cap_exact": (None, rng.permutation(np.arange(5000) % 64) * 7, 64),
+        "cap_plus_one": (None, rng.permutation(np.arange(5000) % 65) * 7, 64),
+        "carried": (carried(64, 100), keys(20_000, 60), 64),
+        "tile_2048": (carried(1024, 1500), keys(30_000, 1200), 1024),
+        "tile_8192": (carried(4096, 6000), keys(60_000, 4500), 4096),
+        "largest_tile": (carried(8192, 12_000), keys(100_000, 8000), 8192),
+        "sort_route": (carried(9000, 20_000), keys(200_000, 20_000), 9000),
+        "sort_route_32768": (carried(32768, 60_000), keys(131_072, 60_000), 32768),
+        "sort_tile_plus_one": (None, keys(fd.SORT_TILE + 1, 20_000, 0.0), fd.CAP_MAX + 1),
+    }
+    d, k, cap = cases[name]
+    return d, torch.from_numpy(np.asarray(k, dtype=np.int64)), cap
+
+
+def union_kernel_check(d, keys: torch.Tensor, cap: int, device) -> dict:
+    """``dict_union`` on CUDA copies of ``d`` (or None) and ``keys`` against
+    ``dict_union_plain`` on the CPU: the union and the capacity flag equal,
+    two runs bit-identical.  Raises on a difference; returns the flag and
+    the union's fill."""
+    from .copr import fused_dict as fd
+
+    want, over = fd.dict_union_plain(d, keys, cap)
+    dd = None if d is None else d.to(device)
+    kd = keys.to(device)
+    runs = []
+    for _ in range(2):
+        flag = torch.zeros(1, dtype=torch.int32, device=device)
+        out = torch.empty(cap, dtype=torch.int64, device=device)
+        fd.launch_union(dd, kd, cap, flag, out)
+        runs.append((out.cpu(), int(flag.cpu())))
+    if not (torch.equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]):
+        raise AssertionError("dict_union: two runs differ")
+    if not torch.equal(runs[0][0], want):
+        raise AssertionError("dict_union: differs from its plain version")
+    if runs[0][1] != (fd.FLAG_CAPACITY if over else 0):
+        raise AssertionError(f"dict_union flag {runs[0][1]}, plain version over={over}")
+    return {"over": over, "live": int((want < fd.SENTINEL).sum())}
 
 
 def image_on(img: Image, device) -> Image:
