@@ -100,8 +100,9 @@ encoded ones and the 100M image alone (spread block by block); the raw
 TopN (K = 100) over 10M rows through ``ShardedTopNEvaluator`` at 131,072
 rows per shard.  Every answer equals its numpy oracle and, byte for byte,
 the single-device route's, whose times stand beside; then ``mesh_merge``
-at the path's own inputs against its plain version and timed, and the
-busiest device's batch kernels timed; the slab bytes pinned.
+at the path's own inputs, the busiest device's batch kernels and one
+shard's top-K kernels against their plain versions and timed; the slab
+bytes pinned.
 
 After phase 12, phase ``join`` drives the join rung (programs #14 and #15,
 ``csrc/fused_join.cu``) through ``copr/torch_join.serve``: the join event of
@@ -800,6 +801,9 @@ def time_topn(ft, prog, cand, pay) -> dict:
     nt = ft.n_tiles(prog, cand)
     runs = torch.empty((nt, w, k), dtype=torch.int64, device=dev)
     cand_ms = cuda_ms(lambda: ft.launch_candidates(prog, cand, runs, 0), 5)
+    attrs = ft.candidates_attributes(prog)
+    if attrs["localSizeBytes"] != 0:
+        raise AssertionError(f"topn_candidates spills to local memory: {attrs}")
     levels, n = 0, nt
     merge_bytes = 0
     while n > 1:
@@ -827,7 +831,8 @@ def time_topn(ft, prog, cand, pay) -> dict:
     return {"rows": rows, "k": k, "tile": prog.tile, "words": w, "tiles": nt,
             "merge_levels": levels,
             "topn_candidates": {"ms": cand_ms, "plain_ms": cand_plain_ms,
-                                "bound_ms": c_bound[0], "bound_by": c_bound[1]},
+                                "bound_ms": c_bound[0], "bound_by": c_bound[1],
+                                "attributes": attrs, "select_cap": ft.select_cap(k, prog.tile)},
             "topn_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms,
                            "bound_ms": m_bound[0], "bound_by": m_bound[1],
                            "per_request_ms": merge_ms * levels},
@@ -968,6 +973,9 @@ def time_batch(fb, tasks, iters: int) -> dict:
     out = (torch.empty((len(batch), batch.li, batch.c_max), dtype=torch.int64, device=dev),
            torch.empty((len(batch), batch.lf, batch.c_max), dtype=torch.float64, device=dev))
     p_ms = cuda_ms(lambda: fb.launch_batch_partials(batch, table, parts), iters)
+    attrs = fb.partials_attributes(fb.partials_slots(batch))
+    if attrs["localSizeBytes"] != 0:
+        raise AssertionError(f"batch_partials spills to local memory: {attrs}")
     c_ms = cuda_ms(lambda: fb.launch_batch_combine_pack(batch, table, parts, out), 100)
     pp_ms = cuda_ms(lambda: fb.batch_partials_plain(batch), 1, warmup=1)
     cp_ms = cuda_ms(lambda: fb.batch_combine_pack_plain(batch, parts), 2, warmup=1)
@@ -981,7 +989,8 @@ def time_batch(fb, tasks, iters: int) -> dict:
     return {"tasks": len(batch), "rows": sum(rows.values()), "ctas": batch.n_ctas,
             "partial_words": batch.n_parts, "partials_ms": p_ms, "partials_plain_ms": pp_ms,
             "partials_bound_ms": p_bound, "partials_bound_by": p_by, "combine_ms": c_ms,
-            "combine_plain_ms": cp_ms, "combine_bound_ms": c_bound, "combine_bound_by": c_by}
+            "combine_plain_ms": cp_ms, "combine_bound_ms": c_bound, "combine_bound_by": c_by,
+            "partials_attributes": attrs}
 
 
 def phase_batch(cache, wants: dict, card: str, br: int = 1 << 17) -> dict:
@@ -1572,6 +1581,7 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
                            [blocks[0][0][i][0] for i in topn.payload_cols], topn._pay_f64,
                            [None] * len(topn.payload_cols), blocks[0][1], 0)[0]
     pay.n_valids = torch.tensor([pay.n_valids], dtype=torch.int64, device=pay.device)
+    check_topn_kernels(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay, "a mesh shard")
     t_topn = {"step_shard": time_topn(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay),
               "finalize": time_topn_finalize(ft, topn, state)}
     del blocks, pay
@@ -1592,11 +1602,13 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     for key, case in cases.items():
         errs[key] = fx.mesh_merge_check(*case)
         t_merge[key] = time_merge(fme, case, 50)
-    # the per-device batch kernels of #20: the busiest device's tasks
-    t_dev = {}
+    # the per-device batch kernels of #20: the busiest device's tasks, held
+    # to their plain versions, then timed
+    t_dev, dev_checks = {}, {}
     for label in ("regions_64", "lone_100m"):
         device_tasks = pm.xshard_tasks(x_evs["q1"], warm_sets[label], mesh)[0]
         _pos, tasks = max(device_tasks, key=lambda dt: sum(t.img.n_blocks for t in dt[1]))
+        dev_checks[label] = fx.batch_kernel_check(tasks)
         t_dev[label] = time_batch(fb, tasks, 10)
     for key, results in out.items():
         same = {} if key == "topn" else {"byte_identical_to_single_device": True}
@@ -1605,7 +1617,8 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     emit({"phase": "mesh", "case": "kernels", "card": card, "shards": MESH_SHARDS,
           "mesh_merge_checks": errs, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "bit_identical_reruns": True, "mesh_merge": t_merge, "per_device_batch": t_dev,
-          "topn": t_topn, "launches": mesh_launches,
+          "per_device_batch_checks": dev_checks, "topn_shard_check": "equal", "topn": t_topn,
+          "launches": mesh_launches,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": mesh_launches, "merge": t_merge, "max_abs_err": max(errs.values()),
             "per_device": t_dev, "topn": t_topn}
@@ -2229,7 +2242,14 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     want_ids, want_perm = fd.dict_ids_plain(new.cpu(), kk.cpu(), old.cpu())
     if not (torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)):
         raise AssertionError("dict_ids in device memory: differs from its plain version")
-    ids_ms = cuda_ms(lambda: fd.launch_ids(new, kk, gids, old, perm), 20)
+    ids_cap, ids_n = new.numel(), kk.numel()
+    ids_bound = bound(ids_cap * 8 + ids_n * 8 + ids_n * 4 + ids_cap * 12,
+                      (ids_n + ids_cap) * max(1, ids_cap.bit_length()))
+    ids_ms = {"keys": ids_n, "capacity": ids_cap,
+              "ms": cuda_ms(lambda: fd.launch_ids(new, kk, gids, old, perm), 20),
+              "bound_ms": ids_bound[0], "bound_by": ids_bound[1],
+              "library_ms": cuda_ms(lambda: torch.searchsorted(new, kk), 20),
+              "library": "torch.searchsorted of the keys in the new dictionary"}
     emit({"phase": "high_capacity", "case": "kernels", "card": card,
           "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "wide_warm": t_warm, "shared_rows_same_image": t_shared, "wide_cold_block": t_cold,
@@ -2237,7 +2257,7 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
           "sort_union_global": t_sort_global, "dict_ids_device_memory_ms": ids_ms,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "warm": t_warm, "cold": t_cold, "shared": t_shared,
-            "sort": t_sort, "sort_global": t_sort_global,
+            "sort": t_sort, "sort_global": t_sort_global, "ids": ids_ms,
             "max_abs_err": max(t_warm["max_abs_err"], t_cold["max_abs_err"],
                                batch_err["wide"], mesh_err)}
 
@@ -2522,6 +2542,7 @@ def main() -> int:
     from tikv_tpu_torch import _build
     from tikv_tpu_torch import fixtures as fx
     from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
     from tikv_tpu_torch.copr import fused_group_agg as ga
     from tikv_tpu_torch.copr import fused_mask as fm
     from tikv_tpu_torch.copr import fused_dict as fd
@@ -3188,7 +3209,8 @@ def main() -> int:
          "bound_ms": t_topn[name]["bound_ms"], "bound_by": t_topn[name]["bound_by"],
          # torch.topk is the yardstick of the whole top-K step: it stands
          # beside the kernel that reads the rows
-         "library_ms": t_topn["library_ms"] if name == "topn_candidates" else None}
+         "library_ms": t_topn["library_ms"] if name == "topn_candidates" else None,
+         "attributes": t_topn[name].get("attributes")}
         for name, replaces, also in (
             ("topn_candidates", "tikv_tpu/copr/jax_eval.py:1537",
              ["tikv_tpu/copr/jax_eval.py:673", "tikv_tpu/copr/jax_eval.py:651"]),
@@ -3263,6 +3285,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "tikv_tpu_torch/csrc/fused_batch.cu",
             "replaces": replaces, "replaces_also": also, "launches": bt["launches"][name],
             "max_abs_err": bt["max_abs_err"][name], **at(t), "library_ms": None,
+            "attributes": t["partials_attributes"] if key == "partials" else None,
             "xregion": at(bt["xregion"]),
             "encoded": dict(at(bt["xregion_encoded"]), launches=bt["encoded_launches"][name])})
     # the join probes at the join phase's shape (500K probe rows against 125K
@@ -3302,6 +3325,8 @@ def main() -> int:
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t}
         if name == "dict_union":
             entry["global"] = mg["kernels"]["dict_union_global"]
+        if name == "dict_ids":
+            entry["past_8192_slots"] = hc["ids"]  # in device memory, beside the union's sort route
         kernels.append(entry)
     # the reused kernels' launches on the mesh main paths; mesh_merge with
     # the carry remap at the grouped path's shape
@@ -3373,7 +3398,26 @@ def main() -> int:
         return {k: t.get(k) for k in ("keys", "capacity", "tile", "passes", "ms", "library_ms",
                                       "bound_ms", "launches")}
 
+    def batch_times(t):
+        return {k: t[f"partials_{k}"] for k in ("ms", "bound_ms", "plain_ms", "attributes")}
+
+    def topn_times(t):
+        return {k: t["topn_candidates"][k] for k in ("ms", "bound_ms", "plain_ms", "attributes",
+                                                      "select_cap")}
+
     emit({"phase": "redesign", "card": card,
+          "batch_partials": {
+              "rows_a_thread": fb.ROWS, "batch_a": batch_times(bt["same_region"]),
+              "xregion_q1": batch_times(bt["xregion"]),
+              "xregion_q1_encoded": batch_times(bt["xregion_encoded"]),
+              "mesh_busiest_device": {k: batch_times(t)
+                                      for k, t in mesh_out["per_device"].items()},
+              "launches": bt["launches"]["batch_partials"]},
+          "topn_candidates": {
+              "step_rows": fm.TOPN_STEP_ROWS, "tile": t_topn["tile"],
+              "plain_image": topn_times(t_topn), "encoded": topn_times(t_topn_e),
+              "mesh_shard": topn_times(mesh_out["topn"]["step_shard"]),
+              "launches": topn_launches["topn_candidates"]},
           "fused_mask": {
               "rows_a_thread": fm.MASK_ROWS,
               "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),

@@ -737,3 +737,83 @@ def test_batch_task_struct_layout():
     body = re.sub(r"//.*", "", body[: body.index("};")])
     assert re.findall(r"(\w+)(?:\[\w+\])?;", body) == [n for n, _t in fused_batch._BtTask._fields_]
     assert int(re.search(r"#define BT_THREADS (\d+)", text).group(1)) == fused_batch.THREADS
+
+
+# ---------------------------------------------------------------------------
+# the tile walk of batch_partials: its instance and its rows
+# ---------------------------------------------------------------------------
+
+def test_partials_instance_follows_the_plans_stack_depth():
+    """The launcher runs the batch_partials instance whose stack holds the
+    deepest rider's plan: the fewest of 2, 4 or 8 slots (the depth read as
+    the mask's launcher reads it: a push per COL, CONST or NULL, a pop per
+    binary operator, FILTER, AGG and KEY); past 8 it refuses."""
+    from tikv_tpu_torch.copr import fused_agg as fa
+
+    col, const, lt, plus, filt, agg = (fa.OP_COL, fa.OP_CONST, fa._FN_OPS["lt"], fa.OP_PLUS,
+                                       fa.OP_FILTER, fa.OP_AGG)
+    assert fa.stack_depth([]) == 0 and fa.stack_slots([[]]) == 2
+    assert fa.stack_depth([col, const, lt, filt, col, agg]) == 2
+    assert fa.stack_depth([col, col, col, plus, plus, agg]) == 3
+    assert fa.stack_slots([[col, agg], [col, col, col, plus, plus, agg]]) == 4
+    deep = [col] * 8 + [plus] * 7 + [agg]
+    assert fa.stack_depth(deep) == 8 and fa.stack_slots([deep]) == 8
+    with pytest.raises(ValueError, match="operands deep"):
+        fa.stack_slots([[col] * 9 + [plus] * 8 + [agg]])
+    # the mask's instances for its edge plans (csrc/fused_scan.cu picks them
+    # with the same reading; conjuncts alone take its stackless one)
+    slots = {"ragged": 2, "view": 2, "small": 2, "encoded": 4, "encoded_view": 4, "every_op": 8}
+    for name, (prog, _img) in fx.mask_edge_cases(torch.device("cpu")).items():
+        if name in slots:
+            assert fa.stack_slots([prog.code]) == slots[name], name
+    region = Region(2, 29)
+    tasks = torch_eval.batch_tasks(_port_evs([d for _n, d, _o in _riders(ALL)]),
+                                   region.pcache)[0]
+    batch = fused_batch.Batch(tasks)
+    want = max(fa.stack_depth(t.prog.code) for t in tasks)
+    assert fused_batch.partials_slots(batch) == (2 if want <= 2 else 4 if want <= 4 else 8)
+
+
+@pytest.mark.parametrize("block_rows", [1001, 1024])
+def test_batch_partials_plain_gives_a_threads_rows_to_its_cta(block_rows):
+    """batch_partials walks ROWS rows of one block a thread: row i of block
+    b lies in tile b * ceil(block_rows / ROWS) + i // ROWS, and tile u in
+    the CTA (u mod grid * THREADS) // THREADS; a count(*) rider's partial
+    counts are those CTAs' valid rows (blocks of 1,001 rows end in a short
+    tile; the last block is short of its rows; the tiles outnumber the
+    grid's threads)."""
+    from tikv_tpu_torch.copr.aggr import AggDescriptor as PortAgg
+    from tikv_tpu_torch.copr.dag import Aggregation, DagRequest, TableScan
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire as port_wire
+    from tikv_tpu_torch.copr.fused_group_agg import LEAF_COUNT
+
+    n_blocks = 600
+    n = n_blocks * block_rows - 77
+    cache = fx.build_cache(n, block_rows, seed=31)
+    dag = DagRequest(executors=[TableScan(fx.TABLE_ID, fx.lineitem()),
+                                Aggregation([], [PortAgg("count", None)])])
+    ev = TorchDagEvaluator(port_wire(dag), block_rows=block_rows, device="cpu")
+    tasks = torch_eval.batch_tasks([ev], cache)[0]
+    batch = fused_batch.Batch(tasks)
+    grid = batch.grids[0]
+    assert grid * fused_batch.THREADS * fused_batch.ROWS < n  # the grid strides
+    parts = batch.parts_of(fused_batch.batch_partials_plain(batch), 0)
+    leaf = [l.kind for l in tasks[0].prog.leaves].index(LEAF_COUNT)
+    rows = np.arange(n)
+    b, i = rows // block_rows, rows % block_rows
+    tile = b * -(-block_rows // fused_batch.ROWS) + i // fused_batch.ROWS
+    cta = (tile % (grid * fused_batch.THREADS)) // fused_batch.THREADS
+    np.testing.assert_array_equal(parts[:, leaf, 0].numpy(), np.bincount(cta, minlength=grid))
+
+
+def test_batch_tile_constants_match_the_cuda_source():
+    """BT_ROWS of csrc/fused_batch.cu (rows a partials thread walks) and the
+    instances the launcher picks from against the wrapper's."""
+    import re
+    from pathlib import Path
+
+    text = (Path(fused_batch.__file__).resolve().parent.parent / "csrc"
+            / "fused_batch.cu").read_text()
+    assert int(re.search(r"#define BT_ROWS (\d+)", text).group(1)) == fused_batch.ROWS
+    for slots in (2, 4, 8):
+        assert f"batch_partials<{slots}>" in text

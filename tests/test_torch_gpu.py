@@ -293,6 +293,55 @@ def test_topn_kernels_match_plain_versions(cuda, k):
     assert torch.equal(state[0][:, :n_out], got[0][:, :n_out])
 
 
+def _cpu_image(img):
+    nv = img.n_valids.cpu() if isinstance(img.n_valids, torch.Tensor) else img.n_valids
+    return Image([c.cpu() for c in img.cols], [None if m is None else m.cpu() for m in img.nulls],
+                 nv, img.n_blocks, img.block_rows, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("name", fx.TOPN_EDGE_CASES)
+def test_topn_candidates_edges_match_plain_version(cuda, name):
+    """The select of topn_candidates at its edges, bit for bit against
+    candidates_plain: tiles with fewer than K passing rows and with none,
+    every key tied, NULL keys ascending and descending, -0.0 and +0.0, K = 1
+    and K at its limit, blocks whose rows are not a multiple of a thread's
+    tile and a short last tile; then the whole step warm and block by block
+    with the carry, and reruns bit-identical."""
+    prog, img = fx.topn_edge_case(name, cuda, seed=13)
+    host = _cpu_image(img)
+    runs = torch.empty((ft.n_tiles(prog, img), prog.n_words, prog.k), dtype=torch.int64,
+                       device=cuda)
+    again = torch.empty_like(runs)
+    ft.launch_candidates(prog, img, runs, 0)
+    ft.launch_candidates(prog, img, again, 0)
+    assert torch.equal(runs.cpu(), ft.candidates_plain(prog, host, 0))
+    assert torch.equal(runs, again)
+    got = ft.topn_step(prog, img, img)
+    _assert_state(tuple(t.cpu() for t in got), ft.topn_step(prog, host, host))
+    state = plain = None
+    for b in range(img.n_blocks):
+        blk, hblk = _block(img, b), _block(host, b)
+        state = ft.topn_step(prog, blk, blk, state, src_base=prog.k)
+        plain = ft.topn_step(prog, hblk, hblk, plain, src_base=prog.k)
+        _assert_state(tuple(t.cpu() for t in state), plain)
+
+
+def test_redesigned_kernels_keep_their_walks_in_registers(cuda):
+    """batch_partials and topn_candidates spill nothing to local memory in
+    any instance (2, 4 and 8 stack slots); fused_mask's four instances keep
+    the registers the tile walk gave them before it handed values out."""
+    from tikv_tpu_torch.copr import fused_batch as fb
+
+    prog, _img = fx.topn_edge_case("k1", cuda)
+    for slots in (2, 4, 8):
+        assert fb.partials_attributes(slots)["localSizeBytes"] == 0, slots
+        code = prog.code + (fa.OP_COL,) * (slots - 1) + (fa.OP_FILTER,) * (slots - 1)
+        attrs = ft.candidates_attributes(dataclasses.replace(prog, code=code))
+        assert attrs["stackSlots"] == slots and attrs["localSizeBytes"] == 0, attrs
+    regs = {name: fm.mask_attributes(p, i) for name, (p, i) in fx.mask_edge_cases(cuda).items()}
+    assert {a["stackSlots"]: a["numRegs"] for a in regs.values()} == {0: 62, 2: 78, 4: 98, 8: 137}
+
+
 def _to_cpu(img):
     return Image([c.cpu() for c in img.cols], [None if m is None else m.cpu() for m in img.nulls],
                  img.n_valids, img.n_blocks, img.block_rows, torch.device("cpu"))
@@ -487,6 +536,37 @@ def test_batch_kernels_match_plain_versions(cuda, kind, encoded):
     for tasks in runs:
         assert (tasks[0].img.descs is not None) == encoded
         fx.batch_kernel_check(tasks)
+
+
+@pytest.mark.parametrize("case", ["mixed_leaves", "capacities_and_wide", "no_group", "encoded",
+                                  "ragged_blocks", "ids_past_c"])
+def test_batch_partials_edges_match_plain_version(cuda, case):
+    """The tile walk of batch_partials against its plain version: the mixed
+    rider's leaf kinds (var_pop, first, the bit leaves, min and max) beside
+    Q1; one plan at three capacities, the last past c_max (wide); riders
+    with no group (Q6's shapes); an encoded image; blocks of 1,001 rows (not
+    a multiple of a thread's 4) with a short last block; Q1 at 4 slots, so
+    most ids lie past C and touch nothing.  Integer words exactly, f64 to
+    rel 1e-12, two runs bit-identical (``fixtures.batch_kernel_check``)."""
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr.torch_eval import batch_tasks
+
+    br = 1001 if case == "ragged_blocks" else 1 << 14
+    cache = fx.build_cache(7 * br - 345, br, seed=14, encode=case == "encoded")
+    plans = {n: d for n, d, _o in fx.batch_plans()}
+    names = {"mixed_leaves": ["q1", "mixed"], "no_group": ["q6", "q6_count_sum_min_max",
+                                                            "q6_price"]}.get(
+        case, ["q1", "q6", "bit_xor_by_linestatus"])
+    dags = [fx.mixed_dag() if n == "mixed" else plans[n] for n in names]
+    evs = [TorchDagEvaluator(dag_to_wire(d), block_rows=br, device=cuda) for d in dags]
+    tasks = batch_tasks(evs, cache)[0]
+    if case == "capacities_and_wide":
+        t = tasks[0]
+        tasks = [fb.Task(t.prog, t.img, c) for c in (16, 64, fb.c_max(t.prog) + 1)] + tasks[1:]
+    elif case == "ids_past_c":
+        tasks = [fb.Task(tasks[0].prog, tasks[0].img, 4)] + tasks[1:]
+    check = fx.batch_kernel_check(tasks)
+    assert check["wide_tasks"] == ([2] if case == "capacities_and_wide" else [])
 
 
 def test_batch_kernels_reject_mismatched_tensors(cuda):

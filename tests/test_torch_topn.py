@@ -451,3 +451,78 @@ def test_scan_limits_and_parameter_blocks_match_the_cuda_source():
     words = 2 + 2 * fm.MAX_KEYS
     assert ft.tile_rows(words) * (8 * words + 2) <= fm.SMEM_MAX
     assert ft.tile_rows(words) >= 2048 and ft.tile_rows(6) == ft.TILE_MAX
+
+
+# ---------------------------------------------------------------------------
+# topn_candidates' select: its sizes and its chunks
+# ---------------------------------------------------------------------------
+
+def test_candidate_select_sizes_match_the_cuda_source():
+    """topn_candidates walks steps of TN_THREADS * TN_ROWS rows, at most
+    TN_STEPS a tile, and gathers at most select_cap(k, tile) candidates:
+    a power of two, at least 2k and 256, at most the tile, so every K up to
+    the tile is served and the candidates' words fit shared memory."""
+    import re
+    from pathlib import Path
+
+    from tikv_tpu_torch.copr import fused_mask as fm
+
+    text = (Path(fm.__file__).resolve().parent.parent / "csrc" / "fused_scan.cu").read_text()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", text))
+    assert int(defines["TN_THREADS"]) * int(defines["TN_ROWS"]) == fm.TOPN_STEP_ROWS
+    assert int(defines["TN_STEPS"]) == fm.TOPN_STEPS
+    assert ft.TILE_MAX == fm.TOPN_STEP_ROWS * fm.TOPN_STEPS
+    for slots in (2, 4, 8):
+        assert f"topn_candidates<{slots}>" in text
+    assert [ft.select_cap(k, 4096) for k in (1, 100, 128, 129, 1000, 2048, 4096)] == \
+        [256, 256, 256, 512, 2048, 4096, 4096]
+    for n_keys in range(fm.MAX_KEYS + 1):
+        words = 2 + 2 * n_keys
+        tile = ft.tile_rows(words)
+        assert tile % fm.TOPN_STEP_ROWS == 0 and tile // fm.TOPN_STEP_ROWS <= fm.TOPN_STEPS
+        for k in (1, 100, tile // 2 + 1, tile):
+            cap = ft.select_cap(k, tile)
+            assert cap & (cap - 1) == 0 and k <= cap <= tile
+            assert words * cap * 8 + cap * 2 <= fm.SMEM_MAX
+
+
+def _u64_shr(x, s):
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _select_chunks(words, n_keys, tile):
+    """The chunks topn_candidates selects by (csrc/fused_scan.cu), from an
+    entry's words [n_words, rows]: rank, key 0's null rank and its word's top
+    62 bits; per key its word, then the next key's null rank and top 63
+    bits; last the row's index in its tile."""
+    rank = words[0]
+    if n_keys == 0:
+        chunks = [rank << 63]
+    else:
+        chunks = [rank << 63 | words[1] << 62 | _u64_shr(words[2], 2)]
+        for q in range(n_keys):
+            chunks.append(words[2 + 2 * q])
+            if q + 1 < n_keys:
+                chunks.append(words[3 + 2 * q] << 63 | _u64_shr(words[4 + 2 * q], 1))
+    chunks.append(torch.arange(words.shape[1]) % tile)
+    return torch.stack(chunks)
+
+
+@pytest.mark.parametrize("name", fx.TOPN_EDGE_CASES)
+def test_select_chunks_order_the_entries_as_their_words(name):
+    """A tile's entries sorted by the select's chunk strings come out in the
+    order of their words (the plain version's), ties, NULLs, -0.0 and the
+    rows past the image included: the select narrows the right entries."""
+    prog, img = fx.topn_edge_case(name, CPU, seed=3)
+    words = ft.entry_words(prog, img, 0)
+    pad = ft.n_tiles(prog, img) * prog.tile - words.shape[1]
+    filler = torch.zeros((prog.n_words, pad), dtype=torch.int64)
+    filler[0], filler[-1] = 1, -1
+    words = torch.cat([words, filler], dim=1)
+    chunks = _select_chunks(words, prog.n_keys, prog.tile)
+    nt, t = ft.n_tiles(prog, img), prog.tile
+    by_words = ft._lexsort(words.reshape(prog.n_words, nt, t))
+    by_chunks = ft._lexsort(chunks.reshape(chunks.shape[0], nt, t))
+    tiles = words.reshape(prog.n_words, nt, t)
+    for w in range(prog.n_words):
+        assert torch.equal(tiles[w].gather(1, by_words), tiles[w].gather(1, by_chunks))

@@ -117,6 +117,37 @@ LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "dict_merge": 0, "dict_count": 0, "dict_compact": 0, "patch_stacked": 0}
 
 
+_PUSH_OPS = frozenset({OP_COL, OP_CONST, OP_NULL})
+_POP_OPS = frozenset({OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE, OP_AND, OP_OR, OP_XOR, OP_PLUS,
+                      OP_MINUS, OP_MUL, OP_BIT_AND, OP_BIT_OR, OP_BIT_XOR, OP_FILTER, OP_AGG,
+                      OP_KEY})
+
+
+def stack_depth(code) -> int:
+    """The most operands the bytecode ``code`` holds at once (the mask's
+    launcher, ``sc_stack_depth`` of csrc/fused_scan.cu, reads it the same
+    way): SCALE, COUNT1 and the unary operators keep the depth."""
+    depth = most = 0
+    for word in code:
+        op = word & 0xFF
+        if op in _PUSH_OPS:
+            depth += 1
+            most = max(most, depth)
+        elif op in _POP_OPS:
+            depth -= 1
+    return most
+
+
+def stack_slots(codes) -> int:
+    """The stack slots of the tile-walk instance (2, 4 or 8) that holds the
+    deepest of the bytecodes ``codes``; ``ValueError`` past ``MAX_STACK``
+    (the emitter refuses such plans)."""
+    depth = max((stack_depth(c) for c in codes), default=0)
+    if depth > MAX_STACK:
+        raise ValueError(f"a plan {depth} operands deep: the tile walk holds {MAX_STACK}")
+    return 2 if depth <= 2 else 4 if depth <= 4 else 8
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

@@ -31,7 +31,9 @@ tasks of one plan, each over its region's image.
 * ``launch_batch_partials`` and ``launch_batch_combine_pack`` launch
   ``batch_partials`` and ``batch_combine_pack`` (``csrc/fused_batch.cu``)
   over a descriptor table the wrapper fills and copies to the device per
-  batch.
+  batch; ``batch_partials`` walks :data:`ROWS` rows of a block a thread, in
+  the instance whose stack holds the deepest task's plan
+  (:func:`partials_slots`).
 * :func:`fused_batch` takes the plain versions for CPU images and the
   kernels for CUDA images; on a CUDA tensor it launches them or raises.
 
@@ -54,8 +56,10 @@ from .fused_group_agg import GroupProgram
 
 THREADS = ga.THREADS
 WARPS = ga.WARPS
-#: the partials CTAs of a whole batch, shared among its tasks by rows: four
-#: per SM of an H100, the grouped kernel's grid (``GRID_MAX``)
+ROWS = 4  # rows a partials thread walks at once (BT_ROWS)
+#: the partials CTAs of a whole batch, shared among its images' runs of
+#: tasks by rows: four per SM of an H100, the grouped kernel's grid
+#: (``GRID_MAX``)
 BATCH_CTAS = ga.GRID_MAX
 
 
@@ -131,10 +135,14 @@ def check_task(prog: GroupProgram, cap: int) -> None:
 
 class Batch:
     """The launch layout of a list of tasks.  Tasks within ``c_max`` run on
-    the batch kernels (``shared``, in task order): each one's share of the
-    partials grid (``grids``: at least one CTA, at most one per ``THREADS``
-    rows, else ``BATCH_CTAS`` shared by rows, so the grid and each f64 sum's
-    order depend on the shapes alone), where its partials start (``part0``,
+    the batch kernels (``shared``, in task order): each one's CTAs of the
+    partials grid (``cta0``, ``grids``).  Shared tasks next to each other
+    over one image (a same-region batch's riders) form a run that shares
+    one range of CTAs, each CTA walking its rows for every task of the run
+    in turn; a run takes at least one CTA, at most one per ``THREADS *
+    ROWS`` rows of its image, else ``BATCH_CTAS`` shared by the runs'
+    images' rows, so the grid and each f64 sum's order depend on the shapes
+    alone.  Where each task's partials start (``part0``,
     int64 words: ``[grid, n_leaves, C]`` each).  Wide tasks (``wide``) have
     a grid of 0.  The packed output is ``(T, li, c_max)`` / ``(T, lf,
     c_max)`` for every task."""
@@ -150,20 +158,35 @@ class Batch:
             check_task(t.prog, t.capacity)
         self.wide = [i for i, t in enumerate(self.tasks) if t.capacity > c_max(t.prog)]
         self.shared = [i for i in range(len(self.tasks)) if i not in self.wide]
-        rows = [0 if i in self.wide else t.img.n_blocks * t.img.block_rows
-                for i, t in enumerate(self.tasks)]
+        # shared tasks next to each other over one image form a run: its CTAs
+        # walk their rows for each of its tasks in turn
+        runs: list[list[int]] = []
+        for i in self.shared:
+            if runs and runs[-1][-1] == i - 1 and self.tasks[i - 1].img is self.tasks[i].img:
+                runs[-1].append(i)
+            else:
+                runs.append([i])
+        rows = [self.tasks[run[0]].img.n_blocks * self.tasks[run[0]].img.block_rows
+                for run in runs]
         total = max(sum(rows), 1)
-        self.grids = [0 if i in self.wide else
-                      max(1, min(-(-r // THREADS), -(-BATCH_CTAS * r // total)))
-                      for i, r in enumerate(rows)]
-        self.cta0, self.part0 = [], []
-        cta = part = 0
-        for t, g in zip(self.tasks, self.grids):
-            self.cta0.append(cta)
-            self.part0.append(part)
+        first = {}  # the first task of each run -> (its CTAs, their count)
+        cta = 0
+        for run, r in zip(runs, rows):
+            g = max(1, min(-(-r // (THREADS * ROWS)), -(-BATCH_CTAS * r // total)))
+            for i in run:
+                first[i] = (cta, g)
             cta += g
+        self.n_ctas = cta
+        self.grids, self.cta0, self.part0 = [], [], []
+        cta = part = 0
+        for i, t in enumerate(self.tasks):
+            c0, g = first.get(i, (cta, 0))
+            self.grids.append(g)
+            self.cta0.append(c0)
+            self.part0.append(part)
+            cta = c0 + g
             part += g * len(t.prog.leaves) * t.capacity
-        self.n_ctas, self.n_parts = cta, part
+        self.n_parts = part
         self.li = max(t.prog.n_int for t in self.tasks)
         self.lf = max(t.prog.n_f64 for t in self.tasks)
         self.c_max = max(t.capacity for t in self.tasks)
@@ -189,11 +212,12 @@ class Batch:
 
 def batch_partials_plain(batch: Batch) -> torch.Tensor:
     """Plain version of ``batch_partials``: each shared task's
-    ``fused_group_agg`` partials at its grid, flat, in task order (f64
-    leaves summed in another order than the kernel's)."""
+    ``fused_group_agg`` partials at its grid, ``ROWS`` rows of a block a
+    thread, flat, in task order (f64 leaves summed in another order than
+    the kernel's)."""
     dev = batch.device
     return torch.cat([torch.zeros(0, dtype=torch.int64, device=dev)] + [
-        ga.partials_plain(t.prog, t.img, t.capacity, batch.grids[i]).reshape(-1)
+        ga.partials_plain(t.prog, t.img, t.capacity, batch.grids[i], ROWS).reshape(-1)
         for i, t in ((i, batch.tasks[i]) for i in batch.shared)])
 
 
@@ -248,15 +272,18 @@ def _kernels():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.bt_task_size.restype = ci
         lib.bt_smem_max.restype = ci
-        lib.bt_launch_partials.argtypes = [vp, ci, ci, vp, ci, vp]
+        lib.bt_launch_partials.argtypes = [vp, ci, ci, vp, ci, ci, vp]
         lib.bt_launch_partials.restype = ci
+        lib.bt_partials_attributes.argtypes = [ci, vp]
+        lib.bt_partials_attributes.restype = ci
+        lib.bt_rows.restype = ci
         lib.bt_launch_combine.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp, vp]
         lib.bt_launch_combine.restype = ci
         if lib.bt_task_size() != ctypes.sizeof(_BtTask):
             raise RuntimeError(f"BtTask layout mismatch: kernel {lib.bt_task_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_BtTask)}")
-        if lib.bt_smem_max() != SMEM_MAX:
-            raise RuntimeError("the kernel's shared-memory limit differs from SMEM_MAX")
+        if lib.bt_smem_max() != SMEM_MAX or lib.bt_rows() != ROWS:
+            raise RuntimeError("fused_batch.cu's limits differ from the wrapper's")
         _declared = True
     return lib
 
@@ -320,6 +347,24 @@ def _check_table(batch: Batch, table: torch.Tensor) -> None:
         raise ValueError("table: need the batch's descriptors (upload_table) on its device")
 
 
+def partials_slots(batch: Batch) -> int:
+    """The stack slots of the ``batch_partials`` instance that runs the
+    batch: the fewest of 2, 4 or 8 that hold every shared task's plan."""
+    return fa.stack_slots([batch.tasks[i].prog.code for i in batch.shared])
+
+
+def partials_attributes(slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``batch_partials`` instance of
+    ``slots`` stack slots: registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().bt_partials_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"batch_partials attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
+
+
 def launch_batch_partials(batch: Batch, table: torch.Tensor, parts: torch.Tensor) -> None:
     """Launch ``batch_partials`` into ``parts`` (``n_parts`` int64 words)."""
     if batch.device.type != "cuda":
@@ -332,7 +377,7 @@ def launch_batch_partials(batch: Batch, table: torch.Tensor, parts: torch.Tensor
     with torch.cuda.device(batch.device):
         stream = torch.cuda.current_stream(batch.device).cuda_stream
         rc = lib.bt_launch_partials(table.data_ptr(), len(batch.shared), batch.n_ctas,
-                                    parts.data_ptr(), batch.smem, stream)
+                                    parts.data_ptr(), batch.smem, partials_slots(batch), stream)
     LAUNCHES["batch_partials"] += 1
     if rc != 0:
         raise RuntimeError(f"batch_partials launch failed: cudaError {rc}")

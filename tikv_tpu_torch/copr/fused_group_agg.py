@@ -402,14 +402,24 @@ def launch_grid(img: Image) -> int:
     return max(1, min(GRID_MAX, -(-rows // THREADS)))
 
 
-def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int) -> torch.Tensor:
+def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int,
+                   rows_a_thread: int = 1) -> torch.Tensor:
     """Plain version of the shared-memory ``fused_group_agg_partials``:
     ``[grid, n_leaves, C]`` int64 words (f64 as bits), flat row r going to
-    block ``(r mod grid*THREADS) // THREADS`` as in the kernel.  f64 leaves
-    are summed in another order than the kernel's."""
+    block ``(r mod grid*THREADS) // THREADS`` as in the kernel.  With
+    ``rows_a_thread`` R > 1 (``batch_partials``' tile walk) a thread takes
+    R rows of one block at once: row i of block b is in tile ``b *
+    ceil(block_rows / R) + i // R``, and tile u goes to block ``(u mod
+    grid*THREADS) // THREADS``.  f64 leaves are summed in another order than
+    the kernel's."""
     terms, gid, _outs = _row_terms(prog, img, capacity)
     n = img.n_blocks * img.block_rows
-    blk = (torch.arange(n, device=img.device) % (grid * THREADS)) // THREADS
+    flat = torch.arange(n, device=img.device)
+    if rows_a_thread > 1:
+        br = img.block_rows
+        b = flat // br
+        flat = b * -(-br // rows_a_thread) + (flat - b * br) // rows_a_thread
+    blk = (flat % (grid * THREADS)) // THREADS
     seg = blk * capacity + gid
     rows = []
     for leaf, (m, v) in zip(prog.leaves, terms):

@@ -50,6 +50,8 @@ MAX_PAYLOAD = 16
 SMEM_MAX = 232448
 MASK_THREADS = 256
 MASK_ROWS = 4  # rows a mask thread walks at once (SC_MASK_ROWS)
+TOPN_STEP_ROWS = 1024  # rows a top-K candidate block walks at once (TN_THREADS * TN_ROWS)
+TOPN_STEPS = 4  # such steps a tile holds at most (TN_STEPS)
 DECODE_GRID_MAX = 4096
 
 
@@ -146,22 +148,26 @@ def kernels():
 
         lib = _build.load("fused_scan")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in ("sc_params_size", "tp_params_size", "tn_smem_max", "sc_mask_rows"):
+        for fn in ("sc_params_size", "tp_params_size", "tn_smem_max", "sc_mask_rows",
+                   "tn_step_rows"):
             getattr(lib, fn).restype = ci
         lib.sc_launch_mask.argtypes = [vp, vp, vp]
         lib.sc_mask_attributes.argtypes = [vp, vp]
-        lib.tn_launch_candidates.argtypes = [vp, vp, ci, vp]
+        lib.tn_launch_candidates.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.tn_candidates_attributes.argtypes = [ci, vp]
         lib.tn_launch_merge.argtypes = [vp, cll, vp, vp, ci, ci, vp]
         lib.tn_launch_pack.argtypes = [vp, vp]
         lib.dc_launch.argtypes = [vp, vp, vp, ci, vp]
         for fn in ("sc_launch_mask", "sc_mask_attributes", "tn_launch_candidates",
-                   "tn_launch_merge", "tn_launch_pack", "dc_launch"):
+                   "tn_candidates_attributes", "tn_launch_merge", "tn_launch_pack",
+                   "dc_launch"):
             getattr(lib, fn).restype = ci
         for name, want, got in (("ScParams", ctypes.sizeof(_ScParams), lib.sc_params_size()),
                                 ("TpParams", ctypes.sizeof(_TpParams), lib.tp_params_size())):
             if want != got:
                 raise RuntimeError(f"{name} layout mismatch: kernel {got} bytes, wrapper {want}")
-        if lib.tn_smem_max() != SMEM_MAX or lib.sc_mask_rows() != MASK_ROWS:
+        if lib.tn_smem_max() != SMEM_MAX or lib.sc_mask_rows() != MASK_ROWS \
+                or lib.tn_step_rows() != TOPN_STEP_ROWS:
             raise RuntimeError("fused_scan.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib

@@ -11,8 +11,10 @@ carried best K rows:
    lexicographically: rank (0: the row passed the selection, 1: it did not
    or lies past its block's ``n_valid``), then per key its null rank and its
    order-preserving key word, then ``src``, the row's place in the stream
-   (``src_base`` + flat row index).  Each tile of ``tile`` rows is sorted and
-   its first K entries written as a run ``[n_words, K]``.
+   (``src_base`` + flat row index).  Each tile of ``tile`` rows gives its
+   first K entries in order as a run ``[n_words, K]``: the kernel selects
+   them (a radix select keeps at most :func:`select_cap` candidates), then
+   sorts those alone.
 2. ``topn_merge``: runs merged pairwise into their first K, level by level,
    until one is left.  The carry of a cold step is one more run whose
    ``src`` is its slot (0..K-1): earlier in the stream than any of the
@@ -41,6 +43,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import fused_agg as fa
 from .datatypes import EvalType
 from .fused_agg import (
     Image,
@@ -56,6 +59,8 @@ from .fused_mask import (
     MAX_KEYS,
     MAX_PAYLOAD,
     SMEM_MAX,
+    TOPN_STEP_ROWS,
+    TOPN_STEPS,
     _TpParams,
     check_launch,
     kernels,
@@ -64,7 +69,8 @@ from .fused_mask import (
 
 _SIGN = -(1 << 63)  # the u64 sign bit as an int64
 _MAGNITUDE = (1 << 63) - 1
-TILE_MAX = 4096
+TILE_MAX = TOPN_STEP_ROWS * TOPN_STEPS  # 4,096
+SELECT_MIN = 256  # the fewest candidates a tile's select keeps room for
 
 
 @dataclass(frozen=True)
@@ -75,7 +81,7 @@ class TopnProgram:
     key_desc: tuple[bool, ...]
     key_f64: tuple[bool, ...]  # the key's value lane is f64
     k: int
-    tile: int  # rows a candidate block sorts: a power of two >= k
+    tile: int  # rows a candidate block takes: a power of two >= k
     pay_f64: tuple[bool, ...]  # per payload column
     pay_row: tuple[int, ...]  # row of its value in the int64 or f64 matrix
     pay_null_row: tuple[int, ...]  # row of its null flag in the int64 matrix
@@ -93,11 +99,25 @@ class TopnProgram:
 
 def tile_rows(n_words: int) -> int:
     """The largest power of two up to ``TILE_MAX`` whose entries (words and a
-    16-bit index each) fit in a block's shared memory."""
+    16-bit index each) fit in a block's shared memory: a tile's candidates
+    (:func:`select_cap`) are at most all of it, so K up to the tile is
+    served."""
     tile = TILE_MAX
     while tile * (8 * n_words + 2) > SMEM_MAX:
         tile //= 2
     return tile
+
+
+def select_cap(k: int, tile: int) -> int:
+    """The candidates a tile's select keeps room for (its shared memory:
+    ``n_words * cap`` words and ``cap`` 16-bit indices): the smallest power
+    of two at least ``2 * k`` and ``SELECT_MIN``, at most the tile.  The
+    select narrows the candidates until those below the K-th entry's bucket
+    and those in it fit."""
+    cap = SELECT_MIN
+    while cap < 2 * k:
+        cap *= 2
+    return min(cap, tile)
 
 
 def compile_topn_program(sel_rpns, keys, ref_cols, schema, payload_cols, k: int) -> TopnProgram:
@@ -260,6 +280,20 @@ def _check_words(t: torch.Tensor, shape, dev, what: str) -> None:
         raise ValueError(f"{what}: need contiguous int64 {tuple(shape)} on {dev}")
 
 
+def candidates_attributes(prog: TopnProgram) -> dict:
+    """``cudaFuncGetAttributes`` of the ``topn_candidates`` instance that
+    runs ``prog`` (the fewest stack slots, 2, 4 or 8, that hold its plan):
+    registers a thread, local (spilled) bytes a thread, static shared bytes
+    a block."""
+    slots = fa.stack_slots([prog.code])
+    out = (ctypes.c_int * 3)()
+    rc = kernels().tn_candidates_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"topn_candidates attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
+
+
 def launch_candidates(prog: TopnProgram, img: Image, runs: torch.Tensor, src_base: int) -> None:
     """Launch ``topn_candidates`` into ``runs`` (``[n_tiles, n_words, k]``)."""
     p = scan_params(prog, img)
@@ -268,10 +302,12 @@ def launch_candidates(prog: TopnProgram, img: Image, runs: torch.Tensor, src_bas
     p.src_base, p.n_keys, p.k, p.tile = src_base, prog.n_keys, prog.k, prog.tile
     for q, (desc, is_f) in enumerate(zip(prog.key_desc, prog.key_f64)):
         p.key_desc[q], p.key_f64[q] = int(desc), int(is_f)
+    slots = fa.stack_slots([prog.code])
     lib = kernels()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = lib.tn_launch_candidates(ctypes.byref(p), runs.data_ptr(), nt, stream)
+        rc = lib.tn_launch_candidates(ctypes.byref(p), runs.data_ptr(), nt,
+                                      select_cap(prog.k, prog.tile), slots, stream)
     check_launch("topn_candidates", rc)
 
 

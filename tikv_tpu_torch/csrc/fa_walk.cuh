@@ -9,7 +9,8 @@
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
-// fa_walk_keys walks one row; fa_walk_tile (the mask's) R rows a thread.
+// fa_walk_keys walks one row; fa_walk_tile R rows a thread (the mask,
+// batch_partials and topn_candidates).
 //
 // Also program #1 of the reference package, kernels.py:decode_device_column
 // (inlined there through jax_eval.py:_build_cols): the column load fa_load.
@@ -336,8 +337,8 @@ __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, 
 }
 
 // ---------------------------------------------------------------------------
-// The tile walk: the same bytecode over R consecutive rows of one block per
-// thread, with no local memory (fused_mask).
+// The tile walk: the same bytecode over R consecutive rows per thread, with
+// no local memory (fused_mask, batch_partials, topn_candidates).
 //
 // fa_walk_keys keeps a row's columns and its operand stack in arrays indexed
 // at run time (v[arg], sv[sp]), which nvcc places in local memory.  The tile
@@ -351,7 +352,13 @@ __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, 
 // compares a column with a constant (COL, CONST, an optional rescale, the
 // comparison, FILTER) is evaluated in one step into the selection bits,
 // with no stack traffic and one dispatch instead of four or five; a plan of
-// such conjuncts only walks with no stack at all (fa_walk_conjuncts).
+// such conjuncts only walks with no stack at all (fa_walk_conjuncts).  An
+// aggregate's argument and a sort key are handed out as they are popped:
+// on_agg(k, live, x, xn) with the rows whose argument counts (selected, not
+// NULL; count(*): selected) as bits, and on_key(q, x, xn) whatever the
+// selection says, the R values and their NULL bits in registers.  The
+// emitter writes every conjunct before the first aggregate or key, so the
+// selection bits are final by then.
 // ---------------------------------------------------------------------------
 
 // Lanes [0, R) at `base` of a 1-, 2-, 4- or 8-byte payload, sign-extended;
@@ -421,18 +428,30 @@ __device__ __forceinline__ unsigned fa_flag_bits(const unsigned char* base, int 
 
 // Program #1 over a tile: column j at flat rows f0 + r (rows i0 + r of block
 // blk), r < n, as fa_load gives them; their NULL flags as bits of *xn.
-// Runs keep fa_load's binary search per row.
-template <int R, class P>
+// Runs keep fa_load's binary search per row.  Flat: the rows may run past
+// the end of block blk into the next blocks (a row-shaped lane is flat in
+// memory; a run's block is found row by row).
+template <int R, bool Flat = false, class P>
 __device__ __forceinline__ void fa_load_tile(const P& p, int j, long long f0, long long blk,
                                              long long i0, int n, long long (&x)[R],
                                              unsigned& xn) {
   const int kind = p.enc.kind[j];
   if (kind == FA_ENC_RLE) {
     xn = 0;
+    [[maybe_unused]] long long b = blk, i = i0;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       bool nb = false;
-      x[r] = r < n ? fa_load(p, j, f0 + r, blk, i0 + r, nb) : 0;
+      if constexpr (Flat) {
+        while (i >= p.block_rows) {
+          i -= p.block_rows;
+          ++b;
+        }
+        x[r] = r < n ? fa_load(p, j, f0 + r, b, i, nb) : 0;
+        ++i;
+      } else {
+        x[r] = r < n ? fa_load(p, j, f0 + r, blk, i0 + r, nb) : 0;
+      }
       xn |= (unsigned)nb << r;
     }
     return;
@@ -604,13 +623,15 @@ __device__ __forceinline__ unsigned fa_walk_conjuncts(const P& p, long long f0, 
 }
 
 // The walk over the tile at flat row f0 (row i0 of block blk): n rows of the
-// block (n <= R), of which those set in `valid` lie below n_valid.  Returns
-// the rows that passed the selection, as bits.  The stack holds D <=
-// FA_MAX_STACK slots: the plan's depth, which the caller checks.  Only the
-// selection is evaluated: an aggregate or a sort key is popped unread.
-template <int R, int D, class P>
+// block (n <= R; Flat: of the image, possibly past the block's end), of
+// which those set in `valid` count.  Returns the rows that passed the
+// selection, as bits.  The stack holds D <= FA_MAX_STACK slots: the plan's
+// depth, which the caller checks.  Each aggregate's argument goes to on_agg,
+// each sort key to on_key (see above).
+template <int R, int D, bool Flat = false, class P, class OnAgg, class OnKey>
 __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long long blk,
-                                                 long long i0, int n, unsigned valid) {
+                                                 long long i0, int n, unsigned valid,
+                                                 OnAgg&& on_agg, OnKey&& on_key) {
   static_assert(R <= 8 && D <= FA_MAX_STACK, "tile walk limits");
   constexpr unsigned ALL = (1u << R) - 1;
   FaTileStack<R, D> s;
@@ -627,7 +648,7 @@ __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long 
     const int dep = (w >> 24) & 0xFF;
     switch (op) {
       case FA_OP_COL: {
-        fa_load_tile<R>(p, arg, f0, blk, i0, n, a, an);
+        fa_load_tile<R, Flat>(p, arg, f0, blk, i0, n, a, an);
         // `column <cmp> constant` goes straight into the selection, past
         // the stack: the most common conjunct
         const int len = fa_cmp_filter_len(p, pc);
@@ -786,12 +807,38 @@ __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long 
         --sp;
         break;
       case FA_OP_AGG:
-      case FA_OP_KEY:
-        --sp;
+      case FA_OP_COUNT1: {
+        // one call site for both, so a large fold is inlined once
+        unsigned live = active;
+        if (op == FA_OP_AGG) {
+          fa_get(s, sp - 1, a, an);
+          --sp;
+          live &= ~an;
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) a[r] = 0;
+          an = 0;
+        }
+        on_agg(arg, live, a, an);
         break;
-      default:  // FA_OP_COUNT1 reads nothing
+      }
+      case FA_OP_KEY:
+        fa_get(s, sp - 1, a, an);
+        --sp;
+        on_key(arg, a, an);
+        break;
+      default:
         break;
     }
   }
   return active;
+}
+
+// The selection alone (fused_mask): aggregates and keys popped unread.
+template <int R, int D, class P>
+__device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long long blk,
+                                                 long long i0, int n, unsigned valid) {
+  return fa_walk_tile<R, D>(p, f0, blk, i0, n, valid,
+                            [](int, unsigned, const long long (&)[R], unsigned) {},
+                            [](int, const long long (&)[R], unsigned) {});
 }

@@ -35,11 +35,17 @@
 // What bounds them on an H100: memory for fused_mask (the referenced
 // columns of every row, one byte of mask out; over a narrow encoded image
 // its loads, one conjunct's after another, and the walk's instructions
-// keep it above that), shared-memory sorting for
-// topn_candidates (a bitonic sort of each tile of rows, log2(tile)^2 / 2
-// compare-exchange stages).  The candidate kernel reads only the columns
-// the selection and the keys reference; payload columns are read by
-// topn_pack for the K winners alone.
+// keep it above that) and for topn_candidates (the same columns, the runs
+// out), which the walk's instructions and the select's block-wide passes
+// keep above that.  topn_candidates walks a tile TN_ROWS rows a thread
+// (fa_walk_tile, no local memory), holds one 64-bit chunk of each entry in
+// registers, selects the tile's first k by a radix select over those
+// chunks (a pass only on the bits where the tied entries differ), walks
+// again only the steps that hold a candidate, and sorts at most `cap`
+// candidates (about 2k) in shared memory instead of the whole tile: its
+// shared memory follows k, so several blocks share an SM.  The candidate
+// kernel reads only the columns the selection and the keys reference;
+// payload columns are read by topn_pack for the K winners alone.
 //
 // fused_mask walks SC_MASK_ROWS consecutive rows of one block a thread
 // (fa_walk_tile): each instruction word is decoded once for the tile, the
@@ -57,8 +63,10 @@
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), each thread
 // stepping over tiles by the grid's stride.
 //
-// Determinism: no atomics and no floating-point arithmetic in any order
-// that varies; reruns are bit-identical.
+// Determinism: no floating-point arithmetic in any order that varies;
+// topn_candidates' atomics count (a histogram) or hand out shared-memory
+// slots, whose order its sort removes (entries are unique but for the
+// identical ones past the image); reruns are bit-identical.
 //
 // Layout contract with tikv_tpu_torch/copr/fused_mask.py and
 // copr/fused_topn.py (the wrappers check sizeof(ScParams) and
@@ -68,7 +76,7 @@
 
 #define SC_MASK_THREADS 256
 #define SC_MASK_ROWS 4  // rows a mask thread walks at once (its tile)
-#define TN_THREADS 512
+#define TN_THREADS 256
 #define TN_MERGE_THREADS 256
 #define TN_MAX_KEYS 4
 #define TN_MAX_PAYLOAD 16
@@ -261,7 +269,7 @@ decode_column(const __grid_constant__ ScParams p, long long* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// topn_candidates: each block sorts a tile of rows, writes its first k
+// topn_candidates: each block selects a tile's first k entries, sorts them
 // ---------------------------------------------------------------------------
 
 // Order-preserving u64 of a key value (ascending).
@@ -285,68 +293,380 @@ __device__ __forceinline__ int tn_cmp(const u64* X, long long sx, long long x, c
   return 0;
 }
 
-// Dynamic shared memory: n_words * tile u64 words, then tile u16 indices.
+// The words of sort key q over R rows: the null rank and the key word.
+template <int R>
+__device__ __forceinline__ void tn_key_words(const ScParams& p, int q, const long long (&x)[R],
+                                             unsigned xn, unsigned valid, u64 (&kw)[R],
+                                             unsigned& nr) {
+  const bool desc = p.key_desc[q];
+  const bool is_f = p.key_f64[q];
+  nr = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool nul = (xn >> r) & 1;
+    u64 w = tn_order_word(x[r], is_f);
+    if (desc) w = ~w;
+    const bool ok = (valid >> r) & 1;  // rows past n_valid or the image: 0 and 0
+    kw[r] = ok && !nul ? w : 0;
+    nr |= (unsigned)(ok && nul == desc) << r;
+  }
+}
+
+// A tile of p.tile rows (TN_THREADS * TN_ROWS * steps, steps <= TN_STEPS):
+// thread `tid` holds entries e = s * TN_ROWS + r, the tile's row s *
+// TN_THREADS * TN_ROWS + tid * TN_ROWS + r.  Selecting the first k, the
+// entry is seen as a string of 64-bit chunks that orders as its words do:
+//   0: rank << 63 | null rank of key 0 << 62 | key word 0 >> 2;
+//   then per key q: its key word (odd chunks), and, before key q + 1, its
+//   null rank << 63 | its key word >> 1 (even chunks);
+//   last: the row's index in the tile, which orders as src does (src is
+//   unique, past the image ~0 and the rows there last in the tile).
+// A radix select, 8 bits a pass from the highest bit on which the entries
+// still tied differ, keeps the entries below the k-th one's bucket (`in`)
+// and narrows the tied ones to that bucket, chunk by chunk (a chunk past 0
+// is walked again, for the tied entries' steps only), until those below and
+// those tied fit `cap` slots.  They are walked once more into shared memory
+// with all their words, sorted, and the first k written.
+#define TN_ROWS 4
+#define TN_STEPS 4
+#define TN_ENTRIES (TN_ROWS * TN_STEPS)
+#define TN_BINS 256
+static_assert(TN_THREADS == TN_BINS, "a thread a histogram bin");
+static_assert(TN_ENTRIES <= 32, "a thread's entries as the bits of a word");
+
+// Dynamic shared memory: n_words * cap u64 words, then cap u16 indices.
 // Writes runs[blockIdx.x] = [n_words][k]: the tile's first k entries in
-// order.  Rows past the image are entries of rank 1 with src = ~0.
+// order.  Rows past the image are entries of rank 1 with src = ~0.  D: the
+// tile walk's stack slots.
+template <int D>
 __global__ void __launch_bounds__(TN_THREADS)
-topn_candidates(const __grid_constant__ ScParams p, u64* __restrict__ runs) {
+topn_candidates(const __grid_constant__ ScParams p, u64* __restrict__ runs, int cap) {
+  constexpr int R = TN_ROWS, E = TN_ENTRIES;
+  constexpr unsigned FULL = 0xFFFFFFFFu;
   extern __shared__ u64 tn_smem[];
-  const int T = p.tile;
+  __shared__ unsigned hist[2][TN_BINS];  // a pass's histogram, the next one's zeroed
+  __shared__ unsigned red[2][2];  // OR and AND of the tied chunks, low and high halves
+  __shared__ int sel[3];          // the bucket, the tied entries below it, in it
+  __shared__ int n_out;
+  __shared__ u64 sk[TN_THREADS];             // at most TN_THREADS candidates: chunk 0 by
+  __shared__ unsigned short ss[TN_THREADS];  // slot, then the sort's exchanges
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = p.tile / (TN_THREADS * R);
   const int W = 2 + 2 * p.n_keys;
-  u64* w = tn_smem;
-  unsigned short* idx = (unsigned short*)(tn_smem + (long long)W * T);
+  const int k = p.k;
   const long long total = p.n_blocks * p.block_rows;
-  const long long base = (long long)blockIdx.x * T;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const long long f = base + t;
-    u64 rank = 1, src = ~0ULL;
-    for (int q = 1; q < W - 1; ++q) w[(long long)q * T + t] = 0;
-    if (f < total) {
-      src = (u64)(p.src_base + f);
-      const long long blk = f / p.block_rows;
-      const long long i = f - blk * p.block_rows;
-      if (i < sc_n_valid(p, blk)) {
-        const bool active = fa_walk_keys(
-            p, f, blk, i, [](int, bool, long long) {},
-            [&](int q, bool nul, long long v) {
-              const bool desc = p.key_desc[q];
-              u64 kw = 0;
-              if (!nul) {
-                kw = tn_order_word(v, p.key_f64[q]);
-                if (desc) kw = ~kw;
-              }
-              w[(long long)(1 + 2 * q) * T + t] = nul == desc ? 1 : 0;
-              w[(long long)(2 + 2 * q) * T + t] = kw;
-            });
-        rank = active ? 0 : 1;
+  const long long base = (long long)blockIdx.x * p.tile;
+  const int last = p.n_keys > 0 ? 2 * p.n_keys : 1;  // the index chunk
+  u64* w = tn_smem;
+  unsigned short* idx = (unsigned short*)(tn_smem + (long long)W * cap);
+
+  u64 v[E];  // the chunk being selected, per entry
+  const unsigned all = S * R >= 32 ? FULL : (1u << (S * R)) - 1;
+  unsigned tied = all, in = 0, gather = 0;
+  int below = 0;  // the entries in `in`, over the block
+  int cnt = TN_THREADS * S * R;  // the tied ones
+
+  // Walk step s (the tile's rows of entries s * R ..) for chunk c of the
+  // entries in `want` (c < 0: gather them into shared memory from slot0 on).
+  auto walk_step = [&](int s, int c, unsigned want, int slot0) {
+    const long long f0 = base + (long long)s * (TN_THREADS * R) + tid * R;
+    const long long left = total - f0;
+    const int n = left <= 0 ? 0 : left < R ? (int)left : R;
+    long long blk = 0, i0 = 0;
+    unsigned valid = 0;
+    if (n > 0) {
+      blk = f0 / p.block_rows;
+      i0 = f0 - blk * p.block_rows;
+      long long b = blk, i = i0, nv = sc_n_valid(p, blk);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < n) {
+          if (i >= p.block_rows) {
+            i -= p.block_rows;
+            ++b;
+            nv = sc_n_valid(p, b);
+          }
+          valid |= (unsigned)(i < nv) << r;
+          ++i;
+        }
       }
     }
-    w[t] = rank;
-    w[(long long)(W - 1) * T + t] = src;
-    idx[t] = (unsigned short)t;
+    // chunk c reads key kq: its whole word (odd c), or its null rank and
+    // word's top (c even, past 0)
+    const int kq = c <= 0 ? 0 : (c & 1) ? (c - 1) / 2 : c / 2;
+    u64 kw[R];
+    unsigned nr = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) kw[r] = 0;
+    const unsigned active = fa_walk_tile<R, D, true>(
+        p, f0, blk, i0, n, valid, [](int, unsigned, const long long (&)[R], unsigned) {},
+        [&](int q, const long long (&x)[R], unsigned xn) {
+          if (c >= 0 && q != kq) return;
+          u64 qw[R];
+          unsigned qn;
+          tn_key_words<R>(p, q, x, xn, valid, qw, qn);
+          if (q == kq) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) kw[r] = qw[r];
+            nr = qn;
+          }
+          if (c >= 0) return;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int e = s * R + r;
+            if ((want >> e) & 1) {
+              const int slot = slot0 + __popc(want & ((1u << e) - 1));
+              w[(long long)(1 + 2 * q) * cap + slot] = (qn >> r) & 1;
+              w[(long long)(2 + 2 * q) * cap + slot] = qw[r];
+            }
+          }
+        });
+    const unsigned rank1 = ~(valid & active);
+    u64 y[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const u64 rank = (rank1 >> r) & 1;
+      const u64 nb = (nr >> r) & 1;
+      if (c <= 0) {
+        y[r] = rank << 63 | (p.n_keys > 0 ? nb << 62 | kw[r] >> 2 : 0);
+      } else {
+        y[r] = (c & 1) ? kw[r] : nb << 63 | kw[r] >> 1;
+      }
+      if (c < 0) {
+        const int e = s * R + r;
+        if ((want >> e) & 1) {
+          const int slot = slot0 + __popc(want & ((1u << e) - 1));
+          w[slot] = rank;
+          w[(long long)(W - 1) * cap + slot] = r < n ? (u64)(p.src_base + f0 + r) : ~0ULL;
+          if (cap <= TN_THREADS) sk[slot] = y[r];  // chunk 0: the sort's first key
+        }
+      }
+    }
+    if (c >= 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (e / R == s) v[e] = y[e % R];
+      }
+    }
+  };
+
+  // The OR and the AND of the tied entries' chunks over the block: the
+  // bits on which they differ.
+  auto tied_diff = [&]() -> u64 {
+    u64 o = 0, a = ~0ULL;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((tied >> e) & 1) {
+        o |= v[e];
+        a &= v[e];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      o |= __shfl_xor_sync(FULL, o, off);
+      a &= __shfl_xor_sync(FULL, a, off);
+    }
+    if (lane == 0) {
+      atomicOr(&red[0][0], (unsigned)o);
+      atomicOr(&red[0][1], (unsigned)(o >> 32));
+      atomicAnd(&red[1][0], (unsigned)a);
+      atomicAnd(&red[1][1], (unsigned)(a >> 32));
+    }
+    __syncthreads();
+    const u64 oo = (u64)red[0][1] << 32 | red[0][0];
+    const u64 aa = (u64)red[1][1] << 32 | red[1][0];
+    return oo ^ aa;
+  };
+
+  constexpr unsigned STEP = (1u << R) - 1;  // a step's entries
+  bool done = cnt <= cap;
+  int hb = 0;
+  hist[0][tid] = 0;
+  // chunk c while selecting; once done, one more pass gathers the
+  // candidates (one walk site, so the walk's code is there once)
+  for (int c = 0; c <= last + 1; ++c) {
+    int slot0 = 0;
+    if (done) {
+      gather = in | tied;
+      if (tid == 0) n_out = 0;
+      __syncthreads();
+      slot0 = gather != 0 ? atomicAdd(&n_out, __popc(gather)) : 0;
+    }
+    const int mode = done ? -1 : c;
+    if (mode == last) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = (u64)((e / R) * (TN_THREADS * R) + tid * R + e % R);
+    } else {
+      const unsigned want = done ? gather : c == 0 ? all : tied;
+      for (int s = 0; s < S; ++s) {
+        if (((want >> (s * R)) & STEP) != 0) walk_step(s, mode, want, slot0);
+      }
+    }
+    if (done) break;
+    __syncthreads();  // every thread has read red
+    if (tid == 0) {
+      red[0][0] = red[0][1] = 0;
+      red[1][0] = red[1][1] = ~0u;
+    }
+    __syncthreads();
+    u64 diff = tied_diff();
+    while (diff != 0) {
+      const int shift = (63 - __clzll((long long)diff)) & ~7;
+      const int need = k - below;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const bool t = (tied >> e) & 1;
+        const int d = (int)((v[e] >> shift) & 0xFF);
+        const unsigned peers = __match_any_sync(FULL, t ? d : -1);
+        if (t && lane == __ffs(peers) - 1) atomicAdd(&hist[hb][d], __popc(peers));
+      }
+      __syncthreads();  // also: every thread has read red
+      hist[hb ^ 1][tid] = 0;
+      if (warp == 0) {
+        // the bucket that holds the need-th tied entry
+        unsigned h[TN_BINS / 32], sum = 0;
+#pragma unroll
+        for (int j = 0; j < TN_BINS / 32; ++j) {
+          h[j] = hist[hb][lane * (TN_BINS / 32) + j];
+          sum += h[j];
+        }
+        unsigned incl = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const unsigned o = __shfl_up_sync(FULL, incl, off);
+          if (lane >= off) incl += o;
+        }
+        unsigned cum = incl - sum;
+        if (cum < (unsigned)need && (unsigned)need <= incl) {
+#pragma unroll
+          for (int j = 0; j < TN_BINS / 32; ++j) {
+            if (cum < (unsigned)need && (unsigned)need <= cum + h[j]) {
+              sel[0] = lane * (TN_BINS / 32) + j;
+              sel[1] = (int)cum;
+              sel[2] = (int)h[j];
+            }
+            cum += h[j];
+          }
+        }
+        if (lane == 0) {
+          red[0][0] = red[0][1] = 0;
+          red[1][0] = red[1][1] = ~0u;
+        }
+      }
+      __syncthreads();
+      const int bucket = sel[0];
+      below += sel[1];
+      cnt = sel[2];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if ((tied >> e) & 1) {
+          const int d = (int)((v[e] >> shift) & 0xFF);
+          if (d != bucket) {
+            tied &= ~(1u << e);
+            if (d < bucket) in |= 1u << e;
+          }
+        }
+      }
+      hb ^= 1;
+      if (below + cnt <= cap) {
+        done = true;
+        break;
+      }
+      diff = tied_diff();
+    }
+    // not done: the tied entries are equal on this chunk, and the next one
+    // tells them apart
   }
   __syncthreads();
-  // bitonic sort of the indices by their entries
-  for (int size = 2; size <= T; size <<= 1) {
+  const int m = n_out;
+  u64* run = runs + (long long)blockIdx.x * W * k;
+  if (cap <= TN_THREADS) {
+    // a thread a candidate: a bitonic sort of (chunk 0, slot) in registers
+    // (shuffles within a warp, shared memory across warps); chunk 0 orders
+    // the candidates as their words do unless two share it, which the
+    // whole sort below then settles
+    u64 key = tid < m ? sk[tid] : ~0ULL;
+    int slot = tid;
+    for (int size = 2; size <= TN_THREADS; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        u64 ok;
+        int os;
+        if (stride >= 32) {
+          __syncthreads();
+          sk[tid] = key;
+          ss[tid] = (unsigned short)slot;
+          __syncthreads();
+          ok = sk[tid ^ stride];
+          os = ss[tid ^ stride];
+        } else {
+          ok = __shfl_xor_sync(0xFFFFFFFFu, key, stride);
+          os = __shfl_xor_sync(0xFFFFFFFFu, slot, stride);
+        }
+        const bool keep_min = ((tid & stride) == 0) == ((tid & size) == 0);
+        const bool mine_first = key < ok || (key == ok && slot < os);
+        if (mine_first != keep_min) {
+          key = ok;
+          slot = os;
+        }
+      }
+    }
+    __syncthreads();
+    sk[tid] = key;
+    ss[tid] = (unsigned short)slot;
+    __syncthreads();
+    if (!__syncthreads_or(tid + 1 < m && sk[tid] == sk[tid + 1])) {
+      for (int s = tid; s < k; s += TN_THREADS) {
+        const int a = ss[s];
+        for (int q = 0; q < W; ++q) run[(long long)q * k + s] = w[(long long)q * cap + a];
+      }
+      return;
+    }
+  }
+  int m2 = 1;
+  while (m2 < m) m2 <<= 1;
+  for (int t = tid; t < m2; t += TN_THREADS) idx[t] = (unsigned short)t;
+  __syncthreads();
+  // bitonic sort of the slots by their entries; slots past m order last.
+  // A stage with a stride below 32 pairs slots of one warp's only (a
+  // thread's slots are tid, tid + TN_THREADS, ...), so it needs no block
+  // barrier: only the stages across warps wait for the block, before and
+  // after
+  for (int size = 2; size <= m2; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      if (stride >= 32) __syncthreads();
+      for (int t = tid; t < m2; t += TN_THREADS) {
         const int u = t ^ stride;
         if (u > t) {
           const int a = idx[t], b = idx[u];
-          const int c = tn_cmp(w, T, a, w, T, b, W);
+          const int c = a >= m ? (b >= m ? 0 : 1) : b >= m ? -1 : tn_cmp(w, cap, a, w, cap, b, W);
           if ((t & size) == 0 ? c > 0 : c < 0) {
             idx[t] = (unsigned short)b;
             idx[u] = (unsigned short)a;
           }
         }
       }
-      __syncthreads();
+      if (stride >= 32) {
+        __syncthreads();
+      } else {
+        __syncwarp();
+      }
     }
   }
-  u64* run = runs + (long long)blockIdx.x * W * p.k;
-  for (int s = threadIdx.x; s < p.k; s += blockDim.x) {
+  __syncthreads();
+  for (int s = tid; s < k; s += TN_THREADS) {
     const int a = idx[s];
-    for (int q = 0; q < W; ++q) run[(long long)q * p.k + s] = w[(long long)q * T + a];
+    for (int q = 0; q < W; ++q) run[(long long)q * k + s] = w[(long long)q * cap + a];
+  }
+}
+
+typedef void (*TnCandidatesKernel)(ScParams, u64*, int);
+
+static TnCandidatesKernel tn_candidates_kernel(int slots) {
+  switch (slots) {
+    case 2: return topn_candidates<2>;
+    case 4: return topn_candidates<4>;
+    case 8: return topn_candidates<8>;
+    default: return nullptr;
   }
 }
 
@@ -446,12 +766,6 @@ topn_pack(const __grid_constant__ TpParams p) {
   }
 }
 
-// Above 48 KB a block's dynamic shared memory must be allowed explicitly.
-static int tn_set_smem(int smem_bytes) {
-  return (int)cudaFuncSetAttribute(topn_candidates, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes);
-}
-
 extern "C" {
 
 int sc_params_size(void) { return (int)sizeof(ScParams); }
@@ -502,13 +816,44 @@ int sc_mask_attributes(const ScParams* p, int* out) {
 
 int sc_mask_rows(void) { return SC_MASK_ROWS; }
 
-int tn_launch_candidates(const ScParams* p, u64* runs, int n_tiles, void* stream) {
-  const int smem = (2 + 2 * p->n_keys) * p->tile * 8 + p->tile * 2;
-  const int err = tn_set_smem(smem);
-  if (err != 0) return err;
-  topn_candidates<<<n_tiles, TN_THREADS, smem, (cudaStream_t)stream>>>(*p, runs);
-  return (int)cudaGetLastError();
+// topn_candidates runs the instance of `slots` stack slots over tiles of
+// p->tile rows (a multiple of TN_THREADS * TN_ROWS, at most TN_STEPS of
+// them), gathering at most `cap` entries (a power of two, k <= cap <=
+// tile); cudaErrorInvalidValue otherwise.  Above 48 KB a block's dynamic
+// shared memory must be allowed explicitly.
+int tn_launch_candidates(const ScParams* p, u64* runs, int n_tiles, int cap, int slots,
+                         void* stream) {
+  const TnCandidatesKernel kern = tn_candidates_kernel(slots);
+  const int step = TN_THREADS * TN_ROWS;
+  if (kern == nullptr || p->tile % step != 0 || p->tile / step > TN_STEPS || p->tile < step
+      || cap < p->k || cap > p->tile || (cap & (cap - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = (2 + 2 * p->n_keys) * cap * 8 + cap * 2;
+  cudaError_t err = cudaFuncSetAttribute((const void*)kern,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)p, (void*)&runs, (void*)&cap};
+  err = cudaLaunchKernel((const void*)kern, dim3((unsigned)n_tiles), dim3(TN_THREADS), args, smem,
+                         (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
+
+// cudaFuncGetAttributes of the candidates instance of `slots` stack slots:
+// registers a thread, local and static shared bytes, into out[0..3).
+int tn_candidates_attributes(int slots, int* out) {
+  const TnCandidatesKernel kern = tn_candidates_kernel(slots);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)kern);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+int tn_step_rows(void) { return TN_ROWS * TN_THREADS; }
 
 int tn_launch_merge(const u64* in, long long n_in, const u64* extra, u64* out, int n_words, int k,
                     void* stream) {

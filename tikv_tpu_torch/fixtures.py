@@ -950,6 +950,53 @@ def synthetic_topn_case(n_blocks: int, block_rows: int, k: int, gen: torch.Gener
     return prog, img, img
 
 
+#: the top-K edge cases of :func:`topn_edge_case`
+TOPN_EDGE_CASES = ("few_pass", "none_pass", "all_tied", "nulls", "zeros", "k1", "k_limit",
+                   "ragged")
+
+
+def topn_edge_case(name: str, device, seed: int = 0):
+    """``(prog, image)`` of one top-K edge case for holding
+    ``topn_candidates`` to its plain version (the image serves as the
+    candidate and the payload columns).  Columns: an INT key (NULLs), a REAL
+    key (NULLs), an INT column the selection reads.  ``few_pass``: about 9
+    rows a 4,096-row tile pass the selection (K = 100), so a run is filled
+    with rank-1 entries; ``none_pass``: none pass; ``all_tied``: both keys
+    constant, so src alone orders; ``nulls``: 60% NULL keys, the INT one
+    ascending and the REAL one descending; ``zeros``: REAL keys of -0.0 and
+    +0.0 only, ascending then descending; ``k1`` and ``k_limit``: K = 1 and
+    K = the tile; ``ragged``: blocks of 1,001 rows (a thread's rows cross
+    from one block into the next), the last block short of its rows and the
+    last tile short of the image."""
+    from .copr.fused_topn import compile_topn_program, tile_rows
+
+    rng = np.random.default_rng(seed)
+    n_blocks, block_rows = (7, 1001) if name == "ragged" else (3, 5000)
+    shape = (n_blocks, block_rows)
+    schema = [(EvalType.INT, 0), (EvalType.REAL, 0), (EvalType.INT, 0)]
+    lo = {"few_pass": 990, "none_pass": 5000}.get(name, -500)
+    sel = [compile_expr(call("gt", col(2), const_int(lo)), schema)]
+    a = rng.integers(-20, 20, shape)
+    b = np.array([-0.0, 0.0, float("inf"), 1.5, -2.25])[rng.integers(0, 5, shape)]
+    null_p = 0.6 if name == "nulls" else 0.1
+    if name == "all_tied":
+        a, b, null_p = np.full(shape, 7), np.full(shape, 1.5), 0.0
+    if name == "zeros":
+        a, b = (np.where(rng.integers(0, 2, shape) == 1, 0.0, -0.0) for _ in range(2))
+        schema[0] = (EvalType.REAL, 0)
+    keys = [(compile_expr(col(0), schema), name == "zeros"),
+            (compile_expr(col(1), schema), name != "zeros")]
+    k = {"k1": 1, "k_limit": tile_rows(2 + 2 * len(keys))}.get(name, 100)
+    prog = compile_topn_program(sel, keys, [0, 1, 2], schema, [0, 1, 2], k)
+    nulls = [torch.from_numpy(rng.random(shape) < null_p).to(device) for _ in range(2)]
+    cols = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (a, b, rng.integers(-1000, 1000, shape))]
+    nv = torch.full((n_blocks,), block_rows, dtype=torch.int64)
+    nv[-1] = block_rows - 123
+    img = Image(cols, nulls + [None], nv.to(device), n_blocks, block_rows, device)
+    return prog, img
+
+
 #: program #1's synthetic cases: (kind, lane dtype, null shape)
 DECODE_CASES = (("bp", np.int8, "rows"), ("bp", np.int16, "rows"), ("bp", np.int32, "rows"),
                 ("code", np.int8, "rows"), ("rle", np.int64, "runs"), ("rle", np.int64, "rows"),
