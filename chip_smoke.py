@@ -437,7 +437,7 @@ def phase_group_kernels(ga, fx, device) -> dict:
                 parts = ga.new_partials(prog, img, cap)
                 ga.launch_partials(prog, img, cap, parts)
                 err_p = check_group_partials(
-                    prog, parts, ga.partials_plain(prog, img, cap, ga.launch_grid(img)),
+                    prog, parts, ga.partials_plain(prog, img, cap, ga.launch_grid(img), ga.ROWS),
                     f"{shape} {kind} partials")
                 out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
                 ga.launch_combine(prog, img, cap, parts, None, out)
@@ -462,6 +462,15 @@ def phase_group_kernels(ga, fx, device) -> dict:
                   "max_abs_err_combine": err_c})
             del prog, img, got, want, carry, want2, parts, out
             torch.cuda.empty_cache()
+    # the shared-memory partials at their edges: ids past C, one slot, short
+    # tiles and n_valid cutting one, every leaf kind, an encoded image
+    for name, (prog, img, cap) in fx.group_edge_cases(device).items():
+        chk = fx.group_partials_check(prog, img, cap)
+        errs["fused_group_agg_partials"] = max(errs["fused_group_agg_partials"],
+                                               chk["max_abs_err"])
+        emit({"phase": "kernels", "case": f"group_edge_{name}", "capacity": cap,
+              "leaves": len(prog.leaves), "int_leaves_equal": True, "f64_rel_tol": REL_TOL,
+              "bit_identical_reruns": True, **chk})
     return errs
 
 
@@ -729,11 +738,16 @@ def time_group_kernels(ga, prog, img, cap: int, iters: int) -> dict:
     c_ms = cuda_ms(lambda: ga.launch_combine(prog, img, cap, parts, None, out), 200)
     grid = parts.shape[0]
     err_p = 0.0
+    attrs = None
     if prog.shared_rows(cap):
-        err_p = check_group_partials(prog, parts, ga.partials_plain(prog, img, cap, grid),
+        err_p = check_group_partials(prog, parts, ga.partials_plain(prog, img, cap, grid, ga.ROWS),
                                      "timed partials")
+        # the instance this shape runs keeps its state in registers
+        attrs = dict(ga.partials_attributes(ga.partials_slots(prog)), rows_a_thread=ga.ROWS)
+        if attrs["localSizeBytes"] != 0:
+            raise AssertionError(f"fused_group_agg_partials spills: {attrs}")
     err_c = compare_packed(prog, out, ga.combine_plain(prog, img, cap, parts), "timed combine")
-    pp_ms = cuda_ms(lambda: ga.partials_plain(prog, img, cap, grid), 3, warmup=1)
+    pp_ms = cuda_ms(lambda: ga.partials_plain(prog, img, cap, grid, ga.ROWS), 3, warmup=1)
     cp_ms = cuda_ms(lambda: ga.combine_plain(prog, img, cap, parts), 3, warmup=1)
     nv = img.n_valids
     rows = int(nv if isinstance(nv, int) else nv.sum())
@@ -746,7 +760,7 @@ def time_group_kernels(ga, prog, img, cap: int, iters: int) -> dict:
             "partials_bound_ms": p_bound, "partials_bound_by": p_by, "partials_plain_ms": pp_ms,
             "combine_ms": c_ms, "combine_bound_ms": c_bound, "combine_bound_by": c_by,
             "combine_plain_ms": cp_ms, "max_abs_err_partials": err_p,
-            "max_abs_err_combine": err_c}
+            "max_abs_err_combine": err_c, "partials_attributes": attrs}
 
 
 def time_mask(fm, prog, img) -> dict:
@@ -1749,21 +1763,41 @@ def time_dict(fx, fd, seen: dict) -> dict:
             "library_ms": cuda_ms(lambda: torch.unique(torch.cat([d, k]) if d is not None
                                                        else k, sorted=True)[:cap], 10)}
     new, k, old = seen["dict_ids"]
+    out["dict_ids"] = time_ids(fd, new, k, old, 50)
+    return out
+
+
+def time_ids(fd, new, k, old, iters: int) -> dict:
+    """``dict_ids`` at the main path's inputs (the new dictionary, the
+    keys, the old dictionary): ids and perm against its plain version on CPU
+    copies (equal), the instance's attributes (no local bytes), its
+    CUDA-event ms with the old dictionary and without it (the ids alone),
+    the plain version's ms, the bound (each input read once, each output
+    written once; a search step a key and a slot) and two yardsticks:
+    ``torch.searchsorted`` of the keys (the ids alone) and of the keys and
+    the old dictionary (the kernel's whole function)."""
+    dev = k.device
     cap, n = new.numel(), k.numel()
     gids = torch.empty(n, dtype=torch.int32, device=dev)
     perm = torch.empty(cap, dtype=torch.int32, device=dev)
     fd.launch_ids(new, k, gids, old, perm)
     want_ids, want_perm = fd.dict_ids_plain(new.cpu(), k.cpu(), old.cpu())
     if not (torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)):
-        raise AssertionError("dict_ids: differs from its plain version at the path's shape")
+        raise AssertionError(f"dict_ids at {cap} slots: differs from its plain version")
+    attrs = fd.ids_attributes(cap)
+    if attrs["localSizeBytes"] != 0:
+        raise AssertionError(f"dict_ids spills: {attrs}")
     b_ms, b_by = bound(cap * 8 + n * 8 + n * 4 + cap * 12, (n + cap) * max(1, cap.bit_length()))
-    out["dict_ids"] = {
-        "keys": n, "capacity": cap,
-        "ms": cuda_ms(lambda: fd.launch_ids(new, k, gids, old, perm), 50),
+    return {
+        "keys": n, "capacity": cap, "attributes": attrs,
+        "ms": cuda_ms(lambda: fd.launch_ids(new, k, gids, old, perm), iters),
+        "ms_without_old": cuda_ms(lambda: fd.launch_ids(new, k, gids), iters),
         "plain_ms": cuda_ms(lambda: fd.dict_ids_plain(new, k, old), 3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.searchsorted(new, k), 20)}
-    return out
+        "library_ms": cuda_ms(lambda: torch.searchsorted(new, k), iters),
+        "library": "torch.searchsorted of the keys in the new dictionary",
+        "library_with_perm_ms": cuda_ms(lambda: (torch.searchsorted(new, k),
+                                                 torch.searchsorted(new, old)), iters)}
 
 
 def phase_mesh_grouped(fx, card: str, device) -> dict:
@@ -1861,6 +1895,13 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
     for name in fx.UNION_EDGE_CASES:
         d, k, cap = fx.union_edge_case(name, SEED)
         union_edges[name] = fx.union_kernel_check(d, k, cap, device)
+    # dict_ids at its edges: in shared memory and past it (the grouped
+    # mesh's 32,768 slots, the global union's 262,144), every old dictionary
+    ids_edges = {}
+    for cap in (64, 8193, 32768, 262_144):
+        for kind in fx.IDS_OLD:
+            ids_edges[f"{cap}_{kind}"] = fx.ids_kernel_check(
+                *fx.ids_case(cap, 100_003, kind, SEED + cap, device))
     # the kernels at the path's own inputs: Q1 at G = 1, its second
     # super-block (a carried dictionary, a carry to move)
     q1 = evs["q1_g1"]
@@ -1888,7 +1929,7 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
           "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
           "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "kernels": t_dict, "mesh_merge_remap": t_merge, "grouped_pair_shard": t_pair,
-          "union_edges": union_edges, "launches": launches,
+          "union_edges": union_edges, "ids_edges": ids_edges, "launches": launches,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "kernels": t_dict, "merge": t_merge, "pair": t_pair,
             "max_abs_err": max([merge_err, *cpu_err.values()])}
@@ -2236,20 +2277,7 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     dg, kg, _ = seen["dict_union_global"]
     t_sort_global = time_sort_union(fd, dg, kg, ucap)
     new, kk, old = seen["dict_ids"]
-    gids = torch.empty(kk.numel(), dtype=torch.int32, device=device)
-    perm = torch.empty(ucap, dtype=torch.int32, device=device)
-    fd.launch_ids(new, kk, gids, old, perm)
-    want_ids, want_perm = fd.dict_ids_plain(new.cpu(), kk.cpu(), old.cpu())
-    if not (torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)):
-        raise AssertionError("dict_ids in device memory: differs from its plain version")
-    ids_cap, ids_n = new.numel(), kk.numel()
-    ids_bound = bound(ids_cap * 8 + ids_n * 8 + ids_n * 4 + ids_cap * 12,
-                      (ids_n + ids_cap) * max(1, ids_cap.bit_length()))
-    ids_ms = {"keys": ids_n, "capacity": ids_cap,
-              "ms": cuda_ms(lambda: fd.launch_ids(new, kk, gids, old, perm), 20),
-              "bound_ms": ids_bound[0], "bound_by": ids_bound[1],
-              "library_ms": cuda_ms(lambda: torch.searchsorted(new, kk), 20),
-              "library": "torch.searchsorted of the keys in the new dictionary"}
+    ids_ms = time_ids(fd, new, kk, old, 20)
     emit({"phase": "high_capacity", "case": "kernels", "card": card,
           "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "wide_warm": t_warm, "shared_rows_same_image": t_shared, "wide_cold_block": t_cold,
@@ -3405,6 +3433,13 @@ def main() -> int:
         return {k: t["topn_candidates"][k] for k in ("ms", "bound_ms", "plain_ms", "attributes",
                                                       "select_cap")}
 
+    def group_times(t):
+        return {k: t[f"partials_{k}"] for k in ("ms", "bound_ms", "plain_ms", "attributes")}
+
+    def ids_times(t):
+        return {k: t[k] for k in ("keys", "capacity", "ms", "ms_without_old", "bound_ms",
+                                  "library_ms", "library_with_perm_ms", "attributes")}
+
     emit({"phase": "redesign", "card": card,
           "batch_partials": {
               "rows_a_thread": fb.ROWS, "batch_a": batch_times(bt["same_region"]),
@@ -3422,6 +3457,17 @@ def main() -> int:
               "rows_a_thread": fm.MASK_ROWS,
               "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),
               "launches": scan_launches["fused_mask"]},
+          "fused_group_agg_partials": {
+              "rows_a_thread": ga.ROWS, "warm_q1": group_times(t_warm_q1),
+              "warm_q1_encoded": group_times(t_warm_q1_e),
+              "warm_l_quantity": group_times(t_qty), "cold_q1_block": group_times(t_cold_q1),
+              "mesh_grouped_shard": group_times(mg["pair"]),
+              "on_warm_q6": group_times(t_q6_grouped),
+              "launches": q1_launches["fused_group_agg_partials"]},
+          "dict_ids": {
+              "mesh_grouped_shard": ids_times(mg["kernels"]["dict_ids"]),
+              "past_8192_slots": ids_times(hc["ids"]),
+              "mesh_grouped_launches": mg["launches"]["dict_ids"]},
           "dict_union": {
               "attributes": fd.union_attributes(), "keys_a_thread": fd.KEYS_A_THREAD,
               "tile_min": fd.TILE_MIN, "sort_tile": fd.SORT_TILE,

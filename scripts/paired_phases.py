@@ -27,11 +27,32 @@ place, each beside its plain version's ms and its bound, or ``requests``:
 batch A (the batch kernels) and batch B (the zone rung) over the 100M-row
 image, four runs each after a first that pins, the warm raw TopN likewise,
 and the cold raw TopN over 1M KV rows three times (host clock around
-synchronized runs).  Each process builds its checkout's kernels first
-(outside the phase's clock).  Prints one JSON line per run (the
-checkout, the phase's request times by case, the phase's seconds) and a last
-line with each case's median over the runs of each checkout.  Needs one
-CUDA device.
+synchronized runs), or ``group_kernels``: ``fused_group_agg_partials`` alone
+(``chip_smoke.time_group_kernels`` once, held to its plain version, then
+four more CUDA-event times) at a cold Q1 block (65,536 rows, 8 slots), a
+grouped-mesh shard's shape (131,072 rows of Q1, 64 slots), warm GROUP BY
+l_quantity (host ids), Q6's one slot beside ``fused_agg_partials`` on the
+same image and warm Q1 over the 100M image, plain then encoded in place,
+the wide route (``group_wide_partials``) at 4,096 slots on the plain one,
+or ``dict_ids``: ``dict_ids``
+alone at a shard's 131,072 keys into 32,768 slots (16,664 consecutive
+integers filled; again 20,000 random 31-bit values), into 64 (4 filled) and
+at the grouped mesh's own inputs at 32,768 slots (captured from its second
+super-block), with the carried dictionary and without it, beside
+``torch.searchsorted`` of the keys and of the keys and the carried
+dictionary (the kernel's whole function), five CUDA-event times of 50
+launches each, or ``group_requests``: warm Q1 and warm GROUP BY
+l_quantity on the stacked route (``route_hint="unary"``) over the 100M-row
+image, cold Q1 over 1M KV rows and batch A, or ``mesh_requests``: the
+grouped mesh at 32,768 slots (per-supplier statistics over 10M rows on 8
+shards), each request run several times in one process (host clock around
+synchronized runs; a warm first run, which pins, left out) and once more
+under ``torch.profiler`` (the device's busy time, reported as the case
+``<name>_device``, and the kernels that take most of it).  Each process
+builds its checkout's kernels first (outside the phase's clock).  Prints
+one JSON line per run (the checkout, the phase's request times by case,
+the phase's seconds) and a last line with each case's median, quartiles
+and count over the runs of each checkout.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -164,6 +185,202 @@ elif sys.argv[1] in ("batch_kernels", "topn_kernels", "requests"):
             secs = [timed(fn) for _ in range(n)]
             cases[name] = {"request_s": secs[1:] if name != "cold_topn" else secs}
     print(json.dumps({"cases": cases}))
+elif sys.argv[1] == "group_kernels":
+    from tikv_tpu_torch.copr import encoding
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.copr.groupby import GroupDict
+    from tikv_tpu_torch.copr.torch_eval import (GROUP_CAPACITY_START, TorchDagEvaluator,
+                                                _capacity_for)
+
+    def ev_of(dag, br=1 << 17):
+        return TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device="cuda")
+
+    cases = {}
+
+    def timed(name, prog, img, cap, iters):
+        t = cs.time_group_kernels(ga, prog, img, cap, iters)
+        parts = ga.new_partials(prog, img, cap)
+        cases[name] = {"request_s": [t["partials_ms"] / 1e3] + [
+                           cs.cuda_ms(lambda: ga.launch_partials(prog, img, cap, parts),
+                                      iters) / 1e3 for _ in range(4)],
+                       "plain_ms": t["partials_plain_ms"], "bound_ms": t["partials_bound_ms"],
+                       "grid": t["grid"], "attributes": t.get("partials_attributes")}
+
+    # a cold Q1 block (65,536 rows, host ids, C = 8) and a grouped-mesh
+    # shard's shape (131,072 rows of Q1, host ids, 64 slots)
+    kvs = fx.build_kvs(1 << 17, cs.SEED)
+    for name, br, cap in (("cold_q1_block", 1 << 16, GROUP_CAPACITY_START),
+                          ("mesh_shard_shape", 1 << 17, 64)):
+        ev = ev_of(fx.q1_dag(), br)
+        cols, nv = next(ev._decode_blocks(FixtureScanSource(kvs[:br])))
+        gids, _n = ev._assign_gids(cols, nv, GroupDict())
+        timed(name, ev.plan.group_program, ev._block_image(cols, nv, gids, 0), cap, 50)
+    cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    # GROUP BY l_quantity: host ids for every block of the 100M image
+    ev_q = ev_of(fx.qty_dag())
+    groups = GroupDict()
+    all_gids = torch.stack([torch.from_numpy(ev_q._assign_gids(b.cols, b.n_valid, groups)[0])
+                            for b in cache.blocks]).to("cuda")
+    prog_q = ev_q.plan.group_program
+    timed("warm_l_quantity", prog_q, ev_q._stacked_device(cache, gids=all_gids),
+          _capacity_for(prog_q, 1, len(groups)), 10)
+    del all_gids
+    # Q6's one slot on the grouped kernel, beside fused_agg_partials
+    ev6 = ev_of(fx.q6_dag())
+    plan6, prog6 = ev6.plan, ev6.program
+    img6 = ev6._stacked_device(cache)
+    prog_g6 = ga.compile_group_program(plan6.sel_rpns, plan6.agg_rpns, plan6.device_cols,
+                                       plan6.schema, (), track=False)
+    timed("warm_q6_one_slot", prog_g6, img6, 1, 10)
+    grid, _threads = fa.kernel_grid()
+    scratch = torch.empty((grid, len(prog6.aggs), 2), dtype=torch.int64, device="cuda")
+    cases["warm_q6_fused_agg_partials"] = {"request_s": [
+        cs.cuda_ms(lambda: fa.launch_partials(prog6, img6, scratch), 10) / 1e3
+        for _ in range(5)]}
+    del img6, scratch
+    # warm Q1 (ids from the dictionary codes), plain then encoded in place
+    ev1 = ev_of(fx.q1_dag())
+    group_cols, dicts = ev1._stable_dict_group_cols(cache.blocks)
+    dict_lens = tuple(len(d) for d in dicts)
+    prog1 = ev1._coded_program(group_cols, dict_lens)
+    cap1 = _capacity_for(prog1, 1, (dict_lens[0] + 1) * (dict_lens[1] + 1))
+    for name in ("warm_q1", "warm_q1_encoded"):
+        if name == "warm_q1_encoded":
+            encoding.encode_blocks(cache)
+        img1 = ev1._stacked_device(cache, ev1._ship_cols(group_cols))
+        timed(name, prog1, img1, cap1, 10)
+        if name == "warm_q1":
+            # the wide route (group_wide_partials) on the same image at 4,096
+            # slots: its state accumulates over the timed launches
+            wide = ga.new_partials(prog1, img1, 4096)
+            cases["warm_q1_wide_4096"] = {"request_s": [
+                cs.cuda_ms(lambda: ga.launch_partials(prog1, img1, 4096, wide), 10) / 1e3
+                for _ in range(5)]}
+            del wide
+        del img1
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] == "dict_ids":
+    import numpy as np
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    inputs = []
+    # synthetic dict_ids inputs of the grouped mesh's shape: a shard's
+    # 131,072 keys (a tenth of them inactive rows, the sentinel) into a
+    # dictionary of `cap` slots, `live` of them filled, and the carried
+    # dictionary's slots; at 32,768 slots dense keys (consecutive integers)
+    # and sparse ones (random 31-bit values)
+    for name, cap, live, dense in (("32768", 32768, 16664, True),
+                                   ("32768_sparse", 32768, 20000, False),
+                                   ("64", 64, 4, False)):
+        rng = np.random.default_rng(cap)
+        if dense:
+            vals = np.arange(1, live + 1, dtype=np.int64)
+        else:
+            vals = np.sort(rng.choice(1 << 31, live, replace=False)).astype(np.int64)
+        new = np.full(cap, fd.SENTINEL, dtype=np.int64)
+        new[:live] = vals
+        keys = vals[rng.integers(0, live, 1 << 17)]
+        keys[rng.random(1 << 17) < 0.1] = fd.SENTINEL
+        carried = np.sort(rng.choice(vals, max(1, live * 3 // 4), replace=False))
+        old = np.full(cap, fd.SENTINEL, dtype=np.int64)
+        old[: len(carried)] = carried
+        inputs.append((name, *(torch.from_numpy(a).cuda() for a in (new, keys, old))))
+    # the path's own: the first dict_ids call with the carried dictionary of
+    # the grouped mesh at 32,768 slots (chip_smoke.py's high_capacity phase:
+    # per-supplier statistics, the second super-block)
+    a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+    mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()),
+                                     pm.make_mesh([torch.device("cuda", 0)] * cs.MESH_SHARDS,
+                                                  groups=1),
+                                     cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+    total = mev.total_rows
+    mblocks = [(fx.supp_columns(a_mesh, s, s + total, total), total) for s in (0, total)]
+    state = mev.step(*cs._block_args(mev, mblocks[0]), mev.init_state())
+    seen = cs.capture_dict(fd, lambda: mev.step(*cs._block_args(mev, mblocks[1]), state,
+                                                block_base=total))
+    inputs.append(("path", *seen["dict_ids"]))
+    del a_mesh, mblocks, state
+    cases = {}
+    for name, new, keys, old in inputs:
+        cap, n = new.numel(), keys.numel()
+        gids = torch.empty(n, dtype=torch.int32, device="cuda")
+        perm = torch.empty(cap, dtype=torch.int32, device="cuda")
+        fd.launch_ids(new, keys, gids, old, perm)
+        want_ids, want_perm = fd.dict_ids_plain(new.cpu(), keys.cpu(), old.cpu())
+        assert torch.equal(gids.cpu(), want_ids) and torch.equal(perm.cpu(), want_perm)
+        b_ms, _by = cs.bound(cap * 8 + n * 8 + n * 4 + cap * 12,
+                             (n + cap) * max(1, cap.bit_length()))
+        for case, fn in (
+                (f"ids_{name}", lambda: fd.launch_ids(new, keys, gids, old, perm)),
+                (f"ids_{name}_without_old", lambda: fd.launch_ids(new, keys, gids)),
+                (f"searchsorted_{name}", lambda: torch.searchsorted(new, keys)),
+                (f"searchsorted_with_perm_{name}", lambda: (torch.searchsorted(new, keys),
+                                                            torch.searchsorted(new, old)))):
+            cases[case] = {"request_s": [cs.cuda_ms(fn, 50) / 1e3 for _ in range(5)],
+                           "bound_ms": b_ms}
+        cases[f"ids_{name}"]["plain_ms"] = cs.cuda_ms(
+            lambda: fd.dict_ids_plain(new, keys, old), 3, warmup=1)
+        cases[f"ids_{name}"]["shape"] = {"keys": n, "capacity": cap,
+                                         "live": int((new < fd.SENTINEL).sum())}
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("group_requests", "mesh_requests"):
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    def ev_of(dag, br=1 << 17, unary=True):
+        ev = te.TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device="cuda")
+        if unary:
+            ev.route_hint = "unary"
+        return ev
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # (name, request, runs, how many of the first are left out: a warm
+    # first run pins)
+    plan = []
+    if sys.argv[1] == "group_requests":
+        cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+        kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+        ev_q1, ev_qty = ev_of(fx.q1_dag()), ev_of(fx.qty_dag())
+        ev_cold = ev_of(fx.q1_dag(), 1 << 16, unary=False)
+        evs_a = [ev_of(d, unary=False) for _n, d, _o in fx.batch_plans()]
+        plan = [("warm_q1_unary", lambda: ev_q1.run(None, cache), 5, 1),
+                ("warm_l_quantity", lambda: ev_qty.run(None, cache), 2, 1),
+                ("cold_q1", lambda: ev_cold.run(FixtureScanSource(kvs)), 3, 0),
+                ("batch_a", lambda: te.run_batch_cached(evs_a, cache), 5, 1)]
+    else:
+        a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+        mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()),
+                                         pm.make_mesh([torch.device("cuda", 0)] * cs.MESH_SHARDS,
+                                                      groups=1),
+                                         cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+        total = mev.total_rows
+        mblocks = [(fx.supp_columns(a_mesh, s, min(s + total, cs.HC_MESH_ROWS), total),
+                    min(total, cs.HC_MESH_ROWS - s)) for s in range(0, cs.HC_MESH_ROWS, total)]
+        plan = [("mesh_grouped_32768", lambda: mev.finalize(mev.run_blocks(mblocks)), 9, 1)]
+    cases = {}
+    for name, fn, n, skip in plan:
+        secs = [timed(fn) for _ in range(n)]
+        # one more run under torch.profiler: the device's busy ms and the
+        # kernels that take most of it
+        prof = cs.profile_runs(fn, 1)
+        top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:6]
+        cases[name] = {"request_s": secs[skip:],
+                       "device_ms": [sum(prof["device_ms"].values())],
+                       "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(json.dumps({"cases": cases}))
 else:
     getattr(cs, "phase_" + sys.argv[1])(fx, cs.card_line(), torch.device("cuda", 0))
 print(json.dumps({"phase_wall_s": time.perf_counter() - t0}))
@@ -186,9 +403,17 @@ def run_phase(checkout: Path, phase: str) -> dict:
         for case, res in obj.get("cases", {}).items():
             if isinstance(res, dict) and "request_s" in res:
                 out["requests_s"][case] = res["request_s"]
+            if isinstance(res, dict) and "device_ms" in res:
+                out["requests_s"][case + "_device"] = [ms / 1e3 for ms in res["device_ms"]]
         if "phase_wall_s" in obj:
             out["phase_wall_s"] = obj["phase_wall_s"]
     return out
+
+
+def quartiles(t: list[float]) -> dict:
+    """The median of ``t``, its first and third quartiles and its count."""
+    q = statistics.quantiles(t, n=4) if len(t) > 1 else [t[0]] * 3
+    return {"q1": q[0], "median": statistics.median(t), "q3": q[2], "n": len(t)}
 
 
 def main() -> int:
@@ -212,9 +437,9 @@ def main() -> int:
                 print(json.dumps({"phase": phase, "checkout": which, **res}), flush=True)
                 for case, times in res["requests_s"].items():
                     per[which].setdefault(case, []).extend(times)
-        summary[phase] = {which: {case: statistics.median(t) for case, t in cases.items()}
+        summary[phase] = {which: {case: quartiles(t) for case, t in cases.items()}
                           for which, cases in per.items()}
-    print(json.dumps({"median_request_s": summary,
+    print(json.dumps({"request_s_quartiles": summary,
                       "card": subprocess.run(
                           ["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -118,7 +118,7 @@ def test_grouped_kernel_matches_plain_version(cuda, kind, n_blocks, block_rows):
     if prog.shared_rows(cap):
         parts = ga.new_partials(prog, img, cap)
         ga.launch_partials(prog, img, cap, parts)
-        want_p = ga.partials_plain(prog, img, cap, ga.launch_grid(img))
+        want_p = ga.partials_plain(prog, img, cap, ga.launch_grid(img), ga.ROWS)
         for l, leaf in enumerate(prog.leaves):
             if leaf.is_f64:
                 torch.testing.assert_close(parts[:, l].view(torch.float64),
@@ -126,6 +126,36 @@ def test_grouped_kernel_matches_plain_version(cuda, kind, n_blocks, block_rows):
             else:
                 assert torch.equal(parts[:, l], want_p[:, l]), l
         _assert_close(ga.combine_plain(prog, img, cap, parts), got)
+        fx.group_partials_check(prog, img, cap)  # two runs bit for bit
+
+
+@pytest.mark.parametrize("name", fx.GROUP_EDGE_CASES)
+def test_grouped_partials_edges_match_plain_version(cuda, name):
+    """fused_group_agg_partials at its edges (fx.group_edge_cases): host ids
+    past C and below 0, coded ids, one slot with no key, blocks of 1,001
+    rows with n_valid cutting a tile, every leaf kind of fx.mixed_dag over a
+    plain and an encoded image: integer words exact, f64 leaves to rel
+    1e-12, two runs bit-identical, the combine over its partials and the
+    pair end to end against the plain versions."""
+    prog, img, cap = fx.group_edge_cases(cuda, (name,))[name]
+    assert prog.shared_rows(cap)
+    out = fx.group_partials_check(prog, img, cap)
+    assert out["grid"] == ga.launch_grid(img)
+    _assert_close(ga.fused_group_agg(prog, img, cap), ga.fused_group_agg_plain(prog, img, cap))
+
+
+def test_partials_instances_keep_no_local_memory(cuda):
+    """Every instance of fused_group_agg_partials and batch_partials (2, 4
+    and 8 stack slots) and both of dict_ids keep their state in registers:
+    no local (spilled) bytes."""
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    for slots in (2, 4, 8):
+        for attrs in (ga.partials_attributes(slots), fb.partials_attributes(slots)):
+            assert attrs["localSizeBytes"] == 0, attrs
+    for cap in (64, 32768):
+        assert fd.ids_attributes(cap)["localSizeBytes"] == 0, cap
 
 
 @pytest.mark.parametrize("times", [1, 4], ids=["c_max_plus_1", "4_c_max"])
@@ -880,3 +910,20 @@ def test_region_write_path_on_the_card(cuda):
                 fresh = evs[1]._stacked_device(copy, ship_cols=sig[1], nullable=sig[2])
                 for got, want in zip(pin[0], fresh.cols):
                     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("old_kind", fx.IDS_OLD)
+@pytest.mark.parametrize("cap", [64, 8193, 32768, 262_144])
+def test_dict_ids_matches_plain_version(cuda, cap, old_kind):
+    """dict_ids in shared memory (64 slots) and past it with the
+    device-memory tail (8,193 slots, the grouped mesh's 32,768, the global
+    union's 262,144 of the high-capacity phase): keys below, above, equal to
+    and between the dictionary's and the sentinel, 100,003 of them (not a
+    multiple of the keys a thread takes); old dictionaries with sentinel
+    slots, equal to the new one, and with every slot moved: ids and perm
+    equal to the plain version's, two runs bit-identical."""
+    new, keys, old = fx.ids_case(cap, 100_003, old_kind, cap + len(old_kind), cuda)
+    fa.reset_launches()
+    assert fx.ids_kernel_check(new, keys, old) == {
+        "ids": 100_003, "perm": 0 if old is None else cap}
+    assert fa.LAUNCHES["dict_ids"] == 2

@@ -778,3 +778,153 @@ def test_grouped_kernel_path_refuses_cpu_and_other_devices():
     img.device = torch.device("meta")
     with pytest.raises(ValueError, match="no fused_group_agg"):
         ga.fused_group_agg(prog, img, cap)
+
+
+# ---------------------------------------------------------------------------
+# fused_group_agg_partials' tile walk: its grid, its rows, its instance
+# ---------------------------------------------------------------------------
+
+N_VALIDS_510 = np.array([510, 0, 510, 301, 0, 510, 77], dtype=np.int64)
+
+
+@pytest.mark.parametrize("ids", ["host", "coded"])
+@pytest.mark.parametrize("br", [510, 512])
+def test_partials_at_the_tile_walks_assignment_match_jax(ids, br):
+    """Both plain halves of the grouped pair composed at the partials
+    kernel's own grid and rows (``ROWS`` rows of a block a thread, tile u in
+    block (u mod grid * THREADS) // THREADS): blocks of 510 rows end in a
+    short tile and n_valid 301 and 77 cut one; against the JAX package's
+    stacked scan with host ids and with ids from dictionary codes."""
+    rng = np.random.default_rng(23)
+    nv = N_VALIDS if br == 512 else N_VALIDS_510
+    nb = len(nv)
+    if ids == "host":
+        ev = jax_eval.JaxDagEvaluator(_dag([col(6)]), block_rows=br)
+        port = TorchDagEvaluator(dag_to_wire(ev.dag), block_rows=br, device="cpu")
+        prog, ship, cap = port.plan.group_program, ev.device_cols, 64
+        data, nulls = _inputs(ship, ev.nullable_cols, nb, br, rng)
+        gids = rng.integers(0, 50, (nb, br)).astype(np.int32)
+        want = ev._build_scan_fn(cap, nb)(tuple(data[i] for i in ship),
+                                          tuple(nulls[i] for i in ev.nullable_cols),
+                                          nv, gids, _offsets(nv), None)
+    else:
+        group_cols = [4, 5]
+        ev = jax_eval.JaxDagEvaluator(_dag([col(4), col(5)]), block_rows=br)
+        ship = ev._ship_cols(group_cols)
+        port = TorchDagEvaluator(dag_to_wire(ev.dag), block_rows=br, device="cpu")
+        prog, cap, gids = port._coded_program(group_cols, DICT_LENS), 32, None
+        data, nulls = _inputs(ship, ev.nullable_cols, nb, br, rng)
+        want = ev._build_scan_fn_coded(DICT_LENS, cap, nb, group_cols)(
+            tuple(data[i] for i in ship), tuple(nulls[i] for i in ev.nullable_cols),
+            nv, _offsets(nv), None)
+    img = _image(ship, ev.nullable_cols, data, nulls, nv, _offsets(nv), gids)
+    parts = ga.partials_plain(prog, img, cap)
+    assert tuple(parts.shape) == (ga.launch_grid(img), len(prog.leaves), cap)
+    _assert_state(ga.combine_plain(prog, img, cap, parts), want)
+
+
+def test_launch_grid_counts_tiles_and_the_wide_route_rows():
+    """fused_group_agg_partials takes one block per THREADS tiles of ROWS
+    rows of a block (a short block's last tile counts whole), at most
+    GRID_MAX; group_wide_partials still one per THREADS rows."""
+    def img(n_blocks, block_rows):
+        return fa.Image([], [], block_rows, n_blocks, block_rows, CPU, 0)
+
+    assert ga.ROWS == 4
+    for (nb, br), tiles, rows in (((763, 1 << 17), 528, 528), ((1, 1 << 16), 64, 256),
+                                  ((1, 1 << 17), 128, 512), ((1, 1024), 1, 4),
+                                  ((3, 1001), 3, 12), ((1, 1), 1, 1)):
+        assert ga.launch_grid(img(nb, br)) == tiles, (nb, br)
+        assert ga.wide_grid(img(nb, br)) == rows, (nb, br)
+
+
+@pytest.mark.parametrize("block_rows", [1001, 1024])
+def test_grouped_partials_plain_gives_a_threads_rows_to_its_block(block_rows):
+    """partials_plain follows the kernel's tile assignment by default: row i
+    of block b lies in tile b * ceil(block_rows / ROWS) + i // ROWS, and
+    tile u in block (u mod grid * THREADS) // THREADS; a count's partials
+    are those blocks' valid rows whose id lies in the slots (ids past C
+    count nowhere; the grid strides)."""
+    from tikv_tpu_torch.copr.fused_group_agg import LEAF_COUNT
+
+    rng = np.random.default_rng(29)
+    nb = 600
+    ev = jax_eval.JaxDagEvaluator(_dag([col(6)], [AggDescriptor("count", col(1))], conds=[]),
+                                  block_rows=block_rows)
+    port = TorchDagEvaluator(dag_to_wire(ev.dag), block_rows=block_rows, device="cpu")
+    prog, cap = port.plan.group_program, 16
+    nv = np.full(nb, block_rows, dtype=np.int64)
+    nv[-1] -= 77
+    gids = rng.integers(0, cap + 4, (nb, block_rows)).astype(np.int32)  # some past C
+    data, nulls = _inputs(ev.device_cols, ev.nullable_cols, nb, block_rows, rng, null_p=0.0)
+    img = _image(ev.device_cols, ev.nullable_cols, data, nulls, nv, _offsets(nv), gids)
+    grid = ga.launch_grid(img)
+    assert grid == ga.GRID_MAX and grid * ga.THREADS * ga.ROWS < nb * block_rows
+    parts = ga.partials_plain(prog, img, cap)
+    leaf = [l.kind for l in prog.leaves].index(LEAF_COUNT)
+    rows = np.arange(nb * block_rows)
+    b, i = rows // block_rows, rows % block_rows
+    ok = (i < nv[b]) & (gids.reshape(-1) < cap)
+    tile = b * -(-block_rows // ga.ROWS) + i // ga.ROWS
+    blk = (tile % (grid * ga.THREADS)) // ga.THREADS
+    want = np.zeros((grid, cap), dtype=np.int64)
+    np.add.at(want, (blk[ok], gids.reshape(-1)[ok]), 1)
+    np.testing.assert_array_equal(parts[:, leaf].numpy(), want)
+    # the same rows through the whole plain pair: ids past C drop
+    np.testing.assert_array_equal(
+        ga.combine_plain(prog, img, cap, parts)[0].numpy(),
+        ga.fused_group_agg_plain(prog, img, cap)[0].numpy())
+
+
+def test_partials_instance_follows_the_plan():
+    """The launcher runs the fused_group_agg_partials instance whose stack
+    holds the plan (the fewest of 2, 4 or 8 slots, read as the batch's
+    launcher reads it); c_max is what fits its rows in shared memory, 331
+    slots for Q1's 10 leaves."""
+    q1 = TorchDagEvaluator(dag_to_wire(bench.q1_dag()), block_rows=64,
+                           device="cpu").plan.group_program
+    assert ga.partials_slots(q1) == fa.stack_slots([q1.code])
+    assert q1.c_max == 331
+    assert ga.partials_smem(q1, 331) <= ga.SMEM_MAX < ga.partials_smem(q1, 332)
+    gen = torch.Generator().manual_seed(5)
+    for kind in fx.GROUP_CASES:
+        prog, _img, cap = fx.synthetic_group_case(kind, 1, 256, gen, CPU)
+        assert ga.partials_slots(prog) in (2, 4, 8)
+        assert ga.partials_slots(prog) >= fa.stack_depth(prog.code)
+        assert prog.shared_rows(cap) == (ga.partials_smem(prog, cap) <= ga.SMEM_MAX)
+
+
+def test_tile_walk_constants_match_the_cuda_source():
+    """GA_ROWS of csrc/fused_agg.cu against the wrapper's, the three
+    instances the launcher picks from, and the fold in the one header both
+    partials kernels include."""
+    agg = (CSRC / "fused_agg.cu").read_text()
+    batch = (CSRC / "fused_batch.cu").read_text()
+    fold = (CSRC / "ga_fold.cuh").read_text()
+    assert int(re.search(r"#define GA_ROWS (\d+)", agg).group(1)) == ga.ROWS
+    for slots in (2, 4, 8):
+        assert f"fused_group_agg_partials<{slots}>" in agg
+    for text in (agg, batch):
+        assert '#include "ga_fold.cuh"' in text
+        assert "ga_walk_tiles<" in text and "ga_row_atomic" not in text
+    assert "ga_row_atomic(" in fold and "__match_any_sync" in fold
+
+
+@pytest.mark.parametrize("name", fx.GROUP_EDGE_CASES)
+def test_grouped_edge_cases_through_the_plain_pair(name):
+    """fx.group_edge_cases on the CPU: the partials' plain version at the
+    kernel's grid and tiles, folded by the combine's, equals the one-pass
+    plain version (ids past C drop, one slot, short tiles, every leaf kind,
+    an encoded image), and the instance the launcher would pick holds the
+    plan."""
+    prog, img, cap = fx.group_edge_cases(CPU, (name,))[name]
+    assert prog.shared_rows(cap)
+    parts = ga.partials_plain(prog, img, cap)
+    got = ga.combine_plain(prog, img, cap, parts)
+    want = ga.fused_group_agg_plain(prog, img, cap)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0, equal_nan=True)
+    assert ga.partials_slots(prog) >= fa.stack_depth(prog.code)
+    assert ga.partials_smem(prog, cap) <= ga.SMEM_MAX
+    if name == "mixed_encoded":
+        assert img.descs is not None

@@ -535,3 +535,72 @@ def test_mesh_merge_remap_is_a_scatter_of_the_carry():
         torch.testing.assert_close(got[m][0, leaf.slot], want, rtol=0, atol=0, equal_nan=True)
     with pytest.raises(ValueError):
         fused_mesh.mesh_merge(prog, parts, table, carry, 0, 8, perm=perm)
+
+
+# ---------------------------------------------------------------------------
+# dict_ids: the shared table, its stride, the perm beside the keys
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [1, 3, 64, 8192, 8193, 32768, 100_000, 262_144])
+def test_ids_plain_version_gives_searchsorted(cap):
+    """dict_ids on the CPU (its plain version) at every capacity the kernel
+    splits by (the shared copy up to CAP_MAX slots, the table past it):
+    searchsorted's (left) ids clipped to cap - 1 and each old slot's place,
+    for fx.ids_case's keys and for dense keys (a run of integers) from below
+    the first to past the last, with the sentinel."""
+    new, keys, old = fx.ids_case(cap, 5001, "sentinels", cap, "cpu")
+    live = max(1, cap - cap // 3)
+    dense = np.full(cap, fd.SENTINEL, dtype=np.int64)
+    dense[:live] = np.arange(5, 5 + live)
+    x = np.concatenate([np.arange(0, live + 10), [fd.SENTINEL, fd.SENTINEL - 1]])
+    for d, k, o in ((new, keys, old), (torch.from_numpy(dense), torch.from_numpy(x), old)):
+        gids = torch.empty(k.numel(), dtype=torch.int32)
+        perm = torch.empty(cap, dtype=torch.int32)
+        fd.dict_ids(d, k, gids, o, perm)
+        want = np.searchsorted(d.numpy(), k.numpy(), side="left")
+        np.testing.assert_array_equal(gids.numpy(), np.minimum(want, cap - 1))
+        on = o.numpy()
+        np.testing.assert_array_equal(
+            perm.numpy(), np.where(on < fd.SENTINEL, np.searchsorted(d.numpy(), on), cap))
+
+
+@pytest.mark.parametrize("old_kind", fx.IDS_OLD)
+def test_ids_case_through_the_plain_version(old_kind):
+    """fx.ids_case's inputs through dict_ids on the CPU (its plain version):
+    ids clipped to cap - 1, sentinel keys at cap - 1, each old slot's place
+    in the new dictionary and cap for a sentinel slot; "same" keeps every
+    slot and "moves" moves every one."""
+    cap = 8193
+    new, keys, old = fx.ids_case(cap, 3001, old_kind, 7, "cpu")
+    gids = torch.empty(keys.numel(), dtype=torch.int32)
+    perm = None if old is None else torch.empty(cap, dtype=torch.int32)
+    fd.dict_ids(new, keys, gids, old, perm)
+    d, k = new.numpy(), keys.numpy()
+    np.testing.assert_array_equal(gids.numpy(), np.minimum(np.searchsorted(d, k), cap - 1))
+    live = int((d < fd.SENTINEL).sum())
+    assert (gids.numpy()[k == fd.SENTINEL] == min(live, cap - 1)).all()
+    if old is None:
+        return
+    o = old.numpy()
+    want = np.where(o < fd.SENTINEL, np.searchsorted(d, o), cap)
+    np.testing.assert_array_equal(perm.numpy(), want)
+    if old_kind == "same":
+        np.testing.assert_array_equal(perm.numpy()[:live], np.arange(live))
+    if old_kind == "moves":
+        assert (perm.numpy() != np.arange(cap)).all()
+    if old_kind == "sentinels":
+        assert (o == fd.SENTINEL).any() and (perm.numpy() == cap).any()
+
+
+def test_ids_constants_match_the_cuda_source():
+    """DI_SMEM_KEYS of csrc/fused_dict.cu against the wrapper's CAP_MAX; one
+    instance with the device-memory tail and one without; the table within
+    the default shared memory a block."""
+    import re
+    from pathlib import Path
+
+    text = (Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_dict.cu").read_text()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", text))
+    assert int(defines["DI_SMEM_KEYS"]) == fd.CAP_MAX
+    assert "dict_ids<true>" in text and "dict_ids<false>" in text
+    assert int(defines["DI_SPLITS"]) * 8 <= 48 * 1024 and fd.CAP_MAX * 8 <= 232448

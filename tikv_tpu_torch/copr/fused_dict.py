@@ -27,7 +27,10 @@ with three kernels of ``csrc/fused_dict.cu``:
 * ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
   1)`` per row into an image's ``gids`` lane; with the old dictionary,
   ``perm`` (``searchsorted(new_dict, old_key)``, ``cap`` for a sentinel
-  slot) in the same launch.
+  slot) in the same launch, its slots spread over the grid beside the keys.
+  A key a thread searches a shared-memory table: the dictionary itself up
+  to :data:`CAP_MAX` slots, past it every stride-th key (at most 256), then
+  halves in device memory.
 
 Each has a plain PyTorch version here, which the wrappers take for CPU
 tensors; on a CUDA tensor a wrapper launches its kernel or raises.  The
@@ -306,9 +309,11 @@ def kernels():
         lib.dm_launch.argtypes = [vp, cll, cll, vp, vp]
         lib.dc_launch_count.argtypes = [vp, cll, vp, vp]
         lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, vp, ci, vp]
+        lib.di_table_stride.argtypes = [ci]
+        lib.di_attributes.argtypes = [ci, vp]
         for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_count",
                    "dc_launch_compact", "dc_chunk", "di_smem_keys", "du_sort_tile",
-                   "du_attributes"):
+                   "du_attributes", "di_table_stride", "di_attributes"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
@@ -434,6 +439,22 @@ def union_attributes() -> dict:
     if rc != 0:
         raise RuntimeError(f"dict_union attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
+
+
+def ids_attributes(cap: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``dict_ids`` instance that runs at
+    ``cap`` slots (past :data:`CAP_MAX` the one with the device-memory
+    tail): registers a thread, local (spilled) bytes a thread, static shared
+    bytes a block, with the stride of its shared table (1: the whole
+    dictionary)."""
+    check_capacity(cap)
+    lib = kernels()
+    out = (ctypes.c_int * 3)()
+    rc = lib.di_attributes(cap, out)
+    if rc != 0:
+        raise RuntimeError(f"dict_ids attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "tableStride": lib.di_table_stride(cap)}
 
 
 def launch_ids(new_dict: torch.Tensor, keys: torch.Tensor, gids: torch.Tensor,

@@ -21,10 +21,13 @@ dictionary codes, ``_mixed_radix_gids``), and ``jax_eval.pack``.
 * ``fused_group_agg_cuda`` launches the grouped pair (``csrc/fused_agg.cu``):
   ``fused_group_agg_partials`` then ``fused_group_agg_combine_pack`` where
   the group state fits the partials kernel's shared memory (``C <=
-  c_max``), else the wide route ``group_wide_partials`` then
-  ``group_wide_combine``: one state in device memory, integer atomics, and
-  f64 sums added exactly (``XWORDS`` words a cell) and rounded once, so any
-  capacity is served bit-identically from run to run.
+  c_max``; :data:`ROWS` rows of a block a thread through the tile walk,
+  the fold of ``csrc/ga_fold.cuh`` that ``batch_partials`` shares, in the
+  instance of :func:`partials_slots` stack slots), else the wide route
+  ``group_wide_partials`` then ``group_wide_combine``: one state in device
+  memory, integer atomics, and f64 sums added exactly (``XWORDS`` words a
+  cell) and rounded once, so any capacity is served bit-identically from
+  run to run.
   ``wide_partials_plain`` and ``wide_combine_plain`` are their plain
   versions, word for word.
 * ``fused_group_agg`` takes the plain version for a CPU image and the kernels
@@ -66,6 +69,7 @@ MAX_KEYS = 4
 THREADS = 256
 WARPS = THREADS // 32
 GRID_MAX = 528
+ROWS = 4  # rows a fused_group_agg_partials thread walks at once (GA_ROWS)
 SMEM_MAX = 232448  # dynamic shared memory one block may use on Hopper
 XWORDS = 66  # words of an exact f64 sum (GA_XW): units 2^-1074 to past 2^1037
 XFLAG_POSINF, XFLAG_NEGINF, XFLAG_NAN = 1, 2, 4
@@ -396,22 +400,31 @@ def fused_group_agg_plain(prog: GroupProgram, img: Image, capacity: int, carry=N
 
 
 def launch_grid(img: Image) -> int:
-    """Blocks of ``fused_group_agg_partials`` for an image: fixed by its
-    shape, at most ``GRID_MAX``."""
+    """Blocks of ``fused_group_agg_partials`` for an image: one per
+    ``THREADS`` tiles of ``ROWS`` rows of a block, at most ``GRID_MAX``;
+    fixed by the image's shape."""
+    tiles = img.n_blocks * -(-img.block_rows // ROWS)
+    return max(1, min(GRID_MAX, -(-tiles // THREADS)))
+
+
+def wide_grid(img: Image) -> int:
+    """Blocks of ``group_wide_partials``: one per ``THREADS`` rows (it walks
+    a row a thread a step), at most ``GRID_MAX``."""
     rows = img.n_blocks * img.block_rows
     return max(1, min(GRID_MAX, -(-rows // THREADS)))
 
 
-def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int,
-                   rows_a_thread: int = 1) -> torch.Tensor:
-    """Plain version of the shared-memory ``fused_group_agg_partials``:
-    ``[grid, n_leaves, C]`` int64 words (f64 as bits), flat row r going to
-    block ``(r mod grid*THREADS) // THREADS`` as in the kernel.  With
-    ``rows_a_thread`` R > 1 (``batch_partials``' tile walk) a thread takes
-    R rows of one block at once: row i of block b is in tile ``b *
-    ceil(block_rows / R) + i // R``, and tile u goes to block ``(u mod
-    grid*THREADS) // THREADS``.  f64 leaves are summed in another order than
-    the kernel's."""
+def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int | None = None,
+                   rows_a_thread: int = ROWS) -> torch.Tensor:
+    """Plain version of the shared-memory ``fused_group_agg_partials`` (and
+    of ``batch_partials``' rows of a task): ``[grid, n_leaves, C]`` int64
+    words (f64 as bits), by default at the kernel's :func:`launch_grid`.
+    A thread takes ``rows_a_thread`` R rows of one block at once (the tile
+    walk): row i of block b is in tile ``b * ceil(block_rows / R) + i //
+    R``, and tile u goes to block ``(u mod grid*THREADS) // THREADS`` as in
+    the kernel, so integer leaves agree word for word.  f64 leaves are
+    summed in another order than the kernel's."""
+    grid = launch_grid(img) if grid is None else grid
     terms, gid, _outs = _row_terms(prog, img, capacity)
     n = img.n_blocks * img.block_rows
     flat = torch.arange(n, device=img.device)
@@ -727,7 +740,11 @@ def _kernels():
         lib.ga_params_size.restype = ctypes.c_int
         lib.ga_smem_max.restype = ctypes.c_int
         lib.ga_xwords.restype = ctypes.c_int
-        lib.ga_launch_partials.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp]
+        lib.ga_launch_partials.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           vp]
+        lib.ga_partials_attributes.argtypes = [ctypes.c_int, vp]
+        lib.ga_partials_attributes.restype = ctypes.c_int
+        lib.ga_tile_rows.restype = ctypes.c_int
         lib.ga_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp]
         lib.gw_launch_partials.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
         lib.gw_launch_combine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
@@ -738,10 +755,36 @@ def _kernels():
             raise RuntimeError(
                 f"GaParams layout mismatch: kernel {lib.ga_params_size()} bytes, "
                 f"wrapper {ctypes.sizeof(_GaParams)}")
-        if lib.ga_smem_max() != SMEM_MAX or lib.ga_xwords() != XWORDS:
-            raise RuntimeError("GA_SMEM_MAX or GA_XW of the kernel differs from the wrapper's")
+        if lib.ga_smem_max() != SMEM_MAX or lib.ga_xwords() != XWORDS \
+                or lib.ga_tile_rows() != ROWS:
+            raise RuntimeError("GA_SMEM_MAX, GA_XW or GA_ROWS of the kernel differs from the "
+                               "wrapper's")
         _declared = True
     return lib
+
+
+def partials_slots(prog: GroupProgram) -> int:
+    """The stack slots of the ``fused_group_agg_partials`` instance that runs
+    ``prog``: the fewest of 2, 4 or 8 that hold its plan."""
+    return fa.stack_slots([prog.code])
+
+
+def partials_smem(prog: GroupProgram, capacity: int) -> int:
+    """Dynamic shared memory of a ``fused_group_agg_partials`` block: the
+    warps' stage ``[L][32]`` and rows ``[L][C]``."""
+    return WARPS * len(prog.leaves) * (32 + capacity) * 8
+
+
+def partials_attributes(slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``fused_group_agg_partials`` instance
+    of ``slots`` stack slots: registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().ga_partials_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_group_agg_partials attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
 
 
 def check_capacity(prog: GroupProgram, capacity: int) -> None:
@@ -808,19 +851,19 @@ def launch_partials(prog: GroupProgram, img: Image, capacity: int, out: torch.Te
     lib = _kernels()
     p = group_params(prog, img, capacity)
     L = len(prog.leaves)
-    grid = launch_grid(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         if shared:
             name = "fused_group_agg_partials"
-            rc = lib.ga_launch_partials(ctypes.byref(p), out.data_ptr(), grid,
-                                        WARPS * L * (32 + capacity) * 8, stream)
+            rc = lib.ga_launch_partials(ctypes.byref(p), out.data_ptr(), launch_grid(img),
+                                        partials_smem(prog, capacity), partials_slots(prog),
+                                        stream)
         else:
             name = "group_wide_partials"
             words, xacc = _wide_views(prog, capacity, out)
             rc = lib.gw_launch_partials(ctypes.byref(p), words.data_ptr(),
-                                        xacc.data_ptr() if xacc.numel() else None, grid,
-                                        WARPS * L * 32 * 8, stream)
+                                        xacc.data_ptr() if xacc.numel() else None,
+                                        wide_grid(img), WARPS * L * 32 * 8, stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

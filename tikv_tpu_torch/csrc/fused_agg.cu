@@ -35,16 +35,21 @@
 //     (__grid_constant__, served from constant memory): every thread of
 //     the grid reads the same instruction, so the walk never diverges and
 //     one compiled kernel serves every plan.
-// What it does not do yet: vector loads, cp.async/TMA pipelining, several
-// rows per thread.  Those are later work.
+// fused_group_agg_partials walks GA_ROWS rows a thread with the tile walk
+// (fa_walk_tile: the stack in registers, each lane's rows in one vector
+// load where aligned) and folds them as batch_partials does (ga_fold.cuh);
+// the capacity-1 pair and the wide route still walk a row a step
+// (fa_walk), with no cp.async/TMA pipelining: later work.
 //
 // Encoded images: every column is read through fa_load (program #1, in
 // fa_walk.cuh), also the dictionary codes of the coded group ids and the
 // winning row that `first` walks again in the combine.
 //
-// Determinism: the grid is fixed (FA_GRID blocks of FA_THREADS threads), a
-// row goes to thread (flat row index mod grid size), and every reduction
-// runs in a fixed order, so f64 sums are bit-identical from run to run; the
+// Determinism: the grid depends on the image's shape alone (at most FA_GRID
+// blocks of FA_THREADS threads), a row (a tile of GA_ROWS rows, for
+// fused_group_agg_partials) goes to thread (its index mod the grid's
+// threads), and every reduction runs in a fixed order, so f64 sums are
+// bit-identical from run to run; the
 // wide route's f64 sums are exact until one rounding, so their order does
 // not matter at all.
 // Integer arithmetic is done in unsigned 64-bit and cast back, which wraps
@@ -55,11 +60,11 @@
 // copr/fused_group_agg.py (CPU tests check the opcode and leaf tables; the
 // wrappers check sizeof(FaParams) and sizeof(GaParams) at load).
 
-#include "fa_walk.cuh"
-#include "ga_leaf.cuh"
+#include "ga_fold.cuh"
 
 #define FA_THREADS 256
 #define FA_GRID 528
+#define GA_ROWS 4  // rows a fused_group_agg_partials thread walks at once (its tile)
 
 enum { FA_AGG_COUNT = 0, FA_AGG_SUM = 1, FA_AGG_MIN = 2, FA_AGG_MAX = 3 };
 
@@ -294,7 +299,7 @@ __device__ __forceinline__ void ga_atomic(int kind, long long* dst, long long v)
 }
 
 
-// The row loop of both grouped partials kernels.  Each thread walks its rows
+// The row loop of the wide route's partials kernel.  Each thread walks its rows
 // (flat row f = base + lane, base stepping by the grid's size), stages each
 // row's contribution to every leaf in its warp's `stage` [L][32] and its
 // group id; then `fold(active, gid, same)` runs on every lane, `same`
@@ -363,55 +368,51 @@ __device__ __forceinline__ void ga_rows(const GaParams& p, long long* stage, Fol
   }
 }
 
-// Partials of every leaf for every group slot, C <= C_MAX: each warp owns a
-// shared-memory row [n_leaves][C] and the kernel writes [gridDim.x,
-// n_leaves, C] int64 words (f64 as bits), one row per block, with no
-// atomics: for each 32-row step the lanes of one group are folded in lane
-// order by the lowest of them into the warp's row; at the end the warp rows
-// are folded in warp order.  Every f64 leaf is therefore summed in one fixed
-// order: reruns are bit-identical.  Dynamic shared memory: GA_WARPS *
+// Partials of every leaf for every group slot, C <= C_MAX, [gridDim.x,
+// n_leaves, C] int64 words (f64 as bits), one row per block, by the tile
+// walk and fold of ga_fold.cuh (shared with batch_partials): GA_ROWS rows of
+// one block a thread, the tile's group ids (host ids or the key codes' mixed
+// radix) once a tile, integer leaves by shared-memory atomics into the row
+// of the thread's lane group, f64 leaves folded in lane order by the lowest
+// lane of each id, the tracker by that lane with a plain store; at the end
+// the rows fold in warp order.  Every f64 leaf is therefore summed in one
+// fixed order: reruns are bit-identical.  Dynamic shared memory: GA_WARPS *
 // n_leaves * (32 + C) * 8 bytes, so
 //     C_MAX = GA_SMEM_MAX / (GA_WARPS * 8 * n_leaves) - 32
 // (331 group slots for TPC-H Q1's 10 leaves; 1,784 for one count).  Past
-// C_MAX the grouped pair is group_wide_partials + group_wide_combine.
+// C_MAX the grouped pair is group_wide_partials + group_wide_combine.  D:
+// the stack slots of the tile walk (the launcher's pick from the plan's
+// depth).
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 fused_group_agg_partials(const __grid_constant__ GaParams p, long long* __restrict__ out) {
   extern __shared__ long long ga_smem[];
   const int L = p.n_leaves;
   const int C = p.capacity;
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  long long* stage = ga_smem + (long long)warp * L * 32;  // [L][32]: this step's contributions
+  long long* stage = ga_smem + (long long)warp * L * 32;  // [L][32]: f64 values, a keyless fold
   long long* wrows = ga_smem + (long long)GA_WARPS * L * 32;  // [GA_WARPS][L][C]
   long long* mine = wrows + (long long)warp * L * C;
-  for (long long idx = threadIdx.x; idx < (long long)GA_WARPS * L * C; idx += FA_THREADS) {
-    wrows[idx] = p.leaf_ident[(idx / C) % L];
-  }
+  ga_rows_init<FA_THREADS>(p, stage, wrows, p.gids != nullptr || p.n_keys > 0);
   __syncthreads();
-
-  ga_rows(p, stage, [&](bool active, int gid, unsigned same) {
-    if (!active || lane != __ffs(same) - 1) return;
-    for (int l = 0; l < L; ++l) {
-      const int kind = p.leaf_kind[l];
-      if (kind == GA_FIRSTVAL) continue;
-      const bool is_f = p.leaf_f64[l];
-      long long acc = mine[(long long)l * C + gid];
-      for (unsigned m = same; m != 0; m &= m - 1) {
-        acc = ga_merge(kind, is_f, acc, stage[l * 32 + __ffs(m) - 1]);
-      }
-      mine[(long long)l * C + gid] = acc;
-    }
-  });
-
+  ga_walk_tiles<GA_ROWS, D, FA_THREADS>(
+      p, p.gids,
+      [&](long long b) { return p.n_valids != nullptr ? __ldg(p.n_valids + b) : p.n_valid_all; },
+      blockIdx.x, gridDim.x, stage, mine);
   __syncthreads();
-  long long* part = out + (long long)blockIdx.x * L * C;
-  for (long long idx = threadIdx.x; idx < (long long)L * C; idx += FA_THREADS) {
-    const int l = (int)(idx / C);
-    const int kind = p.leaf_kind[l];
-    const bool is_f = p.leaf_f64[l];
-    long long acc = wrows[idx];
-    for (int w = 1; w < GA_WARPS; ++w) acc = ga_merge(kind, is_f, acc, wrows[(long long)w * L * C + idx]);
-    part[idx] = acc;
+  ga_rows_out<FA_THREADS>(p, wrows, out + (long long)blockIdx.x * L * C);
+}
+
+typedef void (*GaPartialsKernel)(GaParams, long long*);
+
+// The instance whose stack holds `slots` operands (2, 4 or 8); nullptr else.
+static GaPartialsKernel ga_partials_kernel(int slots) {
+  static_assert(FA_MAX_STACK == 8, "the partials instances' slots");
+  switch (slots) {
+    case 2: return fused_group_agg_partials<2>;
+    case 4: return fused_group_agg_partials<4>;
+    case 8: return fused_group_agg_partials<8>;
+    default: return nullptr;
   }
 }
 
@@ -745,10 +746,30 @@ int ga_params_size(void) { return (int)sizeof(GaParams); }
 int ga_smem_max(void) { return GA_SMEM_MAX; }
 int ga_xwords(void) { return GA_XW; }
 
-// out: [grid, n_leaves, C]
-int ga_launch_partials(const GaParams* p, long long* out, int grid, int smem_bytes,
+int ga_tile_rows(void) { return GA_ROWS; }
+
+// out: [grid, n_leaves, C]; the instance of `slots` stack slots
+// (cudaErrorInvalidValue for another count)
+int ga_launch_partials(const GaParams* p, long long* out, int grid, int smem_bytes, int slots,
                        void* stream) {
-  return ga_launch_smem(fused_group_agg_partials, grid, smem_bytes, stream, *p, out);
+  const GaPartialsKernel k = ga_partials_kernel(slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return ga_launch_smem(k, grid, smem_bytes, stream, *p, out);
+}
+
+// cudaFuncGetAttributes of the fused_group_agg_partials instance of `slots`
+// stack slots: registers a thread, local and static shared bytes, into
+// out[0..3).
+int ga_partials_attributes(int slots, int* out) {
+  const GaPartialsKernel k = ga_partials_kernel(slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)k);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
 int ga_launch_combine(const GaParams* p, const long long* parts, int n_parts,

@@ -67,11 +67,17 @@
 // every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
 // per row, as the mask did before its tile walk; dict_union reads each key
 // once and sorts in registers and shared memory (log2(T / 512) merge
-// levels a tile after the warps' sorts); dict_ids does a binary search of
-// at most 13 steps per row in a shared-memory copy of the dictionary (past
-// DI_SMEM_KEYS slots, in the dictionary itself, in device memory).  At the
-// mesh path's shapes (131,072 rows a shard, cap 64) all three are a few
-// microseconds of launch latency.
+// levels a tile after the warps' sorts); dict_ids reads each key once and
+// writes 4 bytes a key: a key a thread, at most 13 steps in a
+// shared-memory copy of the dictionary.  Past DI_SMEM_KEYS slots
+// each step left in device memory reads a 32-byte sector of L2 for 8 bytes,
+// so the search's L2 sectors, not HBM, bound it: a shared table of every
+// stride-th key (at most DI_SPLITS: a larger table costs more to fill in
+// every block than it saves) places the key within one stride, which
+// halving narrows to its place.  The perm's lower bounds run beside the
+// keys over the whole grid, not in one block.  At the mesh path's shapes
+// (131,072 rows a shard, cap 64) all three are a few microseconds of launch
+// latency.
 //
 // Determinism: integers only; the one atomic ORs a flag bit.  Reruns are
 // bit-identical.
@@ -95,7 +101,8 @@
 #define DM_GRID_MAX 4096
 #define DC_PER_THREAD 8
 #define DC_CHUNK (DU_THREADS * DC_PER_THREAD)  // sorted keys a dict_count/dict_compact block reads
-#define DI_SMEM_KEYS 8192          // past this, dict_ids searches in device memory
+#define DI_SMEM_KEYS 8192          // past this, dict_ids' table holds every stride-th key
+#define DI_SPLITS 256              // most keys of dict_ids' table past DI_SMEM_KEYS (2 KB)
 #define DK_SENTINEL (1LL << 62)
 #define DK_FLAG_RANGE 1     // a key value outside [0, lane_max)
 #define DK_FLAG_CAPACITY 2  // more than cap distinct keys
@@ -478,51 +485,86 @@ dict_compact(const long long* __restrict__ s, long long n, const int* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// dict_ids: one key per thread, grid-stride; with an old dictionary, the
-// grid's last block writes perm instead
+// dict_ids: one key or perm slot a thread
 // ---------------------------------------------------------------------------
 
-// The first position of d[0..n) (sorted) holding a value >= x.
-__device__ __forceinline__ int di_lower_bound(const long long* d, int n, long long x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (d[mid] < x) {
-      lo = mid + 1;
+// The count of the sorted s[0..n) (n >= 1, shared memory) below x: a
+// search whose steps do not depend on the key (the interval's length
+// halves whatever the comparison says), so the warp's lanes step together.
+__device__ __forceinline__ long long di_count_below(const long long* s, int n, long long x) {
+  int b = 0;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    b = s[b + half] < x ? b + half : b;
+    len -= half;
+  }
+  return b + (s[b] < x ? 1 : 0);
+}
+
+// searchsorted(dict, x) past DI_SMEM_KEYS slots, given c, the count of the
+// table (every stride-th key of dict) below x: the place lies in (lo, hi],
+// lo = (c - 1) * stride (dict[lo] < x), hi = c * stride (dict[hi] >= x) or
+// cap, which halving in device memory (the dictionary stays in L2) finds.
+__device__ __forceinline__ long long di_tail(const long long* __restrict__ dict, int cap,
+                                             int stride, long long c, long long x) {
+  if (c == 0) return 0;
+  long long lo = (c - 1) * stride;
+  long long hi = c * stride < cap ? c * stride : cap;
+  while (hi - lo > 1) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (__ldg(dict + mid) < x) {
+      lo = mid;
     } else {
       hi = mid;
     }
   }
-  return lo;
+  return hi;
 }
 
-// SMEM: the dictionary copied into shared memory (cap <= DI_SMEM_KEYS);
-// else searched where it lies, in device memory.
-template <bool SMEM>
+// ids[u] = clip(searchsorted(dict, keys[u]), 0, cap - 1) for u < n and,
+// with the old dictionary, perm[t] = searchsorted(dict, old[t]) (cap for a
+// sentinel slot): the items [0, n + cap) of the grid, one a thread in a
+// grid stride, so the perm's slots spread over the blocks like the keys.
+// Each block first copies its table of n_tab keys into shared memory: the
+// dictionary itself (TAIL false, cap <= DI_SMEM_KEYS), or every `stride`-th
+// key of it (TAIL, past DI_SMEM_KEYS slots: at most DI_SPLITS keys), from
+// which di_tail goes on in device memory.  (The launcher computes n_tab: a
+// 64-bit division here would delay every block's start.)
+template <bool TAIL>
 __global__ void __launch_bounds__(DI_THREADS)
-dict_ids(const long long* __restrict__ dict, int cap, const long long* __restrict__ keys,
-         long long n, int* __restrict__ gids, const long long* __restrict__ old,
-         int* __restrict__ perm) {
-  extern __shared__ long long di_smem[];
-  const long long* d = dict;
-  if (SMEM) {
-    for (int t = threadIdx.x; t < cap; t += DI_THREADS) di_smem[t] = __ldg(dict + t);
-    __syncthreads();
-    d = di_smem;
+dict_ids(const long long* __restrict__ dict, int cap, int stride, int n_tab,
+         const long long* __restrict__ keys, long long n, int* __restrict__ gids,
+         const long long* __restrict__ old, int* __restrict__ perm) {
+  extern __shared__ long long di_table[];
+  const long long items = n + (old != nullptr ? cap : 0);
+  const long long step = (long long)gridDim.x * DI_THREADS;
+  auto item = [&](long long v) { return v < n ? __ldg(keys + v) : __ldg(old + (v - n)); };
+  long long u = (long long)blockIdx.x * DI_THREADS + threadIdx.x;
+  long long x = u < items ? item(u) : 0;  // in flight while the table fills
+  for (int t = threadIdx.x; t < n_tab; t += DI_THREADS) {
+    di_table[t] = __ldg(dict + (long long)t * stride);
   }
-  const int id_blocks = gridDim.x - (old != nullptr ? 1 : 0);
-  if ((int)blockIdx.x == id_blocks) {
-    for (int t = threadIdx.x; t < cap; t += DI_THREADS) {
-      const long long o = __ldg(old + t);
-      perm[t] = o < DK_SENTINEL ? di_lower_bound(d, cap, o) : cap;
+  __syncthreads();
+  while (u < items) {
+    long long c = di_count_below(di_table, n_tab, x);
+    if (TAIL) c = di_tail(dict, cap, stride, c, x);
+    if (u < n) {
+      gids[u] = (int)(c < cap - 1 ? c : cap - 1);
+    } else {
+      perm[u - n] = x < DK_SENTINEL ? (int)c : cap;
     }
-    return;
+    u += step;
+    if (u < items) x = item(u);
   }
-  const long long stride = (long long)id_blocks * DI_THREADS;
-  for (long long f = (long long)blockIdx.x * DI_THREADS + threadIdx.x; f < n; f += stride) {
-    const int g = di_lower_bound(d, cap, __ldg(keys + f));
-    gids[f] = g < cap - 1 ? g : cap - 1;
-  }
+}
+
+// Past DI_SMEM_KEYS slots: every stride-th key in the table, the fewest
+// 2^k that keep it within DI_SPLITS keys.
+static int di_stride(int cap) {
+  if (cap <= DI_SMEM_KEYS) return 1;
+  int s = 1;
+  while (((long long)cap + s - 1) / s > DI_SPLITS) s <<= 1;
+  return s;
 }
 
 extern "C" {
@@ -576,24 +618,45 @@ int du_launch(const long long* dict, long long n_dict, const long long* keys, lo
   return (int)cudaGetLastError();
 }
 
+// One launch: the keys and (old not null) the perm's slots, one a thread;
+// the table in dynamic shared memory.
 int di_launch(const long long* dict, int cap, const long long* keys, long long n, int* gids,
               const long long* old, int* perm, void* stream) {
-  long long grid = (n + DI_THREADS - 1) / DI_THREADS;
+  const long long items = n + (old != nullptr ? cap : 0);
+  long long grid = (items + DI_THREADS - 1) / DI_THREADS;
   if (grid > DI_GRID_MAX) grid = DI_GRID_MAX;
   if (grid < 1) grid = 1;
-  if (old != nullptr) ++grid;
-  if (cap > DI_SMEM_KEYS) {
-    dict_ids<false><<<(unsigned)grid, DI_THREADS, 0, (cudaStream_t)stream>>>(dict, cap, keys, n,
-                                                                            gids, old, perm);
-    return (int)cudaGetLastError();
-  }
-  const int smem = cap * 8;
-  const int err = (int)cudaFuncSetAttribute(dict_ids<true>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int stride = di_stride(cap);
+  const int n_tab = (int)(((long long)cap + stride - 1) / stride);
+  const int smem = n_tab * 8;
+  const void* k = stride > 1 ? (const void*)dict_ids<true> : (const void*)dict_ids<false>;
+  const int err = (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  dict_ids<true><<<(unsigned)grid, DI_THREADS, smem, (cudaStream_t)stream>>>(dict, cap, keys, n,
-                                                                            gids, old, perm);
+  if (stride > 1) {
+    dict_ids<true><<<(unsigned)grid, DI_THREADS, smem, (cudaStream_t)stream>>>(
+        dict, cap, stride, n_tab, keys, n, gids, old, perm);
+  } else {
+    dict_ids<false><<<(unsigned)grid, DI_THREADS, smem, (cudaStream_t)stream>>>(
+        dict, cap, stride, n_tab, keys, n, gids, old, perm);
+  }
   return (int)cudaGetLastError();
+}
+
+// The table's stride of dict_ids at `cap` slots (1: the dictionary itself).
+int di_table_stride(int cap) { return di_stride(cap); }
+
+// cudaFuncGetAttributes of the dict_ids instance that runs at `cap` slots
+// (past DI_SMEM_KEYS the one with the device-memory tail): registers a
+// thread, local and static shared bytes, into out[0..3).
+int di_attributes(int cap, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, di_stride(cap) > 1 ? (const void*)dict_ids<true> : (const void*)dict_ids<false>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
 // One merge pass over n keys in runs of W.

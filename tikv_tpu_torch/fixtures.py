@@ -683,7 +683,8 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
     """A grouped program, its image and its capacity, for holding the grouped
     kernels to their plain version.  ``kind``: ``"coded"`` — ids from two
     dictionary-code columns with NULLs (4 x 5 = 20 slots), all ten aggregates;
-    ``"host"`` — 60 host group ids, all ten aggregates; ``"host_many"`` — 300
+    ``"host"`` — 60 host group ids, all ten aggregates; ``"keyless"`` — no
+    key and no host ids (one slot), all ten aggregates; ``"host_many"`` — 300
     host group ids, integer leaves only; ``"host_wide"`` — 3,000 host group
     ids, all ten aggregates, NaN, +-inf and +-0.0 among the REAL column's
     values (the last two past the shared-memory capacity, so the wide
@@ -719,8 +720,10 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
     dict_lens = (3, 4)
     coded = kind == "coded"
     ship = list(range(7 if coded else 5))
+    keyless = kind == "keyless"
     prog = compile_group_program(sel_rpns, agg_rpns, ship, schema,
-                                 (5, 6) if coded else None, dict_lens if coded else ())
+                                 (5, 6) if coded else () if keyless else None,
+                                 dict_lens if coded else ())
     shape = (n_blocks, block_rows)
 
     def ints(lo, hi):
@@ -744,6 +747,8 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
         cols += [ints(0, dict_lens[0]), ints(0, dict_lens[1])]
         nulls += [null_mask(0.1), null_mask(0.05)]
         capacity = 32
+    elif keyless:
+        capacity = 1
     else:
         n_groups, capacity = {"host_many": (300, 512), "host_wide": (3000, 4096)}.get(kind,
                                                                                    (60, 64))
@@ -760,6 +765,88 @@ def synthetic_group_case(kind: str, n_blocks: int, block_rows: int, gen: torch.G
         n_valids, offsets = int(nv[0]), 1000
     img = Image(cols, nulls, n_valids, n_blocks, block_rows, device, offsets, gids)
     return prog, img, capacity
+
+
+#: fused_group_agg_partials' edge cases (:func:`group_edge_cases`)
+GROUP_EDGE_CASES = ("host_past_c", "coded_ragged", "keyless", "mixed", "mixed_encoded")
+
+
+def group_edge_cases(device, names=GROUP_EDGE_CASES, seed: int = 0) -> dict:
+    """``name -> (prog, img, capacity)`` for holding the shared-memory
+    grouped kernel to its plain version at its edges: ``host_past_c`` —
+    host ids from -2 to 71 into 64 slots (the rest drop); ``coded_ragged``
+    — ids from two dictionary-code columns; ``keyless`` — one slot, no key;
+    each of these over 3 blocks of 1,001 rows (a short last tile a block)
+    with 1,001, 999 and 530 valid rows (999 and 530 cut a tile);
+    ``mixed`` and ``mixed_encoded`` — :func:`mixed_dag`'s leaf kinds
+    (var_pop, first, bit_and, bit_or, min, max) grouped by
+    l_returnflag's codes over 5 blocks of 4,096 lineitem rows, plain and
+    encoded in place (``encoding.encode_blocks``: narrowed codes and
+    bitpacked lanes)."""
+    from .copr.dag_wire import dag_to_wire
+    from .copr.torch_eval import TorchDagEvaluator, _capacity_for
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    nv = torch.tensor([1001, 999, 530], dtype=torch.int64)
+    for name, kind in (("host_past_c", "host"), ("coded_ragged", "coded"), ("keyless", "keyless")):
+        if name not in names:
+            continue
+        prog, img, cap = synthetic_group_case(kind, 3, 1001, gen, device)
+        img.n_valids = nv.to(device)
+        img.offsets = (torch.cumsum(nv, 0) - nv).to(device)
+        if name == "host_past_c":
+            img.gids = torch.randint(-2, cap + 8, (3, 1001), generator=gen, device=device,
+                                     dtype=torch.int64).to(torch.int32)
+        out[name] = (prog, img, cap)
+    for name in ("mixed", "mixed_encoded"):
+        if name not in names:
+            continue
+        cache = build_cache(5 * 4096 - 123, 4096, seed + 5, encode=name == "mixed_encoded")
+        ev = TorchDagEvaluator(dag_to_wire(mixed_dag()), block_rows=4096, device=device)
+        group_cols, dicts = ev._stable_dict_group_cols(cache.blocks)
+        dict_lens = tuple(len(d) for d in dicts)
+        prog = ev._coded_program(group_cols, dict_lens)
+        img = ev._stacked_device(cache, ev._ship_cols(group_cols))
+        cap = _capacity_for(prog, 1, int(np.prod([dl + 1 for dl in dict_lens])))
+        out[name] = (prog, img, cap)
+    return out
+
+
+def group_partials_check(prog, img: Image, capacity: int, rel_tol: float = 1e-12) -> dict:
+    """``fused_group_agg_partials`` on a CUDA image (``capacity`` within
+    ``c_max``) beside ``partials_plain`` at the kernel's grid and tile
+    assignment on the same tensors: integer words equal, f64 leaves to
+    ``rel_tol``; two runs bit-identical; the combine over the kernel's
+    partials against ``combine_plain``.  Raises on a difference; returns the
+    largest absolute f64 error, the instance and the grid."""
+    from .copr import fused_group_agg as ga
+
+    runs = []
+    for _ in range(2):
+        parts = ga.new_partials(prog, img, capacity)
+        ga.launch_partials(prog, img, capacity, parts)
+        runs.append(parts)
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("fused_group_agg_partials: two runs differ")
+    got = runs[0]
+    want = ga.partials_plain(prog, img, capacity, ga.launch_grid(img), ga.ROWS)
+    err = 0.0
+    for l, leaf in enumerate(prog.leaves):
+        g, w = got[:, l], want[:, l]
+        if leaf.is_f64:
+            err = max(err, _f64_err(g.view(torch.float64), w.view(torch.float64), rel_tol,
+                                    f"partials leaf {l}"))
+        elif not torch.equal(g, w):
+            raise AssertionError(f"fused_group_agg_partials leaf {l}: integer words differ")
+    out = (torch.empty((prog.n_int, capacity), dtype=torch.int64, device=img.device),
+           torch.empty((prog.n_f64, capacity), dtype=torch.float64, device=img.device))
+    ga.launch_combine(prog, img, capacity, got, None, out)
+    wi, wf = ga.combine_plain(prog, img, capacity, got)
+    if not torch.equal(out[0], wi):
+        raise AssertionError("fused_group_agg_combine_pack: integer words differ")
+    err = max(err, _f64_err(out[1], wf, rel_tol, "fused_group_agg_combine_pack"))
+    return {"max_abs_err": err, "slots": ga.partials_slots(prog), "grid": ga.launch_grid(img)}
 
 
 def synthetic_mask_case(n_blocks: int, block_rows: int, gen: torch.Generator, device):
@@ -1081,7 +1168,7 @@ def warm_kernel_outputs(cache, block_rows: int, device) -> dict:
     parts = ga.new_partials(prog, img, cap)
     ga.launch_partials(prog, img, cap, parts)
     out["fused_group_agg_partials"] = (
-        cpu(parts), cpu(ga.partials_plain(prog, img, cap, ga.launch_grid(img))))
+        cpu(parts), cpu(ga.partials_plain(prog, img, cap, ga.launch_grid(img), ga.ROWS)))
     packed = (torch.empty((prog.n_int, cap), dtype=torch.int64, device=device),
               torch.empty((prog.n_f64, cap), dtype=torch.float64, device=device))
     ga.launch_combine(prog, img, cap, parts, None, packed)
@@ -1735,6 +1822,77 @@ def image_on(img: Image, device) -> Image:
     off = img.offsets if isinstance(img.offsets, int) else to(img.offsets)
     return Image([to(c) for c in img.cols], [to(m) for m in img.nulls], nv, img.n_blocks,
                  img.block_rows, torch.device(device), off, to(img.gids))
+
+
+#: the old dictionaries of :func:`ids_case`: none; some slots the
+#: sentinel, some keys not in the new one; the new one itself; one whose
+#: every slot moves
+IDS_OLD = ("none", "sentinels", "same", "moves")
+
+
+def ids_case(cap: int, n: int, old_kind: str, seed: int, device):
+    """Inputs of ``dict_ids`` at ``cap`` slots: a sorted dictionary of
+    distinct even keys with its last eighth the sentinel, ``n`` keys below,
+    above, equal to and between its keys and the sentinel, and an old
+    dictionary of kind ``old_kind`` (:data:`IDS_OLD`) or None.  Returns
+    ``(new, keys, old)`` on ``device``."""
+    from .copr import fused_dict as fd
+
+    rng = np.random.default_rng(seed)
+    live = max(1, cap - cap // 8)
+    vals = np.sort(rng.permutation(np.unique(rng.integers(1, 1 << 40, 2 * live)))[:live]) * 2
+    live = len(vals)
+    new = np.full(cap, fd.SENTINEL, dtype=np.int64)
+    new[:live] = vals
+    kinds = [vals[rng.integers(0, live, n)],                                # equal
+             vals[rng.integers(0, live, n)] + 1,                            # between
+             rng.integers(-(1 << 20), vals[0], n),                          # below
+             rng.integers(int(vals[-1]) + 1, fd.SENTINEL, n),               # above
+             np.full(n, fd.SENTINEL, dtype=np.int64)]                       # sentinel
+    keys = np.choose(rng.integers(0, len(kinds), n), kinds)
+    old = None
+    if old_kind == "same":
+        old = new.copy()
+    elif old_kind == "moves":
+        old = np.full(cap, fd.SENTINEL, dtype=np.int64)
+        old[: live - 1] = vals[1:]
+    elif old_kind == "sentinels":
+        keep = np.sort(np.concatenate([vals[rng.random(live) < 0.5],
+                                       vals[rng.integers(0, live, live // 4)] + 1]))
+        keep = np.unique(keep)[:cap]
+        old = np.full(cap, fd.SENTINEL, dtype=np.int64)
+        old[: len(keep)] = keep
+    elif old_kind != "none":
+        raise ValueError(f"no old dictionary {old_kind!r}")
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return dev(new), dev(keys), dev(old)
+
+
+def ids_kernel_check(new: torch.Tensor, keys: torch.Tensor, old) -> dict:
+    """``dict_ids`` on CUDA inputs twice, bit-identical, beside its plain
+    version on CPU copies: the ids and (with ``old``) the perm equal.
+    Raises on a difference; returns how many ids and perm slots it held."""
+    from .copr import fused_dict as fd
+
+    dev, cap = keys.device, new.numel()
+    runs = []
+    for _ in range(2):
+        gids = torch.empty(keys.numel(), dtype=torch.int32, device=dev)
+        perm = None if old is None else torch.empty(cap, dtype=torch.int32, device=dev)
+        fd.dict_ids(new, keys, gids, old, perm)
+        runs.append([gids.cpu()] + ([] if perm is None else [perm.cpu()]))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("dict_ids: two runs differ")
+    want_ids, want_perm = fd.dict_ids_plain(new.cpu(), keys.cpu(),
+                                            None if old is None else old.cpu())
+    if not torch.equal(runs[0][0], want_ids):
+        raise AssertionError(f"dict_ids at {cap} slots: ids differ from the plain version")
+    if old is not None and not torch.equal(runs[0][1], want_perm):
+        raise AssertionError(f"dict_ids at {cap} slots: perm differs from the plain version")
+    return {"ids": keys.numel(), "perm": 0 if old is None else cap}
 
 
 def dict_kernel_check(prog, img: Image, old, cap: int) -> dict:
