@@ -151,10 +151,14 @@ shards of the card; each answer equal to its numpy oracle, the reruns bit
 for bit; the new kernels against their plain versions at the path's inputs
 (the wide state word for word, its combine bit for bit; the batch kernels
 over the path's own ten-rider batch) and timed beside
-the same image on the shared rows at ``c_max`` slots, ``index_add_`` and
-``scatter_reduce_``, ``torch.sort`` and ``torch.unique_consecutive``.
-Phase ``mesh_grouped`` also times the grouped pair alone at a shard's shape
-(131,072 rows, Q1 at 64 slots).
+the same image on the shared rows at ``c_max`` slots and the same ids on
+the wide route at ``c_max + 1``, ``index_add_`` and ``scatter_reduce_``,
+``torch.sort`` and ``torch.unique_consecutive``; the wide route also at a
+shard of the grouped mesh (131,072 rows at 32,768 slots) and at the
+batch's riders past their rows.  Phase
+``mesh_grouped`` also times the grouped pair alone at a shard's shape
+(131,072 rows, Q1 at 64 slots), phase ``mesh`` at the cold mesh's 1,024-row
+shards.
 
 After phase ``high_capacity``, phase ``write_path`` drives the region write
 path (``copr/region_cache.py``; the image patch ``patch_stacked`` of
@@ -356,7 +360,6 @@ def check_partials(prog, got: torch.Tensor, want: torch.Tensor, what: str) -> fl
 
 
 def phase_kernels(fa, fx, device) -> dict:
-    grid, threads = fa.kernel_grid()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     errs = {"fused_agg_partials": 0.0, "fused_agg_combine_pack": 0.0}
@@ -369,10 +372,9 @@ def phase_kernels(fa, fx, device) -> dict:
                 and torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))):
             raise AssertionError(f"{name}: two kernel runs are not bit-identical")
         err_e2e = compare_packed(prog, got, want, f"{name} end to end")
-        scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
+        scratch = fa.new_scratch(prog, img)
         fa.launch_partials(prog, img, scratch)
-        err_p = check_partials(prog, scratch, fa.partials_plain(prog, img, grid, threads),
-                               f"{name} partials")
+        err_p = check_partials(prog, scratch, fa.partials_plain(prog, img), f"{name} partials")
         out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
         fa.launch_combine(prog, scratch, None, out)
         err_c = compare_packed(prog, out, fa.combine_plain(prog, scratch), f"{name} combine")
@@ -390,7 +392,45 @@ def phase_kernels(fa, fx, device) -> dict:
               "max_abs_err_combine": err_c})
         del prog, img, got, again, want, scratch, out, carry, want2
         torch.cuda.empty_cache()
+    # the partials on the tile walk at their edges, each instance: ragged
+    # tiles, encoded lanes, NaN and +-inf, blocks zone maps pruned
+    for name, (prog, img) in fx.agg_edge_cases(device).items():
+        chk = fx.agg_partials_check(prog, img)
+        errs["fused_agg_partials"] = max(errs["fused_agg_partials"], chk["max_abs_err"])
+        emit({"phase": "kernels", "case": f"agg_edge_{name}", "int_leaves_equal": True,
+              "f64_rel_tol": REL_TOL, "bit_identical_reruns": True, **chk})
+    no_local_memory("fused_agg_partials", [fa.partials_attributes(d) for d in (2, 4, 8)])
     return errs
+
+
+def no_local_memory(name: str, attrs: list) -> list:
+    """Raise unless every instance's ``cudaFuncGetAttributes`` shows 0
+    local (spilled) bytes; return the attributes."""
+    for a in attrs:
+        if a["localSizeBytes"] != 0:
+            raise AssertionError(f"{name} spills to local memory: {a}")
+    return attrs
+
+
+def time_agg_partials(fa, prog, img, iters: int) -> dict:
+    """``fused_agg_partials`` at one image: held to its plain version
+    (counts and integers exactly, f64 to REL_TOL), then CUDA-event ms per
+    launch, the plain version's ms and the bound from the image's valid
+    rows: the shipped columns' bytes and n_valids read once, the partials
+    written once; one operation per bytecode word per row.  The instance's
+    registers and local bytes beside them."""
+    scratch = fa.new_scratch(prog, img)
+    ms = cuda_ms(lambda: fa.launch_partials(prog, img, scratch), iters)
+    err = check_partials(prog, scratch, fa.partials_plain(prog, img), "timed partials")
+    plain_ms = cuda_ms(lambda: fa.partials_plain(prog, img), 3, warmup=1)
+    nv = img.n_valids
+    rows = int(nv if isinstance(nv, int) else nv.sum())
+    b_ms, by = bound(image_bytes(img, rows) + img.n_blocks * 8 + scratch.numel() * 8,
+                     rows * len(prog.code))
+    attrs = no_local_memory("fused_agg_partials",
+                            [fa.partials_attributes(fa.partials_slots(prog))])[0]
+    return {"rows": rows, "grid": scratch.shape[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err, "attributes": attrs}
 
 
 def check_group_partials(prog, got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -471,6 +511,18 @@ def phase_group_kernels(ga, fx, device) -> dict:
         emit({"phase": "kernels", "case": f"group_edge_{name}", "capacity": cap,
               "leaves": len(prog.leaves), "int_leaves_equal": True, "f64_rel_tol": REL_TOL,
               "bit_identical_reruns": True, **chk})
+    # the wide route on the tile walk at its edges, each instance: ragged
+    # tiles with ids past C, the tracker and first, coded ids over encoded
+    # lanes, pruned blocks, one hot slot (word for word)
+    for name, (prog, img, cap) in fx.wide_edge_cases(device).items():
+        chk = fx.wide_kernel_check(prog, img, cap)
+        errs["group_wide_partials"] = max(errs["group_wide_partials"], chk["pair"])
+        emit({"phase": "kernels", "case": f"wide_edge_{name}", "capacity": cap,
+              "leaves": len(prog.leaves), "slots": ga.partials_slots(prog),
+              "state_words_equal": True, "combine_bit_identical": True,
+              "f64_rel_tol": REL_TOL, "bit_identical_reruns": True, **chk})
+    no_local_memory("group_wide_partials",
+                    [ga.partials_attributes(d, wide=True) for d in (2, 4, 8)])
     return errs
 
 
@@ -1616,6 +1668,15 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     for key, case in cases.items():
         errs[key] = fx.mesh_merge_check(*case)
         t_merge[key] = time_merge(fme, case, 50)
+    # the grouped pair at the cold mesh's 1,024-row shards (cold Q1, G = 1:
+    # 984 launches a request), at a shard of its first super-block
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+
+    _res, calls = capture_calls(pm, "_shard_states", lambda: pm.MeshServingRunner(
+        q1, meshes[1], rows_per_shard=MESH_COLD_RPS[0]).run(FixtureScanSource(kvs)))
+    sprog, simages, scap, _lead = calls[0]
+    t_small_shard = time_group_kernels(ga, sprog, simages[0], scap, 50)
+    del calls, simages
     # the per-device batch kernels of #20: the busiest device's tasks, held
     # to their plain versions, then timed
     t_dev, dev_checks = {}, {}
@@ -1632,10 +1693,10 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
           "mesh_merge_checks": errs, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "bit_identical_reruns": True, "mesh_merge": t_merge, "per_device_batch": t_dev,
           "per_device_batch_checks": dev_checks, "topn_shard_check": "equal", "topn": t_topn,
-          "launches": mesh_launches,
+          "grouped_pair_1024_row_shard": t_small_shard, "launches": mesh_launches,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": mesh_launches, "merge": t_merge, "max_abs_err": max(errs.values()),
-            "per_device": t_dev, "topn": t_topn}
+            "per_device": t_dev, "topn": t_topn, "small_shard": t_small_shard}
 
 
 # ---------------------------------------------------------------------------
@@ -2014,8 +2075,10 @@ def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
             lib[f"scatter_reduce_{op}_ms"] = cuda_ms(
                 lambda op=op: torch.zeros_like(acc).scatter_reduce_(0, gid, x, op), iters)
         del gid, x
+    attrs = no_local_memory("group_wide_partials",
+                            [ga.partials_attributes(ga.partials_slots(prog), wide=True)])[0]
     return {"rows": rows, "capacity": cap, "leaves": L, "c_max": prog.c_max,
-            "x_leaves": len(prog.x_leaves), "state_words": state.numel(),
+            "x_leaves": len(prog.x_leaves), "state_words": state.numel(), "attributes": attrs,
             "partials_ms": p_ms, "partials_bound_ms": p_bound, "partials_bound_by": p_by,
             "partials_plain_ms": pp_ms, "combine_ms": c_ms, "combine_bound_ms": c_bound,
             "combine_bound_by": c_by, "combine_plain_ms": cp_ms, "state_init_ms": init_ms,
@@ -2132,9 +2195,11 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     10,000,000 rows at 32,768 slots, twice.  Every answer against its numpy
     oracle, the reruns bit for bit (bytes).  Then the new kernels against
     their plain versions at the path's inputs and timed, beside the same
-    image at ``c_max`` slots on the shared rows and the library
-    yardsticks."""
+    image at ``c_max`` slots on the shared rows, the same ids on the wide
+    route at ``c_max + 1`` and the library yardsticks; the wide route at a
+    shard of the mesh's first super-block."""
     from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
     from tikv_tpu_torch.copr import fused_dict as fd
     from tikv_tpu_torch.copr import fused_group_agg as ga
     from tikv_tpu_torch.copr import torch_eval as te
@@ -2259,6 +2324,8 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     shared_img = fa.Image(img.cols, img.nulls, img.n_valids, img.n_blocks, img.block_rows,
                           img.device, img.offsets, img.gids % prog.c_max)
     t_shared = time_group_kernels(ga, prog, shared_img, prog.c_max, 10)
+    # D15's crossover: the same ids on the wide route, at c_max + 1 slots
+    t_cross = time_wide_kernels(ga, fx, prog, shared_img, prog.c_max + 1, 10)
     del img, shared_img
     ev_c = te.TorchDagEvaluator(supp_wire, block_rows=1 << 16, device="cuda")
     _resp, calls = capture_calls(te, "fused_group_agg", lambda: ev_c.run(FixtureScanSource(kvs)))
@@ -2267,9 +2334,20 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     t_cold = time_wide_kernels(ga, fx, prog_c, img_c, cap_c, 50)
     tasks = te.batch_tasks(evs_b, cache)[0]  # the batch the main path ran
     batch_err = fx.batch_kernel_check(tasks)
+    # its riders past their rows (Q1 by the four flag columns, 480 slots)
+    # on the wide route, at their own inputs
+    t_riders = {batch_dags[i][0]: time_wide_kernels(ga, fx, tasks[i].prog, tasks[i].img,
+                                                    tasks[i].capacity, 5)
+                for i in fb.Batch(tasks).wide}
     del tasks
     # the second super-block's shard union, with the dictionary carried
-    state = mev.step(*_block_args(mev, mblocks[0]), mev.init_state())
+    # the wide route at a shard of the first super-block (131,072 rows at
+    # 32,768 slots: 80 launches a request)
+    state, calls = capture_calls(pm, "_shard_states", lambda: mev.step(
+        *_block_args(mev, mblocks[0]), mev.init_state()))
+    sprog, simages, scap, _lead = calls[0]
+    t_mesh_wide = time_wide_kernels(ga, fx, sprog, simages[0], scap, 50)
+    del calls, simages
     seen = capture_dict(fd, lambda: mev.step(*_block_args(mev, mblocks[1]), state,
                                              block_base=total))
     d, k, ucap = seen["dict_union"]
@@ -2281,12 +2359,17 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     emit({"phase": "high_capacity", "case": "kernels", "card": card,
           "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "wide_warm": t_warm, "shared_rows_same_image": t_shared, "wide_cold_block": t_cold,
+          "wide_same_ids_at_c_max_plus_1": t_cross, "wide_mesh_shard": t_mesh_wide,
+          "wide_batch_riders": t_riders,
           "batch_check": batch_err, "sort_union_shard": t_sort,
           "sort_union_global": t_sort_global, "dict_ids_device_memory_ms": ids_ms,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "warm": t_warm, "cold": t_cold, "shared": t_shared,
+            "crossover": t_cross, "mesh_shard": t_mesh_wide, "riders": t_riders,
             "sort": t_sort, "sort_global": t_sort_global, "ids": ids_ms,
             "max_abs_err": max(t_warm["max_abs_err"], t_cold["max_abs_err"],
+                               t_cross["max_abs_err"], t_mesh_wide["max_abs_err"],
+                               *(t["max_abs_err"] for t in t_riders.values()),
                                batch_err["wide"], mesh_err)}
 
 
@@ -2817,23 +2900,20 @@ def main() -> int:
     # ---- timings of each kernel at its main-path launch --------------------
     img = ev_w._stacked_device(cache)
     prog = ev_w.program
-    grid, threads = fa.kernel_grid()
-    scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
+    t_q6 = time_agg_partials(fa, prog, img, 20)
+    p_ms, pp_ms, p_err = t_q6["ms"], t_q6["plain_ms"], t_q6["max_abs_err"]
+    p_bound, p_by = t_q6["bound_ms"], t_q6["bound_by"]
+    scratch = fa.new_scratch(prog, img)
+    fa.launch_partials(prog, img, scratch)
+    grid = scratch.shape[0]
     out = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=device),
            torch.empty((prog.n_f64, 1), dtype=torch.float64, device=device))
-    p_ms = cuda_ms(lambda: fa.launch_partials(prog, img, scratch), 20)
     c_ms = cuda_ms(lambda: fa.launch_combine(prog, scratch, None, out), 200)
-    want_scratch = fa.partials_plain(prog, img, grid, threads)
-    p_err = check_partials(prog, scratch, want_scratch, "q6 partials")
     c_err = compare_packed(prog, out, fa.combine_plain(prog, scratch), "q6 combine")
-    pp_ms = cuda_ms(lambda: fa.partials_plain(prog, img, grid, threads), 3, warmup=1)
     cp_ms = cuda_ms(lambda: fa.combine_plain(prog, scratch), 20)
     rows = n_warm
-    # bytes: the valid rows of the shipped columns, n_valids, the partials;
-    # operations: one per bytecode instruction per row (partials) and one
-    # per partial merged (combine)
-    p_bound, p_by = bound(image_bytes(img, rows) + img.n_blocks * 8
-                          + grid * len(prog.aggs) * 16, rows * len(prog.code))
+    # the combine's bytes: the partials and the packed state; operations:
+    # one per partial merged
     c_bound, c_by = bound(grid * len(prog.aggs) * 16 + (prog.n_int + prog.n_f64) * 8,
                           grid * len(prog.aggs) * 2)
     # the grouped pair on Q6's image at one slot: what the capacity-1 pair
@@ -2844,7 +2924,19 @@ def main() -> int:
     compare_packed(prog, ga.fused_group_agg(prog_g6, img, 1), fa.fused_agg(prog, img),
                    "grouped vs capacity-1 pair on Q6")
     t_q6_grouped = time_group_kernels(ga, prog_g6, img, 1, 10)
-    del img, scratch, want_scratch
+    # the two pairs on Q6's image in ten alternating turns (ROADMAP D8)
+    parts_g6 = ga.new_partials(prog_g6, img, 1)
+    d8 = {"fused_agg_partials_ms": [], "fused_group_agg_partials_one_slot_ms": []}
+    for _ in range(10):
+        d8["fused_agg_partials_ms"].append(
+            cuda_ms(lambda: fa.launch_partials(prog, img, scratch), 10))
+        d8["fused_group_agg_partials_one_slot_ms"].append(
+            cuda_ms(lambda: ga.launch_partials(prog_g6, img, 1, parts_g6), 10))
+    d8["medians_ms"] = {k: sorted(v)[5] for k, v in d8.items()}
+    del img, scratch, parts_g6
+    # a cold Q6 block as the cold path launches it (65,536 rows, 16 a request)
+    cols6, nv6 = next(ev._decode_blocks(FixtureScanSource(kvs[: 1 << 16])))
+    t_cold_q6 = time_agg_partials(fa, ev.program, ev._block_image(cols6, nv6), 50)
 
     # grouped: warm Q1 (coded ids), a cold Q1 block (host ids), and warm
     # GROUP BY l_quantity (host ids)
@@ -2874,7 +2966,8 @@ def main() -> int:
           "cold_q1_rows_per_s": n_cold / min(cold1_s),
           "warm_q1_rows_per_s": rows / sorted(warm1_s)[len(warm1_s) // 2],
           "fused_agg_partials_ms": p_ms, "fused_agg_partials_bound_ms": p_bound,
-          "fused_agg_partials_plain_ms": pp_ms,
+          "fused_agg_partials_plain_ms": pp_ms, "fused_agg_partials_warm_q6": t_q6,
+          "fused_agg_partials_cold_q6_block": t_cold_q6, "pairs_on_warm_q6": d8,
           "fused_agg_combine_pack_ms": c_ms, "fused_agg_combine_pack_bound_ms": c_bound,
           "fused_agg_combine_pack_plain_ms": cp_ms,
           "group_warm_q1": t_warm_q1, "group_cold_q1_block": t_cold_q1,
@@ -3113,13 +3206,9 @@ def main() -> int:
     # ---- phase 12 timings: each kernel on the encoded image beside the plain
     # image's times of the timings phase above, in this same call -----------------
     img_e = ev_w._stacked_device(cache)
-    scratch_e = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
-    p_ms_e = cuda_ms(lambda: fa.launch_partials(prog, img_e, scratch_e), 20)
-    check_partials(prog, scratch_e, fa.partials_plain(prog, img_e, grid, threads),
-                   "encoded q6 partials")
-    pp_ms_e = cuda_ms(lambda: fa.partials_plain(prog, img_e, grid, threads), 3, warmup=1)
-    p_bound_e = bound(image_bytes(img_e, rows) + img_e.n_blocks * 8 + grid * len(prog.aggs) * 16,
-                      rows * len(prog.code))
+    t_q6_e = time_agg_partials(fa, prog, img_e, 20)
+    p_ms_e, pp_ms_e = t_q6_e["ms"], t_q6_e["plain_ms"]
+    p_bound_e = (t_q6_e["bound_ms"], t_q6_e["bound_by"])
     dec = {"bp_int8_l_quantity": time_decode(fm, img_e, 0),
            "bp_int32_l_extendedprice": time_decode(fm, img_e, 1),
            "bp_int16_l_shipdate": time_decode(fm, img_e, 3)}
@@ -3134,12 +3223,9 @@ def main() -> int:
     t_topn_e = time_topn(ft, ev_tw.plan.topn_program, cand_e, pay_e)
     del pay_e, cand_e
     img_s = ev_w._stacked_device(cache_s, keep=ev_w._prune_keep(cache_s))
-    p_ms_s = cuda_ms(lambda: fa.launch_partials(prog, img_s, scratch_e), 20)
-    check_partials(prog, scratch_e, fa.partials_plain(prog, img_s, grid, threads),
-                   "date-sorted q6 partials")
-    rows_s = int(img_s.n_valids.sum())
-    p_bound_s = bound(image_bytes(img_s, rows_s) + img_s.n_blocks * 8
-                      + grid * len(prog.aggs) * 16, rows_s * len(prog.code))
+    t_q6_s = time_agg_partials(fa, prog, img_s, 20)
+    p_ms_s, rows_s = t_q6_s["ms"], t_q6_s["rows"]
+    p_bound_s = (t_q6_s["bound_ms"], t_q6_s["bound_by"])
     dec["rle_int64_l_shipdate_date_sorted"] = time_decode(fm, img_s, 3)
     del img_s
     emit({"phase": "encoded", "case": "timings", "card": card,
@@ -3200,9 +3286,12 @@ def main() -> int:
          "replaces": "tikv_tpu/copr/jax_eval.py:855",
          "replaces_also": ["tikv_tpu/copr/jax_eval.py:883", "tikv_tpu/copr/rpn.py:216"],
          "launches": q6_launches["fused_agg_partials"],
-         "max_abs_err": max(errs["fused_agg_partials"], p_err),
+         "max_abs_err": max(errs["fused_agg_partials"], p_err, t_cold_q6["max_abs_err"]),
          "ms": p_ms, "plain_ms": pp_ms, "bound_ms": p_bound, "bound_by": p_by,
-         "library_ms": None},
+         "library_ms": None, "attributes": t_q6["attributes"],
+         "cold_block": {k: t_cold_q6[k] for k in ("rows", "ms", "plain_ms", "bound_ms")},
+         "date_sorted": {k: t_q6_s[k] for k in ("rows", "ms", "plain_ms", "bound_ms")},
+         "pairs_on_warm_q6": d8["medians_ms"]},
         {"name": "fused_agg_combine_pack", "route": "cuda", "source": src,
          "replaces": "tikv_tpu/copr/jax_eval.py:737",
          "replaces_also": ["tikv_tpu/copr/jax_eval.py:1436"],
@@ -3390,7 +3479,13 @@ def main() -> int:
             "library": t["library"] if key == "partials" else None,
             "capacity": t["capacity"], "rows": t["rows"],
             "cold_block": {f: hc["cold"][f"{key}_{f}"] for f in ("ms", "plain_ms", "bound_ms")},
-            "shared_rows_same_image_ms": hc["shared"][f"{key}_ms"]})
+            "mesh_shard": {f: hc["mesh_shard"][f"{key}_{f}"] for f in ("ms", "plain_ms",
+                                                                       "bound_ms")},
+            "shared_rows_same_image_ms": hc["shared"][f"{key}_ms"],
+            "batch_riders": {name: {f: r[f"{key}_{f}"] for f in ("ms", "plain_ms", "bound_ms")}
+                             for name, r in hc["riders"].items()},
+            "wide_same_ids_at_c_max_plus_1_ms": hc["crossover"][f"{key}_ms"],
+            "attributes": t["attributes"] if key == "partials" else None})
     # the dictionary union's sort route at the grouped mesh's shard union
     # (the carried 32,768-slot dictionary and a shard's 131,072 keys)
     for name in SORT_KERNELS:
@@ -3436,6 +3531,14 @@ def main() -> int:
     def group_times(t):
         return {k: t[f"partials_{k}"] for k in ("ms", "bound_ms", "plain_ms", "attributes")}
 
+    def agg_times(t):
+        return {k: t[k] for k in ("rows", "ms", "bound_ms", "plain_ms", "attributes")}
+
+    def wide_times(t):
+        return {k: t.get(f"partials_{k}", t.get(k)) for k in ("rows", "capacity", "ms",
+                                                              "bound_ms", "plain_ms",
+                                                              "attributes")}
+
     def ids_times(t):
         return {k: t[k] for k in ("keys", "capacity", "ms", "ms_without_old", "bound_ms",
                                   "library_ms", "library_with_perm_ms", "attributes")}
@@ -3457,11 +3560,24 @@ def main() -> int:
               "rows_a_thread": fm.MASK_ROWS,
               "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),
               "launches": scan_launches["fused_mask"]},
+          "fused_agg_partials": {
+              "rows_a_thread": fa.ROWS, "warm_q6": agg_times(t_q6),
+              "warm_q6_encoded": agg_times(t_q6_e), "date_sorted_q6": agg_times(t_q6_s),
+              "cold_q6_block": agg_times(t_cold_q6), "pairs_on_warm_q6": d8,
+              "launches": q6_launches["fused_agg_partials"]},
+          "group_wide_partials": {
+              "rows_a_thread": ga.ROWS, "per_supplier_warm": wide_times(hc["warm"]),
+              "cold_block": wide_times(hc["cold"]), "mesh_shard": wide_times(hc["mesh_shard"]),
+              "same_ids_at_c_max_plus_1": wide_times(hc["crossover"]),
+              "batch_riders": {k: wide_times(t) for k, t in hc["riders"].items()},
+              "shared_rows_at_c_max": group_times(hc["shared"]),
+              "launches": hc["launches"]["group_wide_partials"]},
           "fused_group_agg_partials": {
               "rows_a_thread": ga.ROWS, "warm_q1": group_times(t_warm_q1),
               "warm_q1_encoded": group_times(t_warm_q1_e),
               "warm_l_quantity": group_times(t_qty), "cold_q1_block": group_times(t_cold_q1),
               "mesh_grouped_shard": group_times(mg["pair"]),
+              "mesh_1024_row_shard": group_times(mesh_out["small_shard"]),
               "on_warm_q6": group_times(t_q6_grouped),
               "launches": q1_launches["fused_group_agg_partials"]},
           "dict_ids": {

@@ -34,7 +34,19 @@ grouped-mesh shard's shape (131,072 rows of Q1, 64 slots), warm GROUP BY
 l_quantity (host ids), Q6's one slot beside ``fused_agg_partials`` on the
 same image and warm Q1 over the 100M image, plain then encoded in place,
 the wide route (``group_wide_partials``) at 4,096 slots on the plain one,
-or ``dict_ids``: ``dict_ids``
+or ``slice15_kernels``: over the supplier table's 100M-row image (which
+holds lineitem's draws), ``fused_agg_partials`` at warm Q6, the grouped
+partials at Q6's one slot and at warm Q1, ``batch_partials`` at batch A,
+``group_wide_partials`` at the per-supplier query (262,144 slots) and at
+Q1 grouped by the four flag columns (512 slots, almost every row kept), then
+``fused_agg_partials`` at a cold 65,536-row Q6 block, the wide partials at
+the per-supplier query's cold block (16,384 slots) and at a grouped-mesh
+shard (131,072 rows, 32,768 slots), then the warm cases again over the
+image encoded in place (five CUDA-event times each), or
+``slice15_requests``: warm Q6 on the stacked route, cold Q6, the
+per-supplier query cold over 1M KV rows and warm over the 100M image (host
+clock; warm Q6 and the warm per-supplier query once more under
+``torch.profiler``), or ``dict_ids``: ``dict_ids``
 alone at a shard's 131,072 keys into 32,768 slots (16,664 consecutive
 integers filled; again 20,000 random 31-bit values), into 64 (4 filled) and
 at the grouped mesh's own inputs at 32,768 slots (captured from its second
@@ -73,6 +85,17 @@ import chip_smoke as cs
 from tikv_tpu_torch import _build, fixtures as fx
 _build.build_all()
 t0 = time.perf_counter()
+
+
+# fused_agg_partials' scratch for an image, by either checkout's launcher
+# (a grid by the image's shape, or a fixed one)
+def fa_scratch(fa, prog, img):
+    if hasattr(fa, "new_scratch"):
+        return fa.new_scratch(prog, img)
+    grid, _threads = fa.kernel_grid()
+    return torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=img.device)
+
+
 if sys.argv[1] == "filters":
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
     from tikv_tpu_torch.copr.executors import FixtureScanSource
@@ -235,8 +258,7 @@ elif sys.argv[1] == "group_kernels":
     prog_g6 = ga.compile_group_program(plan6.sel_rpns, plan6.agg_rpns, plan6.device_cols,
                                        plan6.schema, (), track=False)
     timed("warm_q6_one_slot", prog_g6, img6, 1, 10)
-    grid, _threads = fa.kernel_grid()
-    scratch = torch.empty((grid, len(prog6.aggs), 2), dtype=torch.int64, device="cuda")
+    scratch = fa_scratch(fa, prog6, img6)
     cases["warm_q6_fused_agg_partials"] = {"request_s": [
         cs.cuda_ms(lambda: fa.launch_partials(prog6, img6, scratch), 10) / 1e3
         for _ in range(5)]}
@@ -261,6 +283,131 @@ elif sys.argv[1] == "group_kernels":
                 for _ in range(5)]}
             del wide
         del img1
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("slice15_kernels", "slice15_requests"):
+    from tikv_tpu_torch.copr import encoding
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    def ev_of(dag, br=1 << 17):
+        ev = te.TorchDagEvaluator(dag_to_wire(dag), block_rows=br, device="cuda")
+        ev.route_hint = "unary"
+        return ev
+
+    # the supplier table's 100M-row image holds lineitem's draws and columns
+    # too: Q6, Q1 and batch A read it as the lineitem image
+    cache = fx.supp_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    cases = {}
+    if sys.argv[1] == "slice15_kernels":
+        def repeat(name, fn, iters):
+            cases[name] = {"request_s": [cs.cuda_ms(fn, iters) / 1e3 for _ in range(5)]}
+
+        ev6, ev1 = ev_of(fx.q6_dag()), ev_of(fx.q1_dag())
+        plan6, prog6 = ev6.plan, ev6.program
+        prog_g6 = ga.compile_group_program(plan6.sel_rpns, plan6.agg_rpns, plan6.device_cols,
+                                           plan6.schema, (), track=False)
+        group_cols, dicts = ev1._stable_dict_group_cols(cache.blocks)
+        dict_lens = tuple(len(d) for d in dicts)
+        prog1 = ev1._coded_program(group_cols, dict_lens)
+        cap1 = te._capacity_for(prog1, 1, (dict_lens[0] + 1) * (dict_lens[1] + 1))
+
+        def warm_cases(suffix):
+            img6 = ev6._stacked_device(cache)
+            scratch = fa_scratch(fa, prog6, img6)
+            repeat("warm_q6" + suffix, lambda: fa.launch_partials(prog6, img6, scratch), 10)
+            parts = ga.new_partials(prog_g6, img6, 1)
+            repeat("warm_q6_one_slot" + suffix,
+                   lambda: ga.launch_partials(prog_g6, img6, 1, parts), 10)
+            img1 = ev1._stacked_device(cache, ev1._ship_cols(group_cols))
+            parts1 = ga.new_partials(prog1, img1, cap1)
+            repeat("warm_q1" + suffix, lambda: ga.launch_partials(prog1, img1, cap1, parts1), 10)
+
+        warm_cases("")
+        tasks_a = te.batch_tasks([ev_of(d) for _n, d, _o in fx.batch_plans()], cache)[0]
+        batch = fb.Batch(tasks_a)
+        table = fb.upload_table(batch)
+        bparts = torch.empty(batch.n_parts, dtype=torch.int64, device=batch.device)
+        repeat("batch_a", lambda: fb.launch_batch_partials(batch, table, bparts), 5)
+        del tasks_a, batch, table, bparts
+        # the per-supplier query's wide partials at its own inputs (host ids,
+        # 262,144 slots); the state takes every timed launch
+        ev_s = ev_of(fx.supp_dag())
+        _r, calls = cs.capture_calls(te, "fused_group_agg", lambda: ev_s.run(None, cache))
+        prog_s, img_s, cap_s = calls[0][:3]
+        state = ga.new_partials(prog_s, img_s, cap_s)
+        repeat("supp_warm_wide", lambda: ga.launch_partials(prog_s, img_s, cap_s, state), 10)
+        del calls, img_s, state
+        # a plan that keeps almost every row on the wide route: Q1 grouped
+        # by the four flag columns (512 coded slots) with var_pop
+        ev_f = ev_of(fx.flags4_dag(var_pop=True))
+        _r, calls = cs.capture_calls(te, "fused_group_agg", lambda: ev_f.run(None, cache))
+        prog_f, img_f, cap_f = calls[0][:3]
+        st_f = ga.new_partials(prog_f, img_f, cap_f)
+        repeat("flags4_wide", lambda: ga.launch_partials(prog_f, img_f, cap_f, st_f), 5)
+        del calls, img_f, st_f
+        # a cold Q6 block; the per-supplier query's cold block at 16,384 slots
+        ev_c6 = te.TorchDagEvaluator(dag_to_wire(fx.q6_dag()), block_rows=1 << 16, device="cuda")
+        cols, nv = next(ev_c6._decode_blocks(FixtureScanSource(fx.build_kvs(1 << 16, cs.SEED))))
+        img_c6 = ev_c6._block_image(cols, nv)
+        scr_c6 = fa_scratch(fa, ev_c6.program, img_c6)
+        repeat("cold_q6_block", lambda: fa.launch_partials(ev_c6.program, img_c6, scr_c6), 50)
+        ev_cs = te.TorchDagEvaluator(dag_to_wire(fx.supp_dag()), block_rows=1 << 16,
+                                     device="cuda")
+        _r, calls = cs.capture_calls(te, "fused_group_agg", lambda: ev_cs.run(
+            FixtureScanSource(fx.supp_kvs(cs.HC_COLD_ROWS, cs.SEED))))
+        cap_c = max(c[2] for c in calls)
+        prog_c, img_c = next(c[:2] for c in calls if c[2] == cap_c)
+        st_c = ga.new_partials(prog_c, img_c, cap_c)
+        repeat("supp_cold_block_wide", lambda: ga.launch_partials(prog_c, img_c, cap_c, st_c),
+               50)
+        del calls
+        # a shard of the grouped mesh at 32,768 slots (the first super-block)
+        a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+        mev = pm.ShardedGroupedEvaluator(
+            dag_to_wire(fx.supp_dag()), pm.make_mesh([torch.device("cuda", 0)] * cs.MESH_SHARDS,
+                                                     groups=1),
+            cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+        total = mev.total_rows
+        blk0 = (fx.supp_columns(a_mesh, 0, total, total), total)
+        _st, calls = cs.capture_calls(pm, "_shard_states", lambda: mev.step(
+            *cs._block_args(mev, blk0), mev.init_state()))
+        sprog, simages, scap, _lead = calls[0]
+        st_m = ga.new_partials(sprog, simages[0], scap)
+        repeat("mesh_shard_wide", lambda: ga.launch_partials(sprog, simages[0], scap, st_m), 50)
+        del a_mesh, calls, simages
+        encoding.encode_blocks(cache)
+        warm_cases("_encoded")
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+        skvs = fx.supp_kvs(cs.HC_COLD_ROWS, cs.SEED)
+        ev6, ev_s = ev_of(fx.q6_dag()), ev_of(fx.supp_dag())
+        ev6c = ev_of(fx.q6_dag(), 1 << 16)
+        ev_sc = ev_of(fx.supp_dag(), 1 << 16)
+        # (name, request, runs, how many of the first are left out: a warm
+        # first run pins)
+        for name, fn, n, skip in (("warm_q6_unary", lambda: ev6.run(None, cache), 7, 1),
+                                  ("cold_q6", lambda: ev6c.run(FixtureScanSource(kvs)), 3, 0),
+                                  ("supp_cold", lambda: ev_sc.run(FixtureScanSource(skvs)), 2, 0),
+                                  ("supp_warm", lambda: ev_s.run(None, cache), 3, 1)):
+            secs = [timed(fn) for _ in range(n)]
+            cases[name] = {"request_s": secs[skip:]}
+            if name in ("warm_q6_unary", "supp_warm"):
+                prof = cs.profile_runs(fn, 1)
+                top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:6]
+                cases[name]["device_ms"] = [sum(prof["device_ms"].values())]
+                cases[name]["top_kernels_ms"] = {k[:80]: v for k, v in top}
     print(json.dumps({"cases": cases}))
 elif sys.argv[1] == "dict_ids":
     import numpy as np

@@ -25,6 +25,7 @@ from tikv_tpu.copr.dag import Aggregation, DagRequest, Selection, TableScan
 from tikv_tpu.copr.dag_wire import dag_to_wire
 from tikv_tpu.copr.datatypes import ColumnInfo, FieldType
 from tikv_tpu.copr.rpn import call, col, const_int, const_real
+from tikv_tpu_torch import fixtures as fx
 from tikv_tpu_torch.copr import fused_agg as fa
 from tikv_tpu_torch.copr import rpn as trpn
 from tikv_tpu_torch.copr.datatypes import EvalType
@@ -241,3 +242,145 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     (csrc / "fa_walk.cuh").write_text((csrc / "fa_walk.cuh").read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)  # every name hashes the headers
+
+
+# ---------------------------------------------------------------------------
+# fused_agg_partials' tile walk: its grid, its rows, its instance
+# ---------------------------------------------------------------------------
+
+def _int_image(rng, n_blocks, block_rows, n_valids):
+    """One nullable INT column over ``n_blocks`` blocks, and the capacity-1
+    program count(*), count, sum, min, max of it."""
+    from tikv_tpu_torch.copr.rpn import col as tcol, compile_expr
+
+    schema = _schema(1)
+    data = rng.integers(-(1 << 40), 1 << 40, (n_blocks, block_rows))
+    nulls = rng.random((n_blocks, block_rows)) < 0.1
+    rpn = compile_expr(tcol(0), schema)
+    aggs = [("count", None), ("count", rpn), ("sum", rpn), ("min", rpn), ("max", rpn)]
+    prog = fa.compile_program([], aggs, [0], schema)
+    img = fa.Image([torch.from_numpy(data)], [torch.from_numpy(nulls)],
+                   torch.from_numpy(np.asarray(n_valids, dtype=np.int64)), n_blocks, block_rows,
+                   CPU)
+    return prog, img, data, nulls
+
+
+@pytest.mark.parametrize("block_rows", [1001, 1024])
+def test_partials_plain_follows_the_tile_assignment(block_rows):
+    """partials_plain's per-block counts, sums, minima and maxima under the
+    kernel's tile assignment equal a numpy assignment of the same rows:
+    row i of block b lies in tile b * ceil(block_rows / 4) + i // 4 and tile
+    u in block (u mod grid * THREADS) // THREADS; n_valid 0, n_valid not a
+    multiple of 4 and a block's short last tile (1,001 rows) among them,
+    and enough blocks that the grid strides."""
+    rng = np.random.default_rng(41)
+    nb = 600
+    nv = rng.integers(0, block_rows + 1, nb)
+    nv[::7] = 0
+    nv[1::7] = block_rows
+    nv[2::7] = rng.integers(0, block_rows // 4, len(nv[2::7])) * 4 + 3
+    prog, img, data, nulls = _int_image(rng, nb, block_rows, nv)
+    grid = fa.launch_grid(img)
+    assert grid == fa.GRID_MAX and grid * fa.THREADS * fa.ROWS < nb * block_rows
+    parts = fa.partials_plain(prog, img)
+    assert tuple(parts.shape) == (grid, len(prog.aggs), 2)
+    rows = np.arange(nb * block_rows)
+    b, i = rows // block_rows, rows % block_rows
+    tile = b * -(-block_rows // fa.ROWS) + i // fa.ROWS
+    blk = (tile % (grid * fa.THREADS)) // fa.THREADS
+    valid = i < nv[b]
+    live = valid & ~nulls.reshape(-1)
+    x = data.reshape(-1)
+    counts = [np.bincount(blk[valid], minlength=grid), np.bincount(blk[live], minlength=grid)]
+    sums = np.zeros(grid, dtype=np.int64)
+    np.add.at(sums, blk[live], x[live])
+    mins = np.full(grid, np.iinfo(np.int64).max)
+    np.minimum.at(mins, blk[live], x[live])
+    maxs = np.full(grid, np.iinfo(np.int64).min)
+    np.maximum.at(maxs, blk[live], x[live])
+    np.testing.assert_array_equal(parts[:, 0, 0].numpy(), counts[0])
+    for k, want in ((1, None), (2, sums), (3, mins), (4, maxs)):
+        np.testing.assert_array_equal(parts[:, k, 0].numpy(), counts[1])
+        if want is not None:
+            np.testing.assert_array_equal(parts[:, k, 1].numpy(), want)
+
+
+@pytest.mark.parametrize("name", fx.AGG_EDGE_CASES)
+def test_capacity_one_edges_through_the_plain_pair(name):
+    """fx.agg_edge_cases on the CPU: the partials' plain version at the
+    kernel's grid and tiles, folded by the combine's, equals the one-pass
+    plain version: count, sum, min and max over int64, decimal and f64
+    lanes, NaN and +-inf among the REAL values (integers exactly, f64 to rel
+    1e-12 with NaN equal to NaN), over ragged and encoded images and blocks
+    zone maps pruned."""
+    prog, img = fx.agg_edge_cases(CPU, (name,))[name]
+    parts = fa.partials_plain(prog, img)
+    assert parts.shape[0] == fa.launch_grid(img)
+    got = fa.combine_plain(prog, parts)
+    want = fa.fused_agg_plain(prog, img)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0, equal_nan=True)
+    kinds = {leaf.kind for leaf in prog.aggs}
+    if not name.startswith("date_sorted"):
+        assert kinds == {fa.AGG_COUNT, fa.AGG_SUM, fa.AGG_MIN, fa.AGG_MAX}
+        assert {leaf.is_f64 for leaf in prog.aggs} == {False, True}
+        assert bool(want[1].isnan().any() or want[1].isinf().any())
+    else:
+        nv = img.n_valids
+        assert bool((nv == 0).any()) and bool((nv > 0).any())  # blocks pruned, blocks kept
+
+
+def test_capacity_one_grid_depends_on_the_image_shape_alone():
+    """fused_agg_partials' grid: one block per THREADS tiles of ROWS rows of
+    a block (a short last tile counts whole), at most GRID_MAX, whatever
+    the rows hold or how many of them are valid."""
+    rng = np.random.default_rng(43)
+    for (nb, br), want in (((763, 1 << 17), 528), ((1, 1 << 16), 64), ((16, 1 << 16), 528),
+                           ((3, 1001), 3), ((1, 1), 1), ((0, 4096), 1)):
+        grids = set()
+        for nv in (br, 0, torch.from_numpy(rng.integers(0, br + 1, nb))):
+            grids.add(fa.launch_grid(fa.Image([], [], nv, nb, br, CPU)))
+        if nb * br <= 1 << 20:
+            grids.add(fa.launch_grid(_int_image(rng, nb, br, rng.integers(0, br + 1, nb))[1]))
+        assert grids == {want}, (nb, br)
+
+
+@pytest.mark.parametrize("slots", [2, 4, 8])
+def test_capacity_one_instance_follows_the_plan(slots):
+    """The launcher runs the fused_agg_partials instance whose stack holds
+    the plan: the fewest of 2, 4 or 8 slots, read from the plan's code as
+    the grouped launchers read it."""
+    for shape in ("ragged", "encoded"):
+        name = f"{shape}_s{slots}"
+        prog, _img = fx.agg_edge_cases(CPU, (name,))[name]
+        depth = fa.stack_depth(prog.code)
+        assert fa.partials_slots(prog) == fa.stack_slots([prog.code]) == slots
+        assert depth <= slots and (slots == 2 or depth > slots // 2)
+
+
+def test_capacity_one_and_wide_instances_match_the_cuda_source():
+    """The partials kernels' geometry and instances in csrc/fused_agg.cu
+    against the wrappers': FA_THREADS, FA_GRID and GA_ROWS, the instances of
+    2, 4 and 8 stack slots of fused_agg_partials and group_wide_partials,
+    both on the tile walk (the wide route's selection first), and no
+    one-row walk of the row loop left."""
+    src = (Path(fa.__file__).resolve().parent.parent / "csrc" / "fused_agg.cu").read_text()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", src))
+    assert int(defines["FA_THREADS"]) == fa.THREADS
+    assert int(defines["FA_GRID"]) == fa.GRID_MAX
+    assert int(defines["GA_ROWS"]) == fa.ROWS
+    for slots in (2, 4, 8):
+        assert f"fused_agg_partials<{slots}>" in src and f"group_wide_partials<{slots}>" in src
+    assert "fa_walk_tile<R, D>(" in src and src.count("fa_walk_tile<R, D, false, true>(") == 1
+    assert "ga_rows(" not in src and "ga_tile_ids<1>" in src and "gw_row<D>" in src
+
+
+def test_partials_launchers_refuse_2_to_the_31_tiles():
+    """fused_agg_partials and the wide route index tiles in 32 bits: an
+    image of 2^31 tiles (of ROWS rows) or more is refused, one below it
+    passes."""
+    fa.check_tiles(fa.Image([], [], 0, (1 << 31) // 1024 - 1, 4096, CPU))
+    with pytest.raises(ValueError, match="2\\^31 tiles"):
+        fa.check_tiles(fa.Image([], [], 0, (1 << 31) // 1024, 4096, CPU))
+    with pytest.raises(ValueError, match="2\\^31 tiles"):
+        fa.check_tiles(fa.Image([], [], 0, 1, (1 << 33) + 1, CPU))

@@ -46,10 +46,9 @@ def test_kernel_matches_plain_version(cuda, n_blocks, block_rows):
     again = fa.fused_agg(prog, img)
     assert torch.equal(got[0], again[0])
     assert torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))
-    grid, threads = fa.kernel_grid()
-    scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=cuda)
+    scratch = fa.new_scratch(prog, img)
     fa.launch_partials(prog, img, scratch)
-    want = fa.partials_plain(prog, img, grid, threads)
+    want = fa.partials_plain(prog, img)
     for k, leaf in enumerate(prog.aggs):
         assert torch.equal(scratch[:, k, 0], want[:, k, 0])
         if leaf.is_f64:
@@ -156,6 +155,44 @@ def test_partials_instances_keep_no_local_memory(cuda):
             assert attrs["localSizeBytes"] == 0, attrs
     for cap in (64, 32768):
         assert fd.ids_attributes(cap)["localSizeBytes"] == 0, cap
+
+
+@pytest.mark.parametrize("name", fx.AGG_EDGE_CASES)
+def test_capacity_one_edges_match_plain_version(cuda, name):
+    """fused_agg_partials on the tile walk at its edges
+    (fx.agg_edge_cases), each instance of 2, 4 and 8 stack slots: n_valid
+    not a multiple of 4 and short last tiles, bitpack lanes, narrowed
+    codes and runs, NaN and +-inf, date-ordered blocks zone maps pruned;
+    counts and integer values exact, f64 to rel 1e-12, two runs
+    bit-identical, the combine and the pair against their plain versions."""
+    prog, img = fx.agg_edge_cases(cuda, (name,))[name]
+    out = fx.agg_partials_check(prog, img)
+    assert out["grid"] == fa.launch_grid(img)
+    if name[-3:] in ("_s2", "_s4", "_s8"):
+        assert out["slots"] == int(name[-1])
+
+
+@pytest.mark.parametrize("name", fx.WIDE_EDGE_CASES)
+def test_wide_route_edges_match_plain_versions(cuda, name):
+    """group_wide_partials on the tile walk at its edges
+    (fx.wide_edge_cases), each instance: host ids past C and below 0 with
+    the tracker and first, ids from narrowed codes over an encoded image,
+    date-ordered blocks zone maps pruned, and one hot slot that every live
+    row falls into; the state word for word against wide_partials_plain,
+    the combine bit for bit, two runs bit-identical."""
+    prog, img, cap = fx.wide_edge_cases(cuda, (name,))[name]
+    fa.reset_launches()
+    fx.wide_kernel_check(prog, img, cap)
+    assert fa.LAUNCHES["group_wide_partials"] > 0 and fa.LAUNCHES["fused_group_agg_partials"] == 0
+
+
+def test_capacity_one_and_wide_instances_keep_no_local_memory(cuda):
+    """Every instance (2, 4 and 8 stack slots) of fused_agg_partials and of
+    group_wide_partials keeps its walk and its accumulators out of local
+    memory."""
+    for slots in (2, 4, 8):
+        for attrs in (fa.partials_attributes(slots), ga.partials_attributes(slots, wide=True)):
+            assert attrs["localSizeBytes"] == 0, attrs
 
 
 @pytest.mark.parametrize("times", [1, 4], ids=["c_max_plus_1", "4_c_max"])

@@ -826,16 +826,15 @@ def test_partials_at_the_tile_walks_assignment_match_jax(ids, br):
 def test_launch_grid_counts_tiles_and_the_wide_route_rows():
     """fused_group_agg_partials takes one block per THREADS tiles of ROWS
     rows of a block (a short block's last tile counts whole), at most
-    GRID_MAX; group_wide_partials still one per THREADS rows."""
+    GRID_MAX; group_wide_partials walks the same tiles on the same grid."""
     def img(n_blocks, block_rows):
         return fa.Image([], [], block_rows, n_blocks, block_rows, CPU, 0)
 
     assert ga.ROWS == 4
-    for (nb, br), tiles, rows in (((763, 1 << 17), 528, 528), ((1, 1 << 16), 64, 256),
-                                  ((1, 1 << 17), 128, 512), ((1, 1024), 1, 4),
-                                  ((3, 1001), 3, 12), ((1, 1), 1, 1)):
+    for (nb, br), tiles in (((763, 1 << 17), 528), ((1, 1 << 16), 64), ((1, 1 << 17), 128),
+                            ((1, 1024), 1), ((3, 1001), 3), ((1, 1), 1)):
         assert ga.launch_grid(img(nb, br)) == tiles, (nb, br)
-        assert ga.wide_grid(img(nb, br)) == rows, (nb, br)
+        assert ga.wide_grid(img(nb, br)) == tiles, (nb, br)
 
 
 @pytest.mark.parametrize("block_rows", [1001, 1024])
@@ -928,3 +927,35 @@ def test_grouped_edge_cases_through_the_plain_pair(name):
     assert ga.partials_smem(prog, cap) <= ga.SMEM_MAX
     if name == "mixed_encoded":
         assert img.descs is not None
+
+
+# ---------------------------------------------------------------------------
+# group_wide_partials' tile walk: its edges and instances
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", fx.WIDE_EDGE_CASES)
+def test_wide_edge_cases_through_the_plain_pair(name):
+    """fx.wide_edge_cases on the CPU, past c_max: the wide route's plain
+    versions (the state word for word, its combine) equal the one-pass
+    plain version (integers exactly, f64 to rel 1e-12, NaN equal to NaN),
+    on ragged tiles with host ids past C and below 0, ids from narrowed
+    codes over an encoded image, blocks zone maps pruned and one hot slot;
+    the launcher's instance is the one the name says."""
+    prog, img, cap = fx.wide_edge_cases(CPU, (name,))[name]
+    assert not prog.shared_rows(cap)
+    state = ga.wide_partials_plain(prog, img, cap)
+    assert tuple(state.shape) == (ga.wide_size(prog, cap),)
+    got = ga.wide_combine_plain(prog, img, cap, state)
+    want = ga.fused_group_agg_plain(prog, img, cap)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0, equal_nan=True)
+    if name[-3:] in ("_s2", "_s4", "_s8"):
+        assert ga.partials_slots(prog) == int(name[-1])
+    live = int((want[0][0] < fa.NO_ROW).sum())  # slots the tracker saw
+    if name == "hot":
+        assert live == 1 and int(want[0][0][cap - 1]) < fa.NO_ROW
+        assert prog.x_leaves  # an exact f64 sum cell takes every row
+    else:
+        assert live > 1
+    if name == "date_sorted":
+        assert bool((img.n_valids == 0).any())

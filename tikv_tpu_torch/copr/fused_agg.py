@@ -12,7 +12,11 @@ stacked image) and ``jax_eval.pack``, with ``rpn.eval_rpn`` inlined.
 * ``fused_agg_plain`` walks the same bytecode with vectorised torch ops,
   using the scalar kernels of ``copr/kernels.py``; it serves CPU tensors.
 * ``fused_agg_cuda`` launches ``csrc/fused_agg.cu`` (``fused_agg_partials``
-  then ``fused_agg_combine_pack``) on the tensors' stream.
+  then ``fused_agg_combine_pack``) on the tensors' stream: :data:`ROWS` rows
+  of a block a thread through the tile walk, in the instance of
+  :func:`partials_slots` stack slots, on the grid :func:`launch_grid` that
+  the image's shape fixes; ``partials_plain`` follows that grid and its
+  tiles.
 * ``fused_agg`` takes the plain version for a CPU image and the kernel for a
   CUDA image; on a CUDA tensor it launches the kernel or raises.
 
@@ -40,6 +44,10 @@ MAX_CONSTS = 64
 MAX_CODE = 256
 MAX_AGGS = 16
 MAX_STACK = 8
+# geometry of the partials kernels (FA_THREADS, FA_GRID, GA_ROWS)
+THREADS = 256
+GRID_MAX = 528
+ROWS = 4  # rows of one block a thread walks at once (its tile)
 
 NO_ROW = 1 << 62  # first-row sentinel of the packed state
 _I64_MIN = -(1 << 63)
@@ -538,13 +546,45 @@ def fused_agg_plain(prog: Program, img: Image, carry=None) -> tuple[torch.Tensor
     return _store(prog, packed, totals)
 
 
-def partials_plain(prog: Program, img: Image, grid: int, threads: int) -> torch.Tensor:
+def launch_grid(img: Image) -> int:
+    """Blocks of the tile-walk partials kernels (``fused_agg_partials``,
+    ``fused_group_agg_partials``, ``group_wide_partials``) for an image: one
+    per ``THREADS`` tiles of ``ROWS`` rows of a block (a short block's last
+    tile counts whole), at most ``GRID_MAX``; fixed by the image's shape."""
+    tiles = img.n_blocks * -(-img.block_rows // ROWS)
+    return max(1, min(GRID_MAX, -(-tiles // THREADS)))
+
+
+def check_tiles(img: Image) -> None:
+    """``ValueError`` for an image of ``2^31`` tiles or more: the partials
+    kernels of the capacity-1 pair and the wide route index tiles in 32
+    bits."""
+    if img.n_blocks * -(-img.block_rows // ROWS) >= 1 << 31:
+        raise ValueError(f"{img.n_blocks} blocks of {img.block_rows} rows: 2^31 tiles or more")
+
+
+def tile_blocks(img: Image, grid: int, threads: int = THREADS,
+                rows_a_thread: int = ROWS) -> torch.Tensor:
+    """The kernel block that walks each flat row: a thread takes
+    ``rows_a_thread`` R rows of one block at once, so row i of block b lies
+    in tile ``b * ceil(block_rows / R) + i // R``, and tile u goes to block
+    ``(u mod grid*threads) // threads``."""
+    br = img.block_rows
+    flat = torch.arange(img.n_blocks * br, device=img.device)
+    b = flat // br
+    tile = b * -(-br // rows_a_thread) + (flat - b * br) // rows_a_thread
+    return (tile % (grid * threads)) // threads
+
+
+def partials_plain(prog: Program, img: Image, grid: int | None = None, threads: int = THREADS,
+                   rows_a_thread: int = ROWS) -> torch.Tensor:
     """Plain version of ``fused_agg_partials``: ``[grid, n_aggs, 2]`` int64
-    words (count, value bits), flat row r going to block
-    ``(r mod grid*threads) // threads`` as in the kernel.  f64 partials are
-    summed in another order than the kernel's."""
-    n = img.n_blocks * img.block_rows
-    seg = (torch.arange(n, device=img.device) % (grid * threads)) // threads
+    words (count, value bits), by default at the kernel's
+    :func:`launch_grid`, each row in the block :func:`tile_blocks` gives
+    it, so that counts and integer values agree word for word.  f64
+    partials are summed in another order than the kernel's."""
+    grid = launch_grid(img) if grid is None else grid
+    seg = tile_blocks(img, grid, threads, rows_a_thread)
     out = torch.zeros((grid, len(prog.aggs), 2), dtype=torch.int64, device=img.device)
     for k, (leaf, (live, value)) in enumerate(zip(prog.aggs, _walk(prog, img))):
         out[:, k, 0] = torch.zeros(grid, dtype=torch.int64, device=img.device).index_add_(
@@ -673,25 +713,47 @@ def _kernels():
 
         lib = _build.load("fused_agg")
         vp = ctypes.c_void_p
-        lib.fa_params_size.restype = ctypes.c_int
-        lib.fa_grid.restype = ctypes.c_int
-        lib.fa_threads.restype = ctypes.c_int
-        lib.fa_launch_partials.argtypes = [vp, vp, vp]
-        lib.fa_launch_partials.restype = ctypes.c_int
-        lib.fa_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp]
-        lib.fa_launch_combine.restype = ctypes.c_int
+        ci = ctypes.c_int
+        for fn in ("fa_params_size", "fa_grid", "fa_threads"):
+            getattr(lib, fn).restype = ci
+        lib.fa_launch_partials.argtypes = [vp, vp, ci, ci, vp]
+        lib.fa_launch_partials.restype = ci
+        lib.fa_partials_attributes.argtypes = [ci, vp]
+        lib.fa_partials_attributes.restype = ci
+        lib.fa_launch_combine.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp]
+        lib.fa_launch_combine.restype = ci
         if lib.fa_params_size() != ctypes.sizeof(_Params):
             raise RuntimeError(
                 f"FaParams layout mismatch: kernel {lib.fa_params_size()} bytes, "
                 f"wrapper {ctypes.sizeof(_Params)}")
+        if lib.fa_grid() != GRID_MAX or lib.fa_threads() != THREADS:
+            raise RuntimeError("FA_GRID or FA_THREADS of the kernel differs from the wrapper's")
         _lib = lib
     return _lib
 
 
-def kernel_grid() -> tuple[int, int]:
-    """(blocks, threads) of ``fused_agg_partials`` — fixed, not data-sized."""
-    lib = _kernels()
-    return lib.fa_grid(), lib.fa_threads()
+def partials_slots(prog: Program) -> int:
+    """The stack slots of the ``fused_agg_partials`` instance that runs
+    ``prog``: the fewest of 2, 4 or 8 that hold its plan."""
+    return stack_slots([prog.code])
+
+
+def partials_attributes(slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``fused_agg_partials`` instance of
+    ``slots`` stack slots: registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().fa_partials_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_agg_partials attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
+
+
+def new_scratch(prog: Program, img: Image) -> torch.Tensor:
+    """Scratch for :func:`launch_partials`: ``[launch_grid(img), n_aggs, 2]``."""
+    return torch.empty((launch_grid(img), len(prog.aggs), 2), dtype=torch.int64,
+                       device=img.device)
 
 
 _NARROW_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -743,13 +805,16 @@ def check_columns(col_f64, img: Image) -> None:
 
 
 def launch_partials(prog: Program, img: Image, scratch: torch.Tensor) -> None:
-    """Launch ``fused_agg_partials`` into ``scratch`` ([grid, n_aggs, 2] int64)."""
+    """Launch ``fused_agg_partials`` into ``scratch`` (:func:`new_scratch`:
+    ``[launch_grid(img), n_aggs, 2]`` int64)."""
     check_columns(prog.col_f64, img)
+    check_tiles(img)
     lib = _kernels()
-    grid, _threads = kernel_grid()
+    grid = launch_grid(img)
     if scratch.device != img.device or scratch.dtype != torch.int64 \
             or tuple(scratch.shape) != (grid, len(prog.aggs), 2) or not scratch.is_contiguous():
-        raise ValueError("scratch: need contiguous int64 [grid, n_aggs, 2] on the image's device")
+        raise ValueError(f"scratch: need contiguous int64 [{grid}, n_aggs, 2] on the image's "
+                         "device")
     p = program_params(prog)
     set_columns(p, img)
     if isinstance(img.n_valids, int):
@@ -759,7 +824,8 @@ def launch_partials(prog: Program, img: Image, scratch: torch.Tensor) -> None:
     p.n_blocks, p.block_rows = img.n_blocks, img.block_rows
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = lib.fa_launch_partials(ctypes.byref(p), scratch.data_ptr(), stream)
+        rc = lib.fa_launch_partials(ctypes.byref(p), scratch.data_ptr(), grid,
+                                    partials_slots(prog), stream)
     LAUNCHES["fused_agg_partials"] += 1
     if rc != 0:
         raise RuntimeError(f"fused_agg_partials launch failed: cudaError {rc}")
@@ -796,8 +862,7 @@ def launch_combine(prog: Program, scratch: torch.Tensor, carry, out) -> None:
 
 def fused_agg_cuda(prog: Program, img: Image, carry=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Both kernels on the image's current stream; no host synchronisation."""
-    grid, _threads = kernel_grid()
-    scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=img.device)
+    scratch = new_scratch(prog, img)
     launch_partials(prog, img, scratch)
     out = carry if carry is not None else (
         torch.empty((prog.n_int, 1), dtype=torch.int64, device=img.device),

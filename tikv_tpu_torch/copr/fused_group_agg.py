@@ -24,10 +24,10 @@ dictionary codes, ``_mixed_radix_gids``), and ``jax_eval.pack``.
   c_max``; :data:`ROWS` rows of a block a thread through the tile walk,
   the fold of ``csrc/ga_fold.cuh`` that ``batch_partials`` shares, in the
   instance of :func:`partials_slots` stack slots), else the wide route
-  ``group_wide_partials`` then ``group_wide_combine``: one state in device
-  memory, integer atomics, and f64 sums added exactly (``XWORDS`` words a
-  cell) and rounded once, so any capacity is served bit-identically from
-  run to run.
+  ``group_wide_partials`` then ``group_wide_combine``: the same tile walk
+  and instances, one state in device memory, integer atomics, and f64 sums
+  added exactly (``XWORDS`` words a cell) and rounded once, so any capacity
+  is served bit-identically from run to run.
   ``wide_partials_plain`` and ``wide_combine_plain`` are their plain
   versions, word for word.
 * ``fused_group_agg`` takes the plain version for a CPU image and the kernels
@@ -48,7 +48,8 @@ import torch
 
 from . import fused_agg as fa
 from .datatypes import EvalType
-from .fused_agg import LAUNCHES, NO_ROW, Image, Unsupported, emit_program
+from .fused_agg import (GRID_MAX, LAUNCHES, NO_ROW, ROWS, THREADS, Image, Unsupported,
+                        emit_program, launch_grid)
 
 # leaf kinds: the same table as the GA_* enum in csrc/fused_agg.cu
 LEAF_TRACK = 0
@@ -63,13 +64,12 @@ LEAF_XOR = 8
 LEAF_FIRSTROW = 9
 LEAF_FIRSTVAL = 10
 
-# limits and geometry of the kernels (csrc/fused_agg.cu)
+# limits and geometry of the kernels (csrc/fused_agg.cu; THREADS, GRID_MAX
+# and ROWS, the rows a partials thread walks at once, are the capacity-1
+# pair's too)
 MAX_LEAVES = 64
 MAX_KEYS = 4
-THREADS = 256
 WARPS = THREADS // 32
-GRID_MAX = 528
-ROWS = 4  # rows a fused_group_agg_partials thread walks at once (GA_ROWS)
 SMEM_MAX = 232448  # dynamic shared memory one block may use on Hopper
 XWORDS = 66  # words of an exact f64 sum (GA_XW): units 2^-1074 to past 2^1037
 XFLAG_POSINF, XFLAG_NEGINF, XFLAG_NAN = 1, 2, 4
@@ -399,19 +399,11 @@ def fused_group_agg_plain(prog: GroupProgram, img: Image, capacity: int, carry=N
     return _finish(prog, img, capacity, totals, outs, carry)
 
 
-def launch_grid(img: Image) -> int:
-    """Blocks of ``fused_group_agg_partials`` for an image: one per
-    ``THREADS`` tiles of ``ROWS`` rows of a block, at most ``GRID_MAX``;
-    fixed by the image's shape."""
-    tiles = img.n_blocks * -(-img.block_rows // ROWS)
-    return max(1, min(GRID_MAX, -(-tiles // THREADS)))
-
-
 def wide_grid(img: Image) -> int:
-    """Blocks of ``group_wide_partials``: one per ``THREADS`` rows (it walks
-    a row a thread a step), at most ``GRID_MAX``."""
-    rows = img.n_blocks * img.block_rows
-    return max(1, min(GRID_MAX, -(-rows // THREADS)))
+    """Blocks of ``group_wide_partials``: the tile walk's grid, as
+    :func:`launch_grid` (its updates commute, so no plain version follows
+    it)."""
+    return launch_grid(img)
 
 
 def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int | None = None,
@@ -426,14 +418,7 @@ def partials_plain(prog: GroupProgram, img: Image, capacity: int, grid: int | No
     summed in another order than the kernel's."""
     grid = launch_grid(img) if grid is None else grid
     terms, gid, _outs = _row_terms(prog, img, capacity)
-    n = img.n_blocks * img.block_rows
-    flat = torch.arange(n, device=img.device)
-    if rows_a_thread > 1:
-        br = img.block_rows
-        b = flat // br
-        flat = b * -(-br // rows_a_thread) + (flat - b * br) // rows_a_thread
-    blk = (flat % (grid * THREADS)) // THREADS
-    seg = blk * capacity + gid
+    seg = fa.tile_blocks(img, grid, THREADS, rows_a_thread) * capacity + gid
     rows = []
     for leaf, (m, v) in zip(prog.leaves, terms):
         acc = _seg_reduce(leaf, m, v, seg, grid * capacity)
@@ -747,6 +732,8 @@ def _kernels():
         lib.ga_tile_rows.restype = ctypes.c_int
         lib.ga_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp]
         lib.gw_launch_partials.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
+        lib.gw_partials_attributes.argtypes = [ctypes.c_int, vp]
+        lib.gw_partials_attributes.restype = ctypes.c_int
         lib.gw_launch_combine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
         for fn in ("ga_launch_partials", "ga_launch_combine", "gw_launch_partials",
                    "gw_launch_combine"):
@@ -764,8 +751,9 @@ def _kernels():
 
 
 def partials_slots(prog: GroupProgram) -> int:
-    """The stack slots of the ``fused_group_agg_partials`` instance that runs
-    ``prog``: the fewest of 2, 4 or 8 that hold its plan."""
+    """The stack slots of the ``fused_group_agg_partials`` or
+    ``group_wide_partials`` instance that runs ``prog``: the fewest of 2, 4
+    or 8 that hold its plan."""
     return fa.stack_slots([prog.code])
 
 
@@ -775,14 +763,17 @@ def partials_smem(prog: GroupProgram, capacity: int) -> int:
     return WARPS * len(prog.leaves) * (32 + capacity) * 8
 
 
-def partials_attributes(slots: int) -> dict:
-    """``cudaFuncGetAttributes`` of the ``fused_group_agg_partials`` instance
-    of ``slots`` stack slots: registers a thread, local (spilled) bytes a
-    thread, static shared bytes a block."""
+def partials_attributes(slots: int, wide: bool = False) -> dict:
+    """``cudaFuncGetAttributes`` of the ``fused_group_agg_partials`` (or,
+    ``wide``, ``group_wide_partials``) instance of ``slots`` stack slots:
+    registers a thread, local (spilled) bytes a thread, static shared bytes
+    a block."""
+    name = "group_wide_partials" if wide else "fused_group_agg_partials"
     out = (ctypes.c_int * 3)()
-    rc = _kernels().ga_partials_attributes(slots, out)
+    lib = _kernels()
+    rc = (lib.gw_partials_attributes if wide else lib.ga_partials_attributes)(slots, out)
     if rc != 0:
-        raise RuntimeError(f"fused_group_agg_partials attributes: cudaError {rc}")
+        raise RuntimeError(f"{name} attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
             "stackSlots": slots}
 
@@ -850,7 +841,6 @@ def launch_partials(prog: GroupProgram, img: Image, capacity: int, out: torch.Te
     _check_parts(prog, img, capacity, out)
     lib = _kernels()
     p = group_params(prog, img, capacity)
-    L = len(prog.leaves)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         if shared:
@@ -860,10 +850,11 @@ def launch_partials(prog: GroupProgram, img: Image, capacity: int, out: torch.Te
                                         stream)
         else:
             name = "group_wide_partials"
+            fa.check_tiles(img)
             words, xacc = _wide_views(prog, capacity, out)
             rc = lib.gw_launch_partials(ctypes.byref(p), words.data_ptr(),
                                         xacc.data_ptr() if xacc.numel() else None,
-                                        wide_grid(img), WARPS * L * 32 * 8, stream)
+                                        wide_grid(img), partials_slots(prog), stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

@@ -9,8 +9,11 @@
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
-// fa_walk_keys walks one row; fa_walk_tile R rows a thread (the mask,
-// batch_partials and topn_candidates).
+// fa_walk_keys walks one row (the zone kernels, dict_keys, the first
+// value a combine reads again); fa_walk_tile R rows a thread (the mask,
+// topn_candidates and every partials kernel of the aggregations:
+// fused_agg_partials, fused_group_agg_partials, group_wide_partials,
+// batch_partials).
 //
 // Also program #1 of the reference package, kernels.py:decode_device_column
 // (inlined there through jax_eval.py:_build_cols): the column load fa_load.
@@ -338,7 +341,7 @@ __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, 
 
 // ---------------------------------------------------------------------------
 // The tile walk: the same bytecode over R consecutive rows per thread, with
-// no local memory (fused_mask, batch_partials, topn_candidates).
+// no local memory (fused_mask, topn_candidates and the partials kernels).
 //
 // fa_walk_keys keeps a row's columns and its operand stack in arrays indexed
 // at run time (v[arg], sv[sp]), which nvcc places in local memory.  The tile
@@ -358,18 +361,20 @@ __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, 
 // NULL; count(*): selected) as bits, and on_key(q, x, xn) whatever the
 // selection says, the R values and their NULL bits in registers.  The
 // emitter writes every conjunct before the first aggregate or key, so the
-// selection bits are final by then.
+// selection bits are final by then, and a Select walk returns there: the
+// selection alone.
 // ---------------------------------------------------------------------------
 
 // Lanes [0, R) at `base` of a 1-, 2-, 4- or 8-byte payload, sign-extended;
-// lanes r >= n (past the block) load as 0.  A full tile whose address is
-// aligned to its bytes (at most 16) loads as words, else lane by lane.
+// lanes r >= n (past the block) load as 0.  A full tile of at least 4 bytes
+// whose address is aligned to its bytes (at most 16) loads as words, else
+// lane by lane.
 template <int R, typename T>
 __device__ __forceinline__ void fa_lanes(const T* base, int n, long long (&x)[R]) {
   constexpr int B = R * (int)sizeof(T);
   constexpr int A = B < 16 ? B : 16;
-  if (n == R && ((u64)base & (A - 1)) == 0) {
-    unsigned w[B / 4];
+  if (B >= 4 && n == R && ((u64)base & (A - 1)) == 0) {
+    unsigned w[B >= 4 ? B / 4 : 1];
     if constexpr (B >= 16) {
 #pragma unroll
       for (int k = 0; k < B / 16; ++k) {
@@ -404,11 +409,12 @@ __device__ __forceinline__ void fa_lanes(const T* base, int n, long long (&x)[R]
   }
 }
 
-// Bit r: bool byte r at `base` is set (r < n); one word where aligned.
+// Bit r: bool byte r at `base` is set (r < n); one word where aligned (R
+// of 4 or 8 bytes).
 template <int R>
 __device__ __forceinline__ unsigned fa_flag_bits(const unsigned char* base, int n) {
   unsigned bits = 0;
-  if (n == R && ((u64)base & (R - 1)) == 0) {
+  if (R >= 4 && n == R && ((u64)base & (R - 1)) == 0) {
     u64 w;
     if constexpr (R == 8) {
       w = __ldg((const unsigned long long*)base);
@@ -628,7 +634,8 @@ __device__ __forceinline__ unsigned fa_walk_conjuncts(const P& p, long long f0, 
 // selection, as bits.  The stack holds D <= FA_MAX_STACK slots: the plan's
 // depth, which the caller checks.  Each aggregate's argument goes to on_agg,
 // each sort key to on_key (see above).
-template <int R, int D, bool Flat = false, class P, class OnAgg, class OnKey>
+template <int R, int D, bool Flat = false, bool Select = false, class P, class OnAgg,
+          class OnKey>
 __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long long blk,
                                                  long long i0, int n, unsigned valid,
                                                  OnAgg&& on_agg, OnKey&& on_key) {
@@ -808,6 +815,7 @@ __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long 
         break;
       case FA_OP_AGG:
       case FA_OP_COUNT1: {
+        if constexpr (Select) return active;
         // one call site for both, so a large fold is inlined once
         unsigned live = active;
         if (op == FA_OP_AGG) {
@@ -823,6 +831,7 @@ __device__ __forceinline__ unsigned fa_walk_tile(const P& p, long long f0, long 
         break;
       }
       case FA_OP_KEY:
+        if constexpr (Select) return active;
         fa_get(s, sp - 1, a, an);
         --sp;
         on_key(arg, a, an);

@@ -26,34 +26,39 @@
 //
 // What the design does about it:
 //   * one pass: predicates, aggregate arguments and the aggregates are
-//     evaluated per row from registers and local memory, so no mask or
-//     intermediate column is written back to device memory;
-//   * each thread issues all its row's column loads before it evaluates
-//     anything, so several loads per thread are in flight;
-//   * rows past a block's n_valid (padding) are never read;
+//     evaluated from registers, so no mask or intermediate column is
+//     written back to device memory;
+//   * every partials kernel walks GA_ROWS consecutive rows of one block a
+//     thread (a tile) with the tile walk of fa_walk.cuh: the operand stack
+//     in registers (instances of 2, 4 and 8 stack slots, the launcher's
+//     pick from the plan's depth), each lane's rows in one vector load
+//     where aligned, a `column <cmp> constant` conjunct in one step; no
+//     local memory;
+//   * a tile with no valid row (the padding past n_valid, a block zone maps
+//     pruned) costs the read of its block's n_valid;
 //   * the plan is bytecode in the kernel's parameter block
 //     (__grid_constant__, served from constant memory): every thread of
 //     the grid reads the same instruction, so the walk never diverges and
 //     one compiled kernel serves every plan.
-// fused_group_agg_partials walks GA_ROWS rows a thread with the tile walk
-// (fa_walk_tile: the stack in registers, each lane's rows in one vector
-// load where aligned) and folds them as batch_partials does (ga_fold.cuh);
-// the capacity-1 pair and the wide route still walk a row a step
-// (fa_walk), with no cp.async/TMA pipelining: later work.
+// fused_agg_partials folds each thread's rows into its own column of a
+// shared-memory table (the aggregate is known only at run time, and an
+// array indexed by it would live in local memory); fused_group_agg_partials
+// folds as batch_partials does (ga_fold.cuh); group_wide_partials walks
+// the selection first and queues the rows it keeps, so that the
+// aggregates' arguments, group ids and atomics run on full warps of kept
+// rows.  No cp.async/TMA pipelining: later work.
 //
-// Encoded images: every column is read through fa_load (program #1, in
-// fa_walk.cuh), also the dictionary codes of the coded group ids and the
-// winning row that `first` walks again in the combine.
+// Encoded images: every column is read through fa_load_tile or fa_load
+// (program #1, in fa_walk.cuh), also the dictionary codes of the coded
+// group ids and the winning row that `first` walks again in the combine.
 //
 // Determinism: the grid depends on the image's shape alone (at most FA_GRID
-// blocks of FA_THREADS threads), a row (a tile of GA_ROWS rows, for
-// fused_group_agg_partials) goes to thread (its index mod the grid's
-// threads), and every reduction runs in a fixed order, so f64 sums are
-// bit-identical from run to run; the
-// wide route's f64 sums are exact until one rounding, so their order does
-// not matter at all.
-// Integer arithmetic is done in unsigned 64-bit and cast back, which wraps
-// as numpy does (signed overflow is undefined in C++), so integer and
+// blocks of FA_THREADS threads), a tile of GA_ROWS rows goes to thread
+// (its index mod the grid's threads), and every reduction runs in a fixed
+// order, so f64 sums are bit-identical from run to run; the wide route's
+// f64 sums are exact until one rounding, so their order does not matter at
+// all.  Integer arithmetic is done in unsigned 64-bit and cast back, which
+// wraps as numpy does (signed overflow is undefined in C++), so integer and
 // decimal results are exact and independent of order.
 //
 // Layout contract with tikv_tpu_torch/copr/fused_agg.py and
@@ -64,7 +69,7 @@
 
 #define FA_THREADS 256
 #define FA_GRID 528
-#define GA_ROWS 4  // rows a fused_group_agg_partials thread walks at once (its tile)
+#define GA_ROWS 4  // rows a partials thread walks at once (its tile)
 
 enum { FA_AGG_COUNT = 0, FA_AGG_SUM = 1, FA_AGG_MIN = 2, FA_AGG_MAX = 3 };
 
@@ -108,70 +113,102 @@ __device__ __forceinline__ long long fa_merge(int kind, bool is_f, long long a, 
   }
 }
 
-// One row of partials per block: [gridDim.x, n_aggs, 2] int64 words
-// (count, value bits).
-__global__ void __launch_bounds__(FA_THREADS)
+// Partials of the capacity-1 pair, one row per block: [gridDim.x, n_aggs,
+// 2] int64 words (count, value bits).  A thread walks the tiles t, t +
+// the grid's threads, ... in order (D stack slots) and folds each
+// aggregate's live rows, in row order, into its own column of the dynamic
+// shared tables s_cnt and s_val [n_aggs][FA_THREADS]; then a fixed-order
+// tree over the block's threads, all aggregates at each level.  Tile
+// indices are 32-bit (the launcher refuses 2^31 tiles): a 64-bit division
+// is a subroutine call, around which the 2-slot instance spilled.  That
+// instance (Q6's) fits four blocks an SM in 64 registers, which the walk's
+// memory latency needs; the deeper ones take what they need.
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS, D == 2 ? 4 : 1)
 fused_agg_partials(const __grid_constant__ FaParams p, long long* __restrict__ scratch) {
-  u64 cnt[FA_MAX_AGGS];
-  long long acc[FA_MAX_AGGS];
-  for (int k = 0; k < p.n_aggs; ++k) {
-    cnt[k] = 0;
-    acc[k] = fa_identity(p.agg_kind[k], p.agg_f64[k]);
+  constexpr int R = GA_ROWS;
+  extern __shared__ long long fa_smem[];
+  const int A = p.n_aggs;
+  const int tid = threadIdx.x;
+  u64* s_cnt = (u64*)fa_smem;
+  long long* s_val = fa_smem + A * FA_THREADS;
+  for (int k = 0; k < A; ++k) {
+    s_cnt[k * FA_THREADS + tid] = 0;
+    s_val[k * FA_THREADS + tid] = fa_identity(p.agg_kind[k], p.agg_f64[k]);
   }
 
   const long long rows = p.block_rows;
-  const long long total = p.n_blocks * rows;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // (block, row in block) of flat row f, advanced by the stride without a
-  // division per row
-  long long blk = rows > 0 ? f / rows : 0;
-  long long i = f - blk * rows;
-  const long long step_b = rows > 0 ? stride / rows : 0;
-  const long long step_i = stride - step_b * rows;
-
-  for (; f < total; f += stride) {
-    const long long nv = p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
-    if (i < nv) {
-      fa_walk(p, f, blk, i, [&](int k, bool live, long long value) {
-        if (live) {
-          cnt[k] += 1;
-          const int kind = p.agg_kind[k];
-          if (kind != FA_AGG_COUNT) acc[k] = fa_merge(kind, p.agg_f64[k], acc[k], value);
-        }
-      });
+  const unsigned tpb = (unsigned)((rows + R - 1) / R);  // tiles a block
+  const unsigned total = (unsigned)(p.n_blocks * tpb);
+  const unsigned stride = gridDim.x * FA_THREADS;
+  unsigned t = blockIdx.x * FA_THREADS + tid;
+  // (block, tile in block) of tile t, advanced by the stride without a
+  // division per tile
+  unsigned blk = tpb > 0 ? t / tpb : 0;
+  unsigned ti = t - blk * tpb;
+  const unsigned step_b = tpb > 0 ? stride / tpb : 0;
+  const unsigned step_t = stride - step_b * tpb;
+  for (; t < total; t += stride) {
+    const long long i0 = (long long)ti * R;
+    const long long nv = (p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all) - i0;
+    if (nv > 0) {
+      const int n = rows - i0 < R ? (int)(rows - i0) : R;
+      const int live = nv < n ? (int)nv : n;
+      fa_walk_tile<R, D>(
+          p, (long long)blk * rows + i0, blk, i0, n, (1u << live) - 1,
+          [&](int k, unsigned on, const long long (&x)[R], unsigned) {
+            if (on == 0) return;
+            const int at = k * FA_THREADS + tid;
+            s_cnt[at] += __popc(on);
+            const int kind = p.agg_kind[k];
+            if (kind != FA_AGG_COUNT) {
+              const bool is_f = p.agg_f64[k];
+              long long acc = s_val[at];
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                if ((on >> r) & 1) acc = fa_merge(kind, is_f, acc, x[r]);
+              }
+              s_val[at] = acc;
+            }
+          },
+          [](int, const long long (&)[R], unsigned) {});
     }
     blk += step_b;
-    i += step_i;
-    if (i >= rows) {
-      i -= rows;
+    ti += step_t;
+    if (ti >= tpb) {
+      ti -= tpb;
       ++blk;
     }
   }
 
-  // fixed-order tree over the block's threads, one aggregate at a time
-  __shared__ u64 s_cnt[FA_THREADS];
-  __shared__ long long s_val[FA_THREADS];
-  const int tid = threadIdx.x;
-  for (int k = 0; k < p.n_aggs; ++k) {
-    const int kind = p.agg_kind[k];
-    const bool is_f = p.agg_f64[k];
-    s_cnt[tid] = cnt[k];
-    s_val[tid] = acc[k];
-    __syncthreads();
-    for (int s = FA_THREADS / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        s_cnt[tid] += s_cnt[tid + s];
-        s_val[tid] = fa_merge(kind, is_f, s_val[tid], s_val[tid + s]);
+  __syncthreads();
+  for (int s = FA_THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      for (int k = 0; k < A; ++k) {
+        const int at = k * FA_THREADS + tid;
+        s_cnt[at] += s_cnt[at + s];
+        s_val[at] = fa_merge(p.agg_kind[k], p.agg_f64[k], s_val[at], s_val[at + s]);
       }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      long long* out = scratch + ((long long)blockIdx.x * p.n_aggs + k) * 2;
-      out[0] = (long long)s_cnt[0];
-      out[1] = s_val[0];
     }
     __syncthreads();
+  }
+  for (int k = tid; k < A; k += FA_THREADS) {
+    long long* out = scratch + ((long long)blockIdx.x * A + k) * 2;
+    out[0] = (long long)s_cnt[k * FA_THREADS];
+    out[1] = s_val[k * FA_THREADS];
+  }
+}
+
+typedef void (*FaPartialsKernel)(FaParams, long long*);
+
+// The instance whose stack holds `slots` operands (2, 4 or 8); nullptr else.
+static FaPartialsKernel fa_partials_kernel(int slots) {
+  static_assert(FA_MAX_STACK == 8, "the partials instances' slots");
+  switch (slots) {
+    case 2: return fused_agg_partials<2>;
+    case 4: return fused_agg_partials<4>;
+    case 8: return fused_agg_partials<8>;
+    default: return nullptr;
   }
 }
 
@@ -231,8 +268,8 @@ fused_agg_combine_pack(const __grid_constant__ FaParams p, const long long* __re
 // Grouped: fused_group_agg_partials + fused_group_agg_combine_pack
 // ---------------------------------------------------------------------------
 //
-// The same walk per row, then a group id per row and per-group leaves.  A
-// leaf is one row of the packed state (jax_eval._pack_state's order: the
+// The same walk, then a group id per row and per-group leaves.  A leaf is
+// one row of the packed state (jax_eval._pack_state's order: the
 // first-active-row tracker, then each aggregate's carry leaves); its kind
 // says how a row contributes and how two values merge.
 
@@ -298,75 +335,6 @@ __device__ __forceinline__ void ga_atomic(int kind, long long* dst, long long v)
   }
 }
 
-
-// The row loop of the wide route's partials kernel.  Each thread walks its rows
-// (flat row f = base + lane, base stepping by the grid's size), stages each
-// row's contribution to every leaf in its warp's `stage` [L][32] and its
-// group id; then `fold(active, gid, same)` runs on every lane, `same`
-// being the lanes of the step that hold the same group (__match_any_sync).
-// Every lane of a warp runs the same number of steps (the loop is on the
-// warp's first row), so the warp-wide operations see all 32 lanes.
-template <class Fold>
-__device__ __forceinline__ void ga_rows(const GaParams& p, long long* stage, Fold fold) {
-  const int C = p.capacity;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long rows = p.block_rows;
-  const long long total = p.n_blocks * rows;
-  const long long stride = (long long)gridDim.x * FA_THREADS;
-  long long base = (long long)blockIdx.x * FA_THREADS + warp * 32;
-  long long f = base + lane;
-  long long blk = rows > 0 ? f / rows : 0;
-  long long i = f - blk * rows;
-  const long long step_b = rows > 0 ? stride / rows : 0;
-  const long long step_i = stride - step_b * rows;
-
-  for (; base < total; base += stride, f += stride) {
-    bool active = false;
-    int gid = -1;
-    if (f < total) {
-      const long long nv = p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
-      if (i < nv) {
-        active = fa_walk(p, f, blk, i, [&](int k, bool live, long long value) {
-          const int l0 = p.agg_leaf0[k];
-          for (int l = l0; l < l0 + p.agg_nleaves[k]; ++l) {
-            stage[l * 32 + lane] = ga_contrib(p, l, live, value, f);
-          }
-        });
-        if (active) {
-          if (p.gids != nullptr) {
-            gid = __ldg(p.gids + f);
-          } else {
-            // mixed radix over the key columns' codes (jax_eval._mixed_radix_gids),
-            // narrowed int8/int16 codes sign-extended by the column load
-            long long g = 0;
-            for (int q = 0; q < p.n_keys; ++q) {
-              const long long dlen = p.key_dlen[q];
-              bool nul;
-              const long long code = fa_load(p, p.key_slot[q], f, blk, i, nul);
-              g = g * (dlen + 1) + (nul ? dlen : code);
-            }
-            gid = (g >= 0 && g < C) ? (int)g : -1;
-          }
-          // a row whose id is outside the slots touches none, as XLA drops
-          // out-of-range scatter updates
-          active = gid >= 0 && gid < C;
-          stage[lane] = p.track ? f : FA_NO_ROW;
-        }
-      }
-    }
-    const unsigned same = __match_any_sync(0xFFFFFFFFu, active ? gid : -1);
-    __syncwarp();
-    fold(active, gid, same);
-    __syncwarp();
-    blk += step_b;
-    i += step_i;
-    if (i >= rows) {
-      i -= rows;
-      ++blk;
-    }
-  }
-}
 
 // Partials of every leaf for every group slot, C <= C_MAX, [gridDim.x,
 // n_leaves, C] int64 words (f64 as bits), one row per block, by the tile
@@ -545,57 +513,215 @@ __device__ __forceinline__ double ga_xtotal(long long flags, const long long* ce
   return ga_xround(cell);
 }
 
-// words [n_leaves, C] at ga_wide_ident (the wrapper's initial words), xacc
-// [n_xleaves, C, GA_XW] zeros; dynamic shared memory GA_WARPS * n_leaves *
-// 32 * 8 bytes (the stage).
+// One device-memory atomic merging acc, the fold of a row's lanes of one
+// group, into the state word of its cell: integer leaves as they are, f64
+// min and max as order-preserving keys.
+__device__ __forceinline__ void gw_atomic(int kind, bool is_f, long long* word, long long acc) {
+  if (!is_f) {
+    ga_atomic(kind, word, acc);
+  } else if (kind == GA_MAX) {
+    atomicMax(word, ga_fkey(fa_f(acc), true));
+  } else {
+    atomicMin(word, ga_fkey(fa_f(acc), false));
+  }
+}
+
+// One selected row a lane (`mine`; flat row f, row i of block blk) of the
+// wide route's partials through the walk: its group id, then for
+// aggregate k the lanes whose row is live match their ids
+// (__match_any_sync, once for live rows that differ from the last
+// aggregate's), each f64 sum cell takes every live lane's value exactly
+// (ga_xadd), and for every other leaf the lowest live lane of each id takes
+// one atomic: of its own contribution where no two live lanes share an id
+// (the rule for many groups), else of its lanes' contributions folded in
+// lane order, staged in shared memory.  Every update commutes, so the state
+// is the same whatever the order of the rows.  Then the tracker (leaf 0):
+// each group's least active flat row.  Every warp-wide operation sits in a
+// branch that is uniform across the warp.
+template <int D>
+__device__ __forceinline__ void gw_row(const GaParams& p, long long* __restrict__ words,
+                                       long long* __restrict__ xacc, const signed char* xidx,
+                                       long long* stage, long long f, long long blk, long long i,
+                                       bool mine) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int C = p.capacity;
+  const int lane = threadIdx.x & 31;
+  int gid[1] = {0};
+  const unsigned ok = mine ? ga_tile_ids<1>(p, p.gids, f, blk, i, 1, gid) : 0;
+  const int g = gid[0];
+  unsigned matched = ~0u;  // the live rows `same` was matched for
+  unsigned same = 0;
+  const unsigned active = fa_walk_tile<1, D>(
+      p, f, blk, i, mine ? 1 : 0, ok,
+      [&](int k, unsigned live, const long long (&x)[1], unsigned) {
+        const bool on = live & 1;
+        if (!__any_sync(FULL, on)) return;
+        if (__any_sync(FULL, live != matched)) {
+          same = __match_any_sync(FULL, on ? g : -1);
+          matched = live;
+        }
+        const unsigned m = same & __ballot_sync(FULL, on);  // the live lanes of this id
+        const bool lead = on && lane == __ffs(m) - 1;
+        const bool fold = __any_sync(FULL, (m & (m - 1)) != 0);
+        const int l0 = p.agg_leaf0[k];
+        for (int l = l0; l < l0 + p.agg_nleaves[k]; ++l) {
+          const int kind = p.leaf_kind[l];
+          if (kind == GA_FIRSTVAL) continue;  // read at the winning row by the combine
+          const long long c = ga_contrib(p, l, on, x[0], f);
+          long long* word = words + (long long)l * C + g;
+          if (xidx[l] >= 0) {
+            // every lane adds its own value: exact, so no fold is needed
+            if (on) ga_xadd(word, xacc + ((long long)xidx[l] * C + g) * GA_XW, fa_f(c));
+            continue;
+          }
+          const bool is_f = p.leaf_f64[l];
+          long long acc = c;
+          if (fold) {
+            stage[lane] = c;
+            __syncwarp();
+            if (lead) {
+              acc = p.leaf_ident[l];
+              for (unsigned b = m; b != 0; b &= b - 1) {
+                acc = ga_merge(kind, is_f, acc, stage[__ffs(b) - 1]);
+              }
+            }
+            __syncwarp();
+          }
+          if (lead && acc != p.leaf_ident[l]) gw_atomic(kind, is_f, word, acc);
+        }
+      },
+      [](int, const long long (&)[1], unsigned) {});
+  if (p.track) {
+    const bool on = active & 1;
+    if (__any_sync(FULL, on)) {
+      const unsigned peers = __match_any_sync(FULL, on ? g : -1);
+      if (on && lane == __ffs(peers) - 1) atomicMin(words + g, f);
+    }
+  }
+}
+
+#define GW_QUEUE 256  // a warp's ring of selected rows: 31 left over, 128 a step
+
+// words [n_leaves, C] at the wrapper's initial words (wide_idents), xacc
+// [n_xleaves, C, GA_XW] zeros.  The tiles of GA_ROWS rows of one block go
+// to the grid's warps as in fused_group_agg_partials (D stack slots).
+// Selection first: a warp step walks its tiles' conjuncts alone (a Select
+// walk stops at the first aggregate) and queues the rows they keep in the
+// warp's ring in shared memory; every 32 queued rows walk again, one a lane
+// (gw_row), the aggregates' arguments, group ids and folds for the rows
+// kept alone.  A selective plan (TPC-H Q15's window keeps 4% of the rows)
+// so spends its walk of the aggregates and its folds on full warps; a plan
+// that keeps every row pays the conjuncts twice (a dense walk of the tile
+// in place was measured no faster, and is not kept).
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 group_wide_partials(const __grid_constant__ GaParams p, long long* __restrict__ words,
                     long long* __restrict__ xacc) {
-  extern __shared__ long long ga_smem[];
+  constexpr int R = GA_ROWS;
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  static_assert((GW_QUEUE & (GW_QUEUE - 1)) == 0 && GW_QUEUE >= 31 + 32 * R, "the queue's ring");
+  __shared__ long long gw_stage[FA_THREADS];   // a warp's 32 contributions to one leaf
+  __shared__ int gw_qblk[GA_WARPS][GW_QUEUE];  // queued rows: block
+  __shared__ int gw_qrow[GA_WARPS][GW_QUEUE];  // and row in block
   __shared__ signed char xidx[GA_MAX_LEAVES];  // each f64 sum leaf's accumulator
-  const int L = p.n_leaves;
-  const int C = p.capacity;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  long long* stage = ga_smem + (long long)warp * L * 32;
+  long long* stage = gw_stage + warp * 32;
+  int* qblk = gw_qblk[warp];
+  int* qrow = gw_qrow[warp];
   if (threadIdx.x == 0) {
     int x = 0;
-    for (int l = 0; l < L; ++l) xidx[l] = ga_xleaf(p.leaf_kind[l], p.leaf_f64[l]) ? x++ : -1;
+    for (int l = 0; l < p.n_leaves; ++l) {
+      xidx[l] = ga_xleaf(p.leaf_kind[l], p.leaf_f64[l]) ? x++ : -1;
+    }
   }
   __syncthreads();
 
-  ga_rows(p, stage, [&](bool active, int gid, unsigned same) {
-    if (!active) return;
-    const bool leader = lane == __ffs(same) - 1;
-    for (int l = 0; l < L; ++l) {
-      const int kind = p.leaf_kind[l];
-      if (kind == GA_FIRSTVAL) continue;
-      const bool is_f = p.leaf_f64[l];
-      long long* word = words + (long long)l * C + gid;
-      if (xidx[l] >= 0) {
-        // every lane adds its own value: exact, so no fold is needed
-        ga_xadd(word, xacc + ((long long)xidx[l] * C + gid) * GA_XW, fa_f(stage[l * 32 + lane]));
-        continue;
+  // 32-bit tile indices, as fused_agg_partials'
+  const long long rows = p.block_rows;
+  const unsigned tpb = (unsigned)((rows + R - 1) / R);  // tiles a block
+  const unsigned total = (unsigned)(p.n_blocks * tpb);
+  const unsigned stride = gridDim.x * FA_THREADS;
+  unsigned base = blockIdx.x * FA_THREADS + warp * 32;
+  unsigned t = base + lane;
+  unsigned blk = tpb > 0 ? t / tpb : 0;
+  unsigned ti = t - blk * tpb;
+  const unsigned step_b = tpb > 0 ? stride / tpb : 0;
+  const unsigned step_t = stride - step_b * tpb;
+  // the warp's queue: `queued` rows from ring slot `head`, the same in
+  // every lane
+  int head = 0, queued = 0;
+
+  // one row a lane for the queue's first `cnt` rows
+  auto round = [&](int cnt) {
+    const bool mine = lane < cnt;
+    const int at = (head + lane) & (GW_QUEUE - 1);
+    const long long b1 = mine ? qblk[at] : 0;
+    const long long i1 = mine ? qrow[at] : 0;
+    head = (head + cnt) & (GW_QUEUE - 1);
+    queued -= cnt;
+    gw_row<D>(p, words, xacc, xidx, stage, b1 * rows + i1, b1, i1, mine);
+  };
+
+  // every lane of a warp runs the same steps (the loop is on the warp's
+  // first tile), so the warp-wide operations see all 32 lanes
+  for (; base < total; base += stride, t += stride) {
+    long long i0 = 0, f0 = 0;
+    int n = 0;
+    unsigned valid = 0;
+    if (t < total) {
+      i0 = (long long)ti * R;
+      f0 = (long long)blk * rows + i0;
+      n = rows - i0 < R ? (int)(rows - i0) : R;
+      const long long nv = (p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all) - i0;
+      const int live = nv <= 0 ? 0 : nv < n ? (int)nv : n;
+      valid = (1u << live) - 1;
+    }
+    if (__any_sync(FULL, valid != 0)) {
+      const unsigned act = fa_walk_tile<R, D, false, true>(
+          p, f0, blk, i0, n, valid, [](int, unsigned, const long long (&)[R], unsigned) {},
+          [](int, const long long (&)[R], unsigned) {});
+      // this lane's place among the warp's selected rows, and their number
+      const int mine = __popc(act);
+      const unsigned lower = (1u << lane) - 1;
+      int before = 0, selected = 0;
+#pragma unroll
+      for (int bit = 0; bit < 3; ++bit) {
+        const unsigned b = __ballot_sync(FULL, (mine >> bit) & 1);
+        before += __popc(b & lower) << bit;
+        selected += __popc(b) << bit;
       }
-      if (!leader) continue;
-      long long acc = p.leaf_ident[l];
-      for (unsigned m = same; m != 0; m &= m - 1) {
-        acc = ga_merge(kind, is_f, acc, stage[l * 32 + __ffs(m) - 1]);
-      }
-      if (acc == p.leaf_ident[l]) continue;
-      if (is_f) {
-        const bool is_max = kind == GA_MAX;
-        const long long key = ga_fkey(fa_f(acc), is_max);
-        if (is_max) {
-          atomicMax(word, key);
-        } else {
-          atomicMin(word, key);
+      if (selected > 0) {
+        __syncwarp();  // the last round's reads of the ring are done
+        int at = head + queued + before;
+        for (unsigned b = act; b != 0; b &= b - 1, ++at) {
+          qblk[at & (GW_QUEUE - 1)] = (int)blk;
+          qrow[at & (GW_QUEUE - 1)] = (int)i0 + __ffs(b) - 1;
         }
-      } else {
-        ga_atomic(kind, word, acc);
+        queued += selected;
+        __syncwarp();
+        while (queued >= 32) round(32);
       }
     }
-  });
+    blk += step_b;
+    ti += step_t;
+    if (ti >= tpb) {
+      ti -= tpb;
+      ++blk;
+    }
+  }
+  if (queued > 0) round(queued);
+}
+
+typedef void (*GwPartialsKernel)(GaParams, long long*, long long*);
+
+static GwPartialsKernel gw_partials_kernel(int slots) {
+  switch (slots) {
+    case 2: return group_wide_partials<2>;
+    case 4: return group_wide_partials<4>;
+    case 8: return group_wide_partials<8>;
+    default: return nullptr;
+  }
 }
 
 // The end of the combine for one (leaf l, group g) cell: `blk` is this
@@ -726,12 +852,35 @@ int fa_params_size(void) { return (int)sizeof(FaParams); }
 int fa_grid(void) { return FA_GRID; }
 int fa_threads(void) { return FA_THREADS; }
 
+// cudaFuncGetAttributes of a kernel: registers a thread, local and static
+// shared bytes, into out[0..3).
+static int kernel_attributes(const void* k, int* out) {
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, k);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
 // Each launcher returns cudaGetLastError() right after its launch: a launch
 // that is refused (too many threads, too much shared memory) never runs, and a
 // later synchronize would not say so.
-int fa_launch_partials(const FaParams* p, long long* scratch, void* stream) {
-  fused_agg_partials<<<FA_GRID, FA_THREADS, 0, (cudaStream_t)stream>>>(*p, scratch);
-  return (int)cudaGetLastError();
+
+// scratch: [grid, n_aggs, 2]; the instance of `slots` stack slots
+// (cudaErrorInvalidValue for another count); dynamic shared memory n_aggs *
+// FA_THREADS * 16 bytes
+int fa_launch_partials(const FaParams* p, long long* scratch, int grid, int slots,
+                       void* stream) {
+  const FaPartialsKernel k = fa_partials_kernel(slots);
+  if (k == nullptr || grid < 1 || grid > FA_GRID) return (int)cudaErrorInvalidValue;
+  return ga_launch_smem(k, grid, p->n_aggs * FA_THREADS * 16, stream, *p, scratch);
+}
+
+int fa_partials_attributes(int slots, int* out) {
+  return kernel_attributes((const void*)fa_partials_kernel(slots), out);
 }
 
 int fa_launch_combine(const FaParams* p, const long long* scratch, int n_partials,
@@ -757,19 +906,8 @@ int ga_launch_partials(const GaParams* p, long long* out, int grid, int smem_byt
   return ga_launch_smem(k, grid, smem_bytes, stream, *p, out);
 }
 
-// cudaFuncGetAttributes of the fused_group_agg_partials instance of `slots`
-// stack slots: registers a thread, local and static shared bytes, into
-// out[0..3).
 int ga_partials_attributes(int slots, int* out) {
-  const GaPartialsKernel k = ga_partials_kernel(slots);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)k);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  return 0;
+  return kernel_attributes((const void*)ga_partials_kernel(slots), out);
 }
 
 int ga_launch_combine(const GaParams* p, const long long* parts, int n_parts,
@@ -781,10 +919,18 @@ int ga_launch_combine(const GaParams* p, const long long* parts, int n_parts,
   return (int)cudaGetLastError();
 }
 
-// words: [n_leaves, C] at their initial words; xacc: [n_xleaves, C, GA_XW] zeros
+// words: [n_leaves, C] at their initial words; xacc: [n_xleaves, C, GA_XW]
+// zeros; the instance of `slots` stack slots
 int gw_launch_partials(const GaParams* p, long long* words, long long* xacc, int grid,
-                       int smem_bytes, void* stream) {
-  return ga_launch_smem(group_wide_partials, grid, smem_bytes, stream, *p, words, xacc);
+                       int slots, void* stream) {
+  const GwPartialsKernel k = gw_partials_kernel(slots);
+  if (k == nullptr || grid < 1 || grid > FA_GRID) return (int)cudaErrorInvalidValue;
+  k<<<grid, FA_THREADS, 0, (cudaStream_t)stream>>>(*p, words, xacc);
+  return (int)cudaGetLastError();
+}
+
+int gw_partials_attributes(int slots, int* out) {
+  return kernel_attributes((const void*)gw_partials_kernel(slots), out);
 }
 
 int gw_launch_combine(const GaParams* p, const long long* words, const long long* xacc,

@@ -849,6 +849,251 @@ def group_partials_check(prog, img: Image, capacity: int, rel_tol: float = 1e-12
     return {"max_abs_err": err, "slots": ga.partials_slots(prog), "grid": ga.launch_grid(img)}
 
 
+def deep_expr(cols, depth: int):
+    """An INT sum over the schema's INT columns ``cols`` whose RPN holds
+    ``depth`` (at least 2) operands at once: ``c + (c' + (... + c''))``,
+    wrapping as int64; it picks the partials kernels' instance of the
+    fewest of 2, 4 or 8 stack slots that hold ``depth``."""
+    e = call("plus", col(cols[0]), col(cols[1 % len(cols)]))
+    for i in range(depth - 2):
+        e = call("plus", col(cols[(i + 2) % len(cols)]), e)
+    return e
+
+
+#: the depth of the plan each instance of the tile-walk partials kernels
+#: runs (2, 4 and 8 stack slots)
+INSTANCE_DEPTHS = {2: 2, 4: 4, 8: 7}
+
+#: edge cases of the capacity-1 partials (:func:`agg_edge_cases`)
+AGG_EDGE_CASES = tuple(f"{shape}_s{d}" for shape in ("ragged", "encoded") for d in (2, 4, 8)) \
+    + ("date_sorted", "date_sorted_encoded")
+
+#: edge cases of the wide route (:func:`wide_edge_cases`)
+WIDE_EDGE_CASES = tuple(f"{shape}_s{d}" for shape in ("ragged", "encoded") for d in (2, 4, 8)) \
+    + ("date_sorted", "hot")
+
+_EDGE_SCHEMA = [(EvalType.INT, 0), (EvalType.DECIMAL, 2), (EvalType.REAL, 0), (EvalType.INT, 0),
+                (EvalType.DECIMAL, 4)]
+_ENC_SCHEMA = [(EvalType.INT, 0)] * 6 + [(EvalType.REAL, 0)]
+_ENC_FRAME = (1 << 62) - 12345
+
+
+def _edge_columns(shape_name: str, rng, dev):
+    """The image of an edge case, ``(schema, image)`` drawn with numpy:
+    ``ragged`` — :func:`synthetic_case`'s five columns over 3 blocks of
+    1,001 rows (a short last tile a block) with 1,001, 998 and 5 valid rows;
+    ``encoded`` — int8, int16 and int32 bitpack lanes, int8 and int16 codes,
+    runs with run-shaped NULLs and a REAL column over 3 blocks of 1,003 rows
+    with 1,003, 1,000 and 17 valid.  The REAL column holds NaN, +-inf and
+    +-0.0 among non-negative values."""
+    def t(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def real(shape):
+        x = rng.random(shape) * 1000.0
+        special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0])
+        return np.where(rng.random(shape) < 0.03, special[rng.integers(0, 5, shape)], x)
+
+    if shape_name == "ragged":
+        n_blocks, br, nv = 3, 1001, [1001, 998, 5]
+        shape = (n_blocks, br)
+        cols = [rng.integers(-(1 << 40), 1 << 40, shape), rng.integers(-10**9, 10**9, shape),
+                real(shape), rng.integers(0, 1000, shape), rng.integers(-10**6, 10**6, shape)]
+        nulls = [None, rng.random(shape) < 0.1, rng.random(shape) < 0.05,
+                 rng.random(shape) < 0.2, None]
+        img = Image([t(x) for x in cols], [t(m) for m in nulls],
+                    t(np.asarray(nv, dtype=np.int64)), n_blocks, br, dev)
+        return _EDGE_SCHEMA, img
+    n_blocks, br, nv = 3, 1003, [1003, 1000, 17]
+    kinds = [("bp", np.int8, "rows"), ("bp", np.int16, None), ("bp", np.int32, "rows"),
+             ("code", np.int8, None), ("code", np.int16, "rows"), ("rle", np.int64, "runs")]
+    cols, nulls, descs, refs = [], [], [], []
+    for j, (kind, lane, nl) in enumerate(kinds):
+        desc, payload, null_arr, ref = synthetic_encoded_column(
+            kind, lane, nl, n_blocks, br, seed=int(rng.integers(1 << 30)) + j)
+        cols.append(tuple(t(x) for x in payload) if kind == "rle" else t(payload))
+        nulls.append(t(null_arr))
+        descs.append(desc)
+        refs.append(ref)
+    cols.append(t(real((n_blocks, br))))
+    nulls.append(t(rng.random((n_blocks, br)) < 0.1))
+    descs.append(("plain",))
+    refs.append(0)
+    return _ENC_SCHEMA, Image(cols, nulls, t(np.asarray(nv, dtype=np.int64)), n_blocks, br, dev,
+                              descs=tuple(descs), refs=tuple(refs))
+
+
+def _edge_plan(shape_name: str, depth: int, grouped: bool):
+    """The conjuncts and aggregates of an edge case over its schema: every
+    aggregate of the capacity-1 pair (``grouped``: all ten device
+    aggregates), int64, decimal and f64 lanes, and one INT sum
+    :func:`deep_expr` ``depth`` operands deep."""
+    if shape_name == "ragged":
+        sel = [call("ge", col(0), const_int(-(1 << 38))),
+               call("or", call("lt", col(2), const_real(900.0)), call("is_null", col(3))),
+               call("ne", col(4), const_decimal(7, 1))]
+        aggs = [("count", None), ("count", col(1)), ("sum", call("multiply", col(0), col(0))),
+                ("sum", call("plus", col(1), col(4))), ("avg", call("multiply", col(2), col(3))),
+                ("min", col(2)), ("max", col(2)),
+                ("min", call("minus", col(1), const_decimal(5, 1)))]
+        # grouped: the other five device aggregates, at most 16 in all
+        more = [("first", col(1)), ("bit_and", col(0)), ("bit_or", col(3)), ("bit_xor", col(1)),
+                ("var_pop", col(3)), ("var_pop", col(2)), ("first", col(2))]
+        if not grouped:
+            aggs += [("max", col(3)), ("sum", col(2))]
+        ints = [0, 3]
+    else:
+        sel = [call("ge", col(0), const_int(_ENC_FRAME)), call("le", col(4), const_int(1))]
+        aggs = [("count", None), ("sum", col(0)), ("min", col(1)), ("max", col(2)),
+                ("sum", col(3)), ("count", col(5)), ("min", col(5)), ("max", col(4)),
+                ("sum", col(6)), ("min", col(6)), ("max", col(6))]
+        more = [("first", col(5)), ("bit_xor", col(2)), ("var_pop", col(6)), ("first", col(6))]
+        ints = [0, 1, 2, 3, 4, 5]
+    if grouped:
+        aggs = aggs + more
+    if depth > 2:
+        aggs = aggs + [("sum", deep_expr(ints, depth))]
+    return sel, aggs
+
+
+def _compiled(schema, sel, aggs):
+    return ([compile_expr(e, schema) for e in sel],
+            [(op, None if e is None else compile_expr(e, schema)) for op, e in aggs])
+
+
+def _date_sorted_q6(device, encode: bool, seed: int):
+    """Q6's evaluator and its stacked image over 24 blocks of 4,096 lineitem
+    rows loaded in date order (zone maps prune all but the blocks of Q6's
+    year: those ship n_valid 0), plain or encoded (l_shipdate as runs)."""
+    from .copr.dag_wire import dag_to_wire
+    from .copr.torch_eval import TorchDagEvaluator
+
+    br = 4096
+    n = 24 * br
+    cache = build_cache(n, br, seed, arrays=sort_by_shipdate(build_arrays(n, seed)),
+                        encode=encode)
+    ev = TorchDagEvaluator(dag_to_wire(q6_dag()), block_rows=br, device=device)
+    img = ev._stacked_device(cache, keep=ev._prune_keep(cache))
+    return ev, img
+
+
+def agg_edge_cases(device, names=AGG_EDGE_CASES, seed: int = 0) -> dict:
+    """``name -> (prog, img)`` for holding ``fused_agg_partials`` to its
+    plain version at its edges, each instance (``_s2``, ``_s4``, ``_s8``:
+    the plan's depth picks 2, 4 or 8 stack slots) on a ``ragged`` and an
+    ``encoded`` image (:func:`_edge_columns`: n_valid not a multiple of 4,
+    short last tiles, bitpack lanes, narrowed codes, runs, NaN and +-inf);
+    ``date_sorted`` and ``date_sorted_encoded``: Q6 over date-ordered
+    lineitem blocks that zone maps prune (:func:`_date_sorted_q6`)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 31)
+    out = {}
+    for name in names:
+        if name.startswith("date_sorted"):
+            ev, img = _date_sorted_q6(dev, name.endswith("encoded"), seed + 3)
+            out[name] = (ev.program, img)
+            continue
+        shape_name, slots = name.rsplit("_s", 1)
+        schema, img = _edge_columns(shape_name, rng, dev)
+        sel, aggs = _compiled(schema, *_edge_plan(shape_name, INSTANCE_DEPTHS[int(slots)], False))
+        out[name] = (compile_program(sel, aggs, list(range(len(schema))), schema), img)
+    return out
+
+
+def wide_edge_cases(device, names=WIDE_EDGE_CASES, seed: int = 0) -> dict:
+    """``name -> (prog, img, capacity)`` for holding the wide route to its
+    plain versions at its edges, past ``c_max``: each instance (``_s2``,
+    ``_s4``, ``_s8``) over a ``ragged`` image (host ids from -2 to past C,
+    the tracker and ``first``) and an ``encoded`` one (ids from two
+    narrowed code columns, NULL codes among them); ``date_sorted``: Q6's
+    selection and sum with the tracker over date-ordered encoded blocks that
+    zone maps prune, host ids; ``hot``: every row of the ragged image's
+    columns over 24 full blocks in one slot, all ten aggregates (one cell
+    takes every atomic and every exact f64 add)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 37)
+    out = {}
+
+    def host_ids(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32)).to(dev)
+
+    for name in names:
+        if name == "date_sorted":
+            ev, img = _date_sorted_q6(dev, True, seed + 5)
+            plan = ev.plan
+            prog = compile_group_program(plan.sel_rpns, plan.agg_rpns, plan.device_cols,
+                                         plan.schema, None)
+            cap = prog.c_max + 1
+            img.gids = host_ids((img.n_blocks, img.block_rows), 0, cap)
+            img.offsets = torch.arange(img.n_blocks, dtype=torch.int64, device=dev) \
+                * img.block_rows
+            out[name] = (prog, img, cap)
+            continue
+        shape_name, slots = ("ragged", "8") if name == "hot" else name.rsplit("_s", 1)
+        schema, img = _edge_columns(shape_name, rng, dev)
+        sel, aggs = _compiled(schema, *_edge_plan(shape_name, INSTANCE_DEPTHS[int(slots)], True))
+        coded = shape_name == "encoded"
+        prog = compile_group_program(sel, aggs, list(range(len(schema))), schema,
+                                     (3, 4) if coded else None, (3, 3) if coded else ())
+        cap = prog.c_max + 1 if coded else 4 * prog.c_max
+        shape = (img.n_blocks, img.block_rows)
+        if name == "hot":
+            n_blocks = 8 * img.n_blocks
+            img = Image([torch.cat([c] * 8) for c in img.cols],
+                        [None if m is None else torch.cat([m] * 8) for m in img.nulls],
+                        torch.full((n_blocks,), img.block_rows, dtype=torch.int64, device=dev),
+                        n_blocks, img.block_rows, dev)
+            img.gids = torch.full((n_blocks, img.block_rows), cap - 1, dtype=torch.int32,
+                                  device=dev)
+        elif not coded:
+            img.gids = host_ids(shape, -2, cap + 8)
+        img.offsets = torch.cumsum(img.n_valids, 0) - img.n_valids
+        out[name] = (prog, img, cap)
+    return out
+
+
+def agg_partials_check(prog, img: Image, rel_tol: float = 1e-12) -> dict:
+    """``fused_agg_partials`` on a CUDA image beside ``partials_plain`` at
+    the kernel's grid and tile assignment on the same tensors: counts and
+    integer values equal, f64 values to ``rel_tol`` (NaN equal to NaN); two
+    runs bit-identical; the combine over the kernel's partials against
+    ``combine_plain`` and the pair against ``fused_agg_plain``.  Raises on a
+    difference; returns the largest absolute f64 error, the instance and
+    the grid."""
+    from .copr import fused_agg as fa
+
+    runs = []
+    for _ in range(2):
+        scratch = fa.new_scratch(prog, img)
+        fa.launch_partials(prog, img, scratch)
+        runs.append(scratch)
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("fused_agg_partials: two runs differ")
+    got, want = runs[0], fa.partials_plain(prog, img)
+    err = 0.0
+    for k, leaf in enumerate(prog.aggs):
+        if not torch.equal(got[:, k, 0], want[:, k, 0]):
+            raise AssertionError(f"fused_agg_partials aggregate {k}: counts differ")
+        if leaf.kind == fa.AGG_COUNT:
+            continue
+        if leaf.is_f64:
+            err = max(err, _f64_err(got[:, k, 1].view(torch.float64),
+                                    want[:, k, 1].view(torch.float64), rel_tol,
+                                    f"partials aggregate {k}"))
+        elif not torch.equal(got[:, k, 1], want[:, k, 1]):
+            raise AssertionError(f"fused_agg_partials aggregate {k}: integer values differ")
+    out = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=img.device),
+           torch.empty((prog.n_f64, 1), dtype=torch.float64, device=img.device))
+    fa.launch_combine(prog, got, None, out)
+    for (gi, gf), (wi, wf), what in ((out, fa.combine_plain(prog, got), "combine"),
+                                     (fa.fused_agg(prog, img), fa.fused_agg_plain(prog, img),
+                                      "pair")):
+        if not torch.equal(gi, wi):
+            raise AssertionError(f"fused_agg {what}: integer leaves differ")
+        err = max(err, _f64_err(gf, wf, rel_tol, f"fused_agg {what}"))
+    return {"max_abs_err": err, "slots": fa.partials_slots(prog), "grid": fa.launch_grid(img)}
+
+
 def synthetic_mask_case(n_blocks: int, block_rows: int, gen: torch.Generator, device):
     """A mask program and its image for holding the mask kernel to its plain
     version: :func:`synthetic_case`'s columns and conjuncts."""
@@ -1149,10 +1394,9 @@ def warm_kernel_outputs(cache, block_rows: int, device) -> dict:
     out = {}
     q6 = ev(q6_dag())
     prog, img = q6.program, q6._stacked_device(cache)
-    grid, threads = fa.kernel_grid()
-    scratch = torch.empty((grid, len(prog.aggs), 2), dtype=torch.int64, device=device)
+    scratch = fa.new_scratch(prog, img)
     fa.launch_partials(prog, img, scratch)
-    out["fused_agg_partials"] = (cpu(scratch), cpu(fa.partials_plain(prog, img, grid, threads)))
+    out["fused_agg_partials"] = (cpu(scratch), cpu(fa.partials_plain(prog, img)))
     packed = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=device),
               torch.empty((prog.n_f64, 1), dtype=torch.float64, device=device))
     fa.launch_combine(prog, scratch, None, packed)
