@@ -70,7 +70,10 @@ oracles and byte for byte against the unary route, with the tiles full,
 partial and empty and both routes' s/query; ``zone_full``, ``zone_partial``
 and ``zone_fold`` against their plain versions on the Q6 and Q1 layouts and
 on a synthetic one (NULLs in the key and values, negative values, var_pop,
-the null-safe ops, 256-row tiles), then timed at Q1's and Q6's layouts.
+the null-safe ops, 256- and 1,001-row tiles), then timed at Q1's and Q6's
+layouts; every instance of the tile kernels with its registers and 0 local
+bytes; one warm Q6 and one Q1 request split by host step
+(``zone_request_split``).
 
 Between phases ``zone`` and 12, phase ``batch`` serves batches of warm
 aggregations (programs #10 and #11, ``csrc/fused_batch.cu``): over the plain
@@ -1003,6 +1006,53 @@ def time_zone(fz, ev, cache) -> dict:
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "library": "none: sum, min and max leaves need a call each"}
     return res
+
+
+def zone_request_split(ev, cache, what: str, runs: int = 3) -> dict:
+    """One warm zone-served request split by step, in ms on the host clock,
+    the median of ``runs`` (the rung's own steps, ``ZoneRung.serve`` and
+    ``launch``, taken one at a time): eligibility, the pinned layout's
+    lookup and the tile classification (``plan_tiles``); ``fold_order``;
+    the index uploads; the three launches (the host's enqueue); the wait
+    for the card to finish them; the pull and finalize (``_finalize_agg``).
+    Its bytes must equal a request's served the usual way."""
+    from tikv_tpu_torch.copr import fused_zone as fz
+    from tikv_tpu_torch.copr.zone import fold_order, key_of
+
+    rung, dev = ev._zone_rung(), ev.device
+    want = ev.run(None, cache).encode()
+    steps: dict[str, list] = {}
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        marks = [("start", time.perf_counter())]
+        layout, full_idx, partial_idx = rung.plan_tiles(cache)
+        marks.append(("eligibility_and_classification", time.perf_counter()))
+        order, starts = fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots)
+        marks.append(("fold_order", time.perf_counter()))
+        full_t, part_t, order_t, starts_t = (torch.from_numpy(a).to(dev) for a in
+                                             (full_idx, partial_idx, order, starts))
+        marks.append(("index_uploads", time.perf_counter()))
+        full, part = rung.programs(layout)
+        nf = len(full_idx)
+        parts = torch.empty((nf + len(partial_idx), len(full.prog.leaves)), dtype=torch.int64,
+                            device=dev)
+        if nf:
+            fz.zone_full(full, layout, full_t, parts[:nf])
+        if len(partial_idx):
+            fz.zone_partial(part, layout, part_t, parts[nf:])
+        packed = fz.zone_fold(full, parts, order_t, starts_t, layout.n_slots)
+        marks.append(("launches", time.perf_counter()))
+        torch.cuda.synchronize()
+        marks.append(("device_wait", time.perf_counter()))
+        resp = ev._finalize_agg(packed, full.prog, layout.n_slots,
+                                key_of(layout.dicts, layout.dict_lens))
+        marks.append(("pull_and_finalize", time.perf_counter()))
+        if resp.encode() != want:
+            raise AssertionError(f"zone {what}: the split request differs from a served one")
+        for (_a, t0), (name, t1) in zip(marks, marks[1:]):
+            steps.setdefault(name, []).append((t1 - t0) * 1e3)
+        steps.setdefault("total", []).append((marks[-1][1] - marks[0][1]) * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in steps.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3064,7 +3114,8 @@ def main() -> int:
     checked = {}
     for name, ev_z, c, tr in (("q6", zone_evs["q6"], cache, None),
                               ("q1", zone_evs["q1"], cache, None),
-                              ("synthetic_256", ev_zs, zcache, 256)):
+                              ("synthetic_256", ev_zs, zcache, 256),
+                              ("synthetic_1001", ev_zs, zcache, 1001)):
         out, layout, n_full, n_partial = fx.zone_kernel_outputs(ev_z, c, tr)
         errs_z = check_zone_outputs(out, fx.zone_kernel_outputs(ev_z, c, tr)[0], f"zone {name}")
         for k, e in errs_z.items():
@@ -3084,6 +3135,10 @@ def main() -> int:
     emit({"phase": "zone", "case": "kernels", "card": card, "layouts": layouts,
           "checked": checked, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "bit_identical_reruns": True, "q1": t_zone_q1, "q6": t_zone_q6,
+          "instances": no_local_memory("zone_full/zone_partial",
+                                       [fz.tiles_attributes(*i) for i in fz.TILE_INSTANCES]),
+          "host_split_ms": {q: zone_request_split(zone_evs[q], cache, q)
+                            for q in ("q6", "q1")},
           "launches": zone_launches,
           "profile_q6": profile_runs(lambda: zone_evs["q6"].run(None, cache), 3),
           "profile_q1": profile_runs(lambda: zone_evs["q1"].run(None, cache), 3),

@@ -60,7 +60,16 @@ grouped mesh at 32,768 slots (per-supplier statistics over 10M rows on 8
 shards), each request run several times in one process (host clock around
 synchronized runs; a warm first run, which pins, left out) and once more
 under ``torch.profiler`` (the device's busy time, reported as the case
-``<name>_device``, and the kernels that take most of it).  Each process
+``<name>_device``, and the kernels that take most of it), or
+``zone_kernels``: ``zone_full`` and ``zone_partial`` (and ``zone_fold``)
+alone at the zone rung's Q6 and Q1 layouts of the 100M-row plain image,
+each first held to its plain version (``chip_smoke.check_zone_outputs``),
+then five CUDA-event times (``chip_smoke.time_zone``, which also gives the
+plain version's ms, the bound and, for ``zone_full``, the one-column
+yardstick), or ``zone_requests``: warm Q6, Q1 and Q1 + TopN over the same
+image on the zone rung and with ``route_hint="unary"`` in one process,
+byte-identical, each route pinned by a first run and then seven runs of
+each in turns (host clock around synchronized runs).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -527,6 +536,50 @@ elif sys.argv[1] in ("group_requests", "mesh_requests"):
         cases[name] = {"request_s": secs[skip:],
                        "device_ms": [sum(prof["device_ms"].values())],
                        "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("zone_kernels", "zone_requests"):
+    from tikv_tpu_torch.copr import fused_zone as fz
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
+    cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    dags = {"q6": fx.q6_dag(), "q1": fx.q1_dag(), "q1_topn": fx.q1_topn_dag()}
+    cases = {}
+    if sys.argv[1] == "zone_kernels":
+        for q in ("q6", "q1"):
+            ev = TorchDagEvaluator(dag_to_wire(dags[q]), block_rows=1 << 17, device="cuda")
+            out = fx.zone_kernel_outputs(ev, cache)[0]
+            cs.check_zone_outputs(out, fx.zone_kernel_outputs(ev, cache)[0], f"zone {q}")
+            del out
+            times = [cs.time_zone(fz, ev, cache) for _ in range(5)]
+            for k in ("zone_full", "zone_partial", "zone_fold"):
+                if times[0][k] is None:
+                    continue
+                cases[f"{q}_{k}"] = {"request_s": [t[k]["ms"] / 1e3 for t in times],
+                                     **{m: times[0][k].get(m) for m in
+                                        ("tiles", "rows", "plain_ms", "bound_ms", "library_ms")}}
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        for q, dag in dags.items():
+            ev_z = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device="cuda")
+            ev_u = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device="cuda")
+            ev_u.route_hint = "unary"
+            runs = {"zone": ev_z, "unary": ev_u}
+            if ev_z.run(None, cache).encode() != ev_u.run(None, cache).encode():  # both pin
+                raise AssertionError(f"{q}: the zone rung differs from route_hint='unary'")
+            secs = {k: [] for k in runs}
+            for _ in range(7):  # the two routes in turns
+                for k, ev in runs.items():
+                    secs[k].append(timed(lambda: ev.run(None, cache)))
+            if ev_z.zone_stats.served != 8:
+                raise AssertionError(f"{q}: the zone rung served {ev_z.zone_stats.served} of 8")
+            for k in runs:
+                cases[f"{q}_{k}"] = {"request_s": secs[k]}
     print(json.dumps({"cases": cases}))
 else:
     getattr(cs, "phase_" + sys.argv[1])(fx, cs.card_line(), torch.device("cuda", 0))

@@ -534,17 +534,21 @@ def _bits(t):
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
-@pytest.mark.parametrize("tile_rows", [256, 4096])
-def test_zone_kernels_match_plain_versions(cuda, tile_rows):
+@pytest.mark.parametrize("tile_rows,max_tiles", [(256, None), (1000, None), (1001, None),
+                                                (4096, None), (4096, 1)])
+def test_zone_kernels_match_plain_versions(cuda, tile_rows, max_tiles):
     """zone_full, zone_partial and zone_fold against their plain versions
     on a layout with NULLs in the key and values, negative values,
     var_pop/min/max and the null-safe ops: integers exactly, f64 to rel
-    1e-12, and two runs bit-identical."""
+    1e-12, and two runs bit-identical.  1,000 rows are no multiple of the
+    rows a warp's step covers, 1,001 of a thread's (``fz.ROWS``) either, so
+    lanes load row by row; one case lists one tile of each kind."""
     cache = fx.zone_cache(400_000, 1 << 16, seed=5)
     ev = TorchDagEvaluator(dag_to_wire(fx.zone_dag()), block_rows=1 << 16, device=cuda)
     fa.reset_launches()
-    out, _layout, n_full, n_partial = fx.zone_kernel_outputs(ev, cache, tile_rows)
+    out, _layout, n_full, n_partial = fx.zone_kernel_outputs(ev, cache, tile_rows, max_tiles)
     assert n_full > 0 and n_partial > 0
+    assert max_tiles is None or n_full == n_partial == max_tiles
     for name, (got, want) in out.items():
         assert fa.LAUNCHES[name] == 1, name
         for g, w in zip(got, want):
@@ -552,9 +556,43 @@ def test_zone_kernels_match_plain_versions(cuda, tile_rows):
                 torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-12, atol=0)
             else:
                 assert torch.equal(g.cpu(), w.cpu()), name
-    again = fx.zone_kernel_outputs(ev, cache, tile_rows)[0]
+    again = fx.zone_kernel_outputs(ev, cache, tile_rows, max_tiles)[0]
     for name, (got, _want) in out.items():
         assert all(torch.equal(_bits(g), _bits(h)) for g, h in zip(got, again[name][0])), name
+
+
+def test_zone_bare_instance_matches_its_plain_version(cuda):
+    """Q1's full-tile program (every argument a bare column, so the instance
+    with no walk) and a var_pop/min/max program of bare columns over int8,
+    int16 and int32 lanes, at 4,096- and 1,001-row tiles."""
+    from tikv_tpu_torch.copr import fused_zone as fz
+
+    n = 600_000
+    cache = fx.build_cache(n, 1 << 17, seed=12)
+    for dag in (fx.q1_dag(), fx.zone_bare_dag()):
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device=cuda)
+        for tile_rows in (4096, 1001):
+            out, layout, n_full, _n_partial = fx.zone_kernel_outputs(ev, cache, tile_rows)
+            assert n_full > 0
+            full = ev._zone_rung().programs(layout)[0]
+            assert fz.tile_slots(full) == 0, dag
+            for name, (got, want) in out.items():
+                for g, w in zip(got, want):
+                    if g.dtype == torch.float64:
+                        torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-12, atol=0)
+                    else:
+                        assert torch.equal(g.cpu(), w.cpu()), (name, tile_rows)
+
+
+def test_zone_tile_instances_keep_no_local_memory(cuda):
+    """Every instance of zone_full and zone_partial (the one with no walk,
+    the walks of 2, 4 and 8 stack slots) keeps its accumulators out of
+    local memory."""
+    from tikv_tpu_torch.copr import fused_zone as fz
+
+    for partial, slots in fz.TILE_INSTANCES:
+        attrs = fz.tiles_attributes(partial, slots)
+        assert attrs["localSizeBytes"] == 0, attrs
 
 
 def test_zone_rung_matches_the_stacked_kernels_byte_for_byte(cuda):

@@ -12,6 +12,8 @@ null-safe scalar functions the rung needed against the JAX package's
 kernels.  Inputs come from ``np.random.default_rng``.
 """
 
+import dataclasses
+import functools
 import re
 from pathlib import Path
 
@@ -245,6 +247,33 @@ def test_zone_repeat_and_second_evaluator_share_layout():
     sigs = [s for s in pcache.blocks[0].device if s[:4] == ("zone_layout", (3,), 1, (1,))]
     assert len(sigs) == 1  # one pinned layout served both evaluators
 
+
+
+@functools.cache
+def _odd_tile_fix():
+    return _table(3000, seed=3)
+
+
+@pytest.mark.parametrize("tile", [61, 150])
+def test_zone_tiles_that_are_not_a_multiple_of_the_step(tile, monkeypatch):
+    """Tiles whose rows are not a multiple of 4 (nor of the kernels' step,
+    ``fz.ROWS`` rows a thread): the rung's layout and classification, and
+    the plain versions over the short last rows, against the JAX zone route
+    and the CPU pipeline at the same tile size."""
+    monkeypatch.setattr(jax_zone, "TILE_ROWS", tile)
+    monkeypatch.setattr(zone, "TILE_ROWS", tile)
+    fix = _odd_tile_fix()
+    ev = check([TableScan(TABLE, fix[0]), Selection([call("le", col(1), const_int(7000)),
+                                                     call("ge", col(1), const_int(500))]),
+                Aggregation([col(3)], [AggDescriptor("sum", col(1)),
+                                       AggDescriptor("var_pop", col(4)),
+                                       AggDescriptor("min", col(4)), AggDescriptor("max", col(1)),
+                                       AggDescriptor("count", None)])], fix)
+    st = ev.zone_stats
+    assert st.full > 0 and st.partial > 0 and st.empty > 0
+    (layout,) = [e for s, e in fix[3].blocks[0].device.items()
+                 if s[0] == "zone_layout" and s[4] == tile]
+    assert layout.tile_rows == tile and layout.n_rows == layout.n_tiles * tile
 
 def _fuzz_fixture(seed):
     rng = np.random.default_rng(seed)
@@ -567,7 +596,74 @@ def test_zone_params_and_leaf_kinds_match_the_cuda_source():
     fields = re.findall(r"(\w+)(?:\[\w+\])?;", body)
     assert fields == [name for name, _t in fz._ZnParams._fields_]
     assert int(re.search(r"#define ZN_THREADS (\d+)", text).group(1)) == fz.THREADS
+    assert int(re.search(r"#define ZN_ROWS (\d+)", text).group(1)) == fz.ROWS
 
+
+
+
+def test_zone_bare_fixture_takes_the_instance_with_no_walk():
+    """``fixtures.zone_bare_dag`` (the on-card check of the full-tile
+    instance with no walk) is served by the rung, its full-tile program all
+    bare columns, byte for byte as the unary route answers it."""
+    from tikv_tpu_torch import fixtures as pfx
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire as port_wire
+
+    a = pfx.build_arrays(20_000, seed=12)
+    cache = pfx.build_cache(20_000, 4096, seed=12, arrays=a)
+    ev = TorchDagEvaluator(port_wire(pfx.zone_bare_dag()), block_rows=4096, device="cpu")
+    got = ev.run(None, cache).encode()
+    assert ev.zone_stats.served == 1 and ev.zone_stats.full > 0
+    layout = _layout(cache, 4, (1, 2, 3, 4))
+    full, _part = ev._zone_rung().programs(layout)
+    assert full.all_bare and fz.tile_slots(full) == 0
+    unary = TorchDagEvaluator(port_wire(pfx.zone_bare_dag()), block_rows=4096, device="cpu")
+    unary.route_hint = "unary"
+    assert unary.run(None, cache).encode() == got
+
+def _chain(depth: int):
+    """An int expression the walk holds ``depth`` operands deep: -c0 at
+    depth 1, else c0 + (c1 + (c0 + ...)) over ``depth`` columns."""
+    from tikv_tpu_torch.copr import rpn as prpn
+    if depth == 1:
+        return prpn.call("unary_minus", prpn.col(0))
+    e = prpn.col((depth - 1) % 2)
+    for i in range(depth - 2, -1, -1):
+        e = prpn.call("plus", prpn.col(i % 2), e)
+    return e
+
+
+@pytest.mark.parametrize("depth,slots", [(1, 2), (3, 4), (6, 8)])
+def test_tile_instance_follows_the_stack_slots(depth, slots):
+    """The launcher runs the walk instance ``fa.stack_slots`` picks for the
+    program's code, full or partial; a full-tile program of bare columns
+    runs the one with no walk (0), its partial program the walk."""
+    from tikv_tpu_torch.copr import rpn as prpn
+    schema = [(EvalType.INT, 0), (EvalType.INT, 0)]
+    expr = prpn.compile_expr(_chain(depth), schema)
+    for partial in (False, True):
+        tp = fz.compile_tile_program([], [("sum", expr), ("count", None)], schema, True,
+                                     partial=partial)
+        assert fa.stack_depth(tp.prog.code) == depth
+        assert fz.tile_slots(tp) == fa.stack_slots([tp.prog.code]) == slots
+        assert (partial, slots) in fz.TILE_INSTANCES
+    bare = [("sum", prpn.compile_expr(prpn.col(1), schema)), ("count", None)]
+    full = fz.compile_tile_program([], bare, schema, True, partial=False)
+    part = fz.compile_tile_program([], bare, schema, True, partial=True)
+    assert full.all_bare and fz.tile_slots(full) == 0 and (False, 0) in fz.TILE_INSTANCES
+    assert fz.tile_slots(part) == 2
+
+
+def test_tile_instance_refuses_a_plan_deeper_than_the_walk():
+    """A program deeper than ``fa.MAX_STACK`` operands (the emitter refuses
+    one; here its code is made by hand) is refused by the kernel's name."""
+    from tikv_tpu_torch.copr import rpn as prpn
+    schema = [(EvalType.INT, 0), (EvalType.INT, 0)]
+    tp = fz.compile_tile_program([], [("sum", prpn.compile_expr(_chain(6), schema))], schema,
+                                 True, partial=True)
+    deep = (fa.OP_COL,) * (fa.MAX_STACK + 1) + tp.prog.code
+    tp = dataclasses.replace(tp, prog=dataclasses.replace(tp.prog, code=deep))
+    with pytest.raises(ValueError, match=f"zone_partial: a plan {fa.MAX_STACK + 7} operands"):
+        fz.tile_slots(tp)
 
 # ---------------------------------------------------------------------------
 # the seven null-safe scalar functions against the JAX package's kernels

@@ -14,9 +14,13 @@ package's programs #12 ``jax_zone.full`` (``jax_zone.py:496``) and #13
 * ``zone_full`` reduces each listed full tile to one row of per-leaf
   partials: count, exact int64 sum, f64 sum of squares, int64 min and max,
   and the tile's least ``ridx``; no mask, no NULL (classification sends any
-  tile with a NULL in a referenced column to the partial list).
+  tile with a NULL in a referenced column to the partial list).  A program
+  whose every argument is a bare column or count(*) runs the instance with
+  no walk (``zone_bare``), any other the tile walk.
 * ``zone_partial`` does the same over the listed partial tiles, with the
-  selection walked per row and pad rows and NULLs masked.
+  selection walked ``ROWS`` rows a thread at a time and pad rows and NULLs
+  masked.  The walk's instance holds 2, 4 or 8 stack slots, picked from the
+  program's depth (:func:`tile_slots`).
 * ``zone_fold`` folds both lists' rows into the group slots in a fixed
   order (:func:`copr.zone.fold_order`) and writes the packed state that
   ``TorchDagEvaluator._finalize_agg`` reads: an int64 matrix ``[n_int, C]``
@@ -53,6 +57,11 @@ BARE_WALK = -1  # the argument is an expression: the walk computes it
 BARE_COUNT = -2  # count(*): every row of a full tile counts
 
 THREADS = 256  # of each kernel (csrc/fused_zone.cu)
+ROWS = 8  # rows a thread walks at once (ZN_ROWS)
+#: every instance of the two tile kernels, as (partial, stack slots); slots
+#: 0 is the full-tile instance with no walk
+TILE_INSTANCES = ((False, 0), (False, 2), (False, 4), (False, 8), (True, 2), (True, 4),
+                  (True, 8))
 _ADD = (LEAF_COUNT, LEAF_SUM, LEAF_SUMSQ)
 
 
@@ -246,10 +255,12 @@ def tile_params(tp: TileProgram, layout=None, tiles: torch.Tensor | None = None)
         p.leaf_f64[l] = int(leaf.is_f64)
         p.leaf_slot[l] = leaf.slot
     if layout is not None:
+        # narrow lanes hold their values as they are (frame 0, NULL slots
+        # 0): plain loads at the lane's width
         for j, i in enumerate(tp.cols):
             c = layout.cols[i]
             p.col[j], p.enc.width[j] = c.data_ptr(), c.element_size()
-            p.enc.kind[j] = fa.ENC_PLAIN if c.element_size() == 8 else fa.ENC_NARROW
+            p.enc.kind[j] = fa.ENC_PLAIN
             nl = layout.nulls.get(i) if tp.partial else None
             p.nul[j] = 0 if nl is None else nl.data_ptr()
         p.valid = layout.valid.data_ptr()
@@ -275,8 +286,10 @@ def _kernels():
         vp = ctypes.c_void_p
         lib.zn_params_size.restype = ctypes.c_int
         lib.zn_threads.restype = ctypes.c_int
-        lib.zn_launch_tiles.argtypes = [vp, ctypes.c_int, vp, vp]
+        lib.zn_launch_tiles.argtypes = [vp, ctypes.c_int, ctypes.c_int, vp, vp]
         lib.zn_launch_tiles.restype = ctypes.c_int
+        lib.zn_tiles_attributes.argtypes = [ctypes.c_int, ctypes.c_int, vp]
+        lib.zn_tiles_attributes.restype = ctypes.c_int
         lib.zn_launch_fold.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp]
         lib.zn_launch_fold.restype = ctypes.c_int
         if lib.zn_params_size() != ctypes.sizeof(_ZnParams):
@@ -294,9 +307,39 @@ def _check(t: torch.Tensor, dev, dtype, shape, what: str) -> None:
         raise ValueError(f"{what}: need contiguous {dtype} {tuple(shape)} on {dev}")
 
 
+def tile_slots(tp: TileProgram) -> int:
+    """The instance of ``zone_full`` or ``zone_partial`` that runs ``tp``:
+    0 (no walk) for a full-tile program whose every argument is a bare
+    column or count(*), else the stack slots of the walk,
+    ``fa.stack_slots`` of its code (2, 4 or 8); ``ValueError`` for a deeper
+    plan."""
+    if not tp.partial and tp.all_bare:
+        return 0
+    name = "zone_partial" if tp.partial else "zone_full"
+    try:
+        return fa.stack_slots([tp.prog.code])
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def tiles_attributes(partial: bool, slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the tile kernels' instance ``(partial,
+    slots)`` of :data:`TILE_INSTANCES`: registers a thread, local (spilled)
+    bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().zn_tiles_attributes(int(partial), slots, out)
+    if rc != 0:
+        raise RuntimeError(f"zone tile instance {(partial, slots)} attributes: cudaError {rc}")
+    name = "zone_partial" if partial else "zone_full"
+    return {"kernel": name, "stackSlots": slots, "numRegs": out[0], "localSizeBytes": out[1],
+            "sharedSizeBytes": out[2]}
+
+
 def _check_layout(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor) -> None:
     dev = tiles.device
     n = layout.n_rows
+    if not 1 <= layout.tile_rows < (1 << 31):
+        raise ValueError(f"tile_rows {layout.tile_rows} out of range")
     for i in tp.cols:
         c = layout.cols[i]
         if c.dtype not in (torch.int8, torch.int16, torch.int32, torch.int64, torch.float64):
@@ -318,11 +361,13 @@ def _launch_tiles(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tenso
     _check_layout(tp, layout, tiles, out)
     if not len(tiles):
         return
+    slots = tile_slots(tp)
     lib = _kernels()
     p = tile_params(tp, layout, tiles)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        rc = lib.zn_launch_tiles(ctypes.byref(p), int(tp.partial), out.data_ptr(), stream)
+        rc = lib.zn_launch_tiles(ctypes.byref(p), int(tp.partial), slots, out.data_ptr(),
+                                 stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

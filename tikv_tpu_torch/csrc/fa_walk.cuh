@@ -9,9 +9,9 @@
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
 // aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
-// fa_walk_keys walks one row (the zone kernels, dict_keys, the first
-// value a combine reads again); fa_walk_tile R rows a thread (the mask,
-// topn_candidates and every partials kernel of the aggregations:
+// fa_walk_keys walks one row (dict_keys, the first value a combine reads
+// again); fa_walk_tile R rows a thread (the mask, topn_candidates, the zone
+// tile kernels and every partials kernel of the aggregations:
 // fused_agg_partials, fused_group_agg_partials, group_wide_partials,
 // batch_partials).
 //

@@ -1482,6 +1482,19 @@ def zone_dag() -> DagRequest:
                                  Aggregation([col(3)], aggs)])
 
 
+def zone_bare_dag() -> DagRequest:
+    """Q1's window and groups with every aggregate over a bare column, so
+    the full-tile program takes no walk: sums, sums of squares, min, max
+    and counts over lineitem's int8, int16 and int32 zone lanes."""
+    aggs = [AggDescriptor("var_pop", col(1)), AggDescriptor("min", col(2)),
+            AggDescriptor("max", col(2)), AggDescriptor("var_pop", col(3)),
+            AggDescriptor("min", col(4)), AggDescriptor("max", col(1)),
+            AggDescriptor("count", col(2)), AggDescriptor("sum", col(4))]
+    return DagRequest(executors=[TableScan(TABLE_ID, lineitem()),
+                                 Selection([call("le", col(4), const_int(Q1_SHIP_HI))]),
+                                 Aggregation([col(5), col(6)], aggs)])
+
+
 def zone_cache(n: int, block_rows: int, seed: int = 0, null_p: float = 0.05):
     """A filled cache for :func:`zone_dag` from seeded draws: negative
     values, NULLs in v, w and the key (a fraction ``null_p`` of the first
@@ -1513,12 +1526,13 @@ def zone_cache(n: int, block_rows: int, seed: int = 0, null_p: float = 0.05):
     return cache
 
 
-def zone_kernel_outputs(ev, cache, tile_rows: int | None = None):
+def zone_kernel_outputs(ev, cache, tile_rows: int | None = None, max_tiles: int | None = None):
     """The three zone kernels over ``ev``'s layout of ``cache`` (at
     ``tile_rows`` rows a tile; the rung's default when None), each beside
     its plain version on the same tensors: ``({name: (kernel output, plain
-    output)}, layout, full tile count, partial tile count)``.  The fold's
-    plain version folds the kernels' own partials."""
+    output)}, layout, full tile count, partial tile count)``.  With
+    ``max_tiles``, each list is cut to its first ``max_tiles`` tiles.  The
+    fold's plain version folds the kernels' own partials."""
     from .copr import fused_zone as fz
     from .copr.zone import fold_order
 
@@ -1527,6 +1541,8 @@ def zone_kernel_outputs(ev, cache, tile_rows: int | None = None):
     if tiles is None:
         raise AssertionError(f"the zone rung declined: {ev.zone_stats.last_decline}")
     layout, full_idx, partial_idx = tiles
+    if max_tiles is not None:
+        full_idx, partial_idx = full_idx[:max_tiles], partial_idx[:max_tiles]
     full, part = rung.programs(layout)
     dev = ev.device
     n_leaves = len(full.prog.leaves)
