@@ -544,7 +544,7 @@ def block_of(img, b: int):
                  int(img.n_valids[b]), 1, img.block_rows, img.device)
 
 
-def check_topn_kernels(ft, prog, cand, pay, what: str) -> None:
+def check_topn_kernels(ft, fx, prog, cand, pay, what: str) -> None:
     """Each top-K kernel against its plain version on one image (warm: one
     step, ``src_base`` 0), all words and packed leaves exactly, and a rerun
     bit-identical."""
@@ -554,12 +554,9 @@ def check_topn_kernels(ft, prog, cand, pay, what: str) -> None:
     want_runs = ft.candidates_plain(prog, cand, 0)
     if not torch.equal(runs, want_runs):
         raise AssertionError(f"{what}: topn_candidates differs from its plain version")
-    level = torch.empty(((runs.shape[0] + 1) // 2, prog.n_words, prog.k), dtype=torch.int64,
-                        device=cand.device)
-    ft.launch_merge(runs, None, level)
-    if not torch.equal(level, ft.merge_plain(want_runs)):
-        raise AssertionError(f"{what}: topn_merge differs from its plain version")
-    del runs, want_runs, level
+    fx.topn_merge_check(runs, None, (ft.merge_fans(runs.shape[0], prog.n_words, prog.k)
+                                     or [2])[0])
+    del runs, want_runs
     got = ft.topn_step(prog, cand, pay)
     if not same_state(got, ft.topn_step(prog, cand, pay)):
         raise AssertionError(f"{what}: two top-K runs are not bit-identical")
@@ -601,7 +598,7 @@ def phase_scan_kernels(fm, ft, fx, device) -> None:
               "equal": True, "bit_identical_reruns": True})
     for k in (TOPN_K, 2048):
         prog, cand, pay = fx.synthetic_topn_case(16, 1 << 16, k, gen, device)
-        check_topn_kernels(ft, prog, cand, pay, f"synthetic K={k}")
+        check_topn_kernels(ft, fx, prog, cand, pay, f"synthetic K={k}")
         state = plain = None
         for b in range(16):
             blk = block_of(cand, b)
@@ -858,53 +855,76 @@ def time_mask(fm, prog, img) -> dict:
             "rows_a_thread": fm.MASK_ROWS, "attributes": attrs}
 
 
-def time_topn(ft, prog, cand, pay) -> dict:
-    """CUDA-event ms of each top-K kernel at the warm raw-TopN shape (one
-    step, no carry), the plain versions' ms, and the yardstick
-    ``torch.topk`` over the first key's column alone (it computes less: one
-    key, no selection, no stable tie order).  Bounds: bytes read once and
-    written once -- the candidate columns' valid rows and the runs out
-    (candidates), the runs in and out per merge level (merge), the run, the
-    K winners' payload and the packed state (pack)."""
+def merge_stage(ft, runs, extra, iters: int) -> dict:
+    """The top-K merge of ``runs`` (and the carry ``extra``) as one stage:
+    CUDA-event ms of ``_merge_all`` on the card (every level of the plan),
+    its launches, the plain version's ms, the bound (each run read once, the
+    final run written once; one operation a word read) and the resources
+    of the instance it runs; the stage's result against the plain one's."""
+    n, w, k = runs.shape
+    fans = ft.merge_fans(n + (extra is not None), w, k)
+    got = ft._merge_all(runs, extra, cuda=True)
+    want = ft._merge_all(runs, extra, cuda=False)  # the plain levels, on the card
+    if not torch.equal(got, want):
+        raise AssertionError("topn_merge's levels differ from their plain versions")
+    ms = cuda_ms(lambda: ft._merge_all(runs, extra, cuda=True), iters)
+    plain_ms = cuda_ms(lambda: ft._merge_all(runs, extra, cuda=False), 2, warmup=1)
+    words = (n + (extra is not None)) * w * k
+    b_ms, b_by = bound(words * 8 + w * k * 8, words)
+    staged = bool(fans) and ft.merge_staged(fans[0], w, k)
+    attrs = ft.merge_attributes(w, staged)
+    if attrs["localSizeBytes"] != 0:
+        raise AssertionError(f"topn_merge spills to local memory: {attrs}")
+    return {"runs": n + (extra is not None), "words": w, "k": k, "fan_ins": fans,
+            "launches": len(fans), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "attributes": attrs}
+
+
+def time_topn(ft, prog, cand, pay, carried: bool = False) -> dict:
+    """CUDA-event ms of each top-K kernel at one step over the image (a warm
+    raw TopN's: no carry; a mesh shard's with ``carried``: the carry as one
+    more run, the candidates at ``src_base`` K), the plain versions' ms,
+    and the yardstick ``torch.topk`` over the first key's column alone (it
+    computes less: one key, no selection, no stable tie order).  The merge
+    is timed whole (:func:`merge_stage`), and at a cold 65,536-row block's
+    16 runs and the carry.  Bounds: bytes read once and written once -- the
+    candidate columns' valid rows and the runs out (candidates), the runs in
+    and the final run out (merge), the run, the K winners' payload and the
+    packed state (pack)."""
     dev, k, w = cand.device, prog.k, prog.n_words
     nt = ft.n_tiles(prog, cand)
+    src_base = k if carried else 0
     runs = torch.empty((nt, w, k), dtype=torch.int64, device=dev)
-    cand_ms = cuda_ms(lambda: ft.launch_candidates(prog, cand, runs, 0), 5)
+    cand_ms = cuda_ms(lambda: ft.launch_candidates(prog, cand, runs, src_base), 5)
     attrs = ft.candidates_attributes(prog)
     if attrs["localSizeBytes"] != 0:
         raise AssertionError(f"topn_candidates spills to local memory: {attrs}")
-    levels, n = 0, nt
-    merge_bytes = 0
-    while n > 1:
-        merge_bytes += (n + (n + 1) // 2) * w * k * 8
-        n, levels = (n + 1) // 2, levels + 1
-    merge_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=True), 5) / max(levels, 1)
-    run = ft._merge_all(runs, None, cuda=True)
+    # the carry: the first step's next run (its src the slots 0..K-1)
+    carry = ft.topn_step(prog, cand, pay)[2] if carried else None
+    merge = merge_stage(ft, runs, carry, 5)
+    if not carried and nt >= 16:
+        merge["cold_block"] = merge_stage(ft, runs[:16].contiguous(),
+                                          ft.topn_step(prog, cand, pay)[2], 20)
+    run = ft._merge_all(runs, carry, cuda=True)
     out = (torch.empty((prog.n_int, k), dtype=torch.int64, device=dev),
            torch.empty((prog.n_f64, k), dtype=torch.float64, device=dev))
     nxt = torch.empty((w, k), dtype=torch.int64, device=dev)
     pack_ms = cuda_ms(lambda: ft.launch_pack(prog, run, pay, None, 0, out, nxt), 50)
-    cand_plain_ms = cuda_ms(lambda: ft.candidates_plain(prog, cand, 0), 2, warmup=1)
-    want_runs = ft.candidates_plain(prog, cand, 0)
-    merge_plain_ms = cuda_ms(lambda: ft._merge_all(want_runs, None, cuda=False), 2,
-                             warmup=1) / max(levels, 1)
+    cand_plain_ms = cuda_ms(lambda: ft.candidates_plain(prog, cand, src_base), 2, warmup=1)
     pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
     key = pay.lanes(2)[0].reshape(-1)  # extendedprice, the first key, widened
     lib_ms = cuda_ms(lambda: torch.topk(key, k), 5)
     rows = int(cand.n_valids.sum())
     c_bound = bound(image_bytes(cand, rows) + cand.n_blocks * 8 + nt * w * k * 8,
                     rows * len(prog.code))
-    m_bound = bound(merge_bytes // max(levels, 1), merge_bytes // (8 * max(levels, 1)))
     p_bound = bound(w * k * 8 * 2 + k * 9 * len(prog.pay_f64) + (prog.n_int + prog.n_f64) * k * 8,
                     k * len(prog.pay_f64))
     return {"rows": rows, "k": k, "tile": prog.tile, "words": w, "tiles": nt,
-            "merge_levels": levels,
+            "merge_levels": merge["launches"],
             "topn_candidates": {"ms": cand_ms, "plain_ms": cand_plain_ms,
                                 "bound_ms": c_bound[0], "bound_by": c_bound[1],
                                 "attributes": attrs, "select_cap": ft.select_cap(k, prog.tile)},
-            "topn_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms,
-                           "bound_ms": m_bound[0], "bound_by": m_bound[1],
-                           "per_request_ms": merge_ms * levels},
+            "topn_merge": merge,
             "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms,
                           "bound_ms": p_bound[0], "bound_by": p_bound[1]},
             "library_ms": lib_ms,
@@ -1507,20 +1527,14 @@ def time_merge(fm_mod, case, iters: int) -> dict:
 
 
 def time_topn_finalize(ft, topn, state) -> dict:
-    """CUDA-event ms of program #19's kernels at the mesh's shape: each
-    ``topn_merge`` level over the S gathered runs (``n_words + 1`` words),
-    ``topn_pack`` of the K winners from the ``[S, K]`` image, and the whole
-    finalize's device work (the gathers too); the plain versions' ms; the
-    bounds as :func:`time_topn`'s."""
+    """CUDA-event ms of program #19's kernels at the mesh's shape: the
+    ``topn_merge`` stage over the S gathered runs (``n_words + 1`` words,
+    :func:`merge_stage`), ``topn_pack`` of the K winners from the ``[S, K]``
+    image, and the whole finalize's device work (the gathers too); the plain
+    versions' ms; the bounds as :func:`time_topn`'s."""
     prog, k = topn.prog, topn.k
     runs, pay = topn.gather(state)
-    w = runs.shape[1]
-    levels, n, merge_bytes = 0, runs.shape[0], 0
-    while n > 1:
-        merge_bytes += (n + (n + 1) // 2) * w * k * 8
-        n, levels = (n + 1) // 2, levels + 1
-    merge_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=True), 20) / levels
-    merge_plain_ms = cuda_ms(lambda: ft._merge_all(runs, None, cuda=False), 2, warmup=1) / levels
+    merge = merge_stage(ft, runs, None, 20)
     final = ft._merge_all(runs, None, cuda=True)
     run = torch.cat([final[: prog.n_words - 1], final[prog.n_words:]]).contiguous()
     dev = run.device
@@ -1529,12 +1543,10 @@ def time_topn_finalize(ft, topn, state) -> dict:
     nxt = torch.empty((prog.n_words, k), dtype=torch.int64, device=dev)
     pack_ms = cuda_ms(lambda: ft.launch_pack(prog, run, pay, None, 0, out, nxt), 50)
     pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
-    m_bound = bound(merge_bytes // levels, merge_bytes // (8 * levels))
     p_bound = bound(prog.n_words * k * 8 * 2 + k * 9 * len(prog.pay_f64)
                     + (prog.n_int + prog.n_f64) * k * 8, k * len(prog.pay_f64))
-    return {"runs": runs.shape[0], "words": w, "merge_levels": levels,
-            "topn_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms, "bound_ms": m_bound[0],
-                           "bound_by": m_bound[1]},
+    return {"runs": runs.shape[0], "words": runs.shape[1], "merge_levels": merge["launches"],
+            "topn_merge": merge,
             "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": p_bound[0],
                           "bound_by": p_bound[1]},
             "finalize_device_ms": cuda_ms(lambda: topn.merge(state), 20)}
@@ -1697,8 +1709,10 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
                            [blocks[0][0][i][0] for i in topn.payload_cols], topn._pay_f64,
                            [None] * len(topn.payload_cols), blocks[0][1], 0)[0]
     pay.n_valids = torch.tensor([pay.n_valids], dtype=torch.int64, device=pay.device)
-    check_topn_kernels(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay, "a mesh shard")
-    t_topn = {"step_shard": time_topn(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay),
+    check_topn_kernels(ft, fx, topn.prog, pay.pick(topn.ev.plan.device_cols), pay,
+                       "a mesh shard")
+    t_topn = {"step_shard": time_topn(ft, topn.prog, pay.pick(topn.ev.plan.device_cols), pay,
+                                      carried=True),
               "finalize": time_topn_finalize(ft, topn, state)}
     del blocks, pay
     # mesh_merge at its main-path inputs: cold Q1 (8 shard states into the
@@ -2136,17 +2150,17 @@ def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
             "max_abs_err": errs["pair"]}
 
 
-def time_sort_union(fd, d, k, cap: int) -> dict:
+def time_sort_union(fd, fx, d, k, cap: int) -> dict:
     """The dictionary union's sort route (past ``fd.CAP_MAX`` slots) at one
     input, kernel by kernel: the tile sort (``dict_union`` at ``T = cap =
-    SORT_TILE``), each ``dict_merge`` pass, ``dict_count`` and
-    ``dict_compact``; each output against its plain version (integers,
-    equal; the tile sort against ``union_pass_plain`` at the kernel's tile)
-    and the whole union against ``dict_union_plain``; CUDA-event ms,
-    the plain versions' ms, bounds (each input read once, each output
-    written once) and yardsticks: ``torch.sort`` for a merge pass (it
-    computes more: a full sort), ``torch.unique_consecutive`` for the
-    compaction."""
+    SORT_TILE``), the ``dict_merge`` stage (every level of ``merge_plan``,
+    each held to its plain version by ``fx.sort_route_levels``),
+    ``dict_count`` and ``dict_compact``; each output against its plain
+    version (integers, equal) and the whole union against
+    ``dict_union_plain``; CUDA-event ms, the plain versions' ms, bounds
+    (each input read once, each output written once) and yardsticks:
+    ``torch.sort`` of the tiles for the merge stage (it computes more: a
+    full sort), ``torch.unique_consecutive`` for the compaction."""
     lib = fd.kernels()
     dev = k.device
     n_d = 0 if d is None else cap
@@ -2160,21 +2174,42 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
         if rc != 0:
             raise RuntimeError(f"sort-route launch failed: cudaError {rc}")
 
-    runs = torch.empty(sorted_n, dtype=torch.int64, device=dev)
+    lv = fx.sort_route_levels(None if d is None else d.cpu(), k.cpu(), dev)
+    runs, final, plan, live = lv["tiles"], lv["sorted"], lv["plan"], lv["live"]
     tile_ms = cuda_ms(lambda: ok(lib.du_launch(dp, n_d, k.data_ptr(), k.numel(), runs.data_ptr(),
                                                flag.data_ptr(), fd.SORT_TILE, fd.SORT_TILE,
-                                               stream)), 20)
-    x = k.cpu() if d is None else torch.cat([d.cpu(), k.cpu()])
-    if not torch.equal(runs.cpu(), fd.union_pass_plain(x, fd.SORT_TILE, fd.SORT_TILE)[0]
-                       .reshape(-1)):
-        raise AssertionError("dict_union's tile sort: differs from its plain version")
-    widths = fd.merge_widths(n)
-    srcs = [runs]
-    for w in widths:
-        dst = torch.empty_like(runs)
-        ok(lib.dm_launch(srcs[-1].data_ptr(), sorted_n, w, dst.data_ptr(), stream))
-        srcs.append(dst)
-    final = srcs[-1]
+                                               live.data_ptr(), stream)), 20)
+    out = {"keys": n, "capacity": cap, "sorted_keys": sorted_n, "merge_levels": len(plan),
+           "merge_plan": plan, "sort_tile": fd.SORT_TILE, "tile_sort_ms": tile_ms,
+           "tile_sort_blocks": sorted_n // fd.SORT_TILE}
+    if plan:
+        bufs = [torch.empty_like(runs) for _ in range(2)]
+
+        def stage():
+            src = runs
+            for i, (w, f) in enumerate(plan):
+                ok(lib.dm_launch(src.data_ptr(), sorted_n, w, f, live.data_ptr(),
+                                 bufs[i % 2].data_ptr(), stream))
+                src = bufs[i % 2]
+
+        def plain_stage():
+            s = runs
+            for w, f in plan:
+                s = fd.merge_pass_plain(s, w, f)
+            return s
+
+        b_ms, b_by = bound(sorted_n * 16, sorted_n * len(plan))
+        attrs = fd.merge_attributes()
+        if attrs["localSizeBytes"] != 0:
+            raise AssertionError(f"dict_merge spills to local memory: {attrs}")
+        out["dict_merge"] = {
+            "launches": len(plan), "plan": plan, "ms": cuda_ms(stage, 20),
+            "levels_ms": [cuda_ms(lambda s=s, w=w, f=f: ok(lib.dm_launch(
+                s.data_ptr(), sorted_n, w, f, live.data_ptr(), bufs[0].data_ptr(), stream)), 20)
+                for w, f, s, _o in lv["levels"]],
+            "plain_ms": cuda_ms(plain_stage, 2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "attributes": attrs,
+            "library_ms": cuda_ms(lambda: torch.sort(runs), 10)}
     counts = torch.empty(-(-sorted_n // fd.CHUNK), dtype=torch.int32, device=dev)
     ok(lib.dc_launch_count(final.data_ptr(), sorted_n, counts.data_ptr(), stream))
     res = torch.empty(cap, dtype=torch.int64, device=dev)
@@ -2183,24 +2218,6 @@ def time_sort_union(fd, d, k, cap: int) -> dict:
     want, _over = fd.dict_union_plain(None if d is None else d.cpu(), k.cpu(), cap)
     if not torch.equal(res.cpu(), want):
         raise AssertionError("sort-route union: differs from dict_union_plain")
-    out = {"keys": n, "capacity": cap, "sorted_keys": sorted_n, "merge_passes": len(widths),
-           "sort_tile": fd.SORT_TILE, "tile_sort_ms": tile_ms, "tile_sort_blocks": sorted_n
-           // fd.SORT_TILE}
-    if widths:
-        w0 = widths[0]
-        if not torch.equal(srcs[1].cpu(), fd.merge_pass_plain(srcs[0].cpu(), w0)):
-            raise AssertionError("dict_merge: differs from its plain version")
-        tmp = torch.empty_like(runs)
-        b_ms, b_by = bound(sorted_n * 16, sorted_n * max(1, w0.bit_length()))
-        out["dict_merge"] = {
-            "width": w0, "ms": cuda_ms(lambda: ok(lib.dm_launch(
-                srcs[0].data_ptr(), sorted_n, w0, tmp.data_ptr(), stream)), 20),
-            "all_passes_ms": sum(cuda_ms(lambda s=s, w=w: ok(lib.dm_launch(
-                s.data_ptr(), sorted_n, w, tmp.data_ptr(), stream)), 10)
-                for s, w in zip(srcs, widths)),
-            "plain_ms": cuda_ms(lambda: fd.merge_pass_plain(srcs[0], w0), 2, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: torch.sort(srcs[0]), 10)}
     host = final.cpu()
     fresh = host < fd.SENTINEL
     fresh[1:] &= host[1:] != host[:-1]
@@ -2401,9 +2418,9 @@ def phase_high_capacity(fx, card: str, device, n_warm: int, want_batch: dict) ->
     seen = capture_dict(fd, lambda: mev.step(*_block_args(mev, mblocks[1]), state,
                                              block_base=total))
     d, k, ucap = seen["dict_union"]
-    t_sort = time_sort_union(fd, d, k, ucap)
+    t_sort = time_sort_union(fd, fx, d, k, ucap)
     dg, kg, _ = seen["dict_union_global"]
-    t_sort_global = time_sort_union(fd, dg, kg, ucap)
+    t_sort_global = time_sort_union(fd, fx, dg, kg, ucap)
     new, kk, old = seen["dict_ids"]
     ids_ms = time_ids(fd, new, kk, old, 20)
     emit({"phase": "high_capacity", "case": "kernels", "card": card,
@@ -3031,7 +3048,7 @@ def main() -> int:
     payload = list(range(len(ev_tw.plan.schema)))
     pay_t = ev_tw._stacked_device(cache, payload)
     cand_t = _pick(pay_t, payload, ev_tw.plan.device_cols)
-    check_topn_kernels(ft, ev_tw.plan.topn_program, cand_t, pay_t, "warm raw TopN")
+    check_topn_kernels(ft, fx, ev_tw.plan.topn_program, cand_t, pay_t, "warm raw TopN")
     t_topn = time_topn(ft, ev_tw.plan.topn_program, cand_t, pay_t)
     del pay_t, cand_t
     torch.cuda.empty_cache()
@@ -3611,6 +3628,17 @@ def main() -> int:
               "plain_image": topn_times(t_topn), "encoded": topn_times(t_topn_e),
               "mesh_shard": topn_times(mesh_out["topn"]["step_shard"]),
               "launches": topn_launches["topn_candidates"]},
+          "topn_merge": {
+              "fan_max": fm.MERGE_FAN_MAX, "warm_100m": t_topn["topn_merge"],
+              "warm_100m_encoded": t_topn_e["topn_merge"],
+              "mesh_shard_step": mesh_out["topn"]["step_shard"]["topn_merge"],
+              "mesh_finalize": mesh_out["topn"]["finalize"]["topn_merge"],
+              "launches": topn_launches["topn_merge"]},
+          "dict_merge": {
+              "chunk": fd.MERGE_CHUNK, "fan_max": fd.MERGE_FAN_MAX,
+              "shard_union": hc["sort"].get("dict_merge"),
+              "global_union": hc["sort_global"].get("dict_merge"),
+              "launches": hc["launches"]["dict_merge"]},
           "fused_mask": {
               "rows_a_thread": fm.MASK_ROWS,
               "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),
@@ -3646,10 +3674,10 @@ def main() -> int:
               "mesh_grouped_global": union_times(mg["kernels"]["dict_union_global"]),
               "mesh_grouped_launches": mg["launches"]["dict_union"],
               "high_capacity_shard": {k: hc["sort"].get(k) for k in (
-                  "keys", "capacity", "sorted_keys", "tile_sort_blocks", "merge_passes",
+                  "keys", "capacity", "sorted_keys", "tile_sort_blocks", "merge_levels",
                   "tile_sort_ms", "union_ms", "union_library_ms")},
               "high_capacity_global": {k: hc["sort_global"].get(k) for k in (
-                  "keys", "merge_passes", "tile_sort_ms", "union_ms", "union_library_ms")},
+                  "keys", "merge_levels", "tile_sort_ms", "union_ms", "union_library_ms")},
               "high_capacity_launches": {k: hc["launches"][k] for k in
                                          ("dict_union",) + SORT_KERNELS}}})
     emit({"kernels": kernels})

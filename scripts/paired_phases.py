@@ -69,7 +69,17 @@ plain version's ms, the bound and, for ``zone_full``, the one-column
 yardstick), or ``zone_requests``: warm Q6, Q1 and Q1 + TopN over the same
 image on the zone rung and with ``route_hint="unary"`` in one process,
 byte-identical, each route pinned by a first run and then seven runs of
-each in turns (host clock around synchronized runs).  Each process
+each in turns (host clock around synchronized runs), or ``merge_kernels``:
+the top-K merge as a whole stage (``_merge_all``, every level; five
+CUDA-event times) at the warm 100M-row raw TopN's runs, a mesh shard
+step's 32 tiles and a cold 65,536-row block's 16 with a carry run, and
+the mesh finalize's 8 runs of one more word; the dictionary union's merge
+stage (every ``dict_merge`` launch of the sort route) and the whole union
+at the grouped mesh's shard and global unions at 32,768 slots (inputs
+captured from its second super-block), or ``merge_requests``: the warm raw
+TopN over the 100M-row image, the mesh raw TopN over 10M rows (8 shards,
+131,072 rows a shard) and the grouped mesh at 32,768 slots (host clock,
+a first run left out; once more under ``torch.profiler``).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -536,6 +546,126 @@ elif sys.argv[1] in ("group_requests", "mesh_requests"):
         cases[name] = {"request_s": secs[skip:],
                        "device_ms": [sum(prof["device_ms"].values())],
                        "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("merge_kernels", "merge_requests"):
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_topn as ft
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    ev_t = te.TorchDagEvaluator(dag_to_wire(fx.topn_dag(cs.TOPN_K)), block_rows=1 << 17,
+                                device="cuda")
+    a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+    mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()),
+                                     pm.make_mesh([dev] * cs.MESH_SHARDS, groups=1),
+                                     cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+    total = mev.total_rows
+    mblocks = [(fx.supp_columns(a_mesh, s, min(s + total, cs.HC_MESH_ROWS), total),
+                min(total, cs.HC_MESH_ROWS - s)) for s in range(0, cs.HC_MESH_ROWS, total)]
+    cases = {}
+    if sys.argv[1] == "merge_kernels":
+        # topn_merge's stages (every level, CUDA events): the warm 100M
+        # image's runs, a mesh shard step's 32 tiles and a cold block's 16
+        # with a carry, the mesh finalize's 8 runs of one more word
+        prog = ev_t.plan.topn_program
+        payload = list(range(len(ev_t.plan.schema)))
+        pay = ev_t._stacked_device(cache, payload)
+        cand = te._pick(pay, payload, ev_t.plan.device_cols)
+        runs = torch.empty((ft.n_tiles(prog, cand), prog.n_words, prog.k), dtype=torch.int64,
+                           device=dev)
+        ft.launch_candidates(prog, cand, runs, 0)
+        del pay, cand
+        merged = [ft._merge_all(runs[32 * j : 32 * j + 32].contiguous(), None, cuda=True)
+                  for j in range(9)]
+        carry = merged[8].clone()
+        pos = torch.arange(8 * prog.k, device=dev).view(8, 1, prog.k)
+        fin = torch.cat([torch.stack(merged[:8]), pos], dim=1).contiguous()
+        stages = {"topn_merge_warm_100m": (runs, None, 5),
+                  "topn_merge_shard_step": (runs[:32].contiguous(), carry, 20),
+                  "topn_merge_cold_block": (runs[:16].contiguous(), carry, 20),
+                  "topn_merge_finalize": (fin, None, 20)}
+        for name, (r, x, iters) in stages.items():
+            if not torch.equal(ft._merge_all(r, x, cuda=True), ft._merge_all(r, x, cuda=False)):
+                raise AssertionError(f"{name}: the merge differs from its plain version")
+            fa.reset_launches()
+            ft._merge_all(r, x, cuda=True)
+            launches = fa.LAUNCHES["topn_merge"]
+            cases[name] = {"request_s": [cs.cuda_ms(lambda: ft._merge_all(r, x, cuda=True),
+                                                    iters) / 1e3 for _ in range(5)],
+                           "launches": launches}
+        del runs, merged, stages
+        # dict_merge's stage at the grouped mesh's shard union (the carried
+        # 32,768 slots and a shard's 131,072 keys) and global union (the 8
+        # shard dictionaries), the inputs captured from its second super-block
+        state = mev.step(*cs._block_args(mev, mblocks[0]), mev.init_state())
+        seen = cs.capture_dict(fd, lambda: mev.step(*cs._block_args(mev, mblocks[1]), state,
+                                                    block_base=total))
+        lib = fd.kernels()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for name, (d, k, cap) in (("dict_merge_shard_union", seen["dict_union"]),
+                                  ("dict_merge_global_union", seen["dict_union_global"])):
+            n = (0 if d is None else d.numel()) + k.numel()
+            sorted_n = fd.sorted_keys(n)
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            tiles = torch.empty(sorted_n, dtype=torch.int64, device=dev)
+            live = torch.empty(sorted_n // fd.SORT_TILE, dtype=torch.int32, device=dev)
+            multi = hasattr(fd, "merge_plan")  # the multi-way levels, or the pairwise passes
+            rc = lib.du_launch(None if d is None else d.data_ptr(), 0 if d is None else d.numel(),
+                               k.data_ptr(), k.numel(), tiles.data_ptr(), flag.data_ptr(),
+                               fd.SORT_TILE, fd.SORT_TILE, *((live.data_ptr(),) if multi else ()),
+                               stream)
+            bufs = [torch.empty_like(tiles) for _ in range(2)]
+            if multi:
+                calls = [(w, (f, live.data_ptr())) for w, f in fd.merge_plan(n)]
+            else:
+                calls = [(w, ()) for w in fd.merge_widths(n)]
+
+            def stage():
+                src, rcs = tiles, []
+                for i, (w, f) in enumerate(calls):
+                    rcs.append(lib.dm_launch(src.data_ptr(), sorted_n, w, *f,
+                                             bufs[i % 2].data_ptr(), stream))
+                    src = bufs[i % 2]
+                return src, rcs
+
+            got, rcs = stage()
+            if rc != 0 or any(rcs) or not torch.equal(got, torch.sort(tiles).values):
+                raise AssertionError(f"{name}: the merge stage failed or left the keys unsorted")
+            out = torch.empty(cap, dtype=torch.int64, device=dev)
+            cases[name] = {"request_s": [cs.cuda_ms(stage, 20) / 1e3 for _ in range(5)],
+                           "launches": len(calls)}
+            cases[name.replace("dict_merge", "union")] = {"request_s": [
+                cs.cuda_ms(lambda: fd.launch_union(d, k, cap, flag, out), 20) / 1e3
+                for _ in range(5)]}
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        a10 = fx.build_arrays(cs.FILTER_ROWS, cs.SEED)
+        topn = pm.ShardedTopNEvaluator(dag_to_wire(fx.topn_dag(cs.TOPN_K)),
+                                       pm.make_mesh([dev] * cs.MESH_SHARDS), cs.MESH_TOPN_RPS)
+        ttotal = topn.total_rows
+        tblocks = [(fx.mesh_columns(a10, s, min(s + ttotal, cs.FILTER_ROWS)),
+                    min(ttotal, cs.FILTER_ROWS - s)) for s in range(0, cs.FILTER_ROWS, ttotal)]
+        # (name, request, runs, how many of the first are left out)
+        plan = [("warm_topn_100m", lambda: ev_t.run(None, cache), 8, 1),
+                ("mesh_topn_10m", lambda: topn.finalize(topn.run_blocks(tblocks)), 6, 1),
+                ("mesh_grouped_32768", lambda: mev.finalize(mev.run_blocks(mblocks)), 7, 1)]
+        for name, fn, n, skip in plan:
+            secs = [timed(fn) for _ in range(n)]
+            prof = cs.profile_runs(fn, 1)
+            top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:6]
+            cases[name] = {"request_s": secs[skip:],
+                           "device_ms": [sum(prof["device_ms"].values())],
+                           "top_kernels_ms": {k[:80]: v for k, v in top}}
     print(json.dumps({"cases": cases}))
 elif sys.argv[1] in ("zone_kernels", "zone_requests"):
     from tikv_tpu_torch.copr import fused_zone as fz

@@ -344,10 +344,8 @@ def test_topn_kernels_match_plain_versions(cuda, k):
     ft.launch_candidates(prog, cand, runs, 0)
     want_runs = ft.candidates_plain(prog, cand, 0)
     assert torch.equal(runs, want_runs)
-    merged = torch.empty(((runs.shape[0] + 2) // 2, prog.n_words, k), dtype=torch.int64,
-                         device=cuda)
-    ft.launch_merge(runs, runs[0].clone(), merged)
-    assert torch.equal(merged, ft.merge_plain(want_runs, want_runs[0].clone()))
+    for f in {2, ft.merge_fan_max(prog.n_words, k)}:
+        fx.topn_merge_check(runs, runs[0].clone(), f)
     # cold: one step per block, the carry on the card
     state = plain_state = None
     for b in range(12):
@@ -435,6 +433,52 @@ def test_filter_and_topn_plans_match_their_oracles(cuda):
     assert ev.run(None, cache).iter_rows() == fx.q1_topn_oracle(fx.q1_oracle(a))
     for name in ("topn_candidates", "topn_merge", "topn_pack"):
         assert fa.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("n_words", [4, 11])
+@pytest.mark.parametrize("k", [1, 100, 2048, 4096])
+def test_topn_merge_matches_its_plain_version_at_every_shape(cuda, n_words, k):
+    """topn_merge at K = 1, 100, 2,048 and 4,096, 4 and 11 words (staged in
+    shared memory where F runs fit, else read in place): each level of the
+    plan over 33 runs and the carry, at fan-in 2 and the largest, against
+    merge_plain exactly, twice bit for bit; the levels end in the first K of
+    every run; neither instance spills."""
+    runs, extra = fx.topn_merge_case(32, n_words, k, k + n_words, cuda)
+    f_max = ft.merge_fan_max(n_words, k)
+    for f in (2, f_max):
+        fx.topn_merge_check(runs, extra, f)
+    fa.reset_launches()
+    got = ft._merge_all(runs, extra, cuda=True)
+    assert fa.LAUNCHES["topn_merge"] == len(ft.merge_fans(33, n_words, k))
+    want = ft._merge_all(runs.cpu(), extra.cpu(), cuda=False)
+    assert torch.equal(got.cpu(), want)
+    for staged in (True, False):
+        for w in range(2, ft.MERGE_WORDS_MAX + 1):
+            assert ft.merge_attributes(w, staged)["localSizeBytes"] == 0, (w, staged)
+
+
+@pytest.mark.parametrize("n", [163_840, 262_144, 5 * 4096 + 777])
+def test_dict_merge_matches_its_plain_version(cuda, n):
+    """The sort route's dict_merge levels at the mesh path's shard union
+    (163,840 keys: the carried 32,768 slots and a shard's 131,072 keys) and
+    global union (262,144), and at a ragged size: each level against
+    merge_pass_plain exactly, twice bit for bit, at most two levels; the
+    whole union against dict_union_plain; no spill."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 60_000, n)
+    keys[rng.random(n) < 0.2] = fd.SENTINEL
+    cap = 32768
+    d = None
+    if n == 163_840:
+        d = fd.dict_union_plain(None, torch.from_numpy(rng.integers(0, 60_000, 4 * cap)), cap)[0]
+        keys = keys[cap:]
+    keys = torch.from_numpy(keys)
+    out = fx.sort_route_levels(d, keys, cuda)
+    assert 1 <= len(out["levels"]) <= 2
+    fx.union_kernel_check(d, keys, cap, cuda)
+    assert fd.merge_attributes()["localSizeBytes"] == 0
 
 
 # -- program #1 and encoded images ---------------------------------------------

@@ -364,9 +364,9 @@ def test_dict_capacity_limits():
     fd.check_capacity((1 << 31) - 1)
     assert fd.union_launches(100_000, 64) == {"dict_union": len(fd.union_passes(100_000, 64))}
     assert fd.union_launches(8 * 32768, 32768) == {
-        "dict_union": 1, "dict_merge": 6, "dict_count": 1, "dict_compact": 1}
-    assert fd.merge_widths(fd.SORT_TILE) == [] \
-        and fd.merge_widths(fd.SORT_TILE + 1) == [fd.SORT_TILE]
+        "dict_union": 1, "dict_merge": 2, "dict_count": 1, "dict_compact": 1}
+    assert fd.merge_plan(fd.SORT_TILE) == [] \
+        and fd.merge_plan(fd.SORT_TILE + 1) == [(fd.SORT_TILE, 2)]
 
 
 def test_union_limits_match_the_cuda_source():
@@ -385,6 +385,21 @@ def test_union_limits_match_the_cuda_source():
     assert int(defines["DI_SMEM_KEYS"]) == fd.CAP_MAX
     assert int(defines["DU_THREADS"]) * int(defines["DC_PER_THREAD"]) == fd.CHUNK
     assert "#define DU_WARP_KEYS (32 * DU_E)" in text
+    assert int(defines["DM_CHUNK"]) == fd.MERGE_CHUNK
+    assert fd.MERGE_CHUNK % int(defines["DM_PAD"]) == 0
+    assert fd.MERGE_FAN_MAX <= int(defines["DM_THREADS"]) // 32  # a warp a run
+    assert int(defines["DM_FAN_MAX"]) == fd.MERGE_FAN_MAX
+    assert fd.SORT_TILE % fd.MERGE_CHUNK == 0  # a dict_merge block's keys lie in one run
+    assert "#define DM_TILE DU_SORT_TILE" in text
+    # a whole stride between samples, their count a power of two
+    samples, gap = int(defines["DM_SAMPLES"]), int(defines["DM_SAMPLE_GAP"])
+    assert samples & (samples - 1) == 0 and (fd.SORT_TILE // gap) & (fd.SORT_TILE // gap - 1) == 0
+    assert fd.SORT_TILE % gap == 0 and fd.SORT_TILE // gap <= samples
+    assert fd.MERGE_FAN_MAX <= int(defines["DM_THREADS"])  # a thread a run's window
+    padded = fd.MERGE_CHUNK + fd.MERGE_CHUNK // int(defines["DM_PAD"])
+    static = (padded + fd.MERGE_FAN_MAX * (int(defines["DM_SAMPLES"]) + 4)) * 8 + padded * 4
+    stage = int(defines["DM_STAGE"]) + int(defines["DM_STAGE"]) // int(defines["DM_PAD"])
+    assert stage * 8 + static <= 232448  # one block an SM: the grid fits the card once
     warp_keys = 32 * fd.KEYS_A_THREAD
     assert fd.TILE_MAX // fd.KEYS_A_THREAD == int(defines["DU_THREADS"])
     pingpong = int(defines["DU_PINGPONG_MAX"])
@@ -410,10 +425,13 @@ def test_union_passes_follow_the_tile():
                                         2 * 2048]
     assert fd.union_passes(100, 64) == [100]
     assert fd.sorted_keys(163_840) == 163_840 and fd.sorted_keys(1) == fd.SORT_TILE == 4096
-    assert fd.merge_widths(163_840) == [4096 << i for i in range(6)]
-    assert fd.merge_widths((1 << 18) + 1) == [4096 << i for i in range(7)]
+    assert fd.merge_plan(163_840) == [(4096, 8), (8 * 4096, 5)]
+    assert fd.merge_plan(1 << 18) == [(4096, 8), (8 * 4096, 8)]
+    assert fd.merge_plan((1 << 18) + 1) == [(4096, 8), (8 * 4096, 3), (24 * 4096, 3)]
+    assert fd.merge_plan(5 * 4096) == [(4096, 5)]
+    assert len(fd.merge_plan(1 << 24)) == 4  # each doubling past 64 runs: at most one level more
     assert fd.union_launches(163_840, 32768) == {
-        "dict_union": 1, "dict_merge": 6, "dict_count": 1, "dict_compact": 1}
+        "dict_union": 1, "dict_merge": 2, "dict_count": 1, "dict_compact": 1}
 
 
 @pytest.mark.parametrize("name", fx.UNION_EDGE_CASES)
@@ -448,13 +466,17 @@ def test_sort_route_keeps_the_smallest_distinct_keys(cap, n, spread, seed):
 
 
 def test_merge_and_compact_plain_versions():
-    """dict_merge's plain version merges sorted runs pairwise (a short last
-    run too); dict_count + dict_compact's keeps the first cap distinct keys."""
+    """dict_merge's plain version merges sorted runs F at a time (a short
+    last run too, and a last group of one run); dict_count + dict_compact's
+    keeps the first cap distinct keys."""
     rng = np.random.default_rng(8)
     runs = [np.sort(rng.integers(0, 50, w)) for w in (8, 8, 8, 5)]
-    got = fd.merge_pass_plain(torch.from_numpy(np.concatenate(runs)), 8).numpy()
+    got = fd.merge_pass_plain(torch.from_numpy(np.concatenate(runs)), 8, 2).numpy()
     np.testing.assert_array_equal(got[:16], np.sort(np.concatenate(runs[:2])))
     np.testing.assert_array_equal(got[16:], np.sort(np.concatenate(runs[2:])))
+    got = fd.merge_pass_plain(torch.from_numpy(np.concatenate(runs)), 8, 3).numpy()
+    np.testing.assert_array_equal(got[:24], np.sort(np.concatenate(runs[:3])))
+    np.testing.assert_array_equal(got[24:], runs[3])
     s = np.sort(np.concatenate([rng.integers(0, 30, 100), [fd.SENTINEL] * 9]))
     out, over = fd.compact_plain(torch.from_numpy(s), 20)
     np.testing.assert_array_equal(out.numpy(), np.unique(s)[:20])
@@ -463,6 +485,65 @@ def test_merge_and_compact_plain_versions():
     u = np.unique(s)[:-1]
     np.testing.assert_array_equal(out.numpy()[: len(u)], u)
     assert (out.numpy()[len(u):] == fd.SENTINEL).all() and not over
+
+
+def _sort_route_input(case, rng):
+    """Keys of the sort route at one of its edges, sorted into tiles as
+    ``dict_union`` leaves them: ``ragged`` (n not a multiple of the tile),
+    ``sentinel`` (runs mostly sentinel-padded), ``all_equal``, ``wide``
+    (the mesh path's 163,840 keys)."""
+    n, spread, sentinel_p = {"ragged": (5 * fd.SORT_TILE + 777, 1 << 40, 0.1),
+                             "sentinel": (9 * fd.SORT_TILE, 5000, 0.97),
+                             "all_equal": (12 * fd.SORT_TILE - 1, 1, 0.0),
+                             "wide": (163_840, 60_000, 0.2)}[case]
+    keys = rng.integers(0, spread, n)
+    keys[rng.random(n) < sentinel_p] = fd.SENTINEL
+    return torch.from_numpy(keys)
+
+
+@pytest.mark.parametrize("case", ["ragged", "sentinel", "all_equal", "wide"])
+def test_sort_route_merge_levels_sort_the_tiles(case):
+    """The tiles ``dict_union`` sorts at the sort route (distinct keys,
+    sentinel-padded), merged by ``merge_plan``'s levels: after each level
+    every group of F runs is one sorted run, the last level's output is the
+    sorted keys, and the union equals ``np.unique`` cut to ``cap``."""
+    keys = _sort_route_input(case, np.random.default_rng(len(case)))
+    s = fd.union_pass_plain(keys, fd.SORT_TILE, fd.SORT_TILE)[0].reshape(-1)
+    want = torch.sort(s).values
+    plan = fd.merge_plan(keys.numel())
+    assert len(plan) <= 2
+    for w, f in plan:
+        s = fd.merge_pass_plain(s, w, f)
+        for a0 in range(0, s.numel(), w * f):
+            g = s[a0 : a0 + w * f]
+            assert bool((g[1:] >= g[:-1]).all())
+    assert torch.equal(s, want)
+    cap = fd.CAP_MAX + 1
+    got, over = fd.dict_union_plain(None, keys, cap)
+    want_u, want_over = _union_numpy(np.zeros(0, np.int64), keys.numpy(), cap)
+    np.testing.assert_array_equal(got.numpy(), want_u)
+    assert over == want_over
+
+
+@pytest.mark.parametrize("case", ["all_equal", "sentinel", "ragged"])
+def test_sort_route_edges_match_jax(case):
+    """The sort route's edges through the evaluator at 16,384 slots against
+    the JAX evaluator and the oracle: every row of one group, a selection
+    that keeps 1% of the rows (runs of sentinels), and super-blocks whose
+    valid rows are not a multiple of the tile."""
+    groups = 2
+    rows = N // (8 // groups)
+    rng = np.random.default_rng(7)
+    key = {"all_equal": np.full(N, 7), "sentinel": C, "ragged": C}[case]
+    low = np.where(rng.random(N) < 0.01, 5, 900) if case == "sentinel" else A
+    n_valid = N - 1111 if case == "ragged" else N
+    out, _ev = _both(grouped_dag(), groups, rows, 16384,
+                     [(_columns(N, {1: low, 2: key, 3: C}), n_valid)] * 2)
+    assert not out["overflow"]
+    valid = np.arange(N) < n_valid
+    mask = np.concatenate([(low < 800) & valid] * 2)
+    _check_oracle(out, mask, np.concatenate([key] * 2), value=np.concatenate([C] * 2),
+                  low=np.concatenate([low] * 2))
 
 
 @pytest.mark.parametrize("groups", [1, 2])

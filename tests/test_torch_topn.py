@@ -304,21 +304,87 @@ def test_plain_topn_step_matches_jax_topn_step(keys, k):
                                       err_msg=f"payload {j}")
 
 
-def test_merge_plain_takes_the_first_k_of_each_pair():
-    rng = np.random.default_rng(3)
-    k, n_words = 16, 4
-    entries = rng.integers(-(2**63), 2**63 - 1, size=(7, n_words, k), dtype=np.int64)
-    entries[:, 0] = rng.integers(0, 2, size=(7, k))  # many ties in the first word
-    entries[:, -1] = np.arange(7 * k).reshape(7, k)  # unique last word
+def _sorted_runs(rng, n, n_words, k, src_base=0):
+    """``n`` runs ``[n_words, k]``, each sorted: ties in every word but
+    ``src`` (unique)."""
+    entries = np.zeros((n, n_words, k), dtype=np.int64)
+    entries[:, 0] = rng.integers(0, 2, size=(n, k))
+    for w in range(1, n_words - 1):
+        entries[:, w] = rng.integers(-2, 2, size=(n, k))
+    entries[:, -1] = src_base + rng.permutation(n * k).reshape(n, k)
     runs = torch.from_numpy(entries)
-    runs = torch.stack([r[:, ft._lexsort(r[:, None, :])[0]] for r in runs])
-    out = ft.merge_plain(runs[:6], runs[6])
-    assert out.shape == (4, n_words, k)
-    for j in range(3):
-        both = torch.cat([runs[2 * j], runs[2 * j + 1]], dim=1)
-        want = both[:, ft._lexsort(both[:, None, :])[0][:k]]
-        assert torch.equal(out[j], want)
-    assert torch.equal(out[3], runs[6])
+    return torch.stack([r[:, ft._lexsort(r[:, None, :])[0]] for r in runs])
+
+
+def _first_k(runs, k):
+    both = torch.cat(list(runs), dim=1)
+    return both[:, ft._lexsort(both[:, None, :])[0][:k]]
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("fan_in,n_runs", [(2, 7), (3, 7), (5, 3), (0, 0), (0, 1)])
+def test_merge_plain_takes_the_first_k_of_each_pair(fan_in, n_runs, carry):
+    """merge_plain at fan-in 2 and 3 over 7 runs, 5 over 3, and at the most runs a
+    topn_merge block takes at this shape (F, fan_in 0 here) over F and F + 1
+    runs (a last group of one run, copied), with and without the carry as
+    the last run: run j of the result is the first k entries of its group's
+    runs, stably sorted in run order."""
+    rng = np.random.default_rng(3 + n_runs)
+    k, n_words = 16, 4
+    if fan_in == 0:
+        fan_in = ft.merge_fan_max(n_words, k)
+        n_runs += fan_in
+    runs = _sorted_runs(rng, n_runs, n_words, k)
+    extra = runs[-1].clone() if carry else None
+    ins = runs[:-1] if carry else runs
+    out = ft.merge_plain(ins, extra, fan_in)
+    assert out.shape == (-(-n_runs // fan_in), n_words, k)
+    for j in range(out.shape[0]):
+        group = runs[j * fan_in : (j + 1) * fan_in]
+        assert torch.equal(out[j], group[0] if len(group) == 1 else _first_k(group, k))
+
+
+@pytest.mark.parametrize("n_words,k,n_runs,carry", [
+    (4, 100, 32, True),  # a mesh shard step: 32 tiles and the carry
+    (4, 100, 16, True),  # a cold 1M-row block
+    (5, 100, 8, False),  # the mesh finalize: 8 shards, one more word
+    (4, 3, 900, False),  # three levels
+    (4, 2048, 16, True),  # read in place, seventeen runs a block
+    (11, 4096, 16, True),  # the runs read in place
+    (11, 1, 70, True),
+])
+def test_merge_all_keeps_the_first_k_of_every_run(n_words, k, n_runs, carry):
+    """The plan's levels (merge_fans) end in the first k entries of all the
+    runs in run order, the carry last: what the pairwise levels gave."""
+    rng = np.random.default_rng(n_runs + k)
+    runs = _sorted_runs(rng, n_runs + carry, n_words, k)
+    extra = runs[-1].clone() if carry else None
+    got = ft._merge_all(runs[:n_runs].clone(), extra, cuda=False)
+    assert torch.equal(got, _first_k(runs, k))
+
+
+def test_merge_fans_take_one_launch_where_the_runs_fit():
+    """One topn_merge launch merges a mesh shard step's 33 runs (K = 100,
+    4 words), a cold 1M-row block's 17 and the mesh finalize's 8 (5 words);
+    the warm 100M image's 24,415 take three; every K up to the tile at up to
+    11 words has a block shape in shared memory."""
+    from tikv_tpu_torch.copr import fused_mask as fm
+
+    assert ft.merge_fans(33, 4, 100) == (33,)
+    assert ft.merge_fans(17, 4, 100) == (17,)
+    assert ft.merge_fans(8, 5, 100) == (8,)
+    assert ft.merge_fans(24_415, 4, 100) == (30, 29, 29)
+    assert ft.MERGE_SMEM == fm.SMEM_MAX - 8 * fm.MERGE_FAN_MAX  # TN_MERGE_SMEM
+    assert ft.merge_fans(1, 4, 100) == ()
+    assert ft.merge_staged(33, 4, 100) and not ft.merge_staged(2, 4, 4096)
+    assert ft.merge_fan_max(4, 100) >= 33
+    assert not ft.merge_staged(ft.merge_fan_max(4, 2048), 4, 2048)
+    for n_words in (4, 5, 8, 10, 11):
+        for k in (1, 100, 2048, 4096):
+            f = ft.merge_fan_max(n_words, k)
+            assert 2 <= f <= fm.MERGE_FAN_MAX
+            assert ft.merge_smem(f, n_words, k, ft.merge_staged(f, n_words, k)) <= ft.MERGE_SMEM
+            assert len(ft.merge_fans(24_415, n_words, k)) <= 15
 
 
 def test_u64_order_words_order_like_the_values():
@@ -357,7 +423,7 @@ def test_topn_kernel_path_refuses_cpu_and_other_devices():
     with pytest.raises(ValueError, match="CUDA image"):
         ft.launch_candidates(prog, cand, runs, 0)
     with pytest.raises(ValueError, match="CUDA runs"):
-        ft.launch_merge(runs, None, runs)
+        ft.launch_merge(runs, None, runs, 2)
     cand.device = torch.device("meta")
     with pytest.raises(ValueError, match="no topn_step"):
         ft.topn_step(prog, cand, pay)
@@ -438,6 +504,10 @@ def test_scan_limits_and_parameter_blocks_match_the_cuda_source():
     assert int(defines["TN_MAX_KEYS"]) == fm.MAX_KEYS
     assert int(defines["TN_MAX_PAYLOAD"]) == fm.MAX_PAYLOAD
     assert int(defines["TN_SMEM_MAX"]) == fm.SMEM_MAX
+    assert int(defines["TN_FAN_MAX"]) == fm.MERGE_FAN_MAX
+    assert int(defines["TN_MERGE_WORDS"]) == ft.MERGE_WORDS_MAX
+    assert "case 2: return tm_kernel_w<2>" in text and "case 11: return tm_kernel_w<11>" in text
+    assert fm.MERGE_FAN_MAX < 1 << 16 and ft.TILE_MAX <= 1 << 16  # a handle: run << 16 | slot
     assert int(defines["SC_MASK_THREADS"]) == fm.MASK_THREADS
     # ScParams: 33 pointers, the 384-byte column descriptors (FaEnc), four
     # int64, 64 constants, 256 code words, five int32, two int32[4], padded

@@ -19,9 +19,10 @@ with three kernels of ``csrc/fused_dict.cu``:
   keys keeps its first ``cap`` distinct keys, and the tiles' lists are the
   next pass's keys, until one tile is left (``csrc/fused_dict.cu`` says why
   that is exact).  Past it, the *sort route*: one ``dict_union`` pass sorts
-  every tile of :data:`SORT_TILE` keys, ``dict_merge`` passes merge the
-  sorted runs pairwise in device memory, and ``dict_count`` then
-  ``dict_compact`` keep the first ``cap`` distinct keys and flag more.  A
+  every tile of :data:`SORT_TILE` keys, ``dict_merge`` levels merge up to
+  :data:`MERGE_FAN_MAX` sorted runs into one each (:func:`merge_plan`: two
+  levels up to 64 runs), and ``dict_count`` then ``dict_compact`` keep the
+  first ``cap`` distinct keys and flag more.  A
   block sorts its tile with :data:`KEYS_A_THREAD` keys a thread: in
   registers, then across its warp, then by merge path in shared memory.
 * ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
@@ -69,6 +70,8 @@ TILE_MAX = 16384  # the largest tile: 1,024 threads, 136 KB of shared memory
 CAP_MAX = TILE_MAX // 2  # the tile route's largest dictionary; past it, the sort route
 SORT_TILE = 4096  # the sort route's tile (DU_SORT_TILE)
 CHUNK = 8192  # sorted keys a dict_count / dict_compact block reads (DC_CHUNK)
+MERGE_CHUNK = 2048  # keys of one run a dict_merge block places (DM_CHUNK)
+MERGE_FAN_MAX = 8  # runs a dict_merge level merges into one (DM_FAN_MAX)
 _I64_MIN = -(1 << 63)
 
 
@@ -134,14 +137,39 @@ def sorted_keys(n: int) -> int:
     return max(1, -(-n // SORT_TILE)) * SORT_TILE
 
 
-def merge_widths(n: int) -> list[int]:
-    """The sort route's ``dict_merge`` passes for ``n`` keys: the width of
-    the runs each one merges pairwise (one launch a pass)."""
-    sorted_n = sorted_keys(n)
+def fan_ins(runs: int, fan_max: int) -> list[int]:
+    """The fan-in of each level that merges ``runs`` sorted runs into one,
+    at most ``fan_max`` runs a group: the fewest levels, and in them fan-ins
+    as even as they go (each the least ``f`` with ``f ** levels_left`` at
+    least the runs left)."""
+    levels, reach = 0, 1
+    while reach < runs:
+        levels, reach = levels + 1, reach * fan_max
+    out = []
+    while runs > 1:
+        f = 2
+        while f ** levels < runs:
+            f += 1
+        out.append(f)
+        runs, levels = -(-runs // f), levels - 1
+    return out
+
+
+def merge_plan(n: int) -> list[tuple[int, int]]:
+    """The sort route's ``dict_merge`` levels for ``n`` keys: per level (one
+    launch) the width of the runs it reads and how many it merges into one.
+    The fewest levels; the first merges :data:`MERGE_FAN_MAX` runs where
+    that keeps them fewest (the tiles' windows are the smallest, and a
+    dictionary's tiles, in order already, are copied), the rest as even as
+    they go."""
+    runs = sorted_keys(n) // SORT_TILE
+    fans = fan_ins(runs, MERGE_FAN_MAX)
+    if len(fans) > 1:
+        fans = [MERGE_FAN_MAX] + fan_ins(-(-runs // MERGE_FAN_MAX), MERGE_FAN_MAX)
     out, w = [], SORT_TILE
-    while w < sorted_n:
-        out.append(w)
-        w *= 2
+    for f in fans:
+        out.append((w, f))
+        w *= f
     return out
 
 
@@ -149,7 +177,7 @@ def union_launches(n: int, cap: int) -> dict:
     """Launches of each kernel of one :func:`dict_union` of ``n`` keys."""
     if cap <= CAP_MAX:
         return {"dict_union": len(union_passes(n, cap))}
-    return {"dict_union": 1, "dict_merge": len(merge_widths(n)), "dict_count": 1,
+    return {"dict_union": 1, "dict_merge": len(merge_plan(n)), "dict_count": 1,
             "dict_compact": 1}
 
 
@@ -198,14 +226,15 @@ def union_pass_plain(keys: torch.Tensor, cap: int, tile: int) -> tuple[torch.Ten
     return out, bool((fresh.sum(dim=1) > cap).any())
 
 
-def merge_pass_plain(keys: torch.Tensor, width: int) -> torch.Tensor:
+def merge_pass_plain(keys: torch.Tensor, width: int, fan_in: int) -> torch.Tensor:
     """Plain version of ``dict_merge``: the sorted runs of ``width`` keys
-    (the last may be short) merged pairwise."""
+    (the last may be short) merged ``fan_in`` at a time (equal keys are equal
+    words, so a sort of each group is its stable merge)."""
     n = keys.numel()
     out = keys.clone()
-    for a0 in range(0, n, 2 * width):
-        pair = keys[a0 : a0 + 2 * width]
-        out[a0 : a0 + pair.numel()] = torch.sort(pair).values
+    for a0 in range(0, n, fan_in * width):
+        group = keys[a0 : a0 + fan_in * width]
+        out[a0 : a0 + group.numel()] = torch.sort(group).values
     return out
 
 
@@ -227,15 +256,13 @@ def dict_union_plain(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: in
     ``[cap]`` and whether there are more than ``cap`` distinct keys.  The
     tile route (tiles of ``union_tile(cap)`` keys, or ``tile``, at least
     ``2 * cap``), or past :data:`CAP_MAX` slots with no ``tile``, the sort
-    route: tiles of :data:`TILE_MAX` keys sorted, merged pairwise, then
-    compacted."""
+    route: tiles of :data:`SORT_TILE` keys sorted, merged level by level
+    (:func:`merge_plan`), then compacted."""
     x = keys if dict_keys is None else torch.cat([dict_keys, keys])
     if tile is None and cap > CAP_MAX:
-        s = union_pass_plain(x, TILE_MAX, TILE_MAX)[0].reshape(-1)
-        w = TILE_MAX
-        while w < s.numel():
-            s = merge_pass_plain(s, w)
-            w *= 2
+        s = union_pass_plain(x, SORT_TILE, SORT_TILE)[0].reshape(-1)
+        for w, f in merge_plan(x.numel()):
+            s = merge_pass_plain(s, w, f)
         return compact_plain(s, cap)
     tile = union_tile(cap) if tile is None else tile
     if tile < 2 * cap:
@@ -304,23 +331,26 @@ def kernels():
         lib.du_attributes.argtypes = [vp]
         lib.dk_sentinel.restype = cll
         lib.dk_launch.argtypes = [vp, vp]
-        lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp]
+        lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp, vp]
         lib.di_launch.argtypes = [vp, ci, vp, cll, vp, vp, vp, vp]
-        lib.dm_launch.argtypes = [vp, cll, cll, vp, vp]
+        lib.dm_launch.argtypes = [vp, cll, cll, ci, vp, vp, vp]
+        lib.dm_attributes.argtypes = [vp]
         lib.dc_launch_count.argtypes = [vp, cll, vp, vp]
         lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, vp, ci, vp]
         lib.di_table_stride.argtypes = [ci]
         lib.di_attributes.argtypes = [ci, vp]
         for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_count",
                    "dc_launch_compact", "dc_chunk", "di_smem_keys", "du_sort_tile",
-                   "du_attributes", "di_table_stride", "di_attributes"):
+                   "du_attributes", "di_table_stride", "di_attributes", "dm_attributes",
+                   "dm_chunk", "dm_fan_max"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_DkParams)}")
         if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL \
                 or lib.dc_chunk() != CHUNK or lib.di_smem_keys() != CAP_MAX \
-                or lib.du_sort_tile() != SORT_TILE:
+                or lib.du_sort_tile() != SORT_TILE or lib.dm_chunk() != MERGE_CHUNK \
+                or lib.dm_fan_max() != MERGE_FAN_MAX:
             raise RuntimeError("fused_dict.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib
@@ -394,7 +424,7 @@ def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
             tiles = max(1, -(-n // tile))
             dst = out if tiles == 1 else torch.empty(tiles * cap, dtype=torch.int64, device=dev)
             rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
-                               dst.data_ptr(), flag.data_ptr(), cap, tile, _stream(dev))
+                               dst.data_ptr(), flag.data_ptr(), cap, tile, None, _stream(dev))
             _launched("dict_union", rc)
             if tiles == 1:
                 return
@@ -404,25 +434,27 @@ def launch_union(dict_keys: torch.Tensor | None, keys: torch.Tensor, cap: int,
 def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
                 out: torch.Tensor) -> None:
     """The sort route of :func:`launch_union`: ``dict_union`` at ``cap = T =
-    SORT_TILE`` sorts every tile, ``dict_merge`` passes merge the runs in two
-    scratch buffers, ``dict_count`` and ``dict_compact`` write ``out``."""
+    SORT_TILE`` sorts every tile (and counts each tile's live keys),
+    ``dict_merge`` levels (:func:`merge_plan`) merge the runs in two scratch
+    buffers, ``dict_count`` and ``dict_compact`` write ``out``."""
     dev = x.device
     n = n_d + x.numel()
     sorted_n = sorted_keys(n)
     src = torch.empty(sorted_n, dtype=torch.int64, device=dev)
+    live = torch.empty(sorted_n // SORT_TILE, dtype=torch.int32, device=dev)
     counts = torch.empty(-(-sorted_n // CHUNK), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
                            src.data_ptr(), flag.data_ptr(), SORT_TILE, SORT_TILE,
-                           stream)
+                           live.data_ptr(), stream)
         _launched("dict_union", rc)
-        widths = merge_widths(n)
-        if widths:
+        plan = merge_plan(n)
+        if plan:
             dst = torch.empty_like(src)
-            for w in widths:
-                _launched("dict_merge", lib.dm_launch(src.data_ptr(), sorted_n, w,
-                                                      dst.data_ptr(), stream))
+            for w, f in plan:
+                _launched("dict_merge", lib.dm_launch(src.data_ptr(), sorted_n, w, f,
+                                                      live.data_ptr(), dst.data_ptr(), stream))
                 src, dst = dst, src
         _launched("dict_count", lib.dc_launch_count(src.data_ptr(), sorted_n,
                                                     counts.data_ptr(), stream))
@@ -438,6 +470,16 @@ def union_attributes() -> dict:
     rc = kernels().du_attributes(out)
     if rc != 0:
         raise RuntimeError(f"dict_union attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
+
+
+def merge_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``dict_merge``: registers a thread,
+    local (spilled) bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().dm_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"dict_merge attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
 
 

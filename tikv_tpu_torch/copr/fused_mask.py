@@ -52,6 +52,7 @@ MASK_THREADS = 256
 MASK_ROWS = 4  # rows a mask thread walks at once (SC_MASK_ROWS)
 TOPN_STEP_ROWS = 1024  # rows a top-K candidate block walks at once (TN_THREADS * TN_ROWS)
 TOPN_STEPS = 4  # such steps a tile holds at most (TN_STEPS)
+MERGE_FAN_MAX = 64  # runs a topn_merge block merges at most (TN_FAN_MAX)
 DECODE_GRID_MAX = 4096
 
 
@@ -155,19 +156,21 @@ def kernels():
         lib.sc_mask_attributes.argtypes = [vp, vp]
         lib.tn_launch_candidates.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.tn_candidates_attributes.argtypes = [ci, vp]
-        lib.tn_launch_merge.argtypes = [vp, cll, vp, vp, ci, ci, vp]
+        lib.tn_launch_merge.argtypes = [vp, cll, vp, vp, ci, ci, ci, vp]
+        lib.tn_merge_staged.argtypes = [ci, ci, ci]
+        lib.tn_merge_attributes.argtypes = [ci, ci, vp]
         lib.tn_launch_pack.argtypes = [vp, vp]
         lib.dc_launch.argtypes = [vp, vp, vp, ci, vp]
         for fn in ("sc_launch_mask", "sc_mask_attributes", "tn_launch_candidates",
                    "tn_candidates_attributes", "tn_launch_merge", "tn_launch_pack",
-                   "dc_launch"):
+                   "dc_launch", "tn_merge_staged", "tn_merge_attributes", "tn_fan_max"):
             getattr(lib, fn).restype = ci
         for name, want, got in (("ScParams", ctypes.sizeof(_ScParams), lib.sc_params_size()),
                                 ("TpParams", ctypes.sizeof(_TpParams), lib.tp_params_size())):
             if want != got:
                 raise RuntimeError(f"{name} layout mismatch: kernel {got} bytes, wrapper {want}")
         if lib.tn_smem_max() != SMEM_MAX or lib.sc_mask_rows() != MASK_ROWS \
-                or lib.tn_step_rows() != TOPN_STEP_ROWS:
+                or lib.tn_step_rows() != TOPN_STEP_ROWS or lib.tn_fan_max() != MERGE_FAN_MAX:
             raise RuntimeError("fused_scan.cu's limits differ from the wrapper's")
         _lib = lib
     return _lib

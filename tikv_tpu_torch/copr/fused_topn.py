@@ -15,10 +15,12 @@ carried best K rows:
    first K entries in order as a run ``[n_words, K]``: the kernel selects
    them (a radix select keeps at most :func:`select_cap` candidates), then
    sorts those alone.
-2. ``topn_merge``: runs merged pairwise into their first K, level by level,
-   until one is left.  The carry of a cold step is one more run whose
-   ``src`` is its slot (0..K-1): earlier in the stream than any of the
-   block's rows (``src_base`` = K), and in stream order among themselves.
+2. ``topn_merge``: up to :data:`MERGE_FAN_MAX` runs merged into their
+   first K by one block, level by level (:func:`merge_fans`: one level for
+   a block's or a shard's runs), until one is left.  The carry of a cold
+   step is one more run whose ``src`` is its slot (0..K-1): earlier in the
+   stream than any of the block's rows (``src_base`` = K), and in stream
+   order among themselves.
 3. ``topn_pack``: the packed state of the final run: int64 row 0 the rank,
    then each payload column's value (int64 rows, or f64 rows) and null flag
    (int64 rows), gathered from the carry or the image for the rank-0
@@ -39,6 +41,7 @@ or raises; on a CPU image it runs the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -55,9 +58,11 @@ from .fused_agg import (
     set_columns,
     walk_rows,
 )
+from .fused_dict import fan_ins
 from .fused_mask import (
     MAX_KEYS,
     MAX_PAYLOAD,
+    MERGE_FAN_MAX,
     SMEM_MAX,
     TOPN_STEP_ROWS,
     TOPN_STEPS,
@@ -71,6 +76,9 @@ _SIGN = -(1 << 63)  # the u64 sign bit as an int64
 _MAGNITUDE = (1 << 63) - 1
 TILE_MAX = TOPN_STEP_ROWS * TOPN_STEPS  # 4,096
 SELECT_MIN = 256  # the fewest candidates a tile's select keeps room for
+MERGE_WORDS_MAX = 3 + 2 * MAX_KEYS  # a mesh finalize's entry: one more word (TN_MERGE_WORDS)
+MERGE_SMEM = SMEM_MAX - 8 * MERGE_FAN_MAX  # a topn_merge block's, beside its run pointers
+MERGE_STAGED_MIN = 8  # the fewest runs a staged topn_merge block is worth
 
 
 @dataclass(frozen=True)
@@ -155,6 +163,53 @@ def n_tiles(prog: TopnProgram, img: Image) -> int:
     return max(1, -(-img.n_blocks * img.block_rows // prog.tile))
 
 
+def merge_smem(fan_in: int, n_words: int, k: int, staged: bool) -> int:
+    """Shared bytes of a ``topn_merge`` block over ``fan_in`` runs of
+    ``[n_words, k]``: two buffers of ``ceil(fan_in / 2)`` lists of ``k``
+    32-bit handles and, when ``staged``, the runs themselves, a 64-bit
+    prefix an entry and one a list slot."""
+    lists = 2 * (-(-fan_in // 2)) * k
+    return ((fan_in * n_words * k + fan_in * k + lists) * 8 if staged else 0) + lists * 4
+
+
+def merge_staged(fan_in: int, n_words: int, k: int) -> bool:
+    """Whether a ``topn_merge`` level of ``fan_in`` runs stages them in
+    shared memory (else it reads them in place)."""
+    return merge_smem(fan_in, n_words, k, True) <= MERGE_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def merge_fan_max(n_words: int, k: int) -> int:
+    """The most runs a ``topn_merge`` block merges at this shape: as many as
+    fit staged beside their prefixes and handles (at most
+    :data:`MERGE_FAN_MAX`) where that is :data:`MERGE_STAGED_MIN` or more;
+    else (K = 2,048 at 4 words and more) as many as their handles leave
+    room for, read in place: fewer levels than two or three staged runs a
+    block.  Every K up to the tile, at every width up to
+    :data:`MERGE_WORDS_MAX` words, has one."""
+    if not 2 <= n_words <= MERGE_WORDS_MAX:
+        raise ValueError(f"no topn_merge shape for {n_words} words")
+    fits = {}
+    for staged in (True, False):
+        f = MERGE_FAN_MAX
+        while f >= 2 and merge_smem(f, n_words, k, staged) > MERGE_SMEM:
+            f -= 1
+        fits[staged] = f
+    if fits[True] >= MERGE_STAGED_MIN or fits[True] >= fits[False]:
+        return fits[True]
+    if fits[False] < 2:
+        raise ValueError(f"no topn_merge shape for k = {k}")
+    return fits[False]
+
+
+@functools.lru_cache(maxsize=None)
+def merge_fans(n_runs: int, n_words: int, k: int) -> tuple[int, ...]:
+    """The fan-in of each ``topn_merge`` level (one launch each) that merges
+    ``n_runs`` runs of ``[n_words, k]`` into one (a step's plan is the
+    same each step: computed once)."""
+    return tuple(fan_ins(n_runs, merge_fan_max(n_words, k)))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -218,22 +273,26 @@ def candidates_plain(prog: TopnProgram, img: Image, src_base: int) -> torch.Tens
     return torch.stack([words[w].gather(1, perm) for w in range(prog.n_words)], dim=1)
 
 
-def merge_plain(runs: torch.Tensor, extra: torch.Tensor | None = None) -> torch.Tensor:
+def merge_plain(runs: torch.Tensor, extra: torch.Tensor | None, fan_in: int) -> torch.Tensor:
     """Plain version of ``topn_merge``: runs ``[n, n_words, k]`` (and the
-    carry run ``extra`` ``[n_words, k]`` as one more) merged pairwise: run j
-    of the result is the first k entries of runs 2j and 2j+1; an odd last
-    run is copied."""
+    carry run ``extra`` ``[n_words, k]`` as one more) merged ``fan_in`` at a
+    time: run j of the result is the first k entries of the stable sort of
+    runs ``j * fan_in`` to ``j * fan_in + fan_in - 1`` in run order; a last
+    group of one run is copied."""
     if extra is not None:
         runs = torch.cat([runs, extra[None]])
     n, n_words, k = runs.shape
-    pairs = n // 2
-    both = runs[: 2 * pairs].reshape(pairs, 2, n_words, k).permute(2, 0, 1, 3) \
-        .reshape(n_words, pairs, 2 * k)
-    perm = _lexsort(both)[:, :k]
-    out = torch.stack([both[w].gather(1, perm) for w in range(n_words)], dim=1)
-    if n % 2:
-        out = torch.cat([out, runs[-1:]])
-    return out
+    out = []
+    full = n - n % fan_in  # the runs of the full groups; a last group of n % fan_in
+    for g0, groups, per in ((0, full // fan_in, fan_in), (full, 1, n % fan_in)):
+        if per == 1:
+            out.append(runs[g0:])
+        elif groups and per:
+            both = runs[g0 : g0 + groups * per].reshape(groups, per, n_words, k) \
+                .permute(2, 0, 1, 3).reshape(n_words, groups, per * k)
+            perm = _lexsort(both)[:, :k]
+            out.append(torch.stack([both[w].gather(1, perm) for w in range(n_words)], dim=1))
+    return torch.cat(out)
 
 
 def pack_plain(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_base: int):
@@ -311,8 +370,23 @@ def launch_candidates(prog: TopnProgram, img: Image, runs: torch.Tensor, src_bas
     check_launch("topn_candidates", rc)
 
 
-def launch_merge(runs: torch.Tensor, extra: torch.Tensor | None, out: torch.Tensor) -> None:
-    """Launch ``topn_merge``: runs (and ``extra``) pairwise into ``out``."""
+def merge_attributes(n_words: int, staged: bool) -> dict:
+    """``cudaFuncGetAttributes`` of the ``topn_merge`` instance for entries
+    of ``n_words`` words that stages its runs in shared memory (or reads
+    them in place): registers a thread, local (spilled) bytes a thread,
+    static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().tn_merge_attributes(n_words, int(staged), out)
+    if rc != 0:
+        raise RuntimeError(f"topn_merge attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "staged": staged, "words": n_words}
+
+
+def launch_merge(runs: torch.Tensor, extra: torch.Tensor | None, out: torch.Tensor,
+                 fan_in: int) -> None:
+    """Launch ``topn_merge``: runs (and ``extra``) ``fan_in`` at a time into
+    ``out``."""
     n, n_words, k = runs.shape
     dev = runs.device
     if dev.type != "cuda":
@@ -320,13 +394,15 @@ def launch_merge(runs: torch.Tensor, extra: torch.Tensor | None, out: torch.Tens
     _check_words(runs, (n, n_words, k), dev, "runs")
     if extra is not None:
         _check_words(extra, (n_words, k), dev, "carry run")
+    if not 2 <= fan_in <= merge_fan_max(n_words, k):
+        raise ValueError(f"topn_merge of {fan_in} runs of [{n_words}, {k}]")
     n_runs = n + (extra is not None)
-    _check_words(out, ((n_runs + 1) // 2, n_words, k), dev, "merged runs")
+    _check_words(out, (-(-n_runs // fan_in), n_words, k), dev, "merged runs")
     lib = kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tn_launch_merge(runs.data_ptr(), n, None if extra is None else extra.data_ptr(),
-                                 out.data_ptr(), n_words, k, stream)
+                                 out.data_ptr(), n_words, k, fan_in, stream)
     check_launch("topn_merge", rc)
 
 
@@ -373,16 +449,18 @@ def launch_pack(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_bas
 # ---------------------------------------------------------------------------
 
 def _merge_all(runs: torch.Tensor, extra, cuda: bool) -> torch.Tensor:
-    """Merge levels until one run is left; returns it ``[n_words, k]``."""
-    while runs.shape[0] + (extra is not None) > 1:
+    """Merge levels (:func:`merge_fans`) until one run is left; returns it
+    ``[n_words, k]``."""
+    n, n_words, k = runs.shape
+    for f in merge_fans(n + (extra is not None), n_words, k):
         if cuda:
             n_runs = runs.shape[0] + (extra is not None)
-            out = torch.empty(((n_runs + 1) // 2,) + tuple(runs.shape[1:]), dtype=torch.int64,
+            out = torch.empty((-(-n_runs // f), n_words, k), dtype=torch.int64,
                               device=runs.device)
-            launch_merge(runs, extra, out)
+            launch_merge(runs, extra, out, f)
             runs = out
         else:
-            runs = merge_plain(runs, extra)
+            runs = merge_plain(runs, extra, f)
         extra = None
     return runs[0]
 

@@ -55,13 +55,14 @@
 // keys, so the union sorts in device memory instead: one dict_union pass
 // with cap = T = DU_SORT_TILE gives every tile's keys sorted (its distinct
 // keys, padded with the sentinel) over enough blocks to cover the card;
-// dict_merge passes merge pairs of sorted runs (each key's place is its
-// index plus its rank in the other run, by binary search: stable, no
-// atomics) until one run is left; dict_count counts the distinct keys of
-// each chunk of DC_CHUNK sorted keys and dict_compact writes the first cap
-// of them in order (a chunk's offset is the sum of the counts before it, a
-// key's rank within it a block scan), pads with the sentinel and flags more
-// than cap.  Memory: two buffers of the keys.
+// dict_merge levels merge up to DM_FAN_MAX sorted runs into one each (a key's
+// place is its index plus, in each other run of its group, the count of keys
+// before it: stable), two levels up to 64 runs (the mesh path's
+// 163,840 and 262,144 keys), until one run is left; dict_count counts the
+// distinct keys of each chunk of DC_CHUNK sorted keys and dict_compact
+// writes the first cap of them in order (a chunk's offset is the sum of the
+// counts before it, a key's rank within it a block scan), pads with the
+// sentinel and flags more than cap.  Memory: two buffers of the keys.
 //
 // What bounds them on an H100: dict_keys reads the referenced columns of
 // every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
@@ -75,7 +76,17 @@
 // stride-th key (at most DI_SPLITS: a larger table costs more to fill in
 // every block than it saves) places the key within one stride, which
 // halving narrows to its place.  The perm's lower bounds run beside the
-// keys over the whole grid, not in one block.  At the mesh path's shapes
+// keys over the whole grid, not in one block.  dict_merge moves the keys
+// once a level (1.3 MB at a shard union: under a microsecond of HBM, and the
+// keys stay in L2), so launches and dependent loads bound it: the pairwise
+// passes it replaces took one launch a doubling and searched every key's
+// place in L2 (up to 17 dependent loads).  A level now merges up to eight
+// runs in two rounds of loads a block: its keys with every run's samples
+// and live count, then its windows (cp.async); the counts come from merges
+// in shared memory.  A block takes DM_CHUNK = 2,048 keys, so that a
+// union's grid (80 or 128 blocks) holds one block an SM.  What is left is
+// the levels' fixed latency (about 10 us a block) and F - 1 merge walks a
+// key.  At the mesh path's shapes
 // (131,072 rows a shard, cap 64) all three are a few microseconds of launch
 // latency.
 //
@@ -84,6 +95,8 @@
 //
 // Layout contract with tikv_tpu_torch/copr/fused_dict.py (the wrapper
 // checks sizeof(DkParams) and the limits at load).
+
+#include <cuda_pipeline.h>
 
 #include "fa_walk.cuh"
 
@@ -97,8 +110,15 @@
 #define DU_TILE_MAX 16384          // the largest tile (1,024 threads), 136 KB in shared memory
 #define DU_PINGPONG_MAX 8192       // tiles up to this merge between two buffers
 #define DU_SORT_TILE 4096          // the sort route's tile
-#define DM_THREADS 256
-#define DM_GRID_MAX 4096
+#define DM_THREADS 512
+#define DM_CHUNK 2048              // keys of one run a dict_merge block places
+#define DM_PAD 16                  // a pad slot every DM_PAD keys of a dict_merge chunk
+#define DM_FAN_MAX 8               // runs a dict_merge level merges into one
+#define DM_STAGE 18432             // keys of the other runs a dict_merge block stages at once
+#define DM_SAMPLES 256             // the most keys of a run a dict_merge block samples
+#define DM_SAMPLE_GAP 32           // the fewest keys between two of them
+#define DM_BIG 4096                // a dict_merge window past this is searched, not staged
+#define DM_TILE DU_SORT_TILE       // the tiles whose live keys dict_union counts
 #define DC_PER_THREAD 8
 #define DC_CHUNK (DU_THREADS * DC_PER_THREAD)  // sorted keys a dict_count/dict_compact block reads
 #define DI_SMEM_KEYS 8192          // past this, dict_ids' table holds every stride-th key
@@ -319,12 +339,14 @@ __device__ __forceinline__ void du_merge_path(const long long* s, int L, long lo
 // Keys [blockIdx.x * T, (blockIdx.x + 1) * T) of the virtual array
 // (dict[0..n_dict) ++ keys[0..n_keys)), padded with the sentinel, sorted;
 // out[blockIdx.x] = their first cap distinct non-sentinel keys, padded with
-// the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more.  T is
-// a power of two in [DU_WARP_KEYS, DU_TILE_MAX], the block T / DU_E threads.
+// the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more;
+// tile_live[blockIdx.x] (when not null: the sort route) the count of those
+// keys.  T is a power of two in [DU_WARP_KEYS, DU_TILE_MAX], the block T /
+// DU_E threads.
 __global__ void __launch_bounds__(DU_THREADS)
 dict_union(const long long* __restrict__ dict, long long n_dict,
            const long long* __restrict__ keys, long long n_keys, long long* __restrict__ out,
-           int* flag, int cap, int T) {
+           int* flag, int cap, int T, int* __restrict__ tile_live) {
   extern __shared__ long long du_smem[];
   __shared__ int warp_sums[32];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -392,46 +414,271 @@ dict_union(const long long* __restrict__ dict, long long n_dict,
   }
   for (int r = distinct + tid; r < cap; r += nt) out_tile[r] = DK_SENTINEL;
   if (distinct > cap && tid == 0) atomicOr(flag, DK_FLAG_CAPACITY);
+  if (tile_live != nullptr && tid == 0) tile_live[blockIdx.x] = distinct < cap ? distinct : cap;
 }
 
 // ---------------------------------------------------------------------------
 // dict_merge, dict_count, dict_compact: the union past DI_SMEM_KEYS slots
 // ---------------------------------------------------------------------------
 
-// The first position of d[0..n) (sorted, in device memory) holding a value
-// > x (upper) or >= x (lower).
-__device__ __forceinline__ long long dm_bound(const long long* d, long long n, long long x,
-                                              bool upper) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    const long long v = __ldg(d + mid);
-    if (v < x || (upper && v == x)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+// Shared-memory slot of a dict_merge block's key t (or staged key t): one
+// pad slot every DM_PAD keys, so that threads walking the keys DM_PAD apart
+// meet on few banks.
+__host__ __device__ constexpr int dm_pad(int t) { return t + t / DM_PAD; }
+
+// Whether key v of another run goes before the key x in a stable merge:
+// below it, or equal to it when the other run comes first (`upper`).
+__device__ __forceinline__ bool dm_before(long long v, long long x, bool upper) {
+  return v < x || (upper && v == x);
 }
 
-// One merge pass: the sorted runs [r * W, (r + 1) * W) of src[0..n) (the
-// last one may be short) merged pairwise into dst, run 2q with run 2q + 1.
-// A key of the first run goes to its index plus the count of the second's
-// keys below it; one of the second run to its index plus the count of the
-// first's keys at or below it.
+// One merge level: the sorted runs [q * W, (q + 1) * W) of src[0..n) (the
+// last one may be short) merged F at a time into dst, runs gF .. gF + F - 1
+// into one run of F * W keys (n and W multiples of DM_TILE, 2 <= F <=
+// DM_FAN_MAX).  Every run is its live (non-sentinel) keys, sorted, then
+// sentinels: tile_live[t] counts the live keys of tile t of the tile sort,
+// and a run's are the sum of its tiles'.  So a group's run is its live keys
+// merged, then every sentinel; a sentinel goes after the group's live keys
+// and the sentinels of the runs before its own, in run order.  A block
+// takes DM_CHUNK consecutive keys of one run r; a live key's place is its
+// index in r plus, for each other run s of the group, the count of s's keys
+// before it (below it, or equal when s comes before r: the merge is stable,
+// and equal keys are equal words).  A warp a run reads evenly spaced keys of
+// it (samples: a key every `stride`), which bound a window of s that holds
+// every count the block's live keys need there (the samples before its
+// first key and after its last live key; the keys below the window count
+// for all of them).  A group whose runs already follow each other in order
+// (each run's last key at most the next one's first: the tiles of a sorted
+// dictionary) is copied.  A window of up to DM_BIG keys is staged in shared
+// memory (DM_STAGE keys at a time, cp.async, all in flight) and merged with
+// the chunk's live keys by a share of the block's threads, the shares as
+// the merges' lengths, a span of the merge a thread (merge path: a search
+// on its diagonal, then a walk), each key's count added into a shared count
+// a key.  A larger window (a chunk whose keys spread over a run far denser
+// than it) is not staged: each live key finds its place in it from the
+// samples, then by halving in device memory within a stride.
 __global__ void __launch_bounds__(DM_THREADS)
-dict_merge(const long long* __restrict__ src, long long n, long long W,
-           long long* __restrict__ dst) {
-  const long long stride = (long long)gridDim.x * DM_THREADS;
-  for (long long i = (long long)blockIdx.x * DM_THREADS + threadIdx.x; i < n; i += stride) {
-    const long long a0 = i / (2 * W) * 2 * W;
-    const long long b0 = a0 + W < n ? a0 + W : n;
-    const long long b1 = b0 + W < n ? b0 + W : n;
-    const long long x = __ldg(src + i);
-    const long long at = i < b0 ? i + dm_bound(src + b0, b1 - b0, x, false)
-                                : i - W + dm_bound(src + a0, b0 - a0, x, true);
-    dst[at] = x;
+dict_merge(const long long* __restrict__ src, long long n, long long W, int F,
+           const int* __restrict__ tile_live, long long* __restrict__ dst) {
+  extern __shared__ long long dm_stage[];
+  // key t of the chunk and its count at dm_pad(t)
+  __shared__ long long keys[dm_pad(DM_CHUNK)];
+  __shared__ int counts[dm_pad(DM_CHUNK)];
+  __shared__ long long samples[DM_FAN_MAX][DM_SAMPLES];
+  __shared__ long long live[DM_FAN_MAX], last[DM_FAN_MAX];
+  __shared__ long long win_lo[DM_FAN_MAX], win_hi[DM_FAN_MAX], seg_at[DM_FAN_MAX];
+  __shared__ int seg_off[DM_FAN_MAX], seg_len[DM_FAN_MAX], first[DM_FAN_MAX + 1];
+  __shared__ int staged;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * DM_CHUNK;
+  const long long r = base / W;
+  const long long g0 = r / F * F;
+  const long long runs = (n + W - 1) / W;
+  const int m = (int)(runs - g0 < F ? runs - g0 : F);  // the group's runs
+  const int jr = (int)(r - g0);                         // r among them
+  // a sample every `stride` keys: ns of them a run, a power of two
+  const int ns = W / DM_SAMPLE_GAP < DM_SAMPLES ? (int)(W / DM_SAMPLE_GAP) : DM_SAMPLES;
+  const long long stride = W / ns;
+  {  // every load of this round in flight before any is stored
+    constexpr int KE = DM_CHUNK / DM_THREADS, SE = DM_FAN_MAX * DM_SAMPLES / DM_THREADS;
+    long long kv[KE], sv[SE];
+#pragma unroll
+    for (int u = 0; u < KE; ++u) kv[u] = __ldg(src + base + tid + u * DM_THREADS);
+#pragma unroll
+    for (int u = 0; u < SE; ++u) {
+      const int t = tid + u * DM_THREADS, j = t / ns, q = t - j * ns;
+      const long long at = (g0 + j) * W + (long long)q * stride;
+      sv[u] = m > 1 && j < m && at < n ? __ldg(src + at) : DK_SENTINEL;
+    }
+    // a run's last key: a group whose runs follow each other in order is
+    // merged already
+    const long long end = tid < m ? ((g0 + tid + 1) * W < n ? (g0 + tid + 1) * W : n) : 0;
+    const long long last_v = m > 1 && tid < m ? __ldg(src + end - 1) : 0;
+    long long c = 0;
+    if (m > 1 && warp < m) {  // a warp a run: its tiles' live keys
+      const long long t0 = (g0 + warp) * (W / DM_TILE);
+      const long long t1 = t0 + W / DM_TILE < n / DM_TILE ? t0 + W / DM_TILE : n / DM_TILE;
+      for (long long t = t0 + lane; t < t1; t += 32) c += __ldg(tile_live + t);
+    }
+#pragma unroll
+    for (int u = 0; u < KE; ++u) {
+      keys[dm_pad(tid + u * DM_THREADS)] = kv[u];
+      counts[dm_pad(tid + u * DM_THREADS)] = 0;
+    }
+#pragma unroll
+    for (int u = 0; u < SE; ++u) {
+      const int t = tid + u * DM_THREADS, j = t / ns;
+      if (j < m) samples[j][t - j * ns] = sv[u];
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(0xffffffffu, c, d);
+    if (warp < m && lane == 0) live[warp] = c;
+    if (tid < m) last[tid] = last_v;
+  }
+  __syncthreads();
+  bool in_order = true;  // each run's last key at most the next one's first
+  for (int j = 0; j + 1 < m; ++j) in_order = in_order && last[j] <= samples[j + 1][0];
+  if (m == 1 || in_order) {  // a group of one run, or of runs in order: copied
+    for (int t = tid; t < DM_CHUNK; t += DM_THREADS) dst[base + t] = keys[dm_pad(t)];
+    return;
+  }
+  // the group's live keys, then the sentinels of the runs before r
+  long long all_live = 0, sent_before = 0;
+  for (int j = 0; j < m; ++j) {
+    all_live += live[j];
+    if (j < jr) {
+      const long long len = n - (g0 + j) * W < W ? n - (g0 + j) * W : W;
+      sent_before += len - live[j];
+    }
+  }
+  const long long i0 = base - r * W;  // the chunk's first key's index in r
+  const long long live_r = live[jr];
+  const int chunk_live = (int)(live_r - i0 <= 0 ? 0 : (live_r - i0 < DM_CHUNK ? live_r - i0
+                                                                              : DM_CHUNK));
+  long long below = 0;
+  if (chunk_live > 0) {
+    const long long x_first = keys[0], x_last = keys[dm_pad(chunk_live - 1)];
+    if (warp < m) {  // a warp a run: its window, from the samples before the two keys
+      long long lo = 0, hi = 0;
+      if (warp != jr) {
+        const bool upper = warp < jr;
+        int c = 0, c2 = 0;
+        for (int u = lane; u < ns; u += 32) {
+          const long long v = samples[warp][u];
+          c += dm_before(v, x_first, upper);
+          c2 += dm_before(v, x_last, upper);
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          c += __shfl_xor_sync(0xffffffffu, c, d);
+          c2 += __shfl_xor_sync(0xffffffffu, c2, d);
+        }
+        lo = c > 0 ? (long long)(c - 1) * stride + 1 : 0;
+        hi = c2 < ns ? (long long)c2 * stride : W;
+        hi = hi < live[warp] ? hi : live[warp];
+        hi = hi > lo ? hi : lo;
+      }
+      if (lane == 0) {
+        win_lo[warp] = lo;
+        win_hi[warp] = hi;
+      }
+    }
+    __syncthreads();
+    for (int j = 0; j < m; ++j) below += win_lo[j];
+    // the windows too large to stage: each live key's count there from the
+    // samples, then halving in device memory within a stride
+    for (int j = 0; j < m; ++j) {
+      const long long lo_j = win_lo[j];
+      if (win_hi[j] - lo_j <= DM_BIG) continue;
+      const bool upper = j < jr;
+      const long long* run = src + (g0 + j) * W;
+      const long long hi_j = live[j];
+      for (int t = tid; t < chunk_live; t += DM_THREADS) {
+        const long long x = keys[dm_pad(t)];
+        int c = 0;  // the samples before x: a prefix
+        for (int half = ns >> 1; half > 0; half >>= 1) {
+          if (dm_before(samples[j][c + half - 1], x, upper)) c += half;
+        }
+        if (dm_before(samples[j][c], x, upper)) ++c;
+        long long a = c > 0 ? (long long)(c - 1) * stride + 1 : 0;
+        long long b = c < ns ? (long long)c * stride : hi_j;
+        b = b < hi_j ? b : hi_j;
+        while (a < b) {
+          const long long mid = (a + b) >> 1;
+          if (dm_before(__ldg(run + mid), x, upper)) {
+            a = mid + 1;
+          } else {
+            b = mid;
+          }
+        }
+        if (a > lo_j) atomicAdd(&counts[dm_pad(t)], (int)(a - lo_j));
+      }
+    }
+    __syncthreads();  // win_lo becomes each staged window's next unstaged key
+    for (;;) {
+      if (tid == 0) {
+        int used = 0, work = 0;
+        for (int j = 0; j < m; ++j) {
+          const long long left = win_hi[j] - win_lo[j];
+          const int take = left > DM_BIG ? 0 : (int)(left < DM_STAGE - used ? left
+                                                                              : DM_STAGE - used);
+          seg_off[j] = used;
+          seg_len[j] = take;
+          seg_at[j] = win_lo[j];
+          win_lo[j] += take;
+          used += take;
+          work += take > 0 ? chunk_live + take : 0;
+        }
+        staged = used;
+        // each staged segment's share of the threads, as its merge's length
+        // (at least one each: the shares add up to DM_THREADS at most)
+        int at = 0;
+        for (int j = 0; j < m; ++j) {
+          first[j] = at;
+          if (seg_len[j] > 0) {
+            at += 1 + (int)((long long)(DM_THREADS - DM_FAN_MAX) * (chunk_live + seg_len[j]) /
+                            work);
+          }
+        }
+        first[m] = at;
+      }
+      __syncthreads();
+      if (staged == 0) break;
+      for (int j = 0; j < m; ++j) {
+        const long long* from = src + (g0 + j) * W + seg_at[j];
+        const int off = seg_off[j];
+        for (int t = tid; t < seg_len[j]; t += DM_THREADS) {
+          __pipeline_memcpy_async(dm_stage + dm_pad(off + t), from + t, sizeof(long long));
+        }
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      // each staged segment merged with the chunk's live keys by its
+      // threads, a span of the merge each (merge path): a key taken after
+      // jj keys of the segment counts jj of them
+      int j = 0;
+      while (j < m && first[j + 1] <= tid) ++j;
+      if (j < m && seg_len[j] > 0) {
+        const int per = first[j + 1] - first[j];
+        const int off = seg_off[j];  // segment key t at dm_stage[dm_pad(off + t)]
+        const int L = seg_len[j], total = chunk_live + L;
+        const bool upper = j < jr;
+        const int span = (total + per - 1) / per;
+        const int d = (tid - first[j]) * span, d_end = d + span < total ? d + span : total;
+        if (d < d_end) {
+          int lo = d - L > 0 ? d - L : 0, hi = d < chunk_live ? d : chunk_live;
+          while (lo < hi) {  // the chunk's keys among the merge's first d
+            const int mid = (lo + hi) >> 1;
+            if (!dm_before(dm_stage[dm_pad(off + d - 1 - mid)], keys[dm_pad(mid)], upper)) {
+              lo = mid + 1;
+            } else {
+              hi = mid;
+            }
+          }
+          int i = lo, jj = d - lo;
+          long long a = i < chunk_live ? keys[dm_pad(i)] : 0;
+          long long b = jj < L ? dm_stage[dm_pad(off + jj)] : 0;
+          while (i + jj < d_end) {
+            if (i < chunk_live && (jj == L || !dm_before(b, a, upper))) {
+              if (jj > 0) atomicAdd(&counts[dm_pad(i)], jj);
+              ++i;
+              a = i < chunk_live ? keys[dm_pad(i)] : 0;
+            } else {
+              ++jj;
+              b = jj < L ? dm_stage[dm_pad(off + jj)] : 0;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  long long* out = dst + g0 * W;
+  for (int t = tid; t < DM_CHUNK; t += DM_THREADS) {
+    const long long i = i0 + t;
+    out[i < live_r ? i + below + counts[dm_pad(t)] : all_live + sent_before + (i - live_r)] =
+        keys[dm_pad(t)];
   }
 }
 
@@ -603,7 +850,7 @@ static int du_smem_bytes(int T) {
 
 // One pass: ceil((n_dict + n_keys) / T) tiles, out [tiles][cap].
 int du_launch(const long long* dict, long long n_dict, const long long* keys, long long n_keys,
-              long long* out, int* flag, int cap, int T, void* stream) {
+              long long* out, int* flag, int cap, int T, int* tile_live, void* stream) {
   if (T < DU_WARP_KEYS || T > DU_TILE_MAX || (T & (T - 1)) != 0 || cap > T) {
     return (int)cudaErrorInvalidValue;
   }
@@ -613,8 +860,8 @@ int du_launch(const long long* dict, long long n_dict, const long long* keys, lo
   const int err = (int)cudaFuncSetAttribute(dict_union,
                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
-  dict_union<<<(unsigned)tiles, T / DU_E, smem, (cudaStream_t)stream>>>(dict, n_dict, keys,
-                                                                       n_keys, out, flag, cap, T);
+  dict_union<<<(unsigned)tiles, T / DU_E, smem, (cudaStream_t)stream>>>(
+      dict, n_dict, keys, n_keys, out, flag, cap, T, tile_live);
   return (int)cudaGetLastError();
 }
 
@@ -659,14 +906,43 @@ int di_attributes(int cap, int* out) {
   return 0;
 }
 
-// One merge pass over n keys in runs of W.
-int dm_launch(const long long* src, long long n, long long W, long long* dst, void* stream) {
+// One merge level over n keys in runs of W, F runs into one; tile_live: the
+// tile sort's live keys a tile.
+int dm_launch(const long long* src, long long n, long long W, int F, const int* tile_live,
+              long long* dst, void* stream) {
   if (n == 0) return 0;
-  long long grid = (n + DM_THREADS - 1) / DM_THREADS;
-  if (grid > DM_GRID_MAX) grid = DM_GRID_MAX;
-  dict_merge<<<(unsigned)grid, DM_THREADS, 0, (cudaStream_t)stream>>>(src, n, W, dst);
+  if (n % DM_TILE != 0 || W % DM_TILE != 0 || F < 2 || F > DM_FAN_MAX || tile_live == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = dm_pad(DM_STAGE) * 8;
+  static unsigned long long smem_set = 0;  // the attribute once a device
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= 64 || !((smem_set >> dev) & 1)) {
+    err = (int)cudaFuncSetAttribute(dict_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != 0) return err;
+    if (dev < 64) smem_set |= 1ULL << dev;
+  }
+  dict_merge<<<(unsigned)(n / DM_CHUNK), DM_THREADS, smem, (cudaStream_t)stream>>>(
+      src, n, W, F, tile_live, dst);
   return (int)cudaGetLastError();
 }
+
+// cudaFuncGetAttributes of dict_merge: registers a thread, local and static
+// shared bytes, into out[0..3).
+int dm_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)dict_merge);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+int dm_chunk(void) { return DM_CHUNK; }
+int dm_fan_max(void) { return DM_FAN_MAX; }
 
 // counts: one int per chunk of DC_CHUNK keys, ceil(n / DC_CHUNK) of them.
 int dc_launch_count(const long long* s, long long n, int* counts, void* stream) {

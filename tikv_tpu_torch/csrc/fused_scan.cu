@@ -8,8 +8,9 @@
 //   * jax_eval.py:_build_topn_fn / _topn_step (site jax_eval.topn): one step
 //     of the running top-K of a raw TopN, a stable lexicographic sort of
 //     the carried K rows ahead of the block's rows -> topn_candidates (a
-//     sorted run of K per tile of rows) + topn_merge (runs merged pairwise
-//     into their first K, level by level, the carry as one more run);
+//     sorted run of K per tile of rows) + topn_merge (up to TN_FAN_MAX runs
+//     merged into their first K by one block, the carry as one more run:
+//     one launch for a block's or a shard's runs, three for 100M rows);
 //   * jax_eval.py:_pack_leaves (site jax_eval.pack_topn): the K-row state
 //     stacked into one int64 and one f64 matrix for one pull -> topn_pack,
 //     which also gathers the K winners' payload columns.
@@ -43,7 +44,13 @@
 // chunks (a pass only on the bits where the tied entries differ), walks
 // again only the steps that hold a candidate, and sorts at most `cap`
 // candidates (about 2k) in shared memory instead of the whole tile: its
-// shared memory follows k, so several blocks share an SM.  The candidate
+// shared memory follows k, so several blocks share an SM.
+// topn_merge moves little (a shard's 33 runs of K = 100 entries: 0.1 MB):
+// launches and dependent loads bound it.  Its pairwise levels, one launch
+// each with every entry's place searched in device memory, became one
+// block a group of runs that stages them in shared memory and merges them
+// there by a tree of merge-path levels, one barrier a level, each
+// comparison on 64-bit prefixes of the entries.  The candidate
 // kernel reads only the columns the selection and the keys reference;
 // payload columns are read by topn_pack for the K winners alone.
 //
@@ -72,12 +79,19 @@
 // copr/fused_topn.py (the wrappers check sizeof(ScParams) and
 // sizeof(TpParams) at load; a CPU test checks the limits).
 
+#include <cuda_pipeline.h>
+
 #include "fa_walk.cuh"
 
 #define SC_MASK_THREADS 256
 #define SC_MASK_ROWS 4  // rows a mask thread walks at once (its tile)
 #define TN_THREADS 256
 #define TN_MERGE_THREADS 256
+#define TN_TREE_THREADS 512  // a topn_merge block
+#define TN_FAN_MAX 64        // runs a topn_merge block merges at most
+#define TN_MERGE_WORDS 11    // the widest entry a topn_merge takes: a mesh finalize's
+// dynamic shared memory a topn_merge block may use: all but its run pointers
+#define TN_MERGE_SMEM (TN_SMEM_MAX - TN_FAN_MAX * 8)
 #define TN_MAX_KEYS 4
 #define TN_MAX_PAYLOAD 16
 // dynamic shared memory a block may use on Hopper (227 KB)
@@ -671,8 +685,73 @@ static TnCandidatesKernel tn_candidates_kernel(int slots) {
 }
 
 // ---------------------------------------------------------------------------
-// topn_merge: runs 2j and 2j+1 -> run j, the first k of their merge
+// topn_merge: runs gF .. gF + F - 1 -> run g, the first k of their merge
 // ---------------------------------------------------------------------------
+
+// A topn_merge group's entries: run j of the group, slot i, named by the
+// 32-bit handle j << 16 | i.  STAGED: the runs copied into shared memory as
+// they lie ([W][k] a run, the runs one after another), with an
+// order-preserving prefix of each entry (tm_prefix), so that a comparison
+// reads two prefixes and only on a tie the words, all in shared memory;
+// otherwise (K too large for them) the words are read in place from device
+// memory.
+extern __shared__ u64 tm_smem[];  // a topn_merge block's dynamic shared memory
+
+// An order-preserving prefix of an entry's first three words (the rank, a
+// key's null rank and its key word at a raw TopN): a < b lexicographically
+// gives prefix(a) <= prefix(b), so two prefixes that differ order their
+// entries, and only equal ones need the words.  Each word saturates at 3
+// and ends the prefix there; the third keeps its top 60 bits.
+__device__ __forceinline__ u64 tm_prefix(u64 w0, u64 w1, u64 w2) {
+  if (w0 > 2) return 3ULL << 62;
+  if (w1 > 2) return (w0 << 62) | (3ULL << 60);
+  return (w0 << 62) | (w1 << 60) | (w2 >> 4);
+}
+
+// The handle of slot i of run j.
+__device__ __forceinline__ unsigned tm_handle(int j, int i) {
+  return ((unsigned)j << 16) | (unsigned)i;
+}
+
+// Word w of entry h: STAGED, from shared memory; else from its run's words
+// in device memory (runp: each run's first word).
+template <int W, bool STAGED>
+__device__ __forceinline__ u64 tm_word(const u64* const* runp, int k, unsigned h, int w) {
+  const int j = (int)(h >> 16), i = (int)(h & 0xffffu);
+  if constexpr (STAGED) {
+    return tm_smem[(j * W + w) * k + i];  // the staged runs lead it
+  } else {
+    return __ldg(runp[j] + w * k + i);
+  }
+}
+
+// Whether entry a (prefix pa) goes before entry b (prefix pb) or ties it
+// (words as u64, lexicographically).  STAGED: two prefixes that differ
+// decide; else all 2W words loaded at once, then compared.  In device
+// memory: word by word until two differ.
+template <int W, bool STAGED>
+__device__ __forceinline__ bool tm_le(const u64* const* runp, int k, u64 pa, unsigned a, u64 pb,
+                                      unsigned b) {
+  if constexpr (STAGED) {
+    if (pa != pb) return pa < pb;
+    u64 x[W], y[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      x[w] = tm_word<W, true>(runp, k, a, w);
+      y[w] = tm_word<W, true>(runp, k, b, w);
+    }
+    bool out = true;
+#pragma unroll
+    for (int w = W - 1; w >= 0; --w) out = x[w] != y[w] ? x[w] < y[w] : out;
+    return out;
+  } else {
+    for (int w = 0; w < W; ++w) {
+      const u64 x = tm_word<W, false>(runp, k, a, w), y = tm_word<W, false>(runp, k, b, w);
+      if (x != y) return x < y;
+    }
+    return true;
+  }
+}
 
 // Run r of `in` ([n_in][n_words][k]), or `extra` (the carry) as run n_in.
 __device__ __forceinline__ const u64* tn_run(const u64* in, long long n_in, const u64* extra,
@@ -680,45 +759,163 @@ __device__ __forceinline__ const u64* tn_run(const u64* in, long long n_in, cons
   return r < n_in ? in + r * n_words * k : extra;
 }
 
-// One thread per entry of the two runs: its place in the merge is its own
-// index plus the number of entries of the other run that go before it (an
-// entry of the first run goes before an equal one of the second), found by
-// binary search.  Every place below k is written by exactly one thread.
-__global__ void __launch_bounds__(TN_MERGE_THREADS)
+// One block merges its group of m <= F runs (the runs [g * F, g * F + m) of
+// in ++ extra, W words of k entries each) into their first k, in order, as
+// out[g].  STAGED: the group's runs are first copied into shared memory
+// (cp.async, every word in flight at once) and each entry's prefix
+// computed.  The merge is a tree of pairwise merges in one launch, over
+// entries (handle, and prefix when STAGED) in two shared buffers of
+// ceil(m / 2) lists of k: level 0 merges runs 2q and 2q + 1, each level
+// after it the lists of the last, an odd last list copied, until one list
+// is left.  Each pair's first k places are cut into spans of E (about
+// pairs * k / blockDim places a thread): a thread finds where its span
+// starts in the two lists by a binary search on its diagonal (merge path)
+// and merges E places in order; an entry of the earlier list goes first on
+// a tie, so each merge is stable and the tree gives the stable sort of the
+// group's runs in run order (the carry, run n_in, last), cut to k.  Then
+// the k winners' words are written.
+template <int W, bool STAGED>
+__global__ void __launch_bounds__(TN_TREE_THREADS)
 topn_merge(const u64* __restrict__ in, long long n_in, const u64* __restrict__ extra,
-           u64* __restrict__ out, int n_words, int k, int blocks_per_pair) {
-  const long long pair = blockIdx.x / blocks_per_pair;
-  const int e = (int)(blockIdx.x - pair * blocks_per_pair) * blockDim.x + threadIdx.x;
-  if (e >= 2 * k) return;
+           u64* __restrict__ out, int k, int F) {
+  __shared__ const u64* runp[TN_FAN_MAX];
+  const int tid = threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * F;
   const long long n_runs = n_in + (extra != nullptr ? 1 : 0);
-  const u64* A = tn_run(in, n_in, extra, 2 * pair, n_words, k);
-  u64* O = out + pair * n_words * k;
-  if (2 * pair + 1 >= n_runs) {  // odd one out: copied
-    if (e < k) {
-      for (int q = 0; q < n_words; ++q) O[(long long)q * k + e] = A[(long long)q * k + e];
-    }
+  const int m = (int)(n_runs - r0 < F ? n_runs - r0 : F);
+  const int run_words = W * k;
+  u64* O = out + (long long)blockIdx.x * run_words;
+  if (m == 1) {  // a group of one run: copied
+    const u64* A = tn_run(in, n_in, extra, r0, W, k);
+    for (int t = tid; t < run_words; t += TN_TREE_THREADS) O[t] = A[t];
     return;
   }
-  const u64* B = tn_run(in, n_in, extra, 2 * pair + 1, n_words, k);
-  const bool from_a = e < k;
-  const int x = from_a ? e : e - k;
-  const u64* X = from_a ? A : B;
-  const u64* Y = from_a ? B : A;
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int c = tn_cmp(Y, k, mid, X, k, x, n_words);
-    // from A: count the entries of B before x (c < 0); from B: those of A
-    // before or equal to x (c <= 0)
-    if (c < 0 || (!from_a && c == 0)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+  const int half = (m + 1) / 2;
+  // STAGED: the runs' words, their prefixes (slot i of run j at j * k + i),
+  // the two buffers' prefixes; then the two buffers' handles
+  u64* stage = tm_smem;
+  u64* pk0 = stage + m * run_words;
+  u64* lpk = pk0 + m * k;
+  unsigned* lh = (unsigned*)(STAGED ? lpk + 2 * half * k : tm_smem);
+  if (STAGED) {
+    // the group's runs of `in` lie together; the carry apart, after them.
+    // cp.async: every word of the group in flight at once
+    const int m_in = (int)(n_in - r0 < m ? (n_in > r0 ? n_in - r0 : 0) : m);
+    const u64* from = in + r0 * run_words;
+    for (int t = tid; t < m_in * run_words; t += TN_TREE_THREADS) {
+      __pipeline_memcpy_async(stage + t, from + t, sizeof(u64));
     }
+    if (m_in < m) {
+      for (int t = tid; t < run_words; t += TN_TREE_THREADS) {
+        __pipeline_memcpy_async(stage + m_in * run_words + t, extra + t, sizeof(u64));
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int t = tid; t < m * k; t += TN_TREE_THREADS) {
+      const int j = t / k, i = t - j * k;
+      const u64* e = stage + j * run_words + i;
+      pk0[t] = tm_prefix(e[0], W > 1 ? e[k] : 0, W > 2 ? e[2 * k] : 0);
+    }
+  } else if (tid < m) {
+    runp[tid] = tn_run(in, n_in, extra, r0 + tid, W, k);
   }
-  const int pos = x + lo;
-  if (pos < k) {
-    for (int q = 0; q < n_words; ++q) O[(long long)q * k + pos] = X[(long long)q * k + x];
+  __syncthreads();
+  int level = 0;
+  for (int n_lists = m; n_lists > 1; n_lists = (n_lists + 1) / 2, ++level) {
+    const int from = (level & 1) ? 0 : half * k;  // the last level's lists
+    const int to = (level & 1) ? half * k : 0;
+    // entry i of list l of this level (level 0: the runs themselves): its
+    // handle, and its prefix when STAGED
+#define TM_HANDLE(l, i) (level == 0 ? tm_handle((l), (i)) : lh[from + (l) * k + (i)])
+#define TM_PREFIX(l, i) (!STAGED ? 0ULL : level == 0 ? pk0[(l) * k + (i)] : lpk[from + (l) * k + (i)])
+    const int pairs = n_lists / 2;
+    const int E = (pairs * k + TN_TREE_THREADS - 1) / TN_TREE_THREADS;
+    const int spans = (k + E - 1) / E;  // a pair's
+    for (int item = tid; item < pairs * spans; item += TN_TREE_THREADS) {
+      const int p = item / spans;
+      const int o = (item - p * spans) * E;
+      const int a = 2 * p, b = a + 1;
+      int lo = 0, hi = o;  // entries of list a among the first o places
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (tm_le<W, STAGED>(runp, k, TM_PREFIX(a, mid), TM_HANDLE(a, mid),
+                             TM_PREFIX(b, o - 1 - mid), TM_HANDLE(b, o - 1 - mid))) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      int i = lo, j = o - lo;  // i + j < k below: both inside their lists
+      const int end = o + E < k ? o + E : k;
+      unsigned ha = TM_HANDLE(a, i), hb = TM_HANDLE(b, j);
+      u64 pa = TM_PREFIX(a, i), pb = TM_PREFIX(b, j);
+      for (int q = o; q < end; ++q) {
+        const int at = to + p * k + q;
+        if (tm_le<W, STAGED>(runp, k, pa, ha, pb, hb)) {
+          lh[at] = ha;
+          if (STAGED) lpk[at] = pa;
+          if (++i < k) {
+            ha = TM_HANDLE(a, i);
+            pa = TM_PREFIX(a, i);
+          }
+        } else {
+          lh[at] = hb;
+          if (STAGED) lpk[at] = pb;
+          if (++j < k) {
+            hb = TM_HANDLE(b, j);
+            pb = TM_PREFIX(b, j);
+          }
+        }
+      }
+    }
+    if (n_lists & 1) {
+      for (int i = tid; i < k; i += TN_TREE_THREADS) {
+        lh[to + pairs * k + i] = TM_HANDLE(n_lists - 1, i);
+        if (STAGED) lpk[to + pairs * k + i] = TM_PREFIX(n_lists - 1, i);
+      }
+    }
+#undef TM_HANDLE
+#undef TM_PREFIX
+    __syncthreads();
+  }
+  const unsigned* fin = lh + ((level & 1) ? 0 : half * k);
+  for (int t = tid; t < run_words; t += TN_TREE_THREADS) {
+    const int w = t / k, s = t - w * k;
+    O[t] = tm_word<W, STAGED>(runp, k, fin[s], w);
+  }
+}
+
+// The shared memory of a topn_merge block: STAGED, the staged runs, their
+// prefixes and the two buffers' prefixes; the buffers' handles.
+static long long tm_smem_bytes(int F, int n_words, int k, bool staged) {
+  const long long lists = 2LL * ((F + 1) / 2) * k;
+  return (staged ? ((long long)F * n_words * k + (long long)F * k + lists) * 8 : 0) + lists * 4;
+}
+
+// The instance for n_words (2 .. TN_MERGE_WORDS), staged or not.
+static_assert(TN_MERGE_WORDS == 3 + 2 * TN_MAX_KEYS, "rank, the keys' words, src and a position");
+typedef void (*TmKernel)(const u64*, long long, const u64*, u64*, int, int);
+
+template <int W>
+static TmKernel tm_kernel_w(bool staged) {
+  return staged ? topn_merge<W, true> : topn_merge<W, false>;
+}
+
+static TmKernel tm_kernel(int n_words, bool staged) {
+  switch (n_words) {
+    case 2: return tm_kernel_w<2>(staged);
+    case 3: return tm_kernel_w<3>(staged);
+    case 4: return tm_kernel_w<4>(staged);
+    case 5: return tm_kernel_w<5>(staged);
+    case 6: return tm_kernel_w<6>(staged);
+    case 7: return tm_kernel_w<7>(staged);
+    case 8: return tm_kernel_w<8>(staged);
+    case 9: return tm_kernel_w<9>(staged);
+    case 10: return tm_kernel_w<10>(staged);
+    case 11: return tm_kernel_w<11>(staged);
+    default: return nullptr;
   }
 }
 
@@ -855,15 +1052,56 @@ int tn_candidates_attributes(int slots, int* out) {
 
 int tn_step_rows(void) { return TN_ROWS * TN_THREADS; }
 
+// One merge level: groups of F runs of in ++ extra, one block each, out
+// [ceil(runs / F)][n_words][k]; the runs staged in shared memory where F of
+// them fit beside their prefixes and handles (tn_merge_staged), else read
+// in place.
 int tn_launch_merge(const u64* in, long long n_in, const u64* extra, u64* out, int n_words, int k,
-                    void* stream) {
+                    int F, void* stream) {
+  if (F < 2 || F > TN_FAN_MAX || k < 1 || k > 65536) return (int)cudaErrorInvalidValue;
   const long long n_runs = n_in + (extra != nullptr ? 1 : 0);
-  const long long pairs = (n_runs + 1) / 2;
-  const int per_pair = (2 * k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS;
-  topn_merge<<<(unsigned)(pairs * per_pair), TN_MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      in, n_in, extra, out, n_words, k, per_pair);
+  if (n_runs < 1) return 0;
+  const bool staged = tm_smem_bytes(F, n_words, k, true) <= TN_MERGE_SMEM;
+  const long long smem = tm_smem_bytes(F, n_words, k, staged);
+  const TmKernel kern = tm_kernel(n_words, staged);
+  if (kern == nullptr || smem > TN_MERGE_SMEM) return (int)cudaErrorInvalidValue;
+  // each instance may take all of a block's shared memory: set once a device
+  static unsigned long long smem_set[2][TN_MERGE_WORDS + 1] = {};
+  unsigned long long& set = smem_set[staged ? 1 : 0][n_words];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= 64 || !((set >> dev) & 1)) {
+    err = (int)cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    TN_MERGE_SMEM);
+    if (err != 0) return err;
+    if (dev < 64) set |= 1ULL << dev;
+  }
+  kern<<<(unsigned)((n_runs + F - 1) / F), TN_TREE_THREADS, (size_t)smem,
+         (cudaStream_t)stream>>>(in, n_in, extra, out, k, F);
   return (int)cudaGetLastError();
 }
+
+// Whether a topn_merge level of F runs of n_words x k stages them.
+int tn_merge_staged(int F, int n_words, int k) {
+  return tm_smem_bytes(F, n_words, k, true) <= TN_MERGE_SMEM ? 1 : 0;
+}
+
+// cudaFuncGetAttributes of the topn_merge instance for n_words (staged or
+// not): registers a thread, local and static shared bytes, into out[0..3).
+int tn_merge_attributes(int n_words, int staged, int* out) {
+  const TmKernel kern = tm_kernel(n_words, staged != 0);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)kern);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+int tn_fan_max(void) { return TN_FAN_MAX; }
 
 int tn_launch_pack(const TpParams* p, void* stream) {
   topn_pack<<<(p->k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS, TN_MERGE_THREADS, 0,

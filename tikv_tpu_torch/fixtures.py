@@ -1436,10 +1436,11 @@ def warm_kernel_outputs(cache, block_rows: int, device) -> dict:
     ft.launch_candidates(prog, cand, runs, 0)
     want_runs = ft.candidates_plain(prog, cand, 0)
     out["topn_candidates"] = (cpu(runs), cpu(want_runs))
-    level = torch.empty(((runs.shape[0] + 1) // 2, prog.n_words, prog.k), dtype=torch.int64,
+    f = (ft.merge_fans(runs.shape[0], prog.n_words, prog.k) or [2])[0]
+    level = torch.empty((-(-runs.shape[0] // f), prog.n_words, prog.k), dtype=torch.int64,
                         device=device)
-    ft.launch_merge(runs, None, level)
-    out["topn_merge"] = (cpu(level), cpu(ft.merge_plain(want_runs)))
+    ft.launch_merge(runs, None, level, f)
+    out["topn_merge"] = (cpu(level), cpu(ft.merge_plain(want_runs, None, f)))
     run = ft._merge_all(runs, None, cuda=True)
     state = (torch.empty((prog.n_int, prog.k), dtype=torch.int64, device=device),
              torch.empty((prog.n_f64, prog.k), dtype=torch.float64, device=device))
@@ -2071,6 +2072,102 @@ def union_kernel_check(d, keys: torch.Tensor, cap: int, device) -> dict:
     if runs[0][1] != (fd.FLAG_CAPACITY if over else 0):
         raise AssertionError(f"dict_union flag {runs[0][1]}, plain version over={over}")
     return {"over": over, "live": int((want < fd.SENTINEL).sum())}
+
+
+def sort_route_levels(d, keys: torch.Tensor, device) -> dict:
+    """The sort route's tile sort (its tiles and their live counts) and
+    ``dict_merge`` levels on CUDA copies of ``d`` (a dictionary or None) and
+    ``keys``, each level against ``merge_pass_plain`` of the plain tiles
+    exactly and run twice bit for bit; the last level against the sorted
+    keys.  Returns the sorted keys on the card, the tiles and their live
+    counts, the plan and each level's input and output (for timing)."""
+    from .copr import fused_dict as fd
+
+    lib = fd.kernels()
+    x = keys if d is None else torch.cat([d, keys])
+    n = x.numel()
+    sorted_n = fd.sorted_keys(n)
+    dd = None if d is None else d.to(device)
+    kd = keys.to(device)
+    n_d = 0 if d is None else d.numel()
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    tiles = torch.empty(sorted_n, dtype=torch.int64, device=device)
+    live = torch.empty(sorted_n // fd.SORT_TILE, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.du_launch(None if dd is None else dd.data_ptr(), n_d, kd.data_ptr(), kd.numel(),
+                       tiles.data_ptr(), flag.data_ptr(), fd.SORT_TILE, fd.SORT_TILE,
+                       live.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dict_union launch failed: cudaError {rc}")
+    want = fd.union_pass_plain(x.cpu(), fd.SORT_TILE, fd.SORT_TILE)[0].reshape(-1)
+    if not torch.equal(tiles.cpu(), want):
+        raise AssertionError("dict_union's tile sort differs from its plain version")
+    if not torch.equal(live.cpu(), (want < fd.SENTINEL).view(-1, fd.SORT_TILE).sum(1)
+                       .to(torch.int32)):
+        raise AssertionError("dict_union's live counts differ from the tiles'")
+    levels, src = [], tiles
+    for w, f in fd.merge_plan(n):
+        outs = []
+        for _ in range(2):
+            dst = torch.empty_like(src)
+            rc = lib.dm_launch(src.data_ptr(), sorted_n, w, f, live.data_ptr(), dst.data_ptr(),
+                               stream)
+            if rc != 0:
+                raise RuntimeError(f"dict_merge launch failed: cudaError {rc}")
+            outs.append(dst)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"dict_merge ({w}, {f}): two runs differ")
+        want = fd.merge_pass_plain(want, w, f)
+        if not torch.equal(outs[0].cpu(), want):
+            raise AssertionError(f"dict_merge ({w}, {f}) differs from its plain version")
+        levels.append((w, f, src, outs[0]))
+        src = outs[0]
+    if not torch.equal(src.cpu(), torch.sort(want).values):
+        raise AssertionError("the sort route's levels left the keys unsorted")
+    return {"sorted": src, "tiles": tiles, "live": live, "plan": fd.merge_plan(n),
+            "levels": levels}
+
+
+def topn_merge_case(n_runs: int, n_words: int, k: int, seed: int, device, carry: bool = True):
+    """``n_runs`` sorted top-K runs ``[n_runs, n_words, k]`` (and a carry
+    run) on ``device``, drawn with numpy from ``seed``: the rank word 0 or 1,
+    the middle words from a few values (ties in every word but ``src``,
+    which is unique), the first two runs identical but for ``src``."""
+    from .copr import fused_topn as ft
+
+    rng = np.random.default_rng(seed)
+    total = n_runs + (1 if carry else 0)
+    e = np.zeros((total, n_words, k), dtype=np.int64)
+    e[:, 0] = rng.integers(0, 2, size=(total, k))
+    for w in range(1, n_words - 1):
+        e[:, w] = rng.integers(-3, 3, size=(total, k))
+    if total > 1:
+        e[1, :-1] = e[0, :-1]
+    e[:, -1] = rng.permutation(total * k).reshape(total, k)
+    runs = torch.from_numpy(e)
+    runs = torch.stack([r[:, ft._lexsort(r[:, None, :])[0]] for r in runs]).to(device)
+    return runs[:n_runs].contiguous(), (runs[n_runs].contiguous() if carry else None)
+
+
+def topn_merge_check(runs: torch.Tensor, extra, fan_in: int) -> torch.Tensor:
+    """One ``topn_merge`` level on the card against ``merge_plain`` of CPU
+    copies, exactly, and two launches bit for bit; returns its output."""
+    from .copr import fused_topn as ft
+
+    n, n_words, k = runs.shape
+    shape = (-(-(n + (extra is not None)) // fan_in), n_words, k)
+    outs = []
+    for _ in range(2):
+        out = torch.empty(shape, dtype=torch.int64, device=runs.device)
+        ft.launch_merge(runs, extra, out, fan_in)
+        outs.append(out)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"topn_merge (fan-in {fan_in}): two runs differ")
+    want = ft.merge_plain(runs.cpu(), None if extra is None else extra.cpu(), fan_in)
+    if not torch.equal(outs[0].cpu(), want):
+        raise AssertionError(f"topn_merge (fan-in {fan_in}, k {k}, {n_words} words) differs "
+                             "from its plain version")
+    return outs[0]
 
 
 def image_on(img: Image, device) -> Image:
