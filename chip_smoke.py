@@ -92,20 +92,26 @@ their plain versions (with a rider of every leaf kind) and timed.
 
 Between phases ``batch`` and 12, phase ``mesh`` drives the mesh path
 (programs #16, #18, #19 and #20, ``tikv_tpu_torch/parallel/mesh.py``, the
-cross-shard merge ``mesh_merge`` of ``csrc/fused_mesh.cu``) on eight shards
-of the one card, ``make_mesh(["cuda:0"] * 8, groups)``: ``mesh_merge``
-against its plain version on synthetic states (every mergeable leaf kind,
-NaN, +-0.0, +-inf, int64 wrap; 8 and 64 parts, 16 and 331 slots); cold Q6
-and Q1 over the 1,000,000 KV rows through ``MeshServingRunner`` at 1,024
-and 65,536 rows per shard, groups 1 and 2; warm Q1 and Q6 through
+cross-shard kernels ``mesh_fold`` and ``mesh_merge`` of
+``csrc/fused_mesh.cu``) on eight shards of the one card,
+``make_mesh(["cuda:0"] * 8, groups)``: ``mesh_merge`` against its plain
+version on synthetic states (every mergeable leaf kind, NaN, +-0.0, +-inf,
+int64 wrap; 8 and 64 parts, 16 and 331 slots); cold Q6 and Q1 over the
+1,000,000 KV rows through ``MeshServingRunner`` at 1,024 and 65,536 rows
+per shard, groups 1 and 2 (the grouped combine launched 0 times: the
+shards' raw rows fold in ``mesh_fold``); warm Q1 and Q6 through
 ``launch_xregion_sharded`` over phase ``batch``'s 64 region images, its 8
 encoded ones and the 100M image alone (spread block by block); the raw
 TopN (K = 100) over 10M rows through ``ShardedTopNEvaluator`` at 131,072
 rows per shard.  Every answer equals its numpy oracle and, byte for byte,
-the single-device route's, whose times stand beside; then ``mesh_merge``
-at the path's own inputs, the busiest device's batch kernels and one
-shard's top-K kernels against their plain versions and timed; the slab
-bytes pinned.
+the single-device route's, whose times stand beside; then ``mesh_fold``
+at the path's own inputs (cold Q1's second super-block at G = 1 and 2 and
+1,024 rows a shard, and at 65,536) against its plain version and, every
+word, against the combines and ``mesh_merge`` it replaces, timed beside
+them; one cold super-block split by host step (``mesh_step_split``);
+``mesh_merge`` at the regions' inputs, the busiest device's batch kernels
+and one shard's top-K kernels against their plain versions and timed; the
+slab bytes pinned.
 
 After phase 12, phase ``join`` drives the join rung (programs #14 and #15,
 ``csrc/fused_join.cu``) through ``copr/torch_join.serve``: the join event of
@@ -125,7 +131,7 @@ bounds, their plain versions and ``torch.searchsorted``.
 After phase ``join``, phase ``mesh_grouped`` drives program #17, the group
 dictionary built on the card (``ShardedGroupedEvaluator``,
 ``csrc/fused_dict.cu``: ``dict_keys``, ``dict_union``, ``dict_ids``; the
-carry remap in ``mesh_merge``), on eight shards of the card over
+carry remap in ``mesh_fold``), on eight shards of the card over
 10,000,000 lineitem rows (super-blocks of 8 x 131,072 rows, the last one
 partial), each case twice: Q1's grouped shape (GROUP BY l_returnflag,
 l_linestatus as INT codes) at G = 1 and 2, GROUP BY l_quantity,
@@ -133,8 +139,9 @@ l_linestatus as INT codes) at G = 1 and 2, GROUP BY l_quantity,
 capacity flag) and at 5 bits a key (the range flag); each answer equal to
 its numpy oracle (or its flag), the two runs bit for bit, the first
 1,048,576 rows equal to the same evaluator on eight CPU shards; each
-dictionary kernel and ``mesh_merge`` with the remap at the path's inputs
-equal to its plain version, timed beside ``torch.unique`` and
+dictionary kernel and ``mesh_fold`` with the remap at the path's inputs
+equal to its plain version (the fold also to the combines and
+``mesh_merge`` it replaces, bit for bit), timed beside ``torch.unique`` and
 ``torch.searchsorted``.
 
 After phase ``mesh_grouped``, phase ``high_capacity`` drives group slots
@@ -190,7 +197,8 @@ The launch counts in the kernels line are those of the main paths only: Q6
 ones, configs 1-2 (phase 8) for the mask, the raw TopN (phase 9) for the
 top-K kernels, phase ``zone`` for the zone-tile kernels, phase ``batch``
 for the batch kernels, phase ``join`` for the join probes, phase ``mesh``
-for ``mesh_merge`` (each reused kernel's ``mesh_launches`` too), phase
+for ``mesh_fold`` and ``mesh_merge`` (each reused kernel's
+``mesh_launches`` too, the grouped combine's 0), phase
 ``mesh_grouped`` for the dictionary kernels (``mesh_grouped_launches`` of
 the reused ones), phase ``high_capacity`` for the wide route and the sort
 route (``high_capacity_launches`` of the reused ones), phase ``write_path``
@@ -1474,10 +1482,165 @@ MESH_SHARDS = 8
 MESH_COLD_RPS = (1024, 1 << 16)
 MESH_TOPN_RPS = 1 << 17  # eight shards: super-blocks of 1,048,576 rows
 MESH_SRC = "tikv_tpu_torch/csrc/fused_mesh.cu"
-# the kernels the mesh main path launches: the merge and the reused ones
-MESH_KERNELS = ("mesh_merge", "fused_group_agg_partials", "fused_group_agg_combine_pack",
-                "batch_partials", "batch_combine_pack", "topn_candidates", "topn_merge",
-                "topn_pack")
+# the kernels the mesh main path launches: the fold, the merge and the
+# reused ones; the grouped combine is counted too, and must not launch there
+MESH_KERNELS = ("mesh_fold", "mesh_merge", "fused_group_agg_partials", "batch_partials",
+                "batch_combine_pack", "topn_candidates", "topn_merge", "topn_pack")
+MESH_COUNTED = MESH_KERNELS + ("fused_group_agg_combine_pack",)
+
+
+class _Enough(Exception):
+    """Raised by a capture once it holds what it asked for: ``run`` stops
+    there."""
+
+
+def capture_fold(fm_mod, pm, run, which: int = 1) -> dict:
+    """The inputs of the ``which``-th ``mesh_fold`` call that ``run`` makes
+    (cloned: the main path's own shapes and values; one call a super-block
+    on one card) and the shard images of the same super-block (the
+    ``which``-th ``_shard_rows`` call's), for the checks and timings; ``run``
+    stops after that call."""
+    folds, images = [], []
+    fold, rows_of = fm_mod.mesh_fold, pm._shard_rows
+
+    def record_rows(prog, imgs, cap, lead):
+        if len(images) <= which:
+            images.append(imgs)
+        return rows_of(prog, imgs, cap, lead)
+
+    def record(prog, rows, shards, base, width, windows, outs=None, perm=None):
+        folds.append({"prog": prog, "rows": rows.clone(), "shards": shards.clone(),
+                      "base": base, "width": width,
+                      "windows": [(lo, None if c is None else tuple(t.clone() for t in c))
+                                  for lo, c in windows],
+                      "perm": None if perm is None else perm.clone()})
+        out = fold(prog, rows, shards, base, width, windows, outs, perm)
+        if len(folds) > which:
+            raise _Enough
+        return out
+
+    fm_mod.mesh_fold, pm._shard_rows = record, record_rows
+    try:
+        run()
+    except _Enough:
+        pass
+    finally:
+        fm_mod.mesh_fold, pm._shard_rows = fold, rows_of
+    return dict(folds[which], images=images[which])
+
+
+def check_fold(fx, case: dict) -> float:
+    """``fx.mesh_fold_check`` at a captured case: the fold against its plain
+    version and, every word, against the combines and ``mesh_merge`` it
+    replaces; two runs bit-identical."""
+    return fx.mesh_fold_check(case["prog"], case["rows"], case["shards"], case["base"],
+                              case["width"], case["windows"], case["perm"], case["images"])
+
+
+def time_fold(fm_mod, ga, case: dict, iters: int) -> dict:
+    """CUDA-event ms per ``mesh_fold`` launch at a captured case beside the
+    launches it replaces at the same inputs (``fused_group_agg_combine_pack``
+    per shard, then ``mesh_merge`` per window), the plain version's ms, and
+    the bound: the windows' words of every row read once, the shard table
+    and the carries read once, the outputs written once; one operation per
+    row word read."""
+    prog, rows, shards, base, width = (case[k] for k in ("prog", "rows", "shards", "base",
+                                                         "width"))
+    windows, perm, images = case["windows"], case["perm"], case["images"]
+    dev, cap = rows.device, rows.shape[2]
+    n_win, leaves = len(windows), len(prog.leaves)
+
+    def packed(n):
+        return (torch.empty((n, prog.n_int, width), dtype=torch.int64, device=dev),
+                torch.empty((n, prog.n_f64, width), dtype=torch.float64, device=dev))
+
+    outs = [(o[0][0], o[1][0]) for o in (packed(1) for _ in windows)]
+    ms = cuda_ms(lambda: fm_mod.launch_mesh_fold(prog, rows, shards, base, width, windows, outs,
+                                                 perm), iters)
+    pi = torch.empty((len(images), prog.n_int, cap), dtype=torch.int64, device=dev)
+    pf = torch.empty((len(images), prog.n_f64, cap), dtype=torch.float64, device=dev)
+    table = fm_mod.merge_table([range(len(images))], len(images), dev)
+    spans = [(r0, r0 + n) for r0, n, _off in shards.tolist()]
+    merges = [(lo, None if c is None else (c[0][None], c[1][None]), packed(1))
+              for lo, c in windows]
+
+    def pair():
+        for k, ((a, b), img) in enumerate(zip(spans, images)):
+            ga.launch_combine(prog, img, cap, rows[a:b], None, (pi[k], pf[k]))
+        for lo, carry, out in merges:
+            fm_mod.launch_mesh_merge(prog, (pi, pf), table, carry, lo, lo + width, out, perm)
+
+    pair_ms = cuda_ms(pair, iters)
+    plain_ms = cuda_ms(lambda: fm_mod.mesh_fold_plain(prog, rows, shards, base, width, windows,
+                                                      perm), 3, warmup=1)
+    words = rows.shape[0] * leaves * width * n_win
+    n_bytes = words * 8 + shards.numel() * 8 + n_win * leaves * width * 8 * (
+        1 + sum(c is not None for _lo, c in windows) / n_win) + (
+        0 if perm is None else perm.numel() * 4)
+    b_ms, b_by = bound(int(n_bytes), words)
+    return {"shards": shards.shape[0], "rows": rows.shape[0], "windows": n_win,
+            "leaves": leaves, "slots": width, "perm": perm is not None, "ms": ms,
+            "pair_ms": pair_ms, "pair_launches": len(images) + n_win, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def capture_step(runner, run, which: int = 1) -> tuple:
+    """The arguments of the ``which``-th ``step`` of ``runner``'s sharded
+    evaluator that ``run`` makes, the state before it cloned; ``run`` stops
+    there."""
+    seen = []
+    ev = runner.sharded
+    step = ev.step
+
+    def record(col_data, col_nulls, n_valid, gids, state, block_base=0):
+        seen.append((col_data, col_nulls, n_valid, gids,
+                     [(a.clone(), b.clone()) for a, b in state], block_base))
+        if len(seen) > which:
+            raise _Enough
+        return step(col_data, col_nulls, n_valid, gids, state, block_base=block_base)
+
+    ev.step = record
+    try:
+        run()
+    except _Enough:
+        pass
+    finally:
+        del ev.step
+    return ev, seen[which]
+
+
+def mesh_step_split(pm, ev, args, runs: int = 5) -> dict:
+    """One cold mesh super-block split by host step, in ms on the host
+    clock, the median of ``runs``: staging (``ShardedDagEvaluator.images``:
+    the pinned stage and its copy to each device), the partials launches
+    (``_shard_rows``, one a shard), the fold (``fold``: the carry updated in
+    place by one ``mesh_fold`` a merging device), the wait for the card.
+    Its state must equal the step's served the usual way, bit for bit."""
+    col_data, col_nulls, n_valid, gids, state0, base = args
+
+    def fresh():
+        return [(a.clone(), b.clone()) for a, b in state0]
+
+    want = ev.step(col_data, col_nulls, n_valid, gids, fresh(), block_base=base)
+    steps: dict[str, list] = {}
+    for _ in range(runs):
+        state = fresh()
+        torch.cuda.synchronize()
+        marks = [("start", time.perf_counter())]
+        images = ev.images(col_data, col_nulls, n_valid, gids, base)
+        marks.append(("staging", time.perf_counter()))
+        rows = pm._shard_rows(ev.prog, images, ev.capacity, ev.mesh.lead)
+        marks.append(("partials_launches", time.perf_counter()))
+        ev.fold(rows, state, base)
+        marks.append(("fold_launch", time.perf_counter()))
+        torch.cuda.synchronize()
+        marks.append(("device_wait", time.perf_counter()))
+        if not all(bit_identical(a, b) for a, b in zip(state, want)):
+            raise AssertionError("mesh step split: the state differs from a served step's")
+        for (_a, t0), (name, t1) in zip(marks, marks[1:]):
+            steps.setdefault(name, []).append((t1 - t0) * 1e3)
+        steps.setdefault("total", []).append((marks[-1][1] - marks[0][1]) * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in steps.items()}
 
 
 def capture_merge(fm_mod, run) -> tuple:
@@ -1572,8 +1735,10 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     ``batch``'s 64 regions, its 8 encoded ones and the 100M image alone, the
     raw TopN over 10M rows through ``ShardedTopNEvaluator``; every answer
     against its oracle and, byte for byte, the single-device route's, whose
-    times stand beside; the per-device kernels and ``mesh_merge`` timed at
-    the path's own inputs."""
+    times stand beside; the grouped combine launched 0 times; the per-device
+    kernels, ``mesh_fold`` (beside the combines and merges it replaces) and
+    ``mesh_merge`` timed at the path's own inputs; one cold super-block
+    split by host step."""
     from tikv_tpu_torch.copr import fused_agg as fa
     from tikv_tpu_torch.copr import fused_batch as fb
     from tikv_tpu_torch.copr import fused_mesh as fme
@@ -1614,7 +1779,7 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
         return out, time.perf_counter() - t0
 
     def delta(before):
-        return {k: fa.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+        return {k: fa.LAUNCHES[k] - before[k] for k in MESH_COUNTED}
 
     # the single-device cold answers and times, the yardstick of the cold mesh
     single_cold = {}
@@ -1703,6 +1868,8 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     for k in MESH_KERNELS:
         if mesh_launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the mesh main path")
+    if mesh_launches["fused_group_agg_combine_pack"] != 0:
+        raise AssertionError("the grouped combine launched on the mesh main path")
     # programs #18 and #19 at the phase's shapes: one shard's step (its
     # first super-block's 131,072 rows) and the finalize over the 8 runs
     pay = pm._shard_images(topn.shard_devices, MESH_TOPN_RPS,
@@ -1715,15 +1882,12 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
                                       carried=True),
               "finalize": time_topn_finalize(ft, topn, state)}
     del blocks, pay
-    # mesh_merge at its main-path inputs: cold Q1 (8 shard states into the
-    # carry; G = 2: a member's window), Q1 over the 64 regions and the 100M
-    # image alone; each against its plain version, then timed
+    # mesh_merge at its main-path inputs: Q1 over the 64 regions and the
+    # 100M image alone; each against its plain version, then timed
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+
     q1 = dag_to_wire(fx.q1_dag())
     cases = {
-        "cold_q1_g1": capture_merge(fme, lambda: pm.MeshServingRunner(
-            q1, meshes[1], rows_per_shard=1 << 16).run(FixtureScanSource(kvs))),
-        "cold_q1_g2": capture_merge(fme, lambda: pm.MeshServingRunner(
-            q1, meshes[2], rows_per_shard=1 << 16).run(FixtureScanSource(kvs))),
         "xregion_q1_64": capture_merge(fme, lambda: te.launch_xregion_sharded(
             x_evs["q1"], regions, mesh)),
         "lone_100m_q1": capture_merge(fme, lambda: te.launch_xregion_sharded(
@@ -1732,15 +1896,31 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
     for key, case in cases.items():
         errs[key] = fx.mesh_merge_check(*case)
         t_merge[key] = time_merge(fme, case, 50)
+    # mesh_fold at its main-path inputs: cold Q1's second super-block (a
+    # carry) at 1,024 rows a shard, G = 1 (8 shards, a partial row each) and
+    # G = 2 (4 shards, two windows), and at 65,536 rows a shard (64 rows
+    # each); against its plain version and the combines and merges it
+    # replaces, then timed beside them
+    fold_cases = {
+        f"cold_q1_g{g}_rps{rps}": capture_fold(fme, pm, lambda g=g, rps=rps: pm.MeshServingRunner(
+            q1, meshes[g], rows_per_shard=rps).run(FixtureScanSource(kvs)))
+        for g, rps in ((1, MESH_COLD_RPS[0]), (2, MESH_COLD_RPS[0]), (1, MESH_COLD_RPS[1]))}
+    fold_errs, t_fold = {}, {}
+    for key, case in fold_cases.items():
+        fold_errs[key] = check_fold(fx, case)
+        t_fold[key] = time_fold(fme, ga, case, 50)
     # the grouped pair at the cold mesh's 1,024-row shards (cold Q1, G = 1:
-    # 984 launches a request), at a shard of its first super-block
-    from tikv_tpu_torch.copr import fused_group_agg as ga
-
-    _res, calls = capture_calls(pm, "_shard_states", lambda: pm.MeshServingRunner(
-        q1, meshes[1], rows_per_shard=MESH_COLD_RPS[0]).run(FixtureScanSource(kvs)))
-    sprog, simages, scap, _lead = calls[0]
-    t_small_shard = time_group_kernels(ga, sprog, simages[0], scap, 50)
-    del calls, simages
+    # 984 partials launches a request), at a shard of its second super-block
+    small = fold_cases["cold_q1_g1_rps1024"]
+    t_small_shard = time_group_kernels(ga, small["prog"], small["images"][0],
+                                       small["rows"].shape[2], 50)
+    del fold_cases, small
+    fold_attrs = no_local_memory("mesh_fold", [fme.fold_attributes()])
+    # one cold Q1 super-block at 1,024 rows a shard (G = 1) by host step
+    runner = pm.MeshServingRunner(q1, meshes[1], rows_per_shard=MESH_COLD_RPS[0])
+    split_ev, split_args = capture_step(runner, lambda: runner.run(FixtureScanSource(kvs)))
+    t_split = mesh_step_split(pm, split_ev, split_args)
+    del split_args
     # the per-device batch kernels of #20: the busiest device's tasks, held
     # to their plain versions, then timed
     t_dev, dev_checks = {}, {}
@@ -1755,12 +1935,17 @@ def phase_mesh(fx, card: str, device, kvs, cold_arrays, cache, want_batch: dict,
               "results": results})
     emit({"phase": "mesh", "case": "kernels", "card": card, "shards": MESH_SHARDS,
           "mesh_merge_checks": errs, "int_words_equal": True, "f64_rel_tol": REL_TOL,
-          "bit_identical_reruns": True, "mesh_merge": t_merge, "per_device_batch": t_dev,
+          "bit_identical_reruns": True, "mesh_merge": t_merge,
+          "mesh_fold_checks": fold_errs, "mesh_fold_equals_the_pair_bit_for_bit": True,
+          "mesh_fold": t_fold, "mesh_fold_attributes": fold_attrs,
+          "cold_q1_super_block_split_ms": t_split, "per_device_batch": t_dev,
           "per_device_batch_checks": dev_checks, "topn_shard_check": "equal", "topn": t_topn,
           "grouped_pair_1024_row_shard": t_small_shard, "launches": mesh_launches,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": mesh_launches, "merge": t_merge, "max_abs_err": max(errs.values()),
-            "per_device": t_dev, "topn": t_topn, "small_shard": t_small_shard}
+            "fold": t_fold, "fold_err": max(fold_errs.values()), "fold_attributes": fold_attrs,
+            "split": t_split, "per_device": t_dev, "topn": t_topn,
+            "small_shard": t_small_shard}
 
 
 # ---------------------------------------------------------------------------
@@ -1772,8 +1957,10 @@ MESH_GROUPED_RPS = 1 << 17  # eight shards: super-blocks of 1,048,576 rows
 MESH_GROUPED_CPU_ROWS = 1 << 20  # held to the same evaluator on eight CPU shards
 DICT_SRC = "tikv_tpu_torch/csrc/fused_dict.cu"
 DICT_KERNELS = ("dict_keys", "dict_union", "dict_ids")
-MESH_GROUPED_KERNELS = DICT_KERNELS + ("mesh_merge", "fused_group_agg_partials",
-                                       "fused_group_agg_combine_pack")
+MESH_GROUPED_KERNELS = DICT_KERNELS + ("mesh_fold", "fused_group_agg_partials")
+# counted too, and must not launch at these capacities: the grouped combine
+# and the packed merge
+MESH_GROUPED_COUNTED = MESH_GROUPED_KERNELS + ("fused_group_agg_combine_pack", "mesh_merge")
 # (case, GROUP BY, capacity, groups, key_bits, the flag word it must end with:
 # 1 a value past its lane, 2 more keys than slots)
 MESH_GROUPED_CASES = (
@@ -1932,8 +2119,9 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
     last one partial) through ``ShardedGroupedEvaluator``; each answer
     against its numpy oracle, or its overflow flag; the two runs bit for
     bit; the first 1,048,576 rows against the same evaluator on eight CPU
-    shards; then each dictionary kernel and ``mesh_merge`` with the carry
-    remap at the path's inputs against its plain version, timed."""
+    shards; then each dictionary kernel and ``mesh_fold`` with the carry
+    remap at the path's inputs against its plain version (the fold also
+    against the combines and ``mesh_merge`` it replaces), timed."""
     from tikv_tpu_torch.copr import fused_agg as fa
     from tikv_tpu_torch.copr import fused_dict as fd
     from tikv_tpu_torch.copr import fused_mesh as fme
@@ -1996,12 +2184,15 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
             "request_s": request_s, "step_s": step_s,
             "s_per_super_block": min(step_s) / len(bl),
             "launches_per_request": {k: (fa.LAUNCHES[k] - before[k]) / 2
-                                     for k in MESH_GROUPED_KERNELS}}
+                                     for k in MESH_GROUPED_COUNTED}}
     launches = dict(fa.LAUNCHES)
     # ---- end of the main path ----------------------------------------------------
     for k in MESH_GROUPED_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the mesh_grouped main path")
+    for k in MESH_GROUPED_COUNTED[len(MESH_GROUPED_KERNELS):]:
+        if launches[k] != 0:
+            raise AssertionError(f"kernel {k} launched on the mesh_grouped main path")
     # the first 1,048,576 rows on the card against eight CPU shards
     cpu_err, t_cpu = {}, time.perf_counter()
     for name in ("q1_g1", "q1_g2", "qty_ls"):
@@ -2035,15 +2226,16 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
     seen = capture_dict(fd, lambda: q1.step(*_block_args(q1, two[1]), state,
                                             block_base=q1.total_rows))
     t_dict = time_dict(fx, fd, seen)
-    state = q1.step(*_block_args(q1, two[0]), q1.init_state())
-    merge_case = capture_merge(fme, lambda: q1.step(*_block_args(q1, two[1]), state,
-                                                    block_base=q1.total_rows))
-    merge_err = fx.mesh_merge_check(*merge_case)
-    t_merge = time_merge(fme, merge_case, 50)
-    # the grouped pair alone at a shard's shape (131,072 rows, Q1 at 64 slots)
     from tikv_tpu_torch.copr import fused_group_agg as ga
 
-    _res, calls = capture_calls(pm, "_shard_states", lambda: q1.step(
+    state = q1.step(*_block_args(q1, two[0]), q1.init_state())
+    fold_case = capture_fold(fme, pm, lambda: q1.step(*_block_args(q1, two[1]), state,
+                                                      block_base=q1.total_rows), which=0)
+    fold_err = check_fold(fx, fold_case)
+    t_fold = time_fold(fme, ga, fold_case, 50)
+    del fold_case
+    # the grouped pair alone at a shard's shape (131,072 rows, Q1 at 64 slots)
+    _res, calls = capture_calls(pm, "_shard_rows", lambda: q1.step(
         *_block_args(q1, two[1]), state, block_base=q1.total_rows))
     sprog, simages, scap, _lead = calls[0]
     t_pair = time_group_kernels(ga, sprog, simages[0], scap, 50)
@@ -2053,11 +2245,11 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
     emit({"phase": "mesh_grouped", "case": "kernels", "card": card,
           "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
           "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
-          "kernels": t_dict, "mesh_merge_remap": t_merge, "grouped_pair_shard": t_pair,
+          "kernels": t_dict, "mesh_fold_remap": t_fold, "grouped_pair_shard": t_pair,
           "union_edges": union_edges, "ids_edges": ids_edges, "launches": launches,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
-    return {"launches": launches, "kernels": t_dict, "merge": t_merge, "pair": t_pair,
-            "max_abs_err": max([merge_err, *cpu_err.values()])}
+    return {"launches": launches, "kernels": t_dict, "fold": t_fold, "pair": t_pair,
+            "max_abs_err": max([fold_err, *cpu_err.values()])}
 
 
 # ---------------------------------------------------------------------------
@@ -3339,6 +3531,7 @@ def main() -> int:
     main_path.update(dict.fromkeys(BATCH_KERNELS, bt["launches"]))
     main_path.update(dict.fromkeys(JOIN_KERNELS, jn["launches"]))
     main_path["mesh_merge"] = mesh_out["launches"]
+    main_path["mesh_fold"] = mesh_out["launches"]
     main_path.update(dict.fromkeys(DICT_KERNELS, mg["launches"]))
     main_path.update(dict.fromkeys(WIDE_KERNELS + SORT_KERNELS, hc["launches"]))
     main_path["patch_stacked"] = wp["launches"]
@@ -3489,17 +3682,32 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "synthetic": jn["synthetic"][name]})
-    # the cross-shard merge at the cold mesh's shape (eight shard states of
-    # Q1 into the carry), its other main-path shapes beside it
-    t = mesh_out["merge"]["cold_q1_g1"]
+    # the cross-shard merge of packed states at Q1 over the 64 regions (a
+    # region's states from the devices that hold its slabs), the 100M image
+    # alone beside it
+    t = mesh_out["merge"]["xregion_q1_64"]
     kernels.append({
         "name": "mesh_merge", "route": "cuda", "source": MESH_SRC,
         "replaces": "tikv_tpu/parallel/mesh.py:128",
-        "replaces_also": ["tikv_tpu/parallel/mesh.py:148", "tikv_tpu/parallel/mesh.py:183",
-                          "tikv_tpu/parallel/mesh.py:808"],
+        "replaces_also": ["tikv_tpu/parallel/mesh.py:148", "tikv_tpu/parallel/mesh.py:808"],
         "launches": mesh_out["launches"]["mesh_merge"], "max_abs_err": mesh_out["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None, "shapes": mesh_out["merge"]})
+    # the fold of the shards' raw rows at the cold mesh's shape (cold Q1, 8
+    # shards of 1,024 rows into the carry), its other main-path shapes and
+    # the launches it replaces (pair_ms) beside it
+    t = mesh_out["fold"]["cold_q1_g1_rps1024"]
+    kernels.append({
+        "name": "mesh_fold", "route": "cuda", "source": MESH_SRC,
+        "replaces": "tikv_tpu/parallel/mesh.py:128",
+        "replaces_also": ["tikv_tpu/parallel/mesh.py:148", "tikv_tpu/parallel/mesh.py:183",
+                          "tikv_tpu/parallel/mesh.py:329", "tikv_tpu/parallel/mesh.py:413"],
+        "launches": mesh_out["launches"]["mesh_fold"],
+        "max_abs_err": max(mesh_out["fold_err"], mg["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "pair_ms": t["pair_ms"],
+        "shapes": mesh_out["fold"], "remap": mg["fold"],
+        "attributes": mesh_out["fold_attributes"], "cold_super_block_split_ms": mesh_out["split"]})
     # the group dictionary's kernels at the path's inputs (Q1 at G = 1, a
     # shard's 131,072 rows; the shard union with the carried dictionary, the
     # global union of the gathered ones beside it)
@@ -3517,16 +3725,13 @@ def main() -> int:
         if name == "dict_ids":
             entry["past_8192_slots"] = hc["ids"]  # in device memory, beside the union's sort route
         kernels.append(entry)
-    # the reused kernels' launches on the mesh main paths; mesh_merge with
-    # the carry remap at the grouped path's shape
+    # the reused kernels' launches on the mesh main paths (the grouped
+    # combine's and, on the grouped path, the packed merge's: 0)
     for entry in kernels:
-        if entry["name"] in MESH_KERNELS:
+        if entry["name"] in MESH_COUNTED:
             entry["mesh_launches"] = mesh_out["launches"][entry["name"]]
-        if entry["name"] in MESH_GROUPED_KERNELS and entry["name"] not in DICT_KERNELS:
+        if entry["name"] in MESH_GROUPED_COUNTED and entry["name"] not in DICT_KERNELS:
             entry["mesh_grouped_launches"] = mg["launches"][entry["name"]]
-        if entry["name"] == "mesh_merge":
-            entry["remap"] = mg["merge"]
-            entry["max_abs_err"] = max(entry["max_abs_err"], mg["max_abs_err"])
         if entry["name"] == "fused_group_agg_partials":
             entry["mesh_grouped_shard"] = mg["pair"]
         if entry["name"] in HC_KERNELS:
@@ -3663,6 +3868,11 @@ def main() -> int:
               "mesh_1024_row_shard": group_times(mesh_out["small_shard"]),
               "on_warm_q6": group_times(t_q6_grouped),
               "launches": q1_launches["fused_group_agg_partials"]},
+          "mesh_fold": {
+              "attributes": mesh_out["fold_attributes"], "cold_mesh": mesh_out["fold"],
+              "grouped_mesh": mg["fold"], "cold_super_block_split_ms": mesh_out["split"],
+              "launches": mesh_out["launches"]["mesh_fold"],
+              "mesh_grouped_launches": mg["launches"]["mesh_fold"]},
           "dict_ids": {
               "mesh_grouped_shard": ids_times(mg["kernels"]["dict_ids"]),
               "past_8192_slots": ids_times(hc["ids"]),

@@ -79,7 +79,17 @@ at the grouped mesh's shard and global unions at 32,768 slots (inputs
 captured from its second super-block), or ``merge_requests``: the warm raw
 TopN over the 100M-row image, the mesh raw TopN over 10M rows (8 shards,
 131,072 rows a shard) and the grouped mesh at 32,768 slots (host clock,
-a first run left out; once more under ``torch.profiler``).  Each process
+a first run left out; once more under ``torch.profiler``), or
+``fold_split``: one cold Q1 super-block of the mesh (8 shards of 1,024
+rows on the card, G = 1, and 4 shards at G = 2; its second, which has a
+carry) stepped 20 times from the same state, each step's host ms split by
+the mesh module's functions it calls (``_shard_images``, the shards' own
+work in ``_shard_states`` or ``_shard_rows``, and ``mesh_merge`` or
+``mesh_fold``; the rest ``other``) and the wait for the card after it, the
+medians reported as cases, or ``fold_requests``: cold Q1 and Q6 over 1M KV
+rows through ``MeshServingRunner`` on 8 shards of the card at 1,024 rows a
+shard (G = 1 and, for Q1, 2) and Q1 at 65,536 (host clock, four runs; once
+more under ``torch.profiler``).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -710,6 +720,85 @@ elif sys.argv[1] in ("zone_kernels", "zone_requests"):
                 raise AssertionError(f"{q}: the zone rung served {ev_z.zone_stats.served} of 8")
             for k in runs:
                 cases[f"{q}_{k}"] = {"request_s": secs[k]}
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("fold_split", "fold_requests"):
+    from tikv_tpu_torch.copr import fused_mesh as fme
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+    dev = torch.device("cuda", 0)
+    meshes = {g: pm.make_mesh([dev] * cs.MESH_SHARDS, groups=g) for g in (1, 2)}
+    cases = {}
+    if sys.argv[1] == "fold_split":
+        spent = {}
+
+        def wrap(mod, name):
+            fn = getattr(mod, name)
+
+            def timed_fn(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            setattr(mod, name, timed_fn)
+
+        for mod, name in ((pm, "_shard_images"), (pm, "_shard_states"), (pm, "_shard_rows"),
+                          (fme, "mesh_merge"), (fme, "mesh_fold")):
+            if hasattr(mod, name):
+                wrap(mod, name)
+        for g in (1, 2):
+            runner = pm.MeshServingRunner(dag_to_wire(fx.q1_dag()), meshes[g], rows_per_shard=1024)
+            ev, seen = runner.sharded, []
+            step = ev.step
+
+            def record(col_data, col_nulls, n_valid, gids, state, block_base=0):
+                if len(seen) < 2:
+                    seen.append((col_data, col_nulls, n_valid, gids,
+                                 [(a.clone(), b.clone()) for a, b in state], block_base))
+                return step(col_data, col_nulls, n_valid, gids, state, block_base=block_base)
+
+            ev.step = record
+            runner.run(FixtureScanSource(kvs))
+            del ev.step
+            col_data, col_nulls, n_valid, gids, state0, base = seen[1]
+            split = {}
+            for _ in range(20):
+                state = [(a.clone(), b.clone()) for a, b in state0]
+                spent.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev.step(col_data, col_nulls, n_valid, gids, state, block_base=base)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                for name, sec in spent.items():
+                    split.setdefault(name, []).append(sec)
+                split.setdefault("other", []).append(t1 - t0 - sum(spent.values()))
+                split.setdefault("device_wait", []).append(t2 - t1)
+                split.setdefault("step", []).append(t2 - t0)
+            for name, secs in split.items():
+                cases[f"g{g}_{name}"] = {"request_s": [sorted(secs)[len(secs) // 2]]}
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        for name, dag, g, rps in (("q1_g1_rps1024", fx.q1_dag(), 1, 1024),
+                                  ("q1_g2_rps1024", fx.q1_dag(), 2, 1024),
+                                  ("q6_g1_rps1024", fx.q6_dag(), 1, 1024),
+                                  ("q1_g1_rps65536", fx.q1_dag(), 1, 1 << 16)):
+            runner = pm.MeshServingRunner(dag_to_wire(dag), meshes[g], rows_per_shard=rps)
+            runner.run(FixtureScanSource(kvs))
+            secs = [timed(lambda: runner.run(FixtureScanSource(kvs))) for _ in range(4)]
+            prof = cs.profile_runs(lambda: runner.run(FixtureScanSource(kvs)), 1)
+            top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:6]
+            cases[name] = {"request_s": secs, "device_ms": [sum(prof["device_ms"].values())],
+                           "top_kernels_ms": {k[:80]: v for k, v in top}}
     print(json.dumps({"cases": cases}))
 else:
     getattr(cs, "phase_" + sys.argv[1])(fx, cs.card_line(), torch.device("cuda", 0))

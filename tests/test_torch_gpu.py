@@ -556,7 +556,8 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
     # every kernel these warm plans run launched; the batch kernels serve
     # batches only (test_batches_match_the_unary_route_and_the_oracles), the
     # join probes joins only (test_join_kernels_match_their_plain_versions),
-    # the mesh merge the mesh only (test_mesh_merge_matches_its_plain_version),
+    # the mesh merge and fold the mesh only (test_mesh_merge_matches_its_plain_version,
+    # test_mesh_fold_matches_its_plain_version_and_the_pair),
     # the dictionary kernels the mesh's device-built group dictionary only
     # (test_dictionary_kernels_match_their_plain_versions), the wide route
     # group slots past the shared rows only (test_wide_route_matches_its_plain_versions),
@@ -564,6 +565,7 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
     for name, count in fa.LAUNCHES.items():
         assert count > 0 or name in ("decode_column", "batch_partials", "batch_combine_pack",
                                      "join_rank_probe", "join_hash_probe", "mesh_merge",
+                                     "mesh_fold",
                                      "dict_keys", "dict_union", "dict_ids", "dict_merge",
                                      "dict_count", "dict_compact", "group_wide_partials",
                                      "group_wide_combine", "patch_stacked"), name
@@ -840,21 +842,27 @@ def test_an_eight_shard_mesh_on_one_card_matches_the_single_device_route(cuda):
     """make_mesh(["cuda:0"] * 8): cold Q6 and Q1 through MeshServingRunner
     (#16), the raw TopN through ShardedTopNEvaluator (#18, #19) and Q1 and
     Q6 over region images through launch_xregion_sharded (#20), each equal
-    to its oracle and to the single-device route, mesh_merge launched."""
+    to its oracle and to the single-device route; mesh_fold launched on the
+    cold mesh (the grouped combine not at all), mesh_merge on the regions."""
     from tikv_tpu_torch.copr.torch_eval import launch_xregion_sharded, run_xregion_cached
     from tikv_tpu_torch.parallel import mesh as pm
 
     mesh = pm.make_mesh([cuda] * 8, groups=2)
     n = 150_000
     kvs, a = fx.build_kvs(n, seed=14), fx.build_arrays(n, seed=14)
-    fa.reset_launches()
+    on_mesh = dict.fromkeys(("mesh_fold", "fused_group_agg_combine_pack", "mesh_merge"), 0)
     for dag, want in ((fx.q6_dag(), [fx.q6_oracle(a)]), (fx.q1_dag(), fx.q1_oracle(a))):
         runner = pm.MeshServingRunner(dag_to_wire(dag), mesh, rows_per_shard=4096)
+        fa.reset_launches()
         resp = runner.run(FixtureScanSource(kvs))
+        for name in on_mesh:
+            on_mesh[name] += fa.LAUNCHES[name]
         assert resp.iter_rows() == want
         one = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device=cuda)
         assert resp.encode() == one.run(FixtureScanSource(kvs)).encode()
-    assert fa.LAUNCHES["mesh_merge"] > 0
+    assert on_mesh["mesh_fold"] > 0
+    assert on_mesh["fused_group_agg_combine_pack"] == on_mesh["mesh_merge"] == 0
+    fa.reset_launches()
     topn = pm.ShardedTopNEvaluator(dag_to_wire(fx.topn_dag(100)), pm.make_mesh([cuda] * 8),
                                    1 << 13)
     total = topn.total_rows
@@ -868,6 +876,47 @@ def test_an_eight_shard_mesh_on_one_card_matches_the_single_device_route(cuda):
         ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 15, device=cuda)
         got = launch_xregion_sharded(ev, regions, mesh).finalize()
         assert [r.encode() for r in got] == [r.encode() for r in run_xregion_cached(ev, regions)]
+    assert fa.LAUNCHES["mesh_merge"] > 0
+
+
+# (n_shards, partial rows a shard, slots, rows a shard, windows, empty shards,
+# a perm): the cold mesh at 1,024 and 65,536 rows a shard, G = 1 and 2; the
+# grouped mesh's shard of 131,072 rows with its remap; 300 rows a shard (the
+# combine's strided fold past its 256 threads); a partial super-block
+FOLD_CASES = {"cold_1024": (8, 1, 16, 1024, 1, (), False),
+              "cold_65536": (8, 64, 16, 1 << 16, 1, (), False),
+              "cold_1024_g2": (4, 1, 16, 1024, 2, (), False),
+              "grouped_64": (8, 128, 64, 1 << 17, 1, (), True),
+              "strided": (3, 300, 16, 300 * 1024, 1, (), False),
+              "empty_shards": (8, 2, 16, 2048, 2, (5, 6, 7), False)}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_mesh_fold_matches_its_plain_version_and_the_pair(cuda, case):
+    """mesh_fold against its plain version (integer words equal, f64 leaves
+    to rel 1e-12) and against what it replaces, fused_group_agg_combine_pack
+    per shard and mesh_merge of their states (every word, f64 bit for
+    bit), at the mesh paths' shapes: every mergeable leaf kind, NaN, +-0.0,
+    +-inf, int64 wrap; two runs bit-identical; one launch a call, 0 local
+    bytes."""
+    from tikv_tpu_torch.copr import fused_mesh
+
+    n_shards, n_parts, cap, rps, n_win, empty, with_perm = FOLD_CASES[case]
+    seed = sum(map(ord, case))
+    prog, rows, shards, base, width, windows = fx.mesh_fold_case(
+        n_shards, n_parts, cap, rps, seed, cuda, n_win, empty)
+    perm = fx.merge_perm(cap, seed, cuda) if with_perm else None
+    images = fx.fold_pair_images(prog, shards, base, rps, cuda)
+    fa.reset_launches()
+    fx.mesh_fold_check(prog, rows, shards, base, width, windows, perm, images)
+    assert fa.LAUNCHES["mesh_fold"] == 2
+    assert fused_mesh.fold_attributes()["localSizeBytes"] == 0
+    with pytest.raises(ValueError):
+        fused_mesh.mesh_fold(prog, rows.to(torch.int32), shards, base, width, windows)
+    if perm is not None:  # the carry may not be the output with a perm
+        with pytest.raises(ValueError):
+            fused_mesh.mesh_fold(prog, rows, shards, base, width, windows,
+                                 outs=[windows[0][1]], perm=perm)
 
 
 # -- the device-built group dictionary (program #17) --------------------------------
@@ -923,7 +972,7 @@ def test_sharded_grouped_evaluator_on_the_card(cuda):
     """ShardedGroupedEvaluator on make_mesh(["cuda:0"] * 8): Q1's grouped
     shape at G = 2 and (quantity, linestatus) at G = 1, each equal to the
     same evaluator on eight CPU shards and to the oracle, twice bit for bit;
-    every dictionary kernel launched."""
+    every dictionary kernel and the fold launched."""
     from tikv_tpu_torch.parallel import mesh as pm
 
     n = 300_000
@@ -937,8 +986,9 @@ def test_sharded_grouped_evaluator_on_the_card(cuda):
                   for s in range(0, n, total)]
         fa.reset_launches()
         runs = [card.unpack(card.run_blocks(blocks)) for _ in range(2)]
-        for name in ("dict_keys", "dict_union", "dict_ids", "mesh_merge"):
+        for name in ("dict_keys", "dict_union", "dict_ids", "mesh_fold"):
             assert fa.LAUNCHES[name] > 0, name
+        assert fa.LAUNCHES["fused_group_agg_combine_pack"] == fa.LAUNCHES["mesh_merge"] == 0
         want = cpu.unpack(cpu.run_blocks(blocks))
         for got in runs:
             np.testing.assert_array_equal(got[0], want[0])

@@ -757,7 +757,7 @@ __device__ __forceinline__ void ga_finish_cell(const GaParams& p, int l, int g, 
     out_i[rcell] = row < crow ? row : crow;
   } else {
     if (kind == GA_TRACK) blk = ga_global_row(p, blk);
-    res = ga_merge(kind, is_f, c0, blk);
+    res = ga_merge_ordered(kind, is_f, c0, blk);
   }
   if (is_f) {
     out_f[cell] = fa_f(res);
@@ -778,7 +778,9 @@ __device__ __forceinline__ int ga_folded_leaf(const GaParams& p, int l) {
 // of fused_group_agg_partials) into the carry and writes the packed state
 // [n_int, C] / [n_f64, C]: one block per (leaf, group) cell; its threads
 // fold the partials q = t, t + FA_THREADS, ... in order, then a fixed-order
-// tree over the threads, so f64 cells come out bit-identical from run to run.
+// tree over the threads, so f64 cells come out bit-identical from run to run
+// (the merges are ga_merge_ordered's, so mesh_fold, which keeps this order,
+// gives the same words).
 __global__ void __launch_bounds__(FA_THREADS)
 fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
                              const long long* __restrict__ parts, int n_parts,
@@ -796,12 +798,12 @@ fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
   const int tid = threadIdx.x;
   long long acc = p.leaf_ident[fl];
   for (int q = tid; q < n_parts; q += FA_THREADS) {
-    acc = ga_merge(fkind, is_f, acc, parts[((long long)q * L + fl) * C + g]);
+    acc = ga_merge_ordered(fkind, is_f, acc, parts[((long long)q * L + fl) * C + g]);
   }
   s_acc[tid] = acc;
   __syncthreads();
   for (int st = FA_THREADS / 2; st > 0; st >>= 1) {
-    if (tid < st) s_acc[tid] = ga_merge(fkind, is_f, s_acc[tid], s_acc[tid + st]);
+    if (tid < st) s_acc[tid] = ga_merge_ordered(fkind, is_f, s_acc[tid], s_acc[tid + st]);
     __syncthreads();
   }
   if (tid == 0) ga_finish_cell(p, l, g, s_acc[0], carry_i, carry_f, out_i, out_f);

@@ -74,6 +74,26 @@ __device__ __forceinline__ long long ga_merge(int kind, bool is_f, long long a, 
   }
 }
 
+// f64 a + b whose NaN follows the operands' order: a if a is NaN, else b if
+// b is, else the sum (inf - inf: the add's own NaN).  Between two NaN
+// operands the add keeps the one in the place the compiler gave it, which
+// two kernels computing the same fold need not share; the combines and the
+// mesh's folds add through this, so that their words agree bit for bit
+// whenever their association orders do.
+__device__ __forceinline__ double ga_dadd(double a, double b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a + b;
+}
+
+// ga_merge with f64 sums through ga_dadd: the merge of the combines and
+// the mesh's folds.
+__device__ __forceinline__ long long ga_merge_ordered(int kind, bool is_f, long long a,
+                                                      long long b) {
+  if (is_f && (kind == GA_SUM || kind == GA_SUMSQ)) return fa_raw(ga_dadd(fa_f(a), fa_f(b)));
+  return ga_merge(kind, is_f, a, b);
+}
+
 // What row f adds to leaf l of an aggregate that saw (live, value).
 template <class P>
 __device__ __forceinline__ long long ga_contrib(const P& p, int l, bool live, long long value,

@@ -1894,6 +1894,95 @@ def mesh_merge_case(n_parts: int, n_regions: int, capacity: int, seed: int, devi
     return prog, parts, torch.from_numpy(table).to(device), carry
 
 
+def mesh_fold_case(n_shards: int, n_parts: int, capacity: int, rows_per_shard: int, seed: int,
+                   device, n_windows: int = 1, empty=()):
+    """Synthetic inputs of ``mesh_fold``: :func:`mesh_merge_program`; the
+    shards' raw partial rows ``(n_shards * n_parts, n_leaves, C)`` int64
+    (f64 leaves as bits), integers over the whole int64 range, f64 words
+    with NaN, +-0.0 and +-inf, the tracker's flat rows below
+    ``rows_per_shard`` or ``NO_ROW``, and the shards listed in ``empty`` at
+    their identities (a shard past a partial super-block's valid rows); the
+    shard table (shard ``k``'s rows after shard ``k - 1``'s, its row 0 at
+    ``k * rows_per_shard``); a ``base`` row; the window width ``C /
+    n_windows``; and the windows ``[(lo, carry)]``, each carry ``(n_int,
+    width)`` / ``(n_f64, width)`` drawn alike.  Drawn with numpy from
+    ``seed``.  Returns ``(prog, rows, shards, base, width, windows)``."""
+    from .copr import fused_mesh
+
+    prog = mesh_merge_program()
+    rng = np.random.default_rng(seed)
+    special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf])
+
+    def words(shape, leaf):
+        if leaf.kind == LEAF_TRACK:
+            rows = rng.integers(0, rows_per_shard, shape)
+            return np.where(rng.random(shape) < 0.2, NO_ROW, rows)
+        if not leaf.is_f64:
+            return rng.integers(-(1 << 63), (1 << 63) - 1, shape, dtype=np.int64, endpoint=True)
+        f = rng.standard_normal(shape) * 1e6
+        pick = rng.random(shape) < 0.05
+        f[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+        f[..., :2] = [-0.0, 0.0]
+        return f.view(np.int64)
+
+    n_rows = n_shards * n_parts
+    rows = np.empty((n_rows, len(prog.leaves), capacity), dtype=np.int64)
+    for l, leaf in enumerate(prog.leaves):
+        rows[:, l] = words((n_rows, capacity), leaf)
+        for k in empty:
+            rows[k * n_parts:(k + 1) * n_parts, l] = leaf.ident
+    shards = fused_mesh.shard_table([(k * n_parts, n_parts, k * rows_per_shard)
+                                     for k in range(n_shards)], n_rows, device)
+    width = capacity // n_windows
+    windows = []
+    for g in range(n_windows):
+        ints = np.empty((prog.n_int, width), dtype=np.int64)
+        flts = np.empty((prog.n_f64, width), dtype=np.int64)
+        for leaf in prog.leaves:
+            (flts if leaf.is_f64 else ints)[leaf.slot] = words((width,), leaf)
+        windows.append((g * width, (torch.from_numpy(ints).to(device),
+                                    torch.from_numpy(flts.view(np.float64)).to(device))))
+    base = int(rng.integers(0, 1 << 40))
+    return prog, torch.from_numpy(rows).to(device), shards, base, width, windows
+
+
+def fold_pair_images(prog, shards, base: int, rows_per_shard: int, device) -> list:
+    """One-block CUDA images of ``rows_per_shard`` rows (zero columns of
+    ``prog``'s types, host ids 0), shard ``k``'s at global row ``base`` +
+    its table offset: what ``fused_group_agg_combine_pack`` reads of a
+    shard besides its partial rows."""
+    shape = (1, rows_per_shard)
+    return [Image([torch.zeros(shape, dtype=torch.float64 if f else torch.int64, device=device)
+                   for f in prog.col_f64], [None] * len(prog.col_f64), 0, 1, rows_per_shard,
+                  device, base + off, torch.zeros(shape, dtype=torch.int32, device=device))
+            for _r0, _n, off in shards.tolist()]
+
+
+def fold_pair(prog, rows, shards, width: int, windows, images, perm=None) -> list:
+    """What ``mesh_fold`` replaces, on the card: ``fused_group_agg_combine_pack``
+    over each shard's rows of ``rows`` (its image from ``images``), then
+    ``mesh_merge`` of the packed states in shard order over each window
+    ``(lo, carry)`` into its carry (through ``perm``).  Returns the
+    windows' ``(ints, flts)``."""
+    from .copr import fused_group_agg as ga
+    from .copr import fused_mesh
+
+    cap, dev = rows.shape[2], rows.device
+    pi = torch.empty((len(images), prog.n_int, cap), dtype=torch.int64, device=dev)
+    pf = torch.empty((len(images), prog.n_f64, cap), dtype=torch.float64, device=dev)
+    for k, ((r0, n, _off), img) in enumerate(zip(shards.tolist(), images)):
+        ga.launch_combine(prog, img, cap, rows[r0:r0 + n], None, (pi[k], pf[k]))
+    table = fused_mesh.merge_table([range(len(images))], len(images), dev)
+    outs = []
+    for lo, carry in windows:
+        out = (torch.empty((1, prog.n_int, width), dtype=torch.int64, device=dev),
+               torch.empty((1, prog.n_f64, width), dtype=torch.float64, device=dev))
+        c = None if carry is None else (carry[0][None], carry[1][None])
+        fused_mesh.launch_mesh_merge(prog, (pi, pf), table, c, lo, lo + width, out, perm)
+        outs.append((out[0][0], out[1][0]))
+    return outs
+
+
 def mesh_columns(a: dict, start: int, end: int) -> dict:
     """Rows ``[start, end)`` of the lineitem draws ``a`` as the sharded
     evaluators' host columns, ``{column: (data, nulls)}``, for the columns of
@@ -2305,6 +2394,39 @@ def mesh_merge_check(prog, parts, table, carry=None, lo: int = 0, hi: int | None
             and torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))):
         raise AssertionError("mesh_merge: two runs differ")
     return _f64_err(got[1].cpu(), want[1], rel_tol, "mesh_merge")
+
+
+def mesh_fold_check(prog, rows, shards, base: int, width: int, windows, perm=None,
+                    images=None, rel_tol: float = 1e-12) -> float:
+    """``mesh_fold`` on CUDA inputs beside its plain version on the same
+    inputs (integer words equal, f64 leaves to ``rel_tol``, NaN equal to
+    NaN) and, given the shards' ``images``, beside :func:`fold_pair` (every
+    word equal, f64 leaves bit for bit); a second launch bit-identical.
+    The carries are left as they are.  Raises on a difference; returns the
+    largest absolute f64 difference from the plain version."""
+    from .copr import fused_mesh
+
+    got = fused_mesh.mesh_fold(prog, rows, shards, base, width, windows, perm=perm)
+    again = fused_mesh.mesh_fold(prog, rows, shards, base, width, windows, perm=perm)
+    cpu_windows = [(lo, None if c is None else tuple(t.cpu() for t in c)) for lo, c in windows]
+    want = fused_mesh.mesh_fold_plain(prog, rows.cpu(), shards.cpu(), base, width, cpu_windows,
+                                      None if perm is None else perm.cpu())
+    pair = None if images is None else fold_pair(prog, rows, shards, width, windows, images,
+                                                 perm)
+    err = 0.0
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(g[0].cpu(), w[0]):
+            raise AssertionError(f"mesh_fold window {i}: integer words differ from the plain "
+                                 "version")
+        if not (torch.equal(g[0], a[0]) and torch.equal(g[1].view(torch.int64),
+                                                        a[1].view(torch.int64))):
+            raise AssertionError(f"mesh_fold window {i}: two runs differ")
+        if pair is not None and not (torch.equal(g[0], pair[i][0]) and torch.equal(
+                g[1].view(torch.int64), pair[i][1].view(torch.int64))):
+            raise AssertionError(f"mesh_fold window {i}: not the combines and mesh_merge bit "
+                                 "for bit")
+        err = max(err, _f64_err(g[1].cpu(), w[1], rel_tol, "mesh_fold"))
+    return err
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,17 @@ one Python process drives every shard.
   for each device's slabs in ``mesh.xshard`` (#20), and for
   ``mesh.grouped_step`` (#17) the grouped pair with ids from the group
   dictionary the shards build on the devices (``copr/fused_dict.py``).
-* The collectives (``_collective``, ``_combine``) are one step: the shards'
-  packed states are copied to the merging device (``.to(dev,
-  non_blocking=True)``, a no-op where they share it), where ``mesh_merge``
-  (``copr/fused_mesh.py``) folds them in shard order, with no float atomics,
-  so reruns are bit-identical.  ``mesh.topn_fin`` (#19) merges the shards'
-  runs with ``topn_merge`` and packs them with ``topn_pack``.
+* The collectives (``_collective``, ``_combine``) are one step on the
+  merging device, in shard order, with no float atomics, so reruns are
+  bit-identical.  For #16 and #17 the shards' partials kernels write their
+  raw rows straight into one stacked buffer on the lead device (a shard on
+  another device is copied there, ``.to(dev, non_blocking=True)``), and
+  ``mesh_fold`` (``copr/fused_mesh.py``) folds each shard and then the
+  shards into the carry in one launch a super-block and merging device;
+  past the grouped pair's shared-memory slots, and for #20, the shards'
+  packed states are stacked the same way and ``mesh_merge`` folds them.
+  ``mesh.topn_fin`` (#19) merges the shards' runs with ``topn_merge`` and
+  packs them with ``topn_pack``.
 * A mesh's device list may repeat a device: ``make_mesh(["cuda:0"] * 8)``
   runs eight shards on one card, as the JAX package's tests run eight
   virtual CPU devices; ``make_mesh(["cpu"] * 8)`` runs the plain versions.
@@ -44,7 +49,7 @@ from ..copr import fused_group_agg as ga
 from ..copr import fused_topn as ft
 from ..copr.dag_wire import dag_from_wire
 from ..copr.datatypes import EvalType
-from ..copr.fused_agg import NO_ROW, Image
+from ..copr.fused_agg import NO_ROW, Image, launch_grid
 from ..copr.groupby import GroupDict
 from ..copr.torch_eval import (
     TorchDagEvaluator,
@@ -181,10 +186,47 @@ def _shard_images(shard_devices, rows_per_shard: int, data, f64, nulls, n_valid:
     return images
 
 
+def _parts_a_shard(rows_per_shard: int) -> int:
+    """Partial rows of ``fused_group_agg_partials`` over a shard's image
+    (one block of ``rows_per_shard`` rows): its launch grid."""
+    return launch_grid(Image([], [], 0, 1, rows_per_shard, torch.device("cpu")))
+
+
+def _fold_table(n_shards: int, rows_per_shard: int, device) -> torch.Tensor:
+    """``mesh_fold``'s shard table of :func:`_shard_rows`' stacked rows:
+    shard ``k``'s rows follow shard ``k - 1``'s, and its row 0 is row ``k *
+    rows_per_shard`` of the super-block."""
+    n = _parts_a_shard(rows_per_shard)
+    return fused_mesh.shard_table([(k * n, n, k * rows_per_shard) for k in range(n_shards)],
+                                  n_shards * n, device)
+
+
+def _shard_rows(prog, images, cap: int, lead) -> torch.Tensor:
+    """Each shard's raw partial rows at ``cap`` shared-memory slots (the
+    partials kernel on the shard's device, ids from each image's ``gids``),
+    stacked on the lead device in shard order: ``(S * n, n_leaves, C)``.  A
+    shard on the lead device writes its rows in place; another's are
+    copied."""
+    n = launch_grid(images[0])
+    rows = torch.empty((len(images) * n, len(prog.leaves), cap), dtype=torch.int64, device=lead)
+    for k, img in enumerate(images):
+        dst = rows[k * n:(k + 1) * n]
+        if img.device.type == "cpu":
+            dst.copy_(ga.partials_plain(prog, img, cap))
+        elif img.device == lead:
+            ga.launch_partials(prog, img, cap, dst)
+        else:
+            scratch = ga.new_partials(prog, img, cap)
+            ga.launch_partials(prog, img, cap, scratch)
+            dst.copy_(scratch, non_blocking=True)
+    return rows
+
+
 def _shard_states(prog, images, cap: int, lead):
-    """Each shard's packed state at ``cap`` slots from the identity (the
-    grouped pair on the shard's device, ids from each image's ``gids``),
-    stacked on the lead device: ``(S, n_int, C)`` and ``(S, n_f64, C)``."""
+    """Each shard's packed state at ``cap`` slots past ``c_max`` from the
+    identity (the wide pair on the shard's device, ids from each image's
+    ``gids``), stacked on the lead device: ``(S, n_int, C)`` and ``(S,
+    n_f64, C)``."""
     pi = torch.empty((len(images), prog.n_int, cap), dtype=torch.int64, device=lead)
     pf = torch.empty((len(images), prog.n_f64, cap), dtype=torch.float64, device=lead)
     for k, img in enumerate(images):
@@ -215,8 +257,11 @@ class ShardedDagEvaluator:
     ``[g*C/G, (g+1)*C/G)`` on the device at ``(0, g)``) and is updated in
     place.  Every plan runs the grouped program with host group ids, a plan
     without GROUP BY at ``capacity`` slots with ids 0, and the tracker (the
-    global index of each slot's first active row) always runs; past the
-    grouped pair's shared-memory slots each shard takes its wide route.
+    global index of each slot's first active row) always runs.  A step
+    launches the partials kernel per shard and ``mesh_fold`` once per
+    merging device (the members that share a device are windows of one
+    launch); past the grouped pair's shared-memory slots each shard takes
+    its wide route and ``mesh_merge`` folds the packed states.
     ``dag`` is a ``DagRequest`` or its wire dict.  ``ValueError`` for a plan
     without an aggregation or with ``first``."""
 
@@ -242,6 +287,12 @@ class ShardedDagEvaluator:
         self._col_f64 = [plan.schema[i][0] == EvalType.REAL for i in plan.device_cols]
         self._tables = [fused_mesh.merge_table([range(self.n_regions)], self.n_regions, d)
                         for d in self.member_devices]
+        # the members by merging device, in member order, and each device's
+        # shard table
+        self._merging: dict = {}
+        for g, d in enumerate(self.member_devices):
+            self._merging.setdefault(d, []).append(g)
+        self._shards = {d: _fold_table(self.n_regions, rows_per_shard, d) for d in self._merging}
 
     @property
     def slice_width(self) -> int:
@@ -258,11 +309,11 @@ class ShardedDagEvaluator:
         ``gids`` int32 host group ids.  The shards' states are
         folded in shard order, then combined into the carry: carry ⊕ (s0 ⊕
         s1 ⊕ …), as ``_combine(carry, psum(leaf))``."""
-        plan = self.ev.plan
-        nulls_of = dict(zip(plan.nullable_cols, col_nulls))
-        images = _shard_images(self.shard_devices, self.rows_per_shard, list(col_data),
-                               self._col_f64, [nulls_of.get(i) for i in plan.device_cols],
-                               _n_valid(n_valid, self.total_rows), block_base, gids)
+        images = self.images(col_data, col_nulls, n_valid, gids, block_base)
+        if self.prog.shared_rows(self.capacity):
+            self.fold(_shard_rows(self.prog, images, self.capacity, self.mesh.lead), state,
+                      block_base)
+            return state
         pi, pf = _shard_states(self.prog, images, self.capacity, self.mesh.lead)
         w = self.slice_width
         for g, dev in enumerate(self.member_devices):
@@ -271,6 +322,26 @@ class ShardedDagEvaluator:
                                               pf.to(dev, non_blocking=True)),
                                   self._tables[g], carry, g * w, (g + 1) * w, out=carry)
         return state
+
+    def images(self, col_data, col_nulls, n_valid: int, gids, block_base: int) -> list[Image]:
+        """The super-block's shard images (:meth:`step`'s arguments), staged
+        on the shards' devices."""
+        plan = self.ev.plan
+        nulls_of = dict(zip(plan.nullable_cols, col_nulls))
+        return _shard_images(self.shard_devices, self.rows_per_shard, list(col_data),
+                             self._col_f64, [nulls_of.get(i) for i in plan.device_cols],
+                             _n_valid(n_valid, self.total_rows), block_base, gids)
+
+    def fold(self, rows: torch.Tensor, state, block_base: int) -> None:
+        """The shards' stacked raw rows (:func:`_shard_rows`) folded into
+        ``state`` in place: one ``mesh_fold`` per merging device, whose
+        members are its windows (the rows copied to a device other than the
+        lead)."""
+        w = self.slice_width
+        for dev, members in self._merging.items():
+            win = [(g * w, state[g]) for g in members]
+            fused_mesh.mesh_fold(self.prog, rows.to(dev, non_blocking=True), self._shards[dev],
+                                 block_base, w, win, outs=[state[g] for g in members])
 
     def run_arrays(self, columns: dict, n_valid: int, gids) -> list:
         """One super-block given per-column ``(data, nulls)`` host arrays."""
@@ -389,9 +460,10 @@ class ShardedGroupedEvaluator:
     gathered on the lead device, are unioned again into the new global
     dictionary, and a row's group id is its key's position in it
     (``dict_ids``, which writes each shard image's ``gids`` on the shard's
-    device).  The shards' partial states (the grouped pair) fold through
-    ``mesh_merge`` in shard order into the carry, whose slots move to their
-    keys' new positions (``perm``).  ``overflow`` replaces dropped groups:
+    device).  The shards' raw partial rows (``fused_group_agg_partials``)
+    fold through ``mesh_fold`` in shard order into the carry, whose slots
+    move to their keys' new positions (``perm``); past the shared-memory
+    slots the wide pair's packed states fold through ``mesh_merge``.  ``overflow`` replaces dropped groups:
     more than ``capacity`` distinct keys, or a value that does not pack into
     its ``key_bits`` lane; it is sticky, and once set the state is not the
     reference's (it misfiles groups by design).
@@ -436,6 +508,7 @@ class ShardedGroupedEvaluator:
         self.shard_devices = [mesh.devices[k, 0] for k in range(self.n_regions)]
         self._col_f64 = [plan.schema[i][0] == EvalType.REAL for i in self.ship_cols]
         self._table = fused_mesh.merge_table([range(self.n_regions)], self.n_regions, mesh.lead)
+        self._shards = _fold_table(self.n_regions, rows_per_shard, mesh.lead)
 
     def init_state(self):
         """An empty dictionary, the identity state and no overflow."""
@@ -482,15 +555,21 @@ class ShardedGroupedEvaluator:
             # carried slots' new positions
             moved = (dict_keys, perm) if k == 0 else (None, None)
             fd.dict_ids(on[img.device], kk, img.gids.view(-1), *moved)
-        parts = _shard_states(self.prog, images, cap, lead)
-        out = (torch.empty((1, self.prog.n_int, cap), dtype=torch.int64, device=lead),
-               torch.empty((1, self.prog.n_f64, cap), dtype=torch.float64, device=lead))
-        fused_mesh.mesh_merge(self.prog, parts, self._table, (ints[None], flts[None]),
-                              out=out, perm=perm)
+        if self.prog.shared_rows(cap):
+            out = fused_mesh.mesh_fold(self.prog, _shard_rows(self.prog, images, cap, lead),
+                                       self._shards, block_base, cap, [(0, (ints, flts))],
+                                       perm=perm)[0]
+        else:
+            parts = _shard_states(self.prog, images, cap, lead)
+            out = (torch.empty((1, self.prog.n_int, cap), dtype=torch.int64, device=lead),
+                   torch.empty((1, self.prog.n_f64, cap), dtype=torch.float64, device=lead))
+            fused_mesh.mesh_merge(self.prog, parts, self._table, (ints[None], flts[None]),
+                                  out=out, perm=perm)
+            out = (out[0][0], out[1][0])
         for dev, flag in flags.items():
             if dev != lead:
                 overflow |= flag.to(lead, non_blocking=True)
-        return new_dict, (out[0][0], out[1][0]), overflow
+        return new_dict, out, overflow
 
     def run_blocks(self, blocks):
         """Super-blocks ``[(columns, n_valid), ...]`` in stream order
