@@ -148,8 +148,8 @@ After phase ``mesh_grouped``, phase ``high_capacity`` drives group slots
 past the grouped pair's shared-memory rows (its wide route,
 ``group_wide_partials`` and ``group_wide_combine`` of ``csrc/fused_agg.cu``)
 and a device dictionary past 8,192 slots (the union's sort route,
-``dict_merge``, ``dict_count`` and ``dict_compact`` of
-``csrc/fused_dict.cu``) with per-supplier statistics over TPC-H Q15's
+``dict_merge`` and ``dict_compact``, one launch each level and one
+compaction, of ``csrc/fused_dict.cu``) with per-supplier statistics over TPC-H Q15's
 window (``fixtures.supp_dag``, GROUP BY l_suppkey, var_pop's f64 sum of
 squares): cold over 1,000,000 KV rows (10,000 suppliers), the DOUBLE price's
 first/min/max/sum/var_pop cold, warm over the 100M image (about 166,000
@@ -2260,7 +2260,7 @@ HC_COLD_ROWS = COLD_ROWS  # SF 1: 10,000 suppliers
 HC_MESH_ROWS = MESH_GROUPED_ROWS  # SF 1.67: 16,664 suppliers
 HC_MESH_CAP = 32768
 WIDE_KERNELS = ("group_wide_partials", "group_wide_combine")
-SORT_KERNELS = ("dict_merge", "dict_count", "dict_compact")
+SORT_KERNELS = ("dict_merge", "dict_compact")
 HC_KERNELS = WIDE_KERNELS + SORT_KERNELS + DICT_KERNELS + ("mesh_merge",) + BATCH_KERNELS
 
 
@@ -2333,8 +2333,11 @@ def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
         del gid, x
     attrs = no_local_memory("group_wide_partials",
                             [ga.partials_attributes(ga.partials_slots(prog), wide=True)])[0]
+    c_attrs = no_local_memory("group_wide_combine",
+                              [ga.combine_attributes(ga.partials_slots(prog))])[0]
     return {"rows": rows, "capacity": cap, "leaves": L, "c_max": prog.c_max,
             "x_leaves": len(prog.x_leaves), "state_words": state.numel(), "attributes": attrs,
+            "combine_attributes": c_attrs,
             "partials_ms": p_ms, "partials_bound_ms": p_bound, "partials_bound_by": p_by,
             "partials_plain_ms": pp_ms, "combine_ms": c_ms, "combine_bound_ms": c_bound,
             "combine_bound_by": c_by, "combine_plain_ms": cp_ms, "state_init_ms": init_ms,
@@ -2346,13 +2349,14 @@ def time_sort_union(fd, fx, d, k, cap: int) -> dict:
     """The dictionary union's sort route (past ``fd.CAP_MAX`` slots) at one
     input, kernel by kernel: the tile sort (``dict_union`` at ``T = cap =
     SORT_TILE``), the ``dict_merge`` stage (every level of ``merge_plan``,
-    each held to its plain version by ``fx.sort_route_levels``),
-    ``dict_count`` and ``dict_compact``; each output against its plain
-    version (integers, equal) and the whole union against
-    ``dict_union_plain``; CUDA-event ms, the plain versions' ms, bounds
-    (each input read once, each output written once) and yardsticks:
-    ``torch.sort`` of the tiles for the merge stage (it computes more: a
-    full sort), ``torch.unique_consecutive`` for the compaction."""
+    each held to its plain version by ``fx.sort_route_levels``) and
+    ``dict_compact`` (one launch: the first cap distinct keys and the flag,
+    0 local bytes); its output and flag against ``compact_plain``, two runs
+    bit for bit, and the whole union against ``dict_union_plain``;
+    CUDA-event ms, the plain versions' ms, bounds (each input read once,
+    each output written once) and yardsticks: ``torch.sort`` of the tiles
+    for the merge stage (it computes more: a full sort),
+    ``torch.unique_consecutive`` for the compaction."""
     lib = fd.kernels()
     dev = k.device
     n_d = 0 if d is None else cap
@@ -2402,31 +2406,31 @@ def time_sort_union(fd, fx, d, k, cap: int) -> dict:
             "plain_ms": cuda_ms(plain_stage, 2, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "attributes": attrs,
             "library_ms": cuda_ms(lambda: torch.sort(runs), 10)}
-    counts = torch.empty(-(-sorted_n // fd.CHUNK), dtype=torch.int32, device=dev)
-    ok(lib.dc_launch_count(final.data_ptr(), sorted_n, counts.data_ptr(), stream))
     res = torch.empty(cap, dtype=torch.int64, device=dev)
-    ok(lib.dc_launch_compact(final.data_ptr(), sorted_n, counts.data_ptr(), res.data_ptr(),
-                             flag.data_ptr(), cap, stream))
+    scratch = fd.compact_scratch(dev, sorted_n)
+
+    def compact():
+        ok(lib.dc_launch_compact(final.data_ptr(), sorted_n, res.data_ptr(), flag.data_ptr(), cap,
+                                 scratch.data_ptr(), stream))
+
+    want_c, over_c = fd.compact_plain(final.cpu(), cap)
+    got = []
+    for _ in range(2):
+        flag.zero_()
+        compact()
+        got.append((res.cpu(), int(flag.cpu())))
+    if not (torch.equal(got[0][0], got[1][0]) and got[0][1] == got[1][1]):
+        raise AssertionError("dict_compact: two runs differ")
+    if not torch.equal(got[0][0], want_c) \
+            or got[0][1] != (fd.FLAG_CAPACITY if over_c else 0):
+        raise AssertionError("dict_compact: differs from its plain version")
     want, _over = fd.dict_union_plain(None if d is None else d.cpu(), k.cpu(), cap)
-    if not torch.equal(res.cpu(), want):
+    if not torch.equal(got[0][0], want):
         raise AssertionError("sort-route union: differs from dict_union_plain")
-    host = final.cpu()
-    fresh = host < fd.SENTINEL
-    fresh[1:] &= host[1:] != host[:-1]
-    fresh = torch.cat([fresh, fresh.new_zeros(counts.numel() * fd.CHUNK - sorted_n)])
-    if not torch.equal(counts.cpu(), fresh.view(-1, fd.CHUNK).sum(1).to(torch.int32)):
-        raise AssertionError("dict_count: differs from its plain version")
-    b_ms, b_by = bound(sorted_n * 8 + counts.numel() * 4, sorted_n)
-    out["dict_count"] = {
-        "ms": cuda_ms(lambda: ok(lib.dc_launch_count(final.data_ptr(), sorted_n,
-                                                     counts.data_ptr(), stream)), 20),
-        "plain_ms": cuda_ms(lambda: fd.compact_plain(final, cap), 2, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    b_ms, b_by = bound(sorted_n * 8 + counts.numel() * 4 + cap * 8, sorted_n)
+    attrs = no_local_memory("dict_compact", [fd.compact_attributes()])[0]
+    b_ms, b_by = bound(sorted_n * 8 + cap * 8, sorted_n)
     out["dict_compact"] = {
-        "ms": cuda_ms(lambda: ok(lib.dc_launch_compact(
-            final.data_ptr(), sorted_n, counts.data_ptr(), res.data_ptr(), flag.data_ptr(), cap,
-            stream)), 20),
+        "ms": cuda_ms(compact, 20), "blocks": fd.compact_tiles(sorted_n), "attributes": attrs,
         "plain_ms": cuda_ms(lambda: fd.compact_plain(final, cap), 2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.unique_consecutive(final)[:cap], 10)}
@@ -3762,7 +3766,7 @@ def main() -> int:
             "batch_riders": {name: {f: r[f"{key}_{f}"] for f in ("ms", "plain_ms", "bound_ms")}
                              for name, r in hc["riders"].items()},
             "wide_same_ids_at_c_max_plus_1_ms": hc["crossover"][f"{key}_ms"],
-            "attributes": t["attributes"] if key == "partials" else None})
+            "attributes": t["attributes"] if key == "partials" else t["combine_attributes"]})
     # the dictionary union's sort route at the grouped mesh's shard union
     # (the carried 32,768-slot dictionary and a shard's 131,072 keys)
     for name in SORT_KERNELS:
@@ -3773,7 +3777,10 @@ def main() -> int:
             "replaces_also": ["tikv_tpu/parallel/mesh.py:388"],
             "launches": hc["launches"][name], "max_abs_err": 0.0, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "global": hc["sort_global"].get(name)})
+            "library_ms": t["library_ms"], "global": hc["sort_global"].get(name),
+            **({"redesign": "one launch a union, in place of the pair dict_count + "
+                            "dict_compact", "attributes": t["attributes"]}
+               if name == "dict_compact" else {})})
     # the image patch at the write path's 1% update (10,000 rows into the
     # region's Q1 pin, six lanes of 16 blocks of 65,536 rows), the 10M
     # image's Q1 lanes beside it; the re-pin it spares as the yardstick
@@ -3844,6 +3851,16 @@ def main() -> int:
               "shard_union": hc["sort"].get("dict_merge"),
               "global_union": hc["sort_global"].get("dict_merge"),
               "launches": hc["launches"]["dict_merge"]},
+          "dict_compact": {
+              "tile": fd.COMPACT_TILE, "shard_union": hc["sort"]["dict_compact"],
+              "global_union": hc["sort_global"]["dict_compact"],
+              "launches": hc["launches"]["dict_compact"]},
+          "group_wide_combine": {
+              k: {f: t[f"combine_{f}"] for f in ("ms", "bound_ms", "plain_ms", "attributes")}
+              for k, t in (("per_supplier_warm", hc["warm"]), ("cold_block", hc["cold"]),
+                           ("mesh_shard", hc["mesh_shard"]),
+                           ("same_ids_at_c_max_plus_1", hc["crossover"]),
+                           *(("rider_" + n, r) for n, r in hc["riders"].items()))},
           "fused_mask": {
               "rows_a_thread": fm.MASK_ROWS,
               "plain_image": mask_times(t_mask), "encoded": mask_times(t_mask_e),

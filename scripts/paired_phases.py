@@ -89,7 +89,18 @@ work in ``_shard_states`` or ``_shard_rows``, and ``mesh_merge`` or
 medians reported as cases, or ``fold_requests``: cold Q1 and Q6 over 1M KV
 rows through ``MeshServingRunner`` on 8 shards of the card at 1,024 rows a
 shard (G = 1 and, for Q1, 2) and Q1 at 65,536 (host clock, four runs; once
-more under ``torch.profiler``).  Each process
+more under ``torch.profiler``), or ``slice19_kernels``: the sort route's
+compaction alone (each checkout's: one launch, or the pair of count and
+compact) over the merge stage's sorted keys at the grouped mesh's shard and
+global unions at 32,768 slots (inputs captured from its second
+super-block) and the whole unions, then ``group_wide_combine`` alone at a
+grouped-mesh shard (32,768 slots), the cold per-supplier block (16,384),
+the warm per-supplier query over the 100M-row supplier image (262,144), the
+same ids at ``c_max + 1`` and the batch riders past their rows (Q1 by the
+four flag columns, 512 slots; five CUDA-event times each), or
+``slice19_requests``: the grouped mesh at 32,768 slots and the cold
+per-supplier query over 1M KV rows (host clock, a first run left out; once
+more under ``torch.profiler``, with the launches counted).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -677,6 +688,135 @@ elif sys.argv[1] in ("merge_kernels", "merge_requests"):
                            "device_ms": [sum(prof["device_ms"].values())],
                            "top_kernels_ms": {k[:80]: v for k, v in top}}
     print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("slice19_kernels", "slice19_requests"):
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_batch as fb
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+    mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()),
+                                     pm.make_mesh([dev] * cs.MESH_SHARDS, groups=1),
+                                     cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+    total = mev.total_rows
+    mblocks = [(fx.supp_columns(a_mesh, s, min(s + total, cs.HC_MESH_ROWS), total),
+                min(total, cs.HC_MESH_ROWS - s)) for s in range(0, cs.HC_MESH_ROWS, total)]
+    skvs = fx.supp_kvs(cs.HC_COLD_ROWS, cs.SEED)
+    cases = {}
+    if sys.argv[1] == "slice19_kernels":
+        def repeat(name, fn, iters, **extra):
+            cases[name] = {"request_s": [cs.cuda_ms(fn, iters) / 1e3 for _ in range(5)], **extra}
+
+        def ok(rc):
+            if rc != 0:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+
+        # the compaction (this checkout's: one launch, or the pair count +
+        # compact) at the grouped mesh's shard and global unions, the inputs
+        # captured from its second super-block, over the merge stage's sorted
+        # keys; then the whole union
+        state, calls = cs.capture_calls(pm, "_shard_states", lambda: mev.step(
+            *cs._block_args(mev, mblocks[0]), mev.init_state()))
+        seen = cs.capture_dict(fd, lambda: mev.step(*cs._block_args(mev, mblocks[1]), state,
+                                                    block_base=total))
+        lib = fd.kernels()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for name, (d, k, cap) in (("compact_shard_union", seen["dict_union"]),
+                                  ("compact_global_union", seen["dict_union_global"])):
+            srt = fx.sort_route_levels(None if d is None else d.cpu(), k.cpu(), dev)["sorted"]
+            sorted_n = srt.numel()
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            out = torch.empty(cap, dtype=torch.int64, device=dev)
+            if hasattr(lib, "dc_launch_count"):
+                counts = torch.empty(-(-sorted_n // fd.CHUNK), dtype=torch.int32, device=dev)
+
+                def compact():
+                    ok(lib.dc_launch_count(srt.data_ptr(), sorted_n, counts.data_ptr(), stream))
+                    ok(lib.dc_launch_compact(srt.data_ptr(), sorted_n, counts.data_ptr(),
+                                             out.data_ptr(), flag.data_ptr(), cap, stream))
+                launches = 2
+            else:
+                scratch = fd.compact_scratch(dev, sorted_n)
+
+                def compact():
+                    ok(lib.dc_launch_compact(srt.data_ptr(), sorted_n, out.data_ptr(),
+                                             flag.data_ptr(), cap, scratch.data_ptr(), stream))
+                launches = 1
+            compact()
+            if not torch.equal(out.cpu(), fd.compact_plain(srt.cpu(), cap)[0]):
+                raise AssertionError(f"{name}: the compaction differs from its plain version")
+            repeat(name, compact, 20, launches=launches, keys=sorted_n)
+            repeat(name.replace("compact", "union"),
+                   lambda: fd.launch_union(d, k, cap, flag, out), 20)
+        # group_wide_combine at its five shapes: a grouped-mesh shard (131,072
+        # rows, 32,768 slots), the cold per-supplier block (16,384), the
+        # warm query over 100M rows (262,144), the same ids at c_max + 1 and
+        # the batch riders past their rows (Q1 by the four flag columns, 512)
+        def combine(name, prog, img, cap, iters):
+            st = ga.new_partials(prog, img, cap)
+            ga.launch_partials(prog, img, cap, st)
+            out = ga.init_packed(prog, cap, img.device)
+            repeat(name, lambda: ga.launch_combine(prog, img, cap, st, None, out), iters,
+                   capacity=cap, x_leaves=len(prog.x_leaves))
+
+        sprog, simages, scap, _lead = calls[0]
+        combine("combine_mesh_shard", sprog, simages[0], scap, 50)
+        del calls, simages, seen
+        ev_cs = te.TorchDagEvaluator(dag_to_wire(fx.supp_dag()), block_rows=1 << 16,
+                                     device="cuda")
+        _r, ccalls = cs.capture_calls(te, "fused_group_agg",
+                                      lambda: ev_cs.run(FixtureScanSource(skvs)))
+        cap_c = max(c[2] for c in ccalls)
+        prog_c, img_c = next(c[:2] for c in ccalls if c[2] == cap_c)
+        combine("combine_cold_block", prog_c, img_c, cap_c, 50)
+        del ccalls
+        cache = fx.supp_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+
+        def ev_of(dag):
+            ev = te.TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device="cuda")
+            ev.route_hint = "unary"
+            return ev
+
+        _r, wcalls = cs.capture_calls(te, "fused_group_agg",
+                                      lambda: ev_of(fx.supp_dag()).run(None, cache))
+        prog_w, img_w, cap_w = wcalls[0][:3]
+        combine("combine_warm_262144", prog_w, img_w, cap_w, 10)
+        cross = type(img_w)(img_w.cols, img_w.nulls, img_w.n_valids, img_w.n_blocks,
+                            img_w.block_rows, img_w.device, img_w.offsets,
+                            img_w.gids % prog_w.c_max)
+        combine("combine_ids_at_c_max_plus_1", prog_w, cross, prog_w.c_max + 1, 10)
+        del wcalls, img_w, cross
+        tasks = te.batch_tasks([ev_of(fx.flags4_dag()), ev_of(fx.flags4_dag(var_pop=True))],
+                               cache)[0]
+        for i in fb.Batch(tasks).wide:
+            combine(f"combine_rider_{i}", tasks[i].prog, tasks[i].img, tasks[i].capacity, 20)
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        ev_c = te.TorchDagEvaluator(dag_to_wire(fx.supp_dag()), block_rows=1 << 16,
+                                    device="cuda")
+        plan = [("mesh_grouped_32768", lambda: mev.finalize(mev.run_blocks(mblocks)), 7, 1),
+                ("cold_supp_1m", lambda: ev_c.run(FixtureScanSource(skvs)), 5, 1)]
+        for name, fn, n, skip in plan:
+            secs = [timed(fn) for _ in range(n)]
+            fa.reset_launches()
+            prof = cs.profile_runs(fn, 1)
+            top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:8]
+            cases[name] = {"request_s": secs[skip:],
+                           "device_ms": [sum(prof["device_ms"].values())],
+                           "launches": sum(fa.LAUNCHES.values()),
+                           "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(json.dumps({"cases": cases}))
 elif sys.argv[1] in ("zone_kernels", "zone_requests"):
     from tikv_tpu_torch.copr import fused_zone as fz
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
@@ -824,6 +964,8 @@ def run_phase(checkout: Path, phase: str) -> dict:
                 out["requests_s"][case] = res["request_s"]
             if isinstance(res, dict) and "device_ms" in res:
                 out["requests_s"][case + "_device"] = [ms / 1e3 for ms in res["device_ms"]]
+            if isinstance(res, dict) and "launches" in res:
+                out.setdefault("launches", {})[case] = res["launches"]
         if "phase_wall_s" in obj:
             out["phase_wall_s"] = obj["phase_wall_s"]
     return out

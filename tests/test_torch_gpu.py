@@ -567,7 +567,7 @@ def test_encoded_warm_plans_match_their_oracles(cuda, order):
                                      "join_rank_probe", "join_hash_probe", "mesh_merge",
                                      "mesh_fold",
                                      "dict_keys", "dict_union", "dict_ids", "dict_merge",
-                                     "dict_count", "dict_compact", "group_wide_partials",
+                                     "dict_compact", "group_wide_partials",
                                      "group_wide_combine", "patch_stacked"), name
     # the same shipped columns pin in at most 30% of the plain bytes (the
     # zone layouts narrow themselves whatever the encoding: left out)
@@ -930,7 +930,7 @@ def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad)
     200,000 rows (NULL keys, a REAL key, rows past n_valid) and a dictionary
     that grows from the first half's keys to all of them; a full dictionary,
     overflow and out-of-range keys; past 8,192 slots the union's sort route
-    (dict_merge, dict_count, dict_compact) and dict_ids in device memory;
+    (dict_merge, dict_compact) and dict_ids in device memory;
     two runs bit-identical; then mesh_merge moving a carry through a perm at
     the same capacity."""
     from tikv_tpu_torch.copr import fused_dict as fd
@@ -966,6 +966,54 @@ def test_union_kernel_edges_match_plain_version(cuda, name):
     fx.union_kernel_check(d, keys, cap, cuda)
     assert fa.LAUNCHES["dict_union"] >= 2
     assert fd.union_attributes()["localSizeBytes"] == 0
+
+
+@pytest.mark.parametrize("name", fx.COMPACT_EDGE_CASES + (fx.COMPACT_GRID_CASE,))
+def test_dict_compact_edges_match_its_plain_version(cuda, name):
+    """dict_compact in one launch at its edges (``fx.compact_edge_case``:
+    equal keys across a tile boundary, all sentinel, exactly cap and cap + 1
+    distinct keys, one sort tile, the mesh path's shard and global unions,
+    and 4,194,304 keys: 2,048 tiles, more blocks than the card holds at
+    once, so that tickets order them) against compact_plain, the flag too,
+    twice bit for bit, its scratch left zero; then the whole union of the
+    keys shuffled against dict_union_plain, one compaction a union."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    s, cap = fx.compact_edge_case(name)
+    out = fx.compact_kernel_check(s, cap, cuda)
+    assert out["blocks"] == fd.compact_tiles(s.numel())
+    keys = torch.from_numpy(np.random.default_rng(2).permutation(s.numpy()))
+    fa.reset_launches()
+    fx.union_kernel_check(None, keys, cap, cuda)
+    assert fa.LAUNCHES["dict_compact"] == 2 and "dict_count" not in fa.LAUNCHES
+    assert fa.LAUNCHES["dict_merge"] == 2 * len(fd.merge_plan(keys.numel()))
+
+
+def test_compaction_and_wide_combine_keep_no_local_memory(cuda):
+    """dict_compact and every instance (2, 4 and 8 stack slots) of
+    group_wide_combine keep their state in registers and shared memory: 0
+    local bytes."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    assert fd.compact_attributes()["localSizeBytes"] == 0
+    for slots in (2, 4, 8):
+        attrs = ga.combine_attributes(slots)
+        assert attrs["localSizeBytes"] == 0, attrs
+
+
+def test_wide_combine_matches_its_plain_version_on_crafted_states(cuda):
+    """group_wide_combine over a state whose f64 sum cells hold the
+    rounding's edges (``fx.wide_combine_crafted``: random signed words in
+    every position, ties at the rounding bit of both parities, subnormals,
+    sums that cancel, negative sums, sums past the largest double, words
+    carrying into the next) and every combination of the NaN and infinity
+    flags: bit for bit against wide_combine_plain, NaN equal to NaN, from
+    the identity and into a carry, twice."""
+    prog, img, cap, state = fx.wide_combine_crafted(cuda)
+    fa.reset_launches()
+    for _ in range(2):
+        fx.wide_combine_check(prog, img, cap, state)
+    assert fa.LAUNCHES["group_wide_combine"] == 4
 
 
 def test_sharded_grouped_evaluator_on_the_card(cuda):

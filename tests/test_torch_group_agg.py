@@ -365,6 +365,56 @@ def test_wide_route_sums_are_exact_and_order_free():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("name", fx.XROUND_EDGE_CASES)
+def test_exact_sum_rounding_edges_match_an_exact_reference(name):
+    """The combine's rounding (``_xround``, the plain version of the kernel's
+    warp-wide rounding) at its edges (``fx.xround_edge_words``: random signed
+    words in all 66 positions and in the 63 lowest, ties at the rounding
+    bit with even and odd mantissas and one unit either side, subnormal
+    results down to the smallest, sums that cancel to zero, negative sums,
+    sums at and past the largest double; each value in plain digits and
+    with carries moved between the words) against Python's correctly
+    rounded ``Fraction`` division, bit for bit."""
+    words = fx.xround_edge_words(name)
+    got = ga._xround(torch.from_numpy(words)).numpy()
+    want = np.array([fx.exact_word_value(w) for w in words])
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("flags", range(8))
+def test_exact_sum_flags_take_precedence_over_the_sum(flags):
+    """Each combination of the NaN, +inf and -inf flags of an f64 sum cell:
+    NaN with the NaN flag or both infinities, else the one infinity, else
+    the rounded sum."""
+    words = fx.xround_edge_words("ties")[:6]
+    got = ga._xtotal(torch.full((6,), flags, dtype=torch.int64), torch.from_numpy(words))
+    if flags & ga.XFLAG_NAN or flags & 3 == 3:
+        assert bool(got.isnan().all())
+    elif flags:
+        assert bool((got == (float("inf") if flags & ga.XFLAG_POSINF else float("-inf"))).all())
+    else:
+        np.testing.assert_array_equal(got.numpy(), [fx.exact_word_value(w) for w in words])
+
+
+def test_crafted_wide_state_combines_to_the_exact_sums():
+    """The crafted wide-route state the on-card combine check takes
+    (``fx.wide_combine_crafted``: every rounding edge in each f64 sum leaf,
+    each flag combination, ``host_wide``'s other leaves): the plain combine
+    gives every crafted cell's exactly rounded sum, NaN and the infinities
+    as the flags say."""
+    prog, img, cap, state = fx.wide_combine_crafted("cpu")
+    words = np.concatenate([fx.xround_edge_words(n) for n in fx.XROUND_EDGE_CASES])
+    want = np.array([fx.exact_word_value(w) for w in words])
+    out_i, out_f = ga.wide_combine_plain(prog, img, cap, state)
+    n = len(words)
+    for x, l in enumerate(prog.x_leaves):
+        got = out_f[prog.leaves[l].slot].numpy()
+        np.testing.assert_array_equal(got[:n].view(np.int64), np.roll(want, x).view(np.int64))
+        flagged = got[n : n + 8]
+        assert flagged[0] == 0.0 and flagged[1] == np.inf and flagged[2] == -np.inf
+        assert np.isnan(flagged[3:]).all()
+
+
 # ---------------------------------------------------------------------------
 # whole requests
 # ---------------------------------------------------------------------------

@@ -364,7 +364,7 @@ def test_dict_capacity_limits():
     fd.check_capacity((1 << 31) - 1)
     assert fd.union_launches(100_000, 64) == {"dict_union": len(fd.union_passes(100_000, 64))}
     assert fd.union_launches(8 * 32768, 32768) == {
-        "dict_union": 1, "dict_merge": 2, "dict_count": 1, "dict_compact": 1}
+        "dict_union": 1, "dict_merge": 2, "dict_compact": 1}
     assert fd.merge_plan(fd.SORT_TILE) == [] \
         and fd.merge_plan(fd.SORT_TILE + 1) == [(fd.SORT_TILE, 2)]
 
@@ -383,7 +383,14 @@ def test_union_limits_match_the_cuda_source():
     assert int(defines["DU_SORT_TILE"]) == fd.SORT_TILE
     assert int(defines["DU_TILE_MAX"]) == fd.TILE_MAX
     assert int(defines["DI_SMEM_KEYS"]) == fd.CAP_MAX
-    assert int(defines["DU_THREADS"]) * int(defines["DC_PER_THREAD"]) == fd.CHUNK
+    # dict_compact: a tile of 16-byte rows, a lane of warp 0 a (row, warp)
+    # segment; the sort route's buffers hold whole tiles
+    threads = int(defines["DC_THREADS"])
+    assert int(defines["DC_TILE"]) == fd.COMPACT_TILE
+    assert "#define DC_ROWS (DC_TILE / (2 * DC_THREADS))" in text
+    assert fd.COMPACT_TILE % (2 * threads) == 0 and threads % 32 == 0
+    assert fd.COMPACT_TILE // (2 * threads) * (threads // 32) == 32
+    assert fd.SORT_TILE % fd.COMPACT_TILE == 0
     assert "#define DU_WARP_KEYS (32 * DU_E)" in text
     assert int(defines["DM_CHUNK"]) == fd.MERGE_CHUNK
     assert fd.MERGE_CHUNK % int(defines["DM_PAD"]) == 0
@@ -431,7 +438,10 @@ def test_union_passes_follow_the_tile():
     assert fd.merge_plan(5 * 4096) == [(4096, 5)]
     assert len(fd.merge_plan(1 << 24)) == 4  # each doubling past 64 runs: at most one level more
     assert fd.union_launches(163_840, 32768) == {
-        "dict_union": 1, "dict_merge": 2, "dict_count": 1, "dict_compact": 1}
+        "dict_union": 1, "dict_merge": 2, "dict_compact": 1}
+    # the compaction's grid: a block a tile, 80 and 128 at the mesh's unions
+    assert fd.compact_tiles(163_840) == 80 and fd.compact_tiles(262_144) == 128
+    assert fd.compact_tiles(0) == 1 and fd.compact_tiles(fd.COMPACT_TILE + 1) == 2
 
 
 @pytest.mark.parametrize("name", fx.UNION_EDGE_CASES)
@@ -467,8 +477,8 @@ def test_sort_route_keeps_the_smallest_distinct_keys(cap, n, spread, seed):
 
 def test_merge_and_compact_plain_versions():
     """dict_merge's plain version merges sorted runs F at a time (a short
-    last run too, and a last group of one run); dict_count + dict_compact's
-    keeps the first cap distinct keys."""
+    last run too, and a last group of one run); dict_compact's keeps the
+    first cap distinct keys."""
     rng = np.random.default_rng(8)
     runs = [np.sort(rng.integers(0, 50, w)) for w in (8, 8, 8, 5)]
     got = fd.merge_pass_plain(torch.from_numpy(np.concatenate(runs)), 8, 2).numpy()
@@ -485,6 +495,28 @@ def test_merge_and_compact_plain_versions():
     u = np.unique(s)[:-1]
     np.testing.assert_array_equal(out.numpy()[: len(u)], u)
     assert (out.numpy()[len(u):] == fd.SENTINEL).all() and not over
+
+
+@pytest.mark.parametrize("name", fx.COMPACT_EDGE_CASES)
+def test_compaction_edges_keep_the_smallest_distinct_keys(name):
+    """The sort route's compaction at the edges of dict_compact
+    (``fx.compact_edge_case``: equal keys across a tile boundary, all
+    sentinel, exactly cap and cap + 1 distinct keys, one sort tile, the mesh
+    path's 163,840 and 262,144 keys): ``compact_plain`` of the sorted keys
+    and ``dict_union_plain`` of them shuffled against ``np.unique`` cut to
+    ``cap``, the flag exactly when there are more."""
+    s, cap = fx.compact_edge_case(name)
+    want, want_over = _union_numpy(np.zeros(0, np.int64), s.numpy(), cap)
+    got, over = fd.compact_plain(s.clone(), cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert over == want_over
+    shuffled = torch.from_numpy(np.random.default_rng(1).permutation(s.numpy()))
+    got, over = fd.dict_union_plain(None, shuffled, cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert over == want_over
+    if name == "tile_boundary_run":  # the run really crosses the tile
+        t = fd.COMPACT_TILE
+        assert s[t - 1] == s[t] < fd.SENTINEL and s[2 * t - 1] == s[2 * t]
 
 
 def _sort_route_input(case, rng):

@@ -122,7 +122,7 @@ LAUNCHES = {"fused_agg_partials": 0, "fused_agg_combine_pack": 0,
             "batch_partials": 0, "batch_combine_pack": 0,
             "join_rank_probe": 0, "join_hash_probe": 0, "mesh_merge": 0, "mesh_fold": 0,
             "dict_keys": 0, "dict_union": 0, "dict_ids": 0,
-            "dict_merge": 0, "dict_count": 0, "dict_compact": 0, "patch_stacked": 0}
+            "dict_merge": 0, "dict_compact": 0, "patch_stacked": 0}
 
 
 _PUSH_OPS = frozenset({OP_COL, OP_CONST, OP_NULL})

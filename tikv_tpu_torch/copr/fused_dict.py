@@ -21,8 +21,9 @@ with three kernels of ``csrc/fused_dict.cu``:
   that is exact).  Past it, the *sort route*: one ``dict_union`` pass sorts
   every tile of :data:`SORT_TILE` keys, ``dict_merge`` levels merge up to
   :data:`MERGE_FAN_MAX` sorted runs into one each (:func:`merge_plan`: two
-  levels up to 64 runs), and ``dict_count`` then ``dict_compact`` keep the
-  first ``cap`` distinct keys and flag more.  A
+  levels up to 64 runs), and ``dict_compact`` keeps the first ``cap``
+  distinct keys and flags more, in one pass (a tile's offset by a decoupled
+  look-back over the tiles before it, in :func:`compact_scratch`).  A
   block sorts its tile with :data:`KEYS_A_THREAD` keys a thread: in
   registers, then across its warp, then by merge path in shared memory.
 * ``dict_ids`` (``:407-417``): ``clip(searchsorted(dict, key), 0, cap -
@@ -69,7 +70,7 @@ TILE_MIN = 1024  # the tile route's smallest tile
 TILE_MAX = 16384  # the largest tile: 1,024 threads, 136 KB of shared memory
 CAP_MAX = TILE_MAX // 2  # the tile route's largest dictionary; past it, the sort route
 SORT_TILE = 4096  # the sort route's tile (DU_SORT_TILE)
-CHUNK = 8192  # sorted keys a dict_count / dict_compact block reads (DC_CHUNK)
+COMPACT_TILE = 2048  # sorted keys a dict_compact block reads (DC_TILE)
 MERGE_CHUNK = 2048  # keys of one run a dict_merge block places (DM_CHUNK)
 MERGE_FAN_MAX = 8  # runs a dict_merge level merges into one (DM_FAN_MAX)
 _I64_MIN = -(1 << 63)
@@ -177,8 +178,7 @@ def union_launches(n: int, cap: int) -> dict:
     """Launches of each kernel of one :func:`dict_union` of ``n`` keys."""
     if cap <= CAP_MAX:
         return {"dict_union": len(union_passes(n, cap))}
-    return {"dict_union": 1, "dict_merge": len(merge_plan(n)), "dict_count": 1,
-            "dict_compact": 1}
+    return {"dict_union": 1, "dict_merge": len(merge_plan(n)), "dict_compact": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +239,7 @@ def merge_pass_plain(keys: torch.Tensor, width: int, fan_in: int) -> torch.Tenso
 
 
 def compact_plain(s: torch.Tensor, cap: int) -> tuple[torch.Tensor, bool]:
-    """Plain version of ``dict_count`` + ``dict_compact``: the first ``cap``
+    """Plain version of ``dict_compact``: the first ``cap``
     distinct non-sentinel keys of the sorted ``s``, padded with the
     sentinel, and whether there are more."""
     fresh = s < SENTINEL
@@ -335,20 +335,20 @@ def kernels():
         lib.di_launch.argtypes = [vp, ci, vp, cll, vp, vp, vp, vp]
         lib.dm_launch.argtypes = [vp, cll, cll, ci, vp, vp, vp]
         lib.dm_attributes.argtypes = [vp]
-        lib.dc_launch_count.argtypes = [vp, cll, vp, vp]
-        lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, vp, ci, vp]
+        lib.dc_launch_compact.argtypes = [vp, cll, vp, vp, ci, vp, vp]
+        lib.dc_attributes.argtypes = [vp]
         lib.di_table_stride.argtypes = [ci]
         lib.di_attributes.argtypes = [ci, vp]
-        for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_count",
-                   "dc_launch_compact", "dc_chunk", "di_smem_keys", "du_sort_tile",
-                   "du_attributes", "di_table_stride", "di_attributes", "dm_attributes",
-                   "dm_chunk", "dm_fan_max"):
+        for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_compact",
+                   "dc_tile", "dc_attributes", "di_smem_keys", "du_sort_tile", "du_attributes",
+                   "di_table_stride", "di_attributes", "dm_attributes", "dm_chunk",
+                   "dm_fan_max"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_DkParams)}")
         if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL \
-                or lib.dc_chunk() != CHUNK or lib.di_smem_keys() != CAP_MAX \
+                or lib.dc_tile() != COMPACT_TILE or lib.di_smem_keys() != CAP_MAX \
                 or lib.du_sort_tile() != SORT_TILE or lib.dm_chunk() != MERGE_CHUNK \
                 or lib.dm_fan_max() != MERGE_FAN_MAX:
             raise RuntimeError("fused_dict.cu's limits differ from the wrapper's")
@@ -436,13 +436,12 @@ def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
     """The sort route of :func:`launch_union`: ``dict_union`` at ``cap = T =
     SORT_TILE`` sorts every tile (and counts each tile's live keys),
     ``dict_merge`` levels (:func:`merge_plan`) merge the runs in two scratch
-    buffers, ``dict_count`` and ``dict_compact`` write ``out``."""
+    buffers, ``dict_compact`` writes ``out``."""
     dev = x.device
     n = n_d + x.numel()
     sorted_n = sorted_keys(n)
     src = torch.empty(sorted_n, dtype=torch.int64, device=dev)
     live = torch.empty(sorted_n // SORT_TILE, dtype=torch.int32, device=dev)
-    counts = torch.empty(-(-sorted_n // CHUNK), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         rc = lib.du_launch(None if d is None else d.data_ptr(), n_d, x.data_ptr(), x.numel(),
@@ -456,11 +455,45 @@ def _sort_union(lib, d, n_d: int, x: torch.Tensor, cap: int, flag: torch.Tensor,
                 _launched("dict_merge", lib.dm_launch(src.data_ptr(), sorted_n, w, f,
                                                       live.data_ptr(), dst.data_ptr(), stream))
                 src, dst = dst, src
-        _launched("dict_count", lib.dc_launch_count(src.data_ptr(), sorted_n,
-                                                    counts.data_ptr(), stream))
-        _launched("dict_compact", lib.dc_launch_compact(src.data_ptr(), sorted_n,
-                                                        counts.data_ptr(), out.data_ptr(),
-                                                        flag.data_ptr(), cap, stream))
+        scratch = compact_scratch(dev, sorted_n)
+        _launched("dict_compact", lib.dc_launch_compact(src.data_ptr(), sorted_n, out.data_ptr(),
+                                                        flag.data_ptr(), cap, scratch.data_ptr(),
+                                                        stream))
+
+
+_compact_scratch: dict = {}
+
+
+def compact_tiles(n: int) -> int:
+    """Blocks of a ``dict_compact`` launch over ``n`` sorted keys (at least
+    one, which writes the padding)."""
+    return max(1, -(-n // COMPACT_TILE))
+
+
+def compact_scratch(dev, n: int) -> torch.Tensor:
+    """``dict_compact``'s scratch on ``dev`` for ``n`` sorted keys launched
+    on the current stream: int64 words (a ticket, the blocks done, a status
+    word a tile) that are zero before a launch and that the launch leaves
+    zero, so they cost no launch of their own.  One buffer a device and
+    stream (launches on one stream run in order), zeroed when it is made or
+    grown."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    words = 2 + compact_tiles(n)
+    buf = _compact_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 2 + compact_tiles(1 << 18)), dtype=torch.int64, device=dev)
+        _compact_scratch[key] = buf
+    return buf
+
+
+def compact_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``dict_compact``: registers a thread,
+    local (spilled) bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().dc_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"dict_compact attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
 
 
 def union_attributes() -> dict:

@@ -26,8 +26,10 @@ dictionary codes, ``_mixed_radix_gids``), and ``jax_eval.pack``.
   instance of :func:`partials_slots` stack slots), else the wide route
   ``group_wide_partials`` then ``group_wide_combine``: the same tile walk
   and instances, one state in device memory, integer atomics, and f64 sums
-  added exactly (``XWORDS`` words a cell) and rounded once, so any capacity
-  is served bit-identically from run to run.
+  added exactly (``XWORDS`` words a cell) and rounded once (the combine: a
+  block a run of slots, a thread a slot, the slots' REAL-sum cells staged
+  in shared memory and carried in registers), so any capacity is served
+  bit-identically from run to run.
   ``wide_partials_plain`` and ``wide_combine_plain`` are their plain
   versions, word for word.
 * ``fused_group_agg`` takes the plain version for a CPU image and the kernels
@@ -529,8 +531,9 @@ def _ldexp(m: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 def _xround(cells: torch.Tensor) -> torch.Tensor:
-    """``ga_xround`` over ``[n, XWORDS]`` exact sums, the same integer steps:
-    each sum rounded to the nearest f64, ties to even."""
+    """Plain version of ``gw_xround`` over ``[n, XWORDS]`` exact sums: each
+    sum rounded to the nearest f64, ties to even, by the same integer steps
+    (the kernel keeps only the digits the rounding reads)."""
     n = cells.shape[0]
     c = torch.zeros(n, dtype=torch.int64, device=cells.device)
     for k in range(XWORDS):
@@ -567,8 +570,9 @@ def _xround(cells: torch.Tensor) -> torch.Tensor:
 
 
 def _xtotal(flags: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
-    """``ga_xtotal``: NaN where a NaN or both infinities were added, an
-    infinity where one was, else the rounded exact sum."""
+    """The total of an f64 sum cell (``group_wide_combine``): NaN where a
+    NaN or both infinities were added, an infinity where one was, else the
+    rounded exact sum."""
     out = _xround(cells)
     out = torch.where((flags & XFLAG_NEGINF) != 0, float("-inf"), out)
     out = torch.where((flags & XFLAG_POSINF) != 0, float("inf"), out)
@@ -734,7 +738,9 @@ def _kernels():
         lib.gw_launch_partials.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
         lib.gw_partials_attributes.argtypes = [ctypes.c_int, vp]
         lib.gw_partials_attributes.restype = ctypes.c_int
-        lib.gw_launch_combine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.gw_launch_combine.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp]
+        lib.gw_combine_attributes.argtypes = [ctypes.c_int, vp]
+        lib.gw_combine_attributes.restype = ctypes.c_int
         for fn in ("ga_launch_partials", "ga_launch_combine", "gw_launch_partials",
                    "gw_launch_combine"):
             getattr(lib, fn).restype = ctypes.c_int
@@ -774,6 +780,19 @@ def partials_attributes(slots: int, wide: bool = False) -> dict:
     rc = (lib.gw_partials_attributes if wide else lib.ga_partials_attributes)(slots, out)
     if rc != 0:
         raise RuntimeError(f"{name} attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
+
+
+def combine_attributes(slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``group_wide_combine`` instance of
+    ``slots`` stack slots (first's walk at the winning row; the same count
+    as the wide partials'): registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().gw_combine_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"group_wide_combine attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
             "stackSlots": slots}
 
@@ -891,7 +910,8 @@ def launch_combine(prog: GroupProgram, img: Image, capacity: int, parts: torch.T
             name = "group_wide_combine"
             words, xacc = _wide_views(prog, capacity, parts)
             rc = lib.gw_launch_combine(ctypes.byref(p), words.data_ptr(), ptr(xacc), ptr(ci),
-                                       ptr(cf), ptr(out[0]), ptr(out[1]), stream)
+                                       ptr(cf), ptr(out[0]), ptr(out[1]), partials_slots(prog),
+                                       stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

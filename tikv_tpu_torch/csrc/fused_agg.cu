@@ -65,6 +65,8 @@
 // copr/fused_group_agg.py (CPU tests check the opcode and leaf tables; the
 // wrappers check sizeof(FaParams) and sizeof(GaParams) at load).
 
+#include <cuda_pipeline.h>
+
 #include "ga_fold.cuh"
 
 #define FA_THREADS 256
@@ -310,11 +312,32 @@ struct GaParams {
   signed char leaf_aux[GA_MAX_LEAVES];      // GA_FIRSTVAL: index of its GA_FIRSTROW leaf
 };
 
+// f / d for 0 <= f < 2^52 and d >= 1 with no 64-bit division (a subroutine
+// whose call frame is local memory): the quotient from an f32 reciprocal
+// refined twice in f64 is within one, and the remainder corrects it.
+__device__ __forceinline__ long long ga_div(long long f, long long d) {
+  const double dd = (double)d;
+  double r = (double)__fdividef(1.0f, (float)d);
+  r = r * fma(-dd, r, 2.0);
+  r = r * fma(-dd, r, 2.0);
+  long long q = (long long)((double)f * r);
+  long long rem = f - q * d;
+  while (rem < 0) {
+    --q;
+    rem += d;
+  }
+  while (rem >= d) {
+    ++q;
+    rem -= d;
+  }
+  return q;
+}
+
 // Global row of flat index f (block * block_rows + row): the block's offset
 // plus the row; FA_NO_ROW stays.
 __device__ __forceinline__ long long ga_global_row(const GaParams& p, long long f) {
   if (f >= FA_NO_ROW) return FA_NO_ROW;
-  const long long blk = f / p.block_rows;
+  const long long blk = ga_div(f, p.block_rows);
   const long long off = p.offsets != nullptr ? __ldg(p.offsets + blk) : p.offset_all;
   return off + (f - blk * p.block_rows);
 }
@@ -404,7 +427,7 @@ static GaPartialsKernel ga_partials_kernel(int slots) {
 //     exactly into GA_XW signed 64-bit words, word k counting units of
 //     2^(32k - 1074) (ga_xadd: at most three atomicAdds a value); NaN and
 //     the infinities set bits of the cell's word.  No rounding happens
-//     until the combine, which rounds the exact sum to nearest (ga_xround):
+//     until the combine, which rounds the exact sum to nearest (gw_xround):
 //     the result is the same whatever the order, the grid or the device.
 // Scratch: GA_XW * 8 = 528 bytes a f64 sum cell; at 262,144 slots 138 MB a
 // leaf.  A word takes at most one add of < 2^32 a row, so it cannot
@@ -419,7 +442,7 @@ static GaPartialsKernel ga_partials_kernel(int slots) {
 #define GA_LLMIN (-GA_LLMAX - 1)
 #define GA_QNAN 0x7FF8000000000000LL
 
-__device__ __forceinline__ bool ga_xleaf(int kind, bool is_f) {
+__host__ __device__ __forceinline__ bool ga_xleaf(int kind, bool is_f) {
   return is_f && (kind == GA_SUM || kind == GA_SUMSQ);
 }
 
@@ -459,58 +482,6 @@ __device__ __forceinline__ void ga_xadd(long long* flags, long long* cell, doubl
   for (int q = 0; q < 3; ++q) {
     if (d[q]) atomicAdd(w + q, b < 0 ? 0ULL - d[q] : d[q]);
   }
-}
-
-// The exact sum held in `cell`, rounded to the nearest double (ties to
-// even).  The words carry into 32-bit digits d[0..GA_XW] (the last one the
-// top carry); a negative sum is carried again from the negated words.  The
-// 62 bits from the leading one down (the bits below as a sticky bit) round
-// to 53, scaled by ldexp, which is exact: a result in the subnormal range
-// has no bits below 2^-1074 to lose.  copr/fused_group_agg.py:_xround is
-// the same integer steps.
-__device__ double ga_xround(const long long* cell) {
-  long long c = 0;
-  for (int k = 0; k < GA_XW; ++k) c = (cell[k] + c) >> 32;
-  const bool neg = c < 0;
-  unsigned int d[GA_XW + 1];
-  c = 0;
-  for (int k = 0; k < GA_XW; ++k) {
-    const long long v = (neg ? -cell[k] : cell[k]) + c;
-    d[k] = (unsigned int)(v & 0xFFFFFFFFLL);
-    c = v >> 32;
-  }
-  d[GA_XW] = (unsigned int)c;
-  int h = GA_XW;
-  while (h >= 0 && d[h] == 0) --h;
-  if (h < 0) return 0.0;
-  const int lz = __clz(d[h]);
-  const int top = 32 * h + 31 - lz;  // the leading one's bit
-  const int t = top - 61;            // the window's lowest bit
-  long long win = 0;
-  bool sticky = false;
-  for (int k = h; k >= 0 && k >= h - 2; --k) {
-    const int s = 32 * k - t;
-    const long long x = d[k];
-    if (s >= 0) {
-      win |= x << s;
-    } else {
-      win |= x >> -s;
-      sticky |= (x & ((1LL << -s) - 1)) != 0;
-    }
-  }
-  for (int k = h - 3; k >= 0 && !sticky; --k) sticky = d[k] != 0;
-  long long mant = win >> 9;
-  const long long rem = (win & 0x1FF) | (sticky ? 1 : 0);
-  if (rem > 0x100 || (rem == 0x100 && (mant & 1))) ++mant;
-  const double r = ldexp((double)mant, t + 9 - 1074);
-  return neg ? -r : r;
-}
-
-__device__ __forceinline__ double ga_xtotal(long long flags, const long long* cell) {
-  if ((flags & GA_XFLAG_NAN) || (flags & 3) == 3) return fa_f(GA_QNAN);
-  if (flags & GA_XFLAG_POSINF) return fa_f(0x7FF0000000000000LL);
-  if (flags & GA_XFLAG_NEGINF) return fa_f((long long)0xFFF0000000000000ULL);
-  return ga_xround(cell);
 }
 
 // One device-memory atomic merging acc, the fold of a row's lanes of one
@@ -749,7 +720,7 @@ __device__ __forceinline__ void ga_finish_cell(const GaParams& p, int l, int g, 
     res = c0;
     if (row < crow) {
       const int want = p.leaf_agg[l];
-      const long long b = blk / p.block_rows;  // blk: the winning flat row
+      const long long b = ga_div(blk, p.block_rows);  // blk: the winning flat row
       fa_walk(p, blk, b, blk - b * p.block_rows, [&](int k, bool, long long value) {
         if (k == want) res = value;
       });
@@ -809,32 +780,253 @@ fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
   if (tid == 0) ga_finish_cell(p, l, g, s_acc[0], carry_i, carry_f, out_i, out_f);
 }
 
-// The wide route's combine: one thread per group slot, leaf by leaf; each
-// cell's total (an integer word, a decoded min/max key, or the rounded
-// exact sum) goes through ga_finish_cell as the shared route's does.
-__global__ void __launch_bounds__(FA_THREADS)
+// ---------------------------------------------------------------------------
+// group_wide_combine: a block a run of slots, the sum cells staged
+// ---------------------------------------------------------------------------
+//
+// An f64 sum cell is 66 words (528 bytes): a warp that reads one word of
+// each of 32 cells touches 32 lines, and 67 digits in an array indexed at
+// run time live in local memory.  So a block takes GW_SLOTS consecutive
+// slots, a thread each.  The cells of the slots' first
+// REAL-sum leaf, contiguous in the state, go to shared memory by cp.async
+// (16 bytes a copy, coalesced) at once; while they are in flight each
+// thread finishes its slot's other leaves, their words and carries loaded
+// GW_CHUNK leaves at a time; then each thread carries its own cell's words
+// from shared memory (16 bytes a load, conflict-free at a cell's 528-byte
+// stride) and keeps only what the rounding reads, in registers; the next sum
+// leaf's cells are staged while it merges the result into the carry.  No
+// walk with its stack in memory: first's value comes from the tile walk at
+// the winning row.  What bounds it is the state's bytes, read once (528
+// bytes a sum cell).
+
+#define GW_SLOTS 64  // slots a combine block takes: 33 KB of staged sum cells
+#define GW_CHUNK 8   // leaves whose words a combine thread loads at once
+
+// ga_finish_cell for a slot's leaf that is not an f64 sum, its carry word
+// c0 given: the same merge into the carry and the tracker's row, and
+// first's value read at the winning row by the tile walk
+// (D stack slots, in registers) instead of fa_walk.
+template <int D>
+__device__ __forceinline__ void gw_finish_cell(const GaParams& p, int l, int g, long long blk,
+                                               long long c0, const long long* carry_i,
+                                               long long* out_i, double* out_f) {
+  const int C = p.capacity;
+  const int kind = p.leaf_kind[l];
+  const bool is_f = p.leaf_f64[l];
+  const long long cell = (long long)p.leaf_slot[l] * C + g;
+  long long res;
+  if (kind == GA_FIRSTVAL) {
+    const long long rcell = (long long)p.leaf_slot[p.leaf_aux[l]] * C + g;
+    const long long row = ga_global_row(p, blk);
+    const long long crow = carry_i == nullptr ? FA_NO_ROW : carry_i[rcell];
+    res = c0;
+    if (row < crow) {
+      const int want = p.leaf_agg[l];
+      const long long b = ga_div(blk, p.block_rows);  // blk: the winning flat row
+      fa_walk_tile<1, D>(
+          p, blk, b, blk - b * p.block_rows, 1, 1u,
+          [&](int k, unsigned, const long long (&x)[1], unsigned) {
+            if (k == want) res = x[0];
+          },
+          [](int, const long long (&)[1], unsigned) {});
+    }
+    out_i[rcell] = row < crow ? row : crow;
+  } else {
+    if (kind == GA_TRACK) blk = ga_global_row(p, blk);
+    res = ga_merge_ordered(kind, is_f, c0, blk);
+  }
+  if (is_f) {
+    out_f[cell] = fa_f(res);
+  } else {
+    out_i[cell] = res;
+  }
+}
+
+// What the rounding reads of a cell's 67 digits: the highest nonzero digit
+// h (-1: none), the digits h, h - 1 and h - 2 (0 below digit 0), and the
+// lowest nonzero digit lo.
+struct GwDigits {
+  int h, lo;
+  unsigned x0, x1, x2;
+};
+
+// The words of a cell in shared memory (GA_XW of them, 16-byte aligned),
+// negated with `neg`, carried into 32-bit digits word by word, digit GA_XW
+// the carry out of the top word; returns that carry (negative: the sum is).
+__device__ __forceinline__ long long gw_digits(const long long* s, bool neg, GwDigits& r) {
+  long long c = 0;
+  unsigned p1 = 0, p2 = 0;  // the two digits below the current one
+  r.h = -1;
+  r.lo = GA_XW + 1;
+  r.x0 = r.x1 = r.x2 = 0;
+  auto digit = [&](int k, unsigned d) {
+    if (d != 0) {
+      r.h = k;
+      r.x0 = d;
+      r.x1 = p1;
+      r.x2 = p2;
+      r.lo = r.lo < k ? r.lo : k;
+    }
+    p2 = p1;
+    p1 = d;
+  };
+#pragma unroll 3
+  for (int k2 = 0; k2 < GA_XW / 2; ++k2) {
+    const longlong2 q = ((const longlong2*)s)[k2];
+    long long v = (neg ? -q.x : q.x) + c;
+    c = v >> 32;
+    digit(2 * k2, (unsigned)v);
+    v = (neg ? -q.y : q.y) + c;
+    c = v >> 32;
+    digit(2 * k2 + 1, (unsigned)v);
+  }
+  digit(GA_XW, (unsigned)c);
+  return c;
+}
+
+// 2^e for e in [-1022, 1023], from its bits.
+__device__ __forceinline__ double gw_pow2(int e) { return fa_f((long long)(e + 1023) << 52); }
+
+// The exact sum held in the cell at `s` (shared memory; GA_XW words, word k
+// counting units of 2^(32k - 1074)) rounded to the nearest double, ties to
+// even; copr/fused_group_agg.py:_xround is its plain version.  The words
+// carry into 32-bit digits (again from the negated words when the top carry
+// says the sum is negative); the 62 bits from the leading one down (the
+// bits below as a sticky bit) round to 53, scaled by exact powers of two (a
+// result in the subnormal range has no bits below 2^-1074 to lose).
+__device__ __forceinline__ double gw_xround(const long long* s) {
+  GwDigits r;
+  const bool neg = gw_digits(s, false, r) < 0;
+  if (neg) gw_digits(s, true, r);
+  if (r.h < 0) return 0.0;
+  const int h = r.h;
+  bool sticky = r.lo < h - 2;  // a digit below the three
+  const int top = 32 * h + 31 - __clz(r.x0);  // the leading one's bit
+  const int t = top - 61;                       // the window's lowest bit
+  long long win = 0;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (h - j < 0) break;
+    const int sh = 32 * (h - j) - t;
+    const long long v = j == 0 ? r.x0 : j == 1 ? r.x1 : r.x2;
+    if (sh >= 0) {
+      win |= v << sh;
+    } else {
+      win |= v >> -sh;
+      sticky = sticky || (v & ((1LL << -sh) - 1)) != 0;
+    }
+  }
+  long long mant = win >> 9;
+  const long long rem = (win & 0x1FF) | (sticky ? 1 : 0);
+  if (rem > 0x100 || (rem == 0x100 && (mant & 1))) ++mant;
+  const int e = t + 9 - 1074;
+  const int e1 = e > -1000 ? e : -1000;
+  const double res = (double)mant * gw_pow2(e1) * gw_pow2(e - e1);
+  return neg ? -res : res;
+}
+
+// The wide route's combine: block b takes slots [b * GW_SLOTS, ...), a
+// thread a slot; every leaf but the REAL sums (an integer word, a decoded
+// min/max key, the tracker, first) through gw_finish_cell, then each REAL-sum
+// leaf of `xmask` in order: its cells staged in shared memory, each rounded
+// by its thread (gw_xround; NaN where a NaN or both infinities were added,
+// else an infinity where one was) and merged into the carry as
+// ga_finish_cell merges it.  Every output cell is written by one thread, so
+// out may alias carry.
+template <int D>
+__global__ void __launch_bounds__(GW_SLOTS)
 group_wide_combine(const __grid_constant__ GaParams p, const long long* __restrict__ words,
                    const long long* __restrict__ xacc, const long long* carry_i,
-                   const double* carry_f, long long* out_i, double* out_f) {
+                   const double* carry_f, long long* out_i, double* out_f,
+                   unsigned long long xmask) {
+  __shared__ __align__(16) long long stage[GW_SLOTS * GA_XW];
   const int C = p.capacity;
-  const long long g = (long long)blockIdx.x * FA_THREADS + threadIdx.x;
-  if (g >= C) return;
-  int x = 0;
-  for (int l = 0; l < p.n_leaves; ++l) {
-    const int kind = p.leaf_kind[l];
-    const bool is_f = p.leaf_f64[l];
-    const bool xl = ga_xleaf(kind, is_f);
-    const int fl = ga_folded_leaf(p, l);
-    if (fl >= 0) {
-      long long blk = words[(long long)fl * C + g];
-      if (xl) {
-        blk = fa_raw(ga_xtotal(blk, xacc + ((long long)x * C + g) * GA_XW));
-      } else if (is_f && (kind == GA_MIN || kind == GA_MAX)) {
-        blk = fa_raw(ga_funkey(blk, kind == GA_MAX));
+  const int tid = threadIdx.x;
+  const long long g0 = (long long)blockIdx.x * GW_SLOTS;
+  const int n = C - g0 < GW_SLOTS ? (int)(C - g0) : GW_SLOTS;  // the block's slots
+  const int g = (int)g0 + tid;
+  const bool mine = tid < n;
+  // leaf x's cells of the block's slots, contiguous: GA_XW / 2 16-byte
+  // copies a cell where 16-byte aligned, else GA_XW of 8 bytes
+  auto stage_cells = [&](int x) {
+    const long long* src = xacc + ((long long)x * C + g0) * GA_XW;
+    if (((unsigned long long)src & 15) == 0) {
+      for (int i = tid; i < n * (GA_XW / 2); i += GW_SLOTS) {
+        __pipeline_memcpy_async(stage + 2 * i, src + 2 * i, 16);
       }
-      ga_finish_cell(p, l, (int)g, blk, carry_i, carry_f, out_i, out_f);
+    } else {
+      for (int i = tid; i < n * GA_XW; i += GW_SLOTS) {
+        __pipeline_memcpy_async(stage + i, src + i, 8);
+      }
     }
-    x += xl;
+    __pipeline_commit();
+  };
+  if (xmask != 0) stage_cells(0);
+  if (mine) {
+    for (int l0 = 0; l0 < p.n_leaves; l0 += GW_CHUNK) {
+      long long w[GW_CHUNK], c0[GW_CHUNK];
+#pragma unroll
+      for (int j = 0; j < GW_CHUNK; ++j) {  // the chunk's loads all in flight
+        const int l = l0 + j < p.n_leaves ? l0 + j : l0;
+        const int fl = ga_folded_leaf(p, l);
+        const bool f = p.leaf_f64[l];
+        const bool on = l0 + j < p.n_leaves && fl >= 0 && !ga_xleaf(p.leaf_kind[l], f);
+        const long long cell = (long long)p.leaf_slot[l] * C + g;
+        w[j] = on ? words[(long long)fl * C + g] : 0;
+        c0[j] = !on || carry_i == nullptr ? p.leaf_ident[l]
+              : f ? fa_raw(carry_f[cell]) : carry_i[cell];
+      }
+      const int end = p.n_leaves - l0 < GW_CHUNK ? p.n_leaves - l0 : GW_CHUNK;
+      for (int j = 0; j < end; ++j) {  // one copy of the finish: w[j] by selects
+        const int l = l0 + j;
+        const int kind = p.leaf_kind[l];
+        const bool f = p.leaf_f64[l];
+        if (ga_folded_leaf(p, l) < 0 || ga_xleaf(kind, f)) continue;
+        long long wj = w[0], cj = c0[0];
+#pragma unroll
+        for (int i = 1; i < GW_CHUNK; ++i) {
+          wj = i == j ? w[i] : wj;
+          cj = i == j ? c0[i] : cj;
+        }
+        const long long blk = f && (kind == GA_MIN || kind == GA_MAX)
+                                  ? fa_raw(ga_funkey(wj, kind == GA_MAX)) : wj;
+        gw_finish_cell<D>(p, l, g, blk, cj, carry_i, out_i, out_f);
+      }
+    }
+  }
+  int x = 0;
+  for (unsigned long long m = xmask; m != 0; m &= m - 1, ++x) {
+    const int l = __ffsll((long long)m) - 1;
+    const long long cell = (long long)p.leaf_slot[l] * C + g;
+    const long long flags = mine ? words[(long long)l * C + g] : 0;
+    const long long c0 = !mine || carry_i == nullptr ? p.leaf_ident[l] : fa_raw(carry_f[cell]);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    double total = 0.0;
+    if ((flags & GA_XFLAG_NAN) || (flags & 3) == 3) {
+      total = fa_f(GA_QNAN);
+    } else if (flags & GA_XFLAG_POSINF) {
+      total = fa_f(0x7FF0000000000000LL);
+    } else if (flags & GA_XFLAG_NEGINF) {
+      total = fa_f((long long)0xFFF0000000000000ULL);
+    } else if (mine) {
+      total = gw_xround(stage + tid * GA_XW);
+    }
+    __syncthreads();  // every cell read before the next leaf's are staged
+    if ((m & (m - 1)) != 0) stage_cells(x + 1);
+    if (mine) out_f[cell] = fa_f(ga_merge_ordered(p.leaf_kind[l], true, c0, fa_raw(total)));
+  }
+}
+
+typedef void (*GwCombineKernel)(GaParams, const long long*, const long long*, const long long*,
+                                const double*, long long*, double*, unsigned long long);
+
+static GwCombineKernel gw_combine_kernel(int slots) {
+  switch (slots) {
+    case 2: return group_wide_combine<2>;
+    case 4: return group_wide_combine<4>;
+    case 8: return group_wide_combine<8>;
+    default: return nullptr;
   }
 }
 
@@ -935,12 +1127,26 @@ int gw_partials_attributes(int slots, int* out) {
   return kernel_attributes((const void*)gw_partials_kernel(slots), out);
 }
 
+// the instance of `slots` stack slots (first's walk at the winning row);
+// ceil(C / GW_SLOTS) blocks of GW_SLOTS threads
 int gw_launch_combine(const GaParams* p, const long long* words, const long long* xacc,
                       const long long* carry_i, const double* carry_f, long long* out_i,
-                      double* out_f, void* stream) {
-  group_wide_combine<<<(p->capacity + FA_THREADS - 1) / FA_THREADS, FA_THREADS, 0,
-                       (cudaStream_t)stream>>>(*p, words, xacc, carry_i, carry_f, out_i, out_f);
+                      double* out_f, int slots, void* stream) {
+  const GwCombineKernel k = gw_combine_kernel(slots);
+  if (k == nullptr || p->capacity < 1) return (int)cudaErrorInvalidValue;
+  unsigned long long xmask = 0;
+  for (int l = 0; l < p->n_leaves; ++l) {
+    if (ga_xleaf(p->leaf_kind[l], p->leaf_f64[l])) xmask |= 1ULL << l;
+  }
+  if (xmask != 0 && xacc == nullptr) return (int)cudaErrorInvalidValue;
+  const int grid = (p->capacity + GW_SLOTS - 1) / GW_SLOTS;
+  k<<<grid, GW_SLOTS, 0, (cudaStream_t)stream>>>(*p, words, xacc, carry_i, carry_f, out_i, out_f,
+                                                 xmask);
   return (int)cudaGetLastError();
+}
+
+int gw_combine_attributes(int slots, int* out) {
+  return kernel_attributes((const void*)gw_combine_kernel(slots), out);
 }
 
 }  // extern "C"

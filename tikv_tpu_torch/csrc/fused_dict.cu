@@ -58,11 +58,11 @@
 // dict_merge levels merge up to DM_FAN_MAX sorted runs into one each (a key's
 // place is its index plus, in each other run of its group, the count of keys
 // before it: stable), two levels up to 64 runs (the mesh path's
-// 163,840 and 262,144 keys), until one run is left; dict_count counts the
-// distinct keys of each chunk of DC_CHUNK sorted keys and dict_compact
-// writes the first cap of them in order (a chunk's offset is the sum of the
-// counts before it, a key's rank within it a block scan), pads with the
-// sentinel and flags more than cap.  Memory: two buffers of the keys.
+// 163,840 and 262,144 keys), until one run is left; dict_compact writes
+// the first cap distinct keys of the sorted run in order, pads with the
+// sentinel and flags more than cap, in one pass (a tile's offset by a
+// decoupled look-back over the tiles before it).  Memory: two buffers of the
+// keys and dict_compact's status words.
 //
 // What bounds them on an H100: dict_keys reads the referenced columns of
 // every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
@@ -86,11 +86,17 @@
 // in shared memory.  A block takes DM_CHUNK = 2,048 keys, so that a
 // union's grid (80 or 128 blocks) holds one block an SM.  What is left is
 // the levels' fixed latency (about 10 us a block) and F - 1 merge walks a
-// key.  At the mesh path's shapes
-// (131,072 rows a shard, cap 64) all three are a few microseconds of launch
-// latency.
+// key.  dict_compact reads the sorted keys once and writes cap keys (1.3-2.1
+// MB at the mesh path's unions, under a microsecond of HBM), so latency and
+// the SMs it covers bound it: one launch, a block a tile of DC_TILE = 2,048
+// keys (80-128 blocks a union, to cover the card), its keys loaded 16 bytes
+// a thread, coalesced, its offset found in the same pass from the tiles
+// before it.
+// At the mesh path's shapes (131,072 rows a shard, cap 64) all three are a
+// few microseconds of launch latency.
 //
-// Determinism: integers only; the one atomic ORs a flag bit.  Reruns are
+// Determinism: integers only; the atomics OR a flag bit, take tickets and
+// count the blocks done, none of which reaches the output.  Reruns are
 // bit-identical.
 //
 // Layout contract with tikv_tpu_torch/copr/fused_dict.py (the wrapper
@@ -119,8 +125,11 @@
 #define DM_SAMPLE_GAP 32           // the fewest keys between two of them
 #define DM_BIG 4096                // a dict_merge window past this is searched, not staged
 #define DM_TILE DU_SORT_TILE       // the tiles whose live keys dict_union counts
-#define DC_PER_THREAD 8
-#define DC_CHUNK (DU_THREADS * DC_PER_THREAD)  // sorted keys a dict_count/dict_compact block reads
+#define DC_THREADS 256
+#define DC_TILE 2048               // sorted keys a dict_compact block reads
+#define DC_ROWS (DC_TILE / (2 * DC_THREADS))  // rows of 16 bytes a dict_compact thread loads
+#define DC_WARPS (DC_THREADS / 32)
+#define DC_LOOK 4                  // status words a lane reads at once in the look-back
 #define DI_SMEM_KEYS 8192          // past this, dict_ids' table holds every stride-th key
 #define DI_SPLITS 256              // most keys of dict_ids' table past DI_SMEM_KEYS (2 KB)
 #define DK_SENTINEL (1LL << 62)
@@ -418,7 +427,7 @@ dict_union(const long long* __restrict__ dict, long long n_dict,
 }
 
 // ---------------------------------------------------------------------------
-// dict_merge, dict_count, dict_compact: the union past DI_SMEM_KEYS slots
+// dict_merge: the union's levels past DI_SMEM_KEYS slots
 // ---------------------------------------------------------------------------
 
 // Shared-memory slot of a dict_merge block's key t (or staged key t): one
@@ -682,53 +691,192 @@ dict_merge(const long long* __restrict__ src, long long n, long long W, int F,
   }
 }
 
-// Whether sorted key j of s starts a distinct non-sentinel key.
-__device__ __forceinline__ int dc_fresh(const long long* s, long long j) {
-  const long long v = __ldg(s + j);
-  return v < DK_SENTINEL && (j == 0 || __ldg(s + j - 1) != v);
+// ---------------------------------------------------------------------------
+// dict_compact: the first cap distinct keys of the sorted keys, one pass
+// ---------------------------------------------------------------------------
+
+// dict_compact's scratch, int64 words that are zero before a launch and that
+// the launch leaves zero: [0] the tile ticket, [1] the blocks done, then a
+// status word a tile: the distinct keys of the tile alone (DC_AGGREGATE) or
+// of it and every tile before it (DC_INCLUSIVE) in the low 62 bits, which of
+// the two in the top two bits (0: not yet published).
+#define DC_AGGREGATE (1ULL << 62)
+#define DC_INCLUSIVE (2ULL << 62)
+#define DC_COUNT_MASK (DC_AGGREGATE - 1)
+
+__device__ __forceinline__ void dc_publish(unsigned long long* at, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(at), "l"(v) : "memory");
 }
 
-// counts[b]: the distinct keys among sorted keys [b * DC_CHUNK, ...) of s.
-__global__ void __launch_bounds__(DU_THREADS)
-dict_count(const long long* __restrict__ s, long long n, int* __restrict__ counts) {
-  __shared__ int warp_sums[DU_THREADS / 32];
-  const long long lo = (long long)blockIdx.x * DC_CHUNK + (long long)threadIdx.x * DC_PER_THREAD;
-  int fresh = 0;
-  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) fresh += dc_fresh(s, j);
-  int total;
-  du_scan(fresh, warp_sums, &total);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+// A status word, read relaxed so that a window's reads are all in flight at
+// once; the window's fence (dc_acquire) orders them as acquires.
+__device__ __forceinline__ unsigned long long dc_status(const unsigned long long* at) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(at) : "memory");
+  return v;
 }
 
-// out[0..cap): the first cap distinct keys of the sorted s[0..n), padded
-// with the sentinel; DK_FLAG_CAPACITY ORed into *flag when there are more.
-__global__ void __launch_bounds__(DU_THREADS)
-dict_compact(const long long* __restrict__ s, long long n, const int* __restrict__ counts,
-             long long* __restrict__ out, int* flag, int cap) {
-  __shared__ int warp_sums[DU_THREADS / 32];
-  __shared__ long long before;
-  if (threadIdx.x == 0) {
-    long long acc = 0;
-    for (unsigned b = 0; b < blockIdx.x; ++b) acc += counts[b];
-    before = acc;
+__device__ __forceinline__ void dc_acquire() { asm volatile("fence.acq_rel.gpu;" ::: "memory"); }
+
+// The blocks done before this one (an acquire-release add of one).
+__device__ __forceinline__ unsigned long long dc_finish(unsigned long long* at) {
+  unsigned long long old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;"
+               : "=l"(old)
+               : "l"(at), "l"(1ULL)
+               : "memory");
+  return old;
+}
+
+// out[0..cap): the first cap distinct non-sentinel keys of the sorted
+// s[0..n) in order, padded with the sentinel; DK_FLAG_CAPACITY ORed into
+// *flag when there are more.  One launch: a block takes the next tile of
+// DC_TILE keys from a ticket (so that every tile it waits on belongs to a
+// block that has started, whatever order the card runs blocks in), loads it
+// in DC_ROWS rows of 16 bytes a thread (thread t keys 2t and 2t + 1 of a
+// row, lane 0 also the key before its warp's first key of the row), counts
+// each (row, warp) segment's distinct keys by one warp scan of the four
+// rows' counts packed in bytes, the segments' offsets by a scan in warp 0,
+// which publishes the tile's count (release), then looks back over the
+// tiles before it 128 at a time (DC_LOOK a lane, all in flight, then an
+// acquire fence) and publishes its inclusive count.
+// A tile whose offset is already past cap writes no key; the one that
+// crosses cap raises the flag; the last tile writes the padding; the last
+// block to finish zeroes the scratch again.
+__global__ void __launch_bounds__(DC_THREADS)
+dict_compact(const long long* __restrict__ s, long long n, long long* __restrict__ out, int* flag,
+             int cap, unsigned long long* __restrict__ scratch) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  __shared__ int seg[DC_ROWS * DC_WARPS];  // a segment's distinct keys, then its offset
+  __shared__ long long tile_at, before, distinct;
+  __shared__ bool last;
+  unsigned long long* const status = scratch + 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) tile_at = (long long)atomicAdd(scratch, 1ULL);
+  __syncthreads();
+  const long long tile = tile_at, tiles = gridDim.x;
+  long long v0[DC_ROWS], v1[DC_ROWS], halo[DC_ROWS];
+#pragma unroll
+  for (int e = 0; e < DC_ROWS; ++e) {
+    const long long at = tile * DC_TILE + e * 2 * DC_THREADS + 2 * tid;
+    if (at + 1 < n) {
+      const longlong2 q = __ldg((const longlong2*)(s + at));
+      v0[e] = q.x;
+      v1[e] = q.y;
+    } else {
+      v0[e] = at < n ? __ldg(s + at) : DK_SENTINEL;
+      v1[e] = DK_SENTINEL;
+    }
+    // the sentinel before key 0: a key that no live key equals
+    halo[e] = lane == 0 && at > 0 && at <= n ? __ldg(s + at - 1) : DK_SENTINEL;
   }
-  const long long lo = (long long)blockIdx.x * DC_CHUNK + (long long)threadIdx.x * DC_PER_THREAD;
-  int fresh = 0;
-  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) fresh += dc_fresh(s, j);
-  int total;
-  const int mine = du_scan(fresh, warp_sums, &total);  // its barriers publish `before`
-  long long rank = before + mine;
-  for (long long j = lo; j < lo + DC_PER_THREAD && j < n; ++j) {
-    if (dc_fresh(s, j)) {
-      if (rank < cap) out[rank] = __ldg(s + j);
-      ++rank;
+  // bits 2e and 2e + 1: the thread's two keys of row e start distinct keys;
+  // byte e: how many do
+  unsigned fresh = 0, mine = 0;
+#pragma unroll
+  for (int e = 0; e < DC_ROWS; ++e) {
+    const long long up = __shfl_up_sync(FULL, v1[e], 1);
+    const long long prev = lane > 0 ? up : halo[e];
+    const unsigned f0 = v0[e] < DK_SENTINEL && v0[e] != prev;
+    const unsigned f1 = v1[e] < DK_SENTINEL && v1[e] != v0[e];
+    fresh |= (f0 | f1 << 1) << (2 * e);
+    mine |= (f0 + f1) << (8 * e);
+  }
+  unsigned incl = mine;  // a segment counts at most 64 keys: no byte carries
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int e = 0; e < DC_ROWS; ++e) seg[e * DC_WARPS + warp] = (incl >> (8 * e)) & 0xFF;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    static_assert(DC_ROWS * DC_WARPS == 32, "a lane a segment");
+    const int c = seg[lane];  // segments in tile order: row, then warp
+    int x = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x += y;
+    }
+    seg[lane] = x - c;
+    const long long count = __shfl_sync(FULL, x, 31);
+    if (lane == 0) dc_publish(status + tile, (tile == 0 ? DC_INCLUSIVE : DC_AGGREGATE) | count);
+    long long prefix = 0;
+    if (tile > 0) {
+      // windows of 32 * DC_LOOK tiles, nearest first: entry 32q + lane is
+      // tile top - 32q - lane
+      for (long long top = tile - 1;; top -= 32 * DC_LOOK) {
+        unsigned long long st[DC_LOOK];
+#pragma unroll
+        for (int q = 0; q < DC_LOOK; ++q) {
+          const long long t = top - 32 * q - lane;
+          st[q] = t >= 0 ? dc_status(status + t) : DC_INCLUSIVE;  // before tile 0: nothing
+        }
+#pragma unroll
+        for (int q = 0; q < DC_LOOK; ++q) {
+          while (st[q] < DC_AGGREGATE) st[q] = dc_status(status + (top - 32 * q - lane));
+        }
+        dc_acquire();
+        int stop = 32 * DC_LOOK;  // the nearest inclusive entry
+#pragma unroll
+        for (int q = DC_LOOK - 1; q >= 0; --q) {
+          const unsigned b = __ballot_sync(FULL, st[q] >= DC_INCLUSIVE);
+          if (b != 0) stop = 32 * q + __ffs(b) - 1;
+        }
+        long long add = 0;
+#pragma unroll
+        for (int q = 0; q < DC_LOOK; ++q) {
+          add += 32 * q + lane <= stop ? (long long)(st[q] & DC_COUNT_MASK) : 0;
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) add += __shfl_xor_sync(FULL, add, d);
+        prefix += add;
+        if (stop < 32 * DC_LOOK) break;
+      }
+      if (lane == 0) dc_publish(status + tile, DC_INCLUSIVE | (prefix + count));
+    }
+    if (lane == 0) {
+      if (prefix <= cap && prefix + count > cap) atomicOr(flag, DK_FLAG_CAPACITY);
+      before = prefix;
+      distinct = prefix + count;
+      last = dc_finish(scratch + 1) == (unsigned long long)(tiles - 1);
     }
   }
-  const long long end = before + total;
-  if (blockIdx.x == gridDim.x - 1) {
-    for (long long r = end + threadIdx.x; r < cap; r += DU_THREADS) out[r] = DK_SENTINEL;
+  __syncthreads();
+  const long long b = before;
+  if (b < cap) {
+    const unsigned excl = incl - mine;
+#pragma unroll
+    for (int e = 0; e < DC_ROWS; ++e) {
+      long long r = b + seg[e * DC_WARPS + warp] + ((excl >> (8 * e)) & 0xFF);
+      if ((fresh >> (2 * e)) & 1) {
+        if (r < cap) out[r] = v0[e];
+        ++r;
+      }
+      if (((fresh >> (2 * e + 1)) & 1) && r < cap) out[r] = v1[e];
+    }
   }
-  if (end > cap && threadIdx.x == 0) atomicOr(flag, DK_FLAG_CAPACITY);
+  if (tile == tiles - 1 && distinct < cap) {  // the padding, 16 bytes a store
+    long long r0 = distinct;
+    if (((unsigned long long)(out + r0) & 15) != 0) {  // up to a 16-byte boundary
+      if (tid == 0) out[r0] = DK_SENTINEL;
+      ++r0;
+    }
+    const longlong2 pad = {DK_SENTINEL, DK_SENTINEL};
+    for (long long r = r0 + 2 * tid; r + 1 < cap; r += 2 * DC_THREADS) *(longlong2*)(out + r) = pad;
+    if (r0 < cap && ((cap - r0) & 1) && tid == 0) out[cap - 1] = DK_SENTINEL;
+  }
+  if (last) {  // every block has read every status word it needs
+    for (long long t = tid; t < tiles; t += DC_THREADS) status[t] = 0;
+    if (tid == 0) {
+      scratch[0] = 0;
+      scratch[1] = 0;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -944,25 +1092,31 @@ int dm_attributes(int* out) {
 int dm_chunk(void) { return DM_CHUNK; }
 int dm_fan_max(void) { return DM_FAN_MAX; }
 
-// counts: one int per chunk of DC_CHUNK keys, ceil(n / DC_CHUNK) of them.
-int dc_launch_count(const long long* s, long long n, int* counts, void* stream) {
-  const long long chunks = (n + DC_CHUNK - 1) / DC_CHUNK;
-  if (chunks == 0) return 0;
-  dict_count<<<(unsigned)chunks, DU_THREADS, 0, (cudaStream_t)stream>>>(s, n, counts);
+// One block a tile of DC_TILE keys (at least one: the padding is still
+// written); scratch: 2 + tiles int64 words, zero before, left zero.
+int dc_launch_compact(const long long* s, long long n, long long* out, int* flag, int cap,
+                      unsigned long long* scratch, void* stream) {
+  if (((unsigned long long)s & 15) != 0 || n < 0 || cap < 1) return (int)cudaErrorInvalidValue;
+  long long tiles = (n + DC_TILE - 1) / DC_TILE;
+  if (tiles == 0) tiles = 1;
+  dict_compact<<<(unsigned)tiles, DC_THREADS, 0, (cudaStream_t)stream>>>(s, n, out, flag, cap,
+                                                                       scratch);
   return (int)cudaGetLastError();
 }
 
-// One block per chunk (at least one: the padding is still written).
-int dc_launch_compact(const long long* s, long long n, const int* counts, long long* out,
-                      int* flag, int cap, void* stream) {
-  long long chunks = (n + DC_CHUNK - 1) / DC_CHUNK;
-  if (chunks == 0) chunks = 1;
-  dict_compact<<<(unsigned)chunks, DU_THREADS, 0, (cudaStream_t)stream>>>(s, n, counts, out, flag,
-                                                                         cap);
-  return (int)cudaGetLastError();
+// cudaFuncGetAttributes of dict_compact: registers a thread, local and static
+// shared bytes, into out[0..3).
+int dc_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)dict_compact);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
-int dc_chunk(void) { return DC_CHUNK; }
+int dc_tile(void) { return DC_TILE; }
 int di_smem_keys(void) { return DI_SMEM_KEYS; }
 
 }  // extern "C"

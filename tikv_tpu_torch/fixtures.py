@@ -557,27 +557,14 @@ def wide_kernel_check(prog, img: Image, capacity: int, rel_tol: float = 1e-12) -
     if not torch.equal(state, ga.wide_partials_plain(prog, img, capacity)):
         raise AssertionError("group_wide_partials: state words differ from the plain version")
     errs = {"partials": 0.0}
-    runs = []
-    for carry in (None, ga.fused_group_agg_plain(prog, img, capacity)):
-        out = ga.init_packed(prog, capacity, img.device)
-        c = None if carry is None else tuple(t.clone() for t in carry)
-        ga.launch_combine(prog, img, capacity, state, c, out)
-        want = ga.wide_combine_plain(prog, img, capacity, state,
-                                     None if carry is None else tuple(t.clone() for t in carry))
-        if not torch.equal(out[0], want[0]):
-            raise AssertionError("group_wide_combine: integer leaves differ")
-        same = (out[1] == want[1]) | (out[1].isnan() & want[1].isnan())
-        if not bool(same.all()):
-            at = (~same).nonzero()[:6].tolist()
-            raise AssertionError(
-                "group_wide_combine: f64 leaves differ from the plain version at "
-                f"{[(r, c, float(out[1][r, c]), float(want[1][r, c])) for r, c in at]}")
-        runs.append(out)
+    wide_combine_check(prog, img, capacity, state)
     errs["combine"] = 0.0
+    first = ga.init_packed(prog, capacity, img.device)
+    ga.launch_combine(prog, img, capacity, state, None, first)
     pair = [ga.fused_group_agg(prog, img, capacity) for _ in range(2)]
     if not (torch.equal(pair[0][0], pair[1][0])
             and torch.equal(pair[0][1].view(torch.int64), pair[1][1].view(torch.int64))
-            and torch.equal(pair[0][0], runs[0][0])):
+            and torch.equal(pair[0][0], first[0])):
         raise AssertionError("wide route: two runs differ")
     want = ga.fused_group_agg_plain(prog, img, capacity)
     if not torch.equal(pair[0][0], want[0]):
@@ -2215,6 +2202,231 @@ def sort_route_levels(d, keys: torch.Tensor, device) -> dict:
         raise AssertionError("the sort route's levels left the keys unsorted")
     return {"sorted": src, "tiles": tiles, "live": live, "plan": fd.merge_plan(n),
             "levels": levels}
+
+
+COMPACT_EDGE_CASES = ("tile_boundary_run", "all_sentinel", "cap_exact", "cap_plus_one",
+                      "one_sort_tile", "shard_union", "global_union")
+#: the on-card cases add a buffer past the card's resident blocks (2,048
+#: tiles of dict_compact), so that blocks wait on tiles whose blocks started
+#: later than they were launched
+COMPACT_GRID_CASE = "grid_4m"
+
+
+def compact_edge_case(name: str, seed: int = 0):
+    """One sorted buffer of the sort route's compaction at an edge of
+    ``dict_compact`` and its ``cap`` (past ``CAP_MAX``, as the route runs
+    it): ``(sorted int64 keys on the CPU, cap)``, drawn with numpy from
+    ``seed``; ``name`` one of :data:`COMPACT_EDGE_CASES` or
+    :data:`COMPACT_GRID_CASE`.  Equal keys across the boundary of two tiles
+    (``COMPACT_TILE``), every key the sentinel, exactly ``cap`` and ``cap +
+    1`` distinct keys, one ``SORT_TILE`` of keys, the grouped mesh's shard
+    union (163,840 keys into 32,768 slots) and global union (262,144 keys),
+    and 4,194,304 keys."""
+    from .copr import fused_dict as fd
+
+    rng = np.random.default_rng(seed)
+    t, cap = fd.COMPACT_TILE, fd.CAP_MAX + 1
+
+    def keys(n, spread, sentinel_p):
+        k = rng.integers(0, spread, n)
+        k[rng.random(n) < sentinel_p] = fd.SENTINEL
+        return k
+
+    if name == "tile_boundary_run":
+        k = np.sort(keys(3 * t, 4 * t, 0.1))
+        k[t - 37 : t + 51] = k[t - 37]  # one key from 37 before the boundary to 51 past it
+        k[2 * t - 1 : 2 * t + 1] = k[2 * t - 1]  # and the last key of a tile again first
+        s = np.sort(k)
+    elif name == "all_sentinel":
+        s = np.full(2 * fd.SORT_TILE, fd.SENTINEL)
+    elif name in ("cap_exact", "cap_plus_one"):
+        distinct = cap + (name == "cap_plus_one")
+        k = np.concatenate([rng.permutation(4 * fd.SORT_TILE)[:distinct] * 3,
+                            rng.integers(0, 4 * fd.SORT_TILE, 4 * fd.SORT_TILE - distinct)])
+        k = np.unique(k)[:distinct]  # exactly `distinct` keys, then repeats and sentinels
+        s = np.sort(np.concatenate([k, rng.choice(k, 2 * fd.SORT_TILE),
+                                    np.full(4 * fd.SORT_TILE - distinct, fd.SENTINEL)]))
+    elif name == "one_sort_tile":
+        s = np.sort(keys(fd.SORT_TILE, 3000, 0.05))
+    elif name == "shard_union":
+        s, cap = np.sort(keys(163_840, 60_000, 0.2)), 32768
+    elif name == "global_union":
+        s, cap = np.sort(keys(262_144, 20_000, 0.9)), 32768
+    elif name == COMPACT_GRID_CASE:
+        s, cap = np.sort(keys(1 << 22, 1 << 21, 0.05)), 1 << 20
+    else:
+        raise ValueError(f"no compaction edge case {name!r}")
+    return torch.from_numpy(np.asarray(s, dtype=np.int64)), cap
+
+
+def compact_kernel_check(s: torch.Tensor, cap: int, device) -> dict:
+    """``dict_compact`` alone on a CUDA copy of the sorted ``s`` against
+    ``compact_plain``: the keys and the capacity flag equal, two runs and a
+    third into an output that starts 8 bytes past a 16-byte boundary
+    bit-identical (the scratch it leaves zero is used again).  Raises on a
+    difference; returns the flag, the live keys and the launch's blocks."""
+    from .copr import fused_dict as fd
+
+    want, over = fd.compact_plain(s.clone(), cap)
+    sd = s.to(device)
+    lib = fd.kernels()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    runs = []
+    for _ in range(2):
+        flag = torch.zeros(1, dtype=torch.int32, device=device)
+        out = torch.empty(cap, dtype=torch.int64, device=device)
+        scratch = fd.compact_scratch(device, sd.numel())
+        rc = lib.dc_launch_compact(sd.data_ptr(), sd.numel(), out.data_ptr(), flag.data_ptr(),
+                                   cap, scratch.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"dict_compact launch failed: cudaError {rc}")
+        runs.append((out.cpu(), int(flag.cpu())))
+        if bool((scratch != 0).any()):
+            raise AssertionError("dict_compact left its scratch non-zero")
+    # once more into an output 8 bytes past a 16-byte boundary
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    out = torch.empty(cap + 1, dtype=torch.int64, device=device)[1:]
+    rc = lib.dc_launch_compact(sd.data_ptr(), sd.numel(), out.data_ptr(), flag.data_ptr(), cap,
+                               fd.compact_scratch(device, sd.numel()).data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dict_compact launch failed: cudaError {rc}")
+    runs.append((out.cpu(), int(flag.cpu())))
+    if not all(torch.equal(runs[0][0], o) and runs[0][1] == f for o, f in runs[1:]):
+        raise AssertionError("dict_compact: two runs differ")
+    if not torch.equal(runs[0][0], want):
+        raise AssertionError("dict_compact: differs from its plain version")
+    if runs[0][1] != (fd.FLAG_CAPACITY if over else 0):
+        raise AssertionError(f"dict_compact flag {runs[0][1]}, plain version over={over}")
+    return {"over": over, "live": int((want < fd.SENTINEL).sum()),
+            "blocks": fd.compact_tiles(s.numel())}
+
+
+XROUND_EDGE_CASES = ("random_words", "random_words_finite", "ties", "subnormal", "zero",
+                     "negative", "huge")
+
+
+def _exact_words(values, rng, scramble: bool) -> np.ndarray:
+    """``[len(values), XWORDS]`` int64 words whose exact sums (word k counts
+    units of 2^(32k - 1074)) are the Python ints ``values``: each value's
+    32-bit digits (negated for a negative value), or with ``scramble`` the
+    same sums with a random signed carry moved between every two words (up
+    to 2^29 units of the word above, so words reach 2^61)."""
+    from .copr.fused_group_agg import XWORDS
+
+    out = np.zeros((len(values), XWORDS), dtype=np.int64)
+    for i, v in enumerate(values):
+        m, sign = abs(v), -1 if v < 0 else 1
+        w = [sign * ((m >> (32 * k)) & 0xFFFFFFFF) for k in range(XWORDS)]
+        if m >> (32 * XWORDS):
+            raise ValueError("a value past the exact sum's words")
+        if scramble:
+            for k in range(XWORDS - 1):
+                r = int(rng.integers(-(1 << 29), 1 << 29))
+                w[k] += r << 32
+                w[k + 1] -= r
+        out[i] = w
+    return out
+
+
+def xround_edge_words(name: str, seed: int = 0) -> np.ndarray:
+    """Exact f64 sums at the edges of the combine's rounding, as
+    ``[n, XWORDS]`` int64 words (each value both in plain digits and
+    scrambled): random signed words below 2^40 in all 66 positions (most
+    sums past the f64 range) or in the 63 lowest (``_finite``); ties at the
+    rounding bit with an even and an odd mantissa, one unit above and below
+    each; subnormal results down to the smallest subnormal, and the
+    smallest normal; sums that cancel to zero; negative sums; sums at and
+    past the largest double."""
+    from .copr.fused_group_agg import XWORDS
+
+    rng = np.random.default_rng(seed)
+    if name in ("random_words", "random_words_finite"):
+        k = XWORDS if name == "random_words" else 63
+        w = np.zeros((64, XWORDS), dtype=np.int64)
+        w[:, :k] = rng.integers(-(1 << 40), 1 << 40, (64, k))
+        return w
+    top = (1 << 53) - 1
+    if name == "ties":
+        vals = []
+        for m in ((1 << 52) + 2, (1 << 52) + 3, top - 1, top):  # even and odd mantissas
+            for sh in (0, 1, 40, 700):
+                tie = ((2 * m + 1) << sh) << 9  # half a unit of the last place past m
+                vals += [tie, tie + 1, tie - 1]
+    elif name == "subnormal":
+        vals = [1, 2, 3, 12345, (1 << 52) - 1, 1 << 52, (1 << 53) + 1]
+    elif name == "zero":
+        vals = [0] * 8
+    elif name == "negative":
+        vals = [-1, -12345, -((2 * ((1 << 52) + 3) + 1) << 30), -(top << 900), -(1 << 2000) + 7]
+    elif name == "huge":
+        dbl_max = top << 2045  # the largest double, (2^53 - 1) 2^971, in units of 2^-1074
+        half_ulp = 1 << 2044
+        vals = [dbl_max, dbl_max + half_ulp - 1, dbl_max + half_ulp, -dbl_max - half_ulp,
+                1 << 2100]
+    else:
+        raise ValueError(f"no rounding edge case {name!r}")
+    return np.concatenate([_exact_words(vals, rng, False), _exact_words(vals, rng, True)])
+
+
+def exact_word_value(words) -> float:
+    """The double nearest (ties to even) the exact sum of one cell's words:
+    Python's int division, which rounds correctly, the infinities past the
+    range."""
+    from fractions import Fraction
+
+    v = sum(int(w) << (32 * k) for k, w in enumerate(words))
+    try:
+        return float(Fraction(v, 1 << 1074))
+    except OverflowError:
+        return float("inf") if v > 0 else float("-inf")
+
+
+def wide_combine_crafted(device, seed: int = 0):
+    """A wide-route state whose f64 sum cells hold the rounding's edge words
+    (:func:`xround_edge_words`, every case) and every combination of the
+    NaN and infinity flags, with a carry in the integer words' high halves
+    (no word above 2^61): the ``host_wide`` program (every leaf kind) past
+    ``c_max``, its other leaves as ``wide_partials_plain`` leaves them.
+    Returns ``(prog, img, capacity, state)`` on ``device``."""
+    from .copr import fused_group_agg as ga
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prog, img, _cap = synthetic_group_case("host_wide", 4, 1 << 12, gen, device)
+    words = np.concatenate([xround_edge_words(n, seed) for n in XROUND_EDGE_CASES])
+    cap = max(prog.c_max + 1, len(words) + 8)
+    state = ga.wide_partials_plain(prog, img, cap)
+    flags, xacc = ga._wide_views(prog, cap, state)
+    w = torch.from_numpy(words).to(device)
+    for x, l in enumerate(prog.x_leaves):
+        xacc[x, : len(words)] = w.roll(x, 0)
+        xacc[x, len(words):] = 0
+        flags[l] = 0
+        flags[l, len(words) : len(words) + 8] = torch.arange(8, device=device)
+    return prog, img, cap, state
+
+
+def wide_combine_check(prog, img: Image, capacity: int, state: torch.Tensor) -> None:
+    """``group_wide_combine`` over ``state`` against ``wide_combine_plain``,
+    from the identity and into a carry (the plain pair's packed state):
+    integer leaves equal, f64 leaves bit for bit with NaN equal to NaN.
+    Raises on a difference."""
+    from .copr import fused_group_agg as ga
+
+    for carry in (None, ga.fused_group_agg_plain(prog, img, capacity)):
+        out = ga.init_packed(prog, capacity, img.device)
+        c = None if carry is None else tuple(t.clone() for t in carry)
+        ga.launch_combine(prog, img, capacity, state, c, out)
+        want = ga.wide_combine_plain(prog, img, capacity, state,
+                                     None if carry is None else tuple(t.clone() for t in carry))
+        if not torch.equal(out[0], want[0]):
+            raise AssertionError("group_wide_combine: integer leaves differ")
+        same = (out[1].view(torch.int64) == want[1].view(torch.int64)) \
+            | (out[1].isnan() & want[1].isnan())
+        if not bool(same.all()):
+            at = (~same).nonzero()[:6].tolist()
+            raise AssertionError(
+                "group_wide_combine: f64 leaves differ from the plain version at "
+                f"{[(r, c, float(out[1][r, c]), float(want[1][r, c])) for r, c in at]}")
 
 
 def topn_merge_case(n_runs: int, n_words: int, k: int, seed: int, device, carry: bool = True):
