@@ -578,7 +578,8 @@ def phase_scan_kernels(fm, ft, fx, device) -> None:
     synthetic cases: the mask at a cold block and at config 2's 10M rows,
     and at its edges (``fx.mask_edge_cases``: every stack instance);
     the top-K at K = 100 and K = 2048 over 16 blocks of 65,536 rows, warm
-    (one step) and cold (one step per block, the carry on the card)."""
+    (one step) and cold (one step per block, the carry on the card), and
+    ``topn_pack`` at its edges (``fx.pack_edge_case``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     for n_blocks, block_rows in ((1, 1 << 16), (77, 1 << 17)):
@@ -604,6 +605,11 @@ def phase_scan_kernels(fm, ft, fx, device) -> None:
         emit({"phase": "kernels", "case": f"mask_edge_{name}", "blocks": img.n_blocks,
               "block_rows": img.block_rows, "attributes": attrs, "kept": int(want.sum()),
               "equal": True, "bit_identical_reruns": True})
+    for name in fx.PACK_EDGE_CASES:
+        chk = fx.pack_kernel_check(*fx.pack_edge_case(name, device, SEED))
+        emit({"phase": "kernels", "case": f"pack_edge_{name}", "k": fx.PACK_EDGE_CASES[name][0],
+              "payload_columns": fx.PACK_EDGE_CASES[name][1], "equal": True,
+              "bit_identical_reruns": True, **chk})
     for k in (TOPN_K, 2048):
         prog, cand, pay = fx.synthetic_topn_case(16, 1 << 16, k, gen, device)
         check_topn_kernels(ft, fx, prog, cand, pay, f"synthetic K={k}")
@@ -918,6 +924,7 @@ def time_topn(ft, prog, cand, pay, carried: bool = False) -> dict:
            torch.empty((prog.n_f64, k), dtype=torch.float64, device=dev))
     nxt = torch.empty((w, k), dtype=torch.int64, device=dev)
     pack_ms = cuda_ms(lambda: ft.launch_pack(prog, run, pay, None, 0, out, nxt), 50)
+    pack_attrs = no_local_memory("topn_pack", [ft.pack_attributes()])[0]
     cand_plain_ms = cuda_ms(lambda: ft.candidates_plain(prog, cand, src_base), 2, warmup=1)
     pack_plain_ms = cuda_ms(lambda: ft.pack_plain(prog, run, pay, None, 0), 20)
     key = pay.lanes(2)[0].reshape(-1)  # extendedprice, the first key, widened
@@ -934,7 +941,8 @@ def time_topn(ft, prog, cand, pay, carried: bool = False) -> dict:
                                 "attributes": attrs, "select_cap": ft.select_cap(k, prog.tile)},
             "topn_merge": merge,
             "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms,
-                          "bound_ms": p_bound[0], "bound_by": p_bound[1]},
+                          "bound_ms": p_bound[0], "bound_by": p_bound[1],
+                          "attributes": pack_attrs},
             "library_ms": lib_ms,
             "library": "torch.topk over the first key's column alone (one key, no selection)"}
 
@@ -1711,7 +1719,8 @@ def time_topn_finalize(ft, topn, state) -> dict:
     return {"runs": runs.shape[0], "words": runs.shape[1], "merge_levels": merge["launches"],
             "topn_merge": merge,
             "topn_pack": {"ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": p_bound[0],
-                          "bound_by": p_bound[1]},
+                          "bound_by": p_bound[1],
+                          "attributes": no_local_memory("topn_pack", [ft.pack_attributes()])[0]},
             "finalize_device_ms": cuda_ms(lambda: topn.merge(state), 20)}
 
 
@@ -2052,8 +2061,11 @@ def time_dict(fx, fd, seen: dict) -> dict:
     if not torch.equal(keys.cpu(), want):
         raise AssertionError("dict_keys: differs from its plain version at the path's shape")
     b_ms, b_by = bound(image_bytes(img, rows) + rows * 8, rows * len(prog.code))
+    attrs = no_local_memory("dict_keys", [fd.keys_attributes(s) for s in (2, 4, 8)])
     out["dict_keys"] = {
-        "rows": rows, "columns": len(img.cols),
+        "rows": rows, "columns": len(img.cols), "rows_a_thread": fd.KEY_ROWS,
+        "stack_slots": fd.key_slots(prog),
+        "attributes": {a["stackSlots"]: a for a in attrs},
         "ms": cuda_ms(lambda: fd.launch_keys(prog, img, keys, flag), 50),
         "plain_ms": cuda_ms(lambda: fd.dict_keys_plain(prog, img), 3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -2211,6 +2223,11 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
     for name in fx.UNION_EDGE_CASES:
         d, k, cap = fx.union_edge_case(name, SEED)
         union_edges[name] = fx.union_kernel_check(d, k, cap, device)
+    # dict_keys at its edges (ragged tiles, every instance, NULL, NaN and
+    # infinite keys, encoded columns, the range flag set and clear)
+    key_edges = {}
+    for name in fx.KEY_EDGE_CASES:
+        key_edges[name] = fx.keys_kernel_check(*fx.key_edge_case(name, device, SEED))
     # dict_ids at its edges: in shared memory and past it (the grouped
     # mesh's 32,768 slots, the global union's 262,144), every old dictionary
     ids_edges = {}
@@ -2246,7 +2263,8 @@ def phase_mesh_grouped(fx, card: str, device) -> dict:
           "cpu_rows": MESH_GROUPED_CPU_ROWS, "cpu_check_max_abs_err": cpu_err,
           "cpu_check_seconds": t_cpu, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "kernels": t_dict, "mesh_fold_remap": t_fold, "grouped_pair_shard": t_pair,
-          "union_edges": union_edges, "ids_edges": ids_edges, "launches": launches,
+          "union_edges": union_edges, "ids_edges": ids_edges, "key_edges": key_edges,
+          "launches": launches,
           "setup_seconds": t_setup, "phase_seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "kernels": t_dict, "fold": t_fold, "pair": t_pair,
             "max_abs_err": max([fold_err, *cpu_err.values()])}
@@ -3851,6 +3869,16 @@ def main() -> int:
               "shard_union": hc["sort"].get("dict_merge"),
               "global_union": hc["sort_global"].get("dict_merge"),
               "launches": hc["launches"]["dict_merge"]},
+          "dict_keys": {
+              "rows_a_thread": fd.KEY_ROWS,
+              "mesh_grouped_shard": {k: mg["kernels"]["dict_keys"][k] for k in (
+                  "rows", "stack_slots", "attributes", "ms", "bound_ms", "plain_ms")},
+              "mesh_grouped_launches": mg["launches"]["dict_keys"]},
+          "topn_pack": {
+              "warm_100m": t_topn["topn_pack"], "warm_100m_encoded": t_topn_e["topn_pack"],
+              "mesh_shard_step": mesh_out["topn"]["step_shard"]["topn_pack"],
+              "mesh_finalize": mesh_out["topn"]["finalize"]["topn_pack"],
+              "launches": topn_launches["topn_pack"]},
           "dict_compact": {
               "tile": fd.COMPACT_TILE, "shard_union": hc["sort"]["dict_compact"],
               "global_union": hc["sort_global"]["dict_compact"],

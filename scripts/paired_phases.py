@@ -100,7 +100,19 @@ same ids at ``c_max + 1`` and the batch riders past their rows (Q1 by the
 four flag columns, 512 slots; five CUDA-event times each), or
 ``slice19_requests``: the grouped mesh at 32,768 slots and the cold
 per-supplier query over 1M KV rows (host clock, a first run left out; once
-more under ``torch.profiler``, with the launches counted).  Each process
+more under ``torch.profiler``, with the launches counted), or
+``slice20_kernels``: ``dict_keys`` alone at the grouped mesh's shards
+(Q1 at 64 slots, the per-supplier query at 32,768; inputs captured from
+their second super-blocks) and at Q1's shard with its lanes bitpacked, then
+``topn_pack`` alone at the main paths' captured inputs: the warm raw TopN
+over the 100M-row image (plain, then encoded in place), a cold 65,536-row
+block with the carry, a mesh shard step with the carry and the mesh
+finalize's [8, K] image (each held to its plain version, then five
+CUDA-event times of 50 launches), or ``slice20_requests``: the grouped mesh
+over 10M rows at 64 and 32,768 slots, the mesh raw TopN over 10M rows and
+the warm raw TopN over 100M rows (host clock, a first run left out; once
+more under ``torch.profiler``, with the launches counted and each kernel's
+device ms).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -817,6 +829,143 @@ elif sys.argv[1] in ("slice19_kernels", "slice19_requests"):
                            "launches": sum(fa.LAUNCHES.values()),
                            "top_kernels_ms": {k[:80]: v for k, v in top}}
     print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("slice20_kernels", "slice20_requests"):
+    import numpy as np
+    from tikv_tpu_torch.copr import encoding
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_dict as fd
+    from tikv_tpu_torch.copr import fused_topn as ft
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device("cuda", 0)
+    n10 = cs.MESH_GROUPED_ROWS
+    a10 = fx.build_arrays(n10, cs.SEED)
+    q1 = pm.ShardedGroupedEvaluator(dag_to_wire(fx.grouped_dag(("rf", "ls"))),
+                                    pm.make_mesh([dev] * cs.MESH_SHARDS, groups=1),
+                                    cs.MESH_GROUPED_RPS, capacity=64, key_bits=31)
+    qt = q1.total_rows
+    qblocks = [(fx.grouped_columns(a10, s, min(s + qt, n10)), min(qt, n10 - s))
+               for s in range(0, n10, qt)]
+    a_mesh = fx.supp_arrays(cs.HC_MESH_ROWS, cs.SEED)
+    mev = pm.ShardedGroupedEvaluator(dag_to_wire(fx.supp_dag()),
+                                     pm.make_mesh([dev] * cs.MESH_SHARDS, groups=1),
+                                     cs.MESH_GROUPED_RPS, capacity=cs.HC_MESH_CAP)
+    mt = mev.total_rows
+    mblocks = [(fx.supp_columns(a_mesh, s, min(s + mt, cs.HC_MESH_ROWS), mt),
+                min(mt, cs.HC_MESH_ROWS - s)) for s in range(0, cs.HC_MESH_ROWS, mt)]
+    topn = pm.ShardedTopNEvaluator(dag_to_wire(fx.topn_dag(cs.TOPN_K)),
+                                   pm.make_mesh([dev] * cs.MESH_SHARDS), cs.MESH_TOPN_RPS)
+    tt = topn.total_rows
+    tblocks = [(fx.mesh_columns(a10, s, min(s + tt, cs.FILTER_ROWS)),
+                min(tt, cs.FILTER_ROWS - s)) for s in range(0, cs.FILTER_ROWS, tt)]
+    cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    ev_t = te.TorchDagEvaluator(dag_to_wire(fx.topn_dag(cs.TOPN_K)), block_rows=1 << 17,
+                                device="cuda")
+    cases = {}
+    if sys.argv[1] == "slice20_kernels":
+        def repeat(name, fn, iters, **extra):
+            cases[name] = {"request_s": [cs.cuda_ms(fn, iters) / 1e3 for _ in range(5)], **extra}
+
+        def narrowed(img):
+            # the image's int64 lanes bitpacked into the narrowest lane that
+            # holds each column's range (its frame the minimum): the same
+            # values through program #1's encoded load
+            cols, descs, refs = [], [], []
+            for c in img.cols:
+                lo, hi = (int(c.min()), int(c.max())) if c.dtype == torch.int64 else (0, 1 << 40)
+                for dt, npt in ((torch.int8, np.int8), (torch.int16, np.int16),
+                                (torch.int32, np.int32), (None, None)):
+                    if dt is not None and hi - lo <= torch.iinfo(dt).max - torch.iinfo(dt).min:
+                        break
+                if dt is None:
+                    cols.append(c)
+                    descs.append(("plain",))
+                    refs.append(0)
+                    continue
+                base = lo - torch.iinfo(dt).min
+                cols.append((c - base).to(dt).contiguous())
+                descs.append(("bp", np.dtype(npt).str))
+                refs.append(base)
+            return type(img)(cols, img.nulls, img.n_valids, img.n_blocks, img.block_rows,
+                             img.device, img.offsets, img.gids, tuple(descs), tuple(refs))
+
+        def keys_case(name, prog, img):
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            out = torch.empty(img.n_blocks * img.block_rows, dtype=torch.int64, device=dev)
+            fd.launch_keys(prog, img, out, flag)
+            if not torch.equal(out, fd.dict_keys_plain(prog, img)[0]):
+                raise AssertionError(f"{name}: dict_keys differs from its plain version")
+            repeat(name, lambda: fd.launch_keys(prog, img, out, flag), 50,
+                   rows=img.n_blocks * img.block_rows)
+
+        # dict_keys at the grouped mesh's shards: Q1 at 64 slots and the
+        # per-supplier query at 32,768, captured from their second
+        # super-blocks; Q1's shard again with its lanes bitpacked
+        for name, ev, bl, total in (("keys_q1_64", q1, qblocks, qt),
+                                    ("keys_supp_32768", mev, mblocks, mt)):
+            state = ev.step(*cs._block_args(ev, bl[0]), ev.init_state())
+            seen = cs.capture_dict(fd, lambda: ev.step(*cs._block_args(ev, bl[1]), state,
+                                                       block_base=total))
+            prog, img = seen["dict_keys"]
+            keys_case(name, prog, img)
+            if name == "keys_q1_64":
+                keys_case("keys_q1_64_encoded", prog, narrowed(img))
+            del state, seen, img
+
+        def pack_case(name, args):
+            prog, run, pay, carry, src_base, out, nxt = args
+            ft.launch_pack(*args)
+            want = ft.pack_plain(prog, run, pay, carry, src_base)
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1].view(torch.int64), want[1].view(torch.int64))
+                    and torch.equal(nxt, want[2])):
+                raise AssertionError(f"{name}: topn_pack differs from its plain version")
+            repeat(name, lambda: ft.launch_pack(*args), 50, k=prog.k,
+                   payload=len(prog.pay_f64), carry=carry is not None)
+
+        # topn_pack at the main paths' own inputs: the warm raw TopN over the
+        # 100M image (plain, then encoded in place), a cold 65,536-row block
+        # with the carry (its second), a mesh shard step with the carry (the
+        # second super-block's first shard) and the mesh finalize
+        _r, calls = cs.capture_calls(ft, "launch_pack", lambda: ev_t.run(None, cache))
+        pack_case("pack_warm_100m", calls[0])
+        kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+        ev_c = te.TorchDagEvaluator(dag_to_wire(fx.topn_dag(cs.TOPN_K)), block_rows=1 << 16,
+                                    device="cuda")
+        _r, calls = cs.capture_calls(ft, "launch_pack", lambda: ev_c.run(FixtureScanSource(kvs)))
+        pack_case("pack_cold_block", calls[1])
+        state, calls = cs.capture_calls(ft, "launch_pack", lambda: topn.run_blocks(tblocks))
+        pack_case("pack_mesh_shard_step", calls[cs.MESH_SHARDS])
+        _r, calls = cs.capture_calls(ft, "launch_pack", lambda: topn.merge(state))
+        pack_case("pack_mesh_finalize", calls[0])
+        del calls, state
+        encoding.encode_blocks(cache)
+        _r, calls = cs.capture_calls(ft, "launch_pack", lambda: ev_t.run(None, cache))
+        pack_case("pack_warm_100m_encoded", calls[0])
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        plan = [("mesh_grouped_q1_64", lambda: q1.finalize(q1.run_blocks(qblocks)), 7, 1),
+                ("mesh_grouped_32768", lambda: mev.finalize(mev.run_blocks(mblocks)), 7, 1),
+                ("mesh_topn_10m", lambda: topn.finalize(topn.run_blocks(tblocks)), 7, 1),
+                ("warm_topn_100m", lambda: ev_t.run(None, cache), 8, 1)]
+        for name, fn, n, skip in plan:
+            secs = [timed(fn) for _ in range(n)]
+            fa.reset_launches()
+            prof = cs.profile_runs(fn, 1)
+            cases[name] = {"request_s": secs[skip:],
+                           "device_ms": [sum(prof["device_ms"].values())],
+                           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+                           "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
+    print(json.dumps({"cases": cases}))
 elif sys.argv[1] in ("zone_kernels", "zone_requests"):
     from tikv_tpu_torch.copr import fused_zone as fz
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
@@ -966,6 +1115,8 @@ def run_phase(checkout: Path, phase: str) -> dict:
                 out["requests_s"][case + "_device"] = [ms / 1e3 for ms in res["device_ms"]]
             if isinstance(res, dict) and "launches" in res:
                 out.setdefault("launches", {})[case] = res["launches"]
+            if isinstance(res, dict) and "kernels_ms" in res:
+                out.setdefault("kernels_ms", {})[case] = res["kernels_ms"]
         if "phase_wall_s" in obj:
             out["phase_wall_s"] = obj["phase_wall_s"]
     return out

@@ -391,6 +391,23 @@ def test_topn_candidates_edges_match_plain_version(cuda, name):
         _assert_state(tuple(t.cpu() for t in state), plain)
 
 
+@pytest.mark.parametrize("name", list(fx.PACK_EDGE_CASES))
+def test_topn_pack_edges_match_its_plain_version(cuda, name):
+    """topn_pack, a thread a (payload column, slot) cell and a run cell, at
+    its edges (``fx.pack_edge_case``: K of 1, 100 and 2,048; 0, 5, 7 and
+    16 payload columns; winners from the carry and the image mixed with
+    rank-1 slots; f64 payload with NaN, +-inf and -0.0; an encoded payload
+    image; the mesh finalize's [8, K] image): the packed state, its f64
+    rows bit for bit and the next carry run equal to the plain version's,
+    two launches bit-identical, no local memory."""
+    prog, run, pay, carry, src_base = fx.pack_edge_case(name, cuda)
+    out = fx.pack_kernel_check(prog, run, pay, carry, src_base)
+    assert out["launches"] == 2 and out["live"] > 0
+    if prog.k >= 100:
+        assert (out["from_carry"] > 0) == (carry is not None)
+    assert ft.pack_attributes()["localSizeBytes"] == 0
+
+
 def test_redesigned_kernels_keep_their_walks_in_registers(cuda):
     """batch_partials and topn_candidates spill nothing to local memory in
     any instance (2, 4 and 8 stack slots); fused_mask's four instances keep
@@ -951,6 +968,34 @@ def test_dictionary_kernels_match_their_plain_versions(cuda, cap, distinct, bad)
     with pytest.raises(ValueError):  # the carry may not be the output with a perm
         fused_mesh.mesh_merge(mprog, parts, table, carry, out=carry,
                               perm=fx.merge_perm(cap, cap, cuda))
+
+
+@pytest.mark.parametrize("name", list(fx.KEY_EDGE_CASES))
+def test_dict_keys_edges_match_its_plain_version(cuda, name):
+    """dict_keys on the tile walk at its edges (``fx.key_edge_case``):
+    blocks of 1,001 and 1,003 rows (not a multiple of a thread's tile)
+    with per-block n_valid inside a tile, the 2-, 4- and 8-slot instances,
+    NULL keys, REAL keys with NaN, +-inf and -0.0, bitpack, code and run
+    columns, the range flag set and clear: keys and flag equal to the plain
+    version's, two runs bit-identical, the instance the launcher picks the
+    one the case was built for."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    slots, flagged = fx.KEY_EDGE_CASES[name]
+    prog, img = fx.key_edge_case(name, cuda)
+    out = fx.keys_kernel_check(prog, img)
+    assert out["slots"] == slots and out["launches"] == 2
+    assert bool(out["flag"] & fd.FLAG_RANGE) == flagged
+
+
+def test_dict_keys_instances_keep_no_local_memory(cuda):
+    """Every instance of dict_keys (2, 4 and 8 stack slots) keeps its walk
+    in registers: 0 local bytes."""
+    from tikv_tpu_torch.copr import fused_dict as fd
+
+    for slots in (2, 4, 8):
+        attrs = fd.keys_attributes(slots)
+        assert attrs["localSizeBytes"] == 0 and attrs["stackSlots"] == slots, attrs
 
 
 @pytest.mark.parametrize("name", fx.UNION_EDGE_CASES)

@@ -13,6 +13,8 @@ design then.  The kernels' plain versions are held to direct numpy
 statements, the tile-merge identity of ``dict_union`` with hypothesis.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ from tikv_tpu.copr.datatypes import ColumnInfo, FieldType
 from tikv_tpu.copr.rpn import call, col, const_int
 from tikv_tpu.parallel import mesh as jm
 from tikv_tpu_torch import fixtures as fx
+from tikv_tpu_torch.copr import fused_agg as fa
 from tikv_tpu_torch.copr import fused_dict as fd
 from tikv_tpu_torch.copr import fused_mesh
 from tikv_tpu_torch.copr.dag_wire import dag_to_wire as port_dag_to_wire
@@ -626,6 +629,77 @@ def test_dict_keys_plain_packs_as_numpy():
     want = (np.where(null1, lane_max, k1) << 20) | (t2 & lane_max)
     np.testing.assert_array_equal(keys.numpy(), np.where(active, want, fd.SENTINEL))
     assert bad == bool((active & (t2 < 0)).any()) and bad
+
+
+@pytest.mark.parametrize("name", list(fx.KEY_EDGE_CASES))
+def test_dict_keys_edge_cases_pick_their_instance(name):
+    """Each dict_keys edge case runs the instance of the stack slots it was
+    built for (the fewest of 2, 4 or 8 that hold its plan, as
+    ``fused_agg.stack_slots`` picks them), and the plain version ends with
+    the range flag the case names: a selected NaN or infinite REAL key or a
+    run value past its lane sets it; -0.0 and values in the lane do not."""
+    slots, flagged = fx.KEY_EDGE_CASES[name]
+    prog, img = fx.key_edge_case(name, "cpu")
+    assert fd.key_slots(prog) == fa.stack_slots([prog.code]) == slots
+    flag = torch.zeros(1, dtype=torch.int32)
+    keys = fd.dict_keys(prog, img, flag)
+    assert bool(int(flag) & fd.FLAG_RANGE) == flagged
+    live = int((keys < fd.SENTINEL).sum())
+    assert 0 < live < keys.numel()  # some rows selected, some not
+
+
+def test_dict_keys_in_range_case_packs_as_numpy():
+    """``ragged_in_range`` through the plain version against numpy: the REAL
+    key's NaN and infinite rows are dropped by the selection, -0.0
+    truncates to 0, a NULL packs as lane_max, rows past a block's n_valid
+    (inside a tile: 998 and 5 of 1,001) are the sentinel."""
+    prog, img = fx.key_edge_case("ragged_in_range", "cpu")
+    keys, bad = fd.dict_keys_plain(prog, img)
+    c0, c2, c3 = (img.cols[j].numpy() for j in (0, 2, 3))
+    n2, n3 = img.nulls[2].numpy(), img.nulls[3].numpy()
+    nv = img.n_valids.numpy()
+    valid = np.arange(img.block_rows)[None, :] < nv[:, None]
+    with np.errstate(invalid="ignore"):
+        sel = valid & ~n2 & (c2 >= 0.0) & (c2 < 1000.0)
+        t2 = np.where(n2 | ~np.isfinite(c2), 0, c2).astype(np.int64)
+    lane_max = prog.lane_max
+    want = np.where(n2, lane_max, t2)
+    want = (want << 20) | np.where(n3, lane_max, c3)
+    want = (want << 20) | (c0 & 1023)
+    np.testing.assert_array_equal(keys.numpy(), np.where(sel, want, fd.SENTINEL).reshape(-1))
+    assert not bad
+
+
+def test_dict_keys_refuses_a_plan_deeper_than_its_instances():
+    """A key plan deeper than the tile walk's 8 slots raises ``ValueError``
+    on either device, before any launch (the emitter refuses such plans;
+    this one is written by hand)."""
+    prog, img = fx.key_edge_case("ragged_s8", "cpu")
+    deep = prog.code + (fa.OP_COL,) * 9 + (fa.OP_PLUS,) * 8 + (fa.OP_FILTER,)
+    bad = dataclasses.replace(prog, code=deep)
+    assert fa.stack_depth(deep) == 9
+    with pytest.raises(ValueError, match="dict_keys"):
+        fd.key_slots(bad)
+    with pytest.raises(ValueError, match="dict_keys"):
+        fd.dict_keys(bad, img, torch.zeros(1, dtype=torch.int32))
+
+
+def test_dict_keys_tile_matches_the_cuda_source():
+    """dict_keys' tile (rows a thread) in csrc/fused_dict.cu against the
+    wrapper's, its instances of 2, 4 and 8 stack slots, and its launcher's
+    pick from the plan's code (fa_stack_slots of csrc/fa_walk.cuh)."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(fd.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / "fused_dict.cu").read_text()
+    walk = (csrc / "fa_walk.cuh").read_text()
+    assert int(re.search(r"#define DK_ROWS (\d+)", text).group(1)) == fd.KEY_ROWS == 4
+    for slots in (2, 4, fa.MAX_STACK):
+        assert f"case {slots}: return dict_keys<{slots}>;" in text
+    assert "const int slots = fa_stack_slots(*p);" in text and "dk_kernel(slots)" in text
+    assert "depth <= 2 ? 2 : depth <= 4 ? 4 : depth <= FA_MAX_STACK ? 8 : 0" in walk
+    assert "fa_walk_keys" not in walk + text  # the one-row key walk is gone
 
 
 def test_mesh_merge_remap_is_a_scatter_of_the_carry():

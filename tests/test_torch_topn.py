@@ -492,6 +492,63 @@ def test_mask_tile_constants_match_the_cuda_source():
     assert fm.MASK_ROWS == 4
 
 
+@pytest.mark.parametrize("name", list(fx.PACK_EDGE_CASES))
+def test_pack_edge_cases_through_the_plain_version(name):
+    """pack_plain on each topn_pack edge case (``fx.pack_edge_case``: K of
+    1, 100 and 2,048; 0, 5, 7 and 16 payload columns; winners from the carry
+    and from the image mixed with rank-1 slots; REAL payload with NaN,
+    +-inf and -0.0; an encoded payload image; the mesh finalize's [8, K]
+    image) against numpy: row 0 the rank, each column's value and NULL flag
+    from the carry's slot or the image's flat row, 0 and 0 for a rank-1
+    slot, f64 values bit for bit; the next carry run the run with its slot
+    as src."""
+    prog, run, pay, carry, src_base = fx.pack_edge_case(name, "cpu")
+    k = prog.k
+    ints, flts, nxt = ft.pack_plain(prog, run, pay, carry, src_base)
+    r = run.numpy()
+    rank, src = r[0], r[-1]
+    live = rank == 0
+    from_carry = live & (src < src_base)
+    from_img = live & ~from_carry
+    assert from_img.any()
+    if k >= 100:
+        assert (~live).any() and (from_carry.any() == (carry is not None))
+    np.testing.assert_array_equal(ints[0].numpy(), rank)
+    for j, (is_f, row, nrow) in enumerate(zip(prog.pay_f64, prog.pay_row, prog.pay_null_row)):
+        data, nl = pay.lanes(j)
+        data = data.reshape(-1).numpy()
+        nl = np.zeros(data.shape, dtype=bool) if nl is None else nl.reshape(-1).numpy()
+        want = np.zeros(k, dtype=data.dtype)
+        want_nl = np.zeros(k, dtype=np.int64)
+        want[from_img] = data[src[from_img] - src_base]
+        want_nl[from_img] = nl[src[from_img] - src_base]
+        if carry is not None:
+            want[from_carry] = (carry[1] if is_f else carry[0])[row].numpy()[src[from_carry]]
+            want_nl[from_carry] = carry[0][nrow].numpy()[src[from_carry]]
+        got = (flts if is_f else ints)[row].numpy()
+        np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+        np.testing.assert_array_equal(ints[nrow].numpy(), want_nl)
+    np.testing.assert_array_equal(nxt.numpy(), np.concatenate([r[:-1], np.arange(k)[None]]))
+    assert ints.shape == (prog.n_int, k) and flts.shape == (prog.n_f64, k)
+
+
+def test_pack_grid_matches_the_cuda_source():
+    """topn_pack's grid in csrc/fused_scan.cu: a thread a (payload column,
+    slot) cell and a (word, slot) cell of the run, ceil(k * (n_pay +
+    n_words) / TP_THREADS) blocks of whole warps."""
+    import re
+    from pathlib import Path
+
+    from tikv_tpu_torch.copr import fused_mask as fm
+
+    text = (Path(fm.__file__).resolve().parent.parent / "csrc" / "fused_scan.cu").read_text()
+    threads = int(re.search(r"#define TP_THREADS (\d+)", text).group(1))
+    assert threads % 32 == 0
+    assert "(long long)p->k * (p->n_pay + p->n_words)" in text
+    # the largest launch: K at the tile, every payload column, a finalize's words
+    assert ft.TILE_MAX * (fm.MAX_PAYLOAD + ft.MERGE_WORDS_MAX) < 1 << 30
+
+
 def test_scan_limits_and_parameter_blocks_match_the_cuda_source():
     import ctypes
     import re

@@ -132,9 +132,10 @@ _POP_OPS = frozenset({OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE, OP_AND, OP_OR, O
 
 
 def stack_depth(code) -> int:
-    """The most operands the bytecode ``code`` holds at once (the mask's
-    launcher, ``sc_stack_depth`` of csrc/fused_scan.cu, reads it the same
-    way): SCALE, COUNT1 and the unary operators keep the depth."""
+    """The most operands the bytecode ``code`` holds at once (the
+    launchers of the mask and of ``dict_keys``, ``fa_stack_depth`` of
+    csrc/fa_walk.cuh, read it the same way): SCALE, COUNT1 and the unary
+    operators keep the depth."""
     depth = most = 0
     for word in code:
         op = word & 0xFF

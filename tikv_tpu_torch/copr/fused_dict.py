@@ -12,6 +12,8 @@ with three kernels of ``csrc/fused_dict.cu``:
   NULL packs as ``lane_max``, a REAL value truncates toward zero, an active
   non-NULL value outside ``[0, lane_max)`` sets :data:`FLAG_RANGE`, an
   inactive row (selection false, or past ``n_valid``) is :data:`SENTINEL`.
+  A thread walks :data:`KEY_ROWS` rows of a block on the tile walk, in the
+  instance of :func:`key_slots` stack slots.
 * ``dict_union`` (``:378-406``): the ``cap`` smallest distinct non-sentinel
   keys of (sorted dictionary ++ keys), sorted and padded with the
   sentinel; :data:`FLAG_CAPACITY` when there are more.  Up to
@@ -47,6 +49,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import fused_agg as fa
 from .datatypes import EvalType
 from .fused_agg import (
     LAUNCHES,
@@ -63,6 +66,7 @@ from .fused_agg import (
 )
 
 SENTINEL = 1 << 62  # an empty dictionary slot; sorts after every key
+KEY_ROWS = 4  # rows a dict_keys thread walks at once (DK_ROWS)
 FLAG_RANGE = 1  # a group value outside [0, lane_max)
 FLAG_CAPACITY = 2  # more distinct keys than the dictionary's slots
 KEYS_A_THREAD = 16  # keys a dict_union thread sorts in registers (DU_E)
@@ -100,6 +104,16 @@ def compile_key_program(sel_rpns, key_rpns, ship_cols, schema, key_bits: int) ->
     key_f64 = emit_keys(em, key_rpns)
     col_f64 = tuple(schema[c][0] == EvalType.REAL for c in ship_cols)
     return KeyProgram(tuple(em.code), tuple(em.consts), col_f64, tuple(key_f64), key_bits)
+
+
+def key_slots(prog: KeyProgram) -> int:
+    """The stack slots of the ``dict_keys`` instance that runs ``prog``
+    (2, 4 or 8: the fewest that hold its plan, which the C launcher also
+    reads from the code); ``ValueError`` for a deeper plan."""
+    try:
+        return fa.stack_slots([prog.code])
+    except ValueError as e:
+        raise ValueError(f"dict_keys: {e}") from None
 
 
 def check_capacity(cap: int) -> None:
@@ -331,6 +345,8 @@ def kernels():
         lib.du_attributes.argtypes = [vp]
         lib.dk_sentinel.restype = cll
         lib.dk_launch.argtypes = [vp, vp]
+        lib.dk_slots.argtypes = [vp]
+        lib.dk_attributes.argtypes = [ci, vp]
         lib.du_launch.argtypes = [vp, cll, vp, cll, vp, vp, ci, ci, vp, vp]
         lib.di_launch.argtypes = [vp, ci, vp, cll, vp, vp, vp, vp]
         lib.dm_launch.argtypes = [vp, cll, cll, ci, vp, vp, vp]
@@ -339,15 +355,16 @@ def kernels():
         lib.dc_attributes.argtypes = [vp]
         lib.di_table_stride.argtypes = [ci]
         lib.di_attributes.argtypes = [ci, vp]
-        for fn in ("dk_launch", "du_launch", "di_launch", "dm_launch", "dc_launch_compact",
-                   "dc_tile", "dc_attributes", "di_smem_keys", "du_sort_tile", "du_attributes",
-                   "di_table_stride", "di_attributes", "dm_attributes", "dm_chunk",
-                   "dm_fan_max"):
+        for fn in ("dk_launch", "dk_slots", "dk_attributes", "dk_rows", "du_launch",
+                   "di_launch", "dm_launch", "dc_launch_compact", "dc_tile", "dc_attributes",
+                   "di_smem_keys", "du_sort_tile", "du_attributes", "di_table_stride",
+                   "di_attributes", "dm_attributes", "dm_chunk", "dm_fan_max"):
             getattr(lib, fn).restype = ci
         if lib.dk_params_size() != ctypes.sizeof(_DkParams):
             raise RuntimeError(f"DkParams layout mismatch: kernel {lib.dk_params_size()} bytes, "
                                f"wrapper {ctypes.sizeof(_DkParams)}")
         if lib.du_tile_max() != TILE_MAX or lib.dk_sentinel() != SENTINEL \
+                or lib.dk_rows() != KEY_ROWS \
                 or lib.dc_tile() != COMPACT_TILE or lib.di_smem_keys() != CAP_MAX \
                 or lib.du_sort_tile() != SORT_TILE or lib.dm_chunk() != MERGE_CHUNK \
                 or lib.dm_fan_max() != MERGE_FAN_MAX:
@@ -372,13 +389,9 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def launch_keys(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Tensor) -> None:
-    """Launch ``dict_keys`` into ``out`` (int64 ``[n_blocks * block_rows]``),
-    ORing :data:`FLAG_RANGE` into ``flag`` (int32 ``[1]``)."""
-    check_columns(prog.col_f64, img)
-    dev = img.device
-    _check(out, torch.int64, (img.n_blocks * img.block_rows,), dev, "keys")
-    _check(flag, torch.int32, (1,), dev, "flag")
+def key_params(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Tensor):
+    """``dict_keys``' parameter block for ``prog`` over ``img`` into
+    ``out``, ORing into ``flag``."""
     p = _DkParams()
     set_columns(p, img)
     if isinstance(img.n_valids, int):
@@ -391,6 +404,31 @@ def launch_keys(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Ten
     p.consts[: len(prog.consts)] = prog.consts
     p.code[: len(prog.code)] = prog.code
     p.n_code, p.n_cols, p.key_bits = len(prog.code), len(prog.col_f64), prog.key_bits
+    return p
+
+
+def keys_attributes(slots: int) -> dict:
+    """``cudaFuncGetAttributes`` of the ``dict_keys`` instance of ``slots``
+    stack slots (2, 4 or 8): registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().dk_attributes(slots, out)
+    if rc != 0:
+        raise RuntimeError(f"dict_keys attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
+            "stackSlots": slots}
+
+
+def launch_keys(prog: KeyProgram, img: Image, out: torch.Tensor, flag: torch.Tensor) -> None:
+    """Launch ``dict_keys`` into ``out`` (int64 ``[n_blocks * block_rows]``),
+    ORing :data:`FLAG_RANGE` into ``flag`` (int32 ``[1]``); ``ValueError``
+    for a plan deeper than the tile walk's stack."""
+    key_slots(prog)
+    check_columns(prog.col_f64, img)
+    dev = img.device
+    _check(out, torch.int64, (img.n_blocks * img.block_rows,), dev, "keys")
+    _check(flag, torch.int32, (1,), dev, "flag")
+    p = key_params(prog, img, out, flag)
     lib = kernels()
     with torch.cuda.device(dev):
         rc = lib.dk_launch(ctypes.byref(p), _stream(dev))
@@ -570,9 +608,11 @@ def _device(t: torch.Tensor, what: str):
 def dict_keys(prog: KeyProgram, img: Image, flag: torch.Tensor) -> torch.Tensor:
     """The image's packed keys, int64 ``[n_blocks * block_rows]``;
     :data:`FLAG_RANGE` ORed into ``flag`` (int32 ``[1]`` on the image's
-    device) when a value falls outside its lane."""
+    device) when a value falls outside its lane.  ``ValueError`` for a plan
+    deeper than the kernel's stack (:func:`key_slots`), on either device."""
     dev = img.device
     if dev.type == "cpu":
+        key_slots(prog)  # the card's limit holds here too
         keys, bad = dict_keys_plain(prog, img)
         if bad:
             flag |= FLAG_RANGE

@@ -160,10 +160,12 @@ def kernels():
         lib.tn_merge_staged.argtypes = [ci, ci, ci]
         lib.tn_merge_attributes.argtypes = [ci, ci, vp]
         lib.tn_launch_pack.argtypes = [vp, vp]
+        lib.tp_attributes.argtypes = [vp]
         lib.dc_launch.argtypes = [vp, vp, vp, ci, vp]
         for fn in ("sc_launch_mask", "sc_mask_attributes", "tn_launch_candidates",
                    "tn_candidates_attributes", "tn_launch_merge", "tn_launch_pack",
-                   "dc_launch", "tn_merge_staged", "tn_merge_attributes", "tn_fan_max"):
+                   "dc_launch", "tn_merge_staged", "tn_merge_attributes", "tn_fan_max",
+                   "tp_attributes"):
             getattr(lib, fn).restype = ci
         for name, want, got in (("ScParams", ctypes.sizeof(_ScParams), lib.sc_params_size()),
                                 ("TpParams", ctypes.sizeof(_TpParams), lib.tp_params_size())):

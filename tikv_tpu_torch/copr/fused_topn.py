@@ -24,7 +24,9 @@ carried best K rows:
 3. ``topn_pack``: the packed state of the final run: int64 row 0 the rank,
    then each payload column's value (int64 rows, or f64 rows) and null flag
    (int64 rows), gathered from the carry or the image for the rank-0
-   entries; and the run as the next step's carry.
+   entries; and the run as the next step's carry.  A thread a (payload
+   column, slot) cell and a (word, slot) cell of the run, each issuing its
+   loads before its stores.
 
 ``src`` is unique, so the order is total: it is ``_topn_step``'s stable sort
 with the carry ahead of the block, and the CPU comparator's
@@ -404,6 +406,16 @@ def launch_merge(runs: torch.Tensor, extra: torch.Tensor | None, out: torch.Tens
         rc = lib.tn_launch_merge(runs.data_ptr(), n, None if extra is None else extra.data_ptr(),
                                  out.data_ptr(), n_words, k, fan_in, stream)
     check_launch("topn_merge", rc)
+
+
+def pack_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``topn_pack``: registers a thread, local
+    (spilled) bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = kernels().tp_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"topn_pack attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
 
 
 def launch_pack(prog: TopnProgram, run: torch.Tensor, pay: Image, carry, src_base: int,

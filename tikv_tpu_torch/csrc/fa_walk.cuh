@@ -8,12 +8,13 @@
 // operation.  A plan is bytecode for a small stack machine over
 // (64-bit value, null) slots; each instruction carries its operands' types,
 // fixed at compile time (int64 or f64).  Included by fused_agg.cu (the
-// aggregation kernels) and fused_scan.cu (the mask and top-K kernels).
-// fa_walk_keys walks one row (dict_keys, the first value a combine reads
-// again); fa_walk_tile R rows a thread (the mask, topn_candidates, the zone
-// tile kernels and every partials kernel of the aggregations:
-// fused_agg_partials, fused_group_agg_partials, group_wide_partials,
-// batch_partials).
+// aggregation kernels), fused_scan.cu (the mask and top-K kernels),
+// fused_zone.cu, fused_batch.cu and fused_dict.cu.  fa_walk walks one row
+// (the first value a combine reads again, for one row a group);
+// fa_walk_tile R rows a thread (every kernel of a main path that walks the
+// image: the mask, topn_candidates, dict_keys, the zone tile kernels and
+// every partials kernel of the aggregations: fused_agg_partials,
+// fused_group_agg_partials, group_wide_partials, batch_partials).
 //
 // Also program #1 of the reference package, kernels.py:decode_device_column
 // (inlined there through jax_eval.py:_build_cols): the column load fa_load.
@@ -172,13 +173,13 @@ __device__ __forceinline__ long long fa_load(const P& p, int j, long long f, lon
 // row's columns, evaluates the selection conjuncts and every aggregate
 // argument, and reports each aggregate k to on_agg(k, live, value bits),
 // where live = the row passed the selection and the argument is not NULL
-// (count(*): passed the selection), and each sort key q to on_key(q, null,
-// value bits), whatever the selection says.  Returns whether the row passed
-// the selection.  P is any parameter block with the columns, their
-// descriptors, the code and the constants (FaParams, GaParams, ScParams).
-template <class P, class OnAgg, class OnKey>
-__device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, long long blk, long long i,
-                                             OnAgg&& on_agg, OnKey&& on_key) {
+// (count(*): passed the selection); a sort key is popped unread.  Returns
+// whether the row passed the selection.  P is any parameter block with the
+// columns, their descriptors, the code and the constants (FaParams,
+// GaParams).
+template <class P, class OnAgg>
+__device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, long long i,
+                                        OnAgg&& on_agg) {
   long long v[FA_MAX_COLS];
   bool vn[FA_MAX_COLS];
   long long sv[FA_MAX_STACK];
@@ -323,7 +324,6 @@ __device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, long long 
         break;
       case FA_OP_KEY:
         --sp;
-        on_key(arg, sn[sp], sv[sp]);
         break;
       default:
         break;
@@ -332,19 +332,13 @@ __device__ __forceinline__ bool fa_walk_keys(const P& p, long long f, long long 
   return active;
 }
 
-// The walk of a plan without sort keys.
-template <class P, class OnAgg>
-__device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, long long i,
-                                        OnAgg&& on_agg) {
-  return fa_walk_keys(p, f, blk, i, on_agg, [](int, bool, long long) {});
-}
-
 // ---------------------------------------------------------------------------
 // The tile walk: the same bytecode over R consecutive rows per thread, with
-// no local memory (fused_mask, topn_candidates and the partials kernels).
+// no local memory (fused_mask, topn_candidates, dict_keys, the zone tile
+// kernels and the partials kernels).
 //
-// fa_walk_keys keeps a row's columns and its operand stack in arrays indexed
-// at run time (v[arg], sv[sp]), which nvcc places in local memory.  The tile
+// fa_walk keeps a row's columns and its operand stack in arrays indexed at
+// run time (v[arg], sv[sp]), which nvcc places in local memory.  The tile
 // walk decodes each instruction word once for the thread's R rows (the code
 // is the same for every thread, so its switch never diverges) and keeps the
 // stack in registers: D slots of R values, every access an unrolled select
@@ -364,6 +358,64 @@ __device__ __forceinline__ bool fa_walk(const P& p, long long f, long long blk, 
 // selection bits are final by then, and a Select walk returns there: the
 // selection alone.
 // ---------------------------------------------------------------------------
+
+// (block, row or tile in block) of flat item f, stepped by a grid stride
+// without a division per step: the grid-stride loops of the tile walk's
+// kernels (rows = a block's tiles) and of decode_column (its rows).
+struct FaCursor {
+  long long blk, i, step_b, step_i, rows;
+  __device__ FaCursor(long long f, long long stride, long long rows_) : rows(rows_) {
+    blk = rows > 0 ? f / rows : 0;
+    i = f - blk * rows;
+    step_b = rows > 0 ? stride / rows : 0;
+    step_i = stride - step_b * rows;
+  }
+  __device__ void advance() {
+    blk += step_b;
+    i += step_i;
+    if (i >= rows) {
+      i -= rows;
+      ++blk;
+    }
+  }
+};
+
+// The most operand slots a plan's code holds at once (fused_agg.py
+// stack_depth reads it the same way): SCALE, COUNT1 and the unary
+// operators keep the depth.  The launchers pick the tile walk's instance
+// from it.
+template <class P>
+static inline int fa_stack_depth(const P& p) {
+  int depth = 0, most = 0;
+  for (int pc = 0; pc < p.n_code; ++pc) {
+    switch (p.code[pc] & 0xFF) {
+      case FA_OP_COL:
+      case FA_OP_CONST:
+      case FA_OP_NULL:
+        if (++depth > most) most = depth;
+        break;
+      case FA_OP_LT: case FA_OP_LE: case FA_OP_GT: case FA_OP_GE: case FA_OP_EQ: case FA_OP_NE:
+      case FA_OP_AND: case FA_OP_OR: case FA_OP_XOR: case FA_OP_PLUS: case FA_OP_MINUS:
+      case FA_OP_MUL: case FA_OP_BIT_AND: case FA_OP_BIT_OR: case FA_OP_BIT_XOR:
+      case FA_OP_FILTER: case FA_OP_AGG: case FA_OP_KEY:
+        --depth;
+        break;
+      default:  // SCALE, COUNT1 and the unary operators keep the depth
+        break;
+    }
+  }
+  return most;
+}
+
+// The stack slots of the instance that holds the plan (the fewest of 2, 4
+// or 8, as fused_agg.py stack_slots picks them); 0 for a plan deeper than
+// FA_MAX_STACK, which no instance holds.
+template <class P>
+static inline int fa_stack_slots(const P& p) {
+  static_assert(FA_MAX_STACK == 8, "the tile walk's instances");
+  const int depth = fa_stack_depth(p);
+  return depth <= 2 ? 2 : depth <= 4 ? 4 : depth <= FA_MAX_STACK ? 8 : 0;
+}
 
 // Lanes [0, R) at `base` of a 1-, 2-, 4- or 8-byte payload, sign-extended;
 // lanes r >= n (past the block) load as 0.  A full tile of at least 4 bytes

@@ -65,8 +65,15 @@
 // keys and dict_compact's status words.
 //
 // What bounds them on an H100: dict_keys reads the referenced columns of
-// every row and writes 8 bytes a row, with the bytecode walk (fa_walk.cuh)
-// per row, as the mask did before its tile walk; dict_union reads each key
+// every row and writes 8 bytes a row; at a mesh shard (131,072 rows) that
+// is about a microsecond of HBM, so launch latency and one tile's dependent
+// loads bound it.  It walks DK_ROWS rows of a block a thread through the
+// tile walk (fa_walk.cuh: the stack in registers, no local memory, a column
+// loaded a tile at a time in 4- to 16-byte words), stores a full tile's
+// keys as two 16-byte words, steps the grid's stride over tiles without a
+// division a row, and runs on a grid of the blocks the card holds at once;
+// its instances hold 2, 4 or 8 stack slots, picked from the plan's code.
+// dict_union reads each key
 // once and sorts in registers and shared memory (log2(T / 512) merge
 // levels a tile after the warps' sorts); dict_ids reads each key once and
 // writes 4 bytes a key: a key a thread, at most 13 steps in a
@@ -107,7 +114,7 @@
 #include "fa_walk.cuh"
 
 #define DK_THREADS 256
-#define DK_GRID_MAX 4096
+#define DK_ROWS 4                  // rows a dict_keys thread walks at once (its tile)
 #define DU_THREADS 1024
 #define DI_THREADS 256
 #define DI_GRID_MAX 1024
@@ -164,36 +171,90 @@ __device__ __forceinline__ long long dk_trunc(double x) {
 }
 
 // ---------------------------------------------------------------------------
-// dict_keys: one row per thread, grid-stride
+// dict_keys: DK_ROWS rows of one block a thread (a tile), grid-stride over
+// tiles
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(DK_THREADS) dict_keys(const __grid_constant__ DkParams p) {
-  const long long total = p.n_blocks * p.block_rows;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long lane_max = (long long)((1ULL << p.key_bits) - 1);
+static_assert(DK_ROWS == 4, "dict_keys stores a full tile's keys as two 16-byte words");
+
+// The tile walk (fa_walk_tile) hands each sort key q out as the tile's R
+// values and their NULL bits, in order q = 0, 1, ...; each row's key shifts
+// left by key_bits and takes the lane (a NULL as lane_max, an f64 value
+// truncated), in unsigned arithmetic.  A row the selection drops, or past
+// n_valid, is the sentinel; the range flag counts selected rows only.  A
+// tile never straddles two blocks: a block whose row count is not a
+// multiple of R ends in a short one.  The minimum of one block an SM lets
+// ptxas give the walk the registers it needs (as fused_mask).  The walk
+// does not wait for the block's n_valid: it runs over the tile's rows of
+// the block (the image holds them all) while n_valid is in flight, and the
+// rows past it are masked out of the selection after.
+template <int D>
+__global__ void __launch_bounds__(DK_THREADS, 1) dict_keys(const __grid_constant__ DkParams p) {
+  constexpr int R = DK_ROWS;
+  const long long tiles = (p.block_rows + R - 1) / R;  // tiles a block
+  const long long total = p.n_blocks * tiles;
+  const long long stride = (long long)gridDim.x * DK_THREADS;
+  const int kb = p.key_bits;
+  const long long lane_max = (long long)((1ULL << kb) - 1);
   bool any_bad = false;
-  for (long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x; f < total; f += stride) {
-    const long long blk = f / p.block_rows;
-    const long long i = f - blk * p.block_rows;
-    const long long n_valid = p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
-    u64 key = 0;
-    bool bad = false, active = false;
-    if (i < n_valid) {
-      // the keys come in order (OP_KEY q = 0, 1, ...): each shifts the key
-      // left by key_bits, in unsigned arithmetic
-      active = fa_walk_keys(
-          p, f, blk, i, [](int, bool, long long) {},
-          [&](int q, bool nul, long long raw) {
-            const long long v = (p.key_f64 >> q) & 1 ? dk_trunc(fa_f(raw)) : raw;
-            bad = bad || (!nul && (v < 0 || v >= lane_max));
+  long long t = (long long)blockIdx.x * DK_THREADS + threadIdx.x;
+  FaCursor c(t, stride, tiles);
+  for (; t < total; t += stride) {
+    const long long i0 = c.i * R;
+    const long long f0 = c.blk * p.block_rows + i0;
+    const long long left = p.block_rows - i0;
+    const int n = left < R ? (int)left : R;  // the block's rows in the tile
+    const long long nv = (p.n_valids != nullptr ? __ldg(p.n_valids + c.blk) : p.n_valid_all) - i0;
+    u64 key[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) key[r] = 0;
+    unsigned bad = 0;
+    unsigned active = fa_walk_tile<R, D>(
+        p, f0, c.blk, i0, n, (1u << n) - 1,
+        [](int, unsigned, const long long (&)[R], unsigned) {},
+        [&](int q, const long long (&x)[R], unsigned xn) {
+          const bool is_f = (p.key_f64 >> q) & 1;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const long long v = is_f ? dk_trunc(fa_f(x[r])) : x[r];
+            const bool nul = (xn >> r) & 1;
+            bad |= (unsigned)(!nul && (v < 0 || v >= lane_max)) << r;
             const u64 lane = nul ? (u64)lane_max : (u64)v;
-            key = (key << p.key_bits) | (lane & (u64)lane_max);
-          });
+            key[r] = (key[r] << kb) | (lane & (u64)lane_max);
+          }
+        });
+    const int live = nv <= 0 ? 0 : nv < n ? (int)nv : n;
+    active &= (1u << live) - 1;
+    any_bad = any_bad || (active & bad) != 0;
+    long long out[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = (active >> r) & 1 ? (long long)key[r] : DK_SENTINEL;
+    long long* dst = p.keys + f0;
+    if (n == R && ((u64)dst & 15) == 0) {
+      longlong2* d2 = (longlong2*)dst;
+      d2[0] = make_longlong2(out[0], out[1]);
+      d2[1] = make_longlong2(out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < n) dst[r] = out[r];
+      }
     }
-    p.keys[f] = active ? (long long)key : DK_SENTINEL;
-    any_bad = any_bad || (active && bad);
+    c.advance();
   }
   if (__any_sync(0xffffffffu, any_bad) && (threadIdx.x & 31) == 0) atomicOr(p.flag, DK_FLAG_RANGE);
+}
+
+typedef void (*DkKernel)(DkParams);
+
+// The instance whose stack holds `slots` operands (2, 4 or 8); nullptr else.
+static DkKernel dk_kernel(int slots) {
+  switch (slots) {
+    case 2: return dict_keys<2>;
+    case 4: return dict_keys<4>;
+    case 8: return dict_keys<8>;
+    default: return nullptr;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -982,14 +1043,59 @@ int du_attributes(int* out) {
 long long dk_sentinel(void) { return DK_SENTINEL; }
 
 // Each launcher returns cudaGetLastError() right after its launch.
+// dk_launch runs the instance that holds the plan's stack, picked from its
+// code (cudaErrorInvalidValue past FA_MAX_STACK), over a grid of the blocks
+// the card holds at once, or fewer when the image has fewer tiles.
 int dk_launch(const DkParams* p, void* stream) {
-  const long long total = p->n_blocks * p->block_rows;
-  if (total == 0) return 0;
-  long long grid = (total + DK_THREADS - 1) / DK_THREADS;
-  if (grid > DK_GRID_MAX) grid = DK_GRID_MAX;
-  dict_keys<<<(unsigned)grid, DK_THREADS, 0, (cudaStream_t)stream>>>(*p);
-  return (int)cudaGetLastError();
+  const int slots = fa_stack_slots(*p);
+  const DkKernel k = dk_kernel(slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles = p->n_blocks * ((p->block_rows + DK_ROWS - 1) / DK_ROWS);
+  if (tiles == 0) return 0;
+  // the blocks the card holds at once, asked once a device and instance (a
+  // mesh request launches dict_keys 80 times)
+  static int full_grid[64][3] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int full = dev < 64 ? full_grid[dev][slots / 4] : 0;
+  if (full == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)k, DK_THREADS, 0);
+    }
+    if (err != cudaSuccess) return (int)err;
+    full = (per_sm > 0 ? per_sm : 1) * sms;
+    if (dev < 64) full_grid[dev][slots / 4] = full;
+  }
+  long long grid = (tiles + DK_THREADS - 1) / DK_THREADS;
+  if (grid > full) grid = full;
+  void* args[] = {(void*)p};
+  err = cudaLaunchKernel((const void*)k, dim3((unsigned)grid), dim3(DK_THREADS), args, 0,
+                         (cudaStream_t)stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
+
+// The stack slots of the instance dk_launch runs for the plan (0: none, past
+// FA_MAX_STACK).
+int dk_slots(const DkParams* p) { return fa_stack_slots(*p); }
+
+// cudaFuncGetAttributes of the dict_keys instance of `slots` stack slots:
+// registers a thread, local and static shared bytes, into out[0..3).
+int dk_attributes(int slots, int* out) {
+  const DkKernel k = dk_kernel(slots);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)k);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+int dk_rows(void) { return DK_ROWS; }
 
 // The shared memory of a dict_union block for a tile of T keys.
 static int du_smem_bytes(int T) {

@@ -53,6 +53,11 @@
 // comparison on 64-bit prefixes of the entries.  The candidate
 // kernel reads only the columns the selection and the keys reference;
 // payload columns are read by topn_pack for the K winners alone.
+// topn_pack moves a few KB (K = 100, five payload columns): launch latency
+// and its dependent loads bound it.  A thread a (payload column, slot) cell
+// and a (word, slot) cell of the run, every load before any store: two
+// rounds of loads a launch (the slot's rank and src, then the value and its
+// null flag), whatever the number of payload columns.
 //
 // fused_mask walks SC_MASK_ROWS consecutive rows of one block a thread
 // (fa_walk_tile): each instruction word is decoded once for the tile, the
@@ -86,7 +91,7 @@
 #define SC_MASK_THREADS 256
 #define SC_MASK_ROWS 4  // rows a mask thread walks at once (its tile)
 #define TN_THREADS 256
-#define TN_MERGE_THREADS 256
+#define TP_THREADS 256       // a topn_pack block: a thread a payload cell or run cell
 #define TN_TREE_THREADS 512  // a topn_merge block
 #define TN_FAN_MAX 64        // runs a topn_merge block merges at most
 #define TN_MERGE_WORDS 11    // the widest entry a topn_merge takes: a mesh finalize's
@@ -141,26 +146,6 @@ struct TpParams {
   int pay_null_row[TN_MAX_PAYLOAD];          // row of the null flag in the int64 matrix
 };
 
-// (block, row in block) of flat row f, stepped by a grid stride without a
-// division per row.
-struct ScCursor {
-  long long blk, i, step_b, step_i, rows;
-  __device__ ScCursor(long long f, long long stride, long long rows_) : rows(rows_) {
-    blk = rows > 0 ? f / rows : 0;
-    i = f - blk * rows;
-    step_b = rows > 0 ? stride / rows : 0;
-    step_i = stride - step_b * rows;
-  }
-  __device__ void advance() {
-    blk += step_b;
-    i += step_i;
-    if (i >= rows) {
-      i -= rows;
-      ++blk;
-    }
-  }
-};
-
 __device__ __forceinline__ long long sc_n_valid(const ScParams& p, long long blk) {
   return p.n_valids != nullptr ? __ldg(p.n_valids + blk) : p.n_valid_all;
 }
@@ -182,7 +167,7 @@ fused_mask(const __grid_constant__ ScParams p, unsigned char* __restrict__ out) 
   const long long total = p.n_blocks * tiles;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  ScCursor c(t, stride, tiles);
+  FaCursor c(t, stride, tiles);
   for (; t < total; t += stride) {
     const long long i0 = c.i * R;
     const long long f0 = c.blk * p.block_rows + i0;
@@ -213,29 +198,6 @@ fused_mask(const __grid_constant__ ScParams p, unsigned char* __restrict__ out) 
 
 typedef void (*ScMaskKernel)(ScParams, unsigned char*);
 
-// The most operand slots the plan's code holds at once.
-static int sc_stack_depth(const ScParams* p) {
-  int depth = 0, most = 0;
-  for (int pc = 0; pc < p->n_code; ++pc) {
-    switch (p->code[pc] & 0xFF) {
-      case FA_OP_COL:
-      case FA_OP_CONST:
-      case FA_OP_NULL:
-        if (++depth > most) most = depth;
-        break;
-      case FA_OP_LT: case FA_OP_LE: case FA_OP_GT: case FA_OP_GE: case FA_OP_EQ: case FA_OP_NE:
-      case FA_OP_AND: case FA_OP_OR: case FA_OP_XOR: case FA_OP_PLUS: case FA_OP_MINUS:
-      case FA_OP_MUL: case FA_OP_BIT_AND: case FA_OP_BIT_OR: case FA_OP_BIT_XOR:
-      case FA_OP_FILTER: case FA_OP_AGG: case FA_OP_KEY:
-        --depth;
-        break;
-      default:  // SCALE, COUNT1 and the unary operators keep the depth
-        break;
-    }
-  }
-  return most;
-}
-
 // Whether every conjunct of the plan compares a column with a constant
 // (fa_cmp_filter_len matches at each one).
 static bool sc_conjuncts_only(const ScParams* p) {
@@ -257,9 +219,8 @@ static ScMaskKernel sc_mask_kernel(const ScParams* p, int* slots) {
     *slots = 0;
     return fused_mask<0>;
   }
-  const int depth = sc_stack_depth(p);
-  if (depth > FA_MAX_STACK) return nullptr;
-  *slots = depth <= 2 ? 2 : depth <= 4 ? 4 : 8;
+  *slots = fa_stack_slots(*p);
+  if (*slots == 0) return nullptr;
   return *slots == 2 ? fused_mask<2> : *slots == 4 ? fused_mask<4> : fused_mask<8>;
 }
 
@@ -273,7 +234,7 @@ decode_column(const __grid_constant__ ScParams p, long long* __restrict__ out,
   const long long total = p.n_blocks * p.block_rows;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  ScCursor c(f, stride, p.block_rows);
+  FaCursor c(f, stride, p.block_rows);
   for (; f < total; f += stride) {
     bool nul;
     out[f] = fa_load(p, 0, f, c.blk, c.i, nul);
@@ -923,44 +884,59 @@ static TmKernel tm_kernel(int n_words, bool staged) {
 // topn_pack: the packed state of the merged run, payload gathered
 // ---------------------------------------------------------------------------
 
-// One thread per slot s of the run: int64 row 0 takes the rank; each
-// payload column its value (from the carry's slot src, or from the image's
-// flat row src - src_base) and its null flag; entries of rank 1 take 0.
-// out_run takes the run's words with src = s, as the carry of
-// the next step (its slot order is its stream order).
-__global__ void __launch_bounds__(TN_MERGE_THREADS)
-topn_pack(const __grid_constant__ TpParams p) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+// The grid's items are first the (payload column j, slot s) cells,
+// column-major (item j * k + s: a warp's stores fall on one row), then the
+// (word q, slot s) cells of the run (item k * n_pay + q * k + s).  A payload
+// cell loads its slot's rank and src words (the slot's cells share them
+// through L1/L2), then its column's value and null flag: from the carry's
+// slot src, or from the image's flat row src - src_base through fa_load
+// (a division only for a run-length column); a rank-1 slot takes 0 and 0.
+// A run cell copies its word into out_run (the last word is the slot s, as
+// the carry of the next step: its slot order is its stream order), and
+// word 0, the rank, into int64 row 0.  Every load of a thread is issued
+// before its stores, and the inputs are read through the read-only path,
+// so nothing orders a load behind a store: a launch is two dependent
+// rounds of loads, then the stores.  f64 values move as their bits.
+__global__ void __launch_bounds__(TP_THREADS) topn_pack(const __grid_constant__ TpParams p) {
   const int k = p.k;
-  if (s >= k) return;
   const int W = p.n_words;
-  const u64 rank = p.run[s];
-  const u64 src = p.run[(long long)(W - 1) * k + s];
-  p.out_i[s] = (long long)rank;
-  for (int q = 0; q < W - 1; ++q) p.out_run[(long long)q * k + s] = p.run[(long long)q * k + s];
-  p.out_run[(long long)(W - 1) * k + s] = (u64)s;
-  const bool from_carry = rank == 0 && src < (u64)p.src_base;
-  const long long f = (long long)(src - (u64)p.src_base);
-  for (int j = 0; j < p.n_pay; ++j) {
-    long long v = 0, nul = 0;
-    const long long cell = (long long)p.pay_row[j] * k;
-    const long long ncell = (long long)p.pay_null_row[j] * k;
-    if (from_carry) {
-      v = p.pay_f64[j] ? fa_raw(p.carry_f[cell + (long long)src]) : p.carry_i[cell + (long long)src];
-      nul = p.carry_i[ncell + (long long)src];
-    } else if (rank == 0) {
-      const long long b = f / p.block_rows;
+  const int cells = k * p.n_pay;
+  const int it = blockIdx.x * TP_THREADS + threadIdx.x;
+  const u64* __restrict__ run = p.run;
+  if (it >= cells) {
+    const int c = it - cells;  // q * k + s
+    if (c >= W * k) return;
+    const int q = c / k;
+    const int s = c - q * k;
+    const u64 w = q < W - 1 ? __ldg(run + c) : (u64)s;
+    p.out_run[c] = w;
+    if (q == 0) p.out_i[s] = (long long)w;
+    return;
+  }
+  const int j = it / k;
+  const int s = it - j * k;
+  const u64 rank = __ldg(run + s);
+  const u64 src = __ldg(run + (long long)(W - 1) * k + s);
+  const bool is_f = p.pay_f64[j];
+  const long long cell = (long long)p.pay_row[j] * k;
+  const long long ncell = (long long)p.pay_null_row[j] * k;
+  long long v = 0, nul = 0;
+  if (rank == 0) {
+    if (src < (u64)p.src_base) {
+      const long long* __restrict__ cv = is_f ? (const long long*)p.carry_f : p.carry_i;
+      v = __ldg(cv + cell + (long long)src);
+      nul = __ldg(p.carry_i + ncell + (long long)src);
+    } else {
+      const long long f = (long long)(src - (u64)p.src_base);
+      const long long b = p.enc.kind[j] == FA_ENC_RLE ? f / p.block_rows : 0;
       bool nb;
       v = fa_load(p, j, f, b, f - b * p.block_rows, nb);
       nul = nb;
     }
-    if (p.pay_f64[j]) {
-      p.out_f[cell + s] = fa_f(v);
-    } else {
-      p.out_i[cell + s] = v;
-    }
-    p.out_i[ncell + s] = nul;
   }
+  long long* __restrict__ ov = is_f ? (long long*)p.out_f : p.out_i;
+  ov[cell + s] = v;
+  p.out_i[ncell + s] = nul;
 }
 
 extern "C" {
@@ -1103,10 +1079,29 @@ int tn_merge_attributes(int n_words, int staged, int* out) {
 
 int tn_fan_max(void) { return TN_FAN_MAX; }
 
+// One thread a payload cell and a run cell: ceil(k * (n_pay + n_words) /
+// TP_THREADS) blocks.
 int tn_launch_pack(const TpParams* p, void* stream) {
-  topn_pack<<<(p->k + TN_MERGE_THREADS - 1) / TN_MERGE_THREADS, TN_MERGE_THREADS, 0,
+  const long long items = (long long)p->k * (p->n_pay + p->n_words);
+  if (p->k < 1 || p->n_pay < 0 || p->n_pay > TN_MAX_PAYLOAD || p->n_words < 2
+      || items > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  topn_pack<<<(unsigned)((items + TP_THREADS - 1) / TP_THREADS), TP_THREADS, 0,
               (cudaStream_t)stream>>>(*p);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of topn_pack: registers a thread, local and static
+// shared bytes, into out[0..3).
+int tp_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)topn_pack);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
 int dc_launch(const ScParams* p, long long* out, unsigned char* out_nul, int grid, void* stream) {

@@ -1316,6 +1316,202 @@ def topn_edge_case(name: str, device, seed: int = 0):
     return prog, img
 
 
+#: the dict_keys edge cases of :func:`key_edge_case`: the stack slots of
+#: the instance each runs and whether its range flag ends set
+KEY_EDGE_CASES = {
+    "ragged_s2": (2, True), "ragged_s4": (4, True), "ragged_s8": (8, True),
+    "ragged_in_range": (2, False),
+    "encoded_s2": (2, False), "encoded_s4": (4, False), "encoded_s8": (8, False),
+    "encoded_out_of_range": (2, True),
+}
+
+
+def key_edge_case(name: str, device, seed: int = 0):
+    """``(prog, image)`` of one ``dict_keys`` edge case at 20 bits a key
+    (:data:`KEY_EDGE_CASES`), over :func:`_edge_columns`' images.
+    ``ragged_s*``: blocks of 1,001 rows (not a multiple of a thread's
+    tile) with 1,001, 998 and 5 valid rows; keys: a nullable INT column, a
+    nullable REAL column with NaN, +-inf and +-0.0 (selected -inf rows
+    flag the range) and ``bit_and`` of an INT sum :func:`deep_expr` as
+    deep as the instance (2, 4 or 8 slots) holds.  ``ragged_in_range``: the
+    REAL key with a selection that drops its NaN and infinite rows (-0.0
+    stays), so the flag stays clear.  ``encoded_s*``: blocks of 1,003 rows
+    (1,003, 1,000 and 17 valid) of bitpack lanes, narrowed codes and runs
+    with run-shaped NULLs; keys: a code column, a run column's low bits and
+    the deep sum's, all in range.  ``encoded_out_of_range``: a code
+    column, the run column's raw values (negative and past the lane) and the
+    REAL column."""
+    from .copr.fused_dict import compile_key_program
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 41)
+    shape_name = name.split("_", 1)[0]
+    schema, img = _edge_columns(shape_name, rng, dev)
+    slots = KEY_EDGE_CASES[name][0]
+    low = [call("bit_and", deep_expr([0, 3] if shape_name == "ragged" else list(range(6)),
+                                     INSTANCE_DEPTHS[slots]), const_int(1023))]
+    if name == "ragged_in_range":
+        sel = [call("ge", col(2), const_real(0.0)), call("lt", col(2), const_real(1000.0))]
+        keys = [col(2), col(3), call("bit_and", col(0), const_int(1023))]
+    elif shape_name == "ragged":
+        sel = [call("or", call("lt", col(2), const_real(900.0)), call("is_null", col(3)))]
+        keys = [col(3), col(2)] + low
+    elif name == "encoded_out_of_range":
+        sel = [call("le", col(4), const_int(1))]
+        keys = [col(3), col(5), col(6)]
+    else:
+        sel = [call("le", col(4), const_int(1))]
+        keys = [col(3), call("bit_and", col(5), const_int(1023))] + low
+    prog = compile_key_program([compile_expr(e, schema) for e in sel],
+                               [compile_expr(e, schema) for e in keys],
+                               list(range(len(schema))), schema, 20)
+    return prog, img
+
+
+def keys_kernel_check(prog, img: Image) -> dict:
+    """``dict_keys`` on a CUDA image twice beside its plain version on a CPU
+    copy: the keys and the range flag equal, the two runs bit-identical, and
+    the instance the C launcher picks from the code the one
+    ``fused_dict.key_slots`` names.  Raises on a difference; returns the
+    flag, the instance's stack slots and the launches."""
+    import ctypes
+
+    from .copr import fused_agg as fa
+    from .copr import fused_dict as fd
+
+    dev = img.device
+    runs = []
+    before = fa.LAUNCHES["dict_keys"]
+    for _ in range(2):
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        keys = fd.dict_keys(prog, img, flag)
+        runs.append((keys.cpu(), int(flag.item())))
+    launches = fa.LAUNCHES["dict_keys"] - before
+    want, bad = fd.dict_keys_plain(prog, image_on(img, "cpu"))
+    if not (torch.equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]):
+        raise AssertionError("dict_keys: two runs differ")
+    if not torch.equal(runs[0][0], want):
+        raise AssertionError("dict_keys: differs from its plain version")
+    if runs[0][1] != (fd.FLAG_RANGE if bad else 0):
+        raise AssertionError(f"dict_keys: flag {runs[0][1]}, plain version's range {bad}")
+    slots = fd.key_slots(prog)
+    scratch = torch.empty(1, dtype=torch.int64, device=dev)
+    picked = fd.kernels().dk_slots(ctypes.byref(fd.key_params(prog, img, scratch, scratch)))
+    if picked != slots:
+        raise AssertionError(f"dict_keys: the launcher picks {picked} slots, key_slots {slots}")
+    return {"flag": runs[0][1], "slots": slots, "launches": launches,
+            "rows": img.n_blocks * img.block_rows}
+
+
+#: the topn_pack edge cases of :func:`pack_edge_case`: (K, payload columns,
+#: sort keys, encoded payload, a carry, the mesh finalize's [S, K] image)
+PACK_EDGE_CASES = {
+    "k1": (1, 5, 1, False, True, False),
+    "k100": (100, 5, 2, False, True, False),
+    "k2048": (2048, 5, 1, False, True, False),
+    "pay0": (100, 0, 1, False, True, False),
+    "pay16": (100, 16, 4, False, True, False),
+    "no_carry": (100, 5, 2, False, False, False),
+    "encoded": (100, 7, 1, True, True, False),
+    "encoded_k2048": (2048, 7, 2, True, True, False),
+    "finalize": (100, 5, 2, False, False, True),
+}
+
+
+def pack_edge_case(name: str, device, seed: int = 0):
+    """``(prog, run, pay, carry, src_base)`` of one ``topn_pack`` edge case
+    (:data:`PACK_EDGE_CASES`): a final run whose winners are mixed, rank 0
+    from the carry's slots (below ``src_base`` = K) and from the payload
+    image's flat rows, and rank 1 (no row); payload columns of INT, REAL
+    (NaN, +-inf, -0.0 and +0.0 among them) and DECIMAL types, nullable,
+    over 3 blocks of 5,000 rows; or the encoded image of
+    :func:`_edge_columns` (bitpack lanes, narrowed codes, runs with
+    run-shaped NULLs and a REAL column); the carry a packed state whose f64
+    rows hold NaN and -0.0.  ``finalize``: the mesh finalize's shape, the 8
+    shards' packed payload as one ``[8, K]`` image, no carry and
+    ``src_base`` 0."""
+    from .copr.fused_topn import compile_topn_program
+
+    k, n_pay, n_keys, encoded, carried, finalize = PACK_EDGE_CASES[name]
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 43)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def reals(shape):
+        special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0])
+        x = rng.normal(0, 1e6, shape)
+        return np.where(rng.random(shape) < 0.2, special[rng.integers(0, 5, shape)], x)
+
+    if encoded:
+        schema, pay = _edge_columns("encoded", rng, dev)
+    else:
+        types = [(EvalType.INT, 0), (EvalType.REAL, 0), (EvalType.DECIMAL, 2)]
+        schema = [types[j % 3] for j in range(max(n_pay, 1))]
+        n_blocks, br = (8, k) if finalize else (3, 5000)
+        shape = (n_blocks, br)
+        cols, nulls = [], []
+        for j in range(n_pay):
+            cols.append(t(reals(shape)) if schema[j][0] == EvalType.REAL
+                        else t(rng.integers(-(1 << 62), 1 << 62, shape)))
+            nulls.append(None if j % 4 == 3 else t(rng.random(shape) < 0.15))
+        nv = k if finalize else t(np.array([br, br - 17, 1234], dtype=np.int64))
+        pay = Image(cols, nulls, nv, n_blocks, br, dev)
+    key = compile_expr(col(0), schema)
+    prog = compile_topn_program([], [(key, False)] * n_keys, [0], schema, list(range(n_pay)), k)
+    n_flat = pay.n_blocks * pay.block_rows
+    src_base = k if carried else 0
+    # a third of the winners from the carry's slots, a half from the image,
+    # the rest rank 1; src unique
+    pick = rng.random(k)
+    from_carry = carried & (pick < 1 / 3)
+    live = from_carry | (pick < 5 / 6)
+    run = np.zeros((prog.n_words, k), dtype=np.int64)
+    run[0] = np.where(live, 0, 1)
+    run[1:-1] = rng.integers(-(1 << 62), 1 << 62, (prog.n_words - 2, k))
+    flat = rng.choice(n_flat, k, replace=False)
+    run[-1] = np.where(from_carry, rng.permutation(k), src_base + flat)
+    carry = None
+    if carried:
+        ints = rng.integers(-(1 << 62), 1 << 62, (prog.n_int, k))
+        for r in prog.pay_null_row:
+            ints[r] = rng.integers(0, 2, k)
+        carry = (t(ints), t(reals((prog.n_f64, k))), t(run.copy()))
+    return prog, t(run), pay, carry, src_base
+
+
+def pack_kernel_check(prog, run: torch.Tensor, pay: Image, carry, src_base: int) -> dict:
+    """``topn_pack`` on CUDA tensors twice beside its plain version on CPU
+    copies: the packed ints, the f64 rows bit for bit and the next carry
+    run equal, the two launches bit-identical.  Raises on a difference;
+    returns the live winners, those from the carry and the launches."""
+    from .copr import fused_agg as fa
+    from .copr import fused_topn as ft
+
+    dev, k = run.device, prog.k
+    outs = []
+    before = fa.LAUNCHES["topn_pack"]
+    for _ in range(2):
+        out = (torch.full((prog.n_int, k), -1, dtype=torch.int64, device=dev),
+               torch.full((prog.n_f64, k), -1.0, dtype=torch.float64, device=dev))
+        nxt = torch.full((prog.n_words, k), -1, dtype=torch.int64, device=dev)
+        ft.launch_pack(prog, run, pay, carry, src_base, out, nxt)
+        outs.append((out[0].cpu(), out[1].cpu().view(torch.int64), nxt.cpu()))
+    launches = fa.LAUNCHES["topn_pack"] - before
+    host = None if carry is None else tuple(x.cpu() for x in carry)
+    want = ft.pack_plain(prog, run.cpu(), image_on(pay, "cpu"), host, src_base)
+    want = (want[0], want[1].view(torch.int64), want[2])
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("topn_pack: two launches differ")
+    for what, got, w in zip(("ints", "f64 rows", "next carry run"), outs[0], want):
+        if not torch.equal(got, w):
+            raise AssertionError(f"topn_pack: its {what} differ from the plain version")
+    live = run[0].cpu() == 0
+    return {"live": int(live.sum()), "from_carry": int((live & (run[-1].cpu() < src_base)).sum()),
+            "launches": launches}
+
+
 #: program #1's synthetic cases: (kind, lane dtype, null shape)
 DECODE_CASES = (("bp", np.int8, "rows"), ("bp", np.int16, "rows"), ("bp", np.int32, "rows"),
                 ("code", np.int8, "rows"), ("rle", np.int64, "runs"), ("rle", np.int64, "rows"),
@@ -2472,14 +2668,16 @@ def topn_merge_check(runs: torch.Tensor, extra, fan_in: int) -> torch.Tensor:
 
 
 def image_on(img: Image, device) -> Image:
-    """A copy of a plain image on ``device``."""
+    """A copy of an image (plain or encoded) on ``device``."""
     def to(t):
-        return None if t is None else t.to(device)
+        if t is None:
+            return None
+        return tuple(x.to(device) for x in t) if isinstance(t, tuple) else t.to(device)
 
     nv = img.n_valids if isinstance(img.n_valids, int) else to(img.n_valids)
     off = img.offsets if isinstance(img.offsets, int) else to(img.offsets)
     return Image([to(c) for c in img.cols], [to(m) for m in img.nulls], nv, img.n_blocks,
-                 img.block_rows, torch.device(device), off, to(img.gids))
+                 img.block_rows, torch.device(device), off, to(img.gids), img.descs, img.refs)
 
 
 #: the old dictionaries of :func:`ids_case`: none; some slots the
