@@ -70,9 +70,10 @@ oracles and byte for byte against the unary route, with the tiles full,
 partial and empty and both routes' s/query; ``zone_full``, ``zone_partial``
 and ``zone_fold`` against their plain versions on the Q6 and Q1 layouts and
 on a synthetic one (NULLs in the key and values, negative values, var_pop,
-the null-safe ops, 256- and 1,001-row tiles), then timed at Q1's and Q6's
-layouts; every instance of the tile kernels with its registers and 0 local
-bytes; one warm Q6 and one Q1 request split by host step
+the null-safe ops, 256- and 1,001-row tiles), ``zone_fold`` also at its
+edges (``fixtures.ZONE_FOLD_CASES``), then timed at Q1's and Q6's layouts;
+every instance of the tile kernels and the fold with its registers and 0
+local bytes; one warm Q6 and one Q1 request split by host step
 (``zone_request_split``).
 
 Between phases ``zone`` and 12, phase ``batch`` serves batches of warm
@@ -534,6 +535,11 @@ def phase_group_kernels(ga, fx, device) -> dict:
               "f64_rel_tol": REL_TOL, "bit_identical_reruns": True, **chk})
     no_local_memory("group_wide_partials",
                     [ga.partials_attributes(d, wide=True) for d in (2, 4, 8)])
+    # the combine, a warp a cell: each instance (first's walk of 2, 4 or 8
+    # stack slots) in registers
+    emit({"phase": "kernels", "case": "combine_instances",
+          "attributes": no_local_memory("fused_group_agg_combine_pack",
+                                        [ga.combine_attributes(d) for d in (2, 4, 8)])})
     return errs
 
 
@@ -975,11 +981,12 @@ def time_zone(fz, ev, cache) -> dict:
     ``zone_full``, the yardstick: one bare column's tile sums as one torch
     call.  Bounds: the listed tiles' rows of the program's lanes at their
     own widths (and, for partial tiles, the null, valid and ridx bytes),
-    the tile list, the per-tile partials written; one operation per
-    bytecode word and leaf per row; for the fold the partials, the order
-    and the packed state."""
+    the tile list, the per-tile partials and row-map words written; one
+    operation per bytecode word and leaf per row; for the fold the listed
+    tiles' partials and tile words and the packed state, one operation per
+    leaf a row.  The tile kernels are timed as the rung launches them, each
+    recording its tiles' rows in the query's map that the fold reads."""
     from tikv_tpu_torch.copr.fused_group_agg import LEAF_SUM
-    from tikv_tpu_torch.copr.zone import fold_order
 
     rung = ev._zone_rung()
     layout, full_idx, partial_idx = rung.plan_tiles(cache)
@@ -989,24 +996,28 @@ def time_zone(fz, ev, cache) -> dict:
     res = {"tiles": layout.n_tiles, "full": len(full_idx), "partial": len(partial_idx),
            "tile_rows": tr, "leaves": L}
     lists = []
+    # the query's row map, as the rung launches the tile kernels: each
+    # records its tiles' rows there for the fold
+    row_of = torch.empty(layout.n_tiles, dtype=torch.int32, device=dev)
     for name, tp, idx in (("zone_full", full, full_idx), ("zone_partial", part, partial_idx)):
         t = torch.from_numpy(idx).to(dev)
         out = torch.empty((len(idx), L), dtype=torch.int64, device=dev)
         launch = fz.zone_full if name == "zone_full" else fz.zone_partial
         plain = fz.zone_full_plain if name == "zone_full" else fz.zone_partial_plain
-        launch(tp, layout, t, out)
+        base = 0 if name == "zone_full" else len(full_idx)
+        launch(tp, layout, t, out, row_of, base)
         lists.append(out)
         if not len(idx):
             res[name] = None
             continue
-        ms = cuda_ms(lambda: launch(tp, layout, t, out), 20)
-        alone_ms = isolated_ms(lambda: launch(tp, layout, t, out))
+        ms = cuda_ms(lambda: launch(tp, layout, t, out, row_of, base), 20)
+        alone_ms = isolated_ms(lambda: launch(tp, layout, t, out, row_of, base))
         plain_ms = cuda_ms(lambda: plain(tp, layout, t), 3, warmup=1)
         rows = len(idx) * tr
         per_row = sum(layout.cols[i].element_size() for i in tp.cols)
         if tp.partial:
             per_row += sum(1 for i in tp.cols if i in layout.nulls) + 1 + (4 if track else 0)
-        per_tile = 8 + (8 if track and not tp.partial else 0) + 8 * L
+        per_tile = 8 + (8 if track and not tp.partial else 0) + 8 * L + 4  # + its row_of word
         b_ms, b_by = bound(rows * per_row + len(idx) * per_tile, rows * (len(tp.prog.code) + L))
         entry = {"tiles": len(idx), "rows": rows, "ms": ms, "ms_alone": alone_ms,
                  "plain_ms": plain_ms,
@@ -1026,21 +1037,24 @@ def time_zone(fz, ev, cache) -> dict:
             entry["library"] = "none: the walk has no one-call equivalent"
         res[name] = entry
     parts = torch.cat(lists)
-    order, starts = (torch.from_numpy(a).to(dev)
-                     for a in fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots))
-    C = layout.n_slots
+    tiles = torch.from_numpy(np.concatenate([full_idx, partial_idx]).astype(np.int64)).to(dev)
+    order, C = layout.fold, layout.n_slots
     packed = (torch.empty((full.prog.n_int, C), dtype=torch.int64, device=dev),
               torch.empty((full.prog.n_f64, C), dtype=torch.float64, device=dev))
-    ms = cuda_ms(lambda: fz.launch_fold(full, parts, order, starts, C, packed), 50)
-    alone_ms = isolated_ms(lambda: fz.launch_fold(full, parts, order, starts, C, packed))
-    plain_ms = cuda_ms(lambda: fz.zone_fold_plain(full, parts, order, starts, C), 5, warmup=1)
-    n = parts.shape[0]
-    b_ms, b_by = bound(n * L * 8 + 4 * n + 4 * (C + 1) + (full.prog.n_int + full.prog.n_f64) * C * 8,
-                       n * L)
-    res["zone_fold"] = {"rows_folded": n, "slots": C, "ms": ms, "ms_alone": alone_ms,
-                        "plain_ms": plain_ms,
+    ms = cuda_ms(lambda: fz.launch_fold(full, parts, tiles, row_of, order, C, packed), 50)
+    alone_ms = isolated_ms(lambda: fz.launch_fold(full, parts, tiles, row_of, order, C, packed))
+    plain_ms = cuda_ms(lambda: fz.zone_fold_plain(full, parts, tiles, row_of, order, C), 5,
+                       warmup=1)
+    n, n_segs = parts.shape[0], order.segs.shape[1]
+    # what folding the listed rows into their slots needs: the rows and one
+    # index word a listed tile read once, the packed state written once
+    # (not the layout-wide slot_tiles and row_of words this design scans)
+    b_ms, b_by = bound(n * L * 8 + 8 * n + (full.prog.n_int + full.prog.n_f64) * C * 8, n * L)
+    res["zone_fold"] = {"rows_folded": n, "slots": C, "segments": n_segs, "ms": ms,
+                        "ms_alone": alone_ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        "library": "none: sum, min and max leaves need a call each"}
+                        "library": "none: sum, min and max leaves need a call each",
+                        "attributes": no_local_memory("zone_fold", [fz.fold_attributes()])[0]}
     return res
 
 
@@ -1048,12 +1062,15 @@ def zone_request_split(ev, cache, what: str, runs: int = 3) -> dict:
     """One warm zone-served request split by step, in ms on the host clock,
     the median of ``runs`` (the rung's own steps, ``ZoneRung.serve`` and
     ``launch``, taken one at a time): eligibility, the pinned layout's
-    lookup and the tile classification (``plan_tiles``); ``fold_order``;
-    the index uploads; the three launches (the host's enqueue); the wait
+    lookup and the tile classification (``plan_tiles``); the listed tiles'
+    upload, in one piece; the three launches (the host's enqueue); the wait
     for the card to finish them; the pull and finalize (``_finalize_agg``).
-    Its bytes must equal a request's served the usual way."""
+    The fold's order is the layout's own (``layout.fold``) and the tile
+    kernels record each tile's row for it, so no step sorts, uploads or
+    clears one.  Its bytes must equal a request's served the usual
+    way."""
     from tikv_tpu_torch.copr import fused_zone as fz
-    from tikv_tpu_torch.copr.zone import fold_order, key_of
+    from tikv_tpu_torch.copr.zone import key_of
 
     rung, dev = ev._zone_rung(), ev.device
     want = ev.run(None, cache).encode()
@@ -1063,20 +1080,17 @@ def zone_request_split(ev, cache, what: str, runs: int = 3) -> dict:
         marks = [("start", time.perf_counter())]
         layout, full_idx, partial_idx = rung.plan_tiles(cache)
         marks.append(("eligibility_and_classification", time.perf_counter()))
-        order, starts = fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots)
-        marks.append(("fold_order", time.perf_counter()))
-        full_t, part_t, order_t, starts_t = (torch.from_numpy(a).to(dev) for a in
-                                             (full_idx, partial_idx, order, starts))
+        tiles = torch.from_numpy(np.concatenate([full_idx, partial_idx]).astype(np.int64)).to(dev)
         marks.append(("index_uploads", time.perf_counter()))
         full, part = rung.programs(layout)
         nf = len(full_idx)
-        parts = torch.empty((nf + len(partial_idx), len(full.prog.leaves)), dtype=torch.int64,
-                            device=dev)
+        parts = torch.empty((len(tiles), len(full.prog.leaves)), dtype=torch.int64, device=dev)
+        row_of = torch.empty(layout.n_tiles, dtype=torch.int32, device=dev)
         if nf:
-            fz.zone_full(full, layout, full_t, parts[:nf])
+            fz.zone_full(full, layout, tiles[:nf], parts[:nf], row_of, 0)
         if len(partial_idx):
-            fz.zone_partial(part, layout, part_t, parts[nf:])
-        packed = fz.zone_fold(full, parts, order_t, starts_t, layout.n_slots)
+            fz.zone_partial(part, layout, tiles[nf:], parts[nf:], row_of, nf)
+        packed = fz.zone_fold(full, parts, tiles, row_of, layout.fold, layout.n_slots)
         marks.append(("launches", time.perf_counter()))
         torch.cuda.synchronize()
         marks.append(("device_wait", time.perf_counter()))
@@ -2352,7 +2366,7 @@ def time_wide_kernels(ga, fx, prog, img, cap: int, iters: int) -> dict:
     attrs = no_local_memory("group_wide_partials",
                             [ga.partials_attributes(ga.partials_slots(prog), wide=True)])[0]
     c_attrs = no_local_memory("group_wide_combine",
-                              [ga.combine_attributes(ga.partials_slots(prog))])[0]
+                              [ga.combine_attributes(ga.partials_slots(prog), wide=True)])[0]
     return {"rows": rows, "capacity": cap, "leaves": L, "c_max": prog.c_max,
             "x_leaves": len(prog.x_leaves), "state_words": state.numel(), "attributes": attrs,
             "combine_attributes": c_attrs,
@@ -3354,6 +3368,12 @@ def main() -> int:
         checked[name] = {"tile_rows": layout.tile_rows, "tiles": layout.n_tiles,
                          "full": n_full, "partial": n_partial, "max_abs_err": errs_z}
         del out
+    # the fold at its edges: one slot and many, empty and unlisted slots,
+    # 49 leaves, 79 segments a slot, no listed tile, row maps of stale words
+    for name in fx.ZONE_FOLD_CASES:
+        chk = fx.zone_fold_check(*fx.zone_fold_case(name, "cuda"))
+        zone_errs["zone_fold"] = max(zone_errs["zone_fold"], chk["max_abs_err"])
+        checked[f"fold_{name}"] = chk
     # the synthetic plan end to end at 256-row tiles, against the stacked kernels
     ev_su = stacked(TorchDagEvaluator(dag_to_wire(fx.zone_dag()), block_rows=1 << 17,
                                       device="cuda"))
@@ -3367,7 +3387,8 @@ def main() -> int:
           "checked": checked, "int_words_equal": True, "f64_rel_tol": REL_TOL,
           "bit_identical_reruns": True, "q1": t_zone_q1, "q6": t_zone_q6,
           "instances": no_local_memory("zone_full/zone_partial",
-                                       [fz.tiles_attributes(*i) for i in fz.TILE_INSTANCES]),
+                                       [fz.tiles_attributes(*i) for i in fz.TILE_INSTANCES])
+          + no_local_memory("zone_fold", [fz.fold_attributes()]),
           "host_split_ms": {q: zone_request_split(zone_evs[q], cache, q)
                             for q in ("q6", "q1")},
           "launches": zone_launches,

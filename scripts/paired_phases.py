@@ -112,7 +112,18 @@ CUDA-event times of 50 launches), or ``slice20_requests``: the grouped mesh
 over 10M rows at 64 and 32,768 slots, the mesh raw TopN over 10M rows and
 the warm raw TopN over 100M rows (host clock, a first run left out; once
 more under ``torch.profiler``, with the launches counted and each kernel's
-device ms).  Each process
+device ms), or ``slice21_kernels``: ``zone_fold`` alone at the zone rung's
+warm Q6 and Q1 layouts over the 100M-row image (each checkout's
+``chip_smoke.time_zone``, five times), then
+``fused_group_agg_combine_pack`` alone at the grouped pair's captured
+inputs, a cold 65,536-row Q1 block, warm Q1 and warm GROUP BY l_quantity
+on the stacked route (each held to its plain version, then five
+CUDA-event times of 200 launches), or ``slice21_requests``: the
+zone-served warm Q6, Q1 and Q1 + TopN (seven runs after a first that pins,
+then each checkout's ``chip_smoke.zone_request_split``, its steps reported
+as cases ``zone_<q>_split_<step>``), cold Q1 over 1M KV rows and warm Q1
+with ``route_hint="unary"`` (host clock; once more under
+``torch.profiler``).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -963,6 +974,104 @@ elif sys.argv[1] in ("slice20_kernels", "slice20_requests"):
             prof = cs.profile_runs(fn, 1)
             cases[name] = {"request_s": secs[skip:],
                            "device_ms": [sum(prof["device_ms"].values())],
+                           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+                           "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
+    print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("slice21_kernels", "slice21_requests"):
+    import numpy as np
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_group_agg as ga
+    from tikv_tpu_torch.copr import fused_zone as fz
+    from tikv_tpu_torch.copr import torch_eval as te
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+
+    cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+    kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+
+    def ev_of(dag, unary=False, block_rows=1 << 17):
+        ev = te.TorchDagEvaluator(dag_to_wire(dag), block_rows=block_rows, device="cuda")
+        if unary:
+            ev.route_hint = "unary"
+        return ev
+
+    zone_dags = {"q6": fx.q6_dag(), "q1": fx.q1_dag(), "q1_topn": fx.q1_topn_dag()}
+    cases = {}
+    if sys.argv[1] == "slice21_kernels":
+        # zone_fold at the Q6 and Q1 layouts' own inputs (each checkout's
+        # chip_smoke.time_zone, after its kernels are held to their plain
+        # versions), five CUDA-event times of 50 launches
+        for q in ("q6", "q1"):
+            ev = ev_of(zone_dags[q])
+            out = fx.zone_kernel_outputs(ev, cache)[0]
+            cs.check_zone_outputs(out, fx.zone_kernel_outputs(ev, cache)[0], f"zone {q}")
+            del out
+            times = [cs.time_zone(fz, ev, cache)["zone_fold"] for _ in range(5)]
+            cases[f"zone_fold_{q}"] = {"request_s": [t["ms"] / 1e3 for t in times],
+                                       **{m: times[0][m] for m in
+                                          ("rows_folded", "slots", "plain_ms", "bound_ms")}}
+
+        # fused_group_agg_combine_pack at the grouped pair's captured inputs:
+        # a cold Q1 block (65,536 rows, 8 slots), warm Q1 and warm GROUP BY
+        # l_quantity (64 slots) on the stacked route; held to its plain
+        # version, then five CUDA-event times of 200 launches
+        def combine(name, call):
+            prog, img, cap = call[:3]
+            parts = ga.new_partials(prog, img, cap)
+            ga.launch_partials(prog, img, cap, parts)
+            out = ga.init_packed(prog, cap, img.device)
+            ga.launch_combine(prog, img, cap, parts, None, out)
+            cs.compare_packed(prog, out, ga.combine_plain(prog, img, cap, parts), name)
+            cases[name] = {"request_s": [cs.cuda_ms(lambda: ga.launch_combine(
+                               prog, img, cap, parts, None, out), 200) / 1e3 for _ in range(5)],
+                           "capacity": cap, "parts": parts.shape[0],
+                           "leaves": len(prog.leaves)}
+
+        for name, ev, source in (
+                ("combine_cold_q1_block", ev_of(fx.q1_dag(), block_rows=1 << 16),
+                 lambda: FixtureScanSource(kvs)),
+                ("combine_warm_q1", ev_of(fx.q1_dag(), unary=True), None),
+                ("combine_warm_l_quantity", ev_of(fx.qty_dag(), unary=True), None)):
+            _r, calls = cs.capture_calls(te, "fused_group_agg", lambda: ev.run(
+                None if source is None else source(), None if source else cache))
+            combine(name, calls[1] if len(calls) > 1 else calls[0])
+            del calls
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        # the zone-served warm queries (the default route), each pinned by a
+        # first run, then seven runs, the host split of three more by step
+        # (each checkout's own chip_smoke.zone_request_split) and one profile
+        for q, dag in zone_dags.items():
+            ev = ev_of(dag)
+            ev.run(None, cache)
+            secs = [timed(lambda: ev.run(None, cache)) for _ in range(7)]
+            if ev.zone_stats.served != 8:
+                raise AssertionError(f"{q}: the zone rung served {ev.zone_stats.served} of 8")
+            split = cs.zone_request_split(ev, cache, q)
+            fa.reset_launches()
+            prof = cs.profile_runs(lambda: ev.run(None, cache), 1)
+            cases[f"zone_{q}"] = {"request_s": secs, "device_ms": [sum(prof["device_ms"].values())],
+                                  "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+                                  "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
+            for step, ms in split.items():
+                cases[f"zone_{q}_split_{step}"] = {"request_s": [ms / 1e3]}
+        # cold Q1 over 1M KV rows and warm Q1 on the stacked route
+        for name, ev, run, n in (
+                ("cold_q1", ev_of(fx.q1_dag(), block_rows=1 << 16),
+                 lambda ev: ev.run(FixtureScanSource(kvs)), 3),
+                ("warm_q1_unary", ev_of(fx.q1_dag(), unary=True),
+                 lambda ev: ev.run(None, cache), 8)):
+            run(ev)
+            secs = [timed(lambda: run(ev)) for _ in range(n)]
+            fa.reset_launches()
+            prof = cs.profile_runs(lambda: run(ev), 1)
+            cases[name] = {"request_s": secs, "device_ms": [sum(prof["device_ms"].values())],
                            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
                            "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
     print(json.dumps({"cases": cases}))

@@ -19,6 +19,7 @@ from tikv_tpu_torch.copr import fused_topn as ft
 from tikv_tpu_torch.copr.fused_agg import Image
 from tikv_tpu_torch.copr.dag_wire import dag_to_wire
 from tikv_tpu_torch.copr.executors import FixtureScanSource
+from tikv_tpu_torch.copr.rpn import call, col, const_int
 from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
 
 pytestmark = pytest.mark.gpu
@@ -141,6 +142,115 @@ def test_grouped_partials_edges_match_plain_version(cuda, name):
     out = fx.group_partials_check(prog, img, cap)
     assert out["grid"] == ga.launch_grid(img)
     _assert_close(ga.fused_group_agg(prog, img, cap), ga.fused_group_agg_plain(prog, img, cap))
+
+
+def _dadd(a, b):
+    """ga_dadd on f64 bits: a's NaN if a is one, else b's, else the sum."""
+    fa_, fb_ = a.view(torch.float64), b.view(torch.float64)
+    return torch.where(fa_.isnan(), fa_, torch.where(fb_.isnan(), fb_, fa_ + fb_)).view(torch.int64)
+
+
+def _dext(a, b, is_max):
+    """ga_dmin / ga_dmax on f64 bits: NaN first in operand order, then the
+    least (greatest) value, -0.0 below +0.0."""
+    fa_, fb_ = a.view(torch.float64), b.view(torch.float64)
+    first = fa_ > fb_ if is_max else fa_ < fb_
+    second = fb_ > fa_ if is_max else fb_ < fa_
+    tie = torch.where(a < 0, b, a) if is_max else torch.where(a < 0, a, b)
+    out = torch.where(fa_.isnan(), a, torch.where(fb_.isnan(), b, torch.where(
+        first, a, torch.where(second, b, tie))))
+    return out
+
+
+def _rule(leaf, a, b):
+    """ga_merge_ordered's rule of a leaf on int64 words (f64 as bits)."""
+    k = leaf.kind
+    if k in (ga.LEAF_COUNT, ga.LEAF_SUM, ga.LEAF_SUMSQ):
+        return _dadd(a, b) if leaf.is_f64 else a + b
+    if k in (ga.LEAF_TRACK, ga.LEAF_FIRSTROW):
+        return torch.minimum(a, b)
+    if k in (ga.LEAF_MIN, ga.LEAF_MAX):
+        if leaf.is_f64:
+            return _dext(a, b, k == ga.LEAF_MAX)
+        return torch.maximum(a, b) if k == ga.LEAF_MAX else torch.minimum(a, b)
+    return {ga.LEAF_AND: a & b, ga.LEAF_OR: a | b, ga.LEAF_XOR: a ^ b}[k]
+
+
+def _parent_combine(prog, img, cap, parts, carry):
+    """The combine's words as its first design wrote them, on the card's
+    tensors: a block of 256 threads a cell, part q folded into thread q mod
+    256 in ascending q from the identity, then the halving tree (thread t
+    takes t + s for s = 128, ..., 1), then the carry first, the tracker's
+    flat row made global and first's value at the winning row (the plain
+    version's ``_finish``, whose words those are)."""
+    n = parts.shape[0]
+    totals = []
+    for l, leaf in enumerate(prog.leaves):
+        fl = leaf.aux if leaf.kind == ga.LEAF_FIRSTVAL else l
+        src = prog.leaves[fl]
+        acc = torch.full((256, cap), src.ident, dtype=torch.int64, device=parts.device)
+        for q0 in range(0, n, 256):
+            chunk = parts[q0:q0 + 256, fl]
+            acc[: len(chunk)] = _rule(src, acc[: len(chunk)], chunk)
+        s = 128
+        while s:
+            acc[:s] = _rule(src, acc[:s], acc[s:2 * s])
+            s //= 2
+        totals.append(acc[0])
+    outs = None
+    if any(leaf.kind == ga.LEAF_FIRSTVAL for leaf in prog.leaves):
+        outs = fa.walk_rows(prog, img, len(prog.agg_leaves))[0]
+    ints, flts = carry if carry is not None else ga.init_packed(prog, cap, img.device)
+    old = [(flts[leaf.slot].view(torch.int64) if leaf.is_f64 else ints[leaf.slot]).clone()
+           for leaf in prog.leaves]
+    want = ga._finish(prog, img, cap, [t.view(torch.float64) if leaf.is_f64 else t
+                                       for leaf, t in zip(prog.leaves, totals)],
+                      outs, (ints.clone(), flts.clone()))
+    for leaf, t, o in zip(prog.leaves, totals, old):
+        if leaf.kind in (ga.LEAF_TRACK, ga.LEAF_FIRSTROW, ga.LEAF_FIRSTVAL):
+            continue  # integer rows, and first's value read at its row: _finish's words
+        word = _rule(leaf, o, t)
+        (want[1][leaf.slot].view(torch.int64) if leaf.is_f64 else want[0][leaf.slot]).copy_(word)
+    return want
+
+
+@pytest.mark.parametrize("n_parts", [1, 64, 256, 300])
+@pytest.mark.parametrize("kind", ["host", "coded"])
+def test_combine_writes_the_parents_words(cuda, kind, n_parts):
+    """fused_group_agg_combine_pack word for word against the first
+    design's order (a model of it in torch above), over every leaf kind of
+    the synthetic cases (first, var_pop, f64 and int min/max, the bitwise
+    leaves) with NaN, +-inf and +-0.0 written into the f64 words, at 1, 64,
+    256 and 300 parts; then into a carry that is its own output; and against
+    the plain version, to rel 1e-12."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    prog, img, cap = fx.synthetic_group_case(kind, 40, 1 << 15, gen, cuda)
+    assert prog.shared_rows(cap)
+    base = ga.new_partials(prog, img, cap)
+    ga.launch_partials(prog, img, cap, base)
+    parts = base[torch.arange(n_parts, device=cuda) % base.shape[0]].contiguous()
+    special = torch.tensor([float("nan"), float("nan"), float("inf"), float("-inf"), -0.0],
+                           dtype=torch.float64, device=cuda).view(torch.int64)
+    special[1] |= 0x5  # another NaN payload
+    for l, leaf in enumerate(prog.leaves):
+        if leaf.is_f64 and leaf.kind != ga.LEAF_FIRSTVAL:
+            hit = torch.rand(parts[:, l].shape, generator=gen, device=cuda) < 0.05
+            pick = torch.randint(0, 5, parts[:, l].shape, generator=gen, device=cuda)
+            parts[:, l] = torch.where(hit, special[pick], parts[:, l])
+    out = (torch.empty((prog.n_int, cap), dtype=torch.int64, device=cuda),
+           torch.empty((prog.n_f64, cap), dtype=torch.float64, device=cuda))
+    fa.reset_launches()
+    ga.launch_combine(prog, img, cap, parts, None, out)
+    assert fa.LAUNCHES["fused_group_agg_combine_pack"] == 1
+    _assert_same_bits(out, _parent_combine(prog, img, cap, parts, None))
+    carry = (out[0].clone(), out[1].clone())
+    want = _parent_combine(prog, img, cap, parts, carry)
+    ga.launch_combine(prog, img, cap, parts, carry, carry)  # the carry is the output
+    _assert_same_bits(carry, want)
+    clean = base[torch.arange(n_parts, device=cuda) % base.shape[0]].contiguous()
+    got = (torch.empty_like(out[0]), torch.empty_like(out[1]))
+    ga.launch_combine(prog, img, cap, clean, None, got)
+    _assert_close(got, ga.combine_plain(prog, img, cap, clean))
 
 
 def test_partials_instances_keep_no_local_memory(cuda):
@@ -658,6 +768,48 @@ def test_zone_tile_instances_keep_no_local_memory(cuda):
         assert attrs["localSizeBytes"] == 0, attrs
 
 
+@pytest.mark.parametrize("name", list(fx.ZONE_FOLD_CASES))
+def test_zone_fold_matches_its_plain_version_at_its_edges(cuda, name):
+    """zone_fold in the layout's fold order against its plain version
+    (integer words exactly, f64 to rel 1e-12) and its own second launch
+    (bit for bit), through a row map full of stale words: one slot and
+    many, slots with no tile, a slot with no listed tile, 49 leaves (past a
+    warp's lanes), a slot of 79 segments, no listed tile at all; one launch
+    a call, 0 local bytes."""
+    from tikv_tpu_torch.copr import fused_zone as fz
+
+    tp, parts, tiles, row_of, order, cap = fx.zone_fold_case(name, cuda)
+    fa.reset_launches()
+    out = fx.zone_fold_check(tp, parts, tiles, row_of, order, cap)
+    assert fa.LAUNCHES["zone_fold"] == 2
+    assert out["rows"] == len(tiles) and (out["rows"] > 0) == (name != "all_empty")
+    assert fz.fold_attributes()["localSizeBytes"] == 0
+
+
+def test_zone_layout_shared_by_two_plans_folds_each_plan(cuda):
+    """Two plans that differ only in their selection's constants share one
+    pinned layout, and so its fold order; each plan's fold over its own
+    listed tiles equals its plain version, and its request the stacked
+    kernels' bytes."""
+    from tikv_tpu_torch.copr import fused_zone as fz
+
+    cache = fx.zone_cache(400_000, 1 << 16, seed=6)
+    dags = [fx.zone_dag(), fx.zone_dag()]
+    dags[1].executors[1].conditions[1] = call("le", col(1), const_int(200))
+    layouts = []
+    for dag in dags:
+        ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device=cuda)
+        out, layout, _nf, _np = fx.zone_kernel_outputs(ev, cache)
+        got, want = out["zone_fold"]
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0)
+        unary = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device=cuda)
+        unary.route_hint = "unary"
+        assert ev.run(None, cache).encode() == unary.run(None, cache).encode()
+        layouts.append(layout)
+    assert layouts[0] is layouts[1] and isinstance(layouts[0].fold, fz.FoldOrder)
+
+
 def test_zone_rung_matches_the_stacked_kernels_byte_for_byte(cuda):
     n = 3_000_000
     a = fx.build_arrays(n, seed=8)
@@ -1036,14 +1188,15 @@ def test_dict_compact_edges_match_its_plain_version(cuda, name):
 
 def test_compaction_and_wide_combine_keep_no_local_memory(cuda):
     """dict_compact and every instance (2, 4 and 8 stack slots) of
-    group_wide_combine keep their state in registers and shared memory: 0
-    local bytes."""
+    group_wide_combine and fused_group_agg_combine_pack keep their state in
+    registers and shared memory: 0 local bytes."""
     from tikv_tpu_torch.copr import fused_dict as fd
 
     assert fd.compact_attributes()["localSizeBytes"] == 0
     for slots in (2, 4, 8):
-        attrs = ga.combine_attributes(slots)
-        assert attrs["localSizeBytes"] == 0, attrs
+        for wide in (True, False):
+            attrs = ga.combine_attributes(slots, wide=wide)
+            assert attrs["localSizeBytes"] == 0, (wide, attrs)
 
 
 def test_wide_combine_matches_its_plain_version_on_crafted_states(cuda):

@@ -959,6 +959,47 @@ def test_tile_walk_constants_match_the_cuda_source():
     assert "ga_row_atomic(" in fold and "__match_any_sync" in fold
 
 
+def test_combine_instance_follows_the_plan_and_the_capacity():
+    """The combine the launcher picks: ``fused_group_agg_combine_pack`` up
+    to c_max, ``group_wide_combine`` past it, each the instance of the
+    partials' stack slots (first's walk at the winning row), for Q1 and
+    every synthetic case at its own capacity and at c_max and c_max + 1."""
+    q1 = TorchDagEvaluator(dag_to_wire(bench.q1_dag()), block_rows=64,
+                           device="cpu").plan.group_program
+    assert ga.combine_kernel(q1, 8) == ("fused_group_agg_combine_pack", ga.partials_slots(q1))
+    assert ga.combine_kernel(q1, 331)[0] == "fused_group_agg_combine_pack"
+    assert ga.combine_kernel(q1, 332)[0] == "group_wide_combine"
+    gen = torch.Generator().manual_seed(5)
+    for kind in fx.GROUP_CASES:
+        prog, _img, cap = fx.synthetic_group_case(kind, 1, 256, gen, CPU)
+        for c in (cap, prog.c_max, prog.c_max + 1):
+            name, slots = ga.combine_kernel(prog, c)
+            assert name == ("fused_group_agg_combine_pack" if prog.shared_rows(c)
+                            else "group_wide_combine"), (kind, c)
+            assert slots == ga.partials_slots(prog) >= fa.stack_depth(prog.code)
+
+
+def test_combine_and_mesh_fold_share_one_tree():
+    """fused_group_agg_combine_pack runs a warp a cell with no barrier, in
+    instances of 2, 4 and 8 stack slots, first's value by the tile walk (no
+    one-row walk left in fused_agg.cu); the combine's tree is one function
+    of ga_leaf.cuh that it and mesh_fold both call."""
+    agg = (CSRC / "fused_agg.cu").read_text()
+    mesh = (CSRC / "fused_mesh.cu").read_text()
+    leaf = (CSRC / "ga_leaf.cuh").read_text()
+    for slots in (2, 4, 8):
+        assert f"fused_group_agg_combine_pack<{slots}>" in agg
+    body = agg[agg.index("fused_group_agg_combine_pack(const __grid_constant__"):]
+    body = body[: body.index("\n}\n")]
+    assert "__syncthreads" not in body and "ga_tree_fold<" in body
+    assert "fa_walk(" not in agg and "ga_finish_cell<D>(" in agg
+    assert "ga_tree_fold<" in mesh and "__shfl_down_sync" not in mesh
+    # one table of merge rules: mesh_fold picks its rule through ga_with_rule
+    assert "ga_with_rule(" in mesh and "mf_fold_cell<Ga" not in mesh
+    assert leaf.count("long long ga_tree_fold(") == 1
+    assert int(re.search(r"#define GA_TREE (\d+)", leaf).group(1)) == ga.THREADS
+
+
 @pytest.mark.parametrize("name", fx.GROUP_EDGE_CASES)
 def test_grouped_edge_cases_through_the_plain_pair(name):
     """fx.group_edge_cases on the CPU: the partials' plain version at the

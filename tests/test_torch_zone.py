@@ -490,8 +490,9 @@ def test_bitwise_op_on_a_real_operand_is_declined_by_name():
 # ---------------------------------------------------------------------------
 
 def test_layout_pins_count_and_encoded_decodes_are_purged():
-    """The pinned layout's tensors count in ``device_nbytes``, the lanes are
-    narrowed, and the gathers leave no full decode on an encoded image."""
+    """The pinned layout's tensors count in ``device_nbytes`` (its fold tree
+    too, which drops with it), the lanes are narrowed, and the gathers leave
+    no full decode on an encoded image."""
     cols, kvs, jcache, _p = FIX
     pcache = _port_cache(jcache)
     encoding.encode_blocks(pcache)
@@ -510,7 +511,9 @@ def test_layout_pins_count_and_encoded_decodes_are_purged():
     assert {i: str(t.dtype) for i, t in layout.cols.items()} == {
         1: "torch.int16", 2: "torch.int16", 4: "torch.int8"}
     n = layout.n_rows
-    assert pcache.device_nbytes() == (2 + 2 + 1) * n + n + 4 * n + 8 * layout.n_tiles
+    T, n_segs = layout.n_tiles, layout.fold.segs.shape[1]
+    fold_bytes = 4 * T + 4 * (layout.n_slots + 1) + 5 * 4 * n_segs
+    assert pcache.device_nbytes() == (2 + 2 + 1) * n + n + 4 * n + 8 * T + fold_bytes
     pcache.drop_device()
     assert pcache.device_nbytes() == 0
 
@@ -580,8 +583,121 @@ def test_tile_plain_versions_match_a_direct_computation():
 def test_fold_and_tile_kernels_refuse_other_devices():
     tp = fz.compile_tile_program([], [("count", None)], [(EvalType.INT, 0)], False, partial=False)
     parts = torch.zeros((0, len(tp.prog.leaves)), dtype=torch.int64, device="meta")
+    order = fz.fold_order(np.zeros(3, dtype=np.int32), 1, "meta")
+    row_of = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        fz.zone_fold(tp, parts, torch.zeros(0, dtype=torch.int32), torch.zeros(2, dtype=torch.int32), 1)
+        fz.zone_fold(tp, parts, torch.zeros(0, dtype=torch.int64, device="meta"), row_of, order, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fz.launch_fold(tp, torch.zeros(tuple(parts.shape), dtype=torch.int64),
+                       torch.zeros(0, dtype=torch.int64), torch.zeros(3, dtype=torch.int32),
+                       fz.fold_order(np.zeros(3, dtype=np.int32), 1, "cpu"), 1, (None, None))
+
+
+@pytest.mark.parametrize("subset", ["query", "random"])
+def test_layout_fold_order_restricted_to_a_query_is_its_lexsort(subset):
+    """The layout's ``slot_tiles``, restricted to a query's listed tiles, is
+    ``np.lexsort((tiles, gid))`` of those tiles: the order each query sorted
+    on the host before the layout held it.  ``slot_starts`` counts each
+    slot's tiles, and the tile kernels' row map, read as the fold reads it,
+    gives back each listed tile's row and no other."""
+    cols, kvs, jcache, pcache = NFIX
+    dag = DagRequest(executors=[TableScan(TABLE, cols),
+                                Selection([call("le", col(1), const_int(6000))]),
+                                Aggregation([col(3)], [AggDescriptor("sum", col(4))])])
+    ev = TorchDagEvaluator(dag_to_wire(dag), block_rows=2048, device="cpu")
+    rung = ev._zone_rung()
+    layout, full_idx, partial_idx = rung.plan_tiles(pcache)
+    if subset == "random":
+        rng = np.random.default_rng(7)
+        pick = np.flatnonzero(rng.random(layout.n_tiles) < 0.4)
+        half = rng.random(len(pick)) < 0.5
+        full_idx, partial_idx = pick[half], pick[~half]
+    tiles = np.concatenate([full_idx, partial_idx]).astype(np.int64)
+    assert len(tiles) and len(np.unique(tiles)) == len(tiles)
+    gid = layout.tile_gid[tiles].astype(np.int64)
+    want = tiles[np.lexsort((tiles, gid))]
+    st = layout.fold.slot_tiles.numpy()
+    assert np.array_equal(st[np.isin(st, tiles)], want)
+    starts = layout.fold.slot_starts.numpy()
+    assert np.array_equal(np.diff(starts), np.bincount(layout.tile_gid, minlength=layout.n_slots))
+    assert all(set(layout.tile_gid[st[starts[g]:starts[g + 1]]]) <= {g}
+               for g in range(layout.n_slots))
+    # the tile kernels record their rows over a map full of stale words
+    full, part = rung.programs(layout)
+    L, nf = len(full.prog.leaves), len(full_idx)
+    row_of = torch.from_numpy(np.random.default_rng(3).integers(
+        -3, len(tiles) + 3, layout.n_tiles).astype(np.int32))
+    parts = torch.empty((len(tiles), L), dtype=torch.int64)
+    t = torch.from_numpy(tiles)
+    fz.zone_full(full, layout, t[:nf], parts[:nf], row_of, 0)
+    fz.zone_partial(part, layout, t[nf:], parts[nf:], row_of, nf)
+    rows = fz.listed_rows(row_of, t, torch.arange(layout.n_tiles)).numpy()
+    listed = np.full(layout.n_tiles, -1)
+    listed[tiles] = np.arange(len(tiles))
+    assert np.array_equal(rows, listed)
+
+
+@pytest.mark.parametrize("sizes", [[0], [1], [512], [513], [5, 0, 70, 1024, 1025],
+                                   [40_000], [511, 3]])
+def test_fold_segments_cut_each_slots_tiles_in_order(sizes):
+    """``fold_segments``: each slot's tiles cut in order into segments of at
+    most ``FOLD_TILES`` (one empty segment for a slot with none), each
+    knowing its slot's first segment and count; folding a column a segment
+    at a time and then a slot's segments in order gives the slot's sum."""
+    starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    lo, hi, slot, first, count = fz.fold_segments(starts)
+    C = len(sizes)
+    assert np.array_equal(np.bincount(slot, minlength=C),
+                          np.maximum(1, -(-np.asarray(sizes) // fz.FOLD_TILES)))
+    assert ((hi - lo) <= fz.FOLD_TILES).all() and ((hi - lo) >= 0).all()
+    for g in range(C):
+        segs = np.flatnonzero(slot == g)
+        assert (first[segs] == segs[0]).all() and (count[segs] == len(segs)).all()
+        assert lo[segs[0]] == starts[g] and hi[segs[-1]] == starts[g + 1]
+        assert np.array_equal(lo[segs[1:]], hi[segs[:-1]])
+    value = np.random.default_rng(len(sizes)).integers(-1000, 1000, int(starts[-1]))
+    row = np.array([value[a:b].sum() for a, b in zip(lo, hi)], dtype=np.int64)
+    got = [row[first[s]:first[s] + count[s]].sum() for s in first[np.unique(slot,
+                                                                            return_index=True)[1]]]
+    assert np.array_equal(got, [value[a:b].sum() for a, b in zip(starts[:-1], starts[1:])])
+
+
+def test_zone_fold_plain_is_an_ascending_tile_fold_of_each_slot():
+    """``zone_fold_plain`` over the seeded edge cases, whose row maps hold
+    stale words (rows of other tiles, words out of range), against a direct
+    fold in numpy: each slot's listed rows in ascending tile order, int64
+    sums that wrap, min, max and the tracker exactly, the f64 sums of
+    squares added in that order too."""
+    from tikv_tpu_torch import fixtures as fx
+    from tikv_tpu_torch.copr.fused_group_agg import LEAF_MAX, LEAF_MIN, LEAF_TRACK
+
+    for name in fx.ZONE_FOLD_CASES:
+        tp, parts, tiles, row_of, order, C = fx.zone_fold_case(name, "cpu")
+        ints, flts = fz.zone_fold_plain(tp, parts, tiles, row_of, order, C)
+        gid = np.zeros(order.n_tiles, dtype=np.int64)
+        st, starts = order.slot_tiles.numpy(), order.slot_starts.numpy()
+        for g in range(C):
+            gid[st[starts[g]:starts[g + 1]]] = g
+        t = tiles.numpy()
+        by_tile = np.argsort(t, kind="stable")
+        pv = parts.numpy()
+        for l, leaf in enumerate(tp.prog.leaves):
+            for g in range(C):
+                rows = by_tile[gid[t[by_tile]] == g]
+                if leaf.is_f64:
+                    acc = 0.0
+                    for r in rows:
+                        acc += float(pv[r, l].view(np.float64))
+                    assert flts[leaf.slot, g].item() == acc, (name, l, g)
+                    continue
+                col = pv[rows, l]
+                if leaf.kind in (LEAF_MIN, LEAF_TRACK):
+                    want = col.min() if len(col) else leaf.ident
+                elif leaf.kind == LEAF_MAX:
+                    want = col.max() if len(col) else leaf.ident
+                else:
+                    want = int(col.astype(np.uint64).sum(dtype=np.uint64).astype(np.int64))
+                assert ints[leaf.slot, g].item() == want, (name, l, g)
 
 
 def test_zone_params_and_leaf_kinds_match_the_cuda_source():
@@ -597,6 +713,15 @@ def test_zone_params_and_leaf_kinds_match_the_cuda_source():
     assert fields == [name for name, _t in fz._ZnParams._fields_]
     assert int(re.search(r"#define ZN_THREADS (\d+)", text).group(1)) == fz.THREADS
     assert int(re.search(r"#define ZN_ROWS (\d+)", text).group(1)) == fz.ROWS
+    body = text[text.index("struct ZnFold {"):]
+    body = re.sub(r"//.*", "", body[: body.index("};")])
+    assert re.findall(r"(\w+)(?:\[\w+\])?;", body) == [name for name, _t in fz._ZnFold._fields_]
+    warps = int(re.search(r"#define ZN_FOLD_WARPS (\d+)", text).group(1))
+    assert warps * 32 == fz.FOLD_TILES and "#define ZN_FOLD_TILES (ZN_FOLD_WARPS * 32)" in text
+    # each merge rule written once, as a type every merge derives from
+    for rule in ("ZnAdd", "ZnFadd", "ZnMin", "ZnMax"):
+        assert text.count(f"struct {rule} {{") == 1, rule
+    assert text.count("fa_raw(fa_f(a) + fa_f(b))") == 1
 
 
 

@@ -734,7 +734,10 @@ def _kernels():
         lib.ga_partials_attributes.argtypes = [ctypes.c_int, vp]
         lib.ga_partials_attributes.restype = ctypes.c_int
         lib.ga_tile_rows.restype = ctypes.c_int
-        lib.ga_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, vp]
+        lib.ga_launch_combine.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp, vp, ctypes.c_int,
+                                          vp]
+        lib.ga_combine_attributes.argtypes = [ctypes.c_int, vp]
+        lib.ga_combine_attributes.restype = ctypes.c_int
         lib.gw_launch_partials.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
         lib.gw_partials_attributes.argtypes = [ctypes.c_int, vp]
         lib.gw_partials_attributes.restype = ctypes.c_int
@@ -784,17 +787,30 @@ def partials_attributes(slots: int, wide: bool = False) -> dict:
             "stackSlots": slots}
 
 
-def combine_attributes(slots: int) -> dict:
-    """``cudaFuncGetAttributes`` of the ``group_wide_combine`` instance of
-    ``slots`` stack slots (first's walk at the winning row; the same count
-    as the wide partials'): registers a thread, local (spilled) bytes a
-    thread, static shared bytes a block."""
+def combine_attributes(slots: int, wide: bool = False) -> dict:
+    """``cudaFuncGetAttributes`` of the ``fused_group_agg_combine_pack`` (or,
+    ``wide``, ``group_wide_combine``) instance of ``slots`` stack slots
+    (first's walk at the winning row; :func:`combine_kernel` picks it):
+    registers a thread, local (spilled) bytes a thread, static shared bytes
+    a block."""
+    name = "group_wide_combine" if wide else "fused_group_agg_combine_pack"
     out = (ctypes.c_int * 3)()
-    rc = _kernels().gw_combine_attributes(slots, out)
+    lib = _kernels()
+    rc = (lib.gw_combine_attributes if wide else lib.ga_combine_attributes)(slots, out)
     if rc != 0:
-        raise RuntimeError(f"group_wide_combine attributes: cudaError {rc}")
+        raise RuntimeError(f"{name} attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
             "stackSlots": slots}
+
+
+def combine_kernel(prog: GroupProgram, capacity: int) -> tuple[str, int]:
+    """The combine that folds ``prog``'s partials at ``capacity`` slots, as
+    ``(kernel, stack slots)``: ``fused_group_agg_combine_pack`` up to
+    ``c_max``, ``group_wide_combine`` past it, each the instance whose walk
+    of first's winning row holds the plan (:func:`partials_slots`, the
+    partials' own)."""
+    name = "fused_group_agg_combine_pack" if prog.shared_rows(capacity) else "group_wide_combine"
+    return name, partials_slots(prog)
 
 
 def check_capacity(prog: GroupProgram, capacity: int) -> None:
@@ -900,18 +916,16 @@ def launch_combine(prog: GroupProgram, img: Image, capacity: int, parts: torch.T
         return t.data_ptr() if t is not None and t.numel() else None
 
     ci, cf = carry if carry is not None else (None, None)
+    name, slots = combine_kernel(prog, capacity)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if prog.shared_rows(capacity):
-            name = "fused_group_agg_combine_pack"
+        if name == "fused_group_agg_combine_pack":
             rc = lib.ga_launch_combine(ctypes.byref(p), parts.data_ptr(), parts.shape[0],
-                                       ptr(ci), ptr(cf), ptr(out[0]), ptr(out[1]), stream)
+                                       ptr(ci), ptr(cf), ptr(out[0]), ptr(out[1]), slots, stream)
         else:
-            name = "group_wide_combine"
             words, xacc = _wide_views(prog, capacity, parts)
             rc = lib.gw_launch_combine(ctypes.byref(p), words.data_ptr(), ptr(xacc), ptr(ci),
-                                       ptr(cf), ptr(out[0]), ptr(out[1]), partials_slots(prog),
-                                       stream)
+                                       ptr(cf), ptr(out[0]), ptr(out[1]), slots, stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

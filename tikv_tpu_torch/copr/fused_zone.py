@@ -21,8 +21,11 @@ package's programs #12 ``jax_zone.full`` (``jax_zone.py:496``) and #13
   selection walked ``ROWS`` rows a thread at a time and pad rows and NULLs
   masked.  The walk's instance holds 2, 4 or 8 stack slots, picked from the
   program's depth (:func:`tile_slots`).
-* ``zone_fold`` folds both lists' rows into the group slots in a fixed
-  order (:func:`copr.zone.fold_order`) and writes the packed state that
+* ``zone_fold`` folds both lists' rows into the group slots in the
+  layout's fold order (:func:`fold_order`, built once with the layout:
+  every tile by slot and tile, cut into segments of ``FOLD_TILES`` tiles,
+  a block each), each listed tile's row read from the map the tile kernels
+  record (``row_of``), and writes the packed state that
   ``TorchDagEvaluator._finalize_agg`` reads: an int64 matrix ``[n_int, C]``
   (row 0 the tracker, ``NO_ROW`` for a group with no active row) and an f64
   matrix ``[n_f64, C]``.
@@ -34,8 +37,9 @@ Each wrapper runs its plain version for CPU tensors and its kernel of
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from . import fused_agg as fa
@@ -62,6 +66,7 @@ ROWS = 8  # rows a thread walks at once (ZN_ROWS)
 #: 0 is the full-tile instance with no walk
 TILE_INSTANCES = ((False, 0), (False, 2), (False, 4), (False, 8), (True, 2), (True, 4),
                   (True, 8))
+FOLD_TILES = 512  # tiles of a segment of the fold order, a block's (ZN_FOLD_TILES)
 _ADD = (LEAF_COUNT, LEAF_SUM, LEAF_SUMSQ)
 
 
@@ -99,6 +104,85 @@ def compile_tile_program(sel_rpns, agg_rpns, schema, track: bool, partial: bool)
         else:
             bare.append(BARE_WALK)
     return TileProgram(prog, tuple(cols), tuple(bare), partial)
+
+
+@dataclass(frozen=True)
+class FoldOrder:
+    """The fold order of a layout, built once with it: ``slot_tiles``
+    (int32 ``[n_tiles]``) lists every tile by (slot, tile), slot ``g``'s at
+    ``slot_starts[g]:slot_starts[g + 1]`` (int32 ``[C + 1]``); ``segs``
+    (int32 ``[5, n_segs]``: tile lo, tile hi, slot, the slot's first
+    segment, the slot's segments) cuts each slot's range into segments of
+    at most ``FOLD_TILES`` tiles, one for a slot with none, that
+    ``zone_fold`` folds a block each and then in order; ``counts`` holds
+    its slot counters, one buffer a stream (:meth:`slot_counts`)."""
+
+    slot_tiles: torch.Tensor
+    slot_starts: torch.Tensor
+    segs: torch.Tensor
+    counts: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.slot_tiles)
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [self.slot_tiles, self.slot_starts, self.segs, *self.counts.values()]
+
+    def slot_counts(self) -> torch.Tensor:
+        """``zone_fold``'s slot counters for its launches on the current
+        stream: int32 ``[C]``, zeroed when made, which every launch leaves
+        zero (its last block of a slot sets the slot's word back), so they
+        cost no launch a query.  Launches on one stream run in order, and
+        each stream has its own buffer; the buffers go with the order, and
+        so with the layout."""
+        dev = self.slot_tiles.device
+        key = torch.cuda.current_stream(dev).cuda_stream
+        buf = self.counts.get(key)
+        if buf is None:
+            buf = self.counts[key] = torch.zeros(len(self.slot_starts) - 1, dtype=torch.int32,
+                                                 device=dev)
+        return buf
+
+
+def fold_segments(slot_starts: np.ndarray) -> np.ndarray:
+    """``[5, n_segs]`` int64: each slot's tiles ``slot_starts[g]:
+    slot_starts[g + 1]`` cut in order into segments of at most
+    ``FOLD_TILES`` (one empty segment for a slot with no tile), as (tile
+    lo, tile hi, slot, the slot's first segment, the slot's segments)."""
+    starts = np.asarray(slot_starts, dtype=np.int64)
+    count = np.maximum(1, -(-np.diff(starts) // FOLD_TILES))
+    slot = np.repeat(np.arange(len(count)), count)
+    first = np.cumsum(count) - count
+    lo = starts[:-1][slot] + (np.arange(len(slot)) - first[slot]) * FOLD_TILES
+    return np.stack([lo, np.minimum(lo + FOLD_TILES, starts[1:][slot]), slot, first[slot],
+                     count[slot]])
+
+
+def fold_order(tile_gid: np.ndarray, n_slots: int, device) -> FoldOrder:
+    """A layout's :class:`FoldOrder` from its tiles' slots, on ``device``."""
+    gid = np.asarray(tile_gid, dtype=np.int64)
+    starts = np.zeros(n_slots + 1, dtype=np.int64)
+    np.cumsum(np.bincount(gid, minlength=n_slots), out=starts[1:])
+    segs = fold_segments(starts)
+    if len(gid) >= 1 << 31 or 5 * segs.shape[1] >= 1 << 31:
+        raise ValueError("a fold order indexes tiles and segments in 32 bits")
+
+    def pin(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return FoldOrder(pin(np.argsort(gid, kind="stable")), pin(starts), pin(segs))
+
+
+def listed_rows(row_of: torch.Tensor, tiles: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """The rows of partials of the tiles ``at`` (int64; -1 where a tile is
+    not listed): ``row_of[t]``, trusted only where ``tiles[row_of[t]]`` is
+    ``t``, as ``zone_fold`` reads the map."""
+    r = row_of[at].to(torch.int64)
+    ok = (r >= 0) & (r < len(tiles))
+    if len(tiles):
+        ok &= tiles[torch.where(ok, r, 0)] == at
+    return torch.where(ok, r, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,16 +260,20 @@ def zone_partial_plain(tp: TileProgram, layout, tiles: torch.Tensor) -> torch.Te
     return _tile_partials(tp, layout, tiles)
 
 
-def zone_fold_plain(tp: TileProgram, parts: torch.Tensor, order: torch.Tensor,
-                    starts: torch.Tensor, capacity: int):
+def zone_fold_plain(tp: TileProgram, parts: torch.Tensor, tiles: torch.Tensor,
+                    row_of: torch.Tensor, order: FoldOrder, capacity: int):
     """Plain version of ``zone_fold``: the packed state ``(ints, flts)`` at
-    ``capacity`` slots.  f64 leaves are summed in another order than the
-    kernel's."""
+    ``capacity`` slots, row ``i`` of ``parts`` being listed tile
+    ``tiles[i]``'s and found through ``row_of`` (:func:`listed_rows`); each
+    slot's listed rows folded in ascending tile order (the kernel folds the
+    same rows a segment at a time, so its f64 leaves round otherwise)."""
     prog = tp.prog
     dev = parts.device
-    counts = (starts[1:] - starts[:-1]).to(torch.int64)
+    row = listed_rows(row_of, tiles, order.slot_tiles.to(torch.int64))
+    counts = (order.slot_starts[1:] - order.slot_starts[:-1]).to(torch.int64)
     slot = torch.repeat_interleave(torch.arange(capacity, device=dev), counts)
-    rows = parts[order.to(torch.int64)]
+    listed = row >= 0
+    rows, slot = parts[row[listed]], slot[listed]
     ints, flts = init_packed(prog, capacity, dev)
     for l, leaf in enumerate(prog.leaves):
         v = rows[:, l].view(torch.float64) if leaf.is_f64 else rows[:, l]
@@ -212,6 +300,7 @@ class _ZnParams(ctypes.Structure):
         ("ridx", ctypes.c_uint64),
         ("tile_first", ctypes.c_uint64),
         ("tiles", ctypes.c_uint64),
+        ("row_of", ctypes.c_uint64),
         ("n_list", ctypes.c_int64),
         ("tile_rows", ctypes.c_int64),
         ("consts", ctypes.c_int64 * fa.MAX_CONSTS),
@@ -223,6 +312,7 @@ class _ZnParams(ctypes.Structure):
         ("n_leaves", ctypes.c_int32),
         ("track", ctypes.c_int32),
         ("all_bare", ctypes.c_int32),
+        ("row_base", ctypes.c_int32),
         ("agg_leaf0", ctypes.c_int32 * fa.MAX_AGGS),
         ("agg_nleaves", ctypes.c_int32 * fa.MAX_AGGS),
         ("bare", ctypes.c_int32 * fa.MAX_AGGS),
@@ -232,9 +322,37 @@ class _ZnParams(ctypes.Structure):
     ]
 
 
-def tile_params(tp: TileProgram, layout=None, tiles: torch.Tensor | None = None) -> _ZnParams:
-    """The kernels' parameter block: the program, and the layout's columns
-    and the listed tiles when given."""
+class _ZnFold(ctypes.Structure):
+    """``ZnFold`` of csrc/fused_zone.cu, ``zone_fold``'s parameter block:
+    its tensors, sizes and leaf tables."""
+
+    _fields_ = [
+        ("parts", ctypes.c_uint64),
+        ("tiles", ctypes.c_uint64),
+        ("row_of", ctypes.c_uint64),
+        ("slot_tiles", ctypes.c_uint64),
+        ("segs", ctypes.c_uint64),
+        ("count", ctypes.c_uint64),
+        ("rows", ctypes.c_uint64),
+        ("out_i", ctypes.c_uint64),
+        ("out_f", ctypes.c_uint64),
+        ("n_list", ctypes.c_int64),
+        ("leaf_ident", ctypes.c_int64 * MAX_LEAVES),
+        ("n_tiles", ctypes.c_int32),
+        ("n_segs", ctypes.c_int32),
+        ("capacity", ctypes.c_int32),
+        ("n_leaves", ctypes.c_int32),
+        ("leaf_kind", ctypes.c_int8 * MAX_LEAVES),
+        ("leaf_f64", ctypes.c_int8 * MAX_LEAVES),
+        ("leaf_slot", ctypes.c_int8 * MAX_LEAVES),
+    ]
+
+
+def tile_params(tp: TileProgram, layout, tiles: torch.Tensor, row_of: torch.Tensor,
+                row_base: int) -> _ZnParams:
+    """The kernels' parameter block: the program, the layout's columns, the
+    listed tiles and the row map (tile ``tiles[i]``'s row is ``row_base +
+    i``)."""
     prog = tp.prog
     p = _ZnParams()
     p.consts[: len(prog.consts)] = prog.consts
@@ -254,21 +372,20 @@ def tile_params(tp: TileProgram, layout=None, tiles: torch.Tensor | None = None)
         p.leaf_kind[l] = leaf.kind
         p.leaf_f64[l] = int(leaf.is_f64)
         p.leaf_slot[l] = leaf.slot
-    if layout is not None:
-        # narrow lanes hold their values as they are (frame 0, NULL slots
-        # 0): plain loads at the lane's width
-        for j, i in enumerate(tp.cols):
-            c = layout.cols[i]
-            p.col[j], p.enc.width[j] = c.data_ptr(), c.element_size()
-            p.enc.kind[j] = fa.ENC_PLAIN
-            nl = layout.nulls.get(i) if tp.partial else None
-            p.nul[j] = 0 if nl is None else nl.data_ptr()
-        p.valid = layout.valid.data_ptr()
-        p.ridx = layout.ridx.data_ptr()
-        p.tile_first = layout.tile_first.data_ptr()
-        p.tile_rows = layout.tile_rows
-    if tiles is not None:
-        p.tiles, p.n_list = tiles.data_ptr(), len(tiles)
+    # narrow lanes hold their values as they are (frame 0, NULL slots 0):
+    # plain loads at the lane's width
+    for j, i in enumerate(tp.cols):
+        c = layout.cols[i]
+        p.col[j], p.enc.width[j] = c.data_ptr(), c.element_size()
+        p.enc.kind[j] = fa.ENC_PLAIN
+        nl = layout.nulls.get(i) if tp.partial else None
+        p.nul[j] = 0 if nl is None else nl.data_ptr()
+    p.valid = layout.valid.data_ptr()
+    p.ridx = layout.ridx.data_ptr()
+    p.tile_first = layout.tile_first.data_ptr()
+    p.tile_rows = layout.tile_rows
+    p.tiles, p.n_list = tiles.data_ptr(), len(tiles)
+    p.row_of, p.row_base = row_of.data_ptr(), row_base
     return p
 
 
@@ -290,13 +407,20 @@ def _kernels():
         lib.zn_launch_tiles.restype = ctypes.c_int
         lib.zn_tiles_attributes.argtypes = [ctypes.c_int, ctypes.c_int, vp]
         lib.zn_tiles_attributes.restype = ctypes.c_int
-        lib.zn_launch_fold.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp]
+        lib.zn_launch_fold.argtypes = [vp, vp]
         lib.zn_launch_fold.restype = ctypes.c_int
-        if lib.zn_params_size() != ctypes.sizeof(_ZnParams):
-            raise RuntimeError(f"ZnParams layout mismatch: kernel {lib.zn_params_size()} "
-                               f"bytes, wrapper {ctypes.sizeof(_ZnParams)}")
-        if lib.zn_threads() != THREADS:
-            raise RuntimeError("ZN_THREADS of the kernel differs from THREADS")
+        lib.zn_fold_attributes.argtypes = [vp]
+        lib.zn_fold_attributes.restype = ctypes.c_int
+        for fn in ("zn_fold_size", "zn_fold_tiles"):
+            getattr(lib, fn).restype = ctypes.c_int
+        for name, kernel, wrapper in (("ZnParams", lib.zn_params_size(), ctypes.sizeof(_ZnParams)),
+                                      ("ZnFold", lib.zn_fold_size(), ctypes.sizeof(_ZnFold))):
+            if kernel != wrapper:
+                raise RuntimeError(f"{name} layout mismatch: kernel {kernel} bytes, "
+                                   f"wrapper {wrapper}")
+        if lib.zn_threads() != THREADS or lib.zn_fold_tiles() != FOLD_TILES:
+            raise RuntimeError("ZN_THREADS or ZN_FOLD_TILES of the kernel differs from the "
+                               "wrapper's")
         _lib = lib
     return _lib
 
@@ -335,7 +459,8 @@ def tiles_attributes(partial: bool, slots: int) -> dict:
             "sharedSizeBytes": out[2]}
 
 
-def _check_layout(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor) -> None:
+def _check_layout(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor,
+                  row_of: torch.Tensor) -> None:
     dev = tiles.device
     n = layout.n_rows
     if not 1 <= layout.tile_rows < (1 << 31):
@@ -352,18 +477,19 @@ def _check_layout(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tenso
     _check(layout.tile_first, dev, torch.int64, (layout.n_tiles,), "layout tile_first")
     _check(tiles, dev, torch.int64, (len(tiles),), "tiles")
     _check(out, dev, torch.int64, (len(tiles), len(tp.prog.leaves)), "tile partials")
+    _check(row_of, dev, torch.int32, (layout.n_tiles,), "row map")
 
 
 def _launch_tiles(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor,
-                  name: str) -> None:
+                  name: str, row_of: torch.Tensor, row_base: int) -> None:
     if tiles.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {tiles.device}")
-    _check_layout(tp, layout, tiles, out)
+    _check_layout(tp, layout, tiles, out, row_of)
     if not len(tiles):
         return
     slots = tile_slots(tp)
     lib = _kernels()
-    p = tile_params(tp, layout, tiles)
+    p = tile_params(tp, layout, tiles, row_of, row_base)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
         rc = lib.zn_launch_tiles(ctypes.byref(p), int(tp.partial), slots, out.data_ptr(),
@@ -374,71 +500,112 @@ def _launch_tiles(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tenso
 
 
 def _tiles_op(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor, name: str,
-              plain) -> torch.Tensor:
+              plain, row_of: torch.Tensor, row_base: int) -> torch.Tensor:
     if tp.partial != (name == "zone_partial"):
         raise ValueError(f"{name} takes a {'partial' if name == 'zone_partial' else 'full'}"
                          "-tile program")
+    if not 0 <= row_base < (1 << 31) - len(tiles):
+        raise ValueError(f"row_base {row_base} out of range")
     if tiles.device.type == "cpu":
+        _check_layout(tp, layout, tiles, out, row_of)
         out.copy_(plain(tp, layout, tiles))
+        row_of[tiles] = torch.arange(row_base, row_base + len(tiles), dtype=torch.int32)
     elif tiles.device.type == "cuda":
-        _launch_tiles(tp, layout, tiles, out, name)
+        _launch_tiles(tp, layout, tiles, out, name, row_of, row_base)
     else:
         raise ValueError(f"no {name} for device {tiles.device}")
     return out
 
 
-def zone_full(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def zone_full(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor,
+              row_of: torch.Tensor, row_base: int) -> torch.Tensor:
     """Per-leaf partials of the full tiles ``tiles`` (int64) into ``out``
-    (``[len(tiles), n_leaves]`` int64): the plain version for CPU tensors,
-    the kernel for CUDA tensors."""
-    return _tiles_op(tp, layout, tiles, out, "zone_full", zone_full_plain)
+    (``[len(tiles), n_leaves]`` int64), and tile ``tiles[i]``'s row of
+    partials, ``row_base + i``, into the row map ``row_of`` (int32
+    ``[n_tiles]``) that ``zone_fold`` reads: the plain version for CPU
+    tensors, the kernel for CUDA tensors."""
+    return _tiles_op(tp, layout, tiles, out, "zone_full", zone_full_plain, row_of, row_base)
 
 
-def zone_partial(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Per-leaf partials of the partial tiles ``tiles`` into ``out``."""
-    return _tiles_op(tp, layout, tiles, out, "zone_partial", zone_partial_plain)
+def zone_partial(tp: TileProgram, layout, tiles: torch.Tensor, out: torch.Tensor,
+                 row_of: torch.Tensor, row_base: int) -> torch.Tensor:
+    """Per-leaf partials of the partial tiles ``tiles`` into ``out``, and
+    their rows into ``row_of`` as :func:`zone_full` records them."""
+    return _tiles_op(tp, layout, tiles, out, "zone_partial", zone_partial_plain, row_of,
+                     row_base)
 
 
-def launch_fold(tp: TileProgram, parts: torch.Tensor, order: torch.Tensor,
-                starts: torch.Tensor, capacity: int, out) -> None:
-    """Launch ``zone_fold`` into ``out`` = ``(ints [n_int, C], flts [n_f64, C])``."""
+def fold_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``zone_fold``: registers a thread,
+    local (spilled) bytes a thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().zn_fold_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"zone_fold attributes: cudaError {rc}")
+    return {"kernel": "zone_fold", "numRegs": out[0], "localSizeBytes": out[1],
+            "sharedSizeBytes": out[2]}
+
+
+def launch_fold(tp: TileProgram, parts: torch.Tensor, tiles: torch.Tensor, row_of: torch.Tensor,
+                order: FoldOrder, capacity: int, out) -> None:
+    """Launch ``zone_fold`` into ``out`` = ``(ints [n_int, C], flts [n_f64,
+    C])``: row ``i`` of ``parts`` is listed tile ``tiles[i]``'s (each tile
+    listed at most once), and ``row_of[tiles[i]] == i`` (the tile kernels
+    record it; the map's other words may hold anything)."""
     prog = tp.prog
     dev = parts.device
     if dev.type != "cuda":
         raise ValueError(f"zone_fold needs CUDA tensors, got {dev}")
-    if not 1 <= capacity < (1 << 31):
-        raise ValueError(f"capacity {capacity} out of range")
-    _check(parts, dev, torch.int64, (parts.shape[0], len(prog.leaves)), "tile partials")
-    _check(order, dev, torch.int32, (parts.shape[0],), "fold order")
-    _check(starts, dev, torch.int32, (capacity + 1,), "fold starts")
+    if not 1 <= capacity < (1 << 31) or len(order.slot_starts) != capacity + 1:
+        raise ValueError(f"capacity {capacity} out of range or not the fold order's")
+    L = len(prog.leaves)
+    n_segs = order.segs.shape[1]
+    _check(parts, dev, torch.int64, (parts.shape[0], L), "tile partials")
+    if parts.data_ptr() % 16:
+        raise ValueError("tile partials: need 16-byte aligned rows")  # read two words a load
+    _check(tiles, dev, torch.int64, (parts.shape[0],), "listed tiles")
+    _check(row_of, dev, torch.int32, (order.n_tiles,), "row map")
+    _check(order.slot_tiles, dev, torch.int32, (order.n_tiles,), "slot tiles")
+    _check(order.segs, dev, torch.int32, (5, n_segs), "fold segments")
     _check(out[0], dev, torch.int64, (prog.n_int, capacity), "packed ints")
     _check(out[1], dev, torch.float64, (prog.n_f64, capacity), "packed f64")
     lib = _kernels()
-    p = tile_params(tp)
+    rows = torch.empty((n_segs, L), dtype=torch.int64, device=dev)
 
     def ptr(t):
-        return t.data_ptr() if t.numel() else None
+        return t.data_ptr() if t.numel() else 0
 
+    f = _ZnFold(parts=ptr(parts), tiles=ptr(tiles), row_of=ptr(row_of),
+                slot_tiles=ptr(order.slot_tiles), segs=order.segs.data_ptr(),
+                count=order.slot_counts().data_ptr(), rows=rows.data_ptr(),
+                out_i=ptr(out[0]), out_f=ptr(out[1]), n_list=len(tiles), n_tiles=order.n_tiles,
+                n_segs=n_segs, capacity=capacity, n_leaves=L)
+    for l, leaf in enumerate(prog.leaves):
+        f.leaf_ident[l] = leaf.ident
+        f.leaf_kind[l] = leaf.kind
+        f.leaf_f64[l] = int(leaf.is_f64)
+        f.leaf_slot[l] = leaf.slot
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.zn_launch_fold(ctypes.byref(p), ptr(parts), ptr(order), starts.data_ptr(),
-                                capacity, ptr(out[0]), ptr(out[1]), stream)
+        rc = lib.zn_launch_fold(ctypes.byref(f), stream)
     LAUNCHES["zone_fold"] += 1
     if rc != 0:
         raise RuntimeError(f"zone_fold launch failed: cudaError {rc}")
 
 
-def zone_fold(tp: TileProgram, parts: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
-              capacity: int):
-    """The packed state ``(ints, flts)`` of the tile partials ``parts``
-    folded slot by slot in ``order`` (:func:`copr.zone.fold_order`)."""
+def zone_fold(tp: TileProgram, parts: torch.Tensor, tiles: torch.Tensor, row_of: torch.Tensor,
+              order: FoldOrder, capacity: int):
+    """The packed state ``(ints, flts)`` of the tile partials ``parts`` (row
+    ``i`` listed tile ``tiles[i]``'s, recorded in ``row_of``) folded slot by
+    slot in the layout's fold order: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
     dev = parts.device
     if dev.type == "cpu":
-        return zone_fold_plain(tp, parts, order, starts, capacity)
+        return zone_fold_plain(tp, parts, tiles, row_of, order, capacity)
     if dev.type != "cuda":
         raise ValueError(f"no zone_fold for device {dev}")
     prog = tp.prog
     out = (torch.empty((prog.n_int, capacity), dtype=torch.int64, device=dev),
            torch.empty((prog.n_f64, capacity), dtype=torch.float64, device=dev))
-    launch_fold(tp, parts, order, starts, capacity, out)
+    launch_fold(tp, parts, tiles, row_of, order, capacity, out)
     return out

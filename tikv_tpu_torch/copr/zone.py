@@ -18,8 +18,10 @@ need the walk at all:
   (``zone_full``), empty tiles are skipped, and only partial tiles (predicate
   boundaries, tiles with NULLs in a referenced column, pad tiles) walk the
   selection row by row (``zone_partial``);
-* ``zone_fold`` folds the per-tile partials into the group slots in a fixed
-  order (``copr/fused_zone.py``, ``csrc/fused_zone.cu``).
+* ``zone_fold`` folds the per-tile partials into the group slots in the
+  layout's fold order, built once with the layout, each tile's row read
+  from the map the tile kernels record: no order is sorted or uploaded per
+  query (``copr/fused_zone.py``, ``csrc/fused_zone.cu``).
 
 Exactness contract (``jax_zone.py:41-49``): REAL aggregate arguments are
 declined; everything else is int64 arithmetic, so responses are
@@ -48,7 +50,8 @@ import torch
 
 from .datatypes import EvalType
 from .fused_agg import NO_ROW
-from .fused_zone import TileProgram, compile_tile_program, zone_fold, zone_full, zone_partial
+from .fused_zone import (TileProgram, compile_tile_program, fold_order, zone_fold, zone_full,
+                         zone_partial)
 from .rpn import RpnExpression
 
 TILE_ROWS = 4096
@@ -152,8 +155,10 @@ class ZoneLayout:
     slots 0), ``nulls[i]`` (bool, nullable columns only), ``valid`` (bool;
     pad rows False), ``ridx`` (int32 global valid-row index) and
     ``tile_first`` (int64 per tile: its least ``ridx``, read for full
-    tiles).  The zones (``zone_lo``, ``zone_hi``, ``zone_has_null``),
-    ``tile_gid`` and ``has_pad`` stay on the host.  ``full_programs`` keeps
+    tiles), and ``fold``, the order ``zone_fold`` folds every query's tiles
+    in (:func:`copr.fused_zone.fold_order`).  The zones (``zone_lo``,
+    ``zone_hi``, ``zone_has_null``), ``tile_gid`` and ``has_pad`` stay on
+    the host.  ``full_programs`` keeps
     the full-tile programs of the plans served over it by aggregate
     signature: they hold no selection (on a full tile the classification is
     the selection), so plans that differ in their selection constants share
@@ -265,13 +270,14 @@ class ZoneLayout:
         self.valid = torch.from_numpy(valid).to(self.device)
         self.ridx = torch.from_numpy(ridx).to(self.device)
         self.tile_first = torch.from_numpy(first).to(self.device)
+        self.fold = fold_order(self.tile_gid, self.n_slots, self.device)
         # the gathers filled the decode caches of an encoded image
         purge_decoded(blocks)
 
     def tensors(self) -> list[torch.Tensor]:
         """Every tensor the layout pins (``ColumnBlockCache.device_nbytes``)."""
         return [*self.cols.values(), *self.nulls.values(), self.valid, self.ridx,
-                self.tile_first]
+                self.tile_first, *self.fold.tensors()]
 
 
 def build_layout(cache, group_cols, dicts, sort_col, needed_cols, schema, device,
@@ -488,35 +494,23 @@ class ZoneRung:
         return layout, full_idx, partial_idx
 
     def launch(self, layout: ZoneLayout, full_idx: np.ndarray, partial_idx: np.ndarray):
-        """The query's device half: ``zone_full`` over the full tiles,
-        ``zone_partial`` over the partial ones (each only when it has
-        tiles), then ``zone_fold`` into the packed state at ``n_slots``."""
+        """The query's device half: the listed tiles uploaded in one piece,
+        ``zone_full`` over the full ones, ``zone_partial`` over the partial
+        ones (each only when it has tiles), each recording its tiles' rows
+        in the query's own map, then ``zone_fold`` in the layout's fold
+        order into the packed state at ``n_slots``."""
         full_prog, part_prog = self.programs(layout)
         dev = self.ev.device
         nf = len(full_idx)
-        parts = torch.empty((nf + len(partial_idx), len(full_prog.prog.leaves)),
-                            dtype=torch.int64, device=dev)
+        tiles = torch.from_numpy(np.concatenate([full_idx, partial_idx]).astype(np.int64)).to(dev)
+        parts = torch.empty((len(tiles), len(full_prog.prog.leaves)), dtype=torch.int64,
+                            device=dev)
+        row_of = torch.empty(layout.n_tiles, dtype=torch.int32, device=dev)
         if nf:
-            zone_full(full_prog, layout, torch.from_numpy(full_idx).to(dev), parts[:nf])
+            zone_full(full_prog, layout, tiles[:nf], parts[:nf], row_of, 0)
         if len(partial_idx):
-            zone_partial(part_prog, layout, torch.from_numpy(partial_idx).to(dev), parts[nf:])
-        order, starts = fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots)
-        return zone_fold(full_prog, parts, torch.from_numpy(order).to(dev),
-                         torch.from_numpy(starts).to(dev), layout.n_slots)
-
-
-def fold_order(tile_gid: np.ndarray, full_idx: np.ndarray, partial_idx: np.ndarray,
-               n_slots: int) -> tuple[np.ndarray, np.ndarray]:
-    """The fold's order over the per-tile partial rows (the full tiles'
-    rows, then the partial tiles'): ``order`` lists the rows slot by slot,
-    each slot's in ascending tile order, and slot ``g``'s rows are
-    ``order[starts[g]:starts[g + 1]]`` (int32)."""
-    tiles = np.concatenate([full_idx, partial_idx]).astype(np.int64)
-    gid = tile_gid[tiles].astype(np.int64)
-    order = np.lexsort((tiles, gid)).astype(np.int32)
-    starts = np.zeros(n_slots + 1, dtype=np.int32)
-    np.cumsum(np.bincount(gid, minlength=n_slots), out=starts[1:])
-    return order, starts
+            zone_partial(part_prog, layout, tiles[nf:], parts[nf:], row_of, nf)
+        return zone_fold(full_prog, parts, tiles, row_of, layout.fold, layout.n_slots)
 
 
 def key_of(dicts, dict_lens):

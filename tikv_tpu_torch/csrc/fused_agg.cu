@@ -432,7 +432,8 @@ static GaPartialsKernel ga_partials_kernel(int slots) {
 // Scratch: GA_XW * 8 = 528 bytes a f64 sum cell; at 262,144 slots 138 MB a
 // leaf.  A word takes at most one add of < 2^32 a row, so it cannot
 // overflow below 2^31 rows a launch.
-// first's value is read at the winning row by the combine (ga_finish_cell).
+// first's value is read at the winning row by the combine (ga_finish_cell:
+// the tile walk over that one row).
 
 #define GA_XW 66
 #define GA_XFLAG_POSINF 1
@@ -695,119 +696,17 @@ static GwPartialsKernel gw_partials_kernel(int slots) {
   }
 }
 
-// The end of the combine for one (leaf l, group g) cell: `blk` is this
+// The end of a combine for one (leaf l, group g) cell: `blk` is this
 // launch's partials of the leaf folded together (of first's row leaf, for
-// first's value leaf).  Merges it into the carry (carry first, as
-// jax_eval's `carry + block`), turns the tracker's flat row index into a
-// global row, and for `first` reads the value at the winning row (the walk
-// once more, at that row) and writes the value and the row leaf together.
-// out may alias carry: each cell is read and then written by one thread, and
-// first's row leaf is skipped by the callers and written here.
-__device__ __forceinline__ void ga_finish_cell(const GaParams& p, int l, int g, long long blk,
-                                               const long long* carry_i, const double* carry_f,
-                                               long long* out_i, double* out_f) {
-  const int C = p.capacity;
-  const int kind = p.leaf_kind[l];
-  const bool is_f = p.leaf_f64[l];
-  const long long cell = (long long)p.leaf_slot[l] * C + g;
-  const long long c0 = carry_i == nullptr ? p.leaf_ident[l]
-                     : is_f ? fa_raw(carry_f[cell]) : carry_i[cell];
-  long long res;
-  if (kind == GA_FIRSTVAL) {
-    const long long rcell = (long long)p.leaf_slot[p.leaf_aux[l]] * C + g;
-    const long long row = ga_global_row(p, blk);
-    const long long crow = carry_i == nullptr ? FA_NO_ROW : carry_i[rcell];
-    res = c0;
-    if (row < crow) {
-      const int want = p.leaf_agg[l];
-      const long long b = ga_div(blk, p.block_rows);  // blk: the winning flat row
-      fa_walk(p, blk, b, blk - b * p.block_rows, [&](int k, bool, long long value) {
-        if (k == want) res = value;
-      });
-    }
-    out_i[rcell] = row < crow ? row : crow;
-  } else {
-    if (kind == GA_TRACK) blk = ga_global_row(p, blk);
-    res = ga_merge_ordered(kind, is_f, c0, blk);
-  }
-  if (is_f) {
-    out_f[cell] = fa_f(res);
-  } else {
-    out_i[cell] = res;
-  }
-}
-
-// The leaf whose partials a cell folds: first's value leaf folds its row
-// leaf (the winning row); -1 for first's row leaf, which its value leaf writes.
-__device__ __forceinline__ int ga_folded_leaf(const GaParams& p, int l) {
-  const int kind = p.leaf_kind[l];
-  if (kind == GA_FIRSTROW) return -1;
-  return kind == GA_FIRSTVAL ? p.leaf_aux[l] : l;
-}
-
-// Folds the shared-memory partials [n_parts, n_leaves, C] (one row per block
-// of fused_group_agg_partials) into the carry and writes the packed state
-// [n_int, C] / [n_f64, C]: one block per (leaf, group) cell; its threads
-// fold the partials q = t, t + FA_THREADS, ... in order, then a fixed-order
-// tree over the threads, so f64 cells come out bit-identical from run to run
-// (the merges are ga_merge_ordered's, so mesh_fold, which keeps this order,
-// gives the same words).
-__global__ void __launch_bounds__(FA_THREADS)
-fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
-                             const long long* __restrict__ parts, int n_parts,
-                             const long long* carry_i, const double* carry_f,
-                             long long* out_i, double* out_f) {
-  __shared__ long long s_acc[FA_THREADS];
-  const int C = p.capacity;
-  const int L = p.n_leaves;
-  const int l = blockIdx.x / C;
-  const int g = blockIdx.x - l * C;
-  const int fl = ga_folded_leaf(p, l);
-  if (fl < 0) return;
-  const int fkind = p.leaf_kind[fl];
-  const bool is_f = p.leaf_f64[fl];
-  const int tid = threadIdx.x;
-  long long acc = p.leaf_ident[fl];
-  for (int q = tid; q < n_parts; q += FA_THREADS) {
-    acc = ga_merge_ordered(fkind, is_f, acc, parts[((long long)q * L + fl) * C + g]);
-  }
-  s_acc[tid] = acc;
-  __syncthreads();
-  for (int st = FA_THREADS / 2; st > 0; st >>= 1) {
-    if (tid < st) s_acc[tid] = ga_merge_ordered(fkind, is_f, s_acc[tid], s_acc[tid + st]);
-    __syncthreads();
-  }
-  if (tid == 0) ga_finish_cell(p, l, g, s_acc[0], carry_i, carry_f, out_i, out_f);
-}
-
-// ---------------------------------------------------------------------------
-// group_wide_combine: a block a run of slots, the sum cells staged
-// ---------------------------------------------------------------------------
-//
-// An f64 sum cell is 66 words (528 bytes): a warp that reads one word of
-// each of 32 cells touches 32 lines, and 67 digits in an array indexed at
-// run time live in local memory.  So a block takes GW_SLOTS consecutive
-// slots, a thread each.  The cells of the slots' first
-// REAL-sum leaf, contiguous in the state, go to shared memory by cp.async
-// (16 bytes a copy, coalesced) at once; while they are in flight each
-// thread finishes its slot's other leaves, their words and carries loaded
-// GW_CHUNK leaves at a time; then each thread carries its own cell's words
-// from shared memory (16 bytes a load, conflict-free at a cell's 528-byte
-// stride) and keeps only what the rounding reads, in registers; the next sum
-// leaf's cells are staged while it merges the result into the carry.  No
-// walk with its stack in memory: first's value comes from the tile walk at
-// the winning row.  What bounds it is the state's bytes, read once (528
-// bytes a sum cell).
-
-#define GW_SLOTS 64  // slots a combine block takes: 33 KB of staged sum cells
-#define GW_CHUNK 8   // leaves whose words a combine thread loads at once
-
-// ga_finish_cell for a slot's leaf that is not an f64 sum, its carry word
-// c0 given: the same merge into the carry and the tracker's row, and
-// first's value read at the winning row by the tile walk
-// (D stack slots, in registers) instead of fa_walk.
+// first's value leaf), c0 the cell's carried word (the identity with no
+// carry).  Merges blk into the carry (carry first, as jax_eval's `carry +
+// block`), turns the tracker's flat row index into a global row, and for
+// `first` reads the value at the winning row (the tile walk once more, one
+// row, D stack slots in registers) and writes the value and the row leaf
+// together.  out may alias carry: each cell is read and then written by one
+// thread, and first's row leaf is skipped by the callers and written here.
 template <int D>
-__device__ __forceinline__ void gw_finish_cell(const GaParams& p, int l, int g, long long blk,
+__device__ __forceinline__ void ga_finish_cell(const GaParams& p, int l, int g, long long blk,
                                                long long c0, const long long* carry_i,
                                                long long* out_i, double* out_f) {
   const int C = p.capacity;
@@ -841,6 +740,97 @@ __device__ __forceinline__ void gw_finish_cell(const GaParams& p, int l, int g, 
     out_i[cell] = res;
   }
 }
+
+// The leaf whose partials a cell folds: first's value leaf folds its row
+// leaf (the winning row); -1 for first's row leaf, which its value leaf writes.
+__device__ __forceinline__ int ga_folded_leaf(const GaParams& p, int l) {
+  const int kind = p.leaf_kind[l];
+  if (kind == GA_FIRSTROW) return -1;
+  return kind == GA_FIRSTVAL ? p.leaf_aux[l] : l;
+}
+
+#define GA_COMBINE_ROUNDS 2  // rounds past the tree's first loaded at once: 768 parts in two
+
+// Folds the shared-memory partials [n_parts, n_leaves, C] (one row per block
+// of fused_group_agg_partials) into the carry and writes the packed state
+// [n_int, C] / [n_f64, C]: a block of one warp a (leaf, group) cell, so
+// that the cells' loads spread over the SMs; no barrier.  The warp runs the combine's tree of GA_TREE threads
+// (ga_tree_fold, ga_leaf.cuh: part q into tree thread q mod 256 in ascending
+// q, then the halving tree, in registers and shuffles), its leaf's merge
+// rule picked once (ga_with_rule), the loads of up to 768 parts in two
+// rounds (the partials grid is at most FA_GRID rows); lane 0 finishes the
+// cell (ga_finish_cell: the carry, the tracker's global row, first's value
+// by the tile walk of D stack slots).  The order is fixed, so f64 cells
+// come out bit-identical from run to run, and it is the one mesh_fold keeps
+// (the same function), so the two give the same words.  What bounds it is
+// the partials' bytes, read once; at the main paths' few KB the launch and
+// one or two rounds of loads.
+
+template <int D>
+__global__ void __launch_bounds__(32)
+fused_group_agg_combine_pack(const __grid_constant__ GaParams p,
+                             const long long* __restrict__ parts, int n_parts,
+                             const long long* carry_i, const double* carry_f,
+                             long long* out_i, double* out_f) {
+  const int C = p.capacity;
+  const int L = p.n_leaves;
+  const int lane = threadIdx.x;
+  // 32-bit cells (the launcher keeps them below 2^31): no 64-bit division
+  const int cell = (int)blockIdx.x;
+  const int l = cell / C;
+  const int g = cell - l * C;
+  const int fl = ga_folded_leaf(p, l);
+  if (fl < 0) return;
+  const long long id = p.leaf_ident[fl];
+  const long long* src = parts + (long long)fl * C + g;
+  long long blk = id;
+  ga_with_rule(p.leaf_kind[fl], p.leaf_f64[fl], [&](auto rule) {
+    blk = ga_tree_fold<decltype(rule), GA_COMBINE_ROUNDS>(src, (long long)L * C, 0, n_parts, lane,
+                                                          id);
+  });
+  if (lane != 0) return;
+  const bool is_f = p.leaf_f64[l];
+  const long long at = (long long)p.leaf_slot[l] * C + g;
+  const long long c0 = carry_i == nullptr ? p.leaf_ident[l]
+                     : is_f ? fa_raw(carry_f[at]) : carry_i[at];
+  ga_finish_cell<D>(p, l, g, blk, c0, carry_i, out_i, out_f);
+}
+
+typedef void (*GaCombineKernel)(GaParams, const long long*, int, const long long*, const double*,
+                                long long*, double*);
+
+// The instance whose walk (first's value) holds `slots` operands (2, 4 or
+// 8); nullptr else.
+static GaCombineKernel ga_combine_kernel(int slots) {
+  switch (slots) {
+    case 2: return fused_group_agg_combine_pack<2>;
+    case 4: return fused_group_agg_combine_pack<4>;
+    case 8: return fused_group_agg_combine_pack<8>;
+    default: return nullptr;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// group_wide_combine: a block a run of slots, the sum cells staged
+// ---------------------------------------------------------------------------
+//
+// An f64 sum cell is 66 words (528 bytes): a warp that reads one word of
+// each of 32 cells touches 32 lines, and 67 digits in an array indexed at
+// run time live in local memory.  So a block takes GW_SLOTS consecutive
+// slots, a thread each.  The cells of the slots' first
+// REAL-sum leaf, contiguous in the state, go to shared memory by cp.async
+// (16 bytes a copy, coalesced) at once; while they are in flight each
+// thread finishes its slot's other leaves, their words and carries loaded
+// GW_CHUNK leaves at a time; then each thread carries its own cell's words
+// from shared memory (16 bytes a load, conflict-free at a cell's 528-byte
+// stride) and keeps only what the rounding reads, in registers; the next sum
+// leaf's cells are staged while it merges the result into the carry.  No
+// walk with its stack in memory: first's value comes from the tile walk at
+// the winning row.  What bounds it is the state's bytes, read once (528
+// bytes a sum cell).
+
+#define GW_SLOTS 64  // slots a combine block takes: 33 KB of staged sum cells
+#define GW_CHUNK 8   // leaves whose words a combine thread loads at once
 
 // What the rounding reads of a cell's 67 digits: the highest nonzero digit
 // h (-1: none), the digits h, h - 1 and h - 2 (0 below digit 0), and the
@@ -927,7 +917,7 @@ __device__ __forceinline__ double gw_xround(const long long* s) {
 
 // The wide route's combine: block b takes slots [b * GW_SLOTS, ...), a
 // thread a slot; every leaf but the REAL sums (an integer word, a decoded
-// min/max key, the tracker, first) through gw_finish_cell, then each REAL-sum
+// min/max key, the tracker, first) through ga_finish_cell, then each REAL-sum
 // leaf of `xmask` in order: its cells staged in shared memory, each rounded
 // by its thread (gw_xround; NaN where a NaN or both infinities were added,
 // else an infinity where one was) and merged into the carry as
@@ -990,7 +980,7 @@ group_wide_combine(const __grid_constant__ GaParams p, const long long* __restri
         }
         const long long blk = f && (kind == GA_MIN || kind == GA_MAX)
                                   ? fa_raw(ga_funkey(wj, kind == GA_MAX)) : wj;
-        gw_finish_cell<D>(p, l, g, blk, cj, carry_i, out_i, out_f);
+        ga_finish_cell<D>(p, l, g, blk, cj, carry_i, out_i, out_f);
       }
     }
   }
@@ -1104,13 +1094,23 @@ int ga_partials_attributes(int slots, int* out) {
   return kernel_attributes((const void*)ga_partials_kernel(slots), out);
 }
 
+// a block of one warp a cell; the instance of `slots` stack
+// slots (first's walk at the winning row; cudaErrorInvalidValue for another
+// count, or for 2^31 cells or more)
 int ga_launch_combine(const GaParams* p, const long long* parts, int n_parts,
                       const long long* carry_i, const double* carry_f, long long* out_i,
-                      double* out_f, void* stream) {
-  fused_group_agg_combine_pack<<<p->n_leaves * p->capacity, FA_THREADS, 0,
-                                 (cudaStream_t)stream>>>(*p, parts, n_parts, carry_i, carry_f,
-                                                         out_i, out_f);
+                      double* out_f, int slots, void* stream) {
+  const GaCombineKernel k = ga_combine_kernel(slots);
+  const long long cells = (long long)p->n_leaves * p->capacity;
+  if (k == nullptr || cells >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (cells == 0) return 0;
+  k<<<(unsigned)cells, 32, 0, (cudaStream_t)stream>>>(*p, parts, n_parts, carry_i, carry_f, out_i,
+                                                      out_f);
   return (int)cudaGetLastError();
+}
+
+int ga_combine_attributes(int slots, int* out) {
+  return kernel_attributes((const void*)ga_combine_kernel(slots), out);
 }
 
 // words: [n_leaves, C] at their initial words; xacc: [n_xleaves, C, GA_XW]

@@ -39,28 +39,27 @@
 // mesh_fold: one block of MF_THREADS per output cell (window, leaf, slot)
 // of one super-block; the windows are the "groups" members that share the
 // merging device, each with its own carry and output.  Warp j takes the
-// shards j, j + MF_WARPS, ...: it folds a shard's rows of the cell exactly
-// as fused_group_agg_combine_pack (csrc/fused_agg.cu) folds them in a block
-// of MF_TREE threads -- lane l stands for the combine's threads l, l + 32,
-// ..., l + 224, each folding its parts t, t + MF_TREE, ... from the
-// identity; the combine's tree then runs with its strides 128, 64 and 32 in
-// the lanes' registers and 16 to 1 by shuffles, the same operands in the
-// same order -- and finishes the shard's cell as ga_finish_cell finishes it
-// from the identity carry (the tracker's flat row becomes a global row
-// through the shard's offset: each shard's rows are one block) into shared
-// memory.  Then one thread folds the shards' cells in the table's order from
-// the identity and combines the result into the carry as mesh_merge does
-// (perm the same).  Every identity merge of those steps is kept: an f64 sum
-// of -0.0 and the identity +0.0 is +0.0, so an identity merge is not a
-// no-op on every leaf; and the f64 sums add through ga_dadd, as the
-// combine's do, so that a NaN's bits follow the operands' order, not the
-// compiler's.  So the output is word for word, f64 leaves
-// included, that of S launches of fused_group_agg_combine_pack followed by
-// mesh_merge over their packed states, from one launch a super-block in
-// place of S + G.  The shards' trees run side by side (a cell's work is a
-// chain of dependent steps, a few per SM: its latency, not bytes, sets the
-// time), and the leaf's merge rule is picked once a block (mf_fold_cell's
-// template argument), not at every merge.
+// shards j, j + MF_WARPS, ...: it folds a shard's rows of the cell with
+// ga_tree_fold (ga_leaf.cuh), the tree fused_group_agg_combine_pack
+// (csrc/fused_agg.cu) runs on its warp of a cell -- lane l stands for the
+// tree's threads l, l + 32, ..., l + 224, each folding its parts t, t +
+// MF_TREE, ... from the identity, then strides 128, 64 and 32 in the lanes'
+// registers and 16 to 1 by shuffles -- and finishes the shard's cell as
+// ga_finish_cell finishes it from the identity carry (the tracker's flat
+// row becomes a global row through the shard's offset: each shard's rows
+// are one block) into shared memory.  Then one thread folds the shards'
+// cells in the table's order from the identity and combines the result
+// into the carry as mesh_merge does (perm the same).  Every identity merge
+// of those steps is kept: an f64 sum of -0.0 and the identity +0.0 is
+// +0.0, so an identity merge is not a no-op on every leaf; and the f64
+// sums add through ga_dadd, as the combine's do, so that a NaN's bits
+// follow the operands' order, not the compiler's.  So the output is word
+// for word, f64 leaves included, that of S launches of
+// fused_group_agg_combine_pack followed by mesh_merge over their packed
+// states, from one launch a super-block in place of S + G.  The shards'
+// trees run side by side (a cell's work is a chain of dependent steps, a
+// few per SM: its latency, not bytes, sets the time), and the leaf's merge
+// rule is picked once a block (a template argument), not at every merge.
 //
 // Determinism: the fold order is the table's (shard order), with no float
 // atomics, so f64 leaves are bit-identical from run to run.
@@ -159,10 +158,8 @@ __global__ void __launch_bounds__(MM_THREADS) mesh_merge(const __grid_constant__
 #define MF_THREADS 256
 #define MF_WARPS (MF_THREADS / 32)
 #define MF_MAX_WINDOWS 16
-// threads of fused_group_agg_combine_pack (FA_THREADS of csrc/fused_agg.cu):
-// the width of the tree this fold keeps
-#define MF_TREE 256
-#define MF_LANE_PARTS (MF_TREE / 32)  // 8: the tree below is written for it
+// the width of the combine's tree this fold keeps (ga_tree_fold, ga_leaf.cuh)
+#define MF_TREE GA_TREE
 
 struct MfWindow {
   const long long* carry_i;  // [n_int][width], or null (no carry)
@@ -189,74 +186,6 @@ struct MfParams {
   signed char leaf_slot[GA_MAX_LEAVES];
 };
 
-// ga_merge_ordered's rules, one type each (the same expressions)
-struct MfWadd {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return fa_wadd(a, b); }
-};
-struct MfFadd {
-  static __device__ __forceinline__ long long m(long long a, long long b) {
-    return fa_raw(ga_dadd(fa_f(a), fa_f(b)));
-  }
-};
-struct MfImin {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return a < b ? a : b; }
-};
-struct MfImax {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return a > b ? a : b; }
-};
-struct MfDmin {
-  static __device__ __forceinline__ long long m(long long a, long long b) {
-    return fa_raw(ga_dmin(fa_f(a), fa_f(b)));
-  }
-};
-struct MfDmax {
-  static __device__ __forceinline__ long long m(long long a, long long b) {
-    return fa_raw(ga_dmax(fa_f(a), fa_f(b)));
-  }
-};
-struct MfAnd {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return a & b; }
-};
-struct MfOr {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return a | b; }
-};
-struct MfXor {
-  static __device__ __forceinline__ long long m(long long a, long long b) { return a ^ b; }
-};
-
-// One shard's total of a cell, as the combine's block computes it; lane 0
-// holds it.  src: the cell's word in row 0 of the stacked rows.
-template <class Op>
-__device__ __forceinline__ long long mf_shard_total(const long long* src, long long stride,
-                                                    long long row0, long long n, int lane,
-                                                    long long id) {
-  long long v[MF_LANE_PARTS];
-#pragma unroll
-  for (int i = 0; i < MF_LANE_PARTS; ++i) {
-    const int t = lane + 32 * i;
-    v[i] = id;
-    if (t < n) {
-      v[i] = Op::m(id, __ldg(src + (row0 + t) * stride));
-      for (long long q = t + MF_TREE; q < n; q += MF_TREE) {
-        v[i] = Op::m(v[i], __ldg(src + (row0 + q) * stride));
-      }
-    }
-  }
-  // the combine's tree: thread t takes t + s for s = 128, 64, 32 in
-  // registers (written out: a loop over s kept v in local memory), then
-  // 16 .. 1 across the lanes
-  v[0] = Op::m(v[0], v[4]);
-  v[1] = Op::m(v[1], v[5]);
-  v[2] = Op::m(v[2], v[6]);
-  v[3] = Op::m(v[3], v[7]);
-  v[0] = Op::m(v[0], v[2]);
-  v[1] = Op::m(v[1], v[3]);
-  v[0] = Op::m(v[0], v[1]);
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v[0] = Op::m(v[0], __shfl_down_sync(0xffffffffu, v[0], s));
-  return v[0];
-}
-
 // The block's cell: the shards' totals side by side (warp j: shards j, j +
 // MF_WARPS, ...), finished into s_st; then thread 0 folds them in order and
 // into the carried word `carried` (read before the wait), and writes `dst`.
@@ -268,7 +197,7 @@ __device__ __forceinline__ void mf_fold_cell(const MfParams& p, const long long*
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)p.n_leaves * p.capacity;
   for (int k = threadIdx.x >> 5; k < p.n_shards; k += MF_WARPS) {
-    long long blk = mf_shard_total<Op>(src, stride, s_shard[3 * k], s_shard[3 * k + 1], lane, id);
+    long long blk = ga_tree_fold<Op>(src, stride, s_shard[3 * k], s_shard[3 * k + 1], lane, id);
     if (lane == 0) {
       if (track) blk = blk >= FA_NO_ROW ? FA_NO_ROW : p.base + s_shard[3 * k + 2] + blk;
       s_st[k] = Op::m(id, blk);
@@ -307,42 +236,13 @@ __global__ void __launch_bounds__(MF_THREADS) mesh_fold(const __grid_constant__ 
   const long long* src = p.rows + (long long)l * p.capacity + win.lo + w;
   __syncthreads();
   const bool has = carry != nullptr;
-  switch (kind) {
-    case GA_COUNT:
-      mf_fold_cell<MfWadd>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      break;
-    case GA_SUM:
-    case GA_SUMSQ:
-      if (is_f) {
-        mf_fold_cell<MfFadd>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      } else {
-        mf_fold_cell<MfWadd>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      }
-      break;
-    case GA_MIN:
-      if (is_f) {
-        mf_fold_cell<MfDmin>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      } else {
-        mf_fold_cell<MfImin>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      }
-      break;
-    case GA_MAX:
-      if (is_f) {
-        mf_fold_cell<MfDmax>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      } else {
-        mf_fold_cell<MfImax>(p, s_shard, s_st, src, false, id, has, carried, dst);
-      }
-      break;
-    case GA_AND: mf_fold_cell<MfAnd>(p, s_shard, s_st, src, false, id, has, carried, dst); break;
-    case GA_OR: mf_fold_cell<MfOr>(p, s_shard, s_st, src, false, id, has, carried, dst); break;
-    case GA_XOR: mf_fold_cell<MfXor>(p, s_shard, s_st, src, false, id, has, carried, dst); break;
-    case GA_TRACK:
-    case GA_FIRSTROW:
-      mf_fold_cell<MfImin>(p, s_shard, s_st, src, kind == GA_TRACK, id, has, carried, dst);
-      break;
-    default:
-      break;  // GA_FIRSTVAL: refused by the wrapper
-  }
+  const bool track = kind == GA_TRACK;
+  // the locals captured by value: captured by reference they were kept in
+  // local memory (16 bytes a thread); ga_with_rule folds nothing for
+  // GA_FIRSTVAL, which the wrapper refuses
+  ga_with_rule(kind, is_f, [&p, s_shard, s_st, src, track, id, has, carried, dst](auto rule) {
+    mf_fold_cell<decltype(rule)>(p, s_shard, s_st, src, track, id, has, carried, dst);
+  });
 }
 
 extern "C" {

@@ -49,22 +49,37 @@
 // their bits; the tracker leaf is tile_first for a full tile, the least ridx
 // of the active rows for a partial one, NO_ROW with no GROUP BY.
 //
-// zone_fold: one block per group slot.  Slot g's rows of partials are
-// order[starts[g] .. starts[g+1]) (copr/zone.py fold_order: the slot's tiles
-// in ascending tile order); the threads fold them strided, then a fixed
-// shared-memory tree, and the block writes the slot's column of the packed
-// state [n_int, C] / [n_f64, C].  The order is fixed and there are no float
-// atomics, so the f64 leaves are bit-identical from run to run.
+// zone_fold: the rows of partials into the group slots, in an order the
+// layout fixes once (copr/fused_zone.py fold_order): slot_tiles lists every
+// tile of the layout by (slot, tile), and each slot's range is cut into
+// segments of ZN_FOLD_TILES tiles, a block each.  The tile kernels record
+// each listed tile's row in a map of the query's own (row_of: its other
+// words are whatever the memory held, and a row is taken only where
+// tiles[row] is the tile), so the fold is one launch, with no sort, upload
+// or clearing a query.  A lane takes a tile: its row's leaves load 8 at a
+// time, and each leaf folds across the warp by a shuffle tree, its merge
+// the same on every lane; then warp 0 folds the warps' rows in order, a
+// lane a leaf; and the last segment of a slot to finish (a ticket on the
+// slot's counter, which it sets back to 0) folds the slot's segment rows
+// (by its warp 0 up to ZN_FOLD_BATCH of them, else over its warps) and
+// writes its column of the packed state [n_int, C] / [n_f64, C].  The order
+// is fixed by the layout and ZN_FOLD_TILES, and there are no float atomics,
+// so the f64 leaves are bit-identical from run to run.  The grid is the
+// segments, so it fills the card however the rows fall into slots.
 //
 // What bounds it on an H100: memory.  A full tile of warm Q1 reads 6 bytes a
 // row (three narrowed columns); a partial tile adds the valid byte, and the
 // 4-byte ridx where some row is active.  The walk's instructions, not the
 // bytes, set a partial tile's time (as in fused_agg_partials): the design
 // walks R rows per decoded instruction and loads each lane's rows in one
-// word.  What it does not do yet: cp.async/TMA.
+// word.  What it does not do yet: cp.async/TMA.  The fold reads each listed
+// row once (8 bytes a leaf) and two words a tile of the layout; at the main
+// paths' few MB its time is its launch and its chain of dependent loads
+// (the tile, its row, the check, the rows; then a segment's ticket).
 //
 // Layout contract with tikv_tpu_torch/copr/fused_zone.py (the wrapper checks
-// sizeof(ZnParams) at load; a CPU test checks the leaf kinds).
+// sizeof(ZnParams), sizeof(ZnFold) and ZN_FOLD_TILES at load; a CPU test
+// checks the leaf kinds).
 
 #include "fa_walk.cuh"
 
@@ -91,6 +106,7 @@ struct ZnParams {
   const int* ridx;                         // [n_rows]: global valid-row index
   const long long* tile_first;             // [n_tiles]: least ridx of the tile
   const long long* tiles;                  // the listed tiles [n_list]
+  int* row_of;                             // [n_tiles]: tile tiles[i]'s row, row_base + i
   long long n_list;
   long long tile_rows;
   long long consts[FA_MAX_CONSTS];
@@ -102,6 +118,7 @@ struct ZnParams {
   int n_leaves;
   int track;                               // leaf 0 tracks the first active row (GROUP BY)
   int all_bare;                            // every argument is a bare column or count(*)
+  int row_base;                            // row of partials of the list's first tile
   int agg_leaf0[FA_MAX_AGGS];              // first leaf of aggregate k
   int agg_nleaves[FA_MAX_AGGS];
   int bare[FA_MAX_AGGS];                   // column slot of a bare argument, or ZN_BARE_*
@@ -110,14 +127,45 @@ struct ZnParams {
   signed char leaf_slot[ZN_MAX_LEAVES];    // row in the packed int64 or f64 matrix
 };
 
-__device__ __forceinline__ long long zn_merge(int kind, long long a, long long b) {
-  switch (kind) {
-    case ZN_COUNT:
-    case ZN_SUM: return fa_wadd(a, b);
-    case ZN_SUMSQ: return fa_raw(fa_f(a) + fa_f(b));
-    case ZN_MAX: return a > b ? a : b;
-    default: return a < b ? a : b;  // ZN_MIN, ZN_TRACK
+// The zone rung's merge rules, one type each, and the rule of each leaf
+// kind (zn_rule): every merge below is derived from these two.
+struct ZnAdd {
+  static __device__ __forceinline__ long long m(long long a, long long b) { return fa_wadd(a, b); }
+};
+struct ZnFadd {
+  static __device__ __forceinline__ long long m(long long a, long long b) {
+    return fa_raw(fa_f(a) + fa_f(b));
   }
+};
+struct ZnMin {
+  static __device__ __forceinline__ long long m(long long a, long long b) { return a < b ? a : b; }
+};
+struct ZnMax {
+  static __device__ __forceinline__ long long m(long long a, long long b) { return a > b ? a : b; }
+};
+
+enum { ZN_RULE_ADD, ZN_RULE_FADD, ZN_RULE_MIN, ZN_RULE_MAX };
+
+__device__ __forceinline__ int zn_rule(int kind) {
+  return kind == ZN_COUNT || kind == ZN_SUM ? ZN_RULE_ADD
+       : kind == ZN_SUMSQ                   ? ZN_RULE_FADD
+       : kind == ZN_MAX                     ? ZN_RULE_MAX
+                                            : ZN_RULE_MIN;  // ZN_MIN, ZN_TRACK
+}
+
+// f(rule) with the rule of leaf kind `kind`, picked by one branch.
+template <class F>
+__device__ __forceinline__ long long zn_with_rule(int kind, F&& f) {
+  switch (zn_rule(kind)) {
+    case ZN_RULE_ADD: return f(ZnAdd{});
+    case ZN_RULE_FADD: return f(ZnFadd{});
+    case ZN_RULE_MAX: return f(ZnMax{});
+    default: return f(ZnMin{});
+  }
+}
+
+__device__ __forceinline__ long long zn_merge(int kind, long long a, long long b) {
+  return zn_with_rule(kind, [a, b](auto rule) { return decltype(rule)::m(a, b); });
 }
 
 // The warps that share a tile of `tile_rows` rows: the most, up to
@@ -203,7 +251,8 @@ __device__ __forceinline__ long long zn_least_ridx(const int* base, int n, unsig
 // each leaf across a warp's lanes by a shuffle tree, lane 0 keeping the
 // warp's value in its column; one barrier (every thread of the block comes
 // here); then the tile's tw warps in order, a leaf a lane of its first warp.
-// A full tile's tracker is its tile_first.
+// A full tile's tracker is its tile_first.  With a row map, the first warp's
+// lane 0 records the tile's row there (zone_fold reads it).
 template <bool PARTIAL>
 __device__ __forceinline__ void zn_fold_tile(const ZnParams& p, long long* table, int li, int tw,
                                              long long* out) {
@@ -220,6 +269,7 @@ __device__ __forceinline__ void zn_fold_tile(const ZnParams& p, long long* table
   }
   __syncthreads();
   if (warp % tw != 0 || li >= p.n_list) return;
+  if (lane == 0) p.row_of[__ldg(p.tiles + li)] = p.row_base + li;
   long long* row = out + (long long)li * L;
   for (int l = lane; l < L; l += 32) {
     const int kind = p.leaf_kind[l];
@@ -411,48 +461,220 @@ static ZnTilesKernel zn_tiles_kernel(int partial, int slots) {
   }
 }
 
-// The block fold of zone_fold: one leaf in a fixed order, lanes by a shuffle
-// tree, then warps in order by thread 0, which returns the result.
-__device__ __forceinline__ long long zn_block_fold(int kind, long long v, long long* s_warp) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = zn_merge(kind, v, __shfl_down_sync(0xFFFFFFFFu, v, off));
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  long long r = v;
-  if (threadIdx.x == 0) {
-    r = s_warp[0];
-    for (int w = 1; w < ZN_WARPS; ++w) r = zn_merge(kind, r, s_warp[w]);
-  }
-  __syncthreads();
-  return r;
+// ---------------------------------------------------------------------------
+// zone_fold: the tile partials into the group slots, over the layout's fold
+// order (see the top of the file)
+// ---------------------------------------------------------------------------
+
+#define ZN_FOLD_WARPS 16                       // warps of a fold block
+#define ZN_FOLD_THREADS (ZN_FOLD_WARPS * 32)
+#define ZN_FOLD_TILES (ZN_FOLD_WARPS * 32)     // tiles of a segment, a block's: one a lane
+#define ZN_FOLD_LEAVES 8                       // leaves whose loads a lane keeps in flight
+#define ZN_FOLD_BATCH 16                       // rows whose loads a lane keeps in flight
+#define ZN_FULL 0xFFFFFFFFu
+
+struct ZnFold {
+  const long long* parts;   // [n_list][n_leaves]: row i is listed tile tiles[i]'s
+  const long long* tiles;   // [n_list]: the listed tiles
+  const int* row_of;        // [n_tiles]: a listed tile's row of parts; any value for another
+  const int* slot_tiles;    // [n_tiles]: every tile of the layout by (slot, tile)
+  const int* segs;          // [5][n_segs]: tile lo, tile hi, slot, its slot's first
+                            // segment and segments
+  int* count;               // [capacity]: arrivals a slot, 0 before a launch and after it
+  long long* rows;          // scratch [n_segs][n_leaves]: each segment's folded row
+  long long* out_i;         // [n_int][capacity]
+  double* out_f;            // [n_f64][capacity]
+  long long n_list;
+  long long leaf_ident[ZN_MAX_LEAVES];
+  int n_tiles;
+  int n_segs;
+  int capacity;
+  int n_leaves;
+  signed char leaf_kind[ZN_MAX_LEAVES];
+  signed char leaf_f64[ZN_MAX_LEAVES];
+  signed char leaf_slot[ZN_MAX_LEAVES];
+};
+
+template <class Op>
+__device__ __forceinline__ long long zn_tree(long long v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v = Op::m(v, __shfl_down_sync(ZN_FULL, v, s));
+  return v;
 }
 
-__global__ void __launch_bounds__(ZN_THREADS)
-zone_fold(const __grid_constant__ ZnParams p, const long long* __restrict__ parts,
-          const int* __restrict__ order, const int* __restrict__ starts, int capacity,
-          long long* out_i, double* out_f) {
-  __shared__ long long s_warp[ZN_WARPS];
-  const int g = blockIdx.x;
-  const int L = p.n_leaves;
-  const int lo = __ldg(starts + g), hi = __ldg(starts + g + 1);
-  for (int l = 0; l < L; ++l) {
-    const int kind = p.leaf_kind[l];
-    long long v = p.leaf_ident[l];
-    for (int q = lo + threadIdx.x; q < hi; q += ZN_THREADS) {
-      v = zn_merge(kind, v, __ldg(parts + (long long)__ldg(order + q) * L + l));
+// One leaf's value across a warp's lanes folded by a shuffle tree (lane i
+// takes lane i + s for s = 16, ..., 1, as zn_fold_tile's tree); lane 0
+// returns the total.  The kind is the same on every lane, and its rule is
+// picked once, not at each step (a branch between shuffles costs the warp
+// a reconvergence each time).
+__device__ __forceinline__ long long zn_warp_fold(int kind, long long v) {
+  return zn_with_rule(kind, [v](auto rule) { return zn_tree<decltype(rule)>(v); });
+}
+
+// zn_merge of a lane's own leaf kind, by selects: where a warp's lanes hold
+// different leaves, a switch would run every kind's path in turn.
+__device__ __forceinline__ long long zn_lane_merge(int kind, long long a, long long b) {
+  const int rule = zn_rule(kind);
+  const long long add = ZnAdd::m(a, b), fadd = ZnFadd::m(a, b);
+  const long long lo = ZnMin::m(a, b), hi = ZnMax::m(a, b);
+  return rule == ZN_RULE_ADD ? add : rule == ZN_RULE_FADD ? fadd : rule == ZN_RULE_MAX ? hi : lo;
+}
+
+// Each leaf of the rows `src` of the lanes that hold one (the others hold
+// the identity) folded across the warp into dst[l] by lane 0: the loads of
+// ZN_FOLD_LEAVES leaves in flight at once, two leaves a 16-byte load where
+// a row's words are 16-byte aligned (an even count of leaves).
+__device__ __forceinline__ void zn_fold_leaves(const long long* src, int L, const int* kind,
+                                               const long long* ident, long long* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int l0 = 0; l0 < L; l0 += ZN_FOLD_LEAVES) {
+    long long x[ZN_FOLD_LEAVES];
+    if ((L & 1) == 0) {
+#pragma unroll
+      for (int j = 0; j < ZN_FOLD_LEAVES; j += 2) {
+        const int l = l0 + j < L ? l0 + j : l0;
+        const longlong2 w = src != nullptr ? __ldg((const longlong2*)(src + l))
+                                           : make_longlong2(ident[l], ident[l + 1]);
+        x[j] = w.x;
+        x[j + 1] = w.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ZN_FOLD_LEAVES; ++j) {
+        const int l = l0 + j < L ? l0 + j : l0;
+        x[j] = src != nullptr ? __ldg(src + l) : ident[l];
+      }
     }
-    v = zn_block_fold(kind, v, s_warp);
-    if (threadIdx.x == 0) {
-      const long long cell = (long long)p.leaf_slot[l] * capacity + g;
-      if (p.leaf_f64[l]) {
-        out_f[cell] = fa_f(v);
-      } else {
-        out_i[cell] = v;
+#pragma unroll
+    for (int j = 0; j < ZN_FOLD_LEAVES; ++j) {
+      const int l = l0 + j;
+      if (l >= L) break;
+      const long long v = zn_warp_fold(kind[l], x[j]);
+      if (lane == 0) dst[l] = v;
+    }
+  }
+}
+
+// Rows row0, row0 + step, ... (n of them; ld words apart) of `rows` folded
+// in order into lane l's leaves l and l + 32 (a0, a1), ZN_FOLD_BATCH rows'
+// loads in flight at once, each row one coalesced load of its n_leaves
+// words.  Read through L2 (ld.global.cg) where another SM wrote the rows in
+// the launch.
+template <bool L2>
+__device__ __forceinline__ void zn_fold_run(const long long* rows, int ld, int L, int row0,
+                                            int step, int n, int k0, int k1, long long& a0,
+                                            long long& a1) {
+  const int lane = threadIdx.x & 31;
+  for (int b = 0; b < n; b += ZN_FOLD_BATCH) {
+    long long x0[ZN_FOLD_BATCH], x1[ZN_FOLD_BATCH];
+#pragma unroll
+    for (int i = 0; i < ZN_FOLD_BATCH; ++i) {
+      const long long* src = rows + (long long)(row0 + (b + i < n ? b + i : b) * step) * ld;
+      x0[i] = lane < L ? (L2 ? __ldcg(src + lane) : src[lane]) : 0;
+      x1[i] = lane + 32 < L ? (L2 ? __ldcg(src + lane + 32) : src[lane + 32]) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < ZN_FOLD_BATCH; ++i) {
+      if (b + i < n) {
+        a0 = zn_lane_merge(k0, a0, x0[i]);
+        a1 = zn_lane_merge(k1, a1, x1[i]);
       }
     }
   }
+}
+
+// Slot g's column of the packed state from lane l's leaves l and l + 32.
+__device__ __forceinline__ void zn_write_slot(const ZnFold& f, int g, long long a0,
+                                              long long a1) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int l = lane + 32 * h;
+    if (l >= f.n_leaves) break;
+    const long long v = h == 0 ? a0 : a1;
+    const long long cell = (long long)f.leaf_slot[l] * f.capacity + g;
+    if (f.leaf_f64[l]) {
+      f.out_f[cell] = fa_f(v);
+    } else {
+      f.out_i[cell] = v;
+    }
+  }
+}
+
+// A block a segment: up to ZN_FOLD_TILES consecutive entries of slot_tiles,
+// one slot's, in ascending tile order.  Warp w takes the segment's tiles 32w
+// .. 32w + 31, a lane each: the tile's row from row_of, taken only where
+// tiles[row] is the tile (a word no tile kernel of this query wrote is never
+// taken).  Each leaf is folded across the lanes by a shuffle tree, its kind
+// the same on every lane (a lane a row: no lane runs another leaf's merge).
+// Warp 0 then folds the warps' rows in order, lane l holding leaves l and l
+// + 32.  A slot of one segment is then done.  In a slot of more, each
+// segment's row goes to scratch, and the block of the last to arrive (a
+// ticket on the slot's counter, which it sets back to 0) folds them: up to
+// ZN_FOLD_BATCH segments in order by its warp 0 (one round of loads), more
+// with segment k on warp k mod ZN_FOLD_WARPS in ascending k, then the warps
+// in order.  That block writes the slot's column of the packed state.
+__global__ void __launch_bounds__(ZN_FOLD_THREADS) zone_fold(const __grid_constant__ ZnFold f) {
+  __shared__ long long s_rows[ZN_FOLD_WARPS][ZN_MAX_LEAVES];
+  __shared__ long long s_ident[ZN_MAX_LEAVES];
+  __shared__ int s_kind[ZN_MAX_LEAVES];
+  __shared__ int s_share;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = blockIdx.x, S = f.n_segs;
+  const int L = f.n_leaves;
+  if (threadIdx.x < ZN_MAX_LEAVES) {
+    s_ident[threadIdx.x] = f.leaf_ident[threadIdx.x];
+    s_kind[threadIdx.x] = f.leaf_kind[threadIdx.x];
+  }
+  const int t_lo = __ldg(f.segs + seg), t_hi = __ldg(f.segs + S + seg);
+  const int g = __ldg(f.segs + 2 * S + seg);
+  const int seg0 = __ldg(f.segs + 3 * S + seg), n_seg = __ldg(f.segs + 4 * S + seg);
+  const int q = t_lo + warp * 32 + lane;
+  const int tile = q < t_hi ? __ldg(f.slot_tiles + q) : -1;
+  const int r = tile >= 0 ? __ldg(f.row_of + tile) : -1;
+  const bool in = (unsigned)r < (unsigned)f.n_list && __ldg(f.tiles + r) == tile;
+  __syncthreads();
+  zn_fold_leaves(in ? f.parts + (long long)r * L : nullptr, L, s_kind, s_ident, s_rows[warp]);
+  __syncthreads();
+  const int k0 = s_kind[lane], k1 = s_kind[lane + 32];
+  long long a0 = s_ident[lane], a1 = s_ident[lane + 32];
+  if (warp == 0) {
+    zn_fold_run<false>(&s_rows[0][0], ZN_MAX_LEAVES, L, 0, 1, ZN_FOLD_WARPS, k0, k1, a0, a1);
+    bool last = true;
+    if (n_seg > 1) {
+      long long* dst = f.rows + (long long)seg * L;
+      if (lane < L) dst[lane] = a0;
+      if (lane + 32 < L) dst[lane + 32] = a1;
+      __threadfence();
+      __syncwarp();
+      int arrived = 0;
+      if (lane == 0) arrived = atomicAdd(f.count + g, 1);
+      last = __shfl_sync(ZN_FULL, arrived, 0) == n_seg - 1;
+      if (last && lane == 0) f.count[g] = 0;  // every segment of the slot has arrived
+      __threadfence();
+      if (last && n_seg <= ZN_FOLD_BATCH) {
+        a0 = s_ident[lane];
+        a1 = s_ident[lane + 32];
+        zn_fold_run<true>(f.rows, L, L, seg0, 1, n_seg, k0, k1, a0, a1);
+      }
+    }
+    if (last && n_seg <= ZN_FOLD_BATCH) zn_write_slot(f, g, a0, a1);
+    if (lane == 0) s_share = last && n_seg > ZN_FOLD_BATCH;
+  }
+  __syncthreads();
+  if (!s_share) return;
+  a0 = s_ident[lane];
+  a1 = s_ident[lane + 32];
+  const int n = (n_seg - warp + ZN_FOLD_WARPS - 1) / ZN_FOLD_WARPS;
+  zn_fold_run<true>(f.rows, L, L, seg0 + warp, ZN_FOLD_WARPS, n, k0, k1, a0, a1);
+  s_rows[warp][lane] = a0;
+  s_rows[warp][lane + 32] = a1;
+  __syncthreads();
+  if (warp != 0) return;
+  a0 = s_ident[lane];
+  a1 = s_ident[lane + 32];
+  zn_fold_run<false>(&s_rows[0][0], ZN_MAX_LEAVES, L, 0, 1, ZN_FOLD_WARPS, k0, k1, a0, a1);
+  zn_write_slot(f, g, a0, a1);
 }
 
 extern "C" {
@@ -498,12 +720,31 @@ int zn_tiles_attributes(int partial, int slots, int* out) {
   return 0;
 }
 
-int zn_launch_fold(const ZnParams* p, const long long* parts, const int* order,
-                   const int* starts, int capacity, long long* out_i, double* out_f,
-                   void* stream) {
-  zone_fold<<<capacity, ZN_THREADS, 0, (cudaStream_t)stream>>>(*p, parts, order, starts,
-                                                               capacity, out_i, out_f);
+int zn_fold_size(void) { return (int)sizeof(ZnFold); }
+int zn_fold_tiles(void) { return ZN_FOLD_TILES; }
+
+// zone_fold of the listed tiles f->tiles [f->n_list] (each tile at most
+// once; parts row i is tiles[i]'s, recorded in row_of by the tile kernels),
+// a block a segment.  Returns cudaGetLastError() after the launch.
+int zn_launch_fold(const ZnFold* f, void* stream) {
+  if (f->n_leaves < 1 || f->n_leaves > ZN_MAX_LEAVES || f->n_list < 0
+      || f->n_list > f->n_tiles || f->n_segs < 1 || f->capacity < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  zone_fold<<<f->n_segs, ZN_FOLD_THREADS, 0, (cudaStream_t)stream>>>(*f);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncGetAttributes of zone_fold: registers a thread, local (spilled)
+// and static shared bytes, into out[0..3).
+int zn_fold_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, (const void*)zone_fold);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

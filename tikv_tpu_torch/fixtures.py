@@ -1716,9 +1716,9 @@ def zone_kernel_outputs(ev, cache, tile_rows: int | None = None, max_tiles: int 
     its plain version on the same tensors: ``({name: (kernel output, plain
     output)}, layout, full tile count, partial tile count)``.  With
     ``max_tiles``, each list is cut to its first ``max_tiles`` tiles.  The
-    fold's plain version folds the kernels' own partials."""
+    tile kernels record their rows in one map, as the rung's launch does;
+    the fold's plain version folds the kernels' own partials through it."""
     from .copr import fused_zone as fz
-    from .copr.zone import fold_order
 
     rung = ev._zone_rung()
     tiles = rung.plan_tiles(cache, tile_rows)
@@ -1730,21 +1730,114 @@ def zone_kernel_outputs(ev, cache, tile_rows: int | None = None, max_tiles: int 
     full, part = rung.programs(layout)
     dev = ev.device
     n_leaves = len(full.prog.leaves)
+    row_of = torch.empty(layout.n_tiles, dtype=torch.int32, device=dev)
     out = {}
     lists = []
     for name, tp, idx, plain in (("zone_full", full, full_idx, fz.zone_full_plain),
                                  ("zone_partial", part, partial_idx, fz.zone_partial_plain)):
         t = torch.from_numpy(idx).to(dev)
         got = torch.empty((len(idx), n_leaves), dtype=torch.int64, device=dev)
-        (fz.zone_full if name == "zone_full" else fz.zone_partial)(tp, layout, t, got)
+        base = 0 if name == "zone_full" else len(full_idx)
+        (fz.zone_full if name == "zone_full" else fz.zone_partial)(tp, layout, t, got, row_of, base)
         out[name] = ((got,), (plain(tp, layout, t),))
         lists.append(got)
-    order, starts = (torch.from_numpy(a).to(dev)
-                     for a in fold_order(layout.tile_gid, full_idx, partial_idx, layout.n_slots))
+    listed = torch.from_numpy(np.concatenate([full_idx, partial_idx]).astype(np.int64)).to(dev)
     parts = torch.cat(lists)
-    out["zone_fold"] = (fz.zone_fold(full, parts, order, starts, layout.n_slots),
-                        fz.zone_fold_plain(full, parts, order, starts, layout.n_slots))
+    C = layout.n_slots
+    out["zone_fold"] = (fz.zone_fold(full, parts, listed, row_of, layout.fold, C),
+                        fz.zone_fold_plain(full, parts, listed, row_of, layout.fold, C))
     return out, layout, len(full_idx), len(partial_idx)
+
+
+#: zone_fold's edge cases (:func:`zone_fold_case`): (group slots, tiles of
+#: the layout, share of them listed, aggregates); "skewed" leaves slots with
+#: no tile, "unlisted_slot" a slot whose tiles are all unlisted, "wide" holds
+#: 49 leaves (past a warp's 32 lanes), "deep" one slot of 40,000 tiles (79
+#: segments, past a warp's 32 lanes in the slot's last fold), "all_empty" no
+#: listed tile at all
+ZONE_FOLD_CASES = {"one_slot": (1, 5000, 0.5, "mixed"),
+                   "skewed": (300, 20_000, 0.9, "mixed"),
+                   "unlisted_slot": (12, 3000, 0.8, "mixed"),
+                   "wide": (12, 3000, 0.7, "wide"),
+                   "deep": (1, 40_000, 0.15, "mixed"),
+                   "all_empty": (12, 2000, 0.0, "mixed")}
+
+
+def zone_fold_case(name: str, device):
+    """Seeded inputs of ``zone_fold`` for :data:`ZONE_FOLD_CASES`: ``(tp,
+    parts, tiles, row_of, order, capacity)``, the listed tiles as the rung
+    lists them (a "full" list, then a "partial" one, each ascending), the
+    row map holding each listed tile's row and, elsewhere, rows of other
+    tiles and words out of range (what a query finds in memory it did not
+    write), and random words in every leaf's range (int64 sums that wrap,
+    the tracker with ``NO_ROW`` among its rows, positive f64 sums of
+    squares)."""
+    from .copr import fused_zone as fz
+    from .copr.fused_group_agg import LEAF_COUNT, LEAF_MAX, LEAF_MIN, LEAF_SUM
+
+    slots, n_tiles, share, aggs = ZONE_FOLD_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    schema = [(EvalType.INT, 0)] * 4
+    if aggs == "wide":
+        ops = [("var_pop", col(k % 4)) for k in range(16)]
+    else:
+        ops = [("count", None), ("sum", col(0)), ("min", col(1)), ("max", col(2)),
+               ("var_pop", col(3))]
+    agg_rpns = [(op, None if e is None else compile_expr(e, schema)) for op, e in ops]
+    tp = fz.compile_tile_program([], agg_rpns, schema, True, partial=False)
+    if name == "skewed":
+        gid = np.minimum(rng.geometric(0.02, n_tiles) - 1, slots - 1)
+    else:
+        gid = rng.integers(0, slots, n_tiles)
+    listed = rng.random(n_tiles) < share
+    if name == "unlisted_slot":
+        listed &= gid != 3
+    idx = np.flatnonzero(listed)
+    full = rng.random(len(idx)) < 0.7
+    tiles = np.concatenate([idx[full], idx[~full]])
+    n = len(tiles)
+    row_of = rng.integers(-5, n + 5, n_tiles).astype(np.int32)
+    row_of[tiles] = np.arange(n, dtype=np.int32)
+    parts = np.empty((n, len(tp.prog.leaves)), dtype=np.int64)
+    for l, leaf in enumerate(tp.prog.leaves):
+        if leaf.is_f64:
+            parts[:, l] = (rng.random(n) * 1e12).view(np.int64)
+        elif leaf.kind == LEAF_COUNT:
+            parts[:, l] = rng.integers(0, 4097, n)
+        elif leaf.kind in (LEAF_SUM, LEAF_MIN, LEAF_MAX):
+            parts[:, l] = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        else:  # the tracker
+            parts[:, l] = np.where(rng.random(n) < 0.2, NO_ROW, rng.integers(0, 1 << 40, n))
+    order = fz.fold_order(gid, slots, device)
+    return (tp, torch.from_numpy(parts).to(device), torch.from_numpy(tiles).to(device),
+            torch.from_numpy(row_of).to(device), order, slots)
+
+
+def zone_fold_check(tp, parts, tiles, row_of, order, capacity: int,
+                    rel_tol: float = 1e-12) -> dict:
+    """``zone_fold`` on the card against its plain version on the same
+    tensors (integer words equal, f64 leaves to ``rel_tol``) and against its
+    own second launch (bit for bit); raises on a difference.  Returns the
+    largest f64 error and the shape."""
+    from .copr import fused_zone as fz
+
+    got = fz.zone_fold(tp, parts, tiles, row_of, order, capacity)
+    again = fz.zone_fold(tp, parts, tiles, row_of, order, capacity)
+    if not (torch.equal(got[0], again[0])
+            and torch.equal(got[1].view(torch.int64), again[1].view(torch.int64))):
+        raise AssertionError("two zone_fold launches are not bit-identical")
+    want = fz.zone_fold_plain(tp, parts, tiles, row_of, order, capacity)
+    if not torch.equal(got[0], want[0]):
+        at = (got[0] != want[0]).nonzero()[:8].tolist()
+        raise AssertionError(f"zone_fold differs from its plain version at {at}")
+    err = 0.0
+    if got[1].numel():
+        diff = (got[1] - want[1]).abs()
+        if not bool((diff <= rel_tol * want[1].abs()).all()):
+            raise AssertionError("zone_fold's f64 leaves differ from its plain version")
+        err = float(diff.max())
+    return {"max_abs_err": err, "rows": len(tiles), "tiles": order.n_tiles, "slots": capacity,
+            "leaves": len(tp.prog.leaves), "segments": order.segs.shape[1]}
 
 
 # ---------------------------------------------------------------------------
