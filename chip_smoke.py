@@ -412,6 +412,9 @@ def phase_kernels(fa, fx, device) -> dict:
         emit({"phase": "kernels", "case": f"agg_edge_{name}", "int_leaves_equal": True,
               "f64_rel_tol": REL_TOL, "bit_identical_reruns": True, **chk})
     no_local_memory("fused_agg_partials", [fa.partials_attributes(d) for d in (2, 4, 8)])
+    emit({"phase": "kernels", "case": "combine_attributes",
+          "fused_agg_combine_pack": no_local_memory("fused_agg_combine_pack",
+                                                    [fa.combine_attributes()])[0]})
     return errs
 
 
@@ -442,6 +445,25 @@ def time_agg_partials(fa, prog, img, iters: int) -> dict:
     attrs = no_local_memory("fused_agg_partials",
                             [fa.partials_attributes(fa.partials_slots(prog))])[0]
     return {"rows": rows, "grid": scratch.shape[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err, "attributes": attrs}
+
+
+def time_agg_combine(fa, prog, scratch: torch.Tensor, iters: int) -> dict:
+    """``fused_agg_combine_pack`` over one partials scratch (no carry): held
+    to its plain version (counts and integers exactly, f64 to REL_TOL), then
+    CUDA-event ms per launch, the plain version's ms and the bound: the
+    partials read once and the packed state written once; one operation per
+    partial word merged.  Its registers and local bytes (0) beside them."""
+    out = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=scratch.device),
+           torch.empty((prog.n_f64, 1), dtype=torch.float64, device=scratch.device))
+    ms = cuda_ms(lambda: fa.launch_combine(prog, scratch, None, out), iters)
+    err = compare_packed(prog, out, fa.combine_plain(prog, scratch), "timed combine")
+    plain_ms = cuda_ms(lambda: fa.combine_plain(prog, scratch), 20)
+    n = scratch.shape[0]
+    b_ms, by = bound(n * len(prog.aggs) * 16 + (prog.n_int + prog.n_f64) * 8,
+                     n * len(prog.aggs) * 2)
+    attrs = no_local_memory("fused_agg_combine_pack", [fa.combine_attributes()])[0]
+    return {"parts": n, "aggs": len(prog.aggs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": err, "attributes": attrs}
 
 
@@ -3200,17 +3222,10 @@ def main() -> int:
     p_bound, p_by = t_q6["bound_ms"], t_q6["bound_by"]
     scratch = fa.new_scratch(prog, img)
     fa.launch_partials(prog, img, scratch)
-    grid = scratch.shape[0]
-    out = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=device),
-           torch.empty((prog.n_f64, 1), dtype=torch.float64, device=device))
-    c_ms = cuda_ms(lambda: fa.launch_combine(prog, scratch, None, out), 200)
-    c_err = compare_packed(prog, out, fa.combine_plain(prog, scratch), "q6 combine")
-    cp_ms = cuda_ms(lambda: fa.combine_plain(prog, scratch), 20)
+    t_c6 = time_agg_combine(fa, prog, scratch, 200)
+    c_ms, cp_ms, c_err = t_c6["ms"], t_c6["plain_ms"], t_c6["max_abs_err"]
+    c_bound, c_by = t_c6["bound_ms"], t_c6["bound_by"]
     rows = n_warm
-    # the combine's bytes: the partials and the packed state; operations:
-    # one per partial merged
-    c_bound, c_by = bound(grid * len(prog.aggs) * 16 + (prog.n_int + prog.n_f64) * 8,
-                          grid * len(prog.aggs) * 2)
     # the grouped pair on Q6's image at one slot: what the capacity-1 pair
     # is measured against on its own workload; both must give one state
     plan6 = ev_w.plan
@@ -3231,7 +3246,14 @@ def main() -> int:
     del img, scratch, parts_g6
     # a cold Q6 block as the cold path launches it (65,536 rows, 16 a request)
     cols6, nv6 = next(ev._decode_blocks(FixtureScanSource(kvs[: 1 << 16])))
-    t_cold_q6 = time_agg_partials(fa, ev.program, ev._block_image(cols6, nv6), 50)
+    img6 = ev._block_image(cols6, nv6)
+    t_cold_q6 = time_agg_partials(fa, ev.program, img6, 50)
+    # its combine over the block's partials (64 rows; 16 of a cold
+    # request's 17 combines see this shape)
+    sc6 = fa.new_scratch(ev.program, img6)
+    fa.launch_partials(ev.program, img6, sc6)
+    t_cold_c6 = time_agg_combine(fa, ev.program, sc6, 200)
+    del img6, sc6
 
     # grouped: warm Q1 (coded ids), a cold Q1 block (host ids), and warm
     # GROUP BY l_quantity (host ids)
@@ -3264,7 +3286,8 @@ def main() -> int:
           "fused_agg_partials_plain_ms": pp_ms, "fused_agg_partials_warm_q6": t_q6,
           "fused_agg_partials_cold_q6_block": t_cold_q6, "pairs_on_warm_q6": d8,
           "fused_agg_combine_pack_ms": c_ms, "fused_agg_combine_pack_bound_ms": c_bound,
-          "fused_agg_combine_pack_plain_ms": cp_ms,
+          "fused_agg_combine_pack_plain_ms": cp_ms, "fused_agg_combine_pack_warm_q6": t_c6,
+          "fused_agg_combine_pack_cold_q6_block": t_cold_c6,
           "group_warm_q1": t_warm_q1, "group_cold_q1_block": t_cold_q1,
           "group_warm_l_quantity": t_qty, "group_on_warm_q6": t_q6_grouped,
           "hbm_bytes_per_s": HBM_BYTES_PER_S})
@@ -3604,9 +3627,10 @@ def main() -> int:
          "replaces": "tikv_tpu/copr/jax_eval.py:737",
          "replaces_also": ["tikv_tpu/copr/jax_eval.py:1436"],
          "launches": q6_launches["fused_agg_combine_pack"],
-         "max_abs_err": max(errs["fused_agg_combine_pack"], c_err),
+         "max_abs_err": max(errs["fused_agg_combine_pack"], c_err, t_cold_c6["max_abs_err"]),
          "ms": c_ms, "plain_ms": cp_ms, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": None},
+         "library_ms": None, "attributes": t_c6["attributes"],
+         "cold_block": {k: t_cold_c6[k] for k in ("parts", "ms", "plain_ms", "bound_ms")}},
         {"name": "fused_group_agg_partials", "route": "cuda", "source": src,
          "replaces": "tikv_tpu/copr/jax_eval.py:921",
          "replaces_also": ["tikv_tpu/copr/jax_eval.py:855", "tikv_tpu/copr/jax_eval.py:883",

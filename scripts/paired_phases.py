@@ -123,7 +123,20 @@ zone-served warm Q6, Q1 and Q1 + TopN (seven runs after a first that pins,
 then each checkout's ``chip_smoke.zone_request_split``, its steps reported
 as cases ``zone_<q>_split_<step>``), cold Q1 over 1M KV rows and warm Q1
 with ``route_hint="unary"`` (host clock; once more under
-``torch.profiler``).  Each process
+``torch.profiler``), or ``slice22_kernels``: ``join_rank_probe`` alone at
+the join phase's captured inputs (500,000 probe rows against 125,000 build
+rows), the seeded case (1,000,000 probes over 300,000 keys drawn over the
+whole int64 range, 5% NULL) and the 32M-row synthetic lane, each held to
+``torch.searchsorted`` left and right and timed beside it (five
+CUDA-event times), then ``fused_agg_combine_pack`` alone at a cold Q6
+block's 64 partial rows and warm Q6's 528, for Q6's plan and for count,
+sum, min and max over Q6's rows (held to its plain version; the digest of
+its packed words reported as ``words``, five CUDA-event times of 200
+launches), or ``slice22_requests``: the ``rank_dict`` join serve (500,000
+probe rows; its ``stats["seconds"]`` steps as cases
+``join_rank_dict_step_<step>``), cold Q6 over 1M KV rows and warm Q6 with
+``route_hint="unary"`` over the 100M-row image (host clock, a first run
+left out; the Q6 requests once more under ``torch.profiler``).  Each process
 builds its checkout's kernels first (outside the phase's clock).  Prints
 one JSON line per run (the checkout, the phase's request times by case,
 the phase's seconds) and a last line with each case's median, quartiles
@@ -1075,6 +1088,117 @@ elif sys.argv[1] in ("slice21_kernels", "slice21_requests"):
                            "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
                            "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
     print(json.dumps({"cases": cases}))
+elif sys.argv[1] in ("slice22_kernels", "slice22_requests"):
+    import hashlib
+    import numpy as np
+    from tikv_tpu_torch.copr import fused_agg as fa
+    from tikv_tpu_torch.copr import fused_join as fj
+    from tikv_tpu_torch.copr import torch_join as tj
+    from tikv_tpu_torch.copr.dag_wire import dag_to_wire
+    from tikv_tpu_torch.copr.executors import FixtureScanSource
+    from tikv_tpu_torch.copr.torch_eval import TorchDagEvaluator
+
+    dev = torch.device("cuda", 0)
+    a, pc, bc = fx.join_caches(cs.JOIN_ROWS, cs.SEED, "dict", encode=True)
+    cases = {}
+    if sys.argv[1] == "slice22_kernels":
+        # join_rank_probe alone at the join phase's captured inputs (500,000
+        # probe rows against 125,000 build rows), the seeded case and the
+        # 32M-row synthetic lane; held to torch.searchsorted left and right,
+        # then five CUDA-event times, searchsorted's beside them
+        rank_in = tj.join_pairs(fx.join_dag(key="dict"), pc, bc, prefer="rank",
+                                device=dev).inputs
+        inputs = {"rank_phase_shape": lambda: (rank_in[0], rank_in[1])}
+        for name, args in (("rank_seeded", (100_000, 3, 1_000_000, cs.SEED + 1, True, 0.05)),
+                           ("rank_synthetic", (*cs.JOIN_SYNTH, cs.SEED + 2))):
+            inputs[name] = lambda args=args: (lambda c: (c["sorted"], c["rank_probe"]))(
+                fx.join_probe_case(*args))
+        for name, make in inputs.items():
+            keys, probe = (torch.from_numpy(np.asarray(x)).to(dev) for x in make())
+            n, m = probe.numel(), keys.numel()
+            starts, counts = torch.empty_like(probe), torch.empty_like(probe)
+            fj.launch_rank(keys, probe, starts, counts)
+            lo, cnt = fj.rank_probe_plain(keys, probe)
+            if not (torch.equal(starts, lo) and torch.equal(counts, cnt)):
+                raise AssertionError(f"{name}: join_rank_probe differs from searchsorted")
+            iters = 20 if n <= 1_000_000 else 5
+            cases[name] = {"request_s": [cs.cuda_ms(lambda: fj.launch_rank(
+                               keys, probe, starts, counts), iters) / 1e3 for _ in range(5)],
+                           "probe_rows": n, "build_keys": m,
+                           "bound_ms": cs.bound(24 * n + 8 * m, 0)[0]}
+            cases[name + "_searchsorted"] = {"request_s": [cs.cuda_ms(lambda: (
+                torch.searchsorted(keys, probe, side="left"),
+                torch.searchsorted(keys, probe, side="right")), iters) / 1e3 for _ in range(2)]}
+            del keys, probe, starts, counts, lo, cnt
+            torch.cuda.empty_cache()
+
+        # fused_agg_combine_pack alone at a cold Q6 block's partials (65,536
+        # rows: 64 partial rows), at warm Q6's 528 (the stacked grid of a
+        # 1,048,576-row image, as of the 100M one) and at the plan of count,
+        # sum, min and max over Q6's rows (both shapes); held to its plain
+        # version, the packed words' digest beside five CUDA-event times of
+        # 200 launches
+        kvs = fx.build_kvs(1 << 16, cs.SEED)
+        warm = fx.build_cache(cs.COLD_ROWS, 1 << 17, cs.SEED)
+        for pname, dag in (("q6", fx.q6_dag()), ("q6_csmm", fx.q6_count_sum_min_max_dag())):
+            ev_c = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 16, device="cuda")
+            ev_w = TorchDagEvaluator(dag_to_wire(dag), block_rows=1 << 17, device="cuda")
+            cols, nv = next(ev_c._decode_blocks(FixtureScanSource(kvs)))
+            for shape, ev, img in (("cold_block", ev_c, ev_c._block_image(cols, nv)),
+                                   ("warm", ev_w, ev_w._stacked_device(warm))):
+                prog = ev.program
+                sc = fa_scratch(fa, prog, img)
+                fa.launch_partials(prog, img, sc)
+                out = (torch.empty((prog.n_int, 1), dtype=torch.int64, device=dev),
+                       torch.empty((prog.n_f64, 1), dtype=torch.float64, device=dev))
+                fa.launch_combine(prog, sc, None, out)
+                cs.compare_packed(prog, out, fa.combine_plain(prog, sc), f"{pname} {shape}")
+                words = hashlib.sha256(out[0].cpu().numpy().tobytes()
+                                       + out[1].cpu().numpy().tobytes()).hexdigest()[:16]
+                cases[f"combine_{pname}_{shape}"] = {
+                    "request_s": [cs.cuda_ms(lambda: fa.launch_combine(prog, sc, None, out),
+                                             200) / 1e3 for _ in range(5)],
+                    "parts": sc.shape[0], "aggs": len(prog.aggs), "words": words}
+    else:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1, out
+
+        # the rank_dict join serve (a first serve left out), its host steps
+        steps = {}
+        secs = []
+        for i in range(3):
+            sec, (_resp, path, stats) = timed(lambda: tj.serve(
+                fx.join_dag(key="dict"), pc, bc, prefer="rank", device=dev))
+            if path != "rank":
+                raise AssertionError(f"the join served on {path}")
+            if i:
+                secs.append(sec)
+                for step, v in stats["seconds"].items():
+                    steps.setdefault(step, []).append(v)
+        cases["join_rank_dict"] = {"request_s": secs}
+        for step, v in steps.items():
+            cases[f"join_rank_dict_step_{step}"] = {"request_s": v}
+        del a, pc, bc
+        # cold Q6 over 1M KV rows and warm Q6 on the stacked route over the
+        # 100M image (a first run, which pins, left out; once more profiled)
+        kvs = fx.build_kvs(cs.COLD_ROWS, cs.SEED)
+        cache = fx.build_cache(cs.WARM_ROWS, 1 << 17, cs.SEED)
+        ev_c = TorchDagEvaluator(dag_to_wire(fx.q6_dag()), block_rows=1 << 16, device="cuda")
+        ev_w = TorchDagEvaluator(dag_to_wire(fx.q6_dag()), block_rows=1 << 17, device="cuda")
+        ev_w.route_hint = "unary"
+        for name, run, n in (("cold_q6", lambda: ev_c.run(FixtureScanSource(kvs)), 4),
+                             ("warm_q6_unary", lambda: ev_w.run(None, cache), 9)):
+            secs = [timed(run)[0] for _ in range(n)][1:]
+            fa.reset_launches()
+            prof = cs.profile_runs(run, 1)
+            cases[name] = {"request_s": secs, "device_ms": [sum(prof["device_ms"].values())],
+                           "launches": {k: v for k, v in fa.LAUNCHES.items() if v},
+                           "kernels_ms": {k[:60]: v for k, v in prof["device_ms"].items()}}
+    print(json.dumps({"cases": cases}))
 elif sys.argv[1] in ("zone_kernels", "zone_requests"):
     from tikv_tpu_torch.copr import fused_zone as fz
     from tikv_tpu_torch.copr.dag_wire import dag_to_wire
@@ -1226,6 +1350,8 @@ def run_phase(checkout: Path, phase: str) -> dict:
                 out.setdefault("launches", {})[case] = res["launches"]
             if isinstance(res, dict) and "kernels_ms" in res:
                 out.setdefault("kernels_ms", {})[case] = res["kernels_ms"]
+            if isinstance(res, dict) and "words" in res:
+                out.setdefault("words", {})[case] = res["words"]
         if "phase_wall_s" in obj:
             out["phase_wall_s"] = obj["phase_wall_s"]
     return out

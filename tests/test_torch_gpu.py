@@ -253,6 +253,158 @@ def test_combine_writes_the_parents_words(cuda, kind, n_parts):
     _assert_close(got, ga.combine_plain(prog, img, cap, clean))
 
 
+def _fa_rule(leaf, a, b):
+    """fa_merge's rule of a capacity-1 aggregate's value on int64 words (f64
+    as bits): a plain f64 add, fa_dmin / fa_dmax (a if a is NaN or the
+    lesser / greater, else b), integer wrapping add, min and max."""
+    if leaf.kind == fa.AGG_SUM:
+        if leaf.is_f64:
+            return (a.view(torch.float64) + b.view(torch.float64)).view(torch.int64)
+        return a + b
+    if leaf.is_f64:
+        fa_, fb_ = a.view(torch.float64), b.view(torch.float64)
+        wins = fa_ < fb_ if leaf.kind == fa.AGG_MIN else fa_ > fb_
+        return torch.where(fa_.isnan() | wins, a, b)
+    return torch.minimum(a, b) if leaf.kind == fa.AGG_MIN else torch.maximum(a, b)
+
+
+def _fa_parent_combine(prog, scratch, carry):
+    """fused_agg_combine_pack's words as its first design wrote them, on the
+    card's tensors: one block of 256 threads, part r folded into thread r
+    mod 256 in ascending r from the identity (a count from 0), then the
+    halving tree (thread t takes t + s for s = 128, ..., 1), then the carry
+    first, the tracker's word copied from the carry (or NO_ROW)."""
+    n = scratch.shape[0]
+    ints, flts = carry if carry is not None else fa._init_packed(prog, scratch.device)
+    ints, flts = ints.clone(), flts.clone()
+    for k, leaf in enumerate(prog.aggs):
+        for w, ident, rule in ((0, 0, lambda a, b: a + b),
+                               (1, fa._ident(leaf.kind, leaf.is_f64),
+                                lambda a, b, leaf=leaf: _fa_rule(leaf, a, b))):
+            if w == 1 and leaf.kind == fa.AGG_COUNT:
+                continue
+            word = torch.tensor([ident], dtype=torch.float64 if leaf.is_f64 and w else torch.int64)
+            acc = word.view(torch.int64).to(scratch.device).repeat(256)
+            for q0 in range(0, n, 256):
+                chunk = scratch[q0:q0 + 256, k, w]
+                acc[: len(chunk)] = rule(acc[: len(chunk)], chunk)
+            s = 128
+            while s:
+                acc[:s] = rule(acc[:s], acc[s:2 * s])
+                s //= 2
+            if w == 0:
+                ints[leaf.cnt_slot] += acc[0]
+            elif leaf.is_f64:
+                old = flts[leaf.val_slot].view(torch.int64)
+                flts[leaf.val_slot] = _fa_rule(leaf, old, acc[:1]).view(torch.float64)
+            else:
+                ints[leaf.val_slot] = _fa_rule(leaf, ints[leaf.val_slot], acc[:1])
+    return ints, flts
+
+
+def _assert_parents_words(prog, got, want):
+    """got's packed words are want's, bit for bit, but for an f64 sum that
+    came out NaN, which must be NaN: between NaN operands the card's f64 add
+    keeps the payload of the operand in the place the compiler gave it,
+    which neither the first design nor torch's add fixes."""
+    assert torch.equal(got[0], want[0])
+    g, w = got[1].view(torch.int64).flatten(), want[1].view(torch.int64).flatten()
+    nan_sum = torch.zeros_like(g, dtype=torch.bool)
+    for leaf in prog.aggs:
+        if leaf.is_f64 and leaf.kind == fa.AGG_SUM:
+            nan_sum[leaf.val_slot] = bool(want[1].flatten()[leaf.val_slot].isnan())
+    assert torch.equal(torch.where(nan_sum, 0, g), torch.where(nan_sum, 0, w))
+    assert bool(got[1].flatten()[nan_sum].isnan().all())
+
+
+def _fa_combine_case(name, n_parts, gen, device):
+    """A capacity-1 program of 1 (an f64 sum), 16 (every kind, int and f64)
+    or 1 count-only aggregate, and partials [n_parts, n_aggs, 2] drawn on
+    the card: counts below 2^40, integer values over the whole int64 range,
+    f64 values in [-1000, 1000)."""
+    kinds = {"f64_sum": [(fa.AGG_SUM, True)], "count": [(fa.AGG_COUNT, False)],
+             "sixteen": [(k, f) for k in (fa.AGG_COUNT, fa.AGG_SUM, fa.AGG_MIN, fa.AGG_MAX)
+                         for f in (False, True)] * 2}[name]
+    leaves, n_int, n_f64 = [], 1, 0
+    for kind, is_f in kinds:
+        cnt, n_int = n_int, n_int + 1
+        if kind == fa.AGG_COUNT:
+            val = -1
+        elif is_f:
+            val, n_f64 = n_f64, n_f64 + 1
+        else:
+            val, n_int = n_int, n_int + 1
+        leaves.append(fa.AggLeaf(kind, is_f and kind != fa.AGG_COUNT, cnt, val))
+    prog = fa.Program((), (), (), tuple(leaves), n_int, n_f64)
+    scratch = torch.empty((n_parts, len(leaves), 2), dtype=torch.int64, device=device)
+    scratch[:, :, 0] = torch.randint(0, 1 << 40, (n_parts, len(leaves)), generator=gen,
+                                     device=device)
+    for k, leaf in enumerate(leaves):
+        if leaf.is_f64:
+            vals = torch.rand(n_parts, generator=gen, device=device, dtype=torch.float64)
+            scratch[:, k, 1] = (vals * 2000.0 - 1000.0).view(torch.int64)
+        else:
+            scratch[:, k, 1] = torch.randint(-(1 << 63), (1 << 63) - 1, (n_parts,),
+                                             generator=gen, device=device)
+    return prog, scratch
+
+
+@pytest.mark.parametrize("n_parts", [1, 64, 256, 300, 528])
+@pytest.mark.parametrize("name", ["f64_sum", "sixteen", "count"])
+def test_capacity_one_combine_writes_the_parents_words(cuda, name, n_parts):
+    """fused_agg_combine_pack (a warp an aggregate) word for word against
+    the first design's order (a model of it in torch above): 1, 16 and
+    count-only aggregates at 1, 64, 256, 300 and 528 partial rows, f64 sums
+    with NaN (two payloads), +-inf and -0.0 and f64 min/max over +-0.0 and
+    NaN written into the words (a NaN sum as NaN, _assert_parents_words),
+    then sums with NaN of one payload, +inf and -0.0 bit for bit; with no
+    carry, then into a carry that is its own output; against the plain
+    version on clean partials; two runs bit-identical, one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(22 + n_parts)
+    prog, clean = _fa_combine_case(name, n_parts, gen, cuda)
+    parts = clean.clone()
+    special = torch.tensor([float("nan"), float("nan"), float("inf"), float("-inf"), -0.0,
+                            0.0], dtype=torch.float64, device=cuda).view(torch.int64)
+    special[1] |= 0x5  # another NaN payload
+    for k, leaf in enumerate(prog.aggs):
+        if leaf.is_f64:
+            hit = torch.rand(n_parts, generator=gen, device=cuda) < 0.1
+            pick = torch.randint(0, 6, (n_parts,), generator=gen, device=cuda)
+            parts[:, k, 1] = torch.where(hit, special[pick], parts[:, k, 1])
+    out = fa._init_packed(prog, cuda)
+    fa.reset_launches()
+    fa.launch_combine(prog, parts, None, out)
+    assert fa.LAUNCHES["fused_agg_combine_pack"] == 1
+    _assert_parents_words(prog, out, _fa_parent_combine(prog, parts, None))
+    again = (torch.empty_like(out[0]), torch.empty_like(out[1]))
+    fa.launch_combine(prog, parts, None, again)
+    _assert_same_bits(again, out)
+    carry = (out[0].clone(), out[1].clone())
+    want = _fa_parent_combine(prog, parts, carry)
+    fa.launch_combine(prog, parts, carry, carry)  # the carry is the output
+    _assert_parents_words(prog, carry, want)
+    got = (torch.empty_like(out[0]), torch.empty_like(out[1]))
+    fa.launch_combine(prog, clean, None, got)
+    _assert_close(got, fa.combine_plain(prog, clean))
+    shifted = torch.empty(clean.numel() + 1, dtype=torch.int64, device=cuda)[1:]
+    with pytest.raises(ValueError, match="scratch"):  # 8 bytes off a 16-byte boundary
+        fa.launch_combine(prog, shifted.view(clean.shape), None, got)
+    # NaN of one payload, +inf and -0.0 in the sums: every word bit for bit
+    one_nan = clean.clone()
+    for k, leaf in enumerate(prog.aggs):
+        if leaf.is_f64 and leaf.kind == fa.AGG_SUM:
+            pick = torch.randint(0, 3, (n_parts,), generator=gen, device=cuda)
+            hit = torch.rand(n_parts, generator=gen, device=cuda) < 0.1
+            one_nan[:, k, 1] = torch.where(hit, special[[0, 2, 4]][pick], one_nan[:, k, 1])
+    fa.launch_combine(prog, one_nan, None, got)
+    _assert_same_bits(got, _fa_parent_combine(prog, one_nan, None))
+
+
+def test_capacity_one_combine_keeps_no_local_memory(cuda):
+    """fused_agg_combine_pack keeps every aggregate's tree in registers."""
+    assert fa.combine_attributes()["localSizeBytes"] == 0
+
+
 def test_partials_instances_keep_no_local_memory(cuda):
     """Every instance of fused_group_agg_partials and batch_partials (2, 4
     and 8 stack slots) and both of dict_ids keep their state in registers:
@@ -951,6 +1103,83 @@ def test_join_kernels_match_their_plain_versions(cuda, case):
     out = fx.join_kernel_check(c, cuda)
     assert fa.LAUNCHES["join_rank_probe"] == 2 and fa.LAUNCHES["join_hash_probe"] == 2
     assert 0 < out["join_hash_probe_matched"] < case["n_probe"]
+
+
+def _rank_edge_case(name):
+    """Sorted int64 build keys and probe codes (numpy) of a rank-probe edge:
+    m = 1; m around 4,096 and a ragged 37 * 4,096 + 777; every probe equal
+    (to a key of 10,000 rows); keys at INT64_MIN + 1 and INT64_MAX; NULL
+    (the rank path's miss code -1) and missing codes; n = 1 and n not a
+    multiple of 4; and the returned probe offset (1: a slice whose first
+    element is not 16-byte aligned)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    t = 4096
+    lo, hi = -(1 << 63) + 1, (1 << 63) - 1
+
+    def codes(m, n, dup=4):
+        keys = np.sort(rng.integers(0, max(1, m // dup), m)).astype(np.int64)
+        probe = np.concatenate([keys[rng.integers(0, m, n // 2)],
+                                rng.integers(-3, m // dup + 3, n - n // 2)]).astype(np.int64)
+        return keys, rng.permutation(probe)
+
+    if name == "m_1":
+        return np.array([5], dtype=np.int64), np.array([5, 4, 6, -1, lo, hi, 5], np.int64), 0
+    if name in ("table_minus_1", "table", "table_plus_1"):
+        m = t + {"table_minus_1": -1, "table": 0, "table_plus_1": 1}[name]
+        return (*codes(m, 100_003), 0)
+    if name == "ragged_stride":
+        return (*codes(37 * t + 777, 300_001, dup=3), 0)
+    if name == "every_probe_equal":
+        keys = np.concatenate([np.arange(5000), np.full(10_000, 5000), np.arange(5001, 9000)])
+        return keys.astype(np.int64), np.full(70_001, 5000, dtype=np.int64), 0
+    if name == "wide_edges":
+        keys = np.sort(np.concatenate([[lo, lo, hi, hi, hi, -2, 0],
+                                       rng.integers(lo, hi, 20_000, dtype=np.int64)]))
+        probe = np.concatenate([[lo, hi, -(1 << 63), -1, 0, -2], keys[rng.integers(0, 20_007, 5000)],
+                                rng.integers(lo, hi, 5000, dtype=np.int64)]).astype(np.int64)
+        return keys, probe, 0
+    if name == "null_and_miss":
+        keys, probe = codes(50_000, 200_000)
+        probe[rng.random(len(probe)) < 0.2] = -1
+        probe[rng.random(len(probe)) < 0.1] = 1 << 40
+        return keys, probe, 0
+    if name == "n_1":
+        return codes(9000, 1)[0], np.array([7], dtype=np.int64), 0
+    if name == "n_ragged":
+        return (*codes(20_000, 4 * 12_345 + 3), 0)
+    if name == "unaligned":
+        return (*codes(60_000, 100_002), 1)
+    raise KeyError(name)
+
+
+RANK_EDGE_CASES = ("m_1", "table_minus_1", "table", "table_plus_1", "ragged_stride",
+                   "every_probe_equal", "wide_edges", "null_and_miss", "n_1", "n_ragged",
+                   "unaligned")
+
+
+@pytest.mark.parametrize("name", RANK_EDGE_CASES)
+def test_rank_probe_edges_match_searchsorted(cuda, name):
+    """join_rank_probe exactly against rank_probe_plain at its edges, two
+    launches bit-identical, one launch a call; at the unaligned case also
+    into starts and counts 8 bytes off a 16-byte boundary."""
+    from tikv_tpu_torch.copr import fused_join as fj
+
+    keys, probe, off = _rank_edge_case(name)
+    k = torch.from_numpy(keys).to(cuda)
+    whole = torch.from_numpy(np.concatenate([np.zeros(off, np.int64), probe])).to(cuda)
+    p = whole[off:]
+    assert p.data_ptr() % 16 == 8 * off
+    fa.reset_launches()
+    got, again = fj.rank_probe(k, p), fj.rank_probe(k, p)
+    assert fa.LAUNCHES["join_rank_probe"] == 2
+    want = fj.rank_probe_plain(k, p)
+    for g, h, w in zip(got, again, want):
+        assert g.dtype == torch.int64 and torch.equal(g, w) and torch.equal(g, h)
+    if off:
+        outs = torch.full((2, len(probe) + 1), -7, dtype=torch.int64, device=cuda)
+        fj.launch_rank(k, p, outs[0, 1:], outs[1, 1:])
+        assert torch.equal(outs[0, 1:], want[0]) and torch.equal(outs[1, 1:], want[1])
+        assert int(outs[0, 0]) == -7 and int(outs[1, 0]) == -7
 
 
 def test_join_kernels_reject_mismatched_tensors(cuda):

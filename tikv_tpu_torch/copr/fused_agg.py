@@ -723,6 +723,8 @@ def _kernels():
         lib.fa_partials_attributes.restype = ci
         lib.fa_launch_combine.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp]
         lib.fa_launch_combine.restype = ci
+        lib.fa_combine_attributes.argtypes = [vp]
+        lib.fa_combine_attributes.restype = ci
         if lib.fa_params_size() != ctypes.sizeof(_Params):
             raise RuntimeError(
                 f"FaParams layout mismatch: kernel {lib.fa_params_size()} bytes, "
@@ -749,6 +751,17 @@ def partials_attributes(slots: int) -> dict:
         raise RuntimeError(f"fused_agg_partials attributes: cudaError {rc}")
     return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2],
             "stackSlots": slots}
+
+
+def combine_attributes() -> dict:
+    """``cudaFuncGetAttributes`` of ``fused_agg_combine_pack`` (a block of
+    one warp an aggregate): registers a thread, local (spilled) bytes a
+    thread, static shared bytes a block."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernels().fa_combine_attributes(out)
+    if rc != 0:
+        raise RuntimeError(f"fused_agg_combine_pack attributes: cudaError {rc}")
+    return {"numRegs": out[0], "localSizeBytes": out[1], "sharedSizeBytes": out[2]}
 
 
 def new_scratch(prog: Program, img: Image) -> torch.Tensor:
@@ -835,8 +848,14 @@ def launch_partials(prog: Program, img: Image, scratch: torch.Tensor) -> None:
 def launch_combine(prog: Program, scratch: torch.Tensor, carry, out) -> None:
     """Launch ``fused_agg_combine_pack``: fold ``scratch`` into ``carry``
     (None: the identity state) and write the packed state to ``out``, which
-    may be ``carry`` itself."""
+    may be ``carry`` itself.  ``scratch``: contiguous int64 ``[n, n_aggs,
+    2]`` on the card, 16-byte aligned (a part's two words are one load)."""
     dev = scratch.device
+    if dev.type != "cuda" or scratch.dtype != torch.int64 or scratch.dim() != 3 \
+            or tuple(scratch.shape[1:]) != (len(prog.aggs), 2) or not scratch.is_contiguous() \
+            or scratch.data_ptr() % 16:
+        raise ValueError("scratch: need contiguous 16-byte aligned int64 [n, n_aggs, 2] on "
+                         f"a CUDA device, got {scratch.dtype} {tuple(scratch.shape)} on {dev}")
     ints, flts = out
     for t, dt, rows in ((ints, torch.int64, prog.n_int), (flts, torch.float64, prog.n_f64)):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != (rows, 1) or not t.is_contiguous():

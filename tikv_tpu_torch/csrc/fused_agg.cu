@@ -214,56 +214,83 @@ static FaPartialsKernel fa_partials_kernel(int slots) {
   }
 }
 
-// One block folds the partials in block order, merges them into the carry
-// (carry first, as jax_eval's `carry + block`) and writes the packed state:
-// the first-row leaf at int64 row 0, then every aggregate's leaves at their
-// slots.  out may alias carry: each leaf is read before it is written, by
-// the same thread.
-__global__ void __launch_bounds__(FA_THREADS)
+// fa_merge's f64 rules, one type each, for the combine's tree: an f64 sum
+// is a plain add (not ga_dadd), min and max fa_dmin and fa_dmax (not
+// ga_dmin, ga_dmax), so that the partials' fold and the combine agree.  The
+// integer rules are ga_leaf.cuh's GaWadd, GaImin and GaImax, fa_merge's
+// expressions.
+struct FaFadd {
+  static __device__ __forceinline__ long long m(long long a, long long b) {
+    return fa_raw(fa_f(a) + fa_f(b));
+  }
+};
+struct FaDmin {
+  static __device__ __forceinline__ long long m(long long a, long long b) {
+    return fa_raw(fa_dmin(fa_f(a), fa_f(b)));
+  }
+};
+struct FaDmax {
+  static __device__ __forceinline__ long long m(long long a, long long b) {
+    return fa_raw(fa_dmax(fa_f(a), fa_f(b)));
+  }
+};
+
+#define FA_COMBINE_ROUNDS 3  // rounds of the tree's parts loaded at once: the grid's 528 in one
+
+// A block of one warp an aggregate folds the partials in block order (the
+// first design's 256-thread tree, so the same words, f64 included), merges
+// them into the carry (carry first, as jax_eval's `carry + block`) and
+// writes the packed state: the first-row leaf at int64 row 0 (block 0),
+// then every aggregate's leaves at their slots.  No barrier: each warp's
+// rule is picked once.  out may alias carry: each leaf is read before it is
+// written, by the same thread.  What bounds it is the partials' bytes, read
+// once; at the main paths' few KB, the launch and one or two rounds of
+// loads.
+__global__ void __launch_bounds__(32)
 fused_agg_combine_pack(const __grid_constant__ FaParams p, const long long* __restrict__ scratch,
                        int n_partials, const long long* carry_i, const double* carry_f,
                        long long* out_i, double* out_f) {
-  __shared__ u64 s_cnt[FA_THREADS];
-  __shared__ long long s_val[FA_THREADS];
-  const int tid = threadIdx.x;
-  for (int k = 0; k < p.n_aggs; ++k) {
-    const int kind = p.agg_kind[k];
-    const bool is_f = p.agg_f64[k];
-    u64 c = 0;
-    long long v = fa_identity(kind, is_f);
-    for (int r = tid; r < n_partials; r += FA_THREADS) {
-      const long long* part = scratch + ((long long)r * p.n_aggs + k) * 2;
-      c += (u64)part[0];
-      v = fa_merge(kind, is_f, v, part[1]);
-    }
-    s_cnt[tid] = c;
-    s_val[tid] = v;
-    __syncthreads();
-    for (int s = FA_THREADS / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        s_cnt[tid] += s_cnt[tid + s];
-        s_val[tid] = fa_merge(kind, is_f, s_val[tid], s_val[tid + s]);
-      }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      const int cs = p.cnt_slot[k];
-      const int vs = p.val_slot[k];
-      const u64 c0 = carry_i != nullptr ? (u64)carry_i[cs] : 0;
-      out_i[cs] = (long long)(c0 + s_cnt[0]);
-      if (kind != FA_AGG_COUNT) {
-        if (is_f) {
-          const long long v0 = carry_f != nullptr ? fa_raw(carry_f[vs]) : fa_identity(kind, true);
-          out_f[vs] = fa_f(fa_merge(kind, true, v0, s_val[0]));
-        } else {
-          const long long v0 = carry_i != nullptr ? carry_i[vs] : fa_identity(kind, false);
-          out_i[vs] = fa_merge(kind, false, v0, s_val[0]);
-        }
-      }
-    }
-    __syncthreads();
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x;
+  if (k == 0 && lane == 0) out_i[0] = carry_i != nullptr ? carry_i[0] : FA_NO_ROW;
+  if (k >= p.n_aggs) return;
+  const int kind = p.agg_kind[k];
+  const bool is_f = p.agg_f64[k];
+  const long long id = fa_identity(kind, is_f);
+  const long long* src = scratch + 2LL * k;
+  const long long stride = 2LL * p.n_aggs;
+  longlong2 cv;
+  switch (kind) {
+    case FA_AGG_SUM:
+      cv = is_f ? ga_tree_fold2<FaFadd, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id)
+                : ga_tree_fold2<GaWadd, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id);
+      break;
+    case FA_AGG_MIN:
+      cv = is_f ? ga_tree_fold2<FaDmin, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id)
+                : ga_tree_fold2<GaImin, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id);
+      break;
+    case FA_AGG_MAX:
+      cv = is_f ? ga_tree_fold2<FaDmax, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id)
+                : ga_tree_fold2<GaImax, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id);
+      break;
+    default:  // a count: its value is not written
+      cv = ga_tree_fold2<GaWadd, FA_COMBINE_ROUNDS>(src, stride, 0, n_partials, lane, id);
+      break;
   }
-  if (tid == 0) out_i[0] = carry_i != nullptr ? carry_i[0] : FA_NO_ROW;
+  if (lane != 0) return;
+  const int cs = p.cnt_slot[k];
+  const int vs = p.val_slot[k];
+  const u64 c0 = carry_i != nullptr ? (u64)carry_i[cs] : 0;
+  out_i[cs] = (long long)(c0 + (u64)cv.x);
+  if (kind != FA_AGG_COUNT) {
+    if (is_f) {
+      const long long v0 = carry_f != nullptr ? fa_raw(carry_f[vs]) : fa_identity(kind, true);
+      out_f[vs] = fa_f(fa_merge(kind, true, v0, cv.y));
+    } else {
+      const long long v0 = carry_i != nullptr ? carry_i[vs] : fa_identity(kind, false);
+      out_i[vs] = fa_merge(kind, false, v0, cv.y);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1067,12 +1094,20 @@ int fa_partials_attributes(int slots, int* out) {
   return kernel_attributes((const void*)fa_partials_kernel(slots), out);
 }
 
+// a block of one warp an aggregate (one block when there is none: the
+// tracker's word)
 int fa_launch_combine(const FaParams* p, const long long* scratch, int n_partials,
                       const long long* carry_i, const double* carry_f, long long* out_i,
                       double* out_f, void* stream) {
-  fused_agg_combine_pack<<<1, FA_THREADS, 0, (cudaStream_t)stream>>>(
-      *p, scratch, n_partials, carry_i, carry_f, out_i, out_f);
+  if (p->n_aggs < 0 || p->n_aggs > FA_MAX_AGGS) return (int)cudaErrorInvalidValue;
+  const int grid = p->n_aggs > 0 ? p->n_aggs : 1;
+  fused_agg_combine_pack<<<grid, 32, 0, (cudaStream_t)stream>>>(*p, scratch, n_partials, carry_i,
+                                                                carry_f, out_i, out_f);
   return (int)cudaGetLastError();
+}
+
+int fa_combine_attributes(int* out) {
+  return kernel_attributes((const void*)fused_agg_combine_pack, out);
 }
 
 int ga_params_size(void) { return (int)sizeof(GaParams); }

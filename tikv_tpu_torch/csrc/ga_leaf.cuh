@@ -175,10 +175,28 @@ __device__ __forceinline__ void ga_with_rule(int kind, bool is_f, F&& f) {
 // Part q's word is src[(row0 + q) * stride], q < n; lane 0 returns the
 // total.  Past the first GA_TREE parts, the loads of B rounds of GA_TREE
 // parts are in flight together.  Shared by fused_group_agg_combine_pack (a
-// warp a cell) and mesh_fold (a warp a shard), so that their words cannot
-// drift apart.
+// warp a cell), mesh_fold (a warp a shard) and, two words a part
+// (ga_tree_fold2), fused_agg_combine_pack (a warp an aggregate), so that
+// their words cannot drift apart.
 #define GA_TREE 256
 #define GA_LANE_PARTS (GA_TREE / 32)  // 8: the tree below is written for it
+
+// The halving of a lane's GA_LANE_PARTS tree threads, then of the lanes:
+// lane 0 returns the total.
+template <class Op>
+__device__ __forceinline__ long long ga_tree_halve(long long (&v)[GA_LANE_PARTS]) {
+  // written out: a loop over the strides kept v in local memory
+  v[0] = Op::m(v[0], v[4]);
+  v[1] = Op::m(v[1], v[5]);
+  v[2] = Op::m(v[2], v[6]);
+  v[3] = Op::m(v[3], v[7]);
+  v[0] = Op::m(v[0], v[2]);
+  v[1] = Op::m(v[1], v[3]);
+  v[0] = Op::m(v[0], v[1]);
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v[0] = Op::m(v[0], __shfl_down_sync(0xffffffffu, v[0], s));
+  return v[0];
+}
 
 template <class Op, int B = 1>
 __device__ __forceinline__ long long ga_tree_fold(const long long* src, long long stride,
@@ -208,17 +226,63 @@ __device__ __forceinline__ long long ga_tree_fold(const long long* src, long lon
       }
     }
   }
-  // written out: a loop over the strides kept v in local memory
-  v[0] = Op::m(v[0], v[4]);
-  v[1] = Op::m(v[1], v[5]);
-  v[2] = Op::m(v[2], v[6]);
-  v[3] = Op::m(v[3], v[7]);
-  v[0] = Op::m(v[0], v[2]);
-  v[1] = Op::m(v[1], v[3]);
-  v[0] = Op::m(v[0], v[1]);
+  return ga_tree_halve<Op>(v);
+}
+
+// Rounds q0 / GA_TREE .. + RB of ga_tree_fold2's parts into the lane's
+// tree threads c (counts) and v (values): every load, then every merge.
+template <class Op, int RB>
+__device__ __forceinline__ void ga_tree_rounds2(const long long* src, long long stride,
+                                                long long row0, long long n, int lane,
+                                                long long q0, long long (&c)[GA_LANE_PARTS],
+                                                long long (&v)[GA_LANE_PARTS]) {
+  longlong2 x[RB][GA_LANE_PARTS];
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v[0] = Op::m(v[0], __shfl_down_sync(0xffffffffu, v[0], s));
-  return v[0];
+  for (int b = 0; b < RB; ++b) {
+#pragma unroll
+    for (int i = 0; i < GA_LANE_PARTS; ++i) {
+      const long long q = q0 + b * GA_TREE + lane + 32 * i;
+      x[b][i] = q < n ? __ldg(reinterpret_cast<const longlong2*>(src + (row0 + q) * stride))
+                      : make_longlong2(0, 0);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < RB; ++b) {
+#pragma unroll
+    for (int i = 0; i < GA_LANE_PARTS; ++i) {
+      if (q0 + b * GA_TREE + lane + 32 * i < n) {
+        c[i] = GaWadd::m(c[i], x[b][i].x);
+        v[i] = Op::m(v[i], x[b][i].y);
+      }
+    }
+  }
+}
+
+// ga_tree_fold over parts of two words, each part one 16-byte load: a count
+// (GaWadd from 0) at src[(row0 + q) * stride] and a value (Op from id) at
+// the word after it, each folded in the tree's order; lane 0 returns the
+// totals (x the count, y the value).  Up to GA_TREE parts take one round of
+// loads; past it the loads of B rounds, the first included, are in flight
+// together.  src and stride keep every part 16-byte aligned.
+template <class Op, int B = 1>
+__device__ __forceinline__ longlong2 ga_tree_fold2(const long long* src, long long stride,
+                                                   long long row0, long long n, int lane,
+                                                   long long id) {
+  long long c[GA_LANE_PARTS], v[GA_LANE_PARTS];
+#pragma unroll
+  for (int i = 0; i < GA_LANE_PARTS; ++i) {
+    c[i] = 0;
+    v[i] = id;
+  }
+  if (n <= GA_TREE) {
+    ga_tree_rounds2<Op, 1>(src, stride, row0, n, lane, 0, c, v);
+  } else {
+    for (long long q0 = 0; q0 < n; q0 += B * GA_TREE) {
+      ga_tree_rounds2<Op, B>(src, stride, row0, n, lane, q0, c, v);
+    }
+  }
+  const long long ct = ga_tree_halve<GaWadd>(c);
+  return make_longlong2(ct, ga_tree_halve<Op>(v));
 }
 
 // What row f adds to leaf l of an aggregate that saw (live, value).
